@@ -1,5 +1,5 @@
-"""supereight-tpu on PyTorch + CUDA: the fused TSDF frame step on one
-NVIDIA Hopper GPU.
+"""supereight-tpu on PyTorch + CUDA: the fused TSDF and OFusion frame
+steps on one NVIDIA Hopper GPU.
 
 A port of the JAX package ``supereight_tpu`` (which stays the reference
 it is tested against). It imports ``torch`` and numpy only — never
@@ -10,17 +10,20 @@ whenever its input tensors lie on the CPU.
 
 Layer map (mirrors the JAX package):
   core/      -- SE(3) helpers, the block-pool map
-  fields/    -- the TSDF field
+  fields/    -- the TSDF and OFusion fields
   ops/       -- preprocess, tracking (K6), allocation (K5),
-                integration (K3), raycast (K1)
+                integration (K3), raycast (K2 nav grid, K1)
   parallel/  -- the fused frame step
   kernels/   -- kernel build, ctypes binding, wrappers and twins
+                (and K8, the gather-form probe)
   csrc/      -- CUDA C++ sources (sm_90a)
   io/        -- the synthetic scene generator (numpy)
+  tools/     -- entry points (probe_gather)
 """
 
 __version__ = "0.1.0"
 
 from supereight_tpu_torch.core.map import (MapGeometry, MapState,  # noqa: F401
                                            make_map)
-from supereight_tpu_torch.fields import TSDF, get_field  # noqa: F401
+from supereight_tpu_torch.fields import (OFUSION, TSDF,  # noqa: F401
+                                         get_field)

@@ -205,15 +205,27 @@ def broadcast2(m):
         .reshape(2 * s, 2 * s, 2 * s)
 
 
-def refresh_mip_alloc(geom: MapGeometry, state: MapState, block_alloc):
+def refresh_mip_alloc(geom: MapGeometry, state: MapState, block_alloc,
+                      extra_levels=None):
     """Recompute which coarse octant values exist (JAX core/map.py:345-391):
     an octant's value exists iff its parent node is occupied. Monotonic:
-    ORs into ``state.mip_alloc`` in place."""
+    ORs into ``state.mip_alloc`` in place.
+
+    ``extra_levels[l]`` (optional bool[B>>l]^3, or None) ORs in octants
+    allocated directly at level l (OFusion's coarse free-space
+    allocation) before the next level is reduced from it."""
     nl = geom.num_levels
-    occ = block_alloc
+
+    def with_extra(occ, lvl):
+        if extra_levels is not None and lvl < len(extra_levels) \
+                and extra_levels[lvl] is not None:
+            return occ | extra_levels[lvl]
+        return occ
+
+    occ = with_extra(block_alloc, 0)
     occupied = [occ]
-    for _ in range(1, nl):
-        occ = _or_reduce2(occ)
+    for lvl in range(1, nl):
+        occ = with_extra(_or_reduce2(occ), lvl)
         occupied.append(occ)
     occupied[nl - 1] = torch.ones_like(occupied[nl - 1])  # root node
     for lvl in range(nl - 1):

@@ -1,4 +1,5 @@
-// K3: TSDF integration block pass, as two launches around a cumsum.
+// K3: integration block pass of both fields, as two launches around a
+// cumsum.
 //
 // Replaces supereight_tpu/ops/integration.py:integrate's block pass
 // (286-375) with _project_voxels_c (78-94), _sample_depth_patch (123-213)
@@ -18,13 +19,19 @@
 //    32 uncovered blocks in worklist order read the exact pixel (level 0),
 //    the rest skip fusion this frame and are counted (patch_skipped).
 //  * integrate_update: read depth[(y >> l) << l, (x >> l) << l] at the
-//    block's mode, run the TSDF update (fields/tsdf.py) in place and set
-//    the block's active flag to (any voxel valid).
+//    block's mode, run the field's update in place and set the block's
+//    active flag to (any voxel valid). One body, instantiated per field:
+//    the TSDF update (fields/tsdf.py) or the OFusion update
+//    (fields/ofusion.py: bspline sensor model H(diff / sigma), decay
+//    window, log2-odds, clamps; y = the frame's timestamp where it
+//    writes), in the JAX package's operation order.
 //
 // Bound on the H100: the pool read-modify-write, 4 KB per block (two f32
 // channels) + depth reads that stay in L1/L2 (a 300 KB frame): 8192 blocks
 // -> ~33 MB per frame, about 10 us at HBM rate. Each CTA touches one
-// contiguous 2 KB row per channel, so loads and stores are coalesced.
+// contiguous 2 KB row per channel, so loads and stores are coalesced. The
+// OFusion update adds a few dozen flops and one log2f per written voxel,
+// far below the card's rate: it stays bound by the same bytes.
 
 #include "common.cuh"
 
@@ -111,14 +118,68 @@ integrate_prepass_kernel(const int* __restrict__ worklist, int cap,
   }
 }
 
+// Integral of the B-spline sensor kernel (fields/ofusion.py:bspline).
+__device__ __forceinline__ float bspline(float t) {
+  const float a = 3.f + t, b = 3.f - t;
+  if (t >= -3.f && t <= -1.f) return a * a * a / 48.f;
+  if (t > -1.f && t <= 1.f) return 0.5f + (t * a * b) / 24.f;
+  if (t > 1.f && t <= 3.f) return 1.f - b * b * b / 48.f;
+  return t > 3.f ? 1.f : 0.f;
+}
+
+struct FieldArgs {
+  float mu, max_weight;  // TSDF
+  float two_voxel;       // OFusion: the lower bound of sigma
+  const float* timestamp;
+};
+
+// TSDF update (ref sdf_update, mapping_impl.hpp:35-65) of one voxel
+__device__ __forceinline__ void update_tsdf(const FieldArgs& A,
+                                            const Proj& p, float ds,
+                                            float* x, float* y) {
+  const float ax = p.cx / p.cz, ay = p.cy / p.cz;
+  const float ray_scale = sqrtf(1.f + ax * ax + ay * ay);
+  const float diff = (ds - p.cz) * ray_scale;
+  if (ds > 0.f && diff > -A.mu) {
+    const float ox = *x, oy = *y;
+    const float sdf = fminf(1.f, diff / A.mu);
+    const float nx = (oy * ox + sdf) / (oy + 1.f);
+    *x = fminf(fmaxf(nx, -1.f), 1.f);
+    *y = fminf(oy + 1.f, A.max_weight);
+  }
+}
+
+// OFusion update (ref bfusion_update, mapping_impl.hpp:157-191) of one
+// voxel; log-odds clamp +/-1000, decay window tau = 4 (constants.py)
+__device__ __forceinline__ void update_ofusion(const FieldArgs& A,
+                                               const Proj& p, float ds,
+                                               float* x, float* y) {
+  const float ax = p.cx / p.cz, ay = p.cy / p.cz;
+  const float ray_scale = sqrtf(1.f + ax * ax + ay * ay);
+  const float diff = (p.cz - ds) * ray_scale;
+  const float sigma = fminf(fmaxf(A.mu * p.cz * p.cz, A.two_voxel), 0.05f);
+  const float u = diff / sigma;
+  float sample = bspline(u) - 0.5f * bspline(u - 3.f);
+  if (!(ds > 0.f) || sample == 0.5f) return;
+  sample = fminf(fmaxf(sample, 0.03f), 0.97f);
+  const float ts = *A.timestamp;
+  const float ox = *x, oy = *y;
+  const float fraction = 1.f / (1.f + (ts - oy) / 4.f);
+  const float decayed = ox * fmaxf(fraction, 0.5f);
+  const float nx = decayed + log2f(sample / (1.f - sample));
+  *x = fminf(fmaxf(nx, -1000.f), 1000.f);
+  *y = ts;
+}
+
+template <bool kOFusion>
 __global__ void __launch_bounds__(kThreads)
 integrate_update_kernel(const int* __restrict__ worklist, int cap,
                         const int* __restrict__ block_coord,
                         const float* __restrict__ t_cw,
                         const float* __restrict__ kmat, float voxel, int w,
                         int h, const int* __restrict__ mode,
-                        const float* __restrict__ depth, float mu,
-                        float max_weight, float* __restrict__ data_x,
+                        const float* __restrict__ depth, FieldArgs A,
+                        float* __restrict__ data_x,
                         float* __restrict__ data_y,
                         uint8_t* __restrict__ active) {
   __shared__ float T[16], K[16];
@@ -132,18 +193,11 @@ integrate_update_kernel(const int* __restrict__ worklist, int cap,
   const bool valid = p.valid && l >= 0;
   if (valid) {
     const float ds = depth[((p.yi >> l) << l) * w + ((p.xi >> l) << l)];
-    // fields/tsdf.update (ref sdf_update, mapping_impl.hpp:35-65)
-    const float ax = p.cx / p.cz, ay = p.cy / p.cz;
-    const float ray_scale = sqrtf(1.f + ax * ax + ay * ay);
-    const float diff = (ds - p.cz) * ray_scale;
-    if (ds > 0.f && diff > -mu) {
-      const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
-      const float ox = data_x[v], oy = data_y[v];
-      const float sdf = fminf(1.f, diff / mu);
-      const float nx = (oy * ox + sdf) / (oy + 1.f);
-      data_x[v] = fminf(fmaxf(nx, -1.f), 1.f);
-      data_y[v] = fminf(oy + 1.f, max_weight);
-    }
+    const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
+    if (kOFusion)
+      update_ofusion(A, p, ds, data_x + v, data_y + v);
+    else
+      update_tsdf(A, p, ds, data_x + v, data_y + v);
   }
   // block stays active iff any voxel projected into the frame
   // (ref update_block, projective_functor.hpp:104-110)
@@ -165,16 +219,26 @@ SE_EXPORT int se_integrate_prepass(const int* worklist, int n_work, int cap,
   return (int)cudaGetLastError();
 }
 
+// field: 0 = TSDF, 1 = OFusion; timestamp (OFusion) is a device f32[]
 SE_EXPORT int se_integrate_update(const int* worklist, int n_work, int cap,
                                   const int* block_coord, const float* t_cw,
                                   const float* kmat, float voxel, int w, int h,
                                   const int* mode, const float* depth,
-                                  float mu, float max_weight, float* data_x,
-                                  float* data_y, uint8_t* active,
-                                  void* stream) {
+                                  int field, float mu, float max_weight,
+                                  float two_voxel, const float* timestamp,
+                                  float* data_x, float* data_y,
+                                  uint8_t* active, void* stream) {
   if (n_work == 0) return 0;
-  integrate_update_kernel<<<n_work, kThreads, 0, (cudaStream_t)stream>>>(
-      worklist, cap, block_coord, t_cw, kmat, voxel, w, h, mode, depth, mu,
-      max_weight, data_x, data_y, active);
+  const FieldArgs A{mu, max_weight, two_voxel, timestamp};
+  if (field == 1)
+    integrate_update_kernel<true><<<n_work, kThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        worklist, cap, block_coord, t_cw, kmat, voxel, w, h, mode, depth, A,
+        data_x, data_y, active);
+  else
+    integrate_update_kernel<false><<<n_work, kThreads, 0,
+                                     (cudaStream_t)stream>>>(
+        worklist, cap, block_coord, t_cw, kmat, voxel, w, h, mode, depth, A,
+        data_x, data_y, active);
   return (int)cudaGetLastError();
 }

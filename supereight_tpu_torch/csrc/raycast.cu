@@ -1,31 +1,42 @@
-// K1: TSDF raycast, the depth-primed march + Newton refinement + normal.
+// K1: the depth-primed raycast of both fields: march + Newton refinement
+// + normal.
 //
-// Replaces supereight_tpu/ops/raycast.py:_march's TSDF branch (454-769,
-// with _probe 262-299) and raycast_rays (841-899, with _interp_grad
-// 318-380). On the TPU that is a lockstep march over strip tables and a
-// nav4 grid, cut into a top_k compaction cascade with straggler tails.
+// Replaces supereight_tpu/ops/raycast.py:_march (454-769, with _probe
+// 262-299) and raycast_rays (841-899, with _interp_grad 318-380). On the
+// TPU that is a lockstep march over strip tables and a nav4 grid, cut into
+// a top_k compaction cascade with straggler tails.
 //
-// One thread per pixel ray, marching to its own end:
+// One thread per pixel ray, marching to its own end, in one body
+// instantiated per field (kOF = OFusion):
 //  * direction from view = pose @ invK, clipped to the map cube and the
 //    near/far planes;
 //  * primed start from this frame's depth: a tight backoff 0.5 mu + 2
-//    voxels when that probe lands in known positive space, else 2 mu + 2
-//    voxels (raycast.py:510-536);
-//  * steps of max(f mu, floor) in known space, the floor rising one voxel
-//    per 8 consecutive floor-bound steps after 16 (crawl escalation, up to
-//    4 voxels and 0.4 mu); outside known space a jump of
-//    max(8 voxels, (d - 1) blocks + 4 voxels) with d the capped Chebyshev
-//    block distance of the nav grid;
+//    voxels when that probe lands in known space on the free side (TSDF
+//    f > 0, OFusion f <= SURF_BOUNDARY = 0), else the wide backoff, 2 mu
+//    (TSDF) or 6 mu (OFusion) + 2 voxels (raycast.py:510-536);
+//  * TSDF: steps of max(f mu, floor) in known space, the floor rising one
+//    voxel per 8 consecutive floor-bound steps after 16 (crawl escalation,
+//    up to 4 voxels and 0.4 mu); hit where f < 0;
+//  * OFusion: inside an allocated block a sigma-band step
+//    clip(0.5 clip(mu z^2, 2 voxels, 0.05), 1 voxel, of_cap) with z the
+//    camera depth t * zcos; coarse-known free space (the nav payload) and
+//    unknown space are jumped; hit where f > SURF_BOUNDARY (raycast.py:
+//    547-600);
+//  * outside known fine space a jump of max(8 voxels, (d - 1) blocks + 4
+//    voxels) with d the capped Chebyshev block distance of the nav grid;
 //  * at most max_steps + 96 probes; rays still marching then miss and are
 //    flagged (ray_overflow);
-//  * epilogue: bracket estimate, trilinear value and cell gradient,
-//    one Newton step clamped to [t_cross - ss, t_cross], normal with
-//    inverted sign (TSDF).
+//  * epilogue: bracket estimate, trilinear value and cell gradient, one
+//    Newton step clamped to [t_cross - ss, t_cross], normal (inverted for
+//    TSDF).
 // Reads go straight to the pool through the nav grid: nav[cell] >= 0 is
-// the pool slot of an allocated in-bucket block, else -(1 + distance).
-// A weight-0 voxel is unknown in the march and reads as fill (1.0) in the
-// refinement; an x+1 corner past the map edge or in a missing block reads
-// fill, as the JAX strip table does.
+// the pool slot of an allocated in-bucket block, else -(1 + e) with the
+// distance in bits 0-2 and, for OFusion, the coarse free-space value in
+// bit 3 and bits 4+. A voxel whose channel y is 0 (TSDF weight, OFusion
+// time stamp) is unknown in the march (the sentinel: 2 for TSDF, 4096 for
+// OFusion) and reads as the field's fill (1 or 0) in the refinement; an
+// x+1 corner past the map edge or in a missing block reads fill, as the
+// JAX strip table does.
 //
 // Bound on the H100: dependent random reads, one 4-byte nav read plus two
 // 4-byte pool reads per probe, ~5-10 probes per primed ray: latency-bound
@@ -39,32 +50,42 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr float kSentinel = 2.f;  // TSDF unknown sentinel (raycast.py:93-100)
-constexpr float kFill = 1.f;      // TSDF init value
 constexpr float kInvalid = -2.f;  // normal-map sentinel (constants.INVALID)
 constexpr int kMaxJump = 6;
+
+// unknown sentinel (raycast.py:93-100) and refinement fill (the field's
+// init value) of each field
+template <bool kOF>
+struct FieldConst {
+  static constexpr float sentinel = kOF ? 4096.f : 2.f;
+  static constexpr float fill = kOF ? 0.f : 1.f;
+};
 
 struct Params {
   int w, h, size, b, max_probes;
   float dim, inv_voxel, voxel, largestep, half_largestep, bstep, mu,
-      near_plane, far_plane, small_backoff, big_backoff, floor_cap;
+      near_plane, far_plane, small_backoff, big_backoff, floor_cap,
+      two_step, of_cap;
 };
 
 struct Probe {
   float val, dist;
-  bool known;
+  bool known, in_block;
 };
 
-// value at a pool voxel, weight-0 voxels carrying the unknown sentinel
+// value at a pool voxel, y == 0 voxels carrying the unknown sentinel
+template <bool kOF>
 __device__ __forceinline__ float pool_value(const float* __restrict__ dx,
                                             const float* __restrict__ dy,
                                             int slot, int lin) {
   const size_t v = (size_t)slot * se::kBlockVoxels + lin;
-  return dy[v] == 0.f ? kSentinel : dx[v];
+  return dy[v] == 0.f ? FieldConst<kOF>::sentinel : dx[v];
 }
 
 // one march probe at a metric position (raycast.py:_probe): truncating
-// conversion to voxels, like the JAX astype(int32)
+// conversion to voxels, like the JAX astype(int32). OFusion decodes the
+// nav payload of an empty cell: a coarse free-space value makes it known.
+template <bool kOF>
 __device__ __forceinline__ Probe probe(const Params& P,
                                        const int* __restrict__ nav,
                                        const float* __restrict__ data_x,
@@ -80,25 +101,32 @@ __device__ __forceinline__ Probe probe(const Params& P,
   vz = se::clampi(vz, 0, P.size - 1);
   const int nv = nav[((vx >> 3) * P.b + (vy >> 3)) * P.b + (vz >> 3)];
   const bool in_block = nv >= 0 && inb;
+  constexpr float unk = FieldConst<kOF>::sentinel;
+  const int e = nv < 0 ? -nv - 1 : 0;
+  const bool coarse_known = kOF && ((e >> 3) & 1) == 1;
   Probe r;
-  r.val = in_block ? pool_value(data_x, data_y, nv,
+  r.val = in_block
+              ? pool_value<kOF>(data_x, data_y, nv,
                                 (vx & 7) + ((vy & 7) << 3) + ((vz & 7) << 6))
-                   : kSentinel;
-  r.known = r.val < 0.5f * kSentinel && in_block;
-  r.dist = nv < 0 ? (float)((-nv - 1) & 7) : 0.f;
+              : (coarse_known ? -(float)(e >> 4) * (1.f / 16.f) : unk);
+  r.known = (r.val < 0.5f * unk && in_block) || (coarse_known && inb);
+  r.in_block = in_block;
+  r.dist = nv < 0 ? (float)(e & 7) : 0.f;
   if (!inb) r.dist = (float)kMaxJump;
   return r;
 }
 
 // refinement corner decode: sentinel -> fill
+template <bool kOF>
 __device__ __forceinline__ float corner(const float* __restrict__ data_x,
                                         const float* __restrict__ data_y,
                                         int slot, int lin) {
-  const float v = pool_value(data_x, data_y, slot, lin);
-  return v < 0.5f * kSentinel ? v : kFill;
+  const float v = pool_value<kOF>(data_x, data_y, slot, lin);
+  return v < 0.5f * FieldConst<kOF>::sentinel ? v : FieldConst<kOF>::fill;
 }
 
 // (x, x+1) pair of one (y, z) corner row (raycast.py:_interp_grad pair()).
+template <bool kOF>
 __device__ __forceinline__ void corner_pair(const Params& P,
                                             const int* __restrict__ nav,
                                             const float* __restrict__ data_x,
@@ -106,24 +134,26 @@ __device__ __forceinline__ void corner_pair(const Params& P,
                                             int ix, int y, int z, float& v0,
                                             float& v1) {
   const int cy = y >> 3, cz = z >> 3, cx = ix >> 3;
+  constexpr float fill = FieldConst<kOF>::fill;
   const int nv = nav[(cx * P.b + cy) * P.b + cz];
   if (nv < 0) {  // the whole strip row is the sentinel brick
-    v0 = kFill;
-    v1 = kFill;
+    v0 = fill;
+    v1 = fill;
     return;
   }
   const int lin = (ix & 7) + ((y & 7) << 3) + ((z & 7) << 6);
-  v0 = corner(data_x, data_y, nv, lin);
+  v0 = corner<kOF>(data_x, data_y, nv, lin);
   if ((ix & 7) < 7) {
-    v1 = corner(data_x, data_y, nv, lin + 1);
+    v1 = corner<kOF>(data_x, data_y, nv, lin + 1);
   } else if (cx + 1 < P.b) {
     const int nv2 = nav[((cx + 1) * P.b + cy) * P.b + cz];
-    v1 = nv2 >= 0 ? corner(data_x, data_y, nv2, lin - 7) : kFill;
+    v1 = nv2 >= 0 ? corner<kOF>(data_x, data_y, nv2, lin - 7) : fill;
   } else {
-    v1 = kFill;
+    v1 = fill;
   }
 }
 
+template <bool kOF>
 __global__ void __launch_bounds__(kThreads)
 raycast_kernel(Params P, const float* __restrict__ view,
                const int* __restrict__ nav, const float* __restrict__ data_x,
@@ -157,40 +187,61 @@ raycast_kernel(Params P, const float* __restrict__ view,
   float tnear = fmaxf(fmaxf(fmaxf(lo[0], lo[1]), lo[2]), P.near_plane);
   const float tfar = fminf(fminf(fminf(hi[0], hi[1]), hi[2]), P.far_plane);
 
+  // camera_zcos (raycast.py:436-452): the cosine between the ray and the
+  // optical axis normalize(col0 x col1) of the view matrix
+  float zcos = 0.f;
+  if (kOF) {
+    const float ax = V[4] * V[9] - V[8] * V[5];
+    const float ay = V[8] * V[1] - V[0] * V[9];
+    const float az = V[0] * V[5] - V[4] * V[1];
+    const float ainv = 1.f / sqrtf(ax * ax + ay * ay + az * az);
+    zcos = dx * (ax * ainv) + dy * (ay * ainv) + dz * (az * ainv);
+  }
+
   // primed start
   const float prime = prime_t[i];
   const float t_tight =
       prime > 0.f ? fmaxf(tnear, prime - P.small_backoff) : tnear;
-  const Probe pt = probe(P, nav, data_x, data_y, ox + dx * t_tight,
-                         oy + dy * t_tight, oz + dz * t_tight);
-  const bool ok_tight = pt.known && pt.val > 0.f;
+  const Probe pt = probe<kOF>(P, nav, data_x, data_y, ox + dx * t_tight,
+                              oy + dy * t_tight, oz + dz * t_tight);
+  const bool ok_tight = pt.known && (kOF ? pt.val <= 0.f : pt.val > 0.f);
   tnear = ok_tight ? t_tight
                    : (prime > 0.f ? fmaxf(tnear, prime - P.big_backoff) : tnear);
   int status = tnear < tfar ? 0 : 2;  // 0 marching, 1 hit, 2 missed
 
-  float t = tnear, ss = P.largestep, f_t = __int_as_float(0x7f800000),
-        f_tt = 0.f, crawl = 0.f;
+  float t = tnear, ss = kOF ? P.voxel : P.largestep,
+        f_t = kOF ? 0.f : __int_as_float(0x7f800000), f_tt = 0.f,
+        crawl = 0.f;
   for (int n = 0; n < P.max_probes && status == 0; ++n) {
-    const Probe q = probe(P, nav, data_x, data_y, ox + dx * t, oy + dy * t,
-                          oz + dz * t);
-    const bool hit = q.known && q.val < 0.f;
+    const Probe q = probe<kOF>(P, nav, data_x, data_y, ox + dx * t,
+                               oy + dy * t, oz + dz * t);
+    const bool hit = q.known && (kOF ? q.val > 0.f : q.val < 0.f);
     if (q.known) f_tt = q.val;
     if (hit) {
       status = 1;
       break;
     }
-    if (q.known) f_t = q.val;
-    // crawl escalation (raycast.py:568-580, 604-610)
-    const float esc = fmaxf(crawl - 16.f, 0.f);
-    const float floor_ =
-        fminf(P.voxel * (1.f + fminf(esc * 0.125f, 3.f)), P.floor_cap);
-    const float known_step = fmaxf(f_tt * P.mu, floor_);
     const float jump =
         fmaxf(P.largestep, fmaxf(q.dist - 1.f, 0.f) * P.bstep +
                                P.half_largestep);
-    const bool crawling = q.known && (f_tt * P.mu <= floor_);
-    crawl = crawling ? crawl + 1.f : 0.f;
-    ss = q.known ? known_step : jump;
+    if (kOF) {
+      f_t = f_tt;
+      // sigma-band step inside allocated blocks (raycast.py:585-597)
+      const float z = t * zcos;
+      const float sigma = fminf(fmaxf(P.mu * z * z, P.two_step), 0.05f);
+      const float known_step = fminf(fmaxf(0.5f * sigma, P.voxel), P.of_cap);
+      ss = q.in_block ? known_step : jump;
+    } else {
+      if (q.known) f_t = q.val;
+      // crawl escalation (raycast.py:568-580, 604-610)
+      const float esc = fmaxf(crawl - 16.f, 0.f);
+      const float floor_ =
+          fminf(P.voxel * (1.f + fminf(esc * 0.125f, 3.f)), P.floor_cap);
+      const float known_step = fmaxf(f_tt * P.mu, floor_);
+      const bool crawling = q.known && (f_tt * P.mu <= floor_);
+      crawl = crawling ? crawl + 1.f : 0.f;
+      ss = q.known ? known_step : jump;
+    }
     t = t + ss;
     if (t >= tfar) status = 2;
   }
@@ -198,10 +249,16 @@ raycast_kernel(Params P, const float* __restrict__ view,
 
   const bool hit = status == 1;
   // linear zero-crossing estimate from the sample bracket
-  const float f_hi = isinf(f_t) ? 1.f : f_t;
-  const float f_lo = f_tt;
-  const float denom = f_hi == f_lo ? 1.f : f_hi - f_lo;
-  const float t1 = hit ? t + ss * f_lo / denom : 0.f;
+  float t1;
+  if (kOF) {
+    const float denom = f_tt == f_t ? 1.f : f_tt - f_t;
+    t1 = t - ss * (f_tt - 0.f) / denom;
+  } else {
+    const float f_hi = isinf(f_t) ? 1.f : f_t;
+    const float denom = f_hi == f_tt ? 1.f : f_hi - f_tt;
+    t1 = t + ss * f_tt / denom;
+  }
+  if (!hit) t1 = 0.f;
   const float t_cross = hit ? t : 0.f;
   const float ssh = hit ? ss : 0.f;
 
@@ -217,10 +274,10 @@ raycast_kernel(Params P, const float* __restrict__ view,
   const int iy1 = min(iy0 + 1, P.size - 1);
   const int iz1 = min(iz0 + 1, P.size - 1);
   float v000, v100, v010, v110, v001, v101, v011, v111;
-  corner_pair(P, nav, data_x, data_y, ix, iy0, iz0, v000, v100);
-  corner_pair(P, nav, data_x, data_y, ix, iy1, iz0, v010, v110);
-  corner_pair(P, nav, data_x, data_y, ix, iy0, iz1, v001, v101);
-  corner_pair(P, nav, data_x, data_y, ix, iy1, iz1, v011, v111);
+  corner_pair<kOF>(P, nav, data_x, data_y, ix, iy0, iz0, v000, v100);
+  corner_pair<kOF>(P, nav, data_x, data_y, ix, iy1, iz0, v010, v110);
+  corner_pair<kOF>(P, nav, data_x, data_y, ix, iy0, iz1, v001, v101);
+  corner_pair<kOF>(P, nav, data_x, data_y, ix, iy1, iz1, v011, v111);
   const float c00 = v000 * (1.f - fx) + v100 * fx;
   const float c10 = v010 * (1.f - fx) + v110 * fx;
   const float c01 = v001 * (1.f - fx) + v101 * fx;
@@ -235,7 +292,8 @@ raycast_kernel(Params P, const float* __restrict__ view,
   const float gy = (c10 - c00) * (1.f - fz) + (c11 - c01) * fz;
   const float gz = c1 - c0;
 
-  // Newton step along the ray, clamped inside the observed bracket
+  // Newton step along the ray, clamped inside the observed bracket (both
+  // fields cross the surface at 0)
   const float deriv = (gx * dx + gy * dy + gz * dz) * P.inv_voxel;
   const bool safe = fabsf(deriv) > 1e-6f;
   float t_hit = t1 - (safe ? v1 / deriv : 0.f);
@@ -243,7 +301,8 @@ raycast_kernel(Params P, const float* __restrict__ view,
   if (!hit) t_hit = 0.f;
 
   const float gn = sqrtf(gx * gx + gy * gy + gz * gz);
-  const float ninv = -(1.f / (gn == 0.f ? 1.f : gn));  // invert_normals
+  float ninv = 1.f / (gn == 0.f ? 1.f : gn);
+  if (!kOF) ninv = -ninv;  // TSDF invert_normals
   const bool ok = hit && gn > 0.f;
   vertex[3 * i] = hit ? ox + dx * t_hit : 0.f;
   vertex[3 * i + 1] = hit ? oy + dy * t_hit : 0.f;
@@ -256,22 +315,28 @@ raycast_kernel(Params P, const float* __restrict__ view,
 
 }  // namespace
 
+// field: 0 = TSDF, 1 = OFusion
 SE_EXPORT int se_raycast(const float* view, const int* nav,
                          const float* data_x, const float* data_y,
-                         const float* prime_t, int w, int h, int size, int b,
-                         int max_probes, float dim, float inv_voxel,
-                         float voxel, float largestep, float half_largestep,
-                         float bstep, float mu, float near_plane,
-                         float far_plane, float small_backoff,
-                         float big_backoff, float floor_cap, float* vertex,
-                         float* normal, uint8_t* valid, uint8_t* live,
-                         void* stream) {
+                         const float* prime_t, int field, int w, int h,
+                         int size, int b, int max_probes, float dim,
+                         float inv_voxel, float voxel, float largestep,
+                         float half_largestep, float bstep, float mu,
+                         float near_plane, float far_plane,
+                         float small_backoff, float big_backoff,
+                         float floor_cap, float two_step, float of_cap,
+                         float* vertex, float* normal, uint8_t* valid,
+                         uint8_t* live, void* stream) {
   Params P{w, h, size, b, max_probes, dim, inv_voxel, voxel, largestep,
            half_largestep, bstep, mu, near_plane, far_plane, small_backoff,
-           big_backoff, floor_cap};
+           big_backoff, floor_cap, two_step, of_cap};
   const int n_cta = (w * h + kThreads - 1) / kThreads;
   if (n_cta == 0) return 0;
-  raycast_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
-      P, view, nav, data_x, data_y, prime_t, vertex, normal, valid, live);
+  if (field == 1)
+    raycast_kernel<true><<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
+        P, view, nav, data_x, data_y, prime_t, vertex, normal, valid, live);
+  else
+    raycast_kernel<false><<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
+        P, view, nav, data_x, data_y, prime_t, vertex, normal, valid, live);
   return (int)cudaGetLastError();
 }

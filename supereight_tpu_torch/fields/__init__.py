@@ -1,6 +1,7 @@
-"""Field-type registry. Only TSDF is ported; OFusion raises."""
+"""Field-type registry: TSDF and OFusion."""
 
 from supereight_tpu_torch.fields.base import FieldSpec  # noqa: F401
+from supereight_tpu_torch.fields.ofusion import OFUSION  # noqa: F401
 from supereight_tpu_torch.fields.tsdf import TSDF  # noqa: F401
 
 
@@ -9,5 +10,6 @@ def get_field(name: str) -> FieldSpec:
     if name in ("tsdf", "sdf"):
         return TSDF
     if name in ("ofusion", "occupancy"):
-        raise NotImplementedError("the OFusion field is not ported yet")
-    raise ValueError(f"unknown field type {name!r}; expected 'tsdf'")
+        return OFUSION
+    raise ValueError(f"unknown field type {name!r}; expected 'tsdf' or "
+                     "'ofusion'")

@@ -2,6 +2,7 @@
 
 Voxel payload is two f32 channels (x, y):
   TSDF:    x = signed distance in [-1, 1],  y = fusion weight
+  OFusion: x = log-odds occupancy in [-1000, 1000], y = last update time
 """
 
 import dataclasses

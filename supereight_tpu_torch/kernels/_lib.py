@@ -1,7 +1,8 @@
 """Build, load and call the port's CUDA library (``csrc/*.cu``).
 
 The kernels are plain CUDA C++ with a C interface, compiled by ``nvcc``
-for ``sm_90a`` into one shared library and bound with ctypes — no
+for ``sm_90a`` (one ``nvcc`` process per source, all started together,
+then one link) into one shared library and bound with ctypes — no
 PyTorch headers, so a build takes seconds. The build runs at first use,
 from the package's own sources only, into ``build/kernels/<hash>/`` at
 the repository root (``.gitignore`` lists ``build/``); the hash covers
@@ -26,12 +27,26 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"icp_reduce": 0, "alloc_touch": 0, "integrate_prepass": 0,
-            "integrate_update": 0, "raycast": 0}
+LAUNCHES = {"icp_reduce": 0, "alloc_touch": 0, "alloc_touch_of": 0,
+            "integrate_prepass": 0, "integrate_update": 0,
+            "integrate_update_of": 0, "nav_grid": 0, "raycast": 0,
+            "raycast_of": 0, "gather_a": 0, "gather_b": 0, "gather_c": 0,
+            "gather_d": 0}
+
+MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu takes (kMaxLevels)
+
+
+class Mips(ctypes.Structure):
+    """Per-level mip pointers, passed by value (csrc/nav.cu ``Mips``)."""
+
+    _fields_ = [("alloc", ctypes.c_void_p * MAX_MIP_LEVELS),
+                ("x", ctypes.c_void_p * MAX_MIP_LEVELS),
+                ("y", ctypes.c_void_p * MAX_MIP_LEVELS)]
+
 
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signature of each exported entry point (stream last, every one
@@ -39,11 +54,17 @@ P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "se_icp_reduce": (P, P, P, I, P, P, P, I, I, P, P, F, F, P, P, P),
     "se_alloc_touch": (P, I, I, I, P, P, F, D, I, F, I, I, P, P),
+    "se_alloc_touch_of": (P, I, I, P, P, F, D, D, D, F, I, I, P, P, P, P),
     "se_integrate_prepass": (P, I, I, P, P, P, F, I, I, I, P, P, P, P),
-    "se_integrate_update": (P, I, I, P, P, P, F, I, I, P, P, F, F, P, P, P,
-                            P),
-    "se_raycast": (P, P, P, P, P, I, I, I, I, I, F, F, F, F, F, F, F, F, F,
-                   F, F, F, P, P, P, P, P),
+    "se_integrate_update": (P, I, I, P, P, P, F, I, I, P, P, I, F, F, F, P,
+                            P, P, P, P),
+    "se_nav_grid": (P, I, I, I, I, Mips, P, P, P, P),
+    "se_raycast": (P, P, P, P, P, I, I, I, I, I, I, F, F, F, F, F, F, F, F,
+                   F, F, F, F, F, F, P, P, P, P, P),
+    "se_gather_a": (P, P, I, I, I, P, P),
+    "se_gather_b": (P, P, I, I, I, P, P),
+    "se_gather_c": (P, P, I, I, I, P, P),
+    "se_gather_d": (P, P, I, I, I, P, P),
 }
 
 _lock = threading.Lock()
@@ -61,7 +82,7 @@ def _sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -79,7 +100,8 @@ def nvcc_path() -> str:
 
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into build/kernels/<hash>/libse_kernels.so (if
-    not cached) and return its path. ptxas's register/spill report goes to
+    not cached) and return its path: one ``nvcc -c`` per source, run in
+    parallel, then one link. ptxas's register/spill report goes to
     ``build.log`` beside the library."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / "libse_kernels.so"
@@ -88,15 +110,34 @@ def build() -> pathlib.Path:
         build_info.setdefault("cached", True)
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libse_kernels.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = nvcc_path()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           + proc.stdout + proc.stderr)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], False
+    for proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        failed |= proc.returncode != 0
+    tmp = out_dir / f"libse_kernels.{tag}.so"
+    if not failed:
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(proc.stdout + proc.stderr)
+        failed = proc.returncode != 0
+    log = "".join(logs)
+    (out_dir / "build.log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + log)
     os.replace(tmp, lib)
     build_info.update(seconds=time.perf_counter() - t0, cached=False,
                       log=str(out_dir / "build.log"))

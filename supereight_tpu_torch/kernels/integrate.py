@@ -1,16 +1,19 @@
-"""K3 wrapper and twin: the TSDF integration block pass.
+"""K3 wrapper and twin: the integration block pass of both fields.
 
 Replaces the block pass of ``supereight_tpu/ops/integration.py:integrate``
 (286-375) with ``_project_voxels_c`` (78-94), ``_sample_depth_patch``
-(123-213, the depth-level rule) and the exact fallback for the first 32
-uncovered blocks (340-356). The CUDA kernels are the two launches of
-``csrc/integrate.cu`` (:func:`integrate_prepass`, :func:`integrate_update`)
-with a cumsum between them (:func:`integrate_blocks`). Each has its plain
-PyTorch version (``*_plain``), used for CPU tensors and as the kernel's
-reference on the card.
+(123-213, the depth-level rule), the exact fallback for the first 32
+uncovered blocks (340-356) and ``_field_update`` (273-279). The CUDA
+kernels are the two launches of ``csrc/integrate.cu``
+(:func:`integrate_prepass`, :func:`integrate_update`, whose field update
+is the TSDF or the OFusion one) with a cumsum between them
+(:func:`integrate_blocks`). Each has its plain PyTorch version
+(``*_plain``), used for CPU tensors and as the kernel's reference on the
+card.
 
 The update writes ``data_x``, ``data_y`` and ``active`` of the map IN
-PLACE.
+PLACE. The OFusion update's timestamp is a device f32[] (the fused step
+computes it from the frame tensor), so no launch reads it on the host.
 """
 
 import torch
@@ -18,6 +21,7 @@ import torch
 from supereight_tpu_torch.constants import BLOCK_SIDE, BLOCK_VOXELS, MAX_WEIGHT
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import scatter_drop
+from supereight_tpu_torch.fields import ofusion as ofusion_field
 from supereight_tpu_torch.fields import tsdf as tsdf_field
 from supereight_tpu_torch.kernels import _lib
 
@@ -55,15 +59,28 @@ def _fallback_mode(level, need, n_valid, budget):
                                        torch.zeros_like(n_valid)))
 
 
-def integrate_blocks(geom, state, worklist, depth, t_cw, kmat, mu: float):
+def field_update(field, old_x, old_y, pos_cam, depth_sample, valid, mu,
+                 timestamp, voxel_size):
+    """The field's fusion functor (JAX integration.py:273-279)."""
+    if field.name == "tsdf":
+        return tsdf_field.update(old_x, old_y, pos_cam, depth_sample, mu,
+                                 valid)
+    return ofusion_field.update(old_x, old_y, pos_cam, depth_sample, mu,
+                                timestamp, voxel_size, valid)
+
+
+def integrate_blocks(geom, state, field, worklist, depth, t_cw, kmat,
+                     mu: float, timestamp=None):
     """Fuse ``depth`` into every block of ``worklist`` (i32[budget] slots,
     entries == capacity are empty), in place. ``t_cw`` is world-to-camera
-    [4, 4], ``kmat`` the 4x4 intrinsics. Returns patch_skipped (i32[]):
-    valid voxels of uncovered blocks beyond the fallback bound."""
+    [4, 4], ``kmat`` the 4x4 intrinsics, ``timestamp`` the f32[] time the
+    OFusion update writes. Returns patch_skipped (i32[]): valid voxels of
+    uncovered blocks beyond the fallback bound."""
     level, n_valid, need = integrate_prepass(geom, state, worklist, depth,
                                              t_cw, kmat)
     mode, skipped = _fallback_mode(level, need, n_valid, worklist.shape[0])
-    integrate_update(geom, state, worklist, depth, t_cw, kmat, mu, mode)
+    integrate_update(geom, state, field, worklist, depth, t_cw, kmat, mu,
+                     mode, timestamp)
     return skipped.to(torch.int32)
 
 
@@ -105,26 +122,42 @@ def integrate_prepass(geom, state, worklist, depth, t_cw, kmat):
     return level, n_valid, need
 
 
-def integrate_update(geom, state, worklist, depth, t_cw, kmat, mu: float,
-                     mode):
+def as_timestamp(field, timestamp, dev):
+    """The f32[] time stamp the OFusion update writes, on ``dev``: the
+    given tensor, or a zero for TSDF, which does not read it."""
+    if timestamp is None:
+        if field.name != "tsdf":
+            raise ValueError("the OFusion update needs a timestamp tensor")
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    return timestamp.to(device=dev, dtype=torch.float32).reshape(())
+
+
+def integrate_update(geom, state, field, worklist, depth, t_cw, kmat,
+                     mu: float, mode, timestamp=None):
     """Fuse each worklist block at its depth ``mode`` (i32: level, -1 =
-    skip) in place, and set its active flag to (any voxel valid)."""
+    skip) with ``field``'s update in place, and set its active flag to
+    (any voxel valid). The launch count is kept per field
+    (``integrate_update`` for TSDF, ``integrate_update_of``)."""
     dev = depth.device
     if dev.type == "cpu":
-        return integrate_update_plain(geom, state, worklist, depth, t_cw,
-                                      kmat, mu, mode)
+        return integrate_update_plain(geom, state, field, worklist, depth,
+                                      t_cw, kmat, mu, mode, timestamp)
     if dev.type != "cuda":
         raise ValueError(f"integrate_update: unsupported device {dev}")
     _check_block_args(geom, state, worklist, depth, t_cw, kmat)
     _lib.check(mode, "mode", torch.int32, worklist.shape, dev)
+    ts = as_timestamp(field, timestamp, dev)
     h, w = depth.shape
     n_work = worklist.shape[0]
+    of = field.name == "ofusion"
     if n_work:
-        _lib.launch("integrate_update", "se_integrate_update", dev,
+        _lib.launch("integrate_update_of" if of else "integrate_update",
+                    "se_integrate_update", dev,
                     worklist, n_work, geom.capacity,
                     state.block_coord, t_cw, kmat, geom.voxel_size,
-                    w, h, mode, depth, float(mu), float(MAX_WEIGHT),
-                    state.data_x, state.data_y, state.active)
+                    w, h, mode, depth, int(of), float(mu), float(MAX_WEIGHT),
+                    2.0 * geom.voxel_size, ts, state.data_x, state.data_y,
+                    state.active)
 
 
 def project_voxels(wx, wy, wz, t_cw, kmat, frame_size):
@@ -188,8 +221,8 @@ def integrate_prepass_plain(geom, state, worklist, depth, t_cw, kmat):
     return level, n_valid, ~covered & (n_valid > 0)
 
 
-def integrate_update_plain(geom, state, worklist, depth, t_cw, kmat,
-                           mu: float, mode):
+def integrate_update_plain(geom, state, field, worklist, depth, t_cw, kmat,
+                           mu: float, mode, timestamp=None):
     """Plain PyTorch twin of :func:`integrate_update` (same in-place
     contract)."""
     cap = geom.capacity
@@ -199,9 +232,9 @@ def integrate_update_plain(geom, state, worklist, depth, t_cw, kmat,
     l = mode.clamp(min=0)[:, None]
     ds = depth.reshape(-1)[(((yi >> l) << l) * w + ((xi >> l) << l)).long()]
     valid = valid & (mode >= 0)[:, None]
-    new_x, new_y, _ = tsdf_field.update(state.data_x[slots],
-                                        state.data_y[slots], pos, ds, mu,
-                                        valid)
+    new_x, new_y, _ = field_update(
+        field, state.data_x[slots], state.data_y[slots], pos, ds, valid, mu,
+        as_timestamp(field, timestamp, depth.device), geom.voxel_size)
     dest = torch.where(present, worklist, cap)
     scatter_drop(state.data_x, dest, new_x)
     scatter_drop(state.data_y, dest, new_y)
@@ -209,12 +242,12 @@ def integrate_update_plain(geom, state, worklist, depth, t_cw, kmat,
     scatter_drop(state.active, dest, valid.any(1))
 
 
-def integrate_blocks_plain(geom, state, worklist, depth, t_cw, kmat,
-                           mu: float):
+def integrate_blocks_plain(geom, state, field, worklist, depth, t_cw, kmat,
+                           mu: float, timestamp=None):
     """Plain PyTorch twin of :func:`integrate_blocks`."""
     level, n_valid, need = integrate_prepass_plain(geom, state, worklist,
                                                    depth, t_cw, kmat)
     mode, skipped = _fallback_mode(level, need, n_valid, worklist.shape[0])
-    integrate_update_plain(geom, state, worklist, depth, t_cw, kmat, mu,
-                           mode)
+    integrate_update_plain(geom, state, field, worklist, depth, t_cw, kmat,
+                           mu, mode, timestamp)
     return skipped.to(torch.int32)

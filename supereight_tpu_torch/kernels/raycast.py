@@ -1,8 +1,9 @@
-"""K1 wrapper and twin: the depth-primed TSDF raycast.
+"""K1 wrapper and twin: the depth-primed raycast of both fields.
 
-Replaces the TSDF branch of ``supereight_tpu/ops/raycast.py:_march``
-(454-769, with ``_probe`` 262-299) and ``raycast_rays`` (841-899, with
-``_interp_grad`` 318-380). The CUDA kernel is ``csrc/raycast.cu``;
+Replaces ``supereight_tpu/ops/raycast.py:_march`` (454-769, with
+``_probe`` 262-299), ``camera_zcos`` (436-452) and ``raycast_rays``
+(841-899, with ``_interp_grad`` 318-380), TSDF and OFusion branches. The
+CUDA kernel is ``csrc/raycast.cu`` (one body per field);
 :func:`raycast_plain` is the plain PyTorch version (every ray stepped in
 lockstep for the full probe bound), used for CPU tensors and as the
 kernel's reference on the card.
@@ -14,48 +15,65 @@ the JAX cascade plus its 96-step burst tier can give a ray); rays still
 marching at that bound miss and count in ``ray_overflow``.
 """
 
+import numpy as np
 import torch
 
 from supereight_tpu_torch.constants import (BLOCK_SIDE, BLOCK_VOXELS,
-                                            FAR_PLANE, INVALID, NEAR_PLANE)
+                                            FAR_PLANE, INVALID, NEAR_PLANE,
+                                            SURF_BOUNDARY)
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.kernels import _lib
+from supereight_tpu_torch.kernels.nav import MAX_JUMP
 
-MAX_JUMP = 6         # cap of the Chebyshev block-distance transform
 EXTRA_PROBES = 96    # the JAX burst tier's steps beyond max_steps
-_SENTINEL = 2.0      # TSDF unknown sentinel: values >= 1 decode as unknown
-_FILL = 1.0          # TSDF init value, read for unknown refinement corners
+# unknown sentinel (values >= sentinel / 2 decode as unknown) and the
+# refinement fill (the field's init value) of each field
+# (JAX raycast.py:93-100, 508)
+_SENTINEL = {"tsdf": 2.0, "ofusion": 4096.0}
+_FILL = {"tsdf": 1.0, "ofusion": 0.0}
 
 
-def march_params(geom, mu: float, max_steps: int = None):
+def march_params(geom, field, mu: float, max_steps: int = None):
     """Scalar march constants (Python floats, rounded to f32 on use)."""
     if max_steps is None:
         max_steps = 2 * geom.size
     step = geom.voxel_size
     largestep = step * BLOCK_SIDE
-    return dict(
+    q = dict(
         max_probes=max_steps + EXTRA_PROBES,
         step=step, largestep=largestep, half_largestep=0.5 * largestep,
         bstep=BLOCK_SIDE * geom.voxel_size,
         small_backoff=0.5 * mu + 2.0 * geom.voxel_size,
         big_backoff=2.0 * mu + 2.0 * geom.voxel_size,
         floor_cap=max(float(torch.tensor(step, dtype=torch.float32)),
-                      float(torch.tensor(0.4 * mu, dtype=torch.float32))))
+                      float(torch.tensor(0.4 * mu, dtype=torch.float32))),
+        two_step=2.0 * step, of_cap=step)
+    if field.name == "ofusion":
+        # JAX evaluates these with mu as a traced f32 (raycast.py:521-522,
+        # 553): the same f32 operations here
+        f32 = np.float32
+        mu32, two_vox = f32(mu), f32(2.0 * geom.voxel_size)
+        q.update(small_backoff=float(f32(0.5) * mu32 + two_vox),
+                 big_backoff=float(f32(6.0) * mu32 + two_vox),
+                 of_cap=float(max(f32(step),
+                                  min(f32(2.4 * step), f32(2.7) * mu32))))
+    return q
 
 
-def raycast_rays(geom, state, nav, view, prime_t, mu: float, frame_size,
-                 max_steps: int = None):
+def raycast_rays(geom, state, field, nav, view, prime_t, mu: float,
+                 frame_size, max_steps: int = None):
     """March every pixel ray of ``view`` (= pose @ invK) through the map.
 
-    nav: i32[B^3] navigation grid (ops/raycast.build_nav); prime_t:
-    f32[H*W] per-ray surface prediction (ops/raycast.prime_from_depth).
-    Returns (vertex f32[H,W,3], normal f32[H,W,3], valid bool[H,W],
-    overflow i32[]).
+    nav: i32[B^3] navigation grid of ``field`` (kernels/nav.nav_grid);
+    prime_t: f32[H*W] per-ray surface prediction
+    (ops/raycast.prime_from_depth). Returns (vertex f32[H,W,3], normal
+    f32[H,W,3], valid bool[H,W], overflow i32[]). The launch count is kept
+    per field (``raycast`` for TSDF, ``raycast_of``).
     """
     dev = view.device
     if dev.type == "cpu":
-        return raycast_plain(geom, state.data_x, state.data_y, nav, view,
-                             prime_t, mu, frame_size, max_steps)
+        return raycast_plain(geom, field, state.data_x, state.data_y, nav,
+                             view, prime_t, mu, frame_size, max_steps)
     if dev.type != "cuda":
         raise ValueError(f"raycast_rays: unsupported device {dev}")
     w, h = frame_size
@@ -67,18 +85,20 @@ def raycast_rays(geom, state, nav, view, prime_t, mu: float, frame_size,
     c(state.data_x, "data_x", torch.float32, (cap, BLOCK_VOXELS), dev)
     c(state.data_y, "data_y", torch.float32, (cap, BLOCK_VOXELS), dev)
     c(prime_t, "prime_t", torch.float32, (w * h,), dev)
-    q = march_params(geom, mu, max_steps)
+    q = march_params(geom, field, mu, max_steps)
     vertex = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     normal = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
     live = torch.empty((h, w), dtype=torch.bool, device=dev)
-    _lib.launch("raycast", "se_raycast", dev,
-                view, nav, state.data_x, state.data_y, prime_t,
+    of = field.name == "ofusion"
+    _lib.launch("raycast_of" if of else "raycast", "se_raycast", dev,
+                view, nav, state.data_x, state.data_y, prime_t, int(of),
                 w, h, geom.size, b, q["max_probes"], geom.dim,
                 geom.inv_voxel_size, q["step"], q["largestep"],
                 q["half_largestep"], q["bstep"], float(mu), NEAR_PLANE,
                 FAR_PLANE, q["small_backoff"], q["big_backoff"],
-                q["floor_cap"], vertex, normal, valid, live)
+                q["floor_cap"], q["two_step"], q["of_cap"], vertex, normal,
+                valid, live)
     return vertex, normal, valid, live.sum(dtype=torch.int32)
 
 
@@ -93,6 +113,17 @@ def ray_directions_c(view, width, height):
     inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
     return (dx * inv).reshape(-1), (dy * inv).reshape(-1), \
         (dz * inv).reshape(-1)
+
+
+def camera_zcos(view, dx, dy, dz):
+    """Per-ray cosine between the ray direction and the camera's optical
+    axis normalize(col0 x col1) of ``view`` (JAX raycast.py:436-452), so
+    the camera depth of a point at ray parameter t is t * zcos."""
+    ax = view[1, 0] * view[2, 1] - view[2, 0] * view[1, 1]
+    ay = view[2, 0] * view[0, 1] - view[0, 0] * view[2, 1]
+    az = view[0, 0] * view[1, 1] - view[1, 0] * view[0, 1]
+    inv = 1.0 / torch.sqrt(ax * ax + ay * ay + az * az)
+    return dx * (ax * inv) + dy * (ay * inv) + dz * (az * inv)
 
 
 def ray_box_range_c(origin, dx, dy, dz, dim, near=NEAR_PLANE, far=FAR_PLANE):
@@ -110,22 +141,25 @@ def ray_box_range_c(origin, dx, dy, dz, dim, near=NEAR_PLANE, far=FAR_PLANE):
     return tmin.clamp(min=near), tmax.clamp(max=far)
 
 
-def raycast_plain(geom, data_x, data_y, nav, view, prime_t, mu: float,
-                  frame_size, max_steps: int = None):
+def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
+                  mu: float, frame_size, max_steps: int = None):
     """Plain PyTorch twin of :func:`raycast_rays` (data_x/data_y are the
     map's pool channels)."""
     w, h = frame_size
     size, b = geom.size, geom.blocks_per_side
     iv = geom.inv_voxel_size
-    q = march_params(geom, mu, max_steps)
+    of = field.name == "ofusion"
+    unk, fill = _SENTINEL[field.name], _FILL[field.name]
+    q = march_params(geom, field, mu, max_steps)
     step = q["step"]
     dx, dy, dz = ray_directions_c(view, w, h)
     ox, oy, oz = view[0, 3], view[1, 3], view[2, 3]
     tnear, tfar = ray_box_range_c((ox, oy, oz), dx, dy, dz, geom.dim)
-    # pool values with weight-0 voxels carrying the unknown sentinel
-    vals = torch.where(data_y == 0, torch.full_like(data_x, _SENTINEL),
+    zcos = camera_zcos(view, dx, dy, dz) if of else None
+    # pool values with y == 0 voxels carrying the unknown sentinel
+    vals = torch.where(data_y == 0, torch.full_like(data_x, unk),
                        data_x).reshape(-1)
-    sent = torch.full_like(dx, _SENTINEL)
+    sent = torch.full_like(dx, unk)
 
     def cell_of(vx, vy, vz):
         return (((vx >> 3) * b + (vy >> 3)) * b + (vz >> 3)).long()
@@ -143,18 +177,27 @@ def raycast_plain(geom, data_x, data_y, nav, view, prime_t, mu: float,
         nv = nav[cell_of(vx, vy, vz)]
         in_block = (nv >= 0) & inb
         lin = (vx & 7) + ((vy & 7) << 3) + ((vz & 7) << 6)
-        val = torch.where(in_block, pool(nv, lin), sent)
-        known = (val < 0.5 * _SENTINEL) & in_block
-        dist = torch.where(nv < 0, (-nv - 1) & 7, 0).to(torch.float32)
+        e = torch.where(nv < 0, -nv - 1, 0)
+        # OFusion: the nav payload's coarse free-space value
+        coarse_known = (((e >> 3) & 1) == 1) if of \
+            else torch.zeros_like(in_block)
+        coarse_val = -(e >> 4).to(torch.float32) * (1.0 / 16.0)
+        val = torch.where(in_block, pool(nv, lin),
+                          torch.where(coarse_known, coarse_val, sent))
+        known = ((val < 0.5 * unk) & in_block) | (coarse_known & inb)
+        dist = torch.where(nv < 0, e & 7, 0).to(torch.float32)
         dist = torch.where(inb, dist, float(MAX_JUMP))
-        return val, known, dist
+        return val, known, dist, in_block
 
-    # primed start: tight backoff when it lands in known positive space
+    def free_side(v):  # the start's side of the surface
+        return v <= SURF_BOUNDARY if of else v > 0
+
+    # primed start: tight backoff when it lands in known free space
     t_tight = torch.where(prime_t > 0,
                           torch.maximum(tnear, prime_t - q["small_backoff"]),
                           tnear)
-    ft, kt, _ = probe(t_tight)
-    ok_tight = kt & (ft > 0)
+    ft, kt, _, _ = probe(t_tight)
+    ok_tight = kt & free_side(ft)
     tnear = torch.where(ok_tight, t_tight,
                         torch.where(prime_t > 0,
                                     torch.maximum(tnear,
@@ -163,28 +206,38 @@ def raycast_plain(geom, data_x, data_y, nav, view, prime_t, mu: float,
     status = torch.where(tnear < tfar, 0, 2).to(torch.int32)
 
     t = tnear + 0.0
-    ss = torch.full_like(t, q["largestep"])
-    f_t = torch.full_like(t, float("inf"))
+    ss = torch.full_like(t, step if of else q["largestep"])
+    f_t = torch.zeros_like(t) if of else torch.full_like(t, float("inf"))
     f_tt = torch.zeros_like(t)
     crawl = torch.zeros_like(t)
     for _ in range(q["max_probes"]):
-        mx, known, dist = probe(t)
+        mx, known, dist, in_block = probe(t)
         active = status == 0
-        hit = active & known & (mx < 0)
+        hit = active & known & ((mx > SURF_BOUNDARY) if of else (mx < 0))
         f_tt = torch.where(active & known, mx, f_tt)
-        f_t = torch.where(active & known & ~hit, mx, f_t)
-        # crawl escalation (raycast.py:568-580, 604-610)
-        esc = (crawl - 16.0).clamp(min=0.0)
-        floor_ = torch.clamp(step * (1.0 + torch.clamp(esc * 0.125, max=3.0)),
-                             max=q["floor_cap"])
-        known_step = torch.maximum(f_tt * mu, floor_)
+        adv = active & ~hit
         jump = torch.clamp((dist - 1).clamp(min=0.0) * q["bstep"]
                            + q["half_largestep"], min=q["largestep"])
-        new_ss = torch.where(known, known_step, jump)
-        adv = active & ~hit
-        crawling = adv & known & (f_tt * mu <= floor_)
-        crawl = torch.where(crawling, crawl + 1.0,
-                            torch.where(adv, torch.zeros_like(crawl), crawl))
+        if of:
+            f_t = torch.where(adv, f_tt, f_t)
+            # sigma-band step inside allocated blocks (raycast.py:585-597)
+            z = t * zcos
+            sigma = torch.clamp(mu * z * z, q["two_step"], 0.05)
+            known_step = torch.clamp(0.5 * sigma, step, q["of_cap"])
+            new_ss = torch.where(in_block, known_step, jump)
+        else:
+            f_t = torch.where(active & known & ~hit, mx, f_t)
+            # crawl escalation (raycast.py:568-580, 604-610)
+            esc = (crawl - 16.0).clamp(min=0.0)
+            floor_ = torch.clamp(
+                step * (1.0 + torch.clamp(esc * 0.125, max=3.0)),
+                max=q["floor_cap"])
+            known_step = torch.maximum(f_tt * mu, floor_)
+            new_ss = torch.where(known, known_step, jump)
+            crawling = adv & known & (f_tt * mu <= floor_)
+            crawl = torch.where(crawling, crawl + 1.0,
+                                torch.where(adv, torch.zeros_like(crawl),
+                                            crawl))
         ss = torch.where(adv, new_ss, ss)
         t = torch.where(adv, t + ss, t)
         status = torch.where(hit, 1, status)
@@ -192,11 +245,19 @@ def raycast_plain(geom, data_x, data_y, nav, view, prime_t, mu: float,
 
     overflow = torch.sum((status == 0).to(torch.int32))
     hit = status == 1
-    f_hi = torch.where(torch.isinf(f_t), torch.ones_like(f_t), f_t)
-    f_lo = f_tt
+    # linear zero-crossing estimate from the sample bracket
+    if of:
+        f_hi, f_lo = f_tt, f_t
+    else:
+        f_hi = torch.where(torch.isinf(f_t), torch.ones_like(f_t), f_t)
+        f_lo = f_tt
     denom = torch.where(f_hi == f_lo, torch.ones_like(f_hi), f_hi - f_lo)
     zero = torch.zeros_like(t)
-    t1 = torch.where(hit, t + ss * f_lo / denom, zero)
+    if of:
+        t1 = t - ss * (f_hi - SURF_BOUNDARY) / denom
+    else:
+        t1 = t + ss * f_lo / denom
+    t1 = torch.where(hit, t1, zero)
     t_cross = torch.where(hit, t, zero)
     ss = torch.where(hit, ss, zero)
 
@@ -211,7 +272,7 @@ def raycast_plain(geom, data_x, data_y, nav, view, prime_t, mu: float,
     iz1 = (iz0 + 1).clamp(max=size - 1)
 
     def decode(v):
-        return torch.where(v < 0.5 * _SENTINEL, v, torch.full_like(v, _FILL))
+        return torch.where(v < 0.5 * unk, v, torch.full_like(v, fill))
 
     def pair(y, z):
         cx = ix >> 3
@@ -243,7 +304,8 @@ def raycast_plain(geom, data_x, data_y, nav, view, prime_t, mu: float,
     gy = (c10 - c00) * (1 - fz) + (c11 - c01) * fz
     gz = c1 - c0
 
-    # Newton step along the ray, clamped inside the observed bracket
+    # Newton step along the ray, clamped inside the observed bracket (both
+    # fields cross the surface at 0)
     deriv = (gx * dx + gy * dy + gz * dz) * iv
     safe = torch.abs(deriv) > 1e-6
     t_hit = t1 - torch.where(safe, v1 / torch.where(safe, deriv,
@@ -256,7 +318,9 @@ def raycast_plain(geom, data_x, data_y, nav, view, prime_t, mu: float,
                           torch.where(hit, oy + dy * t_hit, zero),
                           torch.where(hit, oz + dz * t_hit, zero)], -1)
     gn = torch.sqrt(gx * gx + gy * gy + gz * gz)
-    inv = -(1.0 / torch.where(gn == 0, torch.ones_like(gn), gn))
+    inv = 1.0 / torch.where(gn == 0, torch.ones_like(gn), gn)
+    if field.invert_normals:
+        inv = -inv
     ok = hit & (gn > 0)
     normal = torch.stack([torch.where(ok, gx * inv, torch.full_like(gx,
                                                                     INVALID)),

@@ -1,12 +1,13 @@
-"""Projective map integration (fusion), TSDF.
+"""Projective map integration (fusion), TSDF and OFusion.
 
 Port of ``supereight_tpu/ops/integration.py:integrate`` with the nearest-
 depth read (ref se::functor::projective_functor,
 projective_functor.hpp:54-156): compact the active + in-frustum blocks
-into a fixed-budget worklist, update every voxel of those blocks (kernel
-K3, ``kernels/integrate.py``), then re-fuse every existing coarse (mip)
-value at its octant origin corner (the node pass, torch ops here; it
-becomes kernel K4 in a later change).
+into a fixed-budget worklist, update every voxel of those blocks with the
+field's functor (kernel K3, ``kernels/integrate.py``), then re-fuse every
+existing coarse (mip) value at its octant origin corner with the same
+functor (the node pass, torch ops here; it becomes kernel K4 in a later
+change).
 
 The map is updated IN PLACE (JAX donated it); the returned state shares
 its tensors with the input.
@@ -17,8 +18,9 @@ import torch
 from supereight_tpu_torch.constants import BLOCK_SIDE
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import broadcast2
-from supereight_tpu_torch.fields import tsdf as tsdf_field
-from supereight_tpu_torch.kernels.integrate import (integrate_blocks,
+from supereight_tpu_torch.kernels.integrate import (as_timestamp,
+                                                    field_update,
+                                                    integrate_blocks,
                                                     project_voxels)
 
 
@@ -85,19 +87,19 @@ def _parent_present(geom, state, pbudget: int):
     return broadcast2(present.reshape(hp, hp, hp)), skipped
 
 
-def integrate(geom, state, field, depth, pose, k, mu: float, frame_size,
-              budget: int = 8192, depth_interp: bool = False,
+def integrate(geom, state, field, depth, pose, k, mu: float, timestamp,
+              frame_size, budget: int = 8192, depth_interp: bool = False,
               with_stats: bool = False, when=None,
               noise_weighted: bool = False):
     """One fusion pass: block update + node (mip) update
     (ref projective_functor::apply, projective_functor.hpp:139-156).
 
-    ``pose`` is camera-to-world; ``k`` the f32[4] intrinsics. ``when``
-    (bool[] tensor) masks all map writes. With ``with_stats`` also returns
+    ``pose`` is camera-to-world; ``k`` the f32[4] intrinsics;
+    ``timestamp`` the f32[] tensor the OFusion update stamps into channel
+    y (None for TSDF, which ignores it). ``when`` (bool[] tensor)
+    masks all map writes. With ``with_stats`` also returns
     {blocks_truncated, patch_skipped, mip_skipped} as i32[] tensors.
     """
-    if field.name != "tsdf":
-        raise NotImplementedError("only the TSDF field is ported")
     if depth_interp:
         raise NotImplementedError("the bilinear depth read is not ported yet")
     if noise_weighted:
@@ -106,11 +108,13 @@ def integrate(geom, state, field, depth, pose, k, mu: float, frame_size,
     kmat = se3.camera_matrix(k)
     budget = min(budget, geom.capacity)
     dev = depth.device
+    timestamp = as_timestamp(field, timestamp, dev)
 
     # ---- block pass (K3) -----------------------------------------------
     wl, n_active = build_active_worklist(geom, state, t_cw, kmat,
                                          frame_size, budget, when)
-    patch_skipped = integrate_blocks(geom, state, wl, depth, t_cw, kmat, mu)
+    patch_skipped = integrate_blocks(geom, state, field, wl, depth, t_cw,
+                                     kmat, mu, timestamp)
 
     # ---- node (coarse mip) pass ----------------------------------------
     # ref update_node (projective_functor.hpp:113-137): every existing
@@ -137,8 +141,9 @@ def integrate(geom, state, field, depth, pose, k, mu: float, frame_size,
         if when is not None:
             valid = valid & when
         ds = _sample_depth(depth, px, py)
-        nx, ny, _ = tsdf_field.update(state.mip_x[lvl], state.mip_y[lvl],
-                                      pos, ds, mu, valid)
+        nx, ny, _ = field_update(field, state.mip_x[lvl], state.mip_y[lvl],
+                                 pos, ds, valid, mu, timestamp,
+                                 geom.voxel_size)
         state.mip_x[lvl].copy_(nx)
         state.mip_y[lvl].copy_(ny)
 

@@ -1,40 +1,19 @@
-"""Sparse-map raycasting, TSDF: vertex/normal map extraction.
+"""Sparse-map raycasting, TSDF and OFusion: vertex/normal map extraction.
 
 Port of ``supereight_tpu/ops/raycast.py:raycast`` (ref raycastKernel,
 rendering.cpp:50-90, with the kfusion sphere tracer,
-kfusion/rendering_impl.hpp:34-74). The per-ray march and refinement are
-kernel K1 (``kernels/raycast.py``). The navigation grid is torch ops here
-(it becomes kernel K2 in a later change): one i32 per block cell, the
-pool slot of an allocated block, else -(1 + capped Chebyshev block
-distance to the nearest allocated block), the safe empty-space jump.
+kfusion/rendering_impl.hpp:34-74, and the bfusion constant-step march,
+bfusion/rendering_impl.hpp:35-68). The navigation grid is kernel K2
+(``kernels/nav.py``: one i32 per block cell, the pool slot of an
+allocated block, else -(1 + capped Chebyshev block distance), plus the
+OFusion coarse free-space payload); the per-ray march and refinement are
+kernel K1 (``kernels/raycast.py``).
 """
 
 import torch
-import torch.nn.functional as F
 
-from supereight_tpu_torch.kernels.raycast import MAX_JUMP, raycast_rays
-
-
-def block_distance(geom, state, max_jump: int = MAX_JUMP):
-    """Chebyshev distance (blocks, capped) to the nearest allocated block:
-    ``max_jump - 1`` 3^3 min-dilations of the allocation mask."""
-    d = torch.where(state.slot >= 0, 0.0, float(max_jump))[None, None]
-    for _ in range(max_jump - 1):
-        neigh = -F.max_pool3d(-d, 3, stride=1, padding=1)
-        d = torch.minimum(d, neigh + 1.0)
-    return d[0, 0]
-
-
-def build_nav(geom, state, bucket: int = None):
-    """i32 [B^3] navigation grid (JAX raycast.py:138-174, TSDF): the pool
-    slot for allocated cells, -(1 + distance) for empty ones. Slots at or
-    beyond ``bucket`` read as unknown (-1): the JAX strip table holds no
-    row for them."""
-    d = block_distance(geom, state).to(torch.int32)
-    ok = state.slot >= 0
-    if bucket is not None and bucket < geom.capacity:
-        ok = ok & (state.slot < bucket)
-    return torch.where(ok, state.slot, -(1 + d)).reshape(-1)
+from supereight_tpu_torch.kernels.nav import nav_grid
+from supereight_tpu_torch.kernels.raycast import raycast_rays
 
 
 def prime_from_depth(depth, k):
@@ -63,13 +42,11 @@ def raycast(geom, state, field, view, mu: float, frame_size, prime_t,
     {"ray_overflow": i32[]} when ``with_stats``. Only the depth-primed
     march of the fused frame step is ported: ``prime_t`` is required.
     """
-    if field.name != "tsdf":
-        raise NotImplementedError("only the TSDF raycast is ported")
     if prime_t is None:
         raise NotImplementedError("the unprimed raycast is not ported yet")
-    nav = build_nav(geom, state, bucket=pool_bucket)
+    nav = nav_grid(geom, state, field, bucket=pool_bucket)
     vertex, normal, valid, overflow = raycast_rays(
-        geom, state, nav, view, prime_t, mu, frame_size, max_steps)
+        geom, state, field, nav, view, prime_t, mu, frame_size, max_steps)
     if with_stats:
         return vertex, normal, valid, {"ray_overflow": overflow}
     return vertex, normal, valid

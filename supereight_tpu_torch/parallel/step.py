@@ -1,10 +1,10 @@
 """Fused whole-frame step: preprocess -> track -> allocate -> integrate ->
-raycast, on torch tensors.
+raycast, on torch tensors, for the TSDF and the OFusion field.
 
 Port of ``supereight_tpu/parallel/step.py:frame_step``. JAX compiled the
 frame into one XLA program; here it is an eager sequence of torch ops and
-the hand-written kernels K6 (ICP), K5 (allocation), K3 (integration) and
-K1 (raycast). Nothing inside :func:`frame_step` reads a device value back
+the hand-written kernels K6 (ICP), K5 (allocation), K3 (integration), K2
+(nav grid) and K1 (raycast), each in its field's variant. Nothing inside :func:`frame_step` reads a device value back
 to the host: budgets are Python ints, and the reference's rate gates and
 the tracking freeze are ``torch.where`` on device tensors, so on a GPU the
 whole frame is enqueued without a sync. Each stage runs under a
@@ -80,15 +80,16 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
     zero in a well-sized run.
 
     Options that are not ported yet raise ``NotImplementedError`` here,
-    before any stage has touched the map.
+    before any stage has touched the map. ``min_ref_weight`` is a no-op
+    for OFusion, as in JAX (channel y holds a timestamp there, not a
+    fusion weight); for TSDF it is not ported yet.
     """
-    if field.name != "tsdf":
-        raise NotImplementedError("only the TSDF frame step is ported")
     if filter_input:
         raise NotImplementedError("input filters are not ported yet")
     for name, value in (("depth_interp", depth_interp),
                         ("noise_weighted", noise_weighted),
-                        ("min_ref_weight", min_ref_weight > 0),
+                        ("min_ref_weight", min_ref_weight > 0
+                         and field.name == "tsdf"),
                         ("fuse_filtered", fuse_filtered)):
         if value:
             raise NotImplementedError(f"{name} is not ported yet")
@@ -122,14 +123,19 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
     # (ref DenseSLAMSystem.cpp:206-212)
     do_integrate = (tracked | (frame <= 3)) \
         & (((frame % integration_rate) == 0) | (frame <= 3))
+    allocate = (allocation.allocate_ofusion if field.multiscale_alloc
+                else allocation.allocate_tsdf)
     with record_function("frame_step/allocate"):
-        m2, astats = allocation.allocate_tsdf(
-            geom, state.map, depths[0], pose, k, mu, with_stats=True,
-            when=do_integrate, budget=alloc_budget)
+        m2, astats = allocate(geom, state.map, depths[0], pose, k, mu,
+                              with_stats=True, when=do_integrate,
+                              budget=alloc_budget)
     with record_function("frame_step/integrate"):
+        # the OFusion time stamp, f32 on the device like JAX's
+        # (1/30) * frame
+        timestamp = (1.0 / 30.0) * frame.to(torch.float32)
         new_map, istats = integration.integrate(
-            geom, m2, field, depth_m, pose, k, mu, frame_size, budget=budget,
-            with_stats=True, when=do_integrate)
+            geom, m2, field, depth_m, pose, k, mu, timestamp, frame_size,
+            budget=budget, with_stats=True, when=do_integrate)
 
     # ---- raycast: primed with this frame's depth, kept from frame 3 ----
     with record_function("frame_step/raycast"):

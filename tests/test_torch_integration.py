@@ -1,12 +1,15 @@
-"""Parity of the port's TSDF integration (kernel K3's plain twins + the
-torch node pass) with JAX ``ops/integration.integrate``.
+"""Parity of the port's integration (kernel K3's plain twins + the torch
+node pass) with JAX ``ops/integration.integrate``, both fields.
 
 The map is JAX's after frames 0-2, with frame 3's blocks allocated by
-JAX; frame 3 is then fused at its ground-truth pose by both. data_x,
-data_y, mip_x and mip_y must agree to 1e-5; active and the three counters
-exactly. A second case fuses a 320x240 frame taken 0.5 m from the sphere
-into a fresh map, so that near blocks outgrow every depth patch and take
-the exact per-pixel fallback.
+JAX; frame 3 is then fused at its ground-truth pose by both. TSDF:
+data_x, data_y, mip_x and mip_y must agree to 1e-5. OFusion (mu 0.008,
+stamped with frame 3's time 3/30): the log-odds (up to +/-1000) to a
+relative 1e-5 (absolute 1e-5 near 0) and the time stamps exactly, so the
+write gate agrees voxel for voxel. active and the three counters
+exactly. A second TSDF case fuses a 320x240 frame taken 0.5 m from the
+sphere into a fresh map, so that near blocks outgrow every depth patch
+and take the exact per-pixel fallback.
 """
 
 import jax
@@ -21,7 +24,7 @@ from supereight_tpu.ops import allocation as jax_allocation
 from supereight_tpu.ops import integration as jax_integration
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.core import se3
-from supereight_tpu_torch.fields import TSDF
+from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
 from supereight_tpu_torch.kernels import integrate as kint
 from supereight_tpu_torch.ops import integration
@@ -30,7 +33,12 @@ from test_torch_step import (DIM, H, K, SCENE_KW, W, assert_no_drops,
                              torch_geometry)
 
 MU = 0.1
+MU_OF = 0.008
 K_CLOSE = (240.0, 240.0, 160.0, 120.0)
+# case -> (field, mu); "orbit_of" is the orbit case fused as OFusion
+FIELD = {"orbit": ("tsdf", MU), "close": ("tsdf", MU),
+         "orbit_of": ("ofusion", MU_OF)}
+TIMESTAMP = np.float32(1.0 / 30.0) * np.float32(3)  # frame 3 (JAX step.py)
 
 
 def _close_view():
@@ -44,14 +52,15 @@ def _close_view():
     return depth, pose
 
 
-@pytest.fixture(scope="module", params=["orbit", "close"])
+@pytest.fixture(scope="module", params=["orbit", "close", "orbit_of"])
 def case(request):
     """(name, depth, pose, k, frame size, JAX map with depth's blocks
     allocated, as numpy)."""
     torch.set_num_threads(1)
-    if request.param == "orbit":
+    field, mu = FIELD[request.param]
+    if request.param != "close":
         depths, poses = make_scene()
-        states, auxes = jax_frames(depths, poses, 3)
+        states, auxes = jax_frames(depths, poses, 3, field)
         for a in auxes:
             assert_no_drops(a)
         depth, pose, k, size = depths[3], poses[3], K, (W, H)
@@ -59,31 +68,48 @@ def case(request):
     else:
         depth, pose = _close_view()
         k, size = K_CLOSE, (320, 240)
-        jm = make_map(jax_geometry(), get_field("tsdf"))
+        jm = make_map(jax_geometry(), get_field(field))
     pose = pose.astype(np.float32)
-    jm, st = jax_allocation.allocate_tsdf(
-        jax_geometry(), jm, jnp.asarray(depth), jnp.asarray(pose),
-        jnp.asarray(k, jnp.float32), MU, with_stats=True)
+    allocate = (jax_allocation.allocate_ofusion if field == "ofusion"
+                else jax_allocation.allocate_tsdf)
+    jm, st = allocate(jax_geometry(), jm, jnp.asarray(depth),
+                      jnp.asarray(pose), jnp.asarray(k, jnp.float32), mu,
+                      with_stats=True)
     assert int(st["alloc_overflow"]) == 0
     return (request.param, depth, pose, k, size,
             jax.tree.map(np.asarray, jm))
 
 
 def _run_both(case, when=None, budget=1024):
-    _, depth, pose, k, size, jmap = case
+    name, depth, pose, k, size, jmap = case
+    field, mu = FIELD[name]
     jm, jstats = jax_integration.integrate(
-        jax_geometry(), jax.tree.map(jnp.asarray, jmap), get_field("tsdf"),
+        jax_geometry(), jax.tree.map(jnp.asarray, jmap), get_field(field),
         jnp.asarray(depth), jnp.asarray(pose), jnp.asarray(k, jnp.float32),
-        MU, 0.0, size, budget=budget, with_stats=True,
+        mu, jnp.float32(TIMESTAMP), size, budget=budget, with_stats=True,
         when=None if when is None else jnp.bool_(when))
     tm, tstats = integration.integrate(
-        torch_geometry(), convert.map_to_torch(jmap), TSDF,
+        torch_geometry(), convert.map_to_torch(jmap),
+        OFUSION if field == "ofusion" else TSDF,
         torch.from_numpy(depth), torch.from_numpy(pose),
-        torch.tensor(k, dtype=torch.float32), MU, size, budget=budget,
-        with_stats=True, when=None if when is None else torch.tensor(when))
+        torch.tensor(k, dtype=torch.float32), mu, torch.tensor(TIMESTAMP),
+        size, budget=budget, with_stats=True,
+        when=None if when is None else torch.tensor(when))
     return (jax.tree.map(np.asarray, jm), {k: int(v) for k, v in
                                            jstats.items()},
             convert.to_numpy(tm), {k: int(v) for k, v in tstats.items()})
+
+
+def _assert_payload_close(name, a, b, what):
+    if FIELD[name][0] == "ofusion":
+        # log-odds reach +/-1000: relative; time stamps exactly
+        np.testing.assert_allclose(a[0], b[0], rtol=1e-5, atol=1e-5,
+                                   err_msg=what + " x")
+        np.testing.assert_array_equal(a[1], b[1], err_msg=what + " y")
+    else:
+        for i, c in enumerate("xy"):
+            np.testing.assert_allclose(a[i], b[i], atol=1e-5, rtol=0,
+                                       err_msg=what + " " + c)
 
 
 @pytest.mark.parametrize("when", [True, False])
@@ -92,17 +118,19 @@ def test_integrate_parity(case, when):
     assert tstats == jstats
     assert jstats == {"blocks_truncated": 0, "patch_skipped": 0,
                       "mip_skipped": 0}
-    jmap = case[-1]
+    name, jmap = case[0], case[-1]
     np.testing.assert_array_equal(tm.active, jm.active)
-    for field in ("data_x", "data_y"):
-        np.testing.assert_allclose(getattr(tm, field), getattr(jm, field),
-                                   atol=1e-5, rtol=0, err_msg=field)
+    _assert_payload_close(name, (tm.data_x, tm.data_y),
+                          (jm.data_x, jm.data_y), "data")
     for lvl in range(len(jm.mip_x)):
-        np.testing.assert_allclose(tm.mip_x[lvl], jm.mip_x[lvl], atol=1e-5,
-                                   rtol=0)
-        np.testing.assert_allclose(tm.mip_y[lvl], jm.mip_y[lvl], atol=1e-5,
-                                   rtol=0)
+        _assert_payload_close(name, (tm.mip_x[lvl], tm.mip_y[lvl]),
+                              (jm.mip_x[lvl], jm.mip_y[lvl]), f"mip {lvl}")
     assert (np.abs(jm.data_y - jmap.data_y).sum() > 0) == when
+    if name == "orbit_of" and when:
+        # the update exercised the write gate, the decay and both signs
+        wrote = jm.data_y == TIMESTAMP
+        assert wrote.any() and (~wrote & (jm.data_y > 0)).any()
+        assert (jm.data_x[wrote] > 0).any() and (jm.data_x[wrote] < 0).any()
 
 
 def test_close_view_takes_fallback(case):
@@ -125,7 +153,8 @@ def test_small_budget_truncates(case):
     jm, jstats, tm, tstats = _run_both(case, budget=16)
     assert jstats["blocks_truncated"] > 0
     assert tstats == jstats
-    np.testing.assert_allclose(tm.data_x, jm.data_x, atol=1e-5, rtol=0)
+    _assert_payload_close(case[0], (tm.data_x, tm.data_y),
+                          (jm.data_x, jm.data_y), "data")
 
 
 def test_fallback_mode_caps_at_32():

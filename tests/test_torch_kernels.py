@@ -1,5 +1,6 @@
 """The kernel wrappers: dispatch, argument checks, build inputs, and (on a
-CUDA card only, marker ``cuda``) each kernel against its plain twin.
+CUDA card only, marker ``cuda``) each kernel against its plain twin, for
+both fields and the gather-form probe.
 
 On the CPU a wrapper runs its twin because its tensors lie on the CPU;
 on any other device it launches its kernel or raises. The ``cuda`` tests
@@ -13,31 +14,37 @@ import torch
 
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import MapGeometry, make_map
-from supereight_tpu_torch.fields import TSDF
+from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
-from supereight_tpu_torch.kernels import _lib, alloc, icp, integrate, \
+from supereight_tpu_torch.kernels import _lib, alloc, icp, integrate, nav, \
     raycast as kray
+from supereight_tpu_torch.kernels import gather_probe as gp
 from supereight_tpu_torch.ops import integration, raycast
 from supereight_tpu_torch.parallel import step
 from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
 W, H = 64, 48
 K = (48.0, 48.0, 32.0, 24.0)
+MU = {"tsdf": 0.1, "ofusion": 0.008}
+# K3 update against its twin: TSDF distances to 1e-5; OFusion log-odds
+# reach +-1000 and log2f differs from torch.log2 by ulps
+UPDATE_TOL = {"tsdf": dict(atol=1e-5, rtol=0),
+              "ofusion": dict(atol=1e-4, rtol=1e-5)}
 
 
-def _frames(device, n=5):
+def _frames(device, n=5, field=TSDF):
     depths, poses = synthetic.orbit_sequence(
         n + 1, K, width=W, height=H, radius=0.8, center=(1.0,) * 3,
         sphere_radius=0.3, angle_span=0.3, room=((0.15,) * 3, (1.85,) * 3))
     geom = MapGeometry(size=64, dim=2.0, capacity=1024)
     k = torch.tensor(K).to(device)
-    state = step.init_frame_state(geom, TSDF, (W, H), poses[0], device)
+    state = step.init_frame_state(geom, field, (W, H), poses[0], device)
     for i in range(n):
         state, _ = step.frame_step(
-            geom, TSDF, state, torch.from_numpy(depths[i]).to(device), k, i,
-            frame_size=(W, H), iterations=(3, 2), mu=0.1, icp_threshold=1e-5,
-            neg_y=False, filter_input=False, integration_rate=1,
-            budget=1024)
+            geom, field, state, torch.from_numpy(depths[i]).to(device), k, i,
+            frame_size=(W, H), iterations=(3, 2), mu=MU[field.name],
+            icp_threshold=1e-5, neg_y=False, filter_input=False,
+            integration_rate=1, budget=1024)
     return geom, state, k, torch.from_numpy(depths[n]).to(device)
 
 
@@ -45,6 +52,9 @@ def test_cpu_tensors_take_the_twin_and_count_nothing():
     torch.set_num_threads(1)
     before = dict(_lib.LAUNCHES)
     _frames("cpu", n=2)
+    _frames("cpu", n=2, field=OFUSION)
+    for (name, kernel, _, _), (t, i) in zip(gp.FORMS, gp.probe_inputs()):
+        kernel(torch.from_numpy(t), torch.from_numpy(i))
     assert _lib.LAUNCHES == before
 
 
@@ -59,6 +69,16 @@ def test_other_devices_raise():
         alloc.touched_mask(MapGeometry(64, 2.0, 16),
                            torch.zeros((4, 4), device="meta"), p,
                            torch.ones(4, device="meta"), 0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        alloc.touched_masks_of(MapGeometry(64, 2.0, 16),
+                               torch.zeros((4, 4), device="meta"), p,
+                               torch.ones(4, device="meta"), 0.008)
+    geom = MapGeometry(64, 2.0, 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        nav.nav_grid(geom, make_map(geom, OFUSION, "meta"), OFUSION)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gp.take_rows_staged(torch.zeros((4, 4), device="meta"),
+                            torch.zeros(2, dtype=torch.int32, device="meta"))
 
 
 def test_check_rejects_bad_arguments():
@@ -73,8 +93,8 @@ def test_check_rejects_bad_arguments():
 
 def test_build_hash_covers_every_source_and_flag():
     names = {p.name for p in _lib._sources()}
-    assert {"icp.cu", "alloc.cu", "integrate.cu", "raycast.cu",
-            "common.cuh"} <= names
+    assert {"icp.cu", "alloc.cu", "integrate.cu", "raycast.cu", "nav.cu",
+            "gather_probe.cu", "common.cuh"} <= names
     assert _lib.source_hash() == _lib.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _lib.NVCC_FLAGS
     assert "-fmad=false" in _lib.NVCC_FLAGS
@@ -90,16 +110,19 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_kernels_match_twins_on_cuda(cuda):
-    geom, state, k, depth = _frames(cuda)
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_kernels_match_twins_on_cuda(cuda, field):
+    geom, state, k, depth = _frames(cuda, field=field)
     m, pose = state.map, state.pose
+    mu = MU[field.name]
 
+    nv = nav.nav_grid(geom, m, field)
+    assert torch.equal(nv, nav.nav_grid_plain(geom, m, field))
     view = se3.matmul4(pose, se3.inverse_camera_matrix(k))
     prime = raycast.prime_from_depth(depth, k)
-    nav = raycast.build_nav(geom, m)
-    got = kray.raycast_rays(geom, m, nav, view, prime, 0.1, (W, H))
-    ref = kray.raycast_plain(geom, m.data_x, m.data_y, nav, view, prime, 0.1,
-                             (W, H))
+    got = kray.raycast_rays(geom, m, field, nv, view, prime, mu, (W, H))
+    ref = kray.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
+                             prime, mu, (W, H))
     both = got[2] & ref[2]
     assert (got[2] == ref[2]).float().mean() >= 0.999
     assert torch.allclose(got[0][both], ref[0][both], atol=1e-4, rtol=0)
@@ -115,17 +138,36 @@ def test_kernels_match_twins_on_cuda(cuda):
                                rtol=1e-4, atol=1e-4 * float(sp.abs().max()))
 
     kpose = se3.matmul4(pose, se3.inverse_camera_matrix(k))
-    assert torch.equal(alloc.touched_mask(geom, depth, pose, k, 0.1),
-                       alloc.touched_mask_plain(geom, depth, pose, kpose,
-                                                0.1))
+    if field is TSDF:
+        assert torch.equal(alloc.touched_mask(geom, depth, pose, k, mu),
+                           alloc.touched_mask_plain(geom, depth, pose, kpose,
+                                                    mu))
+    else:
+        for a, b in zip(alloc.touched_masks_of(geom, depth, pose, k, mu),
+                        alloc.touched_masks_of_plain(geom, depth, pose,
+                                                     kpose, mu)):
+            assert torch.equal(a, b)
 
     t_cw, kmat = se3.inverse(pose), se3.camera_matrix(k)
+    ts = torch.full((), 0.2, device=cuda)
     wl, _ = integration.build_active_worklist(geom, m, t_cw, kmat, (W, H),
                                               1024)
-    a = make_map(geom, TSDF, cuda)._replace(block_coord=m.block_coord)
-    b = make_map(geom, TSDF, cuda)._replace(block_coord=m.block_coord)
-    sa = integrate.integrate_blocks(geom, a, wl, depth, t_cw, kmat, 0.1)
-    sb = integrate.integrate_blocks_plain(geom, b, wl, depth, t_cw, kmat, 0.1)
+    a = make_map(geom, field, cuda)._replace(block_coord=m.block_coord)
+    b = make_map(geom, field, cuda)._replace(block_coord=m.block_coord)
+    sa = integrate.integrate_blocks(geom, a, field, wl, depth, t_cw, kmat, mu,
+                                    ts)
+    sb = integrate.integrate_blocks_plain(geom, b, field, wl, depth, t_cw,
+                                          kmat, mu, ts)
     assert int(sa) == int(sb)
-    assert torch.allclose(a.data_x, b.data_x, atol=1e-5, rtol=0)
+    assert torch.allclose(a.data_x, b.data_x, **UPDATE_TOL[field.name])
     assert torch.equal(a.data_y, b.data_y) and torch.equal(a.active, b.active)
+
+
+@pytest.mark.cuda
+def test_gather_forms_bit_exact_on_cuda(cuda):
+    for (name, kernel, plain, expect), (t, i) in zip(gp.FORMS,
+                                                     gp.probe_inputs()):
+        tt, it = torch.from_numpy(t).to(cuda), torch.from_numpy(i).to(cuda)
+        got = kernel(tt, it)
+        assert torch.equal(got, plain(tt, it)), name
+        np.testing.assert_array_equal(got.cpu().numpy(), expect(t, i))

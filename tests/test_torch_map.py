@@ -1,5 +1,6 @@
 """Parity of the port's block-pool map (``core/map.py``) with JAX
-``core/map.py``: the empty map, the geometry and the voxel reads.
+``core/map.py``: the empty map, the geometry, the voxel reads and the
+mip-existence refresh (with OFusion's directly allocated coarse levels).
 
 The map under the reads is filled from a seed with numpy (random slots,
 payloads and coordinates, a fifth of them outside the map), so the test
@@ -79,3 +80,38 @@ def test_get_voxel_channel_matches_jax(channel, fill):
     ok = (v >= 0).all(0) & (v < SIZE).all(0)
     slots = np.where(ok, m.slot[tuple(np.clip(b, 0, SIZE // 8 - 1))], -1)
     assert (slots >= 0).any() and ((slots < 0) & ok).any() and (~ok).any()
+
+
+@pytest.mark.parametrize("extra", [None, (1, 2), (0, 1, 2, 3)])
+def test_refresh_mip_alloc_matches_jax(extra):
+    """Block allocation plus random masks ORed in at the listed levels
+    (OFusion's coarse octants), into a map whose mips already hold bits
+    (existence is monotonic)."""
+    rng = np.random.default_rng(11)
+    jg, tg = _geoms()
+    m = _random_map(rng)
+    b = tg.blocks_per_side
+    old = tuple((rng.random((b >> l,) * 3) < 0.05)
+                for l in range(tg.num_levels))
+    m = m._replace(mip_alloc=old)
+    block_alloc = rng.random((b,) * 3) < 0.02
+    masks = None
+    if extra is not None:
+        masks = [None] * tg.num_levels
+        for l in extra:
+            masks[l] = rng.random((b >> l,) * 3) < 0.05
+    jm = jax_map.MapState(*(tuple(map(jnp.asarray, x))
+                            if isinstance(x, tuple) else jnp.asarray(x)
+                            for x in m))
+    want = jax_map.refresh_mip_alloc(
+        jg, jm, jnp.asarray(block_alloc),
+        extra_levels=None if masks is None else tuple(
+            None if x is None else jnp.asarray(x) for x in masks))
+    tm = convert.map_to_torch(m)
+    tmap.refresh_mip_alloc(
+        tg, tm, torch.from_numpy(block_alloc),
+        extra_levels=None if masks is None else tuple(
+            None if x is None else torch.from_numpy(x) for x in masks))
+    for lvl, (a, w) in enumerate(zip(tm.mip_alloc, want.mip_alloc)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(w),
+                                      err_msg=f"level {lvl}")

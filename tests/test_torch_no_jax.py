@@ -2,8 +2,8 @@
 
 The port's host (a machine with an NVIDIA GPU) has no JAX: in a
 subprocess where importing ``jax``, ``jaxlib`` or ``supereight_tpu``
-raises, ``supereight_tpu_torch`` must import and run ``frame_step`` on
-the CPU.
+raises, ``supereight_tpu_torch`` must import every module and run
+``frame_step`` for both fields and the gather-form probe on the CPU.
 """
 
 import json
@@ -26,31 +26,40 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+import importlib, pkgutil
 import numpy as np
 import torch
 torch.set_num_threads(1)
 import supereight_tpu_torch
+for m in pkgutil.walk_packages(supereight_tpu_torch.__path__,
+                               "supereight_tpu_torch."):
+    importlib.import_module(m.name)
 from supereight_tpu_torch.core.map import MapGeometry
-from supereight_tpu_torch.fields import TSDF
+from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
 from supereight_tpu_torch.parallel import step
+from supereight_tpu_torch.tools import probe_gather
 
 K = (48.0, 48.0, 32.0, 24.0)
 depths, poses = synthetic.orbit_sequence(
     5, K, width=64, height=48, radius=0.8, center=(1.0,) * 3,
     sphere_radius=0.3, angle_span=0.3, room=((0.15,) * 3, (1.85,) * 3))
 geom = MapGeometry(size=32, dim=2.0, capacity=256)
-state = step.init_frame_state(geom, TSDF, (64, 48), poses[0])
-for i in range(5):
-    state, aux = step.frame_step(
-        geom, TSDF, state, torch.from_numpy(depths[i]),
-        torch.tensor(K), i, frame_size=(64, 48), iterations=(3, 2), mu=0.1,
-        icp_threshold=1e-5, neg_y=False, filter_input=False,
-        integration_rate=1, budget=256)
+out = {}
+for field, mu in ((TSDF, 0.1), (OFUSION, 0.008)):
+    state = step.init_frame_state(geom, field, (64, 48), poses[0])
+    for i in range(5):
+        state, aux = step.frame_step(
+            geom, field, state, torch.from_numpy(depths[i]),
+            torch.tensor(K), i, frame_size=(64, 48), iterations=(3, 2),
+            mu=mu, icp_threshold=1e-5, neg_y=False, filter_input=False,
+            integration_rate=1, budget=256)
+    out[field.name] = {"n_blocks": int(aux["n_blocks"]),
+                       "finite": bool(torch.isfinite(state.pose).all()),
+                       "keys": sorted(aux)}
+out["probe"] = all(ok for _, ok, _ in probe_gather.run(torch.device("cpu")))
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
-print(json.dumps({"n_blocks": int(aux["n_blocks"]),
-                  "finite": bool(torch.isfinite(state.pose).all()),
-                  "keys": sorted(aux)}))
+print(json.dumps(out))
 '''
 
 
@@ -65,12 +74,16 @@ def test_port_runs_without_jax():
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["finite"] and res["n_blocks"] > 0
-    assert res["keys"] == sorted(
-        ["tracked", "integrated", "reduction", "track_result", "n_blocks",
-         "alloc_overflow", "blocks_truncated", "patch_skipped",
-         "mip_skipped", "ray_overflow", "pool_bucket_overflow"])
+    out = json.loads(out.stdout.strip().splitlines()[-1])
+    assert out.pop("probe")
+    assert sorted(out) == ["ofusion", "tsdf"]
+    for res in out.values():
+        assert res["finite"] and res["n_blocks"] > 0
+        assert res["keys"] == sorted(
+            ["tracked", "integrated", "reduction", "track_result",
+             "n_blocks", "alloc_overflow", "blocks_truncated",
+             "patch_skipped", "mip_skipped", "ray_overflow",
+             "pool_bucket_overflow"])
 
 
 def _smoke(cwd):

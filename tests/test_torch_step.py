@@ -1,10 +1,12 @@
 """Parity of the port's fused frame step with the JAX reference.
 
-Eight frames of the synthetic orbit (the ``test_dist.py`` scene: 64^3
-voxels over 2.0 m, 64x48 pixels, ICP iterations (3, 2)) go through JAX
+Frames of the synthetic orbit (the ``test_dist.py`` scene: 64^3 voxels
+over 2.0 m, 64x48 pixels, ICP iterations (3, 2)) go through JAX
 ``frame_step`` on the CPU and the port's ``frame_step`` on CPU tensors
-(the kernels' plain twins). Poses must agree frame by frame to 2e-3 and
-the block count and every aux counter exactly.
+(the kernels' plain twins): eight TSDF frames at mu 0.1 and six OFusion
+frames at mu 0.008 (the OFusion bench's mu). Poses must agree frame by
+frame to 2e-3 and the block count and every aux counter exactly, with
+JAX's drop counters asserted zero first.
 
 The scene helpers here are shared by the other ``test_torch_*`` files.
 """
@@ -23,7 +25,7 @@ from supereight_tpu.io import synthetic as jax_synthetic
 from supereight_tpu.parallel import step as jax_step
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.core.map import MapGeometry
-from supereight_tpu_torch.fields import TSDF
+from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
 from supereight_tpu_torch.parallel import step
 
@@ -36,6 +38,9 @@ STEP_KW = dict(frame_size=(W, H), iterations=(3, 2), mu=0.1,
                icp_threshold=1e-5, neg_y=False, filter_input=False,
                use_gt_pose=False, integration_rate=1, tracking_rate=1,
                budget=CAPACITY)
+MU = {"tsdf": 0.1, "ofusion": 0.008}
+N_FRAMES_OF = 6
+FIELDS = {"tsdf": TSDF, "ofusion": OFUSION}
 COUNTERS = ("alloc_overflow", "blocks_truncated", "patch_skipped",
             "mip_skipped", "ray_overflow", "pool_bucket_overflow")
 SCENE_KW = dict(width=W, height=H, radius=0.4 * DIM, center=(DIM / 2,) * 3,
@@ -64,12 +69,17 @@ def k_torch():
     return torch.tensor(K, dtype=torch.float32)
 
 
-def jax_frames(depths, poses, n):
+def step_kw(field="tsdf"):
+    """The frame-step keywords of the test scene for ``field``."""
+    return {**STEP_KW, "mu": MU[field]}
+
+
+def jax_frames(depths, poses, n, field="tsdf"):
     """Run JAX frame_step over the first n frames; returns the host
     (numpy) state and aux of every frame."""
     fn = functools.partial(jax_step.frame_step, jax_geometry(),
-                           get_field("tsdf"), **STEP_KW)
-    state = jax_step.init_frame_state(jax_geometry(), get_field("tsdf"),
+                           get_field(field), **step_kw(field))
+    state = jax_step.init_frame_state(jax_geometry(), get_field(field),
                                       (W, H), poses[0])
     states, auxes = [], []
     for i in range(n):
@@ -94,21 +104,29 @@ def test_scene_matches_jax_generator():
     np.testing.assert_array_equal(p, pj)
 
 
-@pytest.fixture(scope="module")
-def trajectories():
-    torch.set_num_threads(1)
-    depths, poses = make_scene()
-    jstates, jaux = jax_frames(depths, poses, N_FRAMES)
-    jposes = [s.pose for s in jstates]
+def torch_frames(depths, poses, n, field="tsdf", **options):
+    """Run the port's frame_step over the first n frames on CPU tensors;
+    returns the last state and the (numpy) pose and aux of every frame."""
     geom = torch_geometry()
-    state = step.init_frame_state(geom, TSDF, (W, H), poses[0])
+    state = step.init_frame_state(geom, FIELDS[field], (W, H), poses[0])
     tposes, taux = [], []
-    for i in range(N_FRAMES):
-        state, aux = step.frame_step(geom, TSDF, state,
+    for i in range(n):
+        state, aux = step.frame_step(geom, FIELDS[field], state,
                                      torch.from_numpy(depths[i]), k_torch(),
-                                     i, **STEP_KW)
+                                     i, **step_kw(field), **options)
         tposes.append(state.pose.numpy().copy())
         taux.append({k: v.numpy().copy() for k, v in aux.items()})
+    return state, tposes, taux
+
+
+@pytest.fixture(scope="module", params=["tsdf", "ofusion"])
+def trajectories(request):
+    torch.set_num_threads(1)
+    n = N_FRAMES if request.param == "tsdf" else N_FRAMES_OF
+    depths, poses = make_scene()
+    jstates, jaux = jax_frames(depths, poses, n, request.param)
+    jposes = [s.pose for s in jstates]
+    _, tposes, taux = torch_frames(depths, poses, n, request.param)
     return jposes, jaux, tposes, taux
 
 
@@ -116,7 +134,8 @@ def test_frame_step_pose_parity(trajectories):
     jposes, jaux, tposes, _ = trajectories
     for a in jaux:
         assert_no_drops(a)
-    assert sum(bool(a["tracked"]) for a in jaux) >= 3
+    # frames 0-3 cannot track (no raycast before frame 3)
+    assert sum(bool(a["tracked"]) for a in jaux) >= min(3, len(jaux) - 4)
     for i, (a, b) in enumerate(zip(jposes, tposes)):
         np.testing.assert_allclose(b, a, atol=2e-3,
                                    err_msg=f"frame {i} diverged")
@@ -155,10 +174,33 @@ def test_unported_options_raise_before_any_work(option):
     assert not state.map.active.any()
 
 
-def test_convert_round_trip():
-    """numpy -> torch -> numpy keeps every field of a JAX FrameState."""
+def test_min_ref_weight_is_a_no_op_for_ofusion():
+    """JAX gates the raycast on the fusion weight for TSDF only
+    (supereight_tpu/parallel/step.py:171): for OFusion, channel y is a
+    time stamp and ``min_ref_weight`` changes nothing."""
+    torch.set_num_threads(1)
+    depths, poses = make_scene(5)
+    base, bposes, baux = torch_frames(depths, poses, 5, "ofusion")
+    gated, gposes, gaux = torch_frames(depths, poses, 5, "ofusion",
+                                       min_ref_weight=3)
+    assert sum(bool(a["tracked"]) for a in baux) >= 1
+    np.testing.assert_array_equal(np.stack(gposes), np.stack(bposes))
+    for a, b in zip(gaux, baux):
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    for a, b in zip(jax.tree.leaves(convert.to_numpy(gated)),
+                    jax.tree.leaves(convert.to_numpy(base))):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(NotImplementedError):     # TSDF: not ported yet
+        torch_frames(depths, poses, 1, "tsdf", min_ref_weight=3)
+
+
+@pytest.mark.parametrize("field", ["tsdf", "ofusion"])
+def test_convert_round_trip(field):
+    """numpy -> torch -> numpy keeps every field of a JAX FrameState,
+    the mip tuples included."""
     depths, poses = make_scene(3)
-    states, _ = jax_frames(depths, poses, 1)
+    states, _ = jax_frames(depths, poses, 1, field)
     js = states[0]
     back = convert.to_numpy(convert.frame_to_torch(js))
     for a, b in zip(jax.tree.leaves(js), jax.tree.leaves(tuple(back))):
