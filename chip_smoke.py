@@ -13,9 +13,10 @@ checkout:
 3. kernel phases: on a map built by three port frames of the bench scene,
    runs each kernel and its plain PyTorch twin on the same inputs on the
    card, checks them against the stated tolerances and times both; TSDF
-   (K6 ICP, K5 allocation, K3 integration prepass and update, K2 nav
-   grid, K1 raycast) and OFusion (K5-OF allocation, K2 nav grid, K3-OF
-   update, K1-OF raycast);
+   (K6 ICP reduction and whole tracking step, K5 allocation, K3
+   integration prepass and update, K2 nav grid, K1 raycast) and OFusion
+   (K6 tracking step, K5-OF allocation, K2 nav grid, K3-OF update, K1-OF
+   raycast);
 4. probe phase: the four gather forms of the Pallas probe (K8) against
    their twins, bit for bit, and both timed;
 5. slice phases: drives ``parallel/step.frame_step`` at the bench config
@@ -28,11 +29,15 @@ checkout:
    of its first 5 frames under torch.profiler, each stage's host and
    device time and the device's busy share; it checks the drop counters,
    tracking from frame 4 on, the final position error against ground
-   truth and that every kernel of the path was launched; then the probe's
-   own path (``supereight_tpu_torch.tools.probe_gather.run``) likewise,
-   each form bit for bit against the probe's numpy expectation;
-6. prints one JSON line of per-kernel results, the card line again, and
-   as its last line ``{"ok": true, "device": {...}}``.
+   truth and that every kernel of the path was launched, and holds the
+   tracking kernel to its twin once more on the slice's last frame; then
+   the probe's own path (``supereight_tpu_torch.tools.probe_gather.run``)
+   likewise, each form bit for bit against the probe's numpy expectation;
+6. prints one JSON line of per-kernel results (each with its bound: the
+   larger of its bytes over the HBM rate and its operations over the f32
+   rate, counted from this run's inputs; and, where one PyTorch call
+   computes the same function, that call's time), the card line again,
+   and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero without the ``ok`` line.
 It imports no JAX.
@@ -59,12 +64,26 @@ N_PROFILED = 5       # timed frames replayed under torch.profiler
 # JAX package reaches 0.0047 m at the TSDF config (BENCH_r05.json); its
 # value at the OFusion config is not recorded (PERF.md, Findings PR 2).
 MAX_POS_ERR = 0.02
+# H100 SXM peaks at the 700 W limit (NVIDIA H100 datasheet): HBM3
+# bytes/s and f32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations of K6's per-pixel body (csrc/icp.cu icp_pixel +
+# pixel_terms + the accumulation): two 4x4 transforms 36, projection 4,
+# residual 3, normal rotation 15, distance 6, normal dot 5, error 5,
+# j_rot 9, 28 products, 32 sums; and of one Gauss-Newton solve (Cholesky
+# 91, two substitutions 72, exp ~60, exp @ pose 112, norm 12)
+ICP_PIXEL_OPS = 143
+ICP_SOLVE_OPS = 347
+ICP_PIXEL_BYTES = 25     # vertex 12 + normal 12 + valid 1
 COUNTERS = ("alloc_overflow", "blocks_truncated", "patch_skipped",
             "mip_skipped", "ray_overflow", "pool_bucket_overflow")
 
 KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
     "icp_reduce": ("supereight_tpu_torch/csrc/icp.cu",
                    "supereight_tpu/ops/tracking.py:56"),
+    "icp_track": ("supereight_tpu_torch/csrc/icp.cu",
+                  "supereight_tpu/ops/tracking.py:242"),
     "alloc_touch": ("supereight_tpu_torch/csrc/alloc.cu",
                     "supereight_tpu/ops/allocation.py:75"),
     "alloc_touch_of": ("supereight_tpu_torch/csrc/alloc.cu",
@@ -92,13 +111,13 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
 }
 # device kernel names (without "_kernel") reported from the profile; the
 # OFusion instantiations are the <true> ones
-PROFILED = {"icp_reduce", "alloc_touch", "alloc_touch_of",
+PROFILED = {"icp_reduce", "icp_track", "alloc_touch", "alloc_touch_of",
             "integrate_prepass", "integrate_update", "nav_dist_x",
             "nav_dist_y", "nav_final", "raycast"}
 PATHS = {  # the kernels each main path must launch
-    "tsdf": ("icp_reduce", "alloc_touch", "integrate_prepass",
+    "tsdf": ("icp_track", "alloc_touch", "integrate_prepass",
              "integrate_update", "nav_grid", "raycast"),
-    "ofusion": ("icp_reduce", "alloc_touch_of", "integrate_prepass",
+    "ofusion": ("icp_track", "alloc_touch_of", "integrate_prepass",
                 "integrate_update_of", "nav_grid", "raycast_of"),
     "probe": ("gather_a", "gather_b", "gather_c", "gather_d"),
 }
@@ -142,6 +161,118 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_us(torch, fn, reps):
+    """Device microseconds per call of fn() from torch.profiler: the sum
+    of the kernels and copies it runs, over reps calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / reps
+
+
+def bound(n_bytes, n_ops):
+    """The least time the card could take for a function that moves
+    n_bytes (each input read once, each output written once) and does
+    n_ops operations: the larger of the two times at the card's peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def icp_bound(args, run):
+    """K6 icp_track's bound for one frame: the pyramid and the reference
+    read once, the finest result map written once, and the pixel body
+    over the iterations this frame ran at each level."""
+    _, _, verts, _, _, ref_vertex, _, _ = args
+    px = [v.shape[0] * v.shape[1] for v in verts]
+    ref = ref_vertex.shape[0] * ref_vertex.shape[1]
+    n_bytes = ((sum(px) + ref) * ICP_PIXEL_BYTES + px[0] * 4
+               + 4 * 64 + 32 * 4 + 1 + 4 * len(px))
+    n_ops = (sum(r * n for r, n in zip(run, px)) * ICP_PIXEL_OPS
+             + sum(run) * ICP_SOLVE_OPS)
+    return bound(n_bytes, n_ops)
+
+
+def track_errors(torch, got, want):
+    """K6 icp_track's outputs (pose, tracked, reduction, result) against
+    its twin's: (within the tolerances, errors). Tracked equal, pose to
+    1e-4, reduction entries 0-27 to 1e-3 of themselves (floored at 1e-4
+    of the largest), the counts 28-31 to 0.1 % of the pixels, result codes
+    on >= 99.9 % of pixels."""
+    rp = want[2]
+    scale = rp[:28].abs() + 1e-4 * rp[:28].abs().max()
+    diff = (got[2][:28] - rp[:28]).abs()
+    # frames without a reference reduce to all zeros: equal is exact there
+    rel = torch.where(diff == 0, torch.zeros_like(diff), diff / scale)
+    e = dict(tracked=(bool(got[1]), bool(want[1])),
+             pose=(got[0] - want[0]).abs().max().item(),
+             rel=rel.max().item(), worst=int(rel.argmax()),
+             counts=(got[2][28:] - rp[28:]).abs().max().item(),
+             agree=(got[3] == want[3]).float().mean().item(),
+             n_px=want[3].numel())
+    ok = (e["tracked"][0] == e["tracked"][1] and e["pose"] <= 1e-4
+          and e["rel"] <= 1e-3 and e["counts"] <= 1e-3 * e["n_px"]
+          and e["agree"] >= 0.999)
+    return ok, e
+
+
+def check_icp_track(torch, tag, args):
+    """K6 icp_track against its twin on one frame's tracking inputs: the
+    tolerances of :func:`track_errors` and two launches bit-identical.
+    Returns the kernel's row."""
+    from supereight_tpu_torch.kernels import icp
+
+    def call():
+        return icp.icp_track(*args, ITERATIONS, 1e-5)
+
+    want = icp.icp_track_plain(*args, ITERATIONS, 1e-5)
+    # the kernel's outputs and the iterations it ran at each level
+    got = icp._icp_track(*args, ITERATIONS, 1e-5)
+    run = got[4].tolist()
+    got = got[:4]
+    same = all(torch.equal(a, b) for a, b in zip(got, call()))
+    ok, e = track_errors(torch, got, want)
+    exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    ms = cuda_ms(torch, call, 20)
+    us = device_us(torch, call, 10)
+    print(f"{tag}: tracked {e['tracked'][0]} vs {e['tracked'][1]}, pose "
+          f"max err {e['pose']:.3e} (<= 1e-4), reduction 0-27 max rel err "
+          f"{e['rel']:.3e} (<= 1e-3; entry {e['worst']}), counts max err "
+          f"{e['counts']:.0f} (<= {1e-3 * e['n_px']:.1f}), result codes "
+          f"agree on {e['agree']:.6f} (>= 0.999), equal to the twin bit for "
+          f"bit: {exact}, two launches bit-identical: {same}; iterations "
+          f"run per level (finest first) {run} of {list(ITERATIONS)}; call "
+          f"{ms:.4f} ms, device {us:.2f} us/launch")
+    require(ok and same, f"{tag}: icp_track disagrees with twin")
+    row = dict(max_abs_err=e["pose"], ms=ms, **icp_bound(args, run))
+    row["plain_ms"] = cuda_ms(torch, lambda: icp.icp_track_plain(
+        *args, ITERATIONS, 1e-5), 3)
+    print(f"{tag}: twin call {row['plain_ms']:.4f} ms; bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    return row
+
+
+def track_args(torch, sc, state, depth):
+    """One frame's tracking inputs, as frame_step hands them to K6: the
+    state's pose, K @ raycast_pose^-1, the frame's pyramid and the
+    state's reference maps."""
+    from supereight_tpu_torch.core import se3
+    from supereight_tpu_torch.pipeline import preprocess_and_pyramid
+    _, verts, norms, valids = preprocess_and_pyramid(
+        depth, sc.kt, len(ITERATIONS), False, False)
+    view = se3.matmul4(se3.camera_matrix(sc.kt),
+                       se3.inverse(state.raycast_pose))
+    return (state.pose, view, verts, norms, valids, state.vertex,
+            state.normal, state.valid)
+
+
 def report_profile(prof, ms_frame, tag):
     """Print the per-stage and per-kernel device time of the profiled
     frames, and the device's busy share of the unprofiled frame time."""
@@ -154,14 +285,22 @@ def report_profile(prof, ms_frame, tag):
     events = prof.key_averages()
     stages = [e for e in events if e.key.startswith("frame_step/")
               and e.device_type == DeviceType.CPU]
-    for e in sorted(stages, key=lambda e: e.key):
-        print(f"{tag} profile: {e.key:22s} host "
-              f"{e.cpu_time_total / 1e3 / N_PROFILED:8.3f} ms/frame, device "
-              f"{dev_us(e, False) / 1e3 / N_PROFILED:8.3f} ms/frame")
     # device-side events: kernels and copies, plus the GPU-timeline copies
     # of the frame_step/* annotations, which are spans and not work
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not e.key.startswith("frame_step/")]
+    # the profiler does not tie a cudaLaunchKernelEx launch (icp_track's
+    # cluster) to the span around it: it is added to the track stage
+    cluster_us = sum(dev_us(e, True) for e in kernels
+                     if "icp_track_kernel" in e.key)
+    for e in sorted(stages, key=lambda e: e.key):
+        extra = cluster_us if e.key == "frame_step/track" else 0.0
+        print(f"{tag} profile: {e.key:22s} host "
+              f"{e.cpu_time_total / 1e3 / N_PROFILED:8.3f} ms/frame, device "
+              f"{(dev_us(e, False) + extra) / 1e3 / N_PROFILED:8.3f} "
+              f"ms/frame" + (f" (icp_track's cluster launch "
+                             f"{extra / 1e3 / N_PROFILED:.3f} of it)"
+                             if extra else ""))
     busy = sum(dev_us(e, True) for e in kernels) / 1e3 / N_PROFILED
     n_launch = sum(e.count for e in kernels) / N_PROFILED
     print(f"{tag} profile: device busy {busy:.3f} ms/frame in "
@@ -237,6 +376,75 @@ class Scene:
         return state
 
 
+def alloc_bound(geom, depth, mu):
+    """K5 alloc_touch: the 2x2-sampled depth read once and the touched
+    grid written once; per valid sampled pixel the ray setup (~40
+    operations) and ~13 per band sample (csrc/alloc.cu)."""
+    from supereight_tpu_torch.kernels import alloc
+    _, num_steps, _ = alloc.band_schedule(geom, mu)
+    rays = int((depth[::2, ::2] > 0).sum())
+    return bound(rays * 4 + geom.blocks_per_side ** 3 + 2 * 64,
+                 rays * (40 + 13 * num_steps))
+
+
+def alloc_of_bound(geom, depth, mu):
+    """K5-OF alloc_touch_of: the 2x2- and 8x8-sampled depth read once and
+    the three touched grids written once; per valid ray the setup (~50
+    operations) and ~13 per sample of its levels of the static ladder."""
+    from supereight_tpu_torch.kernels import alloc
+    band, max_dist = alloc._of_schedule(geom, mu, None)
+    _, levels = alloc.ofusion_step_ladder(geom, band, max_dist)
+    fine = int((depth[::2, ::2] > 0).sum())
+    coarse = int((depth[::8, ::8] > 0).sum())
+    n_fine = sum(1 for lvl in levels if lvl == 0)
+    b = geom.blocks_per_side
+    return bound((fine + coarse) * 4 + sum((b >> lvl) ** 3 for lvl in
+                                           range(3)) + 2 * 64,
+                 fine * (50 + 13 * n_fine)
+                 + coarse * (50 + 13 * (len(levels) - n_fine)))
+
+
+def integrate_bounds(field, wl, n_valid, before, after):
+    """K3's two launches. Prepass: the worklist and the listed blocks'
+    coordinates read once, three i32/u8 outputs per entry, and per voxel
+    the projection (43 operations) and the bbox (4). Update: the valid
+    voxels' two channels read once, the changed ones written once, the
+    depth under them, and per voxel the projection plus the field's
+    update on valid ones (TSDF 19, OFusion 44 operations;
+    csrc/integrate.cu)."""
+    nb = int((wl < CAPACITY).sum())
+    nv = int(n_valid.sum())
+    changed = int(((after.data_x != before.data_x)
+                   | (after.data_y != before.data_y)).sum())
+    per_update = 44 if field.name == "ofusion" else 19
+    pre = bound(wl.numel() * (4 + 9) + nb * 12 + 2 * 64, nb * 512 * 47)
+    upd = bound(wl.numel() * 8 + nb * 13 + nv * 8 + changed * 8
+                + min(nv, W * H) * 4 + 2 * 64,
+                nb * 512 * 43 + nv * per_update)
+    return pre, upd
+
+
+def nav_bound(geom, field):
+    """K2 nav_grid: the slot grid (and, for OFusion, every mip level's
+    existence, value and time) read once and the nav grid written once;
+    per cell three separable passes of 11 neighbours at ~3 operations."""
+    b = geom.blocks_per_side
+    mips = (sum(9 * (b >> lvl) ** 3 for lvl in range(geom.num_levels))
+            if field.name == "ofusion" else 0)
+    return bound(8 * b ** 3 + mips, 99 * b ** 3)
+
+
+def raycast_bound(got):
+    """K1: the priming depth read once and the vertex, normal and hit maps
+    written once; per ray the direction and box clip (~55 operations) and
+    per hit the refinement and normal (~115). The march's probes are left
+    out (how many a ray needs depends on the map), so this bound is
+    loose."""
+    rays = got[2].numel()
+    hits = int(got[2].sum())
+    return bound(rays * (4 + 12 + 12 + 1) + 64, rays * 55 + hits * 115)
+
+
 def check_raycast(torch, tag, got, ref):
     both = got[2] & ref[2]
     agree = (got[2] == ref[2]).float().mean().item()
@@ -261,7 +469,8 @@ def check_nav(torch, sc, m, tag):
         ms=cuda_ms(torch, lambda: nav.nav_grid(sc.geom, m, sc.field,
                                                bucket=BUDGET), 50),
         plain_ms=cuda_ms(torch, lambda: nav.nav_grid_plain(
-            sc.geom, m, sc.field, bucket=BUDGET), 10))
+            sc.geom, m, sc.field, bucket=BUDGET), 10),
+        **nav_bound(sc.geom, sc.field))
     print(f"{tag}: {int((ref >= 0).sum())} block cells, "
           f"{int(((-ref - 1) >= 8).sum())} known-free coarse cells, "
           f"{mism} mismatches (== 0); call {row['ms']:.4f} ms, twin "
@@ -301,7 +510,7 @@ def kernel_phase_tsdf(torch, sc):
             geom, m, field, nv, view, prime, mu, (W, H)), 20),
         plain_ms=cuda_ms(torch, lambda: raycast.raycast_plain(
             geom, field, m.data_x, m.data_y, nv, view, prime, mu, (W, H)),
-            2))
+            2), **raycast_bound(got))
     ref_vertex, ref_normal, ref_valid = got[0], got[1], got[2]
 
     # K6: frame 3's finest pyramid level against that raycast
@@ -322,7 +531,15 @@ def kernel_phase_tsdf(torch, sc):
     rows["icp_reduce"] = dict(
         max_abs_err=(red_k - red_p).abs().max().item(),
         ms=cuda_ms(torch, lambda: icp.icp_reduce(*args), 50),
-        plain_ms=cuda_ms(torch, lambda: icp.icp_reduce_plain(*args), 10))
+        plain_ms=cuda_ms(torch, lambda: icp.icp_reduce_plain(*args), 10),
+        **bound((2 * H * W) * ICP_PIXEL_BYTES + H * W * 4 + 2 * 64 + 32 * 4,
+                H * W * ICP_PIXEL_OPS))
+
+    # K6: the whole tracking step of frame 3 against that raycast
+    rows["icp_track"] = check_icp_track(
+        torch, "K6 icp_track (TSDF, frame 3)",
+        (pose, kview, verts, norms, valids, ref_vertex, ref_normal,
+         ref_valid))
 
     # K5: the band march of frame 3 at the frame-2 pose
     kpose = se3.matmul4(pose, se3.inverse_camera_matrix(kt))
@@ -337,7 +554,8 @@ def kernel_phase_tsdf(torch, sc):
         ms=cuda_ms(torch, lambda: alloc.touched_mask(geom, d3, pose, kt, mu),
                    50),
         plain_ms=cuda_ms(torch, lambda: alloc.touched_mask_plain(
-            geom, d3, pose, kpose, mu), 10))
+            geom, d3, pose, kpose, mu), 10),
+        **alloc_bound(geom, d3, mu))
 
     # K3: fuse frame 3 at the frame-2 pose into two copies of the map
     t_cw = se3.inverse(pose)
@@ -357,6 +575,7 @@ def kernel_phase_tsdf(torch, sc):
     integrate.integrate_update(geom, ma, field, wl, d3, t_cw, kmat, mu, mode)
     integrate.integrate_update_plain(geom, mb, field, wl, d3, t_cw, kmat, mu,
                                      mode)
+    ubound = integrate_bounds(field, wl, pre_k[1], m, ma)
     ex = (ma.data_x - mb.data_x).abs().max().item()
     ey = (ma.data_y - mb.data_y).abs().max().item()
     act = int((ma.active != mb.active).sum())
@@ -369,13 +588,13 @@ def kernel_phase_tsdf(torch, sc):
         ms=cuda_ms(torch, lambda: integrate.integrate_prepass(
             geom, m, wl, d3, t_cw, kmat), 50),
         plain_ms=cuda_ms(torch, lambda: integrate.integrate_prepass_plain(
-            geom, m, wl, d3, t_cw, kmat), 10))
+            geom, m, wl, d3, t_cw, kmat), 10), **ubound[0])
     rows["integrate_update"] = dict(
         max_abs_err=ex,
         ms=cuda_ms(torch, lambda: integrate.integrate_update(
             geom, ma, field, wl, d3, t_cw, kmat, mu, mode), 50),
         plain_ms=cuda_ms(torch, lambda: integrate.integrate_update_plain(
-            geom, mb, field, wl, d3, t_cw, kmat, mu, mode), 10))
+            geom, mb, field, wl, d3, t_cw, kmat, mu, mode), 10), **ubound[1])
     return rows
 
 
@@ -385,6 +604,7 @@ def kernel_phase_of(torch, sc):
     from supereight_tpu_torch.core import se3
     from supereight_tpu_torch.kernels import alloc, integrate, nav, raycast
     from supereight_tpu_torch.ops import integration, raycast as ops_ray
+    from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
     geom, field, mu, kt = sc.geom, sc.field, sc.mu, sc.kt
     state = sc.run_frames(3)
@@ -406,7 +626,8 @@ def kernel_phase_of(torch, sc):
         ms=cuda_ms(torch, lambda: alloc.touched_masks_of(
             geom, d3, pose, kt, mu), 50),
         plain_ms=cuda_ms(torch, lambda: alloc.touched_masks_of_plain(
-            geom, d3, pose, kpose, mu), 10))
+            geom, d3, pose, kpose, mu), 10),
+        **alloc_of_bound(geom, d3, mu))
 
     # K2 (OFusion payload) + K1-OF: the primed raycast of frame 2
     rows["nav_grid"] = check_nav(torch, sc, m, "K2 nav_grid (OFusion)")
@@ -423,7 +644,14 @@ def kernel_phase_of(torch, sc):
             geom, m, field, nv, view, prime, mu, (W, H)), 20),
         plain_ms=cuda_ms(torch, lambda: raycast.raycast_plain(
             geom, field, m.data_x, m.data_y, nv, view, prime, mu, (W, H)),
-            2))
+            2), **raycast_bound(got))
+
+    # K6: the whole tracking step of frame 3 against that raycast
+    _, verts, norms, valids = preprocess_and_pyramid(d3, kt, 3, False, False)
+    kview = se3.matmul4(se3.camera_matrix(kt), se3.inverse(pose))
+    rows["icp_track"] = check_icp_track(
+        torch, "K6 icp_track (OFusion, frame 3)",
+        (pose, kview, verts, norms, valids, got[0], got[1], got[2]))
 
     # K3-OF: fuse frame 3 at the frame-2 pose into two copies of the map,
     # stamped with frame 3's time
@@ -440,6 +668,7 @@ def kernel_phase_of(torch, sc):
                                ts)
     integrate.integrate_update_plain(geom, mb, field, wl, d3, t_cw, kmat, mu,
                                      mode, ts)
+    ubound = integrate_bounds(field, wl, n_valid, m, ma)
     dx = (ma.data_x - mb.data_x).abs()
     bad = int((dx > 1e-4 + 1e-5 * mb.data_x.abs()).sum())
     ex = dx.max().item()
@@ -460,7 +689,8 @@ def kernel_phase_of(torch, sc):
         ms=cuda_ms(torch, lambda: integrate.integrate_update(
             geom, ma, field, wl, d3, t_cw, kmat, mu, mode, ts), 50),
         plain_ms=cuda_ms(torch, lambda: integrate.integrate_update_plain(
-            geom, mb, field, wl, d3, t_cw, kmat, mu, mode, ts), 10))
+            geom, mb, field, wl, d3, t_cw, kmat, mu, mode, ts), 10),
+        **ubound[1])
     return rows
 
 
@@ -468,8 +698,6 @@ def probe_phase(torch, dev):
     """K8: each gather form against its twin, bit for bit, and both timed
     (the probe path checks the kernels against the probe's numpy
     expectation)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from supereight_tpu_torch.kernels import gather_probe as gp
     rows = {}
     for (name, kernel, plain, _), (t, i), key in zip(
@@ -482,28 +710,46 @@ def probe_phase(torch, dev):
         print(f"K8 {key} ({name}): {tuple(got.shape)}, bit-exact against "
               f"twin: {exact}")
         require(exact, f"K8 {key} is not bit-exact")
-        rows[key] = dict(max_abs_err=err,
-                         ms=cuda_ms(torch, lambda: kernel(tt, it), 200),
-                         plain_ms=cuda_ms(torch, lambda: plain(tt, it), 200))
+        # the one PyTorch call of the same function (its index as int64,
+        # made before the timing); the port never calls it
+        it64 = it.long()
+        library = {
+            "gather_a": lambda: torch.index_select(tt, 0, it),
+            "gather_b": lambda: torch.gather(tt, 0, it64),
+            "gather_c": lambda: torch.gather(tt, 1, it64),
+            "gather_d": lambda: torch.index_select(tt, 0, it)}[key]
+        require(torch.equal(library(), ref), f"K8 {key}: library call")
+        # bytes: the distinct table elements read, the index, the output
+        cols = torch.arange(got.shape[1], device=dev)
+        if key in ("gather_a", "gather_d"):
+            n_read = torch.unique(it).numel() * tt.shape[1]
+        elif key == "gather_b":
+            n_read = torch.unique(it64 * tt.shape[1] + cols).numel()
+        else:
+            rows_ = torch.arange(got.shape[0], device=dev)[:, None]
+            n_read = torch.unique(rows_ * tt.shape[1] + it64).numel()
+        rows[key] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(torch, lambda: kernel(tt, it), 200),
+            plain_ms=cuda_ms(torch, lambda: plain(tt, it), 200),
+            library_ms=cuda_ms(torch, library, 200),
+            **bound(4 * (n_read + it.numel() + got.numel()), 0))
         # device time per launch (the call times above are the host's)
-        us = []
-        for fn in (kernel, plain):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    fn(tt, it)
-                torch.cuda.synchronize()
-            us.append(sum(e.self_device_time_total
-                          for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA) / 20)
+        us = [device_us(torch, lambda: fn(tt, it), 20)
+              for fn in (kernel, plain)]
         print(f"K8 {key}: call {rows[key]['ms']:.4f} ms, twin "
-              f"{rows[key]['plain_ms']:.4f} ms; device {us[0]:.2f} "
-              f"us/call, twin {us[1]:.2f} us/call")
+              f"{rows[key]['plain_ms']:.4f} ms, library "
+              f"{rows[key]['library_ms']:.4f} ms; device {us[0]:.2f} "
+              f"us/call, twin {us[1]:.2f} us/call; bound "
+              f"{rows[key]['bound_ms'] * 1e3:.3f} us")
     return rows
 
 
 def slice_phase(torch, sc, card):
     """The main path of one field: 43 frames with the launch counts zeroed
-    just before and read just after; returns the launch counts."""
+    just before and read just after; then K6 icp_track against its twin
+    on the last frame's tracking inputs. Returns the path's launch counts
+    and that check's pose error."""
     import numpy as np
     from supereight_tpu_torch.kernels import _lib
 
@@ -572,7 +818,37 @@ def slice_phase(torch, sc, card):
     path = PATHS[sc.field.name]
     require(all(launches[k] > 0 for k in path),
             f"{tag}: a kernel of the path was not launched: {launches}")
-    return {k: launches[k] for k in path}
+    # the whole tracking step is one launch a frame, the reduction alone
+    # is no longer on the path
+    require(launches["icp_track"] == sc.n_total
+            and launches["icp_reduce"] == 0,
+            f"{tag}: icp_track launched {launches['icp_track']} times, "
+            f"icp_reduce {launches['icp_reduce']}, in {sc.n_total} frames")
+
+    # K6 against its twin on every frame's tracking inputs as the path
+    # meets them (the slice once more: every launch is deterministic, so
+    # these are the timed run's frames), then once more (timed, launched
+    # twice) on the last frame
+    from supereight_tpu_torch.kernels import icp
+    n_exact, worst = 0, 0.0
+    state = sc.init()
+    for i in range(sc.n_total):
+        args = track_args(torch, sc, state, sc.depths_t[i])
+        state, aux = sc.frame(state, i)
+        got = (state.pose, aux["tracked"], aux["reduction"],
+               aux["track_result"])
+        want = icp.icp_track_plain(*args, ITERATIONS, 1e-5)
+        ok, e = track_errors(torch, got, want)
+        require(ok, f"{tag}: frame {i}: icp_track disagrees with twin: {e}")
+        n_exact += all(torch.equal(x, y) for x, y in zip(got, want))
+        worst = max(worst, e["pose"])
+    print(f"{tag}: icp_track within the twin's tolerances on all "
+          f"{sc.n_total} frames, equal to it bit for bit on {n_exact}; pose "
+          f"max err {worst:.3e}")
+    trow = check_icp_track(
+        torch, f"K6 icp_track ({sc.field.name}, frame {sc.n_total - 1})",
+        args)
+    return {k: launches[k] for k in path}, max(worst, trow["max_abs_err"])
 
 
 def probe_path(torch, dev):
@@ -621,19 +897,30 @@ def main():
     dev = torch.device("cuda", 0)
     tsdf, of = Scene(torch, TSDF, dev), Scene(torch, OFUSION, dev)
     rows = kernel_phase_tsdf(torch, tsdf)
-    rows.update(kernel_phase_of(torch, of))
+    of_rows = kernel_phase_of(torch, of)
+    # icp_track's error: the largest of its four checks (both fields,
+    # frame 3 and the slice's last frame)
+    track_errs = [rows["icp_track"]["max_abs_err"],
+                  of_rows.pop("icp_track")["max_abs_err"]]
+    rows.update(of_rows)
     rows.update(probe_phase(torch, dev))
     torch.cuda.synchronize()
 
     # ---- the main paths, each with the counts zeroed just before -------
     launches = {k: 0 for k in KERNELS}
     for sc in (tsdf, of):
-        for k, v in slice_phase(torch, sc, card).items():
+        path_launches, err = slice_phase(torch, sc, card)
+        track_errs.append(err)
+        for k, v in path_launches.items():
             launches[k] += v
     launches.update(probe_path(torch, dev))
+    rows["icp_track"]["max_abs_err"] = max(track_errs)
 
+    # library_ms: no single PyTorch call computes the function, except
+    # for the gather forms (probe phase)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **rows[name])
+                    launches=launches[name],
+                    **{"library_ms": None, **rows[name]})
                for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

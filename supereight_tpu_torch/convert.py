@@ -2,8 +2,9 @@
 
 Turns a JAX ``MapState`` or ``FrameState`` given as numpy arrays (for
 example ``jax.tree.map(np.asarray, state)``) into the port's tensors on a
-device, and back to numpy. The field names are the same in both packages,
-so any object with those attributes works; this module imports no JAX.
+device (the card unless the caller asks for another), and back to numpy.
+The field names are the same in both packages, so any object with those
+attributes works; this module imports no JAX.
 """
 
 import numpy as np
@@ -24,7 +25,7 @@ def _tensor(a, device):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def map_to_torch(m, device="cpu") -> MapState:
+def map_to_torch(m, device="cuda") -> MapState:
     """A JAX-layout map (numpy arrays) -> the port's MapState."""
     return MapState(
         data_x=_tensor(m.data_x, device), data_y=_tensor(m.data_y, device),
@@ -36,7 +37,7 @@ def map_to_torch(m, device="cpu") -> MapState:
         mip_alloc=tuple(_tensor(a, device) for a in m.mip_alloc))
 
 
-def frame_to_torch(s, device="cpu") -> FrameState:
+def frame_to_torch(s, device="cuda") -> FrameState:
     """A JAX-layout FrameState (numpy arrays) -> the port's FrameState."""
     return FrameState(
         map=map_to_torch(s.map, device), pose=_tensor(s.pose, device),

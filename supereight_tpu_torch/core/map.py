@@ -68,8 +68,10 @@ class MapState(NamedTuple):
     mip_alloc: Tuple[torch.Tensor, ...]  # bool[B>>l, ...] value exists
 
 
-def make_map(geom: MapGeometry, field: FieldSpec, device="cpu") -> MapState:
-    """Create an empty map (ref: Octree::init, octree.hpp:428-438)."""
+def make_map(geom: MapGeometry, field: FieldSpec,
+             device="cuda") -> MapState:
+    """Create an empty map (ref: Octree::init, octree.hpp:428-438) on
+    ``device``, the card unless the caller asks for another."""
     cap = geom.capacity
     b = geom.blocks_per_side
     init_x, init_y = field.init

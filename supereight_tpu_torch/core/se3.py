@@ -23,10 +23,13 @@ def exp(twist):
     """SE(3) exponential map; twist [..., 6] -> [..., 4, 4] matrix.
 
     Uses the Taylor expansion below 1e-8 rad^2 so it is safe at the
-    identity (where ICP converges).
+    identity (where ICP converges). Every sum runs left to right (as in
+    :func:`matmul4`), the order csrc/icp.cu's icp_track uses, so the two
+    agree bit for bit on the same twist.
     """
     v, w = twist[..., :3], twist[..., 3:]
-    theta_sq = torch.sum(w * w, dim=-1)
+    theta_sq = w[..., 0] * w[..., 0] + w[..., 1] * w[..., 1] \
+        + w[..., 2] * w[..., 2]
     theta = torch.sqrt(theta_sq)
     small = theta_sq < 1e-8
 
@@ -38,11 +41,11 @@ def exp(twist):
                     (th - torch.sin(th)) / (th * th * th))
 
     W = hat(w)
-    W2 = torch.matmul(W, W)
+    W2 = matmul4(W, W)
     eye = torch.eye(3, dtype=twist.dtype, device=twist.device).expand(W.shape)
     R = eye + a[..., None, None] * W + b[..., None, None] * W2
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
-    t = torch.matmul(V, v[..., None])[..., 0]
+    t = matmul4(V, v[..., None])[..., 0]
 
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = _bottom_row(top)
@@ -68,13 +71,14 @@ def inverse(T):
 
 
 def matmul4(a, b):
-    """a @ b for [4, 4] matrices with each dot product summed left to
-    right (k = 0..3), the order of the JAX reference's small f32 dots;
-    a library matmul may sum in another order and differ in the last bit,
-    which can move a floor() in the allocation march."""
-    out = a[:, 0:1] * b[0:1, :]
-    for j in range(1, 4):
-        out = out + a[:, j:j + 1] * b[j:j + 1, :]
+    """a @ b for small [..., n, k] @ [..., k, m] matrices (4x4 poses, 3x3
+    rotations) with each dot product summed left to right (k = 0, 1, ...),
+    the order of the JAX reference's small f32 dots; a library matmul may
+    sum in another order and differ in the last bit, which can move a
+    floor() in the allocation march."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for j in range(1, a.shape[-1]):
+        out = out + a[..., :, j:j + 1] * b[..., j:j + 1, :]
     return out
 
 

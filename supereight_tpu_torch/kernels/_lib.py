@@ -31,13 +31,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"icp_reduce": 0, "alloc_touch": 0, "alloc_touch_of": 0,
-            "integrate_prepass": 0, "integrate_update": 0,
-            "integrate_update_of": 0, "nav_grid": 0, "raycast": 0,
-            "raycast_of": 0, "gather_a": 0, "gather_b": 0, "gather_c": 0,
-            "gather_d": 0}
+LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
+            "alloc_touch_of": 0, "integrate_prepass": 0,
+            "integrate_update": 0, "integrate_update_of": 0, "nav_grid": 0,
+            "raycast": 0, "raycast_of": 0, "gather_a": 0, "gather_b": 0,
+            "gather_c": 0, "gather_d": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu takes (kMaxLevels)
+MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu's icp_track takes
 
 
 class Mips(ctypes.Structure):
@@ -48,11 +49,26 @@ class Mips(ctypes.Structure):
                 ("y", ctypes.c_void_p * MAX_MIP_LEVELS)]
 
 
+class Pyramid(ctypes.Structure):
+    """Per-level input pyramid and iteration counts, passed by value
+    (csrc/icp.cu ``Pyramid``)."""
+
+    _fields_ = [("vertex", ctypes.c_void_p * MAX_ICP_LEVELS),
+                ("normal", ctypes.c_void_p * MAX_ICP_LEVELS),
+                ("valid", ctypes.c_void_p * MAX_ICP_LEVELS),
+                ("h", ctypes.c_int * MAX_ICP_LEVELS),
+                ("w", ctypes.c_int * MAX_ICP_LEVELS),
+                ("iterations", ctypes.c_int * MAX_ICP_LEVELS),
+                ("n_levels", ctypes.c_int)]
+
+
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signature of each exported entry point (stream last, every one
 # returns the cudaError_t of its launch)
 _SIGNATURES = {
     "se_icp_reduce": (P, P, P, I, P, P, P, I, I, P, P, F, F, P, P, P),
+    "se_icp_track": (Pyramid, P, P, P, I, I, P, P, F, F, F, F, P, P, P, P, P,
+                     P),
     "se_alloc_touch": (P, I, I, I, P, P, F, D, I, F, I, I, P, P),
     "se_alloc_touch_of": (P, I, I, P, P, F, D, D, D, F, I, I, P, P, P, P),
     "se_integrate_prepass": (P, I, I, P, P, P, F, I, I, I, P, P, P, P),

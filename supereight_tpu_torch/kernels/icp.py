@@ -1,22 +1,36 @@
-"""K6 wrapper and twin: ICP residuals + the 32-float reduction.
+"""K6 wrappers and twins: projective ICP.
 
-Replaces ``supereight_tpu/ops/tracking.py:track_residuals`` (56-118) and
-``reduce_tracking`` (125-153). The CUDA kernel is ``csrc/icp.cu``; its
-source note says what bounds it on the H100. :func:`icp_reduce_plain` is
-the plain PyTorch version, used for CPU tensors and as the kernel's
-reference on the card.
+Replaces ``supereight_tpu/ops/tracking.py:track`` (242-319) with
+``track_residuals`` (56-118), ``reduce_tracking`` (125-153), the 6x6 solve
+(168-212), ``update_pose`` (215-223) and ``check_pose`` (226-237). The
+CUDA kernels are ``csrc/icp.cu``; its source note says what bounds them on
+the H100.
+
+* :func:`icp_track` — a frame's whole coarse-to-fine Gauss-Newton, 6x6
+  solves, pose updates and ``check_pose`` in one launch of one
+  thread-block cluster; the frame's path (``ops/tracking.track``).
+* :func:`icp_reduce` — one level's residuals and 32-float reduction,
+  without the solve: one device's share of a summed multi-device
+  reduction. Not on the frame's path.
+
+:func:`icp_track_plain` and :func:`icp_reduce_plain` are the plain
+PyTorch versions, used for CPU tensors and as the kernels' reference on
+the card.
 """
+
+from typing import Sequence
 
 import torch
 
 from supereight_tpu_torch.constants import (DIST_THRESHOLD, NORMAL_THRESHOLD,
                                             TRACK_BAD_NORMAL, TRACK_NO_INPUT,
                                             TRACK_NO_REF_NORMAL, TRACK_OK,
-                                            TRACK_OUT_OF_FRAME, TRACK_TOO_FAR)
+                                            TRACK_OUT_OF_FRAME,
+                                            TRACK_THRESHOLD, TRACK_TOO_FAR)
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.kernels import _lib
 
-_THREADS = 256  # CTA size of csrc/icp.cu (kThreads)
+_THREADS = 256  # CTA size of csrc/icp.cu's icp_reduce (kReduceThreads)
 # upper-triangle index pairs of the 6x6 JtJ, row-major (makeJTJ layout)
 _TRIU = [(r, c) for r in range(6) for c in range(r, 6)]
 
@@ -51,14 +65,15 @@ def icp_reduce(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
     c(view, "view", torch.float32, (4, 4), dev)
     n = h * w
     result = torch.empty((h, w), dtype=torch.int32, device=dev)
+    # f64 CTA sums, added in f64 and rounded once, as reduce_tracking does
     partials = torch.empty(((n + _THREADS - 1) // _THREADS, 32),
-                           dtype=torch.float32, device=dev)
+                           dtype=torch.float64, device=dev)
     _lib.launch("icp_reduce", "se_icp_reduce", dev,
                 in_vertex, in_normal, in_valid, n,
                 ref_vertex, ref_normal, ref_valid, rh, rw, pose, view,
                 float(dist_threshold), float(normal_threshold), result,
                 partials)
-    return result, partials.sum(0)
+    return result, partials.sum(0).to(torch.float32)
 
 
 def track_residuals(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
@@ -118,19 +133,23 @@ def track_residuals(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
 def reduce_tracking(result, error, jac):
     """Masked reduction to the reference's 32-float layout (reduceKernel):
     [0]=sum err^2, [1:7]=J^T e, [7:28]=upper-tri J^T J, [28]=inliers,
-    [29]=#too-far, [30]=#bad-normal, [31]=#other-rejects."""
+    [29]=#too-far, [30]=#bad-normal, [31]=#other-rejects.
+
+    Each f32 per-pixel term is summed in f64 and rounded to f32 once, as
+    both K6 kernels sum them; JAX sums in f32. Near convergence J^T e
+    cancels to almost nothing, and two f32 sums in different orders then
+    differ by more than the Gauss-Newton step they feed, so a kernel and
+    this twin would part ways within a few iterations (ROADMAP.md,
+    Queue 3)."""
     z = (error,) + tuple(jac)
-    terms = [torch.sum(z[0] * z[0])]
-    terms += [torch.sum(z[0] * z[1 + i]) for i in range(6)]
-    terms += [torch.sum(z[1 + r] * z[1 + c]) for r, c in _TRIU]
-    f32 = torch.float32
-    terms += [
-        torch.sum((result == TRACK_OK).to(f32)),
-        torch.sum((result == TRACK_TOO_FAR).to(f32)),
-        torch.sum((result == TRACK_BAD_NORMAL).to(f32)),
-        torch.sum(((result < 1) & (result > TRACK_TOO_FAR)).to(f32)),
-    ]
-    return torch.stack(terms)
+    terms = [z[0] * z[0]]
+    terms += [z[0] * z[1 + i] for i in range(6)]
+    terms += [z[1 + r] * z[1 + c] for r, c in _TRIU]
+    terms += [result == TRACK_OK, result == TRACK_TOO_FAR,
+              result == TRACK_BAD_NORMAL,
+              (result < 1) & (result > TRACK_TOO_FAR)]
+    return torch.stack([torch.sum(t, dtype=torch.float64)
+                        for t in terms]).to(torch.float32)
 
 
 def icp_reduce_plain(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
@@ -141,3 +160,193 @@ def icp_reduce_plain(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
                                     ref_vertex, ref_normal, ref_valid, pose,
                                     view, dist_threshold, normal_threshold)
     return res, reduce_tracking(res, err, jac)
+
+
+def make_jtj(v21):
+    """21-vector -> symmetric 6x6 (makeJTJ, tracking.cpp:42-55). The
+    row-major upper-triangle position of (r <= c) is 6r - r(r-1)/2 + c - r,
+    computed on the device (a host-made index would cost a copy)."""
+    a = torch.arange(6, device=v21.device)
+    r = torch.minimum(a[:, None], a[None, :])
+    c = torch.maximum(a[:, None], a[None, :])
+    return v21[6 * r - (r * (r - 1)) // 2 + c - r]
+
+
+def _cholesky_solve6(A, b):
+    """6x6 Cholesky solve, column-vectorised with the JAX package's
+    summation order (each entry's subtractions run kk = 0..j-1). A non-SPD
+    system yields nan, caught by the caller's finite check."""
+    L = [None] * 6          # L[j]: column j below the diagonal, [6 - j]
+    diag = [None] * 6
+    for j in range(6):
+        s = A[j:, j]
+        for kk in range(j):
+            s = s - L[kk][j - kk:] * L[kk][j - kk]
+        d = torch.sqrt(s[0])
+        diag[j] = d
+        L[j] = torch.cat([d[None], s[1:] / d])
+    y = [None] * 6
+    for i in range(6):
+        s = b[i]
+        for kk in range(i):
+            s = s - L[kk][i - kk] * y[kk]
+        y[i] = s / diag[i]
+    x = [None] * 6
+    for i in range(5, -1, -1):
+        s = y[i]
+        for kk in range(i + 1, 6):
+            s = s - L[i][kk - i] * x[kk]
+        x[i] = s / diag[i]
+    return torch.stack(x)
+
+
+def solve_normal_equations(reduction):
+    """x = (J^T J)^{-1} J^T e from the 32-vector (tracking.cpp:57-64); a
+    failed (non-finite) solve returns zeros."""
+    x = _cholesky_solve6(make_jtj(reduction[7:28]), reduction[1:7])
+    return torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
+
+
+def update_pose(pose, reduction, icp_threshold):
+    """Apply one GN step (updatePoseKernel, 304-318): (new_pose, converged)."""
+    x = solve_normal_equations(reduction)
+    new_pose = se3.matmul4(se3.exp(x), pose)
+    return new_pose, torch.linalg.vector_norm(x) < icp_threshold
+
+
+def check_pose(pose, old_pose, reduction, image_size,
+               track_threshold=TRACK_THRESHOLD):
+    """Accept or roll back the tracked pose (checkPoseKernel, 320-336).
+    Returns (pose, tracked bool[])."""
+    n_inliers = reduction[28]
+    rms = torch.sqrt(reduction[0] / torch.where(n_inliers == 0,
+                                                torch.ones_like(n_inliers),
+                                                n_inliers))
+    total = image_size[0] * image_size[1]
+    bad = (rms > 2e-2) | (n_inliers / total < track_threshold) \
+        | (n_inliers == 0)
+    return torch.where(bad, old_pose, pose), ~bad
+
+
+def icp_track(pose, view, pyr_vertex, pyr_normal, pyr_valid, ref_vertex,
+              ref_normal, ref_valid, iterations: Sequence[int],
+              icp_threshold, dist_threshold=DIST_THRESHOLD,
+              normal_threshold=NORMAL_THRESHOLD,
+              track_threshold=TRACK_THRESHOLD):
+    """The coarse-to-fine ICP of one frame (DenseSLAMSystem::tracking,
+    143-189), from the coarsest level to the finest, then check_pose.
+
+    pose: camera-to-world estimate [4, 4]; view: K @ raycast_pose^-1
+    [4, 4]; pyr_*: tuples of per-level maps [h, w, (3)], finest first, one
+    per entry of ``iterations``; ref_*: the last raycast [H, W, (3)]. All
+    on one device. Returns (pose f32[4, 4], tracked bool[], reduction
+    f32[32], result i32[h0, w0]).
+    """
+    return _icp_track(pose, view, pyr_vertex, pyr_normal, pyr_valid,
+                      ref_vertex, ref_normal, ref_valid, iterations,
+                      icp_threshold, dist_threshold, normal_threshold,
+                      track_threshold)[:4]
+
+
+def _icp_track(pose, view, pyr_vertex, pyr_normal, pyr_valid, ref_vertex,
+               ref_normal, ref_valid, iterations, icp_threshold,
+               dist_threshold=DIST_THRESHOLD,
+               normal_threshold=NORMAL_THRESHOLD,
+               track_threshold=TRACK_THRESHOLD):
+    """:func:`icp_track`'s outputs and the Gauss-Newton iterations run at
+    each level (i32[levels], finest first), which a bound on the frame's
+    work counts."""
+    dev = pose.device
+    if dev.type == "cpu":
+        return _icp_track_plain(pose, view, pyr_vertex, pyr_normal,
+                                pyr_valid, ref_vertex, ref_normal, ref_valid,
+                                iterations, icp_threshold, dist_threshold,
+                                normal_threshold, track_threshold)
+    if dev.type != "cuda":
+        raise ValueError(f"icp_track: unsupported device {dev}")
+    n_levels = len(iterations)
+    if not 1 <= n_levels <= _lib.MAX_ICP_LEVELS:
+        raise ValueError(f"icp_track: {n_levels} levels, the kernel takes "
+                         f"1 to {_lib.MAX_ICP_LEVELS}")
+    c = _lib.check
+    rh, rw = ref_vertex.shape[:2]
+    c(ref_vertex, "ref_vertex", torch.float32, (rh, rw, 3), dev)
+    c(ref_normal, "ref_normal", torch.float32, (rh, rw, 3), dev)
+    c(ref_valid, "ref_valid", torch.bool, (rh, rw), dev)
+    c(pose, "pose", torch.float32, (4, 4), dev)
+    c(view, "view", torch.float32, (4, 4), dev)
+    pyr = _lib.Pyramid()
+    pyr.n_levels = n_levels
+    for lvl in range(n_levels):
+        h, w = pyr_vertex[lvl].shape[:2]
+        pyr.vertex[lvl] = c(pyr_vertex[lvl], "pyr_vertex", torch.float32,
+                            (h, w, 3), dev).data_ptr()
+        pyr.normal[lvl] = c(pyr_normal[lvl], "pyr_normal", torch.float32,
+                            (h, w, 3), dev).data_ptr()
+        pyr.valid[lvl] = c(pyr_valid[lvl], "pyr_valid", torch.bool, (h, w),
+                           dev).data_ptr()
+        pyr.h[lvl], pyr.w[lvl] = h, w
+        pyr.iterations[lvl] = int(iterations[lvl])
+    new_pose = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    tracked = torch.empty((), dtype=torch.bool, device=dev)
+    reduction = torch.empty(32, dtype=torch.float32, device=dev)
+    result = torch.empty(tuple(pyr_vertex[0].shape[:2]), dtype=torch.int32,
+                         device=dev)
+    run = torch.empty(n_levels, dtype=torch.int32, device=dev)
+    _lib.launch("icp_track", "se_icp_track", dev, pyr, ref_vertex,
+                ref_normal, ref_valid, rh, rw, pose, view,
+                float(icp_threshold), float(dist_threshold),
+                float(normal_threshold), float(track_threshold), new_pose,
+                tracked, reduction, result, run)
+    return new_pose, tracked, reduction, result, run
+
+
+def icp_track_plain(pose, view, pyr_vertex, pyr_normal, pyr_valid,
+                    ref_vertex, ref_normal, ref_valid,
+                    iterations: Sequence[int], icp_threshold,
+                    dist_threshold=DIST_THRESHOLD,
+                    normal_threshold=NORMAL_THRESHOLD,
+                    track_threshold=TRACK_THRESHOLD):
+    """Plain PyTorch twin of :func:`icp_track`: the full trip counts with
+    a converged level frozen by ``torch.where`` (the reference's early
+    break), as JAX's ``track`` runs them."""
+    return _icp_track_plain(pose, view, pyr_vertex, pyr_normal, pyr_valid,
+                            ref_vertex, ref_normal, ref_valid, iterations,
+                            icp_threshold, dist_threshold, normal_threshold,
+                            track_threshold)[:4]
+
+
+def _icp_track_plain(pose, view, pyr_vertex, pyr_normal, pyr_valid,
+                     ref_vertex, ref_normal, ref_valid, iterations,
+                     icp_threshold, dist_threshold, normal_threshold,
+                     track_threshold):
+    """:func:`icp_track_plain`'s outputs and the iterations run at each
+    level: an iteration counts as run where its level was not frozen
+    yet."""
+    old_pose = pose
+    reduction = torch.zeros(32, dtype=torch.float32, device=pose.device)
+    run = [None] * len(iterations)
+    result_fine = None
+    for level in range(len(iterations) - 1, -1, -1):
+        iv, inorm, ival = pyr_vertex[level], pyr_normal[level], \
+            pyr_valid[level]
+        result = torch.zeros(iv.shape[:2], dtype=torch.int32,
+                             device=pose.device)
+        done = torch.zeros((), dtype=torch.bool, device=pose.device)
+        run[level] = torch.zeros((), dtype=torch.int32, device=pose.device)
+        for _ in range(iterations[level]):
+            run[level] = run[level] + (~done).to(torch.int32)
+            res, red = icp_reduce_plain(iv, inorm, ival, ref_vertex,
+                                        ref_normal, ref_valid, pose, view,
+                                        dist_threshold, normal_threshold)
+            new_pose, converged = update_pose(pose, red, icp_threshold)
+            # frozen once converged: the reference breaks the level loop
+            pose = torch.where(done, pose, new_pose)
+            reduction = torch.where(done, reduction, red)
+            result = torch.where(done, result, res)
+            done = done | converged
+        if level == 0:
+            result_fine = result
+    pose, tracked = check_pose(pose, old_pose, reduction,
+                               ref_vertex.shape[:2], track_threshold)
+    return pose, tracked, reduction, result_fine, torch.stack(run)

@@ -1,86 +1,19 @@
 """Projective-ICP camera tracking (ref se_denseslam/src/tracking.cpp).
 
-Port of ``supereight_tpu/ops/tracking.py:track``. The per-pixel residual
-pass and the 32-float reduction are kernel K6 (``kernels/icp.py``); the
-6x6 Cholesky solve, the SE(3) update, the per-level freeze once
-||x|| < threshold (the reference's early break) and the divergence
-rollback stay torch ops on the device. The Python loop runs the full
-trip counts with the freeze applied by ``torch.where``, so no value is
-read back to the host across the iterations.
+Port of ``supereight_tpu/ops/tracking.py:track``. The whole coarse-to-fine
+Gauss-Newton of a frame (residuals, reduction, 6x6 solve, SE(3) update,
+the per-level early break once ||x|| < threshold, and the divergence
+rollback) is kernel K6's ``icp_track`` (``kernels/icp.py``), one launch a
+frame on a CUDA device; CPU tensors take its plain twin, which runs the
+full trip counts with the freeze applied by ``torch.where``. Either way no
+value is read back to the host.
 """
 
 from typing import Sequence
 
-import torch
-
-from supereight_tpu_torch.constants import DIST_THRESHOLD, TRACK_THRESHOLD
+from supereight_tpu_torch.constants import DIST_THRESHOLD
 from supereight_tpu_torch.core import se3
-from supereight_tpu_torch.kernels.icp import icp_reduce
-
-def make_jtj(v21):
-    """21-vector -> symmetric 6x6 (makeJTJ, tracking.cpp:42-55). The
-    row-major upper-triangle position of (r <= c) is 6r - r(r-1)/2 + c - r,
-    computed on the device (a host-made index would cost a copy)."""
-    a = torch.arange(6, device=v21.device)
-    r = torch.minimum(a[:, None], a[None, :])
-    c = torch.maximum(a[:, None], a[None, :])
-    return v21[6 * r - (r * (r - 1)) // 2 + c - r]
-
-
-def _cholesky_solve6(A, b):
-    """6x6 Cholesky solve, column-vectorised with the JAX package's
-    summation order (each entry's subtractions run kk = 0..j-1). A non-SPD
-    system yields nan, caught by the caller's finite check."""
-    L = [None] * 6          # L[j]: column j below the diagonal, [6 - j]
-    diag = [None] * 6
-    for j in range(6):
-        s = A[j:, j]
-        for kk in range(j):
-            s = s - L[kk][j - kk:] * L[kk][j - kk]
-        d = torch.sqrt(s[0])
-        diag[j] = d
-        L[j] = torch.cat([d[None], s[1:] / d])
-    y = [None] * 6
-    for i in range(6):
-        s = b[i]
-        for kk in range(i):
-            s = s - L[kk][i - kk] * y[kk]
-        y[i] = s / diag[i]
-    x = [None] * 6
-    for i in range(5, -1, -1):
-        s = y[i]
-        for kk in range(i + 1, 6):
-            s = s - L[i][kk - i] * x[kk]
-        x[i] = s / diag[i]
-    return torch.stack(x)
-
-
-def solve_normal_equations(reduction):
-    """x = (J^T J)^{-1} J^T e from the 32-vector (tracking.cpp:57-64); a
-    failed (non-finite) solve returns zeros."""
-    x = _cholesky_solve6(make_jtj(reduction[7:28]), reduction[1:7])
-    return torch.where(torch.isfinite(x).all(), x, torch.zeros_like(x))
-
-
-def update_pose(pose, reduction, icp_threshold):
-    """Apply one GN step (updatePoseKernel, 304-318): (new_pose, converged)."""
-    x = solve_normal_equations(reduction)
-    new_pose = se3.matmul4(se3.exp(x), pose)
-    return new_pose, torch.linalg.vector_norm(x) < icp_threshold
-
-
-def check_pose(pose, old_pose, reduction, image_size,
-               track_threshold=TRACK_THRESHOLD):
-    """Accept or roll back the tracked pose (checkPoseKernel, 320-336).
-    Returns (pose, tracked bool[])."""
-    n_inliers = reduction[28]
-    rms = torch.sqrt(reduction[0] / torch.where(n_inliers == 0,
-                                                torch.ones_like(n_inliers),
-                                                n_inliers))
-    total = image_size[0] * image_size[1]
-    bad = (rms > 2e-2) | (n_inliers / total < track_threshold) \
-        | (n_inliers == 0)
-    return torch.where(bad, old_pose, pose), ~bad
+from supereight_tpu_torch.kernels.icp import icp_track
 
 
 def track(pose, raycast_pose, k_full, pyr_vertex, pyr_normal, pyr_valid,
@@ -92,27 +25,6 @@ def track(pose, raycast_pose, k_full, pyr_vertex, pyr_normal, pyr_valid,
     (new_pose, tracked, final_reduction, result_map_finest).
     """
     view = se3.matmul4(se3.camera_matrix(k_full), se3.inverse(raycast_pose))
-    old_pose = pose
-    reduction = torch.zeros(32, dtype=torch.float32, device=pose.device)
-    result_fine = None
-    for level in range(len(iterations) - 1, -1, -1):
-        iv, inorm, ival = pyr_vertex[level], pyr_normal[level], \
-            pyr_valid[level]
-        result = torch.zeros(iv.shape[:2], dtype=torch.int32,
-                             device=pose.device)
-        done = torch.zeros((), dtype=torch.bool, device=pose.device)
-        for _ in range(iterations[level]):
-            res, red = icp_reduce(iv, inorm, ival, ref_vertex, ref_normal,
-                                  ref_valid, pose, view,
-                                  dist_threshold=dist_threshold)
-            new_pose, converged = update_pose(pose, red, icp_threshold)
-            # frozen once converged: the reference breaks the level loop
-            pose = torch.where(done, pose, new_pose)
-            reduction = torch.where(done, reduction, red)
-            result = torch.where(done, result, res)
-            done = done | converged
-        if level == 0:
-            result_fine = result
-    pose, tracked = check_pose(pose, old_pose, reduction,
-                               ref_vertex.shape[:2])
-    return pose, tracked, reduction, result_fine
+    return icp_track(pose, view, pyr_vertex, pyr_normal, pyr_valid,
+                     ref_vertex, ref_normal, ref_valid, iterations,
+                     icp_threshold, dist_threshold=dist_threshold)

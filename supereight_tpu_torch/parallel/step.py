@@ -3,11 +3,12 @@ raycast, on torch tensors, for the TSDF and the OFusion field.
 
 Port of ``supereight_tpu/parallel/step.py:frame_step``. JAX compiled the
 frame into one XLA program; here it is an eager sequence of torch ops and
-the hand-written kernels K6 (ICP), K5 (allocation), K3 (integration), K2
-(nav grid) and K1 (raycast), each in its field's variant. Nothing inside :func:`frame_step` reads a device value back
-to the host: budgets are Python ints, and the reference's rate gates and
-the tracking freeze are ``torch.where`` on device tensors, so on a GPU the
-whole frame is enqueued without a sync. Each stage runs under a
+the hand-written kernels K6 (the whole ICP, one launch), K5 (allocation),
+K3 (integration), K2 (nav grid) and K1 (raycast), each in its field's
+variant. Nothing inside :func:`frame_step` reads a device value back to
+the host: budgets are Python ints, and the reference's rate gates are
+``torch.where`` on device tensors, so on a GPU the whole frame is
+enqueued without a sync. Each stage runs under a
 ``torch.profiler.record_function`` span named ``frame_step/<stage>``
 (preprocess, track, allocate, integrate, raycast), which a profiler run
 reads for the per-stage breakdown; with no profiler active a span costs
@@ -35,7 +36,9 @@ class FrameState(NamedTuple):
     valid: torch.Tensor
 
 
-def init_frame_state(geom, field, frame_size, init_pose, device="cpu"):
+def init_frame_state(geom, field, frame_size, init_pose, device="cuda"):
+    """The state before frame 0, on ``device`` (the card unless the caller
+    asks for another)."""
     w, h = frame_size
     p = torch.as_tensor(init_pose, dtype=torch.float32)
     f32 = dict(dtype=torch.float32, device=device)

@@ -71,13 +71,14 @@ def test_allocate_tsdf_parity(setup, budget, when):
         jax_geometry(), jax_map(jmap), jnp.asarray(depth), jnp.asarray(pose),
         k_jax(), MU, with_stats=True, when=jnp.bool_(when), budget=budget)
     tm, tstats = allocation.allocate_tsdf(
-        torch_geometry(), convert.map_to_torch(jmap), torch.from_numpy(depth),
+        torch_geometry(), convert.map_to_torch(jmap, "cpu"),
+        torch.from_numpy(depth),
         torch.from_numpy(pose), k_torch(), MU, with_stats=True,
         when=torch.tensor(when), budget=budget)
     assert int(tstats["alloc_overflow"]) == int(jstats["alloc_overflow"])
     if budget == 2:
         assert int(jstats["alloc_overflow"]) > 0
-    jm = convert.to_numpy(convert.map_to_torch(jm))
+    jm = convert.to_numpy(convert.map_to_torch(jm, "cpu"))
     tm = convert.to_numpy(tm)
     assert int(tm.n_blocks) == int(jm.n_blocks)
     if when:
@@ -133,13 +134,14 @@ def test_allocate_ofusion_parity(setup_of, budget, when):
         jax_geometry(), jax_map(jmap), jnp.asarray(depth), jnp.asarray(pose),
         k_jax(), MU_OF, with_stats=True, when=jnp.bool_(when), budget=budget)
     tm, tstats = allocation.allocate_ofusion(
-        torch_geometry(), convert.map_to_torch(jmap), torch.from_numpy(depth),
+        torch_geometry(), convert.map_to_torch(jmap, "cpu"),
+        torch.from_numpy(depth),
         torch.from_numpy(pose), k_torch(), MU_OF, with_stats=True,
         when=torch.tensor(when), budget=budget)
     assert int(tstats["alloc_overflow"]) == int(jstats["alloc_overflow"])
     if budget == 2:
         assert int(jstats["alloc_overflow"]) > 0
-    jm = convert.to_numpy(convert.map_to_torch(jm))
+    jm = convert.to_numpy(convert.map_to_torch(jm, "cpu"))
     tm = convert.to_numpy(tm)
     assert int(tm.n_blocks) == int(jm.n_blocks)
     if when:

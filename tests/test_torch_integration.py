@@ -89,7 +89,7 @@ def _run_both(case, when=None, budget=1024):
         mu, jnp.float32(TIMESTAMP), size, budget=budget, with_stats=True,
         when=None if when is None else jnp.bool_(when))
     tm, tstats = integration.integrate(
-        torch_geometry(), convert.map_to_torch(jmap),
+        torch_geometry(), convert.map_to_torch(jmap, "cpu"),
         OFUSION if field == "ofusion" else TSDF,
         torch.from_numpy(depth), torch.from_numpy(pose),
         torch.tensor(k, dtype=torch.float32), mu, torch.tensor(TIMESTAMP),
@@ -136,7 +136,7 @@ def test_integrate_parity(case, when):
 def test_close_view_takes_fallback(case):
     """The close case really has blocks no depth patch covers."""
     name, depth, pose, k, size, jmap = case
-    tm = convert.map_to_torch(jmap)
+    tm = convert.map_to_torch(jmap, "cpu")
     tp = torch.from_numpy(pose)
     kmat = se3.camera_matrix(torch.tensor(k, dtype=torch.float32))
     t_cw = se3.inverse(tp)

@@ -66,6 +66,8 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         icp.icp_reduce(m, m, v, m, m, v, p, p)
     with pytest.raises(ValueError, match="unsupported device"):
+        icp.icp_track(p, p, (m,), (m,), (v,), m, m, v, (1,), 1e-5)
+    with pytest.raises(ValueError, match="unsupported device"):
         alloc.touched_mask(MapGeometry(64, 2.0, 16),
                            torch.zeros((4, 4), device="meta"), p,
                            torch.ones(4, device="meta"), 0.1)
@@ -171,3 +173,39 @@ def test_gather_forms_bit_exact_on_cuda(cuda):
         got = kernel(tt, it)
         assert torch.equal(got, plain(tt, it)), name
         np.testing.assert_array_equal(got.cpu().numpy(), expect(t, i))
+
+
+def _track_args(cuda, field):
+    """Frame 5's tracking inputs after five frames of ``field`` on the
+    card: (pose, view, pyramid maps, reference maps)."""
+    geom, state, k, depth = _frames(cuda, field=field)
+    _, v, n, ok = preprocess_and_pyramid(depth, k, 3, False, False)
+    view = se3.matmul4(se3.camera_matrix(k), se3.inverse(state.raycast_pose))
+    return (state.pose, view, v, n, ok, state.vertex, state.normal,
+            state.valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_icp_track_matches_plain_on_cuda(cuda, field):
+    """The one-launch tracking step against its plain twin: tracked equal,
+    pose to 1e-4, reduction entries 0-27 to 1e-3 of themselves (floored at
+    1e-4 of the largest), the counts 28-31 to 0.1 % of the pixels, result
+    codes on >= 99.9 % of pixels; one launch counted; two launches
+    bit-identical."""
+    args = _track_args(cuda, field)
+    iters = (10, 5, 4)
+    before = _lib.LAUNCHES["icp_track"]
+    got = icp.icp_track(*args, iters, 1e-5)
+    assert _lib.LAUNCHES["icp_track"] == before + 1
+    want = icp.icp_track_plain(*args, iters, 1e-5)
+    assert bool(got[1]) == bool(want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4
+    rk, rp = got[2].cpu().numpy(), want[2].cpu().numpy()
+    scale = np.abs(rp[:28]) + 1e-4 * np.abs(rp[:28]).max()
+    assert (np.abs(rk[:28] - rp[:28]) / scale).max() <= 1e-3
+    assert np.abs(rk[28:] - rp[28:]).max() <= 1e-3 * got[3].numel()
+    assert (got[3] == want[3]).float().mean() >= 0.999
+    again = icp.icp_track(*args, iters, 1e-5)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)

@@ -32,7 +32,7 @@ def test_make_map_and_geometry_match_jax():
                  "num_levels"):
         assert getattr(tg, name) == getattr(jg, name), name
     want = jax_map.make_map(jg, get_field("tsdf"))
-    got = convert.to_numpy(tmap.make_map(tg, TSDF))
+    got = convert.to_numpy(tmap.make_map(tg, TSDF, "cpu"))
     for name in want._fields:
         a, b = getattr(want, name), getattr(got, name)
         for x, y in zip(a if isinstance(a, tuple) else (a,),
@@ -44,7 +44,7 @@ def test_make_map_and_geometry_match_jax():
 def _random_map(rng):
     """A JAX-layout map (numpy) with CAPACITY random blocks allocated."""
     tg = _geoms()[1]
-    m = convert.to_numpy(tmap.make_map(tg, TSDF))
+    m = convert.to_numpy(tmap.make_map(tg, TSDF, "cpu"))
     b = tg.blocks_per_side
     cells = rng.choice(b ** 3, CAPACITY, replace=False)
     slot = m.slot.reshape(-1).copy()
@@ -70,7 +70,7 @@ def test_get_voxel_channel_matches_jax(channel, fill):
     want = np.asarray(jax_map.get_voxel_channel_c(
         jg, jm, get_field("tsdf"), *(jnp.asarray(c) for c in v),
         channel=channel, fill=fill))
-    tm = convert.map_to_torch(m)
+    tm = convert.map_to_torch(m, "cpu")
     got = tmap.get_voxel_channel_c(tg, tm, TSDF,
                                    *(torch.from_numpy(c) for c in v),
                                    channel=channel, fill=fill).numpy()
@@ -107,7 +107,7 @@ def test_refresh_mip_alloc_matches_jax(extra):
         jg, jm, jnp.asarray(block_alloc),
         extra_levels=None if masks is None else tuple(
             None if x is None else jnp.asarray(x) for x in masks))
-    tm = convert.map_to_torch(m)
+    tm = convert.map_to_torch(m, "cpu")
     tmap.refresh_mip_alloc(
         tg, tm, torch.from_numpy(block_alloc),
         extra_levels=None if masks is None else tuple(
@@ -115,3 +115,27 @@ def test_refresh_mip_alloc_matches_jax(extra):
     for lvl, (a, w) in enumerate(zip(tm.mip_alloc, want.mip_alloc)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(w),
                                       err_msg=f"level {lvl}")
+
+
+@pytest.mark.parametrize("entry", ["make_map", "init_frame_state",
+                                   "map_to_torch", "frame_to_torch"])
+def test_entry_points_default_to_the_card(entry):
+    """Called without a device, the port's entry points put their tensors
+    on the card: on a host without one they raise torch's own error, and
+    never fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default call runs there")
+    from supereight_tpu_torch.parallel import step
+    tg = _geoms()[1]
+    pose = np.eye(4, dtype=np.float32)
+    calls = {
+        "make_map": lambda: tmap.make_map(tg, TSDF),
+        "init_frame_state": lambda: step.init_frame_state(tg, TSDF, (8, 6),
+                                                          pose),
+        "map_to_torch": lambda: convert.map_to_torch(
+            convert.to_numpy(tmap.make_map(tg, TSDF, "cpu"))),
+        "frame_to_torch": lambda: convert.frame_to_torch(convert.to_numpy(
+            step.init_frame_state(tg, TSDF, (8, 6), pose, "cpu"))),
+    }
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        calls[entry]()

@@ -47,7 +47,7 @@ depths, poses = synthetic.orbit_sequence(
 geom = MapGeometry(size=32, dim=2.0, capacity=256)
 out = {}
 for field, mu in ((TSDF, 0.1), (OFUSION, 0.008)):
-    state = step.init_frame_state(geom, field, (64, 48), poses[0])
+    state = step.init_frame_state(geom, field, (64, 48), poses[0], "cpu")
     for i in range(5):
         state, aux = step.frame_step(
             geom, field, state, torch.from_numpy(depths[i]),

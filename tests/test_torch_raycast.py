@@ -58,7 +58,7 @@ def test_raycast_parity(setup, bucket):
         with_stats=True, pool_bucket=bucket)
     jv, jn, jok = np.asarray(jv), np.asarray(jn), np.asarray(jok)
 
-    ts = convert.frame_to_torch(s)
+    ts = convert.frame_to_torch(s, "cpu")
     view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
     prime = raycast.prime_from_depth(torch.from_numpy(depth), k_torch())
     np.testing.assert_allclose(
@@ -85,7 +85,7 @@ def test_nav_grid(setup):
     the OFusion coarse free-space payload."""
     _, s, name = setup
     jm = jax.tree.map(jnp.asarray, s.map)
-    tm = convert.map_to_torch(s.map)
+    tm = convert.map_to_torch(s.map, "cpu")
     for bucket in (CAPACITY, 48):
         want = np.asarray(jax_raycast.build_nav(jax_geometry(), jm,
                                                 get_field(name),
@@ -101,7 +101,7 @@ def test_nav_round_half_even():
     """The OFusion payload rounds half to even like jnp.round: coarse
     values -k/32 (16 q = k/2) straddle every rounding case."""
     geom = torch_geometry()
-    tm = make_map(geom, FIELDS["ofusion"])
+    tm = make_map(geom, FIELDS["ofusion"], "cpu")
     b = geom.blocks_per_side
     vals = -np.arange(b ** 3, dtype=np.float32).reshape((b,) * 3) / 32.0
     tm.mip_x[0].copy_(torch.from_numpy(vals))
@@ -134,7 +134,7 @@ def test_camera_zcos(setup):
 
 def test_unported_options_raise(setup):
     _, s, name = setup
-    ts = convert.frame_to_torch(s)
+    ts = convert.frame_to_torch(s, "cpu")
     view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
     with pytest.raises(NotImplementedError):
         raycast.raycast(torch_geometry(), ts.map, FIELDS[name], view,

@@ -108,7 +108,8 @@ def torch_frames(depths, poses, n, field="tsdf", **options):
     """Run the port's frame_step over the first n frames on CPU tensors;
     returns the last state and the (numpy) pose and aux of every frame."""
     geom = torch_geometry()
-    state = step.init_frame_state(geom, FIELDS[field], (W, H), poses[0])
+    state = step.init_frame_state(geom, FIELDS[field], (W, H), poses[0],
+                                  "cpu")
     tposes, taux = [], []
     for i in range(n):
         state, aux = step.frame_step(geom, FIELDS[field], state,
@@ -166,7 +167,7 @@ def test_unported_options_raise_before_any_work(option):
     and the map it was handed stays untouched."""
     depths, poses = make_scene(1)
     geom = torch_geometry()
-    state = step.init_frame_state(geom, TSDF, (W, H), poses[0])
+    state = step.init_frame_state(geom, TSDF, (W, H), poses[0], "cpu")
     with pytest.raises(NotImplementedError):
         step.frame_step(geom, TSDF, state, torch.from_numpy(depths[0]),
                         k_torch(), 0, **{**STEP_KW, **option})
@@ -202,6 +203,6 @@ def test_convert_round_trip(field):
     depths, poses = make_scene(3)
     states, _ = jax_frames(depths, poses, 1, field)
     js = states[0]
-    back = convert.to_numpy(convert.frame_to_torch(js))
+    back = convert.to_numpy(convert.frame_to_torch(js, "cpu"))
     for a, b in zip(jax.tree.leaves(js), jax.tree.leaves(tuple(back))):
         np.testing.assert_array_equal(np.asarray(a), b)
