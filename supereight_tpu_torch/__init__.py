@@ -11,8 +11,9 @@ whenever its input tensors lie on the CPU.
 Layer map (mirrors the JAX package):
   core/      -- SE(3) helpers, the block-pool map
   fields/    -- the TSDF and OFusion fields
-  ops/       -- preprocess, tracking (K6), allocation (K5),
-                integration (K3), raycast (K2 nav grid, K1)
+  ops/       -- tracking (K6), allocation (K5), integration (K3 block
+                pass, K4 node pass), raycast (K2 nav grid, K1)
+  pipeline   -- the input pyramid (K7)
   parallel/  -- the fused frame step
   kernels/   -- kernel build, ctypes binding, wrappers and twins
                 (and K8, the gather-form probe)

@@ -24,7 +24,8 @@
 //    the TSDF update (fields/tsdf.py) or the OFusion update
 //    (fields/ofusion.py: bspline sensor model H(diff / sigma), decay
 //    window, log2-odds, clamps; y = the frame's timestamp where it
-//    writes), in the JAX package's operation order.
+//    writes), in the JAX package's operation order. The projection and
+//    both updates live in fields.cuh, shared with K4 (node.cu).
 //
 // Bound on the H100: the pool read-modify-write, 4 KB per block (two f32
 // channels) + depth reads that stay in L1/L2 (a 300 KB frame): 8192 blocks
@@ -33,41 +34,23 @@
 // OFusion update adds a few dozen flops and one log2f per written voxel,
 // far below the card's rate: it stays bound by the same bytes.
 
-#include "common.cuh"
+#include "fields.cuh"
 
 namespace {
 
 constexpr int kThreads = se::kBlockVoxels;
 
-struct Proj {
-  float cx, cy, cz;
-  int xi, yi;
-  bool valid;
-};
-
-// update_block's projection (projective_functor.hpp:85-103) for the voxel
-// of this thread; t_cw and K live in shared memory.
-__device__ __forceinline__ Proj project_voxel(const int* __restrict__ bc,
-                                              const float* T, const float* K,
-                                              float voxel, int w, int h) {
+// The projection of this thread's voxel (its block's origin + the thread's
+// in-brick offset); t_cw and K live in shared memory.
+__device__ __forceinline__ se::Proj project_voxel(const int* __restrict__ bc,
+                                                  const float* T,
+                                                  const float* K, float voxel,
+                                                  int w, int h) {
   const int lin = threadIdx.x;
   const float wx = (float)(bc[0] * 8 + (lin & 7)) * voxel;
   const float wy = (float)(bc[1] * 8 + ((lin >> 3) & 7)) * voxel;
   const float wz = (float)(bc[2] * 8 + (lin >> 6)) * voxel;
-  const float3 c = se::transform(T, wx, wy, wz);
-  const float3 k = se::transform(K, c.x, c.y, c.z);
-  const float safe = k.z == 0.f ? 1e-12f : k.z;
-  const float px = k.x / safe + 0.5f;
-  const float py = k.y / safe + 0.5f;
-  Proj p;
-  p.cx = c.x;
-  p.cy = c.y;
-  p.cz = c.z;
-  p.valid = c.z >= 1e-4f && px >= 0.5f && px <= (float)(w - 1.5) &&
-            py >= 0.5f && py <= (float)(h - 1.5);
-  p.xi = se::clampi((int)px, 0, w - 1);
-  p.yi = se::clampi((int)py, 0, h - 1);
-  return p;
+  return se::project(T, K, wx, wy, wz, w, h);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -97,7 +80,8 @@ integrate_prepass_kernel(const int* __restrict__ worklist, int cap,
     y1 = -1;
   }
   __syncthreads();
-  const Proj p = project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
+  const se::Proj p =
+      project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
   if (p.valid) {
     atomicMin(&x0, p.xi);
     atomicMax(&x1, p.xi);
@@ -118,59 +102,6 @@ integrate_prepass_kernel(const int* __restrict__ worklist, int cap,
   }
 }
 
-// Integral of the B-spline sensor kernel (fields/ofusion.py:bspline).
-__device__ __forceinline__ float bspline(float t) {
-  const float a = 3.f + t, b = 3.f - t;
-  if (t >= -3.f && t <= -1.f) return a * a * a / 48.f;
-  if (t > -1.f && t <= 1.f) return 0.5f + (t * a * b) / 24.f;
-  if (t > 1.f && t <= 3.f) return 1.f - b * b * b / 48.f;
-  return t > 3.f ? 1.f : 0.f;
-}
-
-struct FieldArgs {
-  float mu, max_weight;  // TSDF
-  float two_voxel;       // OFusion: the lower bound of sigma
-  const float* timestamp;
-};
-
-// TSDF update (ref sdf_update, mapping_impl.hpp:35-65) of one voxel
-__device__ __forceinline__ void update_tsdf(const FieldArgs& A,
-                                            const Proj& p, float ds,
-                                            float* x, float* y) {
-  const float ax = p.cx / p.cz, ay = p.cy / p.cz;
-  const float ray_scale = sqrtf(1.f + ax * ax + ay * ay);
-  const float diff = (ds - p.cz) * ray_scale;
-  if (ds > 0.f && diff > -A.mu) {
-    const float ox = *x, oy = *y;
-    const float sdf = fminf(1.f, diff / A.mu);
-    const float nx = (oy * ox + sdf) / (oy + 1.f);
-    *x = fminf(fmaxf(nx, -1.f), 1.f);
-    *y = fminf(oy + 1.f, A.max_weight);
-  }
-}
-
-// OFusion update (ref bfusion_update, mapping_impl.hpp:157-191) of one
-// voxel; log-odds clamp +/-1000, decay window tau = 4 (constants.py)
-__device__ __forceinline__ void update_ofusion(const FieldArgs& A,
-                                               const Proj& p, float ds,
-                                               float* x, float* y) {
-  const float ax = p.cx / p.cz, ay = p.cy / p.cz;
-  const float ray_scale = sqrtf(1.f + ax * ax + ay * ay);
-  const float diff = (p.cz - ds) * ray_scale;
-  const float sigma = fminf(fmaxf(A.mu * p.cz * p.cz, A.two_voxel), 0.05f);
-  const float u = diff / sigma;
-  float sample = bspline(u) - 0.5f * bspline(u - 3.f);
-  if (!(ds > 0.f) || sample == 0.5f) return;
-  sample = fminf(fmaxf(sample, 0.03f), 0.97f);
-  const float ts = *A.timestamp;
-  const float ox = *x, oy = *y;
-  const float fraction = 1.f / (1.f + (ts - oy) / 4.f);
-  const float decayed = ox * fmaxf(fraction, 0.5f);
-  const float nx = decayed + log2f(sample / (1.f - sample));
-  *x = fminf(fmaxf(nx, -1000.f), 1000.f);
-  *y = ts;
-}
-
 template <bool kOFusion>
 __global__ void __launch_bounds__(kThreads)
 integrate_update_kernel(const int* __restrict__ worklist, int cap,
@@ -178,7 +109,8 @@ integrate_update_kernel(const int* __restrict__ worklist, int cap,
                         const float* __restrict__ t_cw,
                         const float* __restrict__ kmat, float voxel, int w,
                         int h, const int* __restrict__ mode,
-                        const float* __restrict__ depth, FieldArgs A,
+                        const float* __restrict__ depth,
+                        se::FieldArgs A,
                         float* __restrict__ data_x,
                         float* __restrict__ data_y,
                         uint8_t* __restrict__ active) {
@@ -188,16 +120,14 @@ integrate_update_kernel(const int* __restrict__ worklist, int cap,
   se::load_mat4(t_cw, T);
   se::load_mat4(kmat, K);
   __syncthreads();
-  const Proj p = project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
+  const se::Proj p =
+      project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
   const int l = mode[blockIdx.x];
   const bool valid = p.valid && l >= 0;
   if (valid) {
     const float ds = depth[((p.yi >> l) << l) * w + ((p.xi >> l) << l)];
     const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
-    if (kOFusion)
-      update_ofusion(A, p, ds, data_x + v, data_y + v);
-    else
-      update_tsdf(A, p, ds, data_x + v, data_y + v);
+    se::update_field<kOFusion>(A, p, ds, data_x + v, data_y + v);
   }
   // block stays active iff any voxel projected into the frame
   // (ref update_block, projective_functor.hpp:104-110)
@@ -229,7 +159,7 @@ SE_EXPORT int se_integrate_update(const int* worklist, int n_work, int cap,
                                   float* data_x, float* data_y,
                                   uint8_t* active, void* stream) {
   if (n_work == 0) return 0;
-  const FieldArgs A{mu, max_weight, two_voxel, timestamp};
+  const se::FieldArgs A{mu, max_weight, two_voxel, timestamp};
   if (field == 1)
     integrate_update_kernel<true><<<n_work, kThreads, 0,
                                     (cudaStream_t)stream>>>(

@@ -35,14 +35,16 @@ LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
             "alloc_touch_of": 0, "integrate_prepass": 0,
             "integrate_update": 0, "integrate_update_of": 0, "nav_grid": 0,
             "raycast": 0, "raycast_of": 0, "gather_a": 0, "gather_b": 0,
-            "gather_c": 0, "gather_d": 0}
+            "gather_c": 0, "gather_d": 0, "node_pass": 0, "half_sample": 0,
+            "vertex_normal": 0}
 
-MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu takes (kMaxLevels)
+MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu and node.cu take (kMaxLevels)
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu's icp_track takes
 
 
 class Mips(ctypes.Structure):
-    """Per-level mip pointers, passed by value (csrc/nav.cu ``Mips``)."""
+    """Per-level mip pointers, passed by value (``Mips`` of csrc/nav.cu
+    and csrc/node.cu)."""
 
     _fields_ = [("alloc", ctypes.c_void_p * MAX_MIP_LEVELS),
                 ("x", ctypes.c_void_p * MAX_MIP_LEVELS),
@@ -81,6 +83,9 @@ _SIGNATURES = {
     "se_gather_b": (P, P, I, I, I, P, P),
     "se_gather_c": (P, P, I, I, I, P, P),
     "se_gather_d": (P, P, I, I, I, P, P),
+    "se_node_pass": (Mips, I, I, D, P, P, P, P, I, I, P, I, F, F, F, P, P),
+    "se_half_sample": (P, I, I, F, P, P),
+    "se_vertex_normal": (P, I, I, P, I, I, P, P, P, P),
 }
 
 _lock = threading.Lock()

@@ -6,8 +6,7 @@ projective_functor.hpp:54-156): compact the active + in-frustum blocks
 into a fixed-budget worklist, update every voxel of those blocks with the
 field's functor (kernel K3, ``kernels/integrate.py``), then re-fuse every
 existing coarse (mip) value at its octant origin corner with the same
-functor (the node pass, torch ops here; it becomes kernel K4 in a later
-change).
+functor (the node pass, kernel K4, ``kernels/node.py``).
 
 The map is updated IN PLACE (JAX donated it); the returned state shares
 its tensors with the input.
@@ -17,11 +16,9 @@ import torch
 
 from supereight_tpu_torch.constants import BLOCK_SIDE
 from supereight_tpu_torch.core import se3
-from supereight_tpu_torch.core.map import broadcast2
 from supereight_tpu_torch.kernels.integrate import (as_timestamp,
-                                                    field_update,
-                                                    integrate_blocks,
-                                                    project_voxels)
+                                                    integrate_blocks)
+from supereight_tpu_torch.kernels.node import node_pass
 
 
 def in_frustum_mask(geom, state, t_cw, kmat, frame_size):
@@ -62,31 +59,6 @@ def build_active_worklist(geom, state, t_cw, kmat, frame_size, budget: int,
     return worklist[:budget], n_active
 
 
-def _sample_depth(depth, px, py):
-    """Nearest depth at truncated pixel coords (ref sdf_update reads
-    depth[int(pixel)], kfusion/mapping_impl.hpp:39-41)."""
-    h, w = depth.shape
-    xi = px.to(torch.int32).clamp(0, w - 1)
-    yi = py.to(torch.int32).clamp(0, h - 1)
-    return depth.reshape(-1)[(yi * w + xi).long()]
-
-
-def _parent_present(geom, state, pbudget: int):
-    """Level-0 octants whose parent node is occupied AND among the first
-    ``pbudget`` occupied parents in parent-id order (the JAX sparse
-    level-0 pass, integration.py:433-500). Returns ([B,B,B] bool,
-    octants of occupied parents beyond the budget)."""
-    b = geom.blocks_per_side
-    hp = b // 2
-    parent = state.mip_alloc[0].reshape(hp, 2, hp, 2, hp, 2) \
-        .any(5).any(3).any(1).reshape(-1)
-    rank = torch.cumsum(parent.to(torch.int32), 0) - 1
-    present = parent & (rank < pbudget)
-    skipped = (torch.sum(parent.to(torch.int32))
-               - torch.sum(present.to(torch.int32))) * 8
-    return broadcast2(present.reshape(hp, hp, hp)), skipped
-
-
 def integrate(geom, state, field, depth, pose, k, mu: float, timestamp,
               frame_size, budget: int = 8192, depth_interp: bool = False,
               with_stats: bool = False, when=None,
@@ -116,36 +88,9 @@ def integrate(geom, state, field, depth, pose, k, mu: float, timestamp,
     patch_skipped = integrate_blocks(geom, state, field, wl, depth, t_cw,
                                      kmat, mu, timestamp)
 
-    # ---- node (coarse mip) pass ----------------------------------------
-    # ref update_node (projective_functor.hpp:113-137): every existing
-    # coarse value is re-fused at its octant origin corner. Level 0 is
-    # restricted to the first pbudget occupied parents like the JAX sparse
-    # pass (for maps of >= 8 blocks a side); the dense form over the whole
-    # level with that mask gives the same values.
-    mip_skipped = torch.zeros((), dtype=torch.int32, device=dev)
-    for lvl in range(geom.num_levels):
-        side = geom.blocks_per_side >> lvl
-        octant_m = (BLOCK_SIDE << lvl) * geom.voxel_size
-        g = torch.arange(side, dtype=torch.float32, device=dev) * octant_m
-        wx = g[:, None, None].expand(side, side, side)
-        wy = g[None, :, None].expand(side, side, side)
-        wz = g[None, None, :].expand(side, side, side)
-        pos, px, py, valid = project_voxels(wx, wy, wz, t_cw, kmat,
-                                            frame_size)
-        if lvl == 0 and geom.blocks_per_side >= 8:
-            present, mip_skipped = _parent_present(
-                geom, state, min(budget, (geom.blocks_per_side // 2) ** 3))
-            valid = valid & present
-        else:
-            valid = valid & state.mip_alloc[lvl]
-        if when is not None:
-            valid = valid & when
-        ds = _sample_depth(depth, px, py)
-        nx, ny, _ = field_update(field, state.mip_x[lvl], state.mip_y[lvl],
-                                 pos, ds, valid, mu, timestamp,
-                                 geom.voxel_size)
-        state.mip_x[lvl].copy_(nx)
-        state.mip_y[lvl].copy_(ny)
+    # ---- node (coarse mip) pass (K4) ----------------------------------
+    mip_skipped = node_pass(geom, state, field, depth, t_cw, kmat, mu, budget,
+                            timestamp, when)
 
     if not with_stats:
         return state
@@ -157,4 +102,4 @@ def integrate(geom, state, field, depth, pose, k, mu: float, timestamp,
         mip_skipped = torch.where(when, mip_skipped, zero)
     return state, {"blocks_truncated": truncated,
                    "patch_skipped": patch_skipped,
-                   "mip_skipped": mip_skipped.to(torch.int32)}
+                   "mip_skipped": mip_skipped}

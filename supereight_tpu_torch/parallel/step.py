@@ -3,8 +3,9 @@ raycast, on torch tensors, for the TSDF and the OFusion field.
 
 Port of ``supereight_tpu/parallel/step.py:frame_step``. JAX compiled the
 frame into one XLA program; here it is an eager sequence of torch ops and
-the hand-written kernels K6 (the whole ICP, one launch), K5 (allocation),
-K3 (integration), K2 (nav grid) and K1 (raycast), each in its field's
+the hand-written kernels K7 (the input pyramid), K6 (the whole ICP, one
+launch), K5 (allocation), K3 (integration's block pass), K4 (its node
+pass, one launch), K2 (nav grid) and K1 (raycast), each in its field's
 variant. Nothing inside :func:`frame_step` reads a device value back to
 the host: budgets are Python ints, and the reference's rate gates are
 ``torch.where`` on device tensors, so on a GPU the whole frame is

@@ -1,13 +1,12 @@
 """Pipeline helpers shared by the fused frame step.
 
 Port of ``supereight_tpu/pipeline.py:_preprocess_and_pyramid`` (the
-``filter_input=False`` path). The ``DenseSLAMSystem`` class, the CLI and
-rendering are not ported yet.
+``filter_input=False`` path) on kernel K7 (``kernels/preprocess.py``). The
+``DenseSLAMSystem`` class, the CLI and rendering are not ported yet.
 """
 
 from supereight_tpu_torch import constants as C
-from supereight_tpu_torch.core import se3
-from supereight_tpu_torch.ops import preprocess
+from supereight_tpu_torch.kernels import preprocess
 
 
 def preprocess_and_pyramid(depth_m, k, levels: int, neg_y: bool,
@@ -22,14 +21,7 @@ def preprocess_and_pyramid(depth_m, k, levels: int, neg_y: bool,
             "input filters (bilateral, median) are not ported yet")
     depths = [depth_m]
     for _ in range(1, levels):
-        depths.append(preprocess.half_sample_robust(depths[-1],
-                                                    C.E_DELTA * 3.0))
-    verts, norms, valids = [], [], []
-    for i, d in enumerate(depths):
-        inv_k = se3.inverse_camera_matrix(k / (1 << i))
-        v = preprocess.depth2vertex(d, inv_k)
-        n, ok = preprocess.vertex2normal(v, neg_y)
-        verts.append(v)
-        norms.append(n)
-        valids.append(ok)
-    return tuple(depths), tuple(verts), tuple(norms), tuple(valids)
+        depths.append(preprocess.half_sample(depths[-1], C.E_DELTA * 3.0))
+    verts, norms, valids = zip(*(preprocess.vertex_normal(d, k, i, neg_y)
+                                 for i, d in enumerate(depths)))
+    return tuple(depths), verts, norms, valids

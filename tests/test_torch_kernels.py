@@ -16,8 +16,9 @@ from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import MapGeometry, make_map
 from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
+from supereight_tpu_torch.constants import E_DELTA
 from supereight_tpu_torch.kernels import _lib, alloc, icp, integrate, nav, \
-    raycast as kray
+    node, preprocess, raycast as kray
 from supereight_tpu_torch.kernels import gather_probe as gp
 from supereight_tpu_torch.ops import integration, raycast
 from supereight_tpu_torch.parallel import step
@@ -58,6 +59,37 @@ def test_cpu_tensors_take_the_twin_and_count_nothing():
     assert _lib.LAUNCHES == before
 
 
+def _node_args(geom, state, k, depth, field, t=0.2):
+    """K4's arguments for ``depth`` at ``state``'s pose, stamped at t."""
+    return (geom, state.map, field, depth, se3.inverse(state.pose),
+            se3.camera_matrix(k), MU[field.name], 1024,
+            torch.full((), t, device=depth.device),
+            torch.ones((), dtype=torch.bool, device=depth.device))
+
+
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_cpu_node_pass_and_pyramid_take_the_twins(field):
+    """On CPU tensors K4 and K7's wrappers return their twins' results
+    exactly and count no launch."""
+    torch.set_num_threads(1)
+    geom, state, k, depth = _frames("cpu", n=2, field=field)
+    before = dict(_lib.LAUNCHES)
+    m2 = clone_map(state.map)
+    got = node.node_pass(*_node_args(geom, state, k, depth, field))
+    want = node.node_pass_plain(*_node_args(geom, state._replace(map=m2), k,
+                                            depth, field))
+    assert torch.equal(got, want)
+    for a, b in zip(state.map.mip_x + state.map.mip_y, m2.mip_x + m2.mip_y):
+        assert torch.equal(a, b)
+    half = preprocess.half_sample(depth, E_DELTA * 3.0)
+    assert torch.equal(half, preprocess.half_sample_plain(depth,
+                                                          E_DELTA * 3.0))
+    for a, b in zip(preprocess.vertex_normal(half, k, 1, True),
+                    preprocess.vertex_normal_plain(half, k, 1, True)):
+        assert torch.equal(a, b)
+    assert _lib.LAUNCHES == before
+
+
 def test_other_devices_raise():
     """A tensor on neither the CPU nor a CUDA card is refused."""
     m = torch.zeros((2, 2, 3), device="meta")
@@ -78,6 +110,14 @@ def test_other_devices_raise():
     geom = MapGeometry(64, 2.0, 16)
     with pytest.raises(ValueError, match="unsupported device"):
         nav.nav_grid(geom, make_map(geom, OFUSION, "meta"), OFUSION)
+    d = torch.zeros((4, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        node.node_pass(geom, make_map(geom, TSDF, "meta"), TSDF, d, p, p, 0.1,
+                       16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        preprocess.half_sample(d, 0.3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        preprocess.vertex_normal(d, torch.ones(4, device="meta"), 0, False)
     with pytest.raises(ValueError, match="unsupported device"):
         gp.take_rows_staged(torch.zeros((4, 4), device="meta"),
                             torch.zeros(2, dtype=torch.int32, device="meta"))
@@ -95,8 +135,9 @@ def test_check_rejects_bad_arguments():
 
 def test_build_hash_covers_every_source_and_flag():
     names = {p.name for p in _lib._sources()}
-    assert {"icp.cu", "alloc.cu", "integrate.cu", "raycast.cu", "nav.cu",
-            "gather_probe.cu", "common.cuh"} <= names
+    assert {"icp.cu", "alloc.cu", "integrate.cu", "node.cu", "raycast.cu",
+            "nav.cu", "preprocess.cu", "gather_probe.cu", "common.cuh",
+            "fields.cuh"} <= names
     assert _lib.source_hash() == _lib.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _lib.NVCC_FLAGS
     assert "-fmad=false" in _lib.NVCC_FLAGS
@@ -173,6 +214,44 @@ def test_gather_forms_bit_exact_on_cuda(cuda):
         got = kernel(tt, it)
         assert torch.equal(got, plain(tt, it)), name
         np.testing.assert_array_equal(got.cpu().numpy(), expect(t, i))
+
+
+def clone_map(m):
+    return type(m)(*(tuple(x.clone() for x in v) if isinstance(v, tuple)
+                     else v.clone() for v in m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_node_pass_and_pyramid_match_twins_on_cuda(cuda, field):
+    """K4 against its twin on two copies of the map: mip values to K3's
+    UPDATE_TOL, time stamps and mip_skipped exactly, one launch counted.
+    K7 at every level of a 3-level pyramid, both neg_y: valid masks,
+    depth and vertices bit-equal, normals to 1e-6."""
+    geom, state, k, depth = _frames(cuda, field=field)
+    m2 = clone_map(state.map)
+    before = _lib.LAUNCHES["node_pass"]
+    got = node.node_pass(*_node_args(geom, state, k, depth, field))
+    assert _lib.LAUNCHES["node_pass"] == before + 1
+    want = node.node_pass_plain(*_node_args(geom, state._replace(map=m2), k,
+                                            depth, field))
+    assert int(got) == int(want)
+    for a, b in zip(state.map.mip_x, m2.mip_x):
+        assert torch.allclose(a, b, **UPDATE_TOL[field.name])
+    for a, b in zip(state.map.mip_y, m2.mip_y):
+        assert torch.allclose(a, b, atol=1e-5, rtol=0) if field is TSDF \
+            else torch.equal(a, b)
+    for neg_y in (False, True):
+        d_k = d_p = depth
+        for lvl in range(3):
+            if lvl:
+                d_k = preprocess.half_sample(d_k, E_DELTA * 3.0)
+                d_p = preprocess.half_sample_plain(d_p, E_DELTA * 3.0)
+                assert torch.equal(d_k, d_p)
+            v, n, ok = preprocess.vertex_normal(d_k, k, lvl, neg_y)
+            vp, np_, okp = preprocess.vertex_normal_plain(d_p, k, lvl, neg_y)
+            assert torch.equal(ok, okp) and torch.equal(v, vp)
+            assert float((n - np_).abs().max()) <= 1e-6
 
 
 def _track_args(cuda, field):
