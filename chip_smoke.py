@@ -13,10 +13,14 @@ checkout:
 3. kernel phases: on a map built by three port frames of the bench scene,
    runs each kernel and its plain PyTorch twin on the same inputs on the
    card, checks them against the stated tolerances and times both; TSDF
-   (K7 pyramid, K6 ICP reduction and whole tracking step, K5 allocation,
-   K3 integration prepass and update, K4 node pass, K2 nav grid, K1
-   raycast) and OFusion (K7 pyramid, K6 tracking step, K5-OF allocation,
-   K2 nav grid, K3-OF update, K4 node pass, K1-OF raycast);
+   (K2 nav grid, K1 raycast, K6 ICP reduction and whole tracking step, K5
+   march and allocator, K3 worklist, fused pass and fallback on the map the
+   allocator made, K4 node pass, K7 pyramid) and OFusion (K5-OF march, K2,
+   K1-OF, K6, the allocator, K3-OF, K4, K7); then, per field, the
+   allocator with a budget of half frame 3's new blocks and into a pool
+   with room for half of them (both must drop blocks), and a close view of
+   the sphere, allocated
+   and fused, whose near blocks take K3's exact-pixel fallback;
 4. probe phase: the four gather forms of the Pallas probe (K8) against
    their twins, bit for bit, and both timed;
 5. slice phases: drives ``parallel/step.frame_step`` at the bench config
@@ -29,10 +33,12 @@ checkout:
    of its first 5 frames under torch.profiler, each stage's host and
    device time and the device's busy share; it checks the drop counters,
    tracking from frame 4 on, the final position error against ground
-   truth and that every kernel of the path was launched (K6 and K4 once a
-   frame, K7's half_sample twice and vertex_normal three times), holds
-   the tracking kernel to its twin on every frame, and K6, K4 and K7 once
-   more on the slice's last frame; then
+   truth and that every kernel of the path was launched (K6, K4, K5's
+   allocator and K3's three launches once a frame, K7's half_sample twice
+   and vertex_normal three times, K3's former prepass never), holds the
+   tracking kernel to its twin and the allocator's incremental mip_alloc
+   to the dense rule on every frame, and K6, K5, K3, K4 and K7 to their
+   twins once more on the slice's last frame; then
    the probe's own path (``supereight_tpu_torch.tools.probe_gather.run``)
    likewise, each form bit for bit against the probe's numpy expectation;
 6. prints one JSON line of per-kernel results (each with its bound: the
@@ -101,12 +107,18 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
                     "supereight_tpu/ops/allocation.py:75"),
     "alloc_touch_of": ("supereight_tpu_torch/csrc/alloc.cu",
                        "supereight_tpu/ops/allocation.py:148"),
-    "integrate_prepass": ("supereight_tpu_torch/csrc/integrate.cu",
-                          "supereight_tpu/ops/integration.py:123"),
-    "integrate_update": ("supereight_tpu_torch/csrc/integrate.cu",
-                         "supereight_tpu/ops/integration.py:286"),
-    "integrate_update_of": ("supereight_tpu_torch/csrc/integrate.cu",
-                            "supereight_tpu/fields/ofusion.py:58"),
+    "alloc_assign": ("supereight_tpu_torch/csrc/alloc.cu",
+                     "supereight_tpu/core/map.py:273"),
+    "integrate_worklist": ("supereight_tpu_torch/csrc/integrate.cu",
+                           "supereight_tpu/ops/integration.py:60"),
+    "integrate_fused": ("supereight_tpu_torch/csrc/integrate.cu",
+                        "supereight_tpu/ops/integration.py:286"),
+    "integrate_fused_of": ("supereight_tpu_torch/csrc/integrate.cu",
+                           "supereight_tpu/ops/integration.py:286"),
+    "integrate_fallback": ("supereight_tpu_torch/csrc/integrate.cu",
+                           "supereight_tpu/ops/integration.py:340"),
+    "integrate_fallback_of": ("supereight_tpu_torch/csrc/integrate.cu",
+                              "supereight_tpu/ops/integration.py:340"),
     "nav_grid": ("supereight_tpu_torch/csrc/nav.cu",
                  "supereight_tpu/ops/raycast.py:138"),
     "raycast": ("supereight_tpu_torch/csrc/raycast.cu",
@@ -128,23 +140,46 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
     "vertex_normal": ("supereight_tpu_torch/csrc/preprocess.cu",
                       "supereight_tpu/ops/preprocess.py:101"),
 }
+# why no single PyTorch call computes a kernel's function (its library_ms
+# is null)
+NO_LIBRARY = {
+    "icp_reduce": "a gather plus 28 Gram sums",
+    "icp_track": "no call runs a Gauss-Newton loop",
+    "alloc_touch": "no call marches rays into a grid",
+    "alloc_touch_of": "no call marches rays into a grid",
+    "alloc_assign": "no call bump-allocates a pool; nonzero would size its "
+                    "output on the host",
+    "integrate_worklist": "nonzero would size its output on the host",
+    "integrate_fused": "no call runs a gated field update",
+    "integrate_fused_of": "no call runs a gated field update",
+    "integrate_fallback": "no call runs a gated field update",
+    "integrate_fallback_of": "no call runs a gated field update",
+    "nav_grid": "no call runs a capped distance transform",
+    "raycast": "no call marches rays through a sparse grid",
+    "raycast_of": "no call marches rays through a sparse grid",
+    "node_pass": "no call runs a gated field update",
+    "half_sample": "no call takes a robust mean",
+    "vertex_normal": "no call makes a sentinel normal map",
+}
 # device kernel names (without "_kernel") reported from the profile, and
 # the frame_step stage that launches each; the OFusion instantiations are
 # the <true> ones
 PROFILED = {"half_sample": "preprocess", "vertex_normal": "preprocess",
             "icp_reduce": "track", "icp_track": "track",
             "alloc_touch": "allocate", "alloc_touch_of": "allocate",
-            "integrate_prepass": "integrate", "integrate_update": "integrate",
+            "alloc_assign": "allocate", "integrate_worklist": "integrate",
+            "integrate_fused": "integrate", "integrate_fallback": "integrate",
             "node_pass": "integrate", "nav_dist_x": "raycast",
             "nav_dist_y": "raycast", "nav_final": "raycast",
             "raycast": "raycast"}
 PATHS = {  # the kernels each main path must launch
     "tsdf": ("half_sample", "vertex_normal", "icp_track", "alloc_touch",
-             "integrate_prepass", "integrate_update", "node_pass",
-             "nav_grid", "raycast"),
+             "alloc_assign", "integrate_worklist", "integrate_fused",
+             "integrate_fallback", "node_pass", "nav_grid", "raycast"),
     "ofusion": ("half_sample", "vertex_normal", "icp_track",
-                "alloc_touch_of", "integrate_prepass", "integrate_update_of",
-                "node_pass", "nav_grid", "raycast_of"),
+                "alloc_touch_of", "alloc_assign", "integrate_worklist",
+                "integrate_fused_of", "integrate_fallback_of", "node_pass",
+                "nav_grid", "raycast_of"),
     "probe": ("gather_a", "gather_b", "gather_c", "gather_d"),
 }
 
@@ -341,6 +376,24 @@ def report_profile(prof, ms_frame, tag):
         print(f"{tag} profile: port kernel {label:32s} "
               f"{dev_us(e, True) / max(e.count, 1):9.2f} us/launch, "
               f"{e.count / N_PROFILED:5.1f} launches/frame")
+    # the torch ops left in the stages K3 and K5 cover: each op called
+    # directly in the span, with the device time of the kernels and copies
+    # it (and the ops under it) ran
+    for stage in ("frame_step/allocate", "frame_step/integrate"):
+        ops = {}
+        for ev in prof.events():
+            if ev.cpu_parent is not None and ev.cpu_parent.name == stage:
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = ev.cuda_time_total
+                n, t = ops.get(ev.name, (0, 0.0))
+                ops[ev.name] = (n + 1, t + us)
+        ops = sorted(((t, n, k) for k, (n, t) in ops.items() if t > 0),
+                     reverse=True)
+        print(f"{tag} profile: {stage} torch ops, device us/frame: "
+              f"{sum(t for t, _, _ in ops) / N_PROFILED:.2f} in all; "
+              + ", ".join(f"{k} {t / N_PROFILED:.2f} ({n / N_PROFILED:g}x)"
+                          for t, n, k in ops))
 
 
 def require(cond, msg):
@@ -432,24 +485,223 @@ def alloc_of_bound(geom, depth, mu):
                  + coarse * (50 + 13 * (len(levels) - n_fine)))
 
 
-def integrate_bounds(field, wl, n_valid, before, after):
-    """K3's two launches. Prepass: the worklist and the listed blocks'
-    coordinates read once, three i32/u8 outputs per entry, and per voxel
-    the projection (43 operations) and the bbox (4). Update: the valid
-    voxels' two channels read once, the changed ones written once, the
-    depth under them, and per voxel the projection plus the field's
-    update on valid ones (TSDF 19, OFusion 44 operations;
-    csrc/integrate.cu)."""
-    nb = int((wl < CAPACITY).sum())
-    nv = int(n_valid.sum())
-    changed = int(((after.data_x != before.data_x)
-                   | (after.data_y != before.data_y)).sum())
-    per_update = 44 if field.name == "ofusion" else 19
-    pre = bound(wl.numel() * (4 + 9) + nb * 12 + 2 * 64, nb * 512 * 47)
-    upd = bound(wl.numel() * 8 + nb * 13 + nv * 8 + changed * 8
-                + min(nv, W * H) * 4 + 2 * 64,
-                nb * 512 * 43 + nv * per_update)
-    return pre, upd
+def check_alloc(torch, sc, m, pose, depth, tag, budget=None, capacity=None):
+    """K5 alloc_assign against its twin on two copies of ``m``, for the
+    touched grids of ``depth`` at ``pose`` (the field's march on the card)
+    under a true ``when``: slot grid, block_coord, active, n_blocks,
+    alloc_overflow and every mip_alloc level bit for bit, and mip_alloc
+    against the dense rule (JAX's refresh over every allocated block; the
+    kernel's refresh is incremental). ``budget`` caps the new blocks,
+    ``capacity`` cuts the pool to that many slots. Returns the kernel's
+    row (error and bound: the touched grid read once, the slot grid under
+    its touched cells, the extra grids, the new entries and the mip bytes
+    set written once), its and its twin's calls, the kernel's map and
+    alloc_overflow."""
+    from supereight_tpu_torch.core.map import MapGeometry, refresh_mip_alloc
+    from supereight_tpu_torch.kernels import alloc
+    geom, field, mu = sc.geom, sc.field, sc.mu
+    if capacity is not None:
+        geom = MapGeometry(size=SIZE, dim=DIM, capacity=capacity)
+        m = m._replace(**{n: getattr(m, n)[:capacity] for n in
+                          ("data_x", "data_y", "block_coord", "active")})
+    grids = ((alloc.touched_mask(geom, depth, pose, sc.kt, mu),)
+             if field.name == "tsdf"
+             else alloc.touched_masks_of(geom, depth, pose, sc.kt, mu))
+    when = torch.ones((), dtype=torch.bool, device=sc.dev)
+    ma, mb, md = clone_map(m), clone_map(m), clone_map(m)
+
+    def args(mm):
+        return (geom, mm, grids[0], when, budget, grids[1:])
+
+    over = int(alloc.alloc_assign(*args(ma)))
+    over_p = int(alloc.alloc_assign_plain(*args(mb)))
+    refresh_mip_alloc(geom, md, ma.slot >= 0,
+                      extra_levels=(None,) + tuple(grids[1:]))
+    mism = {n: int((getattr(ma, n) != getattr(mb, n)).sum())
+            for n in ("slot", "block_coord", "active", "n_blocks")}
+    mism["mip_alloc"] = sum(int((a != b).sum())
+                            for a, b in zip(ma.mip_alloc, mb.mip_alloc))
+    dense = sum(int((a != b).sum())
+                for a, b in zip(ma.mip_alloc, md.mip_alloc))
+    n_old, n_new = int(m.n_blocks), int(ma.n_blocks)
+    touched = int(grids[0].sum())
+    print(f"{tag}: {touched} touched cells, {n_new - n_old} new blocks "
+          f"({n_old} -> {n_new} of {geom.capacity}), alloc_overflow {over} "
+          f"vs {over_p}, mismatches {mism} (all 0), mip_alloc against the "
+          f"dense rule {dense} mismatches (0)")
+    require(over == over_p and sum(mism.values()) == 0 and dense == 0,
+            f"{tag} disagrees with twin")
+    mip_set = sum(int((a != c).sum())
+                  for a, c in zip(ma.mip_alloc, m.mip_alloc))
+    b = geom.blocks_per_side
+    row = dict(max_abs_err=float(sum(mism.values()) + abs(over - over_p)),
+               **bound(b ** 3 + 4 * touched
+                       + sum(g.numel() for g in grids[1:])
+                       + 17 * (n_new - n_old) + mip_set + 8, b ** 3))
+    return (row, lambda: alloc.alloc_assign(*args(ma)),
+            lambda: alloc.alloc_assign_plain(*args(mb)), ma, over)
+
+
+def payload_errors(field, a, b):
+    """The fused payloads of two maps against each other: (largest data_x
+    error, within K3's tolerances — TSDF data_x to 1e-5, OFusion log-odds
+    to 1e-4 + 1e-5 |x| (log2f against torch.log2) —, data_y and active
+    exactly, message)."""
+    dx = (a.data_x - b.data_x).abs()
+    ey = int((a.data_y != b.data_y).sum())
+    act = int((a.active != b.active).sum())
+    if field.name == "ofusion":
+        bad = int((dx > 1e-4 + 1e-5 * b.data_x.abs()).sum())
+        ok, tol = bad == 0, f"{bad} beyond 1e-4 + 1e-5 |x| (== 0)"
+    else:
+        ok, tol = dx.max().item() <= 1e-5, "(<= 1e-5)"
+    ex = dx.max().item()
+    return ex, ok and ey == 0 and act == 0, (
+        f"data_x max err {ex:.3e} {tol}, data_y mismatches {ey} (== 0), "
+        f"active mismatches {act} (== 0)")
+
+
+def changed(a, b):
+    """Voxels whose payload differs between two maps."""
+    return int(((a.data_x != b.data_x) | (a.data_y != b.data_y)).sum())
+
+
+def check_block_pass(torch, sc, m, pose, depth, ts, tag):
+    """K3's three launches against their twins on two copies of ``m``,
+    fusing ``depth`` at ``pose`` stamped ``ts`` under a true ``when``: the
+    worklist, n_active and blocks_truncated exactly; then the fused pass
+    (mode, n_valid, need exactly, payloads by :func:`payload_errors`);
+    then the fallback (patch_skipped and the final mode exactly, payloads
+    again). Returns each kernel's row, kernel call and twin call, and the
+    counts (listed, need, fallback-fused blocks, patch_skipped).
+
+    Bounds, counted from these inputs: the worklist reads the active flag
+    of every allocated slot and the coordinates of the active ones once,
+    writes its entries once, and projects each active slot's corner; the
+    fused pass reads every worklist entry, and for the listed blocks their
+    coordinates, their valid voxels' two channels and the depth under them
+    once, writes the changed voxels, the active flag and the three
+    per-entry outputs once, and projects every voxel of each listed block
+    (43 operations, 4 for the bbox) and updates each valid voxel of a
+    covered block; the fallback reads every entry's need flag, and the
+    slot and n_valid of the need entries, and does the same as the fused
+    pass for the blocks it fuses (their mode and active flag written, the
+    skipped ones' active flag cleared)."""
+    from supereight_tpu_torch.core import se3
+    from supereight_tpu_torch.kernels import integrate as ki
+    geom, field, mu, dev = sc.geom, sc.field, sc.mu, sc.dev
+    h, w = depth.shape
+    t_cw, kmat = se3.inverse(pose), se3.camera_matrix(sc.kt)
+    when = torch.ones((), dtype=torch.bool, device=dev)
+    wl_args = (geom, m, t_cw, kmat, (w, h), BUDGET, when)
+    wk = ki.integrate_worklist(*wl_args)
+    wp = ki.integrate_worklist_plain(*wl_args)
+    wl_mism = sum(int((a != b).sum()) for a, b in zip(wk, wp))
+    wl = wk[0]
+    blk = (wl, depth, t_cw, kmat, mu)
+    ma, mb = clone_map(m), clone_map(m)
+    fk = ki.integrate_fused(geom, ma, field, *blk, ts)
+    fp = ki.integrate_fused_plain(geom, mb, field, *blk, ts)
+    f_mism = sum(int((a != b).sum()) for a, b in zip(fk, fp))
+    e_f, ok_f, msg_f = payload_errors(field, ma, mb)
+    mode_f, fused = fk[0].clone(), clone_map(ma)
+    sk = ki.integrate_fallback(geom, ma, field, *blk, *fk, ts)
+    sp = ki.integrate_fallback_plain(geom, mb, field, *blk, *fp, ts)
+    b_mism = int(sk != sp) + int((fk[0] != fp[0]).sum())
+    e_b, ok_b, msg_b = payload_errors(field, ma, mb)
+    nb = int((wl < geom.capacity).sum())
+    need = fk[2]
+    fb = need & (fk[0] == 0)
+    counts = dict(listed=nb, need=int(need.sum()), fallback=int(fb.sum()),
+                  patch_skipped=int(sk))
+    print(f"{tag}: worklist {nb} blocks of n_active {int(wk[1])}, "
+          f"blocks_truncated {int(wk[2])}, {wl_mism} mismatches (== 0); "
+          f"fused: {int((mode_f > 0).sum())} on a coarser depth level, "
+          f"{counts['need']} uncovered, mode/n_valid/need {f_mism} "
+          f"mismatches (== 0), {msg_f}; fallback: {counts['fallback']} "
+          f"blocks fused at the exact pixel, patch_skipped {int(sk)} vs "
+          f"{int(sp)}, mode/patch_skipped {b_mism} mismatches (== 0), "
+          f"{msg_b}")
+    require(wl_mism == 0 and f_mism == 0 and ok_f and b_mism == 0 and ok_b,
+            f"{tag} disagrees with twin")
+
+    of = "_of" if field.name == "ofusion" else ""
+    n_blk = int(m.n_blocks)
+    n_act = int(m.active[:n_blk].sum())
+    nv_cov = int(fk[1][mode_f >= 0].sum())
+    nv_fb = int(fk[1][fb].sum())
+    upd = UPDATE_OPS[field.name]
+    rows = {
+        "integrate_worklist": (
+            dict(max_abs_err=float(wl_mism), **bound(
+                n_blk + 12 * n_act + 4 * BUDGET + 12 + 2 * 64,
+                n_act * PROJECT_OPS)),
+            lambda: ki.integrate_worklist(*wl_args),
+            lambda: ki.integrate_worklist_plain(*wl_args)),
+        "integrate_fused" + of: (
+            dict(max_abs_err=e_f, **bound(
+                4 * BUDGET + 22 * nb + 8 * nv_cov + 8 * changed(fused, m)
+                + 4 * min(nv_cov, w * h) + 2 * 64,
+                nb * 512 * (PROJECT_OPS + 4) + nv_cov * upd)),
+            lambda: ki.integrate_fused(geom, ma, field, *blk, ts),
+            lambda: ki.integrate_fused_plain(geom, mb, field, *blk, ts)),
+        "integrate_fallback" + of: (
+            dict(max_abs_err=max(e_b, float(b_mism)), **bound(
+                BUDGET + 8 * counts["need"] + 17 * counts["fallback"]
+                + (counts["need"] - counts["fallback"]) + 12 * nv_fb
+                + 8 * changed(ma, fused) + 4 + 2 * 64,
+                counts["fallback"] * 512 * PROJECT_OPS + nv_fb * upd)),
+            lambda: ki.integrate_fallback(geom, ma, field, *blk, *fk, ts),
+            lambda: ki.integrate_fallback_plain(geom, mb, field, *blk, *fp,
+                                                ts)),
+    }
+    return rows, counts
+
+
+def check_caps_and_fallback(torch, sc, m, pose, ts, tag):
+    """K5 with its drop paths and K3 with its fallback, on the card: frame
+    3 allocated with a budget of half its new blocks, and into a pool with
+    room for half of them (both must drop blocks); then a close view of the
+    sphere
+    (0.15 m from its surface, the scene's intrinsics), allocated and fused,
+    whose near blocks outgrow every depth level, so that the fallback fuses
+    blocks at the exact pixel. Returns each checked kernel's largest
+    error."""
+    import numpy as np
+    from supereight_tpu_torch.io import synthetic
+    from supereight_tpu_torch.kernels import alloc
+    errs = {}
+    n = int(m.n_blocks)
+    touched = (alloc.touched_mask(sc.geom, sc.depths_t[3], pose, sc.kt, sc.mu)
+               if sc.field.name == "tsdf" else alloc.touched_masks_of(
+                   sc.geom, sc.depths_t[3], pose, sc.kt, sc.mu)[0])
+    half = int((touched & (m.slot < 0)).sum()) // 2
+    require(half > 0, f"{tag}: frame 3 has too few new blocks to cap")
+    for kw, what in ((dict(budget=half), f"budget {half}"),
+                     (dict(capacity=n + half), f"capacity {n + half}")):
+        row, _, _, _, over = check_alloc(
+            torch, sc, m, pose, sc.depths_t[3],
+            f"K5 alloc_assign ({tag}, {what})", **kw)
+        require(over > 0, f"K5 alloc_assign ({tag}, {what}): nothing dropped")
+        errs["alloc_assign"] = max(errs.get("alloc_assign", 0.0),
+                                   row["max_abs_err"])
+    c = np.full(3, DIM / 2)
+    r = 0.15 * DIM
+    pose_c = synthetic.look_at(c + np.array([0.0, 0.05, -(r + 0.15)]), c)
+    depth_c = synthetic.render_depth(
+        pose_c, K, W, H, sphere_center=c, sphere_radius=r,
+        box_min=(0.55,) * 3, box_max=(DIM - 0.55,) * 3)
+    pose_c = torch.from_numpy(pose_c.astype(np.float32)).to(sc.dev)
+    depth_c = torch.from_numpy(depth_c).to(sc.dev)
+    row, _, _, mc, _ = check_alloc(torch, sc, m, pose_c, depth_c,
+                                   f"K5 alloc_assign ({tag}, close view)")
+    errs["alloc_assign"] = max(errs["alloc_assign"], row["max_abs_err"])
+    rows, counts = check_block_pass(torch, sc, mc, pose_c, depth_c, ts,
+                                    f"K3 ({tag}, close view)")
+    require(counts["fallback"] > 0,
+            f"K3 ({tag}, close view): the fallback fused no block")
+    errs.update((k, v[0]["max_abs_err"]) for k, v in rows.items())
+    return errs
 
 
 def nav_bound(geom, field):
@@ -607,11 +859,18 @@ def check_pyramid(torch, depth, tag):
 
 
 def new_kernel_rows(torch, sc, m, pose, depth, ts, tag):
-    """K4 and K7 against their twins (:func:`check_node_pass`,
-    :func:`check_pyramid`), each with its call and its twin's timed: the
-    kernel over 50 back-to-back calls, the twin over 5."""
-    checked = {"node_pass": check_node_pass(
-        torch, sc, m, pose, depth, ts, f"K4 node_pass ({tag})")}
+    """K5's allocator, then K3's three launches on the map it made
+    (:func:`check_alloc`, :func:`check_block_pass`), K4 and K7 against
+    their twins (:func:`check_node_pass`, :func:`check_pyramid`), each
+    with its call and its twin's timed: the kernel over 50 back-to-back
+    calls, the twin over 5."""
+    row, call, plain, m_alloc, _ = check_alloc(
+        torch, sc, m, pose, depth, f"K5 alloc_assign ({tag})")
+    checked = {"alloc_assign": (row, call, plain)}
+    checked.update(check_block_pass(torch, sc, m_alloc, pose, depth, ts,
+                                    f"K3 ({tag})")[0])
+    checked["node_pass"] = check_node_pass(
+        torch, sc, m, pose, depth, ts, f"K4 node_pass ({tag})")
     rows, calls = check_pyramid(torch, depth, f"K7 pyramid ({tag})")
     checked.update((k, (rows[k], *calls[k])) for k in rows)
     rows = {}
@@ -625,13 +884,19 @@ def new_kernel_rows(torch, sc, m, pose, depth, ts, tag):
     return rows
 
 
+def merge_errs(rows, errs):
+    """Raise each named row's max_abs_err to the error of a further
+    check."""
+    for k, e in errs.items():
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
+
+
 def kernel_phase_tsdf(torch, sc):
     """Each TSDF-path kernel against its twin on a map built by three port
     frames."""
     from supereight_tpu_torch.core import se3
-    from supereight_tpu_torch.kernels import alloc, icp, integrate, nav, \
-        raycast
-    from supereight_tpu_torch.ops import integration, raycast as ops_ray
+    from supereight_tpu_torch.kernels import alloc, icp, nav, raycast
+    from supereight_tpu_torch.ops import raycast as ops_ray
     from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
     geom, field, mu, kt = sc.geom, sc.field, sc.mu, sc.kt
@@ -642,7 +907,7 @@ def kernel_phase_tsdf(torch, sc):
     rows = {}
 
     # K2 + K1: the primed raycast of frame 2 (its output feeds K6 below)
-    check_nav(torch, sc, m, "K2 nav_grid (TSDF)")
+    rows["nav_grid"] = check_nav(torch, sc, m, "K2 nav_grid (TSDF)")
     view = se3.matmul4(pose, se3.inverse_camera_matrix(kt))
     prime = ops_ray.prime_from_depth(d2, kt)
     nv = nav.nav_grid(geom, m, field, bucket=BUDGET)
@@ -703,48 +968,12 @@ def kernel_phase_tsdf(torch, sc):
             geom, d3, pose, kpose, mu), 10),
         **alloc_bound(geom, d3, mu))
 
-    # K3: fuse frame 3 at the frame-2 pose into two copies of the map
-    t_cw = se3.inverse(pose)
-    kmat = se3.camera_matrix(kt)
-    wl, _ = integration.build_active_worklist(geom, m, t_cw, kmat, (W, H),
-                                              BUDGET)
-    pre_k = integrate.integrate_prepass(geom, m, wl, d3, t_cw, kmat)
-    pre_p = integrate.integrate_prepass_plain(geom, m, wl, d3, t_cw, kmat)
-    pre_mism = sum(int((a != b).sum()) for a, b in zip(pre_k, pre_p))
-    print(f"K3 integrate_prepass: {int((wl < CAPACITY).sum())} blocks, "
-          f"{int((pre_k[0] > 0).sum())} on a coarser depth level, "
-          f"{int(pre_k[2].sum())} uncovered, {pre_mism} mismatches (== 0)")
-    require(pre_mism == 0, "K3 integrate_prepass disagrees with twin")
-    mode, _ = integrate._fallback_mode(pre_k[0], pre_k[2], pre_k[1],
-                                       wl.shape[0])
-    ma, mb = clone_map(m), clone_map(m)
-    integrate.integrate_update(geom, ma, field, wl, d3, t_cw, kmat, mu, mode)
-    integrate.integrate_update_plain(geom, mb, field, wl, d3, t_cw, kmat, mu,
-                                     mode)
-    ubound = integrate_bounds(field, wl, pre_k[1], m, ma)
-    ex = (ma.data_x - mb.data_x).abs().max().item()
-    ey = (ma.data_y - mb.data_y).abs().max().item()
-    act = int((ma.active != mb.active).sum())
-    print(f"K3 integrate_update: data_x max err {ex:.3e} (<= 1e-5), data_y "
-          f"max err {ey:.3e} (== 0), active mismatches {act} (== 0)")
-    require(ex <= 1e-5 and ey == 0 and act == 0,
-            "K3 integrate_update disagrees with twin")
-    rows["integrate_prepass"] = dict(
-        max_abs_err=float(pre_mism),
-        ms=cuda_ms(torch, lambda: integrate.integrate_prepass(
-            geom, m, wl, d3, t_cw, kmat), 50),
-        plain_ms=cuda_ms(torch, lambda: integrate.integrate_prepass_plain(
-            geom, m, wl, d3, t_cw, kmat), 10), **ubound[0])
-    rows["integrate_update"] = dict(
-        max_abs_err=ex,
-        ms=cuda_ms(torch, lambda: integrate.integrate_update(
-            geom, ma, field, wl, d3, t_cw, kmat, mu, mode), 50),
-        plain_ms=cuda_ms(torch, lambda: integrate.integrate_update_plain(
-            geom, mb, field, wl, d3, t_cw, kmat, mu, mode), 10), **ubound[1])
-
-    # K4 + K7: frame 3's node pass at the frame-2 pose, and its pyramid
+    # K5's allocator, K3, K4 and K7: frame 3 at the frame-2 pose; then
+    # K5's drop paths and K3's fallback
     ts = torch.full((), 3.0, dtype=torch.float32, device=sc.dev) * (1 / 30)
     rows.update(new_kernel_rows(torch, sc, m, pose, d3, ts, "TSDF, frame 3"))
+    merge_errs(rows, check_caps_and_fallback(torch, sc, m, pose, ts,
+                                             "TSDF, frame 3"))
     return rows
 
 
@@ -752,8 +981,8 @@ def kernel_phase_of(torch, sc):
     """Each OFusion-path kernel against its twin on a map built by three
     OFusion port frames."""
     from supereight_tpu_torch.core import se3
-    from supereight_tpu_torch.kernels import alloc, integrate, nav, raycast
-    from supereight_tpu_torch.ops import integration, raycast as ops_ray
+    from supereight_tpu_torch.kernels import alloc, nav, raycast
+    from supereight_tpu_torch.ops import raycast as ops_ray
     from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
     geom, field, mu, kt = sc.geom, sc.field, sc.mu, sc.kt
@@ -803,48 +1032,13 @@ def kernel_phase_of(torch, sc):
         torch, "K6 icp_track (OFusion, frame 3)",
         (pose, kview, verts, norms, valids, got[0], got[1], got[2]))
 
-    # K3-OF: fuse frame 3 at the frame-2 pose into two copies of the map,
-    # stamped with frame 3's time
-    t_cw = se3.inverse(pose)
-    kmat = se3.camera_matrix(kt)
+    # K5's allocator, K3-OF, K4 and K7: frame 3 at the frame-2 pose,
+    # stamped with frame 3's time; then K5's drop paths and K3's fallback
     ts = torch.full((), 3.0, dtype=torch.float32, device=sc.dev) * (1 / 30)
-    wl, _ = integration.build_active_worklist(geom, m, t_cw, kmat, (W, H),
-                                              BUDGET)
-    lv, n_valid, need = integrate.integrate_prepass(geom, m, wl, d3, t_cw,
-                                                    kmat)
-    mode, _ = integrate._fallback_mode(lv, need, n_valid, wl.shape[0])
-    ma, mb = clone_map(m), clone_map(m)
-    integrate.integrate_update(geom, ma, field, wl, d3, t_cw, kmat, mu, mode,
-                               ts)
-    integrate.integrate_update_plain(geom, mb, field, wl, d3, t_cw, kmat, mu,
-                                     mode, ts)
-    ubound = integrate_bounds(field, wl, n_valid, m, ma)
-    dx = (ma.data_x - mb.data_x).abs()
-    bad = int((dx > 1e-4 + 1e-5 * mb.data_x.abs()).sum())
-    ex = dx.max().item()
-    wrote_k = ma.data_y == ts
-    wrote_p = mb.data_y == ts
-    ey = int((ma.data_y != mb.data_y).sum())
-    act = int((ma.active != mb.active).sum())
-    print(f"K3-OF integrate_update_of: {int((wl < CAPACITY).sum())} blocks, "
-          f"{int(wrote_p.sum())} voxels written, data_x max abs err "
-          f"{ex:.3e}, {bad} beyond 1e-4 + 1e-5 |x| (== 0), write-gate "
-          f"(data_y) mismatches {ey} (== 0), active mismatches {act} "
-          f"(== 0)")
-    require(bad == 0 and ey == 0 and act == 0
-            and bool((wrote_k == wrote_p).all()),
-            "K3-OF integrate_update_of disagrees with twin")
-    rows["integrate_update_of"] = dict(
-        max_abs_err=ex,
-        ms=cuda_ms(torch, lambda: integrate.integrate_update(
-            geom, ma, field, wl, d3, t_cw, kmat, mu, mode, ts), 50),
-        plain_ms=cuda_ms(torch, lambda: integrate.integrate_update_plain(
-            geom, mb, field, wl, d3, t_cw, kmat, mu, mode, ts), 10),
-        **ubound[1])
-
-    # K4 + K7: frame 3's node pass at the frame-2 pose, and its pyramid
     rows.update(new_kernel_rows(torch, sc, m, pose, d3, ts,
                                 "OFusion, frame 3"))
+    merge_errs(rows, check_caps_and_fallback(torch, sc, m, pose, ts,
+                                             "OFusion, frame 3"))
     return rows
 
 
@@ -976,10 +1170,15 @@ def slice_phase(torch, sc, card):
     # the whole tracking step and the node pass are one launch a frame,
     # the pyramid one half_sample per coarser level and one vertex_normal
     # per level; the reduction alone is no longer on the path
+    # K5's allocator and K3's three launches once a frame each
     n_lv = len(ITERATIONS)
+    of = "_of" if sc.field.name == "ofusion" else ""
     expect = {"icp_track": sc.n_total, "node_pass": sc.n_total,
               "half_sample": (n_lv - 1) * sc.n_total,
-              "vertex_normal": n_lv * sc.n_total, "icp_reduce": 0}
+              "vertex_normal": n_lv * sc.n_total, "icp_reduce": 0,
+              "alloc_assign": sc.n_total, "integrate_worklist": sc.n_total,
+              "integrate_fused" + of: sc.n_total,
+              "integrate_fallback" + of: sc.n_total}
     require(all(launches[k] == v for k, v in expect.items()),
             f"{tag}: launches {launches}, expected {expect} in "
             f"{sc.n_total} frames")
@@ -987,12 +1186,18 @@ def slice_phase(torch, sc, card):
     # K6 against its twin on every frame's tracking inputs as the path
     # meets them (the slice once more: every launch is deterministic, so
     # these are the timed run's frames), then once more (timed, launched
-    # twice) on the last frame
-    from supereight_tpu_torch.kernels import icp
-    n_exact, worst = 0, 0.0
+    # twice) on the last frame; and on every frame the allocator's
+    # incremental mip_alloc against the dense rule (JAX's refresh over
+    # every allocated block and this frame's extra octants, on the mips
+    # the frame started from)
+    from supereight_tpu_torch.core.map import refresh_mip_alloc
+    from supereight_tpu_torch.kernels import alloc, icp
+    n_exact, worst, mip_bad = 0, 0.0, 0
     state = sc.init()
     for i in range(sc.n_total):
         args = track_args(torch, sc, state, sc.depths_t[i])
+        dense = state.map._replace(
+            mip_alloc=tuple(a.clone() for a in state.map.mip_alloc))
         state, aux = sc.frame(state, i)
         got = (state.pose, aux["tracked"], aux["reduction"],
                aux["track_result"])
@@ -1001,9 +1206,19 @@ def slice_phase(torch, sc, card):
         require(ok, f"{tag}: frame {i}: icp_track disagrees with twin: {e}")
         n_exact += all(torch.equal(x, y) for x, y in zip(got, want))
         worst = max(worst, e["pose"])
+        extra = ()
+        if sc.field.name == "ofusion":
+            extra = tuple(t & aux["integrated"] for t in alloc.touched_masks_of(
+                sc.geom, sc.depths_t[i], state.pose, sc.kt, sc.mu)[1:])
+        refresh_mip_alloc(sc.geom, dense, state.map.slot >= 0,
+                          extra_levels=(None,) + extra)
+        mip_bad += sum(int((a != b).sum()) for a, b in
+                       zip(dense.mip_alloc, state.map.mip_alloc))
     print(f"{tag}: icp_track within the twin's tolerances on all "
           f"{sc.n_total} frames, equal to it bit for bit on {n_exact}; pose "
-          f"max err {worst:.3e}")
+          f"max err {worst:.3e}; incremental mip_alloc against the dense "
+          f"rule on all {sc.n_total} frames: {mip_bad} mismatches (== 0)")
+    require(mip_bad == 0, f"{tag}: mip_alloc departs from the dense rule")
     last = f"{sc.field.name}, frame {sc.n_total - 1}"
     trow = check_icp_track(torch, f"K6 icp_track ({last})", args)
     # K4 and K7 on the last frame: its node pass on the map and pose the
@@ -1016,6 +1231,15 @@ def slice_phase(torch, sc, card):
                 f"K4 node_pass ({last})")[0]["max_abs_err"]}
     prows, _ = check_pyramid(torch, sc.depths_t[-1], f"K7 pyramid ({last})")
     errs.update((k, r["max_abs_err"]) for k, r in prows.items())
+    # K5's allocator and K3 on the last frame, on the map and pose the
+    # slice ended with
+    arow, _, _, m_alloc, _ = check_alloc(torch, sc, state.map, state.pose,
+                                         sc.depths_t[-1],
+                                         f"K5 alloc_assign ({last})")
+    errs["alloc_assign"] = arow["max_abs_err"]
+    brows, _ = check_block_pass(torch, sc, m_alloc, state.pose,
+                                sc.depths_t[-1], ts, f"K3 ({last})")
+    errs.update((k, v[0]["max_abs_err"]) for k, v in brows.items())
     return {k: launches[k] for k in path}, errs
 
 
@@ -1051,7 +1275,12 @@ def main():
     from supereight_tpu_torch.kernels import _lib
 
     t0 = time.perf_counter()
-    _lib.library()
+    lib = _lib.library()
+    # K3's former prepass and update, which the fused block pass replaced,
+    # are no longer built, so no path can launch them
+    require(not any(hasattr(lib, "se_integrate_" + k)
+                    for k in ("prepass", "update")),
+            "the library still exports K3's former prepass or update")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_lib.build_info.get('seconds', 0.0):.1f} s, "
           f"cached={_lib.build_info.get('cached')})")
@@ -1065,14 +1294,16 @@ def main():
     dev = torch.device("cuda", 0)
     tsdf, of = Scene(torch, TSDF, dev), Scene(torch, OFUSION, dev)
     rows = kernel_phase_tsdf(torch, tsdf)
-    # a kernel both fields run keeps the TSDF phase's times; its error is
-    # the largest of all its checks (both fields, frame 3 and the slices'
-    # last frames)
+    # a kernel both fields run keeps the TSDF phase's times and bound, with
+    # the OFusion phase's under "ofusion"; its error is the largest of all
+    # its checks (both fields, frame 3 and the slices' last frames)
     errs = {}
     for name, row in kernel_phase_of(torch, of).items():
         if name in rows:
             errs.setdefault(name, [rows[name]["max_abs_err"]]).append(
                 row["max_abs_err"])
+            rows[name]["ofusion"] = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by") if k in row}
         else:
             rows[name] = row
     rows.update(probe_phase(torch, dev))
@@ -1091,10 +1322,12 @@ def main():
         rows[k]["max_abs_err"] = max(e)
 
     # library_ms: no single PyTorch call computes the function, except
-    # for the gather forms (probe phase)
+    # for the gather forms (probe phase); the others say why not
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name],
-                    **{"library_ms": None, **rows[name]})
+                    **{"library_ms": None, **rows[name]},
+                    **({"library_none": NO_LIBRARY[name]}
+                       if name in NO_LIBRARY else {}))
                for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

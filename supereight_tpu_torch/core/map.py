@@ -6,9 +6,10 @@ describes the design). Leaf storage is a fixed-capacity pool of dense
 x + 8y + 64z); a dense i32 grid ``slot[bx, by, bz]`` maps block coords to
 pool slots (-1 = unallocated); ``mip_*[l]`` hold the coarse node values.
 
-Allocation updates the state's tensors IN PLACE (where JAX donated the
-buffers, parallel/step.py there): callers consume a state once per
-frame, and the returned state shares its tensors with the input.
+Allocation (``kernels/alloc.py:alloc_assign``, the counterpart of JAX's
+``allocate_blocks``) updates the state's tensors IN PLACE (where JAX
+donated the buffers, parallel/step.py there): callers consume a state
+once per frame, and the returned state shares its tensors with the input.
 """
 
 import dataclasses
@@ -121,78 +122,6 @@ def get_voxel_channel_c(geom: MapGeometry, state: MapState, field: FieldSpec,
     return torch.where(ok, data.reshape(-1)[flat], fill)
 
 
-def scatter_drop(dst, index, src):
-    """``dst[index] = src`` along dim 0, in place, where entries with
-    ``index == len(dst)`` are dropped (JAX's ``mode="drop"`` scatter).
-
-    Kept indices must be unique. The write goes through a copy with one
-    spare row that takes the dropped entries, so no masked-out entry can
-    race with a kept one.
-    """
-    pad = torch.cat([dst, dst[:1]])
-    pad.index_copy_(0, index.long(), src)
-    dst.copy_(pad[:-1])
-    return dst
-
-
-# per-frame bound on NEW block allocations (the JAX package's value).
-# Overflow cells stay unallocated and are re-touched on later frames.
-ALLOC_BUDGET = 8192
-
-
-def allocate_blocks(geom: MapGeometry, state: MapState, touched,
-                    with_stats: bool = False, budget: int = None):
-    """Allocate every block whose flag is set in the [B,B,B] ``touched``
-    mask (ref octree.hpp:792-856; JAX core/map.py:273-342).
-
-    New cells take pool slots in ascending cell-id order (a cumsum
-    compaction), capped at ``budget`` (default ALLOC_BUDGET) and at
-    capacity, bump-allocated from ``n_blocks``. Touched pre-existing
-    blocks are re-activated. Updates ``state`` in place; no host sync.
-    """
-    b = geom.blocks_per_side
-    cap = geom.capacity
-    n_cells = b * b * b
-    dev = touched.device
-    kb = min(n_cells, ALLOC_BUDGET if budget is None else budget)
-    flat_new = (touched & (state.slot < 0)).reshape(-1)
-
-    # ascending compaction of new cells into kb lanes (kb = empty lane)
-    order = torch.cumsum(flat_new.to(torch.int32), 0) - 1
-    lane = torch.where(flat_new & (order < kb), order,
-                       torch.full_like(order, kb))
-    cells = torch.full((kb + 1,), n_cells, dtype=torch.int32, device=dev)
-    cells.index_copy_(0, lane.long(),
-                      torch.arange(n_cells, dtype=torch.int32, device=dev))
-    cells = cells[:kb]
-    real = cells < n_cells
-    dest = state.n_blocks + torch.arange(kb, dtype=torch.int32, device=dev)
-    ok = real & (dest < cap)
-    dest_or_drop = torch.where(ok, dest, torch.full_like(dest, cap))
-    cells_or_drop = torch.where(ok, cells, torch.full_like(cells, n_cells))
-
-    coords = torch.stack([cells // (b * b), (cells // b) % b, cells % b], -1)
-    scatter_drop(state.block_coord, dest_or_drop, coords)
-    scatter_drop(state.active, dest_or_drop,
-                 torch.ones(kb, dtype=torch.bool, device=dev))
-    scatter_drop(state.slot.view(-1), cells_or_drop, dest)
-    n_new = torch.sum(ok.to(torch.int32))
-    n_blocks = state.n_blocks + n_new
-    state.n_blocks.copy_(n_blocks)
-
-    # mark pre-existing touched blocks active too (ref alloc_impl.hpp:109)
-    bc = state.block_coord.clamp(0, b - 1).long()
-    tb = touched[bc[:, 0], bc[:, 1], bc[:, 2]]
-    slot_ids = torch.arange(cap, dtype=torch.int32, device=dev)
-    state.active.logical_or_(tb & (slot_ids < n_blocks))
-
-    refresh_mip_alloc(geom, state, state.slot >= 0)
-    if with_stats:
-        overflow = torch.sum(flat_new.to(torch.int32)) - n_new
-        return state, {"alloc_overflow": overflow}
-    return state
-
-
 def _or_reduce2(occ):
     s = occ.shape[0] // 2
     return occ.reshape(s, 2, s, 2, s, 2).any(5).any(3).any(1)
@@ -209,9 +138,9 @@ def broadcast2(m):
 
 def refresh_mip_alloc(geom: MapGeometry, state: MapState, block_alloc,
                       extra_levels=None):
-    """Recompute which coarse octant values exist (JAX core/map.py:345-391):
-    an octant's value exists iff its parent node is occupied. Monotonic:
-    ORs into ``state.mip_alloc`` in place.
+    """Recompute which coarse octant values exist (JAX core/map.py:345-391,
+    the dense rule): an octant's value exists iff its parent node is
+    occupied. Monotonic: ORs into ``state.mip_alloc`` in place.
 
     ``extra_levels[l]`` (optional bool[B>>l]^3, or None) ORs in octants
     allocated directly at level l (OFusion's coarse free-space

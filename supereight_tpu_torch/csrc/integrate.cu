@@ -1,44 +1,66 @@
-// K3: integration block pass of both fields, as two launches around a
-// cumsum.
+// K3: integration's block pass of both fields, in three launches with no
+// torch op between them.
 //
 // Replaces supereight_tpu/ops/integration.py:integrate's block pass
-// (286-375) with _project_voxels_c (78-94), _sample_depth_patch (123-213)
-// and the fallback sub-worklist (340-356), which XLA runs as [budget, 512]
-// tensors with 16-row depth-strip gathers, a one-hot einsum and top_k.
+// (286-375): build_active_worklist (60-75) with in_frustum_mask (44-57),
+// _project_voxels_c (78-94), _sample_depth_patch (123-213) and the
+// fallback sub-worklist (340-356), which XLA runs as a cumsum compaction,
+// [budget, 512] tensors with 16-row depth-strip gathers, a one-hot einsum
+// and top_k.
 //
-// One CTA of 512 threads per worklist entry (one 8^3 block), one thread
-// per voxel, reading and writing the pool directly.
+//  * integrate_worklist: one cluster of 8 CTAs x 1024 threads
+//    (compact.cuh). Each slot below n_blocks is flagged when it is active
+//    and its block's origin corner projects into the frame; the flagged
+//    slots are compacted in slot order into the first `budget` entries
+//    (empty entries = capacity), and the kernel writes n_active (all
+//    flagged slots) and blocks_truncated = max(n_active - budget, 0). A
+//    device `when` that is false empties the worklist and zeroes
+//    blocks_truncated. A cluster and not one CTA: each thread tests ~5
+//    slots instead of ~36, and the cross-CTA scan is one cluster barrier.
+//  * integrate_fused: one CTA of 512 threads per worklist entry (one 8^3
+//    block), one thread per voxel. Each voxel is projected once (valid when
+//    z >= 1e-4 and the pixel lies in [0.5, size - 1.5]); the block's pixel
+//    bbox over its valid voxels is reduced with __reduce_min/max_sync in
+//    each warp and then over the 16 warps' partials; the depth level
+//    follows the JAX rule: level i when dx > 24 << (i-1) or dy > 15 << (i-1)
+//    over the n_levels levels whose mip is big enough, covered when the
+//    bbox fits the last one. A covered block reads
+//    depth[(y >> l) << l, (x >> l) << l] and runs the field's update in
+//    place (se::update_field, fields.cuh, shared with K4) and sets its
+//    active flag to (any voxel valid). An uncovered block with valid
+//    voxels is left as it is, with need = 1, for the fallback.
+//  * integrate_fallback: min(32, budget) CTAs of 512 threads. Each CTA
+//    ranks `need` in worklist order (a CTA scan of per-thread counts); CTA r
+//    fuses the need block of rank r at the exact pixel (level 0) and sets
+//    its active flag; CTA 0 sums the valid voxels of the need blocks beyond
+//    rank 31 (patch_skipped) and clears their active flags: they skip
+//    fusion this frame, as JAX's top_k sub-worklist leaves them.
 //
-//  * integrate_prepass: project every voxel (valid when z >= 1e-4 and the
-//    pixel lies in [0.5, size - 1.5]), reduce the block's pixel bbox over
-//    its valid voxels and pick the depth level by the JAX rule: level i
-//    when dx > 24 << (i-1) or dy > 15 << (i-1), over the n_levels levels
-//    whose mip is big enough. Writes level (-1 = bbox too big for every
-//    level), the valid-voxel count and need (uncovered with valid voxels).
-//  * between the launches the caller ranks `need` with a cumsum: the first
-//    32 uncovered blocks in worklist order read the exact pixel (level 0),
-//    the rest skip fusion this frame and are counted (patch_skipped).
-//  * integrate_update: read depth[(y >> l) << l, (x >> l) << l] at the
-//    block's mode, run the field's update in place and set the block's
-//    active flag to (any voxel valid). One body, instantiated per field:
-//    the TSDF update (fields/tsdf.py) or the OFusion update
-//    (fields/ofusion.py: bspline sensor model H(diff / sigma), decay
-//    window, log2-odds, clamps; y = the frame's timestamp where it
-//    writes), in the JAX package's operation order. The projection and
-//    both updates live in fields.cuh, shared with K4 (node.cu).
+// Blocks are disjoint, so fusing the covered blocks in one launch and the
+// fallback blocks in the next gives the values of one pass. The OFusion
+// update's timestamp is a device f32[]; no launch reads a value on the host.
 //
-// Bound on the H100: the pool read-modify-write, 4 KB per block (two f32
-// channels) + depth reads that stay in L1/L2 (a 300 KB frame): 8192 blocks
-// -> ~33 MB per frame, about 10 us at HBM rate. Each CTA touches one
-// contiguous 2 KB row per channel, so loads and stores are coalesced. The
-// OFusion update adds a few dozen flops and one log2f per written voxel,
-// far below the card's rate: it stays bound by the same bytes.
+// Bound on the H100: the pool's read-modify-write, 8 bytes (two f32
+// channels) per valid voxel of a listed block read and, where it changes,
+// written: 3-5 us at HBM rate for the bench config's 2-5k listed blocks;
+// the worklist reads 13 bytes per active slot (<= 0.5 MB) and the 300 KB
+// depth frame stays in L2. The fused kernel projects each voxel once, for
+// the level and the update alike, reads each block's two 2 KB rows once,
+// coalesced (one CTA per contiguous row), issuing the load
+// before the bbox reduction so that its latency passes under it, and
+// writes back only the voxels whose bits changed; the update's few dozen
+// flops per voxel stay far below the card's rate. What is left is latency:
+// a chain of dependent loads (entry, coordinates, payload, depth) per CTA
+// over ~10 waves of 512-thread CTAs.
 
+#include "compact.cuh"
 #include "fields.cuh"
 
 namespace {
 
 constexpr int kThreads = se::kBlockVoxels;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBig = 1 << 20;  // an empty bbox's low corner
 
 // The projection of this thread's voxel (its block's origin + the thread's
 // in-brick offset); t_cw and K live in shared memory.
@@ -53,122 +75,293 @@ __device__ __forceinline__ se::Proj project_voxel(const int* __restrict__ bc,
   return se::project(T, K, wx, wy, wz, w, h);
 }
 
-__global__ void __launch_bounds__(kThreads)
-integrate_prepass_kernel(const int* __restrict__ worklist, int cap,
-                         const int* __restrict__ block_coord,
-                         const float* __restrict__ t_cw,
-                         const float* __restrict__ kmat, float voxel, int w,
-                         int h, int n_levels, int* __restrict__ level,
-                         int* __restrict__ n_valid, uint8_t* __restrict__ need) {
+// The frustum predicate of a block (ref algorithms::in_frustum,
+// filter.hpp:37-49): its origin corner projects into [0, w) x [0, h) after
+// truncation. (int)x >= 0 and (int)x < w are tested as x > -1 and x < w:
+// the same for every finite x, and false for the huge or NaN ones that a
+// cast would saturate or wrap.
+__device__ __forceinline__ bool in_frustum(const int* __restrict__ bc,
+                                           const float* T, const float* K,
+                                           float scale, int w, int h) {
+  const float3 c = se::transform(T, (float)bc[0] * scale,
+                                 (float)bc[1] * scale, (float)bc[2] * scale);
+  const float3 p = se::transform(K, c.x, c.y, c.z);
+  const float z = p.z == 0.f ? 1e-12f : p.z;
+  const float px = p.x / z, py = p.y / z;
+  return z > 0.f && px > -1.f && px < (float)w && py > -1.f &&
+         py < (float)h;
+}
+
+// The depth level of a block's pixel bbox (dx, dy) by the JAX rule, -1 when
+// no usable level covers it.
+__device__ __forceinline__ int depth_level(int dx, int dy, int n_levels) {
+  if (n_levels <= 0 || dx > (24 << (n_levels - 1)) ||
+      dy > (15 << (n_levels - 1)))
+    return -1;
+  int lvl = 0;
+  for (int i = 1; i < n_levels; ++i)
+    if (dx > (24 << (i - 1)) || dy > (15 << (i - 1))) lvl = i;
+  return lvl;
+}
+
+__global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
+    __launch_bounds__(se::kCompactThreads)
+    integrate_worklist_kernel(const int* __restrict__ block_coord,
+                              const uint8_t* __restrict__ active,
+                              const int* __restrict__ n_blocks, int cap,
+                              const float* __restrict__ t_cw,
+                              const float* __restrict__ kmat, float scale,
+                              int w, int h, int budget,
+                              const uint8_t* __restrict__ when,
+                              int* __restrict__ worklist,
+                              int* __restrict__ counts) {
   __shared__ float T[16], K[16];
-  __shared__ int x0, x1, y0, y1;
-  const int slot = worklist[blockIdx.x];
-  if (slot >= cap) {  // empty worklist entry: uniform exit
-    if (threadIdx.x == 0) {
-      level[blockIdx.x] = 0;
-      n_valid[blockIdx.x] = 0;
-      need[blockIdx.x] = 0;
-    }
-    return;
-  }
   se::load_mat4(t_cw, T);
   se::load_mat4(kmat, K);
-  if (threadIdx.x == 0) {
-    x0 = 1 << 20;
-    y0 = 1 << 20;
-    x1 = -1;
-    y1 = -1;
-  }
   __syncthreads();
-  const se::Proj p =
-      project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
-  if (p.valid) {
-    atomicMin(&x0, p.xi);
-    atomicMax(&x1, p.xi);
-    atomicMin(&y0, p.yi);
-    atomicMax(&y1, p.yi);
-  }
-  const int count = __syncthreads_count(p.valid);
-  if (threadIdx.x == 0) {
-    const int dx = x1 - x0, dy = y1 - y0;
-    int lvl = 0;
-    for (int i = 1; i < n_levels; ++i)
-      if (dx > (24 << (i - 1)) || dy > (15 << (i - 1))) lvl = i;
-    const bool covered = n_levels > 0 && dx <= (24 << (n_levels - 1)) &&
-                         dy <= (15 << (n_levels - 1));
-    level[blockIdx.x] = covered ? lvl : -1;
-    n_valid[blockIdx.x] = count;
-    need[blockIdx.x] = (!covered && count > 0) ? 1 : 0;
+  const bool go = when == nullptr || *when;
+  const int n = min(*n_blocks, cap);
+  auto run_mask = [&](int i0, int cnt) {
+    uint32_t m = 0;
+    for (int j = 0; j < cnt; ++j) {
+      const int s = i0 + j;
+      if (active[s] && in_frustum(block_coord + 3 * s, T, K, scale, w, h))
+        m |= 1u << j;
+    }
+    return m;
+  };
+  auto emit = [&](int s, int r) {
+    if (go && r < budget) worklist[r] = s;
+  };
+  const int total = se::cluster_compact(n, run_mask, emit);
+  const int filled = go ? min(total, budget) : 0;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int i = g; i < budget; i += gridDim.x * blockDim.x)
+    if (i >= filled) worklist[i] = cap;
+  if (g == 0) {
+    counts[0] = total;
+    counts[1] = go ? max(total - budget, 0) : 0;
   }
 }
 
 template <bool kOFusion>
 __global__ void __launch_bounds__(kThreads)
-integrate_update_kernel(const int* __restrict__ worklist, int cap,
-                        const int* __restrict__ block_coord,
-                        const float* __restrict__ t_cw,
-                        const float* __restrict__ kmat, float voxel, int w,
-                        int h, const int* __restrict__ mode,
-                        const float* __restrict__ depth,
-                        se::FieldArgs A,
-                        float* __restrict__ data_x,
-                        float* __restrict__ data_y,
-                        uint8_t* __restrict__ active) {
+integrate_fused_kernel(const int* __restrict__ worklist, int cap,
+                       const int* __restrict__ block_coord,
+                       const float* __restrict__ t_cw,
+                       const float* __restrict__ kmat, float voxel, int w,
+                       int h, int n_levels, const float* __restrict__ depth,
+                       se::FieldArgs A, float* __restrict__ data_x,
+                       float* __restrict__ data_y,
+                       uint8_t* __restrict__ active, int* __restrict__ mode,
+                       int* __restrict__ n_valid,
+                       uint8_t* __restrict__ need) {
   __shared__ float T[16], K[16];
-  const int slot = worklist[blockIdx.x];
-  if (slot >= cap) return;  // uniform exit
+  __shared__ int part[5][kWarps];  // per warp: x0, x1, y0, y1, valid count
+  const int e = blockIdx.x;
+  const int slot = worklist[e];
+  if (slot >= cap) {  // empty worklist entry: uniform exit
+    if (threadIdx.x == 0) {
+      mode[e] = 0;
+      n_valid[e] = 0;
+      need[e] = 0;
+    }
+    return;
+  }
   se::load_mat4(t_cw, T);
   se::load_mat4(kmat, K);
   __syncthreads();
   const se::Proj p =
       project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
-  const int l = mode[blockIdx.x];
-  const bool valid = p.valid && l >= 0;
-  if (valid) {
-    const float ds = depth[((p.yi >> l) << l) * w + ((p.xi >> l) << l)];
-    const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
-    se::update_field<kOFusion>(A, p, ds, data_x + v, data_y + v);
+  // the voxel's payload is loaded now, so that its latency passes under the
+  // bbox reduction; it is stored back only where the update changed a bit
+  const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
+  float x = 0.f, y = 0.f;
+  if (p.valid) {
+    x = data_x[v];
+    y = data_y[v];
   }
-  // block stays active iff any voxel projected into the frame
-  // (ref update_block, projective_functor.hpp:104-110)
-  const int any = __syncthreads_or(valid);
-  if (threadIdx.x == 0) active[slot] = any ? 1 : 0;
+  const unsigned full = 0xffffffffu;
+  const int x0 = __reduce_min_sync(full, p.valid ? p.xi : kBig);
+  const int x1 = __reduce_max_sync(full, p.valid ? p.xi : -1);
+  const int y0 = __reduce_min_sync(full, p.valid ? p.yi : kBig);
+  const int y1 = __reduce_max_sync(full, p.valid ? p.yi : -1);
+  const int c = __popc(__ballot_sync(full, p.valid));
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    part[0][warp] = x0;
+    part[1][warp] = x1;
+    part[2][warp] = y0;
+    part[3][warp] = y1;
+    part[4][warp] = c;
+  }
+  __syncthreads();
+  int bx0 = kBig, bx1 = -1, by0 = kBig, by1 = -1, count = 0;
+  for (int i = 0; i < kWarps; ++i) {  // every thread, same order
+    bx0 = min(bx0, part[0][i]);
+    bx1 = max(bx1, part[1][i]);
+    by0 = min(by0, part[2][i]);
+    by1 = max(by1, part[3][i]);
+    count += part[4][i];
+  }
+  const int l = depth_level(bx1 - bx0, by1 - by0, n_levels);
+  if (l >= 0 && p.valid) {
+    const float ds = depth[((p.yi >> l) << l) * w + ((p.xi >> l) << l)];
+    const int bx = __float_as_int(x), by = __float_as_int(y);
+    se::update_field<kOFusion>(A, p, ds, &x, &y);
+    if (__float_as_int(x) != bx || __float_as_int(y) != by) {
+      data_x[v] = x;
+      data_y[v] = y;
+    }
+  }
+  if (threadIdx.x == 0) {
+    const bool needs = l < 0 && count > 0;
+    mode[e] = l;
+    n_valid[e] = count;
+    need[e] = needs ? 1 : 0;
+    // a block stays active iff any voxel projected into the frame (ref
+    // update_block, projective_functor.hpp:104-110); a need block's flag
+    // is the fallback's to write
+    if (!needs) active[slot] = (l >= 0 && count > 0) ? 1 : 0;
+  }
+}
+
+template <bool kOFusion>
+__global__ void __launch_bounds__(kThreads)
+integrate_fallback_kernel(const int* __restrict__ worklist, int n_work,
+                          const int* __restrict__ block_coord,
+                          const float* __restrict__ t_cw,
+                          const float* __restrict__ kmat, float voxel, int w,
+                          int h, const float* __restrict__ depth,
+                          se::FieldArgs A, float* __restrict__ data_x,
+                          float* __restrict__ data_y,
+                          uint8_t* __restrict__ active,
+                          int* __restrict__ mode,
+                          const int* __restrict__ n_valid,
+                          const uint8_t* __restrict__ need,
+                          int* __restrict__ patch_skipped) {
+  __shared__ float T[16], K[16];
+  __shared__ int entry;
+  const int n_fb = gridDim.x;  // min(32, budget) fallback blocks
+  const int per = (n_work + kThreads - 1) / kThreads;
+  const int i0 = min((int)threadIdx.x * per, n_work);
+  const int i1 = min(i0 + per, n_work);
+  int cnt = 0;
+  for (int i = i0; i < i1; ++i) cnt += need[i];
+  if (threadIdx.x == 0) entry = -1;
+  int total;
+  const int before = se::block_exclusive_scan(cnt, &total);
+  // the need entry of rank blockIdx.x, if there is one
+  const int r = blockIdx.x;
+  if (r >= before && r < before + cnt) {
+    int k = before;
+    for (int i = i0; i < i1; ++i) {
+      if (!need[i]) continue;
+      if (k == r) {
+        entry = i;
+        break;
+      }
+      ++k;
+    }
+  }
+  if (blockIdx.x == 0) {  // the need blocks beyond the bound skip fusion
+    int skipped = 0, k = before;
+    for (int i = i0; i < i1; ++i) {
+      if (!need[i]) continue;
+      if (k >= n_fb) {
+        skipped += n_valid[i];
+        active[worklist[i]] = 0;
+      }
+      ++k;
+    }
+    int sum;
+    se::block_exclusive_scan(skipped, &sum);
+    if (threadIdx.x == 0) *patch_skipped = sum;
+  }
+  se::load_mat4(t_cw, T);
+  se::load_mat4(kmat, K);
+  __syncthreads();
+  const int e = entry;
+  if (e < 0) return;  // uniform exit: fewer need blocks than this rank
+  const int slot = worklist[e];
+  const se::Proj p =
+      project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
+  if (p.valid) {
+    const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
+    se::update_field<kOFusion>(A, p, depth[p.yi * w + p.xi], data_x + v,
+                               data_y + v);
+  }
+  const int any = __syncthreads_or(p.valid);
+  if (threadIdx.x == 0) {
+    active[slot] = any ? 1 : 0;
+    mode[e] = 0;
+  }
 }
 
 }  // namespace
 
-SE_EXPORT int se_integrate_prepass(const int* worklist, int n_work, int cap,
-                                   const int* block_coord, const float* t_cw,
-                                   const float* kmat, float voxel, int w,
-                                   int h, int n_levels, int* level,
-                                   int* n_valid, uint8_t* need, void* stream) {
-  if (n_work == 0) return 0;
-  integrate_prepass_kernel<<<n_work, kThreads, 0, (cudaStream_t)stream>>>(
-      worklist, cap, block_coord, t_cw, kmat, voxel, w, h, n_levels, level,
-      n_valid, need);
+// when (bool[]) may be null: always true. counts: n_active, truncated.
+SE_EXPORT int se_integrate_worklist(const int* block_coord,
+                                    const uint8_t* active,
+                                    const int* n_blocks, int cap,
+                                    const float* t_cw, const float* kmat,
+                                    float scale, int w, int h, int budget,
+                                    const uint8_t* when, int* worklist,
+                                    int* counts, void* stream) {
+  integrate_worklist_kernel<<<se::kCompactCtas, se::kCompactThreads, 0,
+                              (cudaStream_t)stream>>>(
+      block_coord, active, n_blocks, cap, t_cw, kmat, scale, w, h, budget,
+      when, worklist, counts);
   return (int)cudaGetLastError();
 }
 
 // field: 0 = TSDF, 1 = OFusion; timestamp (OFusion) is a device f32[]
-SE_EXPORT int se_integrate_update(const int* worklist, int n_work, int cap,
-                                  const int* block_coord, const float* t_cw,
-                                  const float* kmat, float voxel, int w, int h,
-                                  const int* mode, const float* depth,
-                                  int field, float mu, float max_weight,
-                                  float two_voxel, const float* timestamp,
-                                  float* data_x, float* data_y,
-                                  uint8_t* active, void* stream) {
+SE_EXPORT int se_integrate_fused(const int* worklist, int n_work, int cap,
+                                 const int* block_coord, const float* t_cw,
+                                 const float* kmat, float voxel, int w,
+                                 int h, int n_levels, const float* depth,
+                                 int field, float mu, float max_weight,
+                                 float two_voxel, const float* timestamp,
+                                 float* data_x, float* data_y,
+                                 uint8_t* active, int* mode, int* n_valid,
+                                 uint8_t* need, void* stream) {
   if (n_work == 0) return 0;
   const se::FieldArgs A{mu, max_weight, two_voxel, timestamp};
   if (field == 1)
-    integrate_update_kernel<true><<<n_work, kThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        worklist, cap, block_coord, t_cw, kmat, voxel, w, h, mode, depth, A,
-        data_x, data_y, active);
+    integrate_fused_kernel<true><<<n_work, kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+        worklist, cap, block_coord, t_cw, kmat, voxel, w, h, n_levels, depth,
+        A, data_x, data_y, active, mode, n_valid, need);
   else
-    integrate_update_kernel<false><<<n_work, kThreads, 0,
-                                     (cudaStream_t)stream>>>(
-        worklist, cap, block_coord, t_cw, kmat, voxel, w, h, mode, depth, A,
-        data_x, data_y, active);
+    integrate_fused_kernel<false><<<n_work, kThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        worklist, cap, block_coord, t_cw, kmat, voxel, w, h, n_levels, depth,
+        A, data_x, data_y, active, mode, n_valid, need);
+  return (int)cudaGetLastError();
+}
+
+// n_fb = min(32, n_work) CTAs, one per fallback block
+SE_EXPORT int se_integrate_fallback(const int* worklist, int n_work,
+                                    const int* block_coord, const float* t_cw,
+                                    const float* kmat, float voxel, int w,
+                                    int h, const float* depth, int field,
+                                    float mu, float max_weight,
+                                    float two_voxel, const float* timestamp,
+                                    int n_fb, float* data_x, float* data_y,
+                                    uint8_t* active, int* mode,
+                                    const int* n_valid, const uint8_t* need,
+                                    int* patch_skipped, void* stream) {
+  if (n_fb == 0) return 0;
+  const se::FieldArgs A{mu, max_weight, two_voxel, timestamp};
+  if (field == 1)
+    integrate_fallback_kernel<true><<<n_fb, kThreads, 0,
+                                      (cudaStream_t)stream>>>(
+        worklist, n_work, block_coord, t_cw, kmat, voxel, w, h, depth, A,
+        data_x, data_y, active, mode, n_valid, need, patch_skipped);
+  else
+    integrate_fallback_kernel<false><<<n_fb, kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+        worklist, n_work, block_coord, t_cw, kmat, voxel, w, h, depth, A,
+        data_x, data_y, active, mode, n_valid, need, patch_skipped);
   return (int)cudaGetLastError();
 }

@@ -32,19 +32,20 @@ LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
-            "alloc_touch_of": 0, "integrate_prepass": 0,
-            "integrate_update": 0, "integrate_update_of": 0, "nav_grid": 0,
-            "raycast": 0, "raycast_of": 0, "gather_a": 0, "gather_b": 0,
-            "gather_c": 0, "gather_d": 0, "node_pass": 0, "half_sample": 0,
-            "vertex_normal": 0}
+            "alloc_touch_of": 0, "alloc_assign": 0, "integrate_worklist": 0,
+            "integrate_fused": 0, "integrate_fused_of": 0,
+            "integrate_fallback": 0, "integrate_fallback_of": 0,
+            "nav_grid": 0, "raycast": 0, "raycast_of": 0, "gather_a": 0,
+            "gather_b": 0, "gather_c": 0, "gather_d": 0, "node_pass": 0,
+            "half_sample": 0, "vertex_normal": 0}
 
-MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu and node.cu take (kMaxLevels)
+MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu's icp_track takes
 
 
 class Mips(ctypes.Structure):
-    """Per-level mip pointers, passed by value (``Mips`` of csrc/nav.cu
-    and csrc/node.cu)."""
+    """Per-level mip pointers, passed by value (``Mips`` of csrc/nav.cu,
+    csrc/node.cu and csrc/alloc.cu)."""
 
     _fields_ = [("alloc", ctypes.c_void_p * MAX_MIP_LEVELS),
                 ("x", ctypes.c_void_p * MAX_MIP_LEVELS),
@@ -73,9 +74,12 @@ _SIGNATURES = {
                      P),
     "se_alloc_touch": (P, I, I, I, P, P, F, D, I, F, I, I, P, P),
     "se_alloc_touch_of": (P, I, I, P, P, F, D, D, D, F, I, I, P, P, P, P),
-    "se_integrate_prepass": (P, I, I, P, P, P, F, I, I, I, P, P, P, P),
-    "se_integrate_update": (P, I, I, P, P, P, F, I, I, P, P, I, F, F, F, P,
-                            P, P, P, P),
+    "se_alloc_assign": (P, P, P, P, I, I, I, I, P, P, P, P, P, Mips, P),
+    "se_integrate_worklist": (P, P, P, I, P, P, F, I, I, I, P, P, P, P),
+    "se_integrate_fused": (P, I, I, P, P, P, F, I, I, I, P, I, F, F, F, P, P,
+                           P, P, P, P, P, P),
+    "se_integrate_fallback": (P, I, P, P, P, F, I, I, P, I, F, F, F, P, I, P,
+                              P, P, P, P, P, P, P),
     "se_nav_grid": (P, I, I, I, I, Mips, P, P, P, P),
     "se_raycast": (P, P, P, P, P, I, I, I, I, I, I, F, F, F, F, F, F, F, F,
                    F, F, F, F, F, F, P, P, P, P, P),

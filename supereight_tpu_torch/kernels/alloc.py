@@ -1,14 +1,16 @@
-"""K5 wrappers and twins: the allocation marches of both fields.
+"""K5 wrappers and twins: the allocation of both fields.
 
 :func:`touched_mask` replaces
 ``supereight_tpu/ops/allocation.py:tsdf_touched_mask`` (75-115) and
 :func:`touched_masks_of` replaces ``ofusion_touched_masks`` (148-214,
 with the static ``ofusion_step_ladder``, 118-145); both use
-``_pixel_rays_c_sub`` (32-58) and ``_touched_cell_ids`` (61-72). The CUDA
-kernels are in ``csrc/alloc.cu``. The ``*_plain`` functions are the plain
-PyTorch versions, used for CPU tensors and as the kernels' reference on
-the card. The TPU's dedup of repeated samples was a scatter-cost trick
-and is not carried over: it changes no touched flag.
+``_pixel_rays_c_sub`` (32-58) and ``_touched_cell_ids`` (61-72).
+:func:`alloc_assign` replaces ``supereight_tpu/core/map.py:allocate_blocks``
+(273-342) and ``refresh_mip_alloc`` (345-391). The CUDA kernels are in
+``csrc/alloc.cu``. The ``*_plain`` functions are the plain PyTorch
+versions, used for CPU tensors and as the kernels' reference on the card.
+The TPU's dedup of repeated samples was a scatter-cost trick and is not
+carried over: it changes no touched flag.
 """
 
 import math
@@ -16,7 +18,12 @@ import math
 import torch
 
 from supereight_tpu_torch.core import se3
+from supereight_tpu_torch.core.map import refresh_mip_alloc
 from supereight_tpu_torch.kernels import _lib
+
+# per-frame bound on NEW block allocations (the JAX package's value).
+# Overflow cells stay unallocated and are re-touched on later frames.
+ALLOC_BUDGET = 8192
 
 _STRIDE = 2  # pixels are sampled 2x2 (JAX tsdf_touched_mask)
 
@@ -191,3 +198,108 @@ def touched_masks_of_plain(geom, depth, pose, kpose, mu: float,
                              .reshape(-1), True)
         masks.append(flat[:-1].reshape(side, side, side))
     return tuple(masks)
+
+
+def alloc_assign(geom, state, touched, when=None, budget: int = None,
+                 extra=()):
+    """Allocate every block whose flag is set in the [B,B,B] ``touched``
+    grid (ref octree.hpp:792-856) and refresh ``mip_alloc``, IN PLACE.
+
+    New cells take pool slots in ascending cell-id order, bump-allocated
+    from ``n_blocks``, at most ``budget`` (default ALLOC_BUDGET) of them
+    and up to capacity; touched pre-existing blocks are re-activated.
+    ``extra`` holds OFusion's coarse octants touched at levels 1, 2, ...
+    (bool[B>>l]^3; levels past the pyramid's top are ignored). ``when``
+    (bool[] tensor) masks every grid. Returns alloc_overflow (i32[]): the
+    new cells left unallocated. One launch, no host sync.
+    """
+    dev = touched.device
+    if dev.type == "cpu":
+        return alloc_assign_plain(geom, state, touched, when, budget, extra)
+    if dev.type != "cuda":
+        raise ValueError(f"alloc_assign: unsupported device {dev}")
+    b, nl, cap = geom.blocks_per_side, geom.num_levels, geom.capacity
+    if nl > _lib.MAX_MIP_LEVELS or len(extra) > 2:
+        raise ValueError(f"alloc_assign: {nl} mip levels and {len(extra)} "
+                         f"extra levels; the kernel takes "
+                         f"{_lib.MAX_MIP_LEVELS} and 2")
+    c = _lib.check
+    c(touched, "touched", torch.bool, (b, b, b), dev)
+    if touched.data_ptr() % 16:
+        raise ValueError("touched: the kernel reads it 16 bytes at a time "
+                         "and needs it 16-byte aligned")
+    ext = [c(e, "extra", torch.bool, (b >> lvl,) * 3, dev)
+           if lvl < nl else None for lvl, e in enumerate(extra, start=1)]
+    ext += [None] * (2 - len(ext))
+    if when is not None:
+        when = c(when.reshape(()), "when", torch.bool, (), dev)
+    c(state.slot, "slot", torch.int32, (b, b, b), dev)
+    c(state.block_coord, "block_coord", torch.int32, (cap, 3), dev)
+    c(state.active, "active", torch.bool, (cap,), dev)
+    c(state.n_blocks, "n_blocks", torch.int32, (), dev)
+    mips = _lib.Mips()
+    for lvl in range(nl):
+        mips.alloc[lvl] = c(state.mip_alloc[lvl], "mip_alloc", torch.bool,
+                            (b >> lvl,) * 3, dev).data_ptr()
+    kb = min(b ** 3, ALLOC_BUDGET if budget is None else budget)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    _lib.launch("alloc_assign", "se_alloc_assign", dev, touched, *ext, when,
+                b, nl, cap, kb, state.slot, state.block_coord, state.active,
+                state.n_blocks, overflow, mips)
+    return overflow
+
+
+def alloc_assign_plain(geom, state, touched, when=None, budget: int = None,
+                       extra=()):
+    """Plain PyTorch twin of :func:`alloc_assign` (same in-place contract).
+
+    The bump allocator is JAX's ``allocate_blocks`` with a cumsum for its
+    top_k. The mip refresh is incremental, as the kernel's:
+    ``refresh_mip_alloc`` (JAX's dense rule) applied to this call's new
+    blocks and ``extra`` octants alone. That equals the dense rule applied
+    to every allocated block because ``mip_alloc`` >= broadcast(R(slot >=
+    0)) holds before every call (R: the OR-reduce pyramid): slots are
+    never freed, ``mip_alloc`` only grows, and each call covers its own new
+    blocks (``tests/test_torch_map.py`` holds it over consecutive
+    frames).
+    """
+    b, cap = geom.blocks_per_side, geom.capacity
+    n_cells = b * b * b
+    dev = touched.device
+    kb = min(n_cells, ALLOC_BUDGET if budget is None else budget)
+    if when is not None:
+        touched = touched & when
+        extra = tuple(e & when for e in extra)
+    flat_new = (touched & (state.slot < 0)).reshape(-1)
+
+    # ascending compaction of new cells into kb lanes (kb = empty lane)
+    order = torch.cumsum(flat_new.to(torch.int32), 0) - 1
+    lane = torch.where(flat_new & (order < kb), order,
+                       torch.full_like(order, kb))
+    cells = torch.full((kb + 1,), n_cells, dtype=torch.int32, device=dev)
+    cells.index_copy_(0, lane.long(),
+                      torch.arange(n_cells, dtype=torch.int32, device=dev))
+    cells = cells[:kb]
+    dest = state.n_blocks + torch.arange(kb, dtype=torch.int32, device=dev)
+    ok = (cells < n_cells) & (dest < cap)
+    new_cells, new_slots = cells[ok].long(), dest[ok]
+    state.block_coord[new_slots.long()] = torch.stack(
+        [new_cells // (b * b), (new_cells // b) % b, new_cells % b],
+        -1).to(torch.int32)
+    state.active[new_slots.long()] = True
+    state.slot.view(-1)[new_cells] = new_slots
+    n_new = torch.sum(ok.to(torch.int32))
+    n_blocks = state.n_blocks + n_new
+    state.n_blocks.copy_(n_blocks)
+
+    # mark pre-existing touched blocks active too (ref alloc_impl.hpp:109)
+    bc = state.block_coord.clamp(0, b - 1).long()
+    tb = touched[bc[:, 0], bc[:, 1], bc[:, 2]]
+    slot_ids = torch.arange(cap, dtype=torch.int32, device=dev)
+    state.active.logical_or_(tb & (slot_ids < n_blocks))
+
+    new = torch.zeros(n_cells, dtype=torch.bool, device=dev)
+    new[new_cells] = True
+    refresh_mip_alloc(geom, state, new.view(b, b, b),
+                      extra_levels=(None,) + tuple(extra))
+    return torch.sum(flat_new.to(torch.int32)) - n_new

@@ -1,26 +1,26 @@
-"""K3 wrapper and twin: the integration block pass of both fields.
+"""K3 wrappers and twins: the integration block pass of both fields.
 
 Replaces the block pass of ``supereight_tpu/ops/integration.py:integrate``
-(286-375) with ``_project_voxels_c`` (78-94), ``_sample_depth_patch``
-(123-213, the depth-level rule), the exact fallback for the first 32
-uncovered blocks (340-356) and ``_field_update`` (273-279). The CUDA
-kernels are the two launches of ``csrc/integrate.cu``
-(:func:`integrate_prepass`, :func:`integrate_update`, whose field update
-is the TSDF or the OFusion one) with a cumsum between them
-(:func:`integrate_blocks`). Each has its plain PyTorch version
+(286-375) with ``build_active_worklist`` (60-75) and ``in_frustum_mask``
+(44-57), ``_project_voxels_c`` (78-94), ``_sample_depth_patch`` (123-213,
+the depth-level rule), the exact fallback for the first 32 uncovered
+blocks (340-356) and ``_field_update`` (273-279). The CUDA kernels are the
+three launches of ``csrc/integrate.cu``: :func:`integrate_worklist`, then
+:func:`integrate_fused` and :func:`integrate_fallback`, which
+:func:`integrate_blocks` makes in turn. Each has its plain PyTorch version
 (``*_plain``), used for CPU tensors and as the kernel's reference on the
 card.
 
-The update writes ``data_x``, ``data_y`` and ``active`` of the map IN
-PLACE. The OFusion update's timestamp is a device f32[] (the fused step
-computes it from the frame tensor), so no launch reads it on the host.
+The fused and fallback passes write ``data_x``, ``data_y`` and ``active``
+of the map IN PLACE. The OFusion update's timestamp is a device f32[] (the
+fused step computes it from the frame tensor), so no launch reads it on
+the host.
 """
 
 import torch
 
 from supereight_tpu_torch.constants import BLOCK_SIDE, BLOCK_VOXELS, MAX_WEIGHT
 from supereight_tpu_torch.core import se3
-from supereight_tpu_torch.core.map import scatter_drop
 from supereight_tpu_torch.fields import ofusion as ofusion_field
 from supereight_tpu_torch.fields import tsdf as tsdf_field
 from supereight_tpu_torch.kernels import _lib
@@ -45,20 +45,6 @@ def patch_levels(h: int, w: int) -> int:
     return n
 
 
-def _fallback_mode(level, need, n_valid, budget):
-    """Per-block depth mode from the prepass: the covered level, else 0
-    (exact pixel) for the first FALLBACK_BLOCKS uncovered blocks in
-    worklist order, else -1 (skip). Returns (mode, patch_skipped)."""
-    rank = torch.cumsum(need.to(torch.int32), 0) - 1
-    fb = need & (rank < min(FALLBACK_BLOCKS, budget))
-    mode = torch.where(level >= 0, level,
-                       torch.where(fb, torch.zeros_like(level),
-                                   torch.full_like(level, -1)))
-    skipped = need & ~fb
-    return mode, torch.sum(torch.where(skipped, n_valid,
-                                       torch.zeros_like(n_valid)))
-
-
 def field_update(field, old_x, old_y, pos_cam, depth_sample, valid, mu,
                  timestamp, voxel_size):
     """The field's fusion functor (JAX integration.py:273-279)."""
@@ -69,19 +55,102 @@ def field_update(field, old_x, old_y, pos_cam, depth_sample, valid, mu,
                                 timestamp, voxel_size, valid)
 
 
+def as_timestamp(field, timestamp, dev):
+    """The f32[] time stamp the OFusion update writes, on ``dev``: the
+    given tensor, or a zero for TSDF, which does not read it."""
+    if timestamp is None:
+        if field.name != "tsdf":
+            raise ValueError("the OFusion update needs a timestamp tensor")
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    return timestamp.to(device=dev, dtype=torch.float32).reshape(())
+
+
+# ---- the worklist --------------------------------------------------------
+
+def integrate_worklist(geom, state, t_cw, kmat, frame_size, budget: int,
+                       when=None):
+    """Fixed-budget compaction of the allocated, active and in-frustum
+    slots, in slot order (ref build_active_list,
+    projective_functor.hpp:54-71).
+
+    Returns (i32[budget] slot ids, empty entries = capacity; the i32[]
+    count n_active of all such slots; the i32[] blocks_truncated, n_active
+    beyond ``budget``). ``when`` (bool[] tensor) empties the worklist and
+    zeroes blocks_truncated when False.
+    """
+    dev = state.active.device
+    if dev.type == "cpu":
+        return integrate_worklist_plain(geom, state, t_cw, kmat, frame_size,
+                                        budget, when)
+    if dev.type != "cuda":
+        raise ValueError(f"integrate_worklist: unsupported device {dev}")
+    cap = geom.capacity
+    c = _lib.check
+    c(state.block_coord, "block_coord", torch.int32, (cap, 3), dev)
+    c(state.active, "active", torch.bool, (cap,), dev)
+    c(state.n_blocks, "n_blocks", torch.int32, (), dev)
+    c(t_cw, "t_cw", torch.float32, (4, 4), dev)
+    c(kmat, "kmat", torch.float32, (4, 4), dev)
+    if when is not None:
+        when = c(when.reshape(()), "when", torch.bool, (), dev)
+    w, h = frame_size
+    worklist = torch.empty(budget, dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    _lib.launch("integrate_worklist", "se_integrate_worklist", dev,
+                state.block_coord, state.active, state.n_blocks, cap, t_cw,
+                kmat, BLOCK_SIDE * geom.voxel_size, w, h, budget, when,
+                worklist, counts)
+    return worklist, counts[0], counts[1]
+
+
+def in_frustum_mask(geom, state, t_cw, kmat, frame_size):
+    """Per-slot frustum predicate (ref algorithms::in_frustum,
+    filter.hpp:37-49): project the block's origin corner."""
+    w, h = frame_size
+    scale = BLOCK_SIDE * geom.voxel_size
+    o = state.block_coord.to(torch.float32) * scale
+    cx, cy, cz = se3.transform_c(t_cw, o[:, 0], o[:, 1], o[:, 2])
+    px_, py_, pz_ = se3.transform_c(kmat, cx, cy, cz)
+    z = torch.where(pz_ == 0, torch.full_like(pz_, 1e-12), pz_)
+    px = (px_ / z).to(torch.int32)
+    py = (py_ / z).to(torch.int32)
+    return (z > 0) & (px >= 0) & (px < w) & (py >= 0) & (py < h)
+
+
+def integrate_worklist_plain(geom, state, t_cw, kmat, frame_size,
+                             budget: int, when=None):
+    """Plain PyTorch twin of :func:`integrate_worklist`."""
+    cap = geom.capacity
+    dev = state.active.device
+    slot_ids = torch.arange(cap, dtype=torch.int32, device=dev)
+    mask = ((slot_ids < state.n_blocks) & state.active
+            & in_frustum_mask(geom, state, t_cw, kmat, frame_size))
+    n_active = torch.sum(mask.to(torch.int32))
+    truncated = torch.clamp(n_active - budget, min=0)
+    if when is not None:
+        mask = mask & when
+        truncated = torch.where(when, truncated, 0)
+    order = torch.cumsum(mask.to(torch.int32), 0) - 1
+    dest = torch.where(mask & (order < budget), order, budget)
+    worklist = torch.full((budget + 1,), cap, dtype=torch.int32, device=dev)
+    worklist.index_copy_(0, dest.long(), slot_ids)
+    return worklist[:budget], n_active, truncated.to(torch.int32)
+
+
+# ---- the block pass --------------------------------------------------------
+
 def integrate_blocks(geom, state, field, worklist, depth, t_cw, kmat,
                      mu: float, timestamp=None):
     """Fuse ``depth`` into every block of ``worklist`` (i32[budget] slots,
-    entries == capacity are empty), in place. ``t_cw`` is world-to-camera
-    [4, 4], ``kmat`` the 4x4 intrinsics, ``timestamp`` the f32[] time the
-    OFusion update writes. Returns patch_skipped (i32[]): valid voxels of
-    uncovered blocks beyond the fallback bound."""
-    level, n_valid, need = integrate_prepass(geom, state, worklist, depth,
-                                             t_cw, kmat)
-    mode, skipped = _fallback_mode(level, need, n_valid, worklist.shape[0])
-    integrate_update(geom, state, field, worklist, depth, t_cw, kmat, mu,
-                     mode, timestamp)
-    return skipped.to(torch.int32)
+    entries == capacity are empty), in place: :func:`integrate_fused`, then
+    :func:`integrate_fallback`. ``t_cw`` is world-to-camera [4, 4],
+    ``kmat`` the 4x4 intrinsics, ``timestamp`` the f32[] time the OFusion
+    update writes. Returns patch_skipped (i32[]): valid voxels of uncovered
+    blocks beyond the fallback bound."""
+    mode, n_valid, need = integrate_fused(geom, state, field, worklist, depth,
+                                          t_cw, kmat, mu, timestamp)
+    return integrate_fallback(geom, state, field, worklist, depth, t_cw, kmat,
+                              mu, mode, n_valid, need, timestamp)
 
 
 def _check_block_args(geom, state, worklist, depth, t_cw, kmat):
@@ -98,66 +167,79 @@ def _check_block_args(geom, state, worklist, depth, t_cw, kmat):
     c(state.active, "active", torch.bool, (cap,), dev)
 
 
-def integrate_prepass(geom, state, worklist, depth, t_cw, kmat):
-    """Per worklist block: (level i32 — the covered depth level, -1 when
-    the bbox is too big for every level —, n_valid i32, need bool —
-    uncovered with valid voxels)."""
+def _field_args(field, mu, geom, timestamp, dev):
+    """The field arguments of the fused and fallback entries."""
+    return (int(field.name == "ofusion"), float(mu), float(MAX_WEIGHT),
+            2.0 * geom.voxel_size, as_timestamp(field, timestamp, dev))
+
+
+def integrate_fused(geom, state, field, worklist, depth, t_cw, kmat,
+                    mu: float, timestamp=None):
+    """Per worklist block: the depth level of its pixel bbox by the JAX
+    rule; a covered block is fused at that level in place and its active
+    flag set to (any voxel valid). Returns (mode i32 — the covered level,
+    -1 when no level covers the bbox —, n_valid i32, need bool — uncovered
+    with valid voxels: untouched, active flag included, for
+    :func:`integrate_fallback`). The launch count is kept per field
+    (``integrate_fused``, ``integrate_fused_of``)."""
     dev = depth.device
     if dev.type == "cpu":
-        return integrate_prepass_plain(geom, state, worklist, depth, t_cw,
-                                       kmat)
+        return integrate_fused_plain(geom, state, field, worklist, depth,
+                                     t_cw, kmat, mu, timestamp)
     if dev.type != "cuda":
-        raise ValueError(f"integrate_prepass: unsupported device {dev}")
+        raise ValueError(f"integrate_fused: unsupported device {dev}")
     _check_block_args(geom, state, worklist, depth, t_cw, kmat)
     h, w = depth.shape
     n_work = worklist.shape[0]
-    level = torch.zeros(n_work, dtype=torch.int32, device=dev)
-    n_valid = torch.zeros(n_work, dtype=torch.int32, device=dev)
-    need = torch.zeros(n_work, dtype=torch.bool, device=dev)
-    if n_work:
-        _lib.launch("integrate_prepass", "se_integrate_prepass", dev,
-                    worklist, n_work, geom.capacity,
-                    state.block_coord, t_cw, kmat, geom.voxel_size,
-                    w, h, patch_levels(h, w), level, n_valid, need)
-    return level, n_valid, need
-
-
-def as_timestamp(field, timestamp, dev):
-    """The f32[] time stamp the OFusion update writes, on ``dev``: the
-    given tensor, or a zero for TSDF, which does not read it."""
-    if timestamp is None:
-        if field.name != "tsdf":
-            raise ValueError("the OFusion update needs a timestamp tensor")
-        return torch.zeros((), dtype=torch.float32, device=dev)
-    return timestamp.to(device=dev, dtype=torch.float32).reshape(())
-
-
-def integrate_update(geom, state, field, worklist, depth, t_cw, kmat,
-                     mu: float, mode, timestamp=None):
-    """Fuse each worklist block at its depth ``mode`` (i32: level, -1 =
-    skip) with ``field``'s update in place, and set its active flag to
-    (any voxel valid). The launch count is kept per field
-    (``integrate_update`` for TSDF, ``integrate_update_of``)."""
-    dev = depth.device
-    if dev.type == "cpu":
-        return integrate_update_plain(geom, state, field, worklist, depth,
-                                      t_cw, kmat, mu, mode, timestamp)
-    if dev.type != "cuda":
-        raise ValueError(f"integrate_update: unsupported device {dev}")
-    _check_block_args(geom, state, worklist, depth, t_cw, kmat)
-    _lib.check(mode, "mode", torch.int32, worklist.shape, dev)
-    ts = as_timestamp(field, timestamp, dev)
-    h, w = depth.shape
-    n_work = worklist.shape[0]
+    mode = torch.empty(n_work, dtype=torch.int32, device=dev)
+    n_valid = torch.empty(n_work, dtype=torch.int32, device=dev)
+    need = torch.empty(n_work, dtype=torch.bool, device=dev)
     of = field.name == "ofusion"
     if n_work:
-        _lib.launch("integrate_update_of" if of else "integrate_update",
-                    "se_integrate_update", dev,
-                    worklist, n_work, geom.capacity,
-                    state.block_coord, t_cw, kmat, geom.voxel_size,
-                    w, h, mode, depth, int(of), float(mu), float(MAX_WEIGHT),
-                    2.0 * geom.voxel_size, ts, state.data_x, state.data_y,
-                    state.active)
+        _lib.launch("integrate_fused_of" if of else "integrate_fused",
+                    "se_integrate_fused", dev, worklist, n_work,
+                    geom.capacity, state.block_coord, t_cw, kmat,
+                    geom.voxel_size, w, h, patch_levels(h, w), depth,
+                    *_field_args(field, mu, geom, timestamp, dev),
+                    state.data_x, state.data_y, state.active, mode, n_valid,
+                    need)
+    return mode, n_valid, need
+
+
+def integrate_fallback(geom, state, field, worklist, depth, t_cw, kmat,
+                       mu: float, mode, n_valid, need, timestamp=None):
+    """The need blocks of :func:`integrate_fused`, ranked in worklist
+    order: the first min(32, budget) are fused at the exact pixel (level 0)
+    in place, with their mode set to 0 and their active flag to (any voxel
+    valid); the rest skip fusion this frame, with their active flag
+    cleared. Returns patch_skipped (i32[]): the valid voxels of the blocks
+    skipped. The launch count is kept per field (``integrate_fallback``,
+    ``integrate_fallback_of``)."""
+    dev = depth.device
+    if dev.type == "cpu":
+        return integrate_fallback_plain(geom, state, field, worklist, depth,
+                                        t_cw, kmat, mu, mode, n_valid, need,
+                                        timestamp)
+    if dev.type != "cuda":
+        raise ValueError(f"integrate_fallback: unsupported device {dev}")
+    _check_block_args(geom, state, worklist, depth, t_cw, kmat)
+    n_work = worklist.shape[0]
+    c = _lib.check
+    c(mode, "mode", torch.int32, (n_work,), dev)
+    c(n_valid, "n_valid", torch.int32, (n_work,), dev)
+    c(need, "need", torch.bool, (n_work,), dev)
+    if not n_work:
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    h, w = depth.shape
+    skipped = torch.empty((), dtype=torch.int32, device=dev)
+    of = field.name == "ofusion"
+    _lib.launch("integrate_fallback_of" if of else "integrate_fallback",
+                "se_integrate_fallback", dev, worklist, n_work,
+                state.block_coord, t_cw, kmat, geom.voxel_size, w, h, depth,
+                *_field_args(field, mu, geom, timestamp, dev),
+                min(FALLBACK_BLOCKS, n_work), state.data_x, state.data_y,
+                state.active, mode, n_valid, need, skipped)
+    return skipped
 
 
 def project_voxels(wx, wy, wz, t_cw, kmat, frame_size):
@@ -195,8 +277,32 @@ def _project_blocks(geom, state, worklist, depth, t_cw, kmat):
     return slots, present, pos, xi, yi, valid & present[:, None]
 
 
-def integrate_prepass_plain(geom, state, worklist, depth, t_cw, kmat):
-    """Plain PyTorch twin of :func:`integrate_prepass`."""
+def _update_blocks(geom, state, field, worklist, depth, t_cw, kmat, mu,
+                   mode, write, timestamp):
+    """Fuse each worklist block at its depth ``mode`` (i32: level, -1 =
+    skip) and write the payload and the active flag (any voxel fused) of
+    the entries that ``write`` selects, in place."""
+    w = depth.shape[1]
+    slots, present, pos, xi, yi, valid = _project_blocks(
+        geom, state, worklist, depth, t_cw, kmat)
+    l = mode.clamp(min=0)[:, None]
+    ds = depth.reshape(-1)[(((yi >> l) << l) * w + ((xi >> l) << l)).long()]
+    valid = valid & (mode >= 0)[:, None]
+    new_x, new_y, _ = field_update(
+        field, state.data_x[slots], state.data_y[slots], pos, ds, valid, mu,
+        as_timestamp(field, timestamp, depth.device), geom.voxel_size)
+    sel = write & present
+    dest = slots[sel]
+    state.data_x[dest] = new_x[sel]
+    state.data_y[dest] = new_y[sel]
+    # block stays active iff any voxel projected into the frame
+    state.active[dest] = valid.any(1)[sel]
+
+
+def integrate_fused_plain(geom, state, field, worklist, depth, t_cw, kmat,
+                          mu: float, timestamp=None):
+    """Plain PyTorch twin of :func:`integrate_fused` (same in-place
+    contract)."""
     h, w = depth.shape
     _, _, _, xi, yi, valid = _project_blocks(geom, state, worklist, depth,
                                              t_cw, kmat)
@@ -217,37 +323,21 @@ def integrate_prepass_plain(geom, state, worklist, depth, t_cw, kmat):
     else:
         covered = torch.zeros_like(dx, dtype=torch.bool)
     n_valid = valid.sum(1, dtype=torch.int32)
-    level = torch.where(covered, lvl, -1).to(torch.int32)
-    return level, n_valid, ~covered & (n_valid > 0)
+    mode = torch.where(covered, lvl, -1).to(torch.int32)
+    need = ~covered & (n_valid > 0)
+    _update_blocks(geom, state, field, worklist, depth, t_cw, kmat, mu, mode,
+                   ~need, timestamp)
+    return mode, n_valid, need
 
 
-def integrate_update_plain(geom, state, field, worklist, depth, t_cw, kmat,
-                           mu: float, mode, timestamp=None):
-    """Plain PyTorch twin of :func:`integrate_update` (same in-place
-    contract)."""
-    cap = geom.capacity
-    w = depth.shape[1]
-    slots, present, pos, xi, yi, valid = _project_blocks(
-        geom, state, worklist, depth, t_cw, kmat)
-    l = mode.clamp(min=0)[:, None]
-    ds = depth.reshape(-1)[(((yi >> l) << l) * w + ((xi >> l) << l)).long()]
-    valid = valid & (mode >= 0)[:, None]
-    new_x, new_y, _ = field_update(
-        field, state.data_x[slots], state.data_y[slots], pos, ds, valid, mu,
-        as_timestamp(field, timestamp, depth.device), geom.voxel_size)
-    dest = torch.where(present, worklist, cap)
-    scatter_drop(state.data_x, dest, new_x)
-    scatter_drop(state.data_y, dest, new_y)
-    # block stays active iff any voxel projected into the frame
-    scatter_drop(state.active, dest, valid.any(1))
-
-
-def integrate_blocks_plain(geom, state, field, worklist, depth, t_cw, kmat,
-                           mu: float, timestamp=None):
-    """Plain PyTorch twin of :func:`integrate_blocks`."""
-    level, n_valid, need = integrate_prepass_plain(geom, state, worklist,
-                                                   depth, t_cw, kmat)
-    mode, skipped = _fallback_mode(level, need, n_valid, worklist.shape[0])
-    integrate_update_plain(geom, state, field, worklist, depth, t_cw, kmat,
-                           mu, mode, timestamp)
+def integrate_fallback_plain(geom, state, field, worklist, depth, t_cw, kmat,
+                             mu: float, mode, n_valid, need, timestamp=None):
+    """Plain PyTorch twin of :func:`integrate_fallback` (same in-place
+    contract, ``mode`` included)."""
+    rank = torch.cumsum(need.to(torch.int32), 0) - 1
+    fb = need & (rank < min(FALLBACK_BLOCKS, worklist.shape[0]))
+    mode.masked_fill_(fb, 0)
+    skipped = torch.sum(torch.where(need & ~fb, n_valid, 0))
+    _update_blocks(geom, state, field, worklist, depth, t_cw, kmat, mu,
+                   torch.where(fb, 0, -1).to(torch.int32), need, timestamp)
     return skipped.to(torch.int32)

@@ -1,11 +1,13 @@
-"""Parity of the port's allocation (kernel K5's plain twins + the cumsum
-bump allocator + the mip refresh) with JAX ``ops/allocation``:
-``allocate_tsdf`` and ``allocate_ofusion``.
+"""Parity of the port's allocation (kernel K5's plain twins: the marches
+and ``alloc_assign_plain``, the bump allocator with the incremental mip
+refresh) with JAX ``ops/allocation``: ``allocate_tsdf`` and
+``allocate_ofusion``.
 
 The map is JAX's after frames 0-2 of its field (TSDF at mu 0.1, OFusion
 at mu 0.008); frame 3's depth is allocated at frame 3's ground-truth
 pose. The touched grids (all three levels for OFusion), slot grid,
-block_coord, n_blocks, active and mip_alloc must match exactly.
+block_coord, n_blocks, active, mip_alloc and alloc_overflow must match
+exactly.
 """
 
 import jax.numpy as jnp
@@ -13,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from supereight_tpu.core.map import MapGeometry as JaxGeometry
 from supereight_tpu.ops import allocation as jax_allocation
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.core import se3
+from supereight_tpu_torch.core.map import MapGeometry
 from supereight_tpu_torch.kernels import alloc
 from supereight_tpu_torch.kernels.alloc import (touched_mask,
                                                 touched_mask_plain)
@@ -61,33 +65,66 @@ def test_touched_mask_parity(setup):
     np.testing.assert_array_equal(plain.numpy(), want)
 
 
-@pytest.mark.parametrize("budget,when", [(None, True), (None, False),
-                                         (2, True)])
-def test_allocate_tsdf_parity(setup, budget, when):
-    """Default budget, the masked (when=False) step, and an overflowing
-    budget of 2 new blocks (the ascending-cell-id cut)."""
+def _shrunk(jmap, capacity):
+    """The numpy JAX map ``jmap`` in a pool of ``capacity`` slots."""
+    return jmap._replace(**{n: getattr(jmap, n)[:capacity] for n in
+                            ("data_x", "data_y", "block_coord", "active")})
+
+
+def _allocate_both(setup, field, budget, when, short):
+    """JAX's and the port's allocation step of ``field`` on the map of
+    ``setup`` (in a pool one block short of full when ``short``): both
+    maps as numpy, both overflow counts, and the map before."""
     depth, pose, jmap = setup
-    jm, jstats = jax_allocation.allocate_tsdf(
-        jax_geometry(), jax_map(jmap), jnp.asarray(depth), jnp.asarray(pose),
-        k_jax(), MU, with_stats=True, when=jnp.bool_(when), budget=budget)
-    tm, tstats = allocation.allocate_tsdf(
-        torch_geometry(), convert.map_to_torch(jmap, "cpu"),
-        torch.from_numpy(depth),
-        torch.from_numpy(pose), k_torch(), MU, with_stats=True,
-        when=torch.tensor(when), budget=budget)
-    assert int(tstats["alloc_overflow"]) == int(jstats["alloc_overflow"])
-    if budget == 2:
-        assert int(jstats["alloc_overflow"]) > 0
-    jm = convert.to_numpy(convert.map_to_torch(jm, "cpu"))
-    tm = convert.to_numpy(tm)
+    jg, tg = jax_geometry(), torch_geometry()
+    if short:
+        cap = int(jmap.n_blocks) + 1
+        jmap = _shrunk(jmap, cap)
+        jg, tg = JaxGeometry(jg.size, jg.dim, cap), MapGeometry(tg.size,
+                                                                tg.dim, cap)
+    mu = MU_OF if field == "ofusion" else MU
+    jax_fn, fn = ((jax_allocation.allocate_ofusion,
+                   allocation.allocate_ofusion) if field == "ofusion" else
+                  (jax_allocation.allocate_tsdf, allocation.allocate_tsdf))
+    jm, jstats = jax_fn(jg, jax_map(jmap), jnp.asarray(depth),
+                        jnp.asarray(pose), k_jax(), mu, with_stats=True,
+                        when=jnp.bool_(when), budget=budget)
+    tm, tstats = fn(tg, convert.map_to_torch(jmap, "cpu"),
+                    torch.from_numpy(depth), torch.from_numpy(pose),
+                    k_torch(), mu, with_stats=True, when=torch.tensor(when),
+                    budget=budget)
+    return (convert.to_numpy(convert.map_to_torch(jm, "cpu")),
+            convert.to_numpy(tm), int(jstats["alloc_overflow"]),
+            int(tstats["alloc_overflow"]), jmap)
+
+
+def _assert_same_pool(jm, tm):
     assert int(tm.n_blocks) == int(jm.n_blocks)
-    if when:
-        assert int(jm.n_blocks) > int(jmap.n_blocks)
     for name in ("slot", "block_coord", "active"):
         np.testing.assert_array_equal(getattr(tm, name), getattr(jm, name),
                                       err_msg=name)
     for lvl, (a, b) in enumerate(zip(tm.mip_alloc, jm.mip_alloc)):
         np.testing.assert_array_equal(a, b, err_msg=f"mip_alloc[{lvl}]")
+
+
+# default budget, the masked (when=False) step, an overflowing budget of 2
+# new blocks (the ascending-cell-id cut) and a pool one block short of full
+# (the capacity cut)
+ALLOC_CASES = [(None, True, False), (None, False, False), (2, True, False),
+               (None, True, True)]
+
+
+@pytest.mark.parametrize("budget,when,short", ALLOC_CASES)
+def test_allocate_tsdf_parity(setup, budget, when, short):
+    """Slots, coordinates, block count, active flags, every mip level's
+    existence mask and alloc_overflow after one band allocation step."""
+    jm, tm, j_over, t_over, jmap = _allocate_both(setup, "tsdf", budget,
+                                                  when, short)
+    assert t_over == j_over
+    assert (j_over > 0) == (budget == 2 or short)
+    if when:
+        assert int(jm.n_blocks) > int(jmap.n_blocks)
+    _assert_same_pool(jm, tm)
 
 
 @pytest.mark.parametrize("max_dist", [None, 0.5])
@@ -124,36 +161,50 @@ def test_touched_masks_of_parity(setup_of):
                                       err_msg=f"level {lvl} (twin)")
 
 
-@pytest.mark.parametrize("budget,when", [(None, True), (None, False),
-                                         (2, True)])
-def test_allocate_ofusion_parity(setup_of, budget, when):
-    """Slots, coordinates, block count, active flags and every mip level's
-    existence mask after one occupancy allocation step."""
-    depth, pose, jmap = setup_of
-    jm, jstats = jax_allocation.allocate_ofusion(
-        jax_geometry(), jax_map(jmap), jnp.asarray(depth), jnp.asarray(pose),
-        k_jax(), MU_OF, with_stats=True, when=jnp.bool_(when), budget=budget)
-    tm, tstats = allocation.allocate_ofusion(
-        torch_geometry(), convert.map_to_torch(jmap, "cpu"),
-        torch.from_numpy(depth),
-        torch.from_numpy(pose), k_torch(), MU_OF, with_stats=True,
-        when=torch.tensor(when), budget=budget)
-    assert int(tstats["alloc_overflow"]) == int(jstats["alloc_overflow"])
-    if budget == 2:
-        assert int(jstats["alloc_overflow"]) > 0
-    jm = convert.to_numpy(convert.map_to_torch(jm, "cpu"))
-    tm = convert.to_numpy(tm)
-    assert int(tm.n_blocks) == int(jm.n_blocks)
+@pytest.mark.parametrize("budget,when,short", ALLOC_CASES)
+def test_allocate_ofusion_parity(setup_of, budget, when, short):
+    """Slots, coordinates, block count, active flags, every mip level's
+    existence mask and alloc_overflow after one occupancy allocation
+    step."""
+    jm, tm, j_over, t_over, jmap = _allocate_both(setup_of, "ofusion",
+                                                  budget, when, short)
+    assert t_over == j_over
+    assert (j_over > 0) == (budget == 2 or short)
     if when:
         assert int(jm.n_blocks) > int(jmap.n_blocks)
-    for name in ("slot", "block_coord", "active"):
-        np.testing.assert_array_equal(getattr(tm, name), getattr(jm, name),
-                                      err_msg=name)
-    changed = False
-    for lvl, (a, b) in enumerate(zip(tm.mip_alloc, jm.mip_alloc)):
-        np.testing.assert_array_equal(a, b, err_msg=f"mip_alloc[{lvl}]")
-        changed |= bool((b != np.asarray(jmap.mip_alloc[lvl])).any())
+    _assert_same_pool(jm, tm)
+    changed = any(bool((b != np.asarray(a)).any())
+                  for a, b in zip(jmap.mip_alloc, jm.mip_alloc))
     assert changed == when
+
+
+@pytest.mark.parametrize("field,short", [("tsdf", False), ("tsdf", True),
+                                         ("ofusion", False),
+                                         ("ofusion", True)])
+def test_slot_grid_and_block_coord_one_to_one(request, field, short):
+    """The invariant ``alloc_assign``'s re-activation rests on
+    (csrc/alloc.cu): after allocation, slot[c] = s exactly when
+    block_coord[s] = c, for every s < n_blocks. So the slots of the
+    touched cells that have one (the kernel's form) are the slots whose
+    cell is touched (JAX's per-slot gather, the twin's form)."""
+    depth, pose, jmap = request.getfixturevalue(
+        "setup_of" if field == "ofusion" else "setup")
+    _, tm, _, _, _ = _allocate_both((depth, pose, jmap), field, None, True,
+                                    short)
+    n = int(tm.n_blocks)
+    bc = tm.block_coord[:n]
+    np.testing.assert_array_equal(tm.slot[bc[:, 0], bc[:, 1], bc[:, 2]],
+                                  np.arange(n))
+    assert int((tm.slot >= 0).sum()) == n
+    args = (torch_geometry(), torch.from_numpy(depth),
+            torch.from_numpy(pose), k_torch())
+    touched = (alloc.touched_masks_of(*args, MU_OF)[0] if field == "ofusion"
+               else touched_mask(*args, MU)).numpy()
+    gathered = touched[bc[:, 0], bc[:, 1], bc[:, 2]]
+    by_cell = np.zeros(n, dtype=bool)
+    by_cell[tm.slot[touched & (tm.slot >= 0)]] = True
+    assert gathered.any()
+    np.testing.assert_array_equal(by_cell, gathered)
 
 
 def jax_map(m):

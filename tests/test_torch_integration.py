@@ -1,5 +1,6 @@
-"""Parity of the port's integration (kernel K3's plain twins + the torch
-node pass) with JAX ``ops/integration.integrate``, both fields.
+"""Parity of the port's integration (the plain twins of kernels K3 and K4)
+with JAX ``ops/integration.integrate``, both fields, and of K3's worklist
+twin with JAX ``build_active_worklist``.
 
 The map is JAX's after frames 0-2, with frame 3's blocks allocated by
 JAX; frame 3 is then fused at its ground-truth pose by both. TSDF:
@@ -23,6 +24,7 @@ from supereight_tpu.fields import get_field
 from supereight_tpu.ops import allocation as jax_allocation
 from supereight_tpu.ops import integration as jax_integration
 from supereight_tpu_torch import convert
+from supereight_tpu_torch.core import map as tmap
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
@@ -133,19 +135,49 @@ def test_integrate_parity(case, when):
         assert (jm.data_x[wrote] > 0).any() and (jm.data_x[wrote] < 0).any()
 
 
+def _block_inputs(case):
+    """(torch map, depth, t_cw, kmat) of a case for the K3 wrappers."""
+    name, depth, pose, k, size, jmap = case
+    kmat = se3.camera_matrix(torch.tensor(k, dtype=torch.float32))
+    return (convert.map_to_torch(jmap, "cpu"), torch.from_numpy(depth),
+            se3.inverse(torch.from_numpy(pose)), kmat)
+
+
 def test_close_view_takes_fallback(case):
     """The close case really has blocks no depth patch covers."""
-    name, depth, pose, k, size, jmap = case
-    tm = convert.map_to_torch(jmap, "cpu")
-    tp = torch.from_numpy(pose)
-    kmat = se3.camera_matrix(torch.tensor(k, dtype=torch.float32))
-    t_cw = se3.inverse(tp)
-    wl, _ = integration.build_active_worklist(torch_geometry(), tm, t_cw,
-                                              kmat, size, 1024)
-    level, _, need = kint.integrate_prepass(
-        torch_geometry(), tm, wl, torch.from_numpy(depth), t_cw, kmat)
+    name, size = case[0], case[4]
+    field, mu = FIELD[name]
+    tm, depth, t_cw, kmat = _block_inputs(case)
+    wl, _, _ = kint.integrate_worklist(torch_geometry(), tm, t_cw, kmat, size,
+                                       1024)
+    mode, _, need = kint.integrate_fused(
+        torch_geometry(), tm, OFUSION if field == "ofusion" else TSDF, wl,
+        depth, t_cw, kmat, mu, torch.tensor(TIMESTAMP))
     assert (int(need.sum()) > 0) == (name == "close")
-    assert int((level > 0).sum()) > 0
+    assert int((mode > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("budget,when", [(1024, True), (16, True),
+                                         (1024, False)])
+def test_worklist_matches_jax(case, budget, when):
+    """The worklist twin against JAX build_active_worklist: slot order,
+    empty entries, the active count and blocks_truncated; a budget of 16
+    truncates, and ``when`` False empties the worklist but keeps the
+    count."""
+    name, depth, pose, k, size, jmap = case
+    tm, _, t_cw, kmat = _block_inputs(case)
+    kj = jnp.asarray(np.asarray(kmat))
+    want, n_want = jax_integration.build_active_worklist(
+        jax_geometry(), jax.tree.map(jnp.asarray, jmap),
+        jnp.asarray(np.asarray(t_cw)), kj, size, budget)
+    wl, n_active, truncated = kint.integrate_worklist_plain(
+        torch_geometry(), tm, t_cw, kmat, size, budget, torch.tensor(when))
+    assert int(n_active) == int(n_want) > 16
+    assert int(truncated) == (max(int(n_want) - budget, 0) if when else 0)
+    if when:
+        np.testing.assert_array_equal(wl.numpy(), np.asarray(want))
+    else:
+        assert (wl == torch_geometry().capacity).all()
 
 
 def test_small_budget_truncates(case):
@@ -158,14 +190,34 @@ def test_small_budget_truncates(case):
 
 
 def test_fallback_mode_caps_at_32():
-    """Uncovered blocks past the first 32 (worklist order) skip fusion and
-    count their valid voxels in patch_skipped."""
-    level = torch.full((50,), -1, dtype=torch.int32)
-    level[::5] = 1                      # every 5th block is covered
-    n_valid = torch.arange(50, dtype=torch.int32)
-    need = level < 0
-    mode, skipped = kint._fallback_mode(level, need, n_valid, 50)
+    """Uncovered blocks past the first 32 (worklist order) skip fusion,
+    count their valid voxels in patch_skipped and lose their active flag;
+    the first 32 are fused at the exact pixel (mode 0) and stay active."""
+    torch.set_num_threads(1)
+    geom = torch_geometry()
+    m = tmap.make_map(geom, TSDF, "cpu")
+    n = 50
+    # 50 slots of one block 1 m in front of an identity camera
+    m.block_coord[:n] = torch.tensor([0, 0, 4], dtype=torch.int32)
+    m.active[:n] = True
+    worklist = torch.arange(n, dtype=torch.int32)
+    mode = torch.full((n,), -1, dtype=torch.int32)
+    mode[::5] = 1                      # every 5th block is covered
+    n_valid = torch.arange(n, dtype=torch.int32) + 1
+    need = mode < 0
+    kmat = se3.camera_matrix(torch.tensor(K, dtype=torch.float32))
+    depth = torch.full((H, W), 1.1)
+    before = m.data_x.clone()
+    skipped = kint.integrate_fallback(geom, m, TSDF, worklist, depth,
+                                      torch.eye(4), kmat, MU, mode, n_valid,
+                                      need)
     order = torch.nonzero(need)[:, 0]
-    assert (mode[order[:32]] == 0).all() and (mode[order[32:]] == -1).all()
+    fused, left = order[:32], order[32:]
+    assert (mode[fused] == 0).all() and (mode[left] == -1).all()
     assert (mode[::5] == 1).all()
-    assert int(skipped) == int(n_valid[order[32:]].sum())
+    assert int(skipped) == int(n_valid[left].sum())
+    assert m.active[fused].all() and not m.active[left].any()
+    assert m.active[:n:5].all()        # covered blocks are not its to write
+    assert (m.data_x[fused] != before[fused]).any(1).all()
+    assert torch.equal(m.data_x[left], before[left])
+    assert torch.equal(m.data_x[:n:5], before[:n:5])

@@ -90,6 +90,83 @@ def test_cpu_node_pass_and_pyramid_take_the_twins(field):
     assert _lib.LAUNCHES == before
 
 
+def _alloc_and_fuse(geom, m, pose, k, depth, field, plain):
+    """K5's allocator, then K3's worklist, fused and fallback passes (the
+    kernels, or their twins when ``plain``) for ``depth`` at ``pose``, in
+    place on ``m``; returns their outputs."""
+    mu = MU[field.name]
+    dev = depth.device
+    h, w = depth.shape
+    t_cw, kmat = se3.inverse(pose), se3.camera_matrix(k)
+    ts = torch.full((), 0.2, device=dev)
+    when = torch.ones((), dtype=torch.bool, device=dev)
+    grids = ((alloc.touched_mask(geom, depth, pose, k, mu),) if field is TSDF
+             else alloc.touched_masks_of(geom, depth, pose, k, mu))
+    fn = {name: getattr(mod, name + ("_plain" if plain else "")) for mod, name
+          in ((alloc, "alloc_assign"), (integrate, "integrate_worklist"),
+              (integrate, "integrate_fused"),
+              (integrate, "integrate_fallback"))}
+    over = fn["alloc_assign"](geom, m, grids[0], when, None, grids[1:])
+    wl, n_active, truncated = fn["integrate_worklist"](
+        geom, m, t_cw, kmat, (w, h), 1024, when)
+    mode, n_valid, need = fn["integrate_fused"](geom, m, field, wl, depth,
+                                                t_cw, kmat, mu, ts)
+    skipped = fn["integrate_fallback"](geom, m, field, wl, depth, t_cw, kmat,
+                                       mu, mode, n_valid, need, ts)
+    return over, wl, n_active, truncated, mode, n_valid, need, skipped
+
+
+# a 320x240 wall 0.6 m ahead at 5x the focal length: blocks on all three
+# depth levels and blocks too big for any, which take the fallback
+K_CLOSE = (240.0, 240.0, 160.0, 120.0)
+
+
+def _close_frame(device):
+    return (torch.full((240, 320), 0.6, device=device),
+            torch.tensor(K_CLOSE, device=device))
+
+
+def _fallback_case(device, n=50):
+    """K3-fallback inputs with more need blocks than the bound: n slots of
+    one block 1 m before an identity camera, every 5th covered at level 1,
+    the others needing the fallback (n_valid 1 .. n)."""
+    geom = MapGeometry(size=64, dim=2.0, capacity=1024)
+    m = make_map(geom, TSDF, device)
+    m.block_coord[:n] = torch.tensor([0, 0, 4], dtype=torch.int32)
+    m.active[:n] = True
+    mode = torch.full((n,), -1, dtype=torch.int32, device=device)
+    mode[::5] = 1
+    return (geom, m, TSDF, torch.arange(n, dtype=torch.int32, device=device),
+            torch.full((H, W), 1.1, device=device),
+            torch.eye(4, device=device),
+            se3.camera_matrix(torch.tensor(K, device=device)), MU["tsdf"],
+            mode, torch.arange(1, n + 1, dtype=torch.int32, device=device),
+            mode < 0)
+
+
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_cpu_alloc_and_block_pass_take_the_twins(field):
+    """On CPU tensors K5's allocator and K3's three wrappers return their
+    twins' results and leave the same map, exactly, and count no launch;
+    once on the next frame and once on a close frame that needs the
+    fallback."""
+    torch.set_num_threads(1)
+    geom, state, k, depth = _frames("cpu", n=2, field=field)
+    before = dict(_lib.LAUNCHES)
+    for d, kk in ((depth, k), _close_frame("cpu")):
+        a, b = clone_map(state.map), clone_map(state.map)
+        got = _alloc_and_fuse(geom, a, state.pose, kk, d, field, False)
+        want = _alloc_and_fuse(geom, b, state.pose, kk, d, field, True)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        for x, y in zip(a, b):
+            for u, v in zip(x if isinstance(x, tuple) else (x,),
+                            y if isinstance(y, tuple) else (y,)):
+                assert torch.equal(u, v)
+    assert int(got[6].sum()) > 0 and int((got[4] == 2).sum()) > 0
+    assert _lib.LAUNCHES == before
+
+
 def test_other_devices_raise():
     """A tensor on neither the CPU nor a CUDA card is refused."""
     m = torch.zeros((2, 2, 3), device="meta")
@@ -121,6 +198,18 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         gp.take_rows_staged(torch.zeros((4, 4), device="meta"),
                             torch.zeros(2, dtype=torch.int32, device="meta"))
+    mm = make_map(geom, TSDF, "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        alloc.alloc_assign(geom, mm, torch.zeros((8, 8, 8), dtype=torch.bool,
+                                                 device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        integrate.integrate_worklist(geom, mm, p, p, (4, 4), 16)
+    wl = torch.zeros(16, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        integrate.integrate_fused(geom, mm, TSDF, wl, d, p, p, 0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        integrate.integrate_fallback(geom, mm, TSDF, wl, d, p, p, 0.1, wl, wl,
+                                     wl.bool())
 
 
 def test_check_rejects_bad_arguments():
@@ -137,7 +226,7 @@ def test_build_hash_covers_every_source_and_flag():
     names = {p.name for p in _lib._sources()}
     assert {"icp.cu", "alloc.cu", "integrate.cu", "node.cu", "raycast.cu",
             "nav.cu", "preprocess.cu", "gather_probe.cu", "common.cuh",
-            "fields.cuh"} <= names
+            "compact.cuh", "fields.cuh"} <= names
     assert _lib.source_hash() == _lib.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _lib.NVCC_FLAGS
     assert "-fmad=false" in _lib.NVCC_FLAGS
@@ -191,19 +280,61 @@ def test_kernels_match_twins_on_cuda(cuda, field):
                                                      kpose, mu)):
             assert torch.equal(a, b)
 
-    t_cw, kmat = se3.inverse(pose), se3.camera_matrix(k)
-    ts = torch.full((), 0.2, device=cuda)
-    wl, _ = integration.build_active_worklist(geom, m, t_cw, kmat, (W, H),
-                                              1024)
-    a = make_map(geom, field, cuda)._replace(block_coord=m.block_coord)
-    b = make_map(geom, field, cuda)._replace(block_coord=m.block_coord)
-    sa = integrate.integrate_blocks(geom, a, field, wl, depth, t_cw, kmat, mu,
-                                    ts)
-    sb = integrate.integrate_blocks_plain(geom, b, field, wl, depth, t_cw,
-                                          kmat, mu, ts)
-    assert int(sa) == int(sb)
-    assert torch.allclose(a.data_x, b.data_x, **UPDATE_TOL[field.name])
-    assert torch.equal(a.data_y, b.data_y) and torch.equal(a.active, b.active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_alloc_and_block_pass_match_twins_on_cuda(cuda, field):
+    """K5's allocator and K3's worklist, fused and fallback kernels against
+    their twins on two copies of the map, on the next frame and on a close
+    frame that needs the fallback: every integer output and the slot grid,
+    block_coord, active, n_blocks and mip_alloc bit for bit, data_x to
+    UPDATE_TOL and data_y exactly; one launch of each counted. The
+    fallback kernel also against its twin with more need blocks than its
+    bound. The wrappers refuse bad arguments."""
+    geom, state, k, depth = _frames(cuda, field=field)
+    of = "_of" if field is OFUSION else ""
+    names = ("alloc_assign", "integrate_worklist", "integrate_fused" + of,
+             "integrate_fallback" + of)
+    for d, kk in ((depth, k), _close_frame(cuda)):
+        a, b = clone_map(state.map), clone_map(state.map)
+        before = {n: _lib.LAUNCHES[n] for n in names}
+        got = _alloc_and_fuse(geom, a, state.pose, kk, d, field, False)
+        assert all(_lib.LAUNCHES[n] == before[n] + 1 for n in names)
+        want = _alloc_and_fuse(geom, b, state.pose, kk, d, field, True)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        for name in ("slot", "block_coord", "active", "n_blocks"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+        for x, y in zip(a.mip_alloc, b.mip_alloc):
+            assert torch.equal(x, y)
+        assert torch.allclose(a.data_x, b.data_x, **UPDATE_TOL[field.name])
+        assert torch.equal(a.data_y, b.data_y)
+    assert int(got[6].sum()) > 0 and int((got[4] == 2).sum()) > 0
+    ka, kb = _fallback_case(cuda), _fallback_case(cuda)
+    sk = integrate.integrate_fallback(*ka)
+    sp = integrate.integrate_fallback_plain(*kb)
+    assert int(sk) == int(sp) > 0
+    assert torch.equal(ka[8], kb[8]) and torch.equal(ka[1].active,
+                                                     kb[1].active)
+    assert torch.allclose(ka[1].data_x, kb[1].data_x, atol=1e-5, rtol=0)
+    assert torch.equal(ka[1].data_y, kb[1].data_y)
+    m = state.map
+    with pytest.raises(TypeError):
+        alloc.alloc_assign(geom, m, m.slot, None)
+    with pytest.raises(ValueError):
+        alloc.alloc_assign(geom, m, m.slot >= 0, None, None, (m.slot,) * 3)
+    p = se3.inverse(state.pose)
+    with pytest.raises(ValueError):
+        integrate.integrate_worklist(geom, m, p.t(), p, (W, H), 16)
+    wl = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        integrate.integrate_fused(geom, m, field, wl.float(), depth, p, p,
+                                  0.1, torch.zeros((), device=cuda))
+    with pytest.raises(ValueError):
+        integrate.integrate_fallback(geom, m, field, wl, depth, p, p, 0.1,
+                                     wl[:8], wl, wl.bool(),
+                                     torch.zeros((), device=cuda))
 
 
 @pytest.mark.cuda

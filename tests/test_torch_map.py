@@ -1,6 +1,7 @@
 """Parity of the port's block-pool map (``core/map.py``) with JAX
 ``core/map.py``: the empty map, the geometry, the voxel reads and the
-mip-existence refresh (with OFusion's directly allocated coarse levels).
+mip-existence refresh (with OFusion's directly allocated coarse levels),
+dense and, frame by frame, the allocator's incremental form.
 
 The map under the reads is filled from a seed with numpy (random slots,
 payloads and coordinates, a fifth of them outside the map), so the test
@@ -115,6 +116,47 @@ def test_refresh_mip_alloc_matches_jax(extra):
     for lvl, (a, w) in enumerate(zip(tm.mip_alloc, want.mip_alloc)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(w),
                                       err_msg=f"level {lvl}")
+
+
+@pytest.mark.parametrize("field", ["tsdf", "ofusion"])
+def test_incremental_mip_refresh_matches_dense_over_frames(field):
+    """The allocator's mip refresh ORs in only what each call's new blocks
+    (and OFusion's coarse octants) imply. Over 8 consecutive allocation
+    steps of the 64^3 orbit from an empty map, its mip_alloc equals JAX's
+    dense refresh_mip_alloc after every step, and the invariant it rests
+    on holds: mip_alloc contains the broadcast of the OR-reduce pyramid of
+    the allocated blocks."""
+    from test_torch_step import (MU, jax_geometry, k_jax, k_torch,
+                                 make_scene, torch_geometry)
+    from supereight_tpu.ops import allocation as jax_alloc
+    from supereight_tpu_torch.fields import OFUSION
+    from supereight_tpu_torch.ops import allocation
+    torch.set_num_threads(1)
+    jg, tg = jax_geometry(), torch_geometry()
+    of = field == "ofusion"
+    jax_fn = jax_alloc.allocate_ofusion if of else jax_alloc.allocate_tsdf
+    fn = allocation.allocate_ofusion if of else allocation.allocate_tsdf
+    jm = jax_map.make_map(jg, get_field(field))
+    tm = tmap.make_map(tg, OFUSION if of else TSDF, "cpu")
+    depths, poses = make_scene(8)
+    grew = 0
+    for i in range(8):
+        pose = poses[i].astype(np.float32)
+        n_before = int(tm.n_blocks)
+        jm = jax_fn(jg, jm, jnp.asarray(depths[i]), jnp.asarray(pose),
+                    k_jax(), MU[field])
+        fn(tg, tm, torch.from_numpy(depths[i]), torch.from_numpy(pose),
+           k_torch(), MU[field])
+        grew += int(tm.n_blocks) > n_before
+        np.testing.assert_array_equal(tm.slot.numpy(), np.asarray(jm.slot))
+        occ = tm.slot >= 0
+        for lvl, (a, w) in enumerate(zip(tm.mip_alloc, jm.mip_alloc)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(w),
+                                          err_msg=f"frame {i} level {lvl}")
+            if lvl + 1 < tg.num_levels:
+                occ = tmap._or_reduce2(occ)
+                assert not (tmap.broadcast2(occ) & ~a).any()
+    assert grew >= 4
 
 
 @pytest.mark.parametrize("entry", ["make_map", "init_frame_state",
