@@ -13,10 +13,12 @@ checkout:
 3. kernel phases: on a map built by three port frames of the bench scene,
    runs each kernel and its plain PyTorch twin on the same inputs on the
    card, checks them against the stated tolerances and times both; TSDF
-   (K2 nav grid, K1 raycast, K6 ICP reduction and whole tracking step, K5
-   march and allocator, K3 worklist, fused pass and fallback on the map the
-   allocator made, K4 node pass, K7 pyramid) and OFusion (K5-OF march, K2,
-   K1-OF, K6, the allocator, K3-OF, K4, K7); then, per field, the
+   (the pose prologue, K2 nav grid, K1 raycast with its prime, select and
+   probe counts, K6 ICP reduction and whole tracking step, K5 march and
+   allocator, K3 worklist, fused pass and fallback on the map the
+   allocator made, K4 parent rank and node pass, K7 pyramid) and OFusion
+   (the prologue, K5-OF march, K2, K1-OF, K6, the allocator, K3-OF, K4,
+   K7); then, per field, the
    allocator with a budget of half frame 3's new blocks and into a pool
    with room for half of them (both must drop blocks), and a close view of
    the sphere, allocated
@@ -33,11 +35,12 @@ checkout:
    of its first 5 frames under torch.profiler, each stage's host and
    device time and the device's busy share; it checks the drop counters,
    tracking from frame 4 on, the final position error against ground
-   truth and that every kernel of the path was launched (K6, K4, K5's
-   allocator and K3's three launches once a frame, K7's half_sample twice
-   and vertex_normal three times, K3's former prepass never), holds the
-   tracking kernel to its twin and the allocator's incremental mip_alloc
-   to the dense rule on every frame, and K6, K5, K3, K4 and K7 to their
+   truth and that every kernel of the path was launched (K6, K4's rank
+   and pass, K5's allocator and K3's three launches once a frame, the
+   pose prologue and K7's half_sample twice and vertex_normal three
+   times, K3's former prepass never), holds the tracking kernel and the
+   prologue to their twins and the allocator's incremental mip_alloc to
+   the dense rule on every frame, and K6, K5, K3, K4 and K7 to their
    twins once more on the slice's last frame; then
    the probe's own path (``supereight_tpu_torch.tools.probe_gather.run``)
    likewise, each form bit for bit against the probe's numpy expectation;
@@ -95,6 +98,15 @@ UPDATE_OPS = {"tsdf": 19, "ofusion": 44}
 # divide (3) and the five tests (csrc/preprocess.cu)
 HALF_SAMPLE_OPS = 21
 VERTEX_NORMAL_OPS = 40
+# K1: per march probe (csrc/raycast.cu probe + the step) ~25 operations;
+# per ray the prime from the depth frame ~8 operations
+RAY_PROBE_OPS = 25
+PRIME_OPS = 8
+# the pose prologue (csrc/frame.cu): two 4x4 products 224, R^T t 18, the
+# intrinsics 6, gates and time stamp ~11; k, two poses, the verdict and the
+# frame read, five matrices, the time stamp and three gates written
+FRAME_MATS_OPS = 259
+FRAME_MATS_BYTES = 16 + 2 * 64 + 1 + 4 + 81 * 4 + 3
 COUNTERS = ("alloc_overflow", "blocks_truncated", "patch_skipped",
             "mip_skipped", "ray_overflow", "pool_bucket_overflow")
 
@@ -133,12 +145,16 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
                  "tools/probe_pallas_gather.py:50"),
     "gather_d": ("supereight_tpu_torch/csrc/gather_probe.cu",
                  "tools/probe_pallas_gather.py:66"),
+    "node_rank": ("supereight_tpu_torch/csrc/node.cu",
+                  "supereight_tpu/ops/integration.py:449"),
     "node_pass": ("supereight_tpu_torch/csrc/node.cu",
                   "supereight_tpu/ops/integration.py:377"),
     "half_sample": ("supereight_tpu_torch/csrc/preprocess.cu",
                     "supereight_tpu/ops/preprocess.py:80"),
     "vertex_normal": ("supereight_tpu_torch/csrc/preprocess.cu",
                       "supereight_tpu/ops/preprocess.py:101"),
+    "frame_mats": ("supereight_tpu_torch/csrc/frame.cu",
+                   "supereight_tpu/parallel/step.py:117"),
 }
 # why no single PyTorch call computes a kernel's function (its library_ms
 # is null)
@@ -157,9 +173,13 @@ NO_LIBRARY = {
     "nav_grid": "no call runs a capped distance transform",
     "raycast": "no call marches rays through a sparse grid",
     "raycast_of": "no call marches rays through a sparse grid",
+    "node_rank": "nonzero would size its output on the host; no call "
+                 "ranks the occupied parents of a grid",
     "node_pass": "no call runs a gated field update",
     "half_sample": "no call takes a robust mean",
     "vertex_normal": "no call makes a sentinel normal map",
+    "frame_mats": "no call builds the frame's pose select, gates and five "
+                  "matrices; a matmul is one of its five products",
 }
 # device kernel names (without "_kernel") reported from the profile, and
 # the frame_step stage that launches each; the OFusion instantiations are
@@ -169,17 +189,19 @@ PROFILED = {"half_sample": "preprocess", "vertex_normal": "preprocess",
             "alloc_touch": "allocate", "alloc_touch_of": "allocate",
             "alloc_assign": "allocate", "integrate_worklist": "integrate",
             "integrate_fused": "integrate", "integrate_fallback": "integrate",
-            "node_pass": "integrate", "nav_dist_x": "raycast",
+            "node_rank": "integrate", "node_pass": "integrate",
+            "frame_mats": "track", "nav_dist_x": "raycast",
             "nav_dist_y": "raycast", "nav_final": "raycast",
             "raycast": "raycast"}
 PATHS = {  # the kernels each main path must launch
-    "tsdf": ("half_sample", "vertex_normal", "icp_track", "alloc_touch",
-             "alloc_assign", "integrate_worklist", "integrate_fused",
-             "integrate_fallback", "node_pass", "nav_grid", "raycast"),
-    "ofusion": ("half_sample", "vertex_normal", "icp_track",
+    "tsdf": ("half_sample", "vertex_normal", "frame_mats", "icp_track",
+             "alloc_touch", "alloc_assign", "integrate_worklist",
+             "integrate_fused", "integrate_fallback", "node_rank",
+             "node_pass", "nav_grid", "raycast"),
+    "ofusion": ("half_sample", "vertex_normal", "frame_mats", "icp_track",
                 "alloc_touch_of", "alloc_assign", "integrate_worklist",
-                "integrate_fused_of", "integrate_fallback_of", "node_pass",
-                "nav_grid", "raycast_of"),
+                "integrate_fused_of", "integrate_fallback_of", "node_rank",
+                "node_pass", "nav_grid", "raycast_of"),
     "probe": ("gather_a", "gather_b", "gather_c", "gather_d"),
 }
 
@@ -322,14 +344,13 @@ def check_icp_track(torch, tag, args):
 
 def track_args(torch, sc, state, depth):
     """One frame's tracking inputs, as frame_step hands them to K6: the
-    state's pose, K @ raycast_pose^-1, the frame's pyramid and the
-    state's reference maps."""
-    from supereight_tpu_torch.core import se3
+    state's pose, K @ raycast_pose^-1 (the prologue's twin), the frame's
+    pyramid and the state's reference maps."""
+    from supereight_tpu_torch.kernels.frame import frame_mats_plain
     from supereight_tpu_torch.pipeline import preprocess_and_pyramid
     _, verts, norms, valids = preprocess_and_pyramid(
         depth, sc.kt, len(ITERATIONS), False, False)
-    view = se3.matmul4(se3.camera_matrix(sc.kt),
-                       se3.inverse(state.raycast_pose))
+    view = frame_mats_plain(sc.kt, state.raycast_pose).view
     return (state.pose, view, verts, norms, valids, state.vertex,
             state.normal, state.valid)
 
@@ -376,22 +397,31 @@ def report_profile(prof, ms_frame, tag):
         print(f"{tag} profile: port kernel {label:32s} "
               f"{dev_us(e, True) / max(e.count, 1):9.2f} us/launch, "
               f"{e.count / N_PROFILED:5.1f} launches/frame")
-    # the torch ops left in the stages K3 and K5 cover: each op called
-    # directly in the span, with the device time of the kernels and copies
-    # it (and the ops under it) ran
-    for stage in ("frame_step/allocate", "frame_step/integrate"):
-        ops = {}
-        for ev in prof.events():
-            if ev.cpu_parent is not None and ev.cpu_parent.name == stage:
-                us = getattr(ev, "device_time_total", None)
-                if us is None:
-                    us = ev.cuda_time_total
-                n, t = ops.get(ev.name, (0, 0.0))
-                ops[ev.name] = (n + 1, t + us)
-        ops = sorted(((t, n, k) for k, (n, t) in ops.items() if t > 0),
-                     reverse=True)
-        print(f"{tag} profile: {stage} torch ops, device us/frame: "
-              f"{sum(t for t, _, _ in ops) / N_PROFILED:.2f} in all; "
+    # the torch ops left in the frame: each op called directly in one of
+    # the five stage spans, or in frame_step outside every span (a
+    # top-level op of the replay), with the device time of the kernels and
+    # copies it (and the ops under it) ran
+    outside = "outside the spans"
+    groups = {e.key: {} for e in stages}
+    groups[outside] = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU \
+                or ev.name.startswith("frame_step/"):
+            continue
+        group = outside if ev.cpu_parent is None else ev.cpu_parent.name
+        if group not in groups:
+            continue
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        n, t = groups[group].get(ev.name, (0, 0.0))
+        groups[group][ev.name] = (n + 1, t + us)
+    for group in sorted(groups):
+        ops = sorted(((t, n, k) for k, (n, t) in groups[group].items()
+                      if t > 0), reverse=True)
+        print(f"{tag} profile: {group} torch ops, device us/frame: "
+              f"{sum(t for t, _, _ in ops) / N_PROFILED:.2f} in all, "
+              f"{sum(n for _, n, _ in ops) / N_PROFILED:g} ops; "
               + ", ".join(f"{k} {t / N_PROFILED:.2f} ({n / N_PROFILED:g}x)"
                           for t, n, k in ops))
 
@@ -499,14 +529,16 @@ def check_alloc(torch, sc, m, pose, depth, tag, budget=None, capacity=None):
     alloc_overflow."""
     from supereight_tpu_torch.core.map import MapGeometry, refresh_mip_alloc
     from supereight_tpu_torch.kernels import alloc
+    from supereight_tpu_torch.kernels.frame import frame_mats_plain
     geom, field, mu = sc.geom, sc.field, sc.mu
     if capacity is not None:
         geom = MapGeometry(size=SIZE, dim=DIM, capacity=capacity)
         m = m._replace(**{n: getattr(m, n)[:capacity] for n in
                           ("data_x", "data_y", "block_coord", "active")})
-    grids = ((alloc.touched_mask(geom, depth, pose, sc.kt, mu),)
+    kpose = frame_mats_plain(sc.kt, pose).kpose
+    grids = ((alloc.touched_mask(geom, depth, pose, kpose, mu),)
              if field.name == "tsdf"
-             else alloc.touched_masks_of(geom, depth, pose, sc.kt, mu))
+             else alloc.touched_masks_of(geom, depth, pose, kpose, mu))
     when = torch.ones((), dtype=torch.bool, device=sc.dev)
     ma, mb, md = clone_map(m), clone_map(m), clone_map(m)
 
@@ -670,11 +702,14 @@ def check_caps_and_fallback(torch, sc, m, pose, ts, tag):
     import numpy as np
     from supereight_tpu_torch.io import synthetic
     from supereight_tpu_torch.kernels import alloc
+    from supereight_tpu_torch.kernels.frame import frame_mats_plain
     errs = {}
     n = int(m.n_blocks)
-    touched = (alloc.touched_mask(sc.geom, sc.depths_t[3], pose, sc.kt, sc.mu)
+    kpose = frame_mats_plain(sc.kt, pose).kpose
+    touched = (alloc.touched_mask(sc.geom, sc.depths_t[3], pose, kpose,
+                                  sc.mu)
                if sc.field.name == "tsdf" else alloc.touched_masks_of(
-                   sc.geom, sc.depths_t[3], pose, sc.kt, sc.mu)[0])
+                   sc.geom, sc.depths_t[3], pose, kpose, sc.mu)[0])
     half = int((touched & (m.slot < 0)).sum()) // 2
     require(half > 0, f"{tag}: frame 3 has too few new blocks to cap")
     for kw, what in ((dict(budget=half), f"budget {half}"),
@@ -714,15 +749,130 @@ def nav_bound(geom, field):
     return bound(8 * b ** 3 + mips, 99 * b ** 3)
 
 
-def raycast_bound(got):
-    """K1: the priming depth read once and the vertex, normal and hit maps
-    written once; per ray the direction and box clip (~55 operations) and
-    per hit the refinement and normal (~115). The march's probes are left
-    out (how many a ray needs depends on the map), so this bound is
-    loose."""
+def raycast_bound(got, probes):
+    """K1 with the state's select: the depth frame, view, k, gate and pose
+    read and the vertex, normal and hit maps, raycast pose and overflow
+    written once; each nav entry and pool voxel (both channels) that this
+    run's rays read (the twin's record: the start probe, the march probes
+    and the hits' refinement), read once; per ray the direction, box clip
+    (~55 operations) and prime, per probe ~25 and per hit the refinement
+    and normal (~115)."""
     rays = got[2].numel()
     hits = int(got[2].sum())
-    return bound(rays * (4 + 12 + 12 + 1) + 64, rays * 55 + hits * 115)
+    n_probes = int(probes.per_ray.sum()) + rays
+    return bound(rays * (4 + 12 + 12 + 1) + 64 + 16 + 1 + 64 + 64 + 4
+                 + 4 * int(probes.nav.sum()) + 8 * int(probes.pool.sum()),
+                 rays * (55 + PRIME_OPS) + hits * 115
+                 + RAY_PROBE_OPS * n_probes)
+
+
+def probe_stats(torch, probes):
+    """The march's probes from the twin's record (``kernels/raycast.py``
+    ``Probes``): the mean, 99th percentile and largest count a ray, the
+    total, the sum over the kernel's warps (8 x 4 pixel tiles) of each
+    warp's largest count (the probes a warp in lockstep takes), and the
+    distinct nav entries and pool voxels read."""
+    p = probes.per_ray
+    h, w = p.shape
+    f = p.reshape(-1).to(torch.float64)
+    return dict(
+        mean=f.mean().item(), p99=torch.quantile(f, 0.99).item(),
+        max=int(p.max()), total=int(p.sum()),
+        warp_max=int(p.reshape(h // 4, 4, w // 8, 8).amax(dim=(1, 3)).sum()),
+        warps=p.numel() // 32, nav=int(probes.nav.sum()),
+        voxels=int(probes.pool.sum()))
+
+
+def check_k1(torch, sc, state, depth, tag):
+    """K1 against its twin on the map and pose of ``state``, primed in the
+    kernel by ``depth``: the rays alone (:func:`check_raycast`'s
+    tolerances); with a state's select gated on (the same, and the
+    raycast pose exactly) and gated off (the given old maps and raycast
+    pose exactly, ray_overflow 0); every overflow scratch zero after the
+    launches. Prints the march's probes and reads (the twin's record).
+    Returns the kernel's row and its rays."""
+    from supereight_tpu_torch.kernels import frame, nav, raycast
+    geom, field, m, mu = sc.geom, sc.field, state.map, sc.mu
+    view = frame.frame_mats(sc.kt, state.pose).kpose
+    nv = nav.nav_grid(geom, m, field, bucket=BUDGET)
+
+    def call(prev=None):
+        return raycast.raycast_rays(geom, m, field, nv, view, depth, sc.kt,
+                                    mu, (W, H), prev=prev)
+
+    def plain(prev=None):
+        return raycast.raycast_plain(geom, field, m.data_x, m.data_y, nv,
+                                     view, depth, sc.kt, mu, (W, H),
+                                     prev=prev)
+
+    got = call()
+    ref, probes = raycast.raycast_plain(geom, field, m.data_x, m.data_y, nv,
+                                        view, depth, sc.kt, mu, (W, H),
+                                        with_probes=True)
+    v_err = check_raycast(torch, tag, got, ref)
+    # an old state unlike the new one, so that the select shows
+    old = (ref.vertex + 1.0, -ref.normal, ~ref.valid)
+
+    def prev(on):
+        return raycast.Previous(torch.full((), on, device=sc.dev),
+                                state.pose, state.raycast_pose + 1.0, *old)
+
+    on, off = call(prev(True)), call(prev(False))
+    check_raycast(torch, tag + " (select on)", on, ref)
+    sel_ok = (torch.equal(on.raycast_pose, state.pose)
+              and all(torch.equal(a, b) for a, b in zip(off[:3], old))
+              and int(off.overflow) == 0
+              and torch.equal(off.raycast_pose, state.raycast_pose + 1.0))
+    print(f"{tag}: select on/off against the twin's where: raycast pose, "
+          f"kept maps and a zero overflow exactly: {sel_ok}")
+    require(sel_ok, f"{tag}: the state's select disagrees with the twin")
+    st = probe_stats(torch, probes)
+    print(f"{tag}: march probes a ray (twin): mean {st['mean']:.3f}, p99 "
+          f"{st['p99']:.0f}, max {st['max']}, {st['total']} in all; sum "
+          f"over the {st['warps']} warps (8x4 pixel tiles) of each warp's "
+          f"largest count {st['warp_max']}; distinct reads: {st['nav']} nav "
+          f"entries, {st['voxels']} pool voxels")
+    row = dict(max_abs_err=v_err, probes=st,
+               device_us=device_us(torch, lambda: call(prev(True)), 20),
+               ms=cuda_ms(torch, lambda: call(prev(True)), 20),
+               plain_ms=cuda_ms(torch, lambda: plain(prev(True)), 2),
+               **raycast_bound(got, probes))
+    torch.cuda.synchronize()
+    dirty = [k for k, v in raycast._SCRATCH.items() if bool(v.any())]
+    print(f"{tag}: device {row['device_us']:.2f} us/launch; bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}); overflow "
+          f"scratches left nonzero: {len(dirty)} of {len(raycast._SCRATCH)}")
+    require(not dirty, f"{tag}: a launch left its overflow scratch nonzero")
+    return row, got
+
+
+def check_frame_mats(torch, sc, state, tag):
+    """The pose prologue against its twin, bit for bit, on ``state``'s
+    poses: tracking's view of its raycast pose, and the frame's select of
+    a candidate 1 cm away from its pose, tracked (frame 3), untracked
+    (frame 4) and skipped by a tracking rate of 2 (frame 5 as a device
+    tensor, integration rate 3). Returns the kernel's row (the bound of
+    FRAME_MATS_BYTES and FRAME_MATS_OPS; the tracked case timed)."""
+    from supereight_tpu_torch.kernels.frame import frame_mats, \
+        frame_mats_plain
+    moved = state.pose.clone()
+    moved[:3, 3] += 0.01
+    yes = torch.ones((), dtype=torch.bool, device=sc.dev)
+    five = torch.full((), 5, dtype=torch.int32, device=sc.dev)
+    cases = [(sc.kt, state.raycast_pose),
+             (sc.kt, moved, state.pose, yes, 3, 1, 1),
+             (sc.kt, moved, state.pose, ~yes, 4, 1, 1),
+             (sc.kt, moved, state.pose, yes, five, 2, 3)]
+    n_bad = sum(not torch.equal(a, b) for args in cases
+                for a, b in zip(frame_mats(*args), frame_mats_plain(*args)))
+    print(f"{tag}: {len(cases)} cases, outputs unequal to the twin: {n_bad} "
+          f"(== 0, bit for bit)")
+    require(n_bad == 0, f"{tag} disagrees with twin")
+    args = cases[1]
+    return dict(max_abs_err=float(n_bad),
+                ms=cuda_ms(torch, lambda: frame_mats(*args), 50),
+                plain_ms=cuda_ms(torch, lambda: frame_mats_plain(*args), 10),
+                **bound(FRAME_MATS_BYTES, FRAME_MATS_OPS))
 
 
 def check_raycast(torch, tag, got, ref):
@@ -759,15 +909,48 @@ def check_nav(torch, sc, m, tag):
     return row
 
 
+def check_rank(torch, sc, m, tag):
+    """K4's rank kernel against ``_parent_present`` on ``m``: the gate grid
+    and mip_skipped exactly, at the bench budget and at a budget of half
+    the occupied parents (mip_skipped > 0), and mip_skipped 0 under a
+    false ``when``. Returns the kernel's row (bound: mip_alloc[0] read
+    once, the gate grid and mip_skipped written once, one OR a child) and
+    its and its twin's calls."""
+    from supereight_tpu_torch.kernels import node
+    geom = sc.geom
+    b = geom.blocks_per_side
+    true = torch.ones((), dtype=torch.bool, device=sc.dev)
+    occupied = int(node._parent_present(geom, m, b ** 3)[0].sum())
+    cut = max(occupied // 2, 1)
+    mism, skips = 0, []
+    for budget, when in ((BUDGET, true), (cut, true), (BUDGET, ~true)):
+        got = node.node_rank(geom, m, budget, when)
+        want = node._parent_present(geom, m, budget)
+        skip = int(want[1]) if bool(when) else 0
+        mism += int((got[0] != want[0]).sum()) + abs(int(got[1]) - skip)
+        skips.append(int(got[1]))
+    print(f"{tag}: {occupied} occupied parents; gate grid and mip_skipped "
+          f"at budgets {BUDGET} and {cut} and under when False: {mism} "
+          f"mismatches (== 0), mip_skipped {skips}")
+    require(mism == 0 and skips[1] > 0,
+            f"{tag} disagrees with _parent_present")
+    hp = b // 2
+    row = dict(max_abs_err=float(mism),
+               **bound(b ** 3 + hp ** 3 + 4 + 1, b ** 3))
+    return (row, lambda: node.node_rank(geom, m, BUDGET, true),
+            lambda: node.node_rank_plain(geom, m, BUDGET, true))
+
+
 def check_node_pass(torch, sc, m, pose, depth, ts, tag):
     """K4 node_pass against its twin on two copies of ``m``, fusing
     ``depth`` at ``pose`` stamped ``ts``: TSDF mip x and y to 1e-5;
     OFusion log-odds to 1e-4 + 1e-5 |x| and time stamps exactly (K3's
-    tolerances); mip_skipped exactly. Returns the kernel's row (error and
-    bound: the gates read once, and per written value its depth read and
-    x and y read and written; per gated cell the projection and per
-    written value the update) and the kernel's and the twin's calls for
-    timing."""
+    tolerances); mip_skipped exactly; and its rank kernel
+    (:func:`check_rank`). Returns, for ``node_pass`` (error and bound: the
+    gates read once, and per written value its depth read and x and y
+    read and written; per gated cell the projection and per written value
+    the update) and ``node_rank``, the row and the kernel's and the twin's
+    calls for timing."""
     from supereight_tpu_torch.core import se3
     from supereight_tpu_torch.kernels import node
     geom, field = sc.geom, sc.field
@@ -806,8 +989,10 @@ def check_node_pass(torch, sc, m, pose, depth, ts, tag):
     row = dict(max_abs_err=ex, **bound(
         gate_bytes + written * 20 + 2 * 64 + 4 + 1,
         gated * PROJECT_OPS + written * UPDATE_OPS[field.name]))
-    return (row, lambda: node.node_pass(*args(ma)),
-            lambda: node.node_pass_plain(*args(mb)))
+    return {"node_pass": (row, lambda: node.node_pass(*args(ma)),
+                          lambda: node.node_pass_plain(*args(mb))),
+            "node_rank": check_rank(torch, sc, m, tag.replace("node_pass",
+                                                              "node_rank"))}
 
 
 def check_pyramid(torch, depth, tag):
@@ -869,8 +1054,8 @@ def new_kernel_rows(torch, sc, m, pose, depth, ts, tag):
     checked = {"alloc_assign": (row, call, plain)}
     checked.update(check_block_pass(torch, sc, m_alloc, pose, depth, ts,
                                     f"K3 ({tag})")[0])
-    checked["node_pass"] = check_node_pass(
-        torch, sc, m, pose, depth, ts, f"K4 node_pass ({tag})")
+    checked.update(check_node_pass(torch, sc, m, pose, depth, ts,
+                                   f"K4 node_pass ({tag})"))
     rows, calls = check_pyramid(torch, depth, f"K7 pyramid ({tag})")
     checked.update((k, (rows[k], *calls[k])) for k in rows)
     rows = {}
@@ -895,33 +1080,22 @@ def kernel_phase_tsdf(torch, sc):
     """Each TSDF-path kernel against its twin on a map built by three port
     frames."""
     from supereight_tpu_torch.core import se3
-    from supereight_tpu_torch.kernels import alloc, icp, nav, raycast
-    from supereight_tpu_torch.ops import raycast as ops_ray
+    from supereight_tpu_torch.kernels import alloc, icp
     from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
-    geom, field, mu, kt = sc.geom, sc.field, sc.mu, sc.kt
+    geom, mu, kt = sc.geom, sc.mu, sc.kt
     state = sc.run_frames(3)
     m = state.map
     pose = state.pose
     d2, d3 = sc.depths_t[2], sc.depths_t[3]
     rows = {}
 
-    # K2 + K1: the primed raycast of frame 2 (its output feeds K6 below)
+    # the pose prologue; K2 + K1: the primed raycast of frame 2 (its output
+    # feeds K6 below)
+    rows["frame_mats"] = check_frame_mats(torch, sc, state,
+                                          "frame_mats (TSDF, frame 3)")
     rows["nav_grid"] = check_nav(torch, sc, m, "K2 nav_grid (TSDF)")
-    view = se3.matmul4(pose, se3.inverse_camera_matrix(kt))
-    prime = ops_ray.prime_from_depth(d2, kt)
-    nv = nav.nav_grid(geom, m, field, bucket=BUDGET)
-    got = raycast.raycast_rays(geom, m, field, nv, view, prime, mu, (W, H))
-    ref = raycast.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
-                                prime, mu, (W, H))
-    v_err = check_raycast(torch, "K1 raycast", got, ref)
-    rows["raycast"] = dict(
-        max_abs_err=v_err,
-        ms=cuda_ms(torch, lambda: raycast.raycast_rays(
-            geom, m, field, nv, view, prime, mu, (W, H)), 20),
-        plain_ms=cuda_ms(torch, lambda: raycast.raycast_plain(
-            geom, field, m.data_x, m.data_y, nv, view, prime, mu, (W, H)),
-            2), **raycast_bound(got))
+    rows["raycast"], got = check_k1(torch, sc, state, d2, "K1 raycast")
     ref_vertex, ref_normal, ref_valid = got[0], got[1], got[2]
 
     # K6: frame 3's finest pyramid level against that raycast
@@ -954,7 +1128,7 @@ def kernel_phase_tsdf(torch, sc):
 
     # K5: the band march of frame 3 at the frame-2 pose
     kpose = se3.matmul4(pose, se3.inverse_camera_matrix(kt))
-    t_k = alloc.touched_mask(geom, d3, pose, kt, mu)
+    t_k = alloc.touched_mask(geom, d3, pose, kpose, mu)
     t_p = alloc.touched_mask_plain(geom, d3, pose, kpose, mu)
     mism = int((t_k != t_p).sum())
     print(f"K5 alloc_touch: {int(t_k.sum())} touched blocks, {mism} "
@@ -962,8 +1136,8 @@ def kernel_phase_tsdf(torch, sc):
     require(mism == 0, "K5 alloc_touch disagrees with twin")
     rows["alloc_touch"] = dict(
         max_abs_err=float(mism),
-        ms=cuda_ms(torch, lambda: alloc.touched_mask(geom, d3, pose, kt, mu),
-                   50),
+        ms=cuda_ms(torch, lambda: alloc.touched_mask(geom, d3, pose, kpose,
+                                                     mu), 50),
         plain_ms=cuda_ms(torch, lambda: alloc.touched_mask_plain(
             geom, d3, pose, kpose, mu), 10),
         **alloc_bound(geom, d3, mu))
@@ -981,11 +1155,10 @@ def kernel_phase_of(torch, sc):
     """Each OFusion-path kernel against its twin on a map built by three
     OFusion port frames."""
     from supereight_tpu_torch.core import se3
-    from supereight_tpu_torch.kernels import alloc, nav, raycast
-    from supereight_tpu_torch.ops import raycast as ops_ray
+    from supereight_tpu_torch.kernels import alloc
     from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
-    geom, field, mu, kt = sc.geom, sc.field, sc.mu, sc.kt
+    geom, mu, kt = sc.geom, sc.mu, sc.kt
     state = sc.run_frames(3)
     m = state.map
     pose = state.pose
@@ -994,7 +1167,7 @@ def kernel_phase_of(torch, sc):
 
     # K5-OF: the multi-scale march of frame 3 at the frame-2 pose
     kpose = se3.matmul4(pose, se3.inverse_camera_matrix(kt))
-    t_k = alloc.touched_masks_of(geom, d3, pose, kt, mu)
+    t_k = alloc.touched_masks_of(geom, d3, pose, kpose, mu)
     t_p = alloc.touched_masks_of_plain(geom, d3, pose, kpose, mu)
     mism = [int((a != b).sum()) for a, b in zip(t_k, t_p)]
     print(f"K5-OF alloc_touch_of: touched octants per level "
@@ -1003,27 +1176,18 @@ def kernel_phase_of(torch, sc):
     rows["alloc_touch_of"] = dict(
         max_abs_err=float(sum(mism)),
         ms=cuda_ms(torch, lambda: alloc.touched_masks_of(
-            geom, d3, pose, kt, mu), 50),
+            geom, d3, pose, kpose, mu), 50),
         plain_ms=cuda_ms(torch, lambda: alloc.touched_masks_of_plain(
             geom, d3, pose, kpose, mu), 10),
         **alloc_of_bound(geom, d3, mu))
 
-    # K2 (OFusion payload) + K1-OF: the primed raycast of frame 2
+    # the pose prologue; K2 (OFusion payload) + K1-OF: the primed raycast
+    # of frame 2
+    rows["frame_mats"] = check_frame_mats(torch, sc, state,
+                                          "frame_mats (OFusion, frame 3)")
     rows["nav_grid"] = check_nav(torch, sc, m, "K2 nav_grid (OFusion)")
-    view = se3.matmul4(pose, se3.inverse_camera_matrix(kt))
-    prime = ops_ray.prime_from_depth(d2, kt)
-    nv = nav.nav_grid(geom, m, field, bucket=BUDGET)
-    got = raycast.raycast_rays(geom, m, field, nv, view, prime, mu, (W, H))
-    ref = raycast.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
-                                prime, mu, (W, H))
-    v_err = check_raycast(torch, "K1-OF raycast_of", got, ref)
-    rows["raycast_of"] = dict(
-        max_abs_err=v_err,
-        ms=cuda_ms(torch, lambda: raycast.raycast_rays(
-            geom, m, field, nv, view, prime, mu, (W, H)), 20),
-        plain_ms=cuda_ms(torch, lambda: raycast.raycast_plain(
-            geom, field, m.data_x, m.data_y, nv, view, prime, mu, (W, H)),
-            2), **raycast_bound(got))
+    rows["raycast_of"], got = check_k1(torch, sc, state, d2,
+                                       "K1-OF raycast_of")
 
     # K6: the whole tracking step of frame 3 against that raycast
     _, verts, norms, valids = preprocess_and_pyramid(d3, kt, 3, False, False)
@@ -1178,7 +1342,8 @@ def slice_phase(torch, sc, card):
               "vertex_normal": n_lv * sc.n_total, "icp_reduce": 0,
               "alloc_assign": sc.n_total, "integrate_worklist": sc.n_total,
               "integrate_fused" + of: sc.n_total,
-              "integrate_fallback" + of: sc.n_total}
+              "integrate_fallback" + of: sc.n_total,
+              "frame_mats": 2 * sc.n_total, "node_rank": sc.n_total}
     require(all(launches[k] == v for k, v in expect.items()),
             f"{tag}: launches {launches}, expected {expect} in "
             f"{sc.n_total} frames")
@@ -1186,19 +1351,30 @@ def slice_phase(torch, sc, card):
     # K6 against its twin on every frame's tracking inputs as the path
     # meets them (the slice once more: every launch is deterministic, so
     # these are the timed run's frames), then once more (timed, launched
-    # twice) on the last frame; and on every frame the allocator's
-    # incremental mip_alloc against the dense rule (JAX's refresh over
-    # every allocated block and this frame's extra octants, on the mips
-    # the frame started from)
+    # twice) on the last frame; on every frame the pose prologue's two
+    # calls against the twin, bit for bit, and its pose against the
+    # frame's; and on every frame the allocator's incremental mip_alloc
+    # against the dense rule (JAX's refresh over every allocated block and
+    # this frame's extra octants, on the mips the frame started from)
     from supereight_tpu_torch.core.map import refresh_mip_alloc
     from supereight_tpu_torch.kernels import alloc, icp
-    n_exact, worst, mip_bad = 0, 0.0, 0
+    from supereight_tpu_torch.kernels.frame import frame_mats, \
+        frame_mats_plain
+    n_exact, worst, mip_bad, mats_bad = 0, 0.0, 0, 0
     state = sc.init()
     for i in range(sc.n_total):
         args = track_args(torch, sc, state, sc.depths_t[i])
         dense = state.map._replace(
             mip_alloc=tuple(a.clone() for a in state.map.mip_alloc))
+        pose_t, tracked_t = icp.icp_track(*args, ITERATIONS, 1e-5)[:2]
+        calls = [(sc.kt, state.raycast_pose),
+                 (sc.kt, pose_t, state.pose, tracked_t, i,
+                  sc.kw["tracking_rate"], sc.kw["integration_rate"])]
+        mats = [frame_mats(*a) for a in calls]
+        mats_bad += sum(not torch.equal(x, y) for m, a in zip(mats, calls)
+                        for x, y in zip(m, frame_mats_plain(*a)))
         state, aux = sc.frame(state, i)
+        mats_bad += int(not torch.equal(mats[1].pose, state.pose))
         got = (state.pose, aux["tracked"], aux["reduction"],
                aux["track_result"])
         want = icp.icp_track_plain(*args, ITERATIONS, 1e-5)
@@ -1209,16 +1385,21 @@ def slice_phase(torch, sc, card):
         extra = ()
         if sc.field.name == "ofusion":
             extra = tuple(t & aux["integrated"] for t in alloc.touched_masks_of(
-                sc.geom, sc.depths_t[i], state.pose, sc.kt, sc.mu)[1:])
+                sc.geom, sc.depths_t[i], state.pose,
+                frame_mats_plain(sc.kt, state.pose).kpose, sc.mu)[1:])
         refresh_mip_alloc(sc.geom, dense, state.map.slot >= 0,
                           extra_levels=(None,) + extra)
         mip_bad += sum(int((a != b).sum()) for a, b in
                        zip(dense.mip_alloc, state.map.mip_alloc))
     print(f"{tag}: icp_track within the twin's tolerances on all "
           f"{sc.n_total} frames, equal to it bit for bit on {n_exact}; pose "
-          f"max err {worst:.3e}; incremental mip_alloc against the dense "
-          f"rule on all {sc.n_total} frames: {mip_bad} mismatches (== 0)")
+          f"max err {worst:.3e}; frame_mats against its twin and the "
+          f"frame's pose on all {sc.n_total} frames: {mats_bad} unequal "
+          f"outputs (== 0, bit for bit); incremental mip_alloc against the "
+          f"dense rule on all {sc.n_total} frames: {mip_bad} mismatches "
+          f"(== 0)")
     require(mip_bad == 0, f"{tag}: mip_alloc departs from the dense rule")
+    require(mats_bad == 0, f"{tag}: frame_mats disagrees with its twin")
     last = f"{sc.field.name}, frame {sc.n_total - 1}"
     trow = check_icp_track(torch, f"K6 icp_track ({last})", args)
     # K4 and K7 on the last frame: its node pass on the map and pose the
@@ -1226,9 +1407,10 @@ def slice_phase(torch, sc, card):
     ts = torch.full((), float(sc.n_total - 1), dtype=torch.float32,
                     device=sc.dev) * (1 / 30)
     errs = {"icp_track": max(worst, trow["max_abs_err"]),
-            "node_pass": check_node_pass(
-                torch, sc, state.map, state.pose, sc.depths_t[-1], ts,
-                f"K4 node_pass ({last})")[0]["max_abs_err"]}
+            "frame_mats": float(mats_bad)}
+    errs.update((k, v[0]["max_abs_err"]) for k, v in check_node_pass(
+        torch, sc, state.map, state.pose, sc.depths_t[-1], ts,
+        f"K4 node_pass ({last})").items())
     prows, _ = check_pyramid(torch, sc.depths_t[-1], f"K7 pyramid ({last})")
     errs.update((k, r["max_abs_err"]) for k, r in prows.items())
     # K5's allocator and K3 on the last frame, on the map and pose the

@@ -61,11 +61,12 @@ def _bottom_row(top):
 
 
 def inverse(T):
-    """Inverse of a rigid transform [..., 4, 4]."""
+    """Inverse of a rigid transform [..., 4, 4]; R^T t is summed left to
+    right (:func:`matmul4`), as csrc/frame.cu's kernel sums it."""
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
-    ti = -torch.matmul(Rt, t[..., None])[..., 0]
+    ti = -matmul4(Rt, t[..., None])[..., 0]
     top = torch.cat([Rt, ti[..., :, None]], dim=-1)
     return torch.cat([top, _bottom_row(top)], dim=-2)
 

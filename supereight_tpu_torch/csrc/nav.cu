@@ -20,7 +20,10 @@
 // along y, then along z, each over a window of radius MAX_JUMP - 1. Three
 // launches, one thread per cell each: nav_dist_x (u8 row distances from
 // the slot grid), nav_dist_y, and nav_final (the z pass fused with the
-// payload and the slot pick).
+// payload and the slot pick). When given counts, nav_final's first thread
+// also writes the frame's block count and the blocks past the bucket,
+// max(n_blocks - bucket, 0) (parallel/step.py's n_blocks and
+// pool_bucket_overflow), so the frame needs no copy or clamp for them.
 //
 // Bound on the H100: 11 byte reads per cell and pass from grids that stay
 // in L1/L2 (262k cells at 512^3: 256 KB per u8 grid, 1 MB for the slots),
@@ -79,8 +82,14 @@ __global__ void __launch_bounds__(kThreads)
 nav_final_kernel(const uint8_t* __restrict__ in,
                  const int* __restrict__ slot, int b, int bucket,
                  int ofusion, int n_levels, Mips mips,
-                 int* __restrict__ nav) {
+                 int* __restrict__ nav, const int* __restrict__ n_blocks,
+                 int* __restrict__ counts) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c == 0 && counts != nullptr) {
+    const int n = *n_blocks;
+    counts[0] = n;
+    counts[1] = max(n - bucket, 0);
+  }
   if (c >= b * b * b) return;
   const int x = c / (b * b), y = (c / b) % b, z = c % b;
   int e = kMaxJump;
@@ -110,9 +119,11 @@ nav_final_kernel(const uint8_t* __restrict__ in,
 
 }  // namespace
 
+// n_blocks and counts (i32[2]) may be null
 SE_EXPORT int se_nav_grid(const int* slot, int b, int bucket, int ofusion,
                           int n_levels, Mips mips, uint8_t* tmp_x,
-                          uint8_t* tmp_y, int* nav, void* stream) {
+                          uint8_t* tmp_y, int* nav, const int* n_blocks,
+                          int* counts, void* stream) {
   const int n = b * b * b;
   const int n_cta = (n + kThreads - 1) / kThreads;
   if (n_cta == 0) return 0;
@@ -124,7 +135,7 @@ SE_EXPORT int se_nav_grid(const int* slot, int b, int bucket, int ofusion,
   nav_dist_y_kernel<<<n_cta, kThreads, 0, st>>>(tmp_x, b, tmp_y);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  nav_final_kernel<<<n_cta, kThreads, 0, st>>>(tmp_y, slot, b, bucket,
-                                               ofusion, n_levels, mips, nav);
+  nav_final_kernel<<<n_cta, kThreads, 0, st>>>(
+      tmp_y, slot, b, bucket, ofusion, n_levels, mips, nav, n_blocks, counts);
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,8 @@
 // (B/2)^3, ... 1). A thread
 //  * reads its gate and leaves at once where it is shut: level 0 reads
 //    `present` (bool[B/2]^3, "the parent is occupied and among the first
-//    pbudget occupied parents", ranked by the caller's cumsum) when the
-//    caller gives it (B >= 8, the JAX sparse pass), else mip_alloc[0];
+//    pbudget occupied parents", ranked by node_rank below) when the caller
+//    gives it (B >= 8, the JAX sparse pass), else mip_alloc[0];
 //    higher levels read mip_alloc[lvl]; `when` (bool[]) shuts every gate;
 //  * places its corner at float(i) * octant_m per axis, octant_m =
 //    (8 << lvl) * voxel rounded to f32 once (torch.arange(side) * octant_m);
@@ -27,7 +27,21 @@
 // at 3.35 TB/s. The torch ops it replaces ran ~150 (TSDF) / ~220 (OFusion)
 // launches a level; the design answers the bound with one launch and an
 // early exit on shut gates, so most threads do one byte load.
+//
+// node_rank, the launch before it, ranks the level-0 parents on the device
+// (JAX _node_pass_level0_sparse 449-458: a top_k over the (B/2)^3
+// parents). A parent is occupied when any of its 8 mip_alloc[0] children
+// is set; one cluster of 8 CTAs x 1024 threads (compact.cuh) ranks the
+// occupied parents in parent-id order, as the top_k of npar - id does, and
+// writes present[p] = occupied and rank < pbudget = min(budget, (B/2)^3)
+// for every parent, and mip_skipped = (occupied - present) * 8 octants,
+// 0 where `when` is false. Bound: the B^3 mip_alloc[0] bytes read once and
+// the (B/2)^3 gate bytes written once, ~0.3 MB at 512^3 (~0.1 us); what is
+// left is the cluster's two barriers. It stays its own launch: folded into
+// node_pass, either that pass's 1,170 CTAs would wait on one cluster, or
+// the cluster's 8,192 threads would walk all 299,593 cells (~37 each).
 
+#include "compact.cuh"
 #include "fields.cuh"
 
 namespace {
@@ -78,7 +92,53 @@ node_pass_kernel(Mips mips, int b, int n_cells, double voxel,
                              mips.y[lvl] + c);
 }
 
+__global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
+    __launch_bounds__(se::kCompactThreads)
+    node_rank_kernel(const uint8_t* __restrict__ alloc0, int b, int pbudget,
+                     const uint8_t* __restrict__ when,
+                     uint8_t* __restrict__ present,
+                     int* __restrict__ skipped) {
+  const int hp = b >> 1;
+  // a run's occupied parents; the empty ones' gates are written 0 here,
+  // the occupied ones' by emit (each parent by one thread)
+  auto run_mask = [&](int i0, int cnt) {
+    uint32_t m = 0;
+    for (int j = 0; j < cnt; ++j) {
+      const int p = i0 + j;
+      const int x = p / (hp * hp), y = (p / hp) % hp, z = p % hp;
+      // the 8 children: two z-adjacent bytes in each of 4 (x, y) rows
+      bool any = false;
+      for (int r = 0; r < 4; ++r) {
+        const int c = ((2 * x + (r >> 1)) * b + 2 * y + (r & 1)) * b + 2 * z;
+        any |= *reinterpret_cast<const uint16_t*>(alloc0 + c) != 0;
+      }
+      if (any)
+        m |= 1u << j;
+      else
+        present[p] = 0;
+    }
+    return m;
+  };
+  auto emit = [&](int p, int rank) { present[p] = rank < pbudget; };
+  const int total = se::cluster_compact(hp * hp * hp, run_mask, emit);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const bool go = when == nullptr || *when;
+    *skipped = go ? (total - min(total, pbudget)) * 8 : 0;
+  }
+}
+
 }  // namespace
+
+// b >= 8 and even, alloc0 2-byte aligned; when (bool[]) may be null
+SE_EXPORT int se_node_rank(const uint8_t* alloc0, int b, int pbudget,
+                           const uint8_t* when, uint8_t* present,
+                           int* skipped, void* stream) {
+  if (b < 8 || (b & 1)) return (int)cudaErrorInvalidValue;
+  node_rank_kernel<<<se::kCompactCtas, se::kCompactThreads, 0,
+                     (cudaStream_t)stream>>>(alloc0, b, pbudget, when,
+                                             present, skipped);
+  return (int)cudaGetLastError();
+}
 
 // field: 0 = TSDF, 1 = OFusion; present (bool[b/2]^3) and when (bool[])
 // may be null; timestamp (OFusion) is a device f32[]

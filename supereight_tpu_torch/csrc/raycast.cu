@@ -1,19 +1,25 @@
-// K1: the depth-primed raycast of both fields: march + Newton refinement
-// + normal.
+// K1: the depth-primed raycast of both fields: prime, march, Newton
+// refinement, normal, overflow count and the frame state's select.
 //
 // Replaces supereight_tpu/ops/raycast.py:_march (454-769, with _probe
-// 262-299) and raycast_rays (841-899, with _interp_grad 318-380). On the
-// TPU that is a lockstep march over strip tables and a nav4 grid, cut into
-// a top_k compaction cascade with straggler tails.
+// 262-299), prime_from_depth (772-798) and raycast_rays (841-899, with
+// _interp_grad 318-380), and the raycast's share of the JAX frame step
+// (parallel/step.py:194-200: the outputs kept before frame 3 and the
+// masked ray_overflow). On the TPU that is a lockstep march over strip
+// tables and a nav4 grid, cut into a top_k compaction cascade with
+// straggler tails.
 //
 // One thread per pixel ray, marching to its own end, in one body
 // instantiated per field (kOF = OFusion):
-//  * direction from view = pose @ invK, clipped to the map cube and the
-//    near/far planes;
-//  * primed start from this frame's depth: a tight backoff 0.5 mu + 2
-//    voxels when that probe lands in known space on the free side (TSDF
-//    f > 0, OFusion f <= SURF_BOUNDARY = 0), else the wide backoff, 2 mu
-//    (TSDF) or 6 mu (OFusion) + 2 voxels (raycast.py:510-536);
+//  * direction from view = pose @ invK (the frame's prologue,
+//    csrc/frame.cu), clipped to the map cube and the near/far planes;
+//  * the prime from this frame's depth d at the pixel (x, y): d * sqrt(ux^2
+//    + uy^2 + 1) with ux = (x - cx) / fx, uy = (y - cy) / fy, 0 where
+//    d <= 0, in prime_from_depth's operation order;
+//  * primed start: a tight backoff 0.5 mu + 2 voxels when that probe lands
+//    in known space on the free side (TSDF f > 0, OFusion f <=
+//    SURF_BOUNDARY = 0), else the wide backoff, 2 mu (TSDF) or 6 mu
+//    (OFusion) + 2 voxels (raycast.py:510-536);
 //  * TSDF: steps of max(f mu, floor) in known space, the floor rising one
 //    voxel per 8 consecutive floor-bound steps after 16 (crawl escalation,
 //    up to 4 voxels and 0.4 mu); hit where f < 0;
@@ -25,7 +31,7 @@
 //  * outside known fine space a jump of max(8 voxels, (d - 1) blocks + 4
 //    voxels) with d the capped Chebyshev block distance of the nav grid;
 //  * at most max_steps + 96 probes; rays still marching then miss and are
-//    flagged (ray_overflow);
+//    counted in ray_overflow;
 //  * epilogue: bracket estimate, trilinear value and cell gradient, one
 //    Newton step clamped to [t_cross - ss, t_cross], normal (inverted for
 //    TSDF).
@@ -38,18 +44,35 @@
 // x+1 corner past the map edge or in a missing block reads fill, as the
 // JAX strip table does.
 //
-// Bound on the H100: dependent random reads, one 4-byte nav read plus two
-// 4-byte pool reads per probe, ~5-10 probes per primed ray: latency-bound
-// on L2 hits rather than bandwidth (a 512^3 map's live pool is ~33 MB,
-// inside the 50 MB L2). One warp = 32 adjacent pixels whose rays stay
-// close, so their probes share cache lines; rays that crawl keep only
-// their own warp waiting.
+// The frame's select: given a device gate `when` (the prologue's frame >
+// 2), a gated-off launch marches nothing and writes the state's old
+// vertex, normal and valid maps and raycast pose, else the new ones and
+// the pose. ray_overflow (rays still marching at the bound) is an integer
+// count: each CTA adds its count into scratch[0], and the last CTA to
+// finish (a ticket in scratch[1]) writes the total and resets both, so the
+// scratch stays zero between launches and the frame needs no fill. That
+// holds while the launches that share one scratch run one after another:
+// the wrapper keeps one scratch per device and stream.
+//
+// Bound on the H100: per probe one 4-byte nav read and two 4-byte pool
+// reads, dependent: latency-bound on L2 hits rather than bandwidth (a
+// 512^3 map's live pool is ~33 MB, inside the 50 MB L2); chip_smoke.py
+// counts the probes of its inputs and the distinct nav entries and voxels
+// they read. A probe in the same block cell as the last one keeps the nav
+// entry it has in a register, and a voxel's two channels are loaded
+// together, so a probe inside a block is one L2 round trip instead of
+// three. A warp is as slow as its longest ray, and neighbouring rays of a
+// scene's surface run to similar lengths, so each warp takes an 8 x 4
+// pixel tile rather than 32 pixels of a row: at the bench config the
+// warps' longest rays take 24 % (TSDF) and 15 % (OFusion) fewer probes in
+// all (PERF.md). A CTA of 8 warps covers 32 x 8 pixels.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;  // 8 warps over a 32 x 8 pixel tile
+constexpr int kTileW = 32, kTileH = 8;
 constexpr float kInvalid = -2.f;  // normal-map sentinel (constants.INVALID)
 constexpr int kMaxJump = 6;
 
@@ -73,23 +96,39 @@ struct Probe {
   bool known, in_block;
 };
 
-// value at a pool voxel, y == 0 voxels carrying the unknown sentinel
+// The march's reads: the nav grid, with the entry of the last cell kept,
+// and the pool's two channels
+struct Pool {
+  const int* nav;
+  const float* data_x;
+  const float* data_y;
+  int cell, nv;  // the last cell read and its nav entry
+
+  __device__ __forceinline__ int nav_at(int c) {
+    if (c != cell) {
+      cell = c;
+      nv = __ldg(nav + c);
+    }
+    return nv;
+  }
+};
+
+// value at a pool voxel, y == 0 voxels carrying the unknown sentinel; both
+// channels are loaded before either is used
 template <bool kOF>
-__device__ __forceinline__ float pool_value(const float* __restrict__ dx,
-                                            const float* __restrict__ dy,
-                                            int slot, int lin) {
+__device__ __forceinline__ float pool_value(const Pool& pool, int slot,
+                                            int lin) {
   const size_t v = (size_t)slot * se::kBlockVoxels + lin;
-  return dy[v] == 0.f ? FieldConst<kOF>::sentinel : dx[v];
+  const float y = __ldg(pool.data_y + v);
+  const float x = __ldg(pool.data_x + v);
+  return y == 0.f ? FieldConst<kOF>::sentinel : x;
 }
 
 // one march probe at a metric position (raycast.py:_probe): truncating
 // conversion to voxels, like the JAX astype(int32). OFusion decodes the
 // nav payload of an empty cell: a coarse free-space value makes it known.
 template <bool kOF>
-__device__ __forceinline__ Probe probe(const Params& P,
-                                       const int* __restrict__ nav,
-                                       const float* __restrict__ data_x,
-                                       const float* __restrict__ data_y,
+__device__ __forceinline__ Probe probe(const Params& P, Pool& pool,
                                        float px, float py, float pz) {
   int vx = (int)(px * P.inv_voxel);
   int vy = (int)(py * P.inv_voxel);
@@ -99,14 +138,14 @@ __device__ __forceinline__ Probe probe(const Params& P,
   vx = se::clampi(vx, 0, P.size - 1);
   vy = se::clampi(vy, 0, P.size - 1);
   vz = se::clampi(vz, 0, P.size - 1);
-  const int nv = nav[((vx >> 3) * P.b + (vy >> 3)) * P.b + (vz >> 3)];
+  const int nv = pool.nav_at(((vx >> 3) * P.b + (vy >> 3)) * P.b + (vz >> 3));
   const bool in_block = nv >= 0 && inb;
   constexpr float unk = FieldConst<kOF>::sentinel;
   const int e = nv < 0 ? -nv - 1 : 0;
   const bool coarse_known = kOF && ((e >> 3) & 1) == 1;
   Probe r;
   r.val = in_block
-              ? pool_value<kOF>(data_x, data_y, nv,
+              ? pool_value<kOF>(pool, nv,
                                 (vx & 7) + ((vy & 7) << 3) + ((vz & 7) << 6))
               : (coarse_known ? -(float)(e >> 4) * (1.f / 16.f) : unk);
   r.known = (r.val < 0.5f * unk && in_block) || (coarse_known && inb);
@@ -118,54 +157,45 @@ __device__ __forceinline__ Probe probe(const Params& P,
 
 // refinement corner decode: sentinel -> fill
 template <bool kOF>
-__device__ __forceinline__ float corner(const float* __restrict__ data_x,
-                                        const float* __restrict__ data_y,
-                                        int slot, int lin) {
-  const float v = pool_value<kOF>(data_x, data_y, slot, lin);
+__device__ __forceinline__ float corner(const Pool& pool, int slot,
+                                        int lin) {
+  const float v = pool_value<kOF>(pool, slot, lin);
   return v < 0.5f * FieldConst<kOF>::sentinel ? v : FieldConst<kOF>::fill;
 }
 
 // (x, x+1) pair of one (y, z) corner row (raycast.py:_interp_grad pair()).
 template <bool kOF>
-__device__ __forceinline__ void corner_pair(const Params& P,
-                                            const int* __restrict__ nav,
-                                            const float* __restrict__ data_x,
-                                            const float* __restrict__ data_y,
+__device__ __forceinline__ void corner_pair(const Params& P, Pool& pool,
                                             int ix, int y, int z, float& v0,
                                             float& v1) {
   const int cy = y >> 3, cz = z >> 3, cx = ix >> 3;
   constexpr float fill = FieldConst<kOF>::fill;
-  const int nv = nav[(cx * P.b + cy) * P.b + cz];
+  const int nv = pool.nav_at((cx * P.b + cy) * P.b + cz);
   if (nv < 0) {  // the whole strip row is the sentinel brick
     v0 = fill;
     v1 = fill;
     return;
   }
   const int lin = (ix & 7) + ((y & 7) << 3) + ((z & 7) << 6);
-  v0 = corner<kOF>(data_x, data_y, nv, lin);
+  v0 = corner<kOF>(pool, nv, lin);
   if ((ix & 7) < 7) {
-    v1 = corner<kOF>(data_x, data_y, nv, lin + 1);
+    v1 = corner<kOF>(pool, nv, lin + 1);
   } else if (cx + 1 < P.b) {
-    const int nv2 = nav[((cx + 1) * P.b + cy) * P.b + cz];
-    v1 = nv2 >= 0 ? corner<kOF>(data_x, data_y, nv2, lin - 7) : fill;
+    const int nv2 = pool.nav_at(((cx + 1) * P.b + cy) * P.b + cz);
+    v1 = nv2 >= 0 ? corner<kOF>(pool, nv2, lin - 7) : fill;
   } else {
     v1 = fill;
   }
 }
 
+// March pixel ray i of `view` (V) primed by depth[i] with the intrinsics
+// Kc, write its vertex, normal and valid flag; returns whether the ray was
+// still marching at the probe bound (ray_overflow).
 template <bool kOF>
-__global__ void __launch_bounds__(kThreads)
-raycast_kernel(Params P, const float* __restrict__ view,
-               const int* __restrict__ nav, const float* __restrict__ data_x,
-               const float* __restrict__ data_y,
-               const float* __restrict__ prime_t, float* __restrict__ vertex,
-               float* __restrict__ normal, uint8_t* __restrict__ valid,
-               uint8_t* __restrict__ live) {
-  __shared__ float V[16];
-  se::load_mat4(view, V);
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.w * P.h) return;
+__device__ __forceinline__ bool march_ray(
+    const Params& P, const float* V, const float* Kc, Pool& pool,
+    const float* __restrict__ depth, int i, float* __restrict__ vertex,
+    float* __restrict__ normal, uint8_t* __restrict__ valid) {
   const float pxf = (float)(i % P.w), pyf = (float)(i / P.w);
 
   // ray_directions_c (rendering.cpp:62-65)
@@ -198,12 +228,18 @@ raycast_kernel(Params P, const float* __restrict__ view,
     zcos = dx * (ax * ainv) + dy * (ay * ainv) + dz * (az * ainv);
   }
 
+  // prime_from_depth: the depth frame's surface along the pixel ray
+  const float ux = (pxf - Kc[2]) / Kc[0];
+  const float uy = (pyf - Kc[3]) / Kc[1];
+  const float dep = depth[i];
+  const float tp = dep * sqrtf(ux * ux + uy * uy + 1.f);
+  const float prime = dep > 0.f ? tp : 0.f;
+
   // primed start
-  const float prime = prime_t[i];
   const float t_tight =
       prime > 0.f ? fmaxf(tnear, prime - P.small_backoff) : tnear;
-  const Probe pt = probe<kOF>(P, nav, data_x, data_y, ox + dx * t_tight,
-                              oy + dy * t_tight, oz + dz * t_tight);
+  const Probe pt = probe<kOF>(P, pool, ox + dx * t_tight, oy + dy * t_tight,
+                              oz + dz * t_tight);
   const bool ok_tight = pt.known && (kOF ? pt.val <= 0.f : pt.val > 0.f);
   tnear = ok_tight ? t_tight
                    : (prime > 0.f ? fmaxf(tnear, prime - P.big_backoff) : tnear);
@@ -213,8 +249,7 @@ raycast_kernel(Params P, const float* __restrict__ view,
         f_t = kOF ? 0.f : __int_as_float(0x7f800000), f_tt = 0.f,
         crawl = 0.f;
   for (int n = 0; n < P.max_probes && status == 0; ++n) {
-    const Probe q = probe<kOF>(P, nav, data_x, data_y, ox + dx * t,
-                               oy + dy * t, oz + dz * t);
+    const Probe q = probe<kOF>(P, pool, ox + dx * t, oy + dy * t, oz + dz * t);
     const bool hit = q.known && (kOF ? q.val > 0.f : q.val < 0.f);
     if (q.known) f_tt = q.val;
     if (hit) {
@@ -245,7 +280,6 @@ raycast_kernel(Params P, const float* __restrict__ view,
     t = t + ss;
     if (t >= tfar) status = 2;
   }
-  live[i] = status == 0 ? 1 : 0;
 
   const bool hit = status == 1;
   // linear zero-crossing estimate from the sample bracket
@@ -274,10 +308,10 @@ raycast_kernel(Params P, const float* __restrict__ view,
   const int iy1 = min(iy0 + 1, P.size - 1);
   const int iz1 = min(iz0 + 1, P.size - 1);
   float v000, v100, v010, v110, v001, v101, v011, v111;
-  corner_pair<kOF>(P, nav, data_x, data_y, ix, iy0, iz0, v000, v100);
-  corner_pair<kOF>(P, nav, data_x, data_y, ix, iy1, iz0, v010, v110);
-  corner_pair<kOF>(P, nav, data_x, data_y, ix, iy0, iz1, v001, v101);
-  corner_pair<kOF>(P, nav, data_x, data_y, ix, iy1, iz1, v011, v111);
+  corner_pair<kOF>(P, pool, ix, iy0, iz0, v000, v100);
+  corner_pair<kOF>(P, pool, ix, iy1, iz0, v010, v110);
+  corner_pair<kOF>(P, pool, ix, iy0, iz1, v001, v101);
+  corner_pair<kOF>(P, pool, ix, iy1, iz1, v011, v111);
   const float c00 = v000 * (1.f - fx) + v100 * fx;
   const float c10 = v010 * (1.f - fx) + v110 * fx;
   const float c01 = v001 * (1.f - fx) + v101 * fx;
@@ -311,32 +345,101 @@ raycast_kernel(Params P, const float* __restrict__ view,
   normal[3 * i + 1] = ok ? gy * ninv : 0.f;
   normal[3 * i + 2] = ok ? gz * ninv : 0.f;
   valid[i] = ok ? 1 : 0;
+  return status == 0;
+}
+
+template <bool kOF>
+__global__ void __launch_bounds__(kThreads)
+raycast_kernel(Params P, const float* __restrict__ view,
+               const int* __restrict__ nav, const float* __restrict__ data_x,
+               const float* __restrict__ data_y,
+               const float* __restrict__ depth, const float* __restrict__ k,
+               const uint8_t* __restrict__ when,
+               const float* __restrict__ pose,
+               const float* __restrict__ old_rp,
+               const float* __restrict__ old_vertex,
+               const float* __restrict__ old_normal,
+               const uint8_t* __restrict__ old_valid,
+               float* __restrict__ vertex, float* __restrict__ normal,
+               uint8_t* __restrict__ valid, float* __restrict__ raycast_pose,
+               int* __restrict__ overflow, int* __restrict__ scratch) {
+  __shared__ float V[16], Kc[4];
+  __shared__ int cta_live;
+  se::load_mat4(view, V);
+  if (threadIdx.x < 4) Kc[threadIdx.x] = k[threadIdx.x];
+  if (threadIdx.x == 0) cta_live = 0;
+  __syncthreads();
+  const bool go = when == nullptr || *when;
+  if (raycast_pose != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      threadIdx.x < 16)
+    raycast_pose[threadIdx.x] = go ? pose[threadIdx.x] : old_rp[threadIdx.x];
+  // warp w of the CTA takes the 8 x 4 pixel tile (w % 4, w / 4)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = blockIdx.x * kTileW + (warp & 3) * 8 + (lane & 7);
+  const int y = blockIdx.y * kTileH + (warp >> 2) * 4 + (lane >> 3);
+  const int i = y * P.w + x;
+  if (x < P.w && y < P.h) {
+    if (go) {
+      Pool pool{nav, data_x, data_y, -1, 0};
+      if (march_ray<kOF>(P, V, Kc, pool, depth, i, vertex, normal, valid))
+        atomicAdd(&cta_live, 1);
+    } else {  // the state's maps as they were
+      for (int a = 0; a < 3; ++a) {
+        vertex[3 * i + a] = old_vertex[3 * i + a];
+        normal[3 * i + a] = old_normal[3 * i + a];
+      }
+      valid[i] = old_valid[i];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (cta_live) atomicAdd(&scratch[0], cta_live);
+    __threadfence();
+    const unsigned int ticket =
+        atomicAdd(reinterpret_cast<unsigned int*>(&scratch[1]), 1u);
+    if (ticket == gridDim.x * gridDim.y - 1) {  // the last CTA: all are in
+      *overflow = atomicExch(&scratch[0], 0);
+      atomicExch(&scratch[1], 0);
+    }
+  }
 }
 
 }  // namespace
 
-// field: 0 = TSDF, 1 = OFusion
+// field: 0 = TSDF, 1 = OFusion. when, pose, old_rp, old_vertex,
+// old_normal, old_valid and raycast_pose are null together (no select);
+// scratch is an i32[2] that is zero before the first launch and that every
+// launch leaves zero; launches that share it must not overlap.
 SE_EXPORT int se_raycast(const float* view, const int* nav,
                          const float* data_x, const float* data_y,
-                         const float* prime_t, int field, int w, int h,
-                         int size, int b, int max_probes, float dim,
+                         const float* depth, const float* k, int field, int w,
+                         int h, int size, int b, int max_probes, float dim,
                          float inv_voxel, float voxel, float largestep,
                          float half_largestep, float bstep, float mu,
                          float near_plane, float far_plane,
                          float small_backoff, float big_backoff,
                          float floor_cap, float two_step, float of_cap,
+                         const uint8_t* when, const float* pose,
+                         const float* old_rp, const float* old_vertex,
+                         const float* old_normal, const uint8_t* old_valid,
                          float* vertex, float* normal, uint8_t* valid,
-                         uint8_t* live, void* stream) {
+                         float* raycast_pose, int* overflow, int* scratch,
+                         void* stream) {
   Params P{w, h, size, b, max_probes, dim, inv_voxel, voxel, largestep,
            half_largestep, bstep, mu, near_plane, far_plane, small_backoff,
            big_backoff, floor_cap, two_step, of_cap};
-  const int n_cta = (w * h + kThreads - 1) / kThreads;
-  if (n_cta == 0) return 0;
+  if (w <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+  cudaStream_t st = (cudaStream_t)stream;
   if (field == 1)
-    raycast_kernel<true><<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
-        P, view, nav, data_x, data_y, prime_t, vertex, normal, valid, live);
+    raycast_kernel<true><<<grid, kThreads, 0, st>>>(
+        P, view, nav, data_x, data_y, depth, k, when, pose, old_rp,
+        old_vertex, old_normal, old_valid, vertex, normal, valid,
+        raycast_pose, overflow, scratch);
   else
-    raycast_kernel<false><<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
-        P, view, nav, data_x, data_y, prime_t, vertex, normal, valid, live);
+    raycast_kernel<false><<<grid, kThreads, 0, st>>>(
+        P, view, nav, data_x, data_y, depth, k, when, pose, old_rp,
+        old_vertex, old_normal, old_valid, vertex, normal, valid,
+        raycast_pose, overflow, scratch);
   return (int)cudaGetLastError();
 }

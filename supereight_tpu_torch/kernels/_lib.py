@@ -36,8 +36,9 @@ LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
             "integrate_fused": 0, "integrate_fused_of": 0,
             "integrate_fallback": 0, "integrate_fallback_of": 0,
             "nav_grid": 0, "raycast": 0, "raycast_of": 0, "gather_a": 0,
-            "gather_b": 0, "gather_c": 0, "gather_d": 0, "node_pass": 0,
-            "half_sample": 0, "vertex_normal": 0}
+            "gather_b": 0, "gather_c": 0, "gather_d": 0, "node_rank": 0,
+            "node_pass": 0, "half_sample": 0, "vertex_normal": 0,
+            "frame_mats": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu's icp_track takes
@@ -80,14 +81,17 @@ _SIGNATURES = {
                            P, P, P, P, P, P),
     "se_integrate_fallback": (P, I, P, P, P, F, I, I, P, I, F, F, F, P, I, P,
                               P, P, P, P, P, P, P),
-    "se_nav_grid": (P, I, I, I, I, Mips, P, P, P, P),
-    "se_raycast": (P, P, P, P, P, I, I, I, I, I, I, F, F, F, F, F, F, F, F,
-                   F, F, F, F, F, F, P, P, P, P, P),
+    "se_nav_grid": (P, I, I, I, I, Mips, P, P, P, P, P, P),
+    "se_raycast": (P, P, P, P, P, P, I, I, I, I, I, I, F, F, F, F, F, F, F,
+                   F, F, F, F, F, F, F, P, P, P, P, P, P, P, P, P, P, P, P,
+                   P),
     "se_gather_a": (P, P, I, I, I, P, P),
     "se_gather_b": (P, P, I, I, I, P, P),
     "se_gather_c": (P, P, I, I, I, P, P),
     "se_gather_d": (P, P, I, I, I, P, P),
+    "se_node_rank": (P, I, I, P, P, P, P),
     "se_node_pass": (Mips, I, I, D, P, P, P, P, I, I, P, I, F, F, F, P, P),
+    "se_frame_mats": (P, P, P, P, P, I, I, I, P, P, P),
     "se_half_sample": (P, I, I, F, P, P),
     "se_vertex_normal": (P, I, I, P, I, I, P, P, P, P),
 }

@@ -36,13 +36,13 @@ def band_schedule(geom, mu: float):
     return band, num_steps, band / num_steps
 
 
-def touched_mask(geom, depth, pose, k, mu: float):
+def touched_mask(geom, depth, pose, kpose, mu: float):
     """bool[B, B, B]: blocks crossed by the +/- 2 mu band around each
     sampled depth pixel (ref buildAllocationList,
-    kfusion/alloc_impl.hpp:53-118). depth f32[H, W], pose [4, 4] and k [4]
-    on one device."""
+    kfusion/alloc_impl.hpp:53-118). depth f32[H, W], pose [4, 4] and
+    kpose = pose @ inverse_camera_matrix(k) [4, 4] (the frame's prologue,
+    kernels/frame.frame_mats) on one device."""
     dev = depth.device
-    kpose = se3.matmul4(pose, se3.inverse_camera_matrix(k))
     if dev.type == "cpu":
         return touched_mask_plain(geom, depth, pose, kpose, mu)
     if dev.type != "cuda":
@@ -128,14 +128,14 @@ def _of_schedule(geom, mu: float, max_dist):
     return band, max_dist
 
 
-def touched_masks_of(geom, depth, pose, k, mu: float, max_dist=None):
+def touched_masks_of(geom, depth, pose, kpose, mu: float, max_dist=None):
     """(bool[B]^3, bool[B/2]^3, bool[B/4]^3): the octants of levels 0-2
     that the occupancy march touches (ref buildOctantList,
     bfusion/alloc_impl.hpp:53-129). Level-0 samples come from every 2x2
     pixel, level 1-2 samples from every 8x8 pixel. depth f32[H, W],
-    pose [4, 4] and k [4] on one device."""
+    pose [4, 4] and kpose = pose @ inverse_camera_matrix(k) on one device.
+    The three grids are views of one buffer, zeroed by one fill."""
     dev = depth.device
-    kpose = se3.matmul4(pose, se3.inverse_camera_matrix(k))
     if dev.type == "cpu":
         return touched_masks_of_plain(geom, depth, pose, kpose, mu, max_dist)
     if dev.type != "cuda":
@@ -146,8 +146,10 @@ def touched_masks_of(geom, depth, pose, k, mu: float, max_dist=None):
     _lib.check(kpose, "kpose", torch.float32, (4, 4), dev)
     b = geom.blocks_per_side
     band, max_dist = _of_schedule(geom, mu, max_dist)
-    masks = [torch.zeros((b >> l,) * 3, dtype=torch.bool, device=dev)
-             for l in range(3)]
+    sizes = [(b >> lvl) ** 3 for lvl in range(3)]
+    flat = torch.zeros(sum(sizes), dtype=torch.bool, device=dev)
+    masks = [g.view((b >> lvl,) * 3)
+             for lvl, g in enumerate(torch.split(flat, sizes))]
     _lib.launch("alloc_touch_of", "se_alloc_touch_of", dev, depth, h, w,
                 kpose, pose, band * 0.5, band, geom.voxel_size, max_dist,
                 geom.inv_voxel_size, geom.size, b, *masks)

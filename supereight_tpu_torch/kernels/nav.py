@@ -24,13 +24,16 @@ from supereight_tpu_torch.kernels import _lib
 MAX_JUMP = 6        # cap of the Chebyshev block-distance transform
 
 
-def nav_grid(geom, state, field, bucket: int = None):
+def nav_grid(geom, state, field, bucket: int = None,
+             with_counts: bool = False):
     """i32[B^3] navigation grid of ``state`` for ``field``. Slots at or
     beyond ``bucket`` read as unknown (-(1 + e) with distance 0), as the
-    JAX strip table holds no row for them."""
+    JAX strip table holds no row for them. With ``with_counts`` also
+    returns i32[2]: the block count and the blocks past the bucket
+    (parallel/step.py's ``n_blocks`` and ``pool_bucket_overflow``)."""
     dev = state.slot.device
     if dev.type == "cpu":
-        return nav_grid_plain(geom, state, field, bucket)
+        return nav_grid_plain(geom, state, field, bucket, with_counts)
     if dev.type != "cuda":
         raise ValueError(f"nav_grid: unsupported device {dev}")
     b = geom.blocks_per_side
@@ -54,9 +57,14 @@ def nav_grid(geom, state, field, bucket: int = None):
     bucket = cap if bucket is None else min(bucket, cap)
     tmp = torch.empty((2, b * b * b), dtype=torch.uint8, device=dev)
     nav = torch.empty(b * b * b, dtype=torch.int32, device=dev)
+    counts = None
+    if with_counts:
+        _lib.check(state.n_blocks, "n_blocks", torch.int32, (), dev)
+        counts = torch.empty(2, dtype=torch.int32, device=dev)
     _lib.launch("nav_grid", "se_nav_grid", dev, state.slot, b, bucket,
-                int(ofusion), nl, mips, tmp[0], tmp[1], nav)
-    return nav
+                int(ofusion), nl, mips, tmp[0], tmp[1], nav,
+                state.n_blocks if with_counts else None, counts)
+    return (nav, counts) if with_counts else nav
 
 
 def block_distance(geom, state, max_jump: int = MAX_JUMP):
@@ -87,7 +95,8 @@ def coarse_cell_grid(geom, state):
     return val, have
 
 
-def nav_grid_plain(geom, state, field, bucket: int = None):
+def nav_grid_plain(geom, state, field, bucket: int = None,
+                   with_counts: bool = False):
     """Plain PyTorch twin of :func:`nav_grid` (JAX raycast.py:138-174)."""
     e = block_distance(geom, state).to(torch.int32)
     if field.name == "ofusion":
@@ -100,4 +109,9 @@ def nav_grid_plain(geom, state, field, bucket: int = None):
     ok = state.slot >= 0
     if bucket is not None and bucket < geom.capacity:
         ok = ok & (state.slot < bucket)
-    return torch.where(ok, state.slot, -(1 + e)).reshape(-1)
+    nav = torch.where(ok, state.slot, -(1 + e)).reshape(-1)
+    if not with_counts:
+        return nav
+    bucket = geom.capacity if bucket is None else min(bucket, geom.capacity)
+    n = state.n_blocks.reshape(1)
+    return nav, torch.cat([n, torch.clamp(n - bucket, min=0)])

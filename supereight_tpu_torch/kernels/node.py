@@ -5,17 +5,18 @@ the dense levels (377-419) and ``_node_pass_level0_sparse`` (433-500),
 with ``_project_voxels_c`` (78-94), ``_sample_depth`` (97-115) and
 ``_field_update`` (273-279). Ref update_node
 (projective_functor.hpp:113-137): every existing coarse value is re-fused
-at its octant's origin corner with the field's update. The CUDA kernel is
-the one launch of ``csrc/node.cu`` (one thread per coarse cell over every
-level); :func:`node_pass_plain` is the plain PyTorch version, one dense
-pass per level, used for CPU tensors and as the kernel's reference on the
-card.
+at its octant's origin corner with the field's update. The CUDA kernels
+are the two launches of ``csrc/node.cu``: :func:`node_rank` (one cluster
+ranking the level-0 parents) and the pass itself (one thread per coarse
+cell over every level); :func:`node_pass_plain` is the plain PyTorch
+version, one dense pass per level, used for CPU tensors and as the
+kernels' reference on the card.
 
 Level 0 is restricted, like the JAX sparse pass (maps of >= 8 blocks a
 side), to the octants whose parent is occupied and among the first
-``min(budget, (B/2)^3)`` occupied parents in parent-id order; both forms
-rank the parents with the same cumsum (:func:`_parent_present`). Smaller
-maps gate level 0 by ``mip_alloc[0]``, as JAX's dense loop does.
+``min(budget, (B/2)^3)`` occupied parents in parent-id order: the rank
+kernel's cluster scan, and the twin's cumsum (:func:`_parent_present`).
+Smaller maps gate level 0 by ``mip_alloc[0]``, as JAX's dense loop does.
 
 The pass writes ``mip_x`` and ``mip_y`` of the map IN PLACE.
 """
@@ -49,6 +50,42 @@ def _parent_present(geom, state, budget: int):
     return present.reshape(hp, hp, hp), skipped.to(torch.int32)
 
 
+def node_rank(geom, state, budget: int, when=None):
+    """The level-0 parent gate and mip_skipped of :func:`_parent_present`,
+    with mip_skipped 0 where ``when`` (bool[] tensor) is False; one launch
+    of ``csrc/node.cu``'s rank kernel on a CUDA device. (None, 0) for maps
+    of fewer than 8 blocks a side."""
+    dev = state.mip_alloc[0].device
+    if dev.type == "cpu":
+        return node_rank_plain(geom, state, budget, when)
+    if dev.type != "cuda":
+        raise ValueError(f"node_rank: unsupported device {dev}")
+    b = geom.blocks_per_side
+    if b < 8:
+        return None, torch.zeros((), dtype=torch.int32, device=dev)
+    hp = b // 2
+    alloc0 = _lib.check(state.mip_alloc[0], "mip_alloc", torch.bool,
+                        (b, b, b), dev)
+    if alloc0.data_ptr() % 2:
+        raise ValueError("mip_alloc[0]: the kernel reads it 2 bytes at a "
+                         "time and needs it 2-byte aligned")
+    if when is not None:
+        when = _lib.check(when.reshape(()), "when", torch.bool, (), dev)
+    present = torch.empty((hp, hp, hp), dtype=torch.bool, device=dev)
+    skipped = torch.empty((), dtype=torch.int32, device=dev)
+    _lib.launch("node_rank", "se_node_rank", dev, alloc0, b,
+                min(budget, hp ** 3), when, present, skipped)
+    return present, skipped
+
+
+def node_rank_plain(geom, state, budget: int, when=None):
+    """Plain PyTorch twin of :func:`node_rank`."""
+    present, skipped = _parent_present(geom, state, budget)
+    if when is not None:
+        skipped = torch.where(when, skipped, torch.zeros_like(skipped))
+    return present, skipped
+
+
 def node_pass(geom, state, field, depth, t_cw, kmat, mu: float, budget: int,
               timestamp=None, when=None):
     """Re-fuse every existing coarse value of ``state`` at its octant
@@ -56,7 +93,9 @@ def node_pass(geom, state, field, depth, t_cw, kmat, mu: float, budget: int,
     frame size), ``t_cw`` world-to-camera [4, 4], ``kmat`` the 4x4
     intrinsics, ``timestamp`` the f32[] the OFusion update writes,
     ``when`` (bool[] tensor) masks every write. Returns mip_skipped
-    (i32[]): level-0 octants of occupied parents beyond the budget."""
+    (i32[]): level-0 octants of occupied parents beyond the budget, 0 where
+    ``when`` is False. Two launches on a CUDA device: :func:`node_rank`,
+    then the pass."""
     dev = depth.device
     if dev.type == "cpu":
         return node_pass_plain(geom, state, field, depth, t_cw, kmat, mu,
@@ -84,7 +123,7 @@ def node_pass(geom, state, field, depth, t_cw, kmat, mu: float, budget: int,
     if when is not None:
         when = c(when.reshape(()), "when", torch.bool, (), dev)
     ts = as_timestamp(field, timestamp, dev)
-    present, skipped = _parent_present(geom, state, budget)
+    present, skipped = node_rank(geom, state, budget, when)
     _lib.launch("node_pass", "se_node_pass", dev, mips, b, nl,
                 geom.voxel_size, present, when, t_cw, kmat, w, h, depth,
                 int(field.name == "ofusion"), float(mu), float(MAX_WEIGHT),
@@ -108,7 +147,7 @@ def node_pass_plain(geom, state, field, depth, t_cw, kmat, mu: float,
     dev = depth.device
     h, w = depth.shape
     timestamp = as_timestamp(field, timestamp, dev)
-    present, skipped = _parent_present(geom, state, budget)
+    present, skipped = node_rank_plain(geom, state, budget, when)
     for lvl in range(geom.num_levels):
         side = geom.blocks_per_side >> lvl
         octant_m = (BLOCK_SIDE << lvl) * geom.voxel_size

@@ -1,12 +1,13 @@
 """K1 wrapper and twin: the depth-primed raycast of both fields.
 
 Replaces ``supereight_tpu/ops/raycast.py:_march`` (454-769, with
-``_probe`` 262-299), ``camera_zcos`` (436-452) and ``raycast_rays``
-(841-899, with ``_interp_grad`` 318-380), TSDF and OFusion branches. The
-CUDA kernel is ``csrc/raycast.cu`` (one body per field);
-:func:`raycast_plain` is the plain PyTorch version (every ray stepped in
-lockstep for the full probe bound), used for CPU tensors and as the
-kernel's reference on the card.
+``_probe`` 262-299), ``camera_zcos`` (436-452), ``prime_from_depth``
+(772-795) and ``raycast_rays`` (841-899, with ``_interp_grad`` 318-380),
+TSDF and OFusion branches, and the frame step's select of the raycast's
+outputs (``supereight_tpu/parallel/step.py:194-200``). The CUDA kernel is
+``csrc/raycast.cu`` (one body per field); :func:`raycast_plain` is the
+plain PyTorch version (every ray stepped in lockstep for the full probe
+bound), used for CPU tensors and as the kernel's reference on the card.
 
 The TPU's compaction cascade, straggler tails, strip tables and nav4 grid
 only shaped its cost; what they computed stays: a ray marches until it
@@ -14,6 +15,8 @@ hits, leaves its range or has taken ``max_steps + 96`` probes (the most
 the JAX cascade plus its 96-step burst tier can give a ray); rays still
 marching at that bound miss and count in ``ray_overflow``.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +34,63 @@ EXTRA_PROBES = 96    # the JAX burst tier's steps beyond max_steps
 # (JAX raycast.py:93-100, 508)
 _SENTINEL = {"tsdf": 2.0, "ofusion": 4096.0}
 _FILL = {"tsdf": 1.0, "ofusion": 0.0}
+# per (device, stream handle), the kernel's i32[2] overflow scratch:
+# zeroed once, and every launch leaves it zero (csrc/raycast.cu). Launches on
+# one stream run one after another, so none sees another's partial count;
+# launches on two streams take two scratches.
+_SCRATCH = {}
+
+
+class Previous(NamedTuple):
+    """The frame state before the raycast, kept where ``when`` (bool[],
+    the frame's prologue's frame > 2) is False, as the JAX frame step
+    keeps it before frame 3; ``pose`` is the new raycast pose."""
+    when: torch.Tensor
+    pose: torch.Tensor
+    raycast_pose: torch.Tensor
+    vertex: torch.Tensor
+    normal: torch.Tensor
+    valid: torch.Tensor
+
+
+class Rays(NamedTuple):
+    """:func:`raycast_rays`'s outputs: the vertex (f32[H, W, 3]) and
+    normal maps, the hit mask (bool[H, W]), ray_overflow (i32[], 0 where
+    the select keeps the old state) and, with a :class:`Previous`, the new
+    state's raycast pose (else None)."""
+    vertex: torch.Tensor
+    normal: torch.Tensor
+    valid: torch.Tensor
+    overflow: torch.Tensor
+    raycast_pose: torch.Tensor = None
+
+
+class Probes(NamedTuple):
+    """What a raycast reads, from its twin (CPU and checks only):
+    ``per_ray`` each ray's march probes (i32[H, W], nonzero on the rays
+    that march; the start's probe is not counted), ``nav`` the nav entries
+    (bool[B^3]) and ``pool`` the pool voxels (bool[capacity * 512], both
+    channels) that the start probe, the march probes and the hits'
+    refinement read."""
+    per_ray: torch.Tensor
+    nav: torch.Tensor
+    pool: torch.Tensor
+
+
+def prime_from_depth(depth, k):
+    """Per-pixel ray-parameter prediction of the surface from a depth
+    frame: t = depth * |invK (x, y, 1)|, zero where depth is missing, flat
+    [H*W]. Valid as a march prime when the raycast pose is the depth
+    frame's pose. The kernel computes it per ray in this order."""
+    h, w = depth.shape
+    fx, fy, cx, cy = k[0], k[1], k[2], k[3]
+    ys = torch.arange(h, dtype=torch.float32, device=depth.device)
+    xs = torch.arange(w, dtype=torch.float32, device=depth.device)
+    py, px = torch.meshgrid(ys, xs, indexing="ij")
+    ux = (px - cx) / fx
+    uy = (py - cy) / fy
+    t = depth * torch.sqrt(ux * ux + uy * uy + 1.0)
+    return torch.where(depth > 0, t, torch.zeros_like(t)).reshape(-1)
 
 
 def march_params(geom, field, mu: float, max_steps: int = None):
@@ -60,20 +120,22 @@ def march_params(geom, field, mu: float, max_steps: int = None):
     return q
 
 
-def raycast_rays(geom, state, field, nav, view, prime_t, mu: float,
-                 frame_size, max_steps: int = None):
-    """March every pixel ray of ``view`` (= pose @ invK) through the map.
+def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
+                 frame_size, max_steps: int = None, prev: Previous = None):
+    """March every pixel ray of ``view`` (= pose @ invK, the frame's
+    prologue) through the map, each primed by ``depth`` (f32[H, W], this
+    frame's, taken at the raycast pose) with the intrinsics ``k`` (f32[4]).
 
-    nav: i32[B^3] navigation grid of ``field`` (kernels/nav.nav_grid);
-    prime_t: f32[H*W] per-ray surface prediction
-    (ops/raycast.prime_from_depth). Returns (vertex f32[H,W,3], normal
-    f32[H,W,3], valid bool[H,W], overflow i32[]). The launch count is kept
-    per field (``raycast`` for TSDF, ``raycast_of``).
+    nav: i32[B^3] navigation grid of ``field`` (kernels/nav.nav_grid).
+    Returns :class:`Rays`; with ``prev`` the maps and the raycast pose are
+    the new frame state's, prev's where ``prev.when`` is False. One launch
+    on a CUDA device, no host sync; the launch count is kept per field
+    (``raycast`` for TSDF, ``raycast_of``).
     """
     dev = view.device
     if dev.type == "cpu":
         return raycast_plain(geom, field, state.data_x, state.data_y, nav,
-                             view, prime_t, mu, frame_size, max_steps)
+                             view, depth, k, mu, frame_size, max_steps, prev)
     if dev.type != "cuda":
         raise ValueError(f"raycast_rays: unsupported device {dev}")
     w, h = frame_size
@@ -84,22 +146,37 @@ def raycast_rays(geom, state, field, nav, view, prime_t, mu: float,
     c(nav, "nav", torch.int32, (b * b * b,), dev)
     c(state.data_x, "data_x", torch.float32, (cap, BLOCK_VOXELS), dev)
     c(state.data_y, "data_y", torch.float32, (cap, BLOCK_VOXELS), dev)
-    c(prime_t, "prime_t", torch.float32, (w * h,), dev)
+    c(depth, "depth", torch.float32, (h, w), dev)
+    c(k, "k", torch.float32, (4,), dev)
+    sel = (None,) * 6
+    raycast_pose = None
+    if prev is not None:
+        sel = (c(prev.when.reshape(()), "when", torch.bool, (), dev),
+               c(prev.pose, "pose", torch.float32, (4, 4), dev),
+               c(prev.raycast_pose, "raycast_pose", torch.float32, (4, 4),
+                 dev),
+               c(prev.vertex, "vertex", torch.float32, (h, w, 3), dev),
+               c(prev.normal, "normal", torch.float32, (h, w, 3), dev),
+               c(prev.valid, "valid", torch.bool, (h, w), dev))
+        raycast_pose = torch.empty((4, 4), dtype=torch.float32, device=dev)
     q = march_params(geom, field, mu, max_steps)
     vertex = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     normal = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((h, w), dtype=torch.bool, device=dev)
-    live = torch.empty((h, w), dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(2, dtype=torch.int32, device=dev)
     of = field.name == "ofusion"
     _lib.launch("raycast_of" if of else "raycast", "se_raycast", dev,
-                view, nav, state.data_x, state.data_y, prime_t, int(of),
+                view, nav, state.data_x, state.data_y, depth, k, int(of),
                 w, h, geom.size, b, q["max_probes"], geom.dim,
                 geom.inv_voxel_size, q["step"], q["largestep"],
                 q["half_largestep"], q["bstep"], float(mu), NEAR_PLANE,
                 FAR_PLANE, q["small_backoff"], q["big_backoff"],
-                q["floor_cap"], q["two_step"], q["of_cap"], vertex, normal,
-                valid, live)
-    return vertex, normal, valid, live.sum(dtype=torch.int32)
+                q["floor_cap"], q["two_step"], q["of_cap"], *sel, vertex,
+                normal, valid, raycast_pose, overflow, _SCRATCH[key])
+    return Rays(vertex, normal, valid, overflow, raycast_pose)
 
 
 def ray_directions_c(view, width, height):
@@ -141,10 +218,32 @@ def ray_box_range_c(origin, dx, dy, dz, dim, near=NEAR_PLANE, far=FAR_PLANE):
     return tmin.clamp(min=near), tmax.clamp(max=far)
 
 
-def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
-                  mu: float, frame_size, max_steps: int = None):
+def raycast_plain(geom, field, data_x, data_y, nav, view, depth, k,
+                  mu: float, frame_size, max_steps: int = None,
+                  prev: Previous = None, with_probes: bool = False):
     """Plain PyTorch twin of :func:`raycast_rays` (data_x/data_y are the
-    map's pool channels)."""
+    map's pool channels): :func:`prime_from_depth`, the march, and the
+    select of ``prev`` as the JAX frame step makes it. With
+    ``with_probes`` returns (rays, :class:`Probes`)."""
+    rays, probes = march_plain(geom, field, data_x, data_y, nav, view,
+                               prime_from_depth(depth, k), mu, frame_size,
+                               max_steps, with_probes)
+    if prev is not None:
+        when = prev.when
+        rays = Rays(torch.where(when, rays.vertex, prev.vertex),
+                    torch.where(when, rays.normal, prev.normal),
+                    torch.where(when, rays.valid, prev.valid),
+                    torch.where(when, rays.overflow,
+                                torch.zeros_like(rays.overflow)),
+                    torch.where(when, prev.pose, prev.raycast_pose))
+    return (rays, probes) if with_probes else rays
+
+
+def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
+                frame_size, max_steps: int = None, with_probes: bool = False):
+    """The march of :func:`raycast_plain` from a given prime (f32[H*W],
+    :func:`prime_from_depth`): (:class:`Rays` without a raycast pose,
+    :class:`Probes` with ``with_probes``, else None)."""
     w, h = frame_size
     size, b = geom.size, geom.blocks_per_side
     iv = geom.inv_voxel_size
@@ -160,6 +259,21 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
     vals = torch.where(data_y == 0, torch.full_like(data_x, unk),
                        data_x).reshape(-1)
     sent = torch.full_like(dx, unk)
+    if with_probes:  # reads of each nav entry and pool voxel
+        nav_read = torch.zeros(nav.shape, dtype=torch.int32, device=dx.device)
+        pool_read = torch.zeros(vals.shape, dtype=torch.int32,
+                                device=dx.device)
+
+    def read(cell, nv, lin, mask):
+        """Count the nav entry at ``cell`` and, where it is a slot, the
+        pool voxel ``lin`` of that slot as read by the rays of ``mask``."""
+        if with_probes:
+            nav_read.index_add_(0, cell, mask.to(torch.int32))
+            # (the rays outside mask add 0 at a clamped index)
+            voxel = (nv.clamp(min=0) * BLOCK_VOXELS + lin).clamp(
+                0, pool_read.numel() - 1)
+            pool_read.index_add_(0, voxel.long(),
+                                 (mask & (nv >= 0)).to(torch.int32))
 
     def cell_of(vx, vy, vz):
         return (((vx >> 3) * b + (vy >> 3)) * b + (vz >> 3)).long()
@@ -167,16 +281,19 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
     def pool(nv, lin):
         return vals[(nv.clamp(min=0) * BLOCK_VOXELS + lin).long()]
 
-    def probe(t):
+    def probe(t, mask):
         vx = ((ox + dx * t) * iv).to(torch.int32)
         vy = ((oy + dy * t) * iv).to(torch.int32)
         vz = ((oz + dz * t) * iv).to(torch.int32)
         inb = ((vx >= 0) & (vx < size) & (vy >= 0) & (vy < size)
                & (vz >= 0) & (vz < size))
         vx, vy, vz = (v.clamp(0, size - 1) for v in (vx, vy, vz))
-        nv = nav[cell_of(vx, vy, vz)]
+        cell = cell_of(vx, vy, vz)
+        nv = nav[cell]
         in_block = (nv >= 0) & inb
         lin = (vx & 7) + ((vy & 7) << 3) + ((vz & 7) << 6)
+        if with_probes:  # a probe outside the map reads no voxel
+            read(cell, torch.where(inb, nv, -1), lin, mask)
         e = torch.where(nv < 0, -nv - 1, 0)
         # OFusion: the nav payload's coarse free-space value
         coarse_known = (((e >> 3) & 1) == 1) if of \
@@ -196,7 +313,7 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
     t_tight = torch.where(prime_t > 0,
                           torch.maximum(tnear, prime_t - q["small_backoff"]),
                           tnear)
-    ft, kt, _, _ = probe(t_tight)
+    ft, kt, _, _ = probe(t_tight, torch.ones_like(prime_t, dtype=torch.bool))
     ok_tight = kt & free_side(ft)
     tnear = torch.where(ok_tight, t_tight,
                         torch.where(prime_t > 0,
@@ -210,9 +327,11 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
     f_t = torch.zeros_like(t) if of else torch.full_like(t, float("inf"))
     f_tt = torch.zeros_like(t)
     crawl = torch.zeros_like(t)
+    probes = torch.zeros_like(status)
     for _ in range(q["max_probes"]):
-        mx, known, dist, in_block = probe(t)
         active = status == 0
+        mx, known, dist, in_block = probe(t, active)
+        probes += active.to(torch.int32)
         hit = active & known & ((mx > SURF_BOUNDARY) if of else (mx < 0))
         f_tt = torch.where(active & known, mx, f_tt)
         adv = active & ~hit
@@ -243,7 +362,7 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
         status = torch.where(hit, 1, status)
         status = torch.where(adv & (t >= tfar), 2, status)
 
-    overflow = torch.sum((status == 0).to(torch.int32))
+    overflow = torch.sum((status == 0).to(torch.int32), dtype=torch.int32)
     hit = status == 1
     # linear zero-crossing estimate from the sample bracket
     if of:
@@ -276,10 +395,17 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
 
     def pair(y, z):
         cx = ix >> 3
-        nv = nav[((cx * b + (y >> 3)) * b + (z >> 3)).long()]
+        cell = ((cx * b + (y >> 3)) * b + (z >> 3)).long()
+        nv = nav[cell]
         lin = (ix & 7) + ((y & 7) << 3) + ((z & 7) << 6)
-        nv2 = nav[(((cx + 1).clamp(max=b - 1) * b + (y >> 3)) * b
-                   + (z >> 3)).long()]
+        cell2 = (((cx + 1).clamp(max=b - 1) * b + (y >> 3)) * b
+                 + (z >> 3)).long()
+        nv2 = nav[cell2]
+        # the reads of the kernel's corner_pair, recorded for the hits
+        inner = (ix & 7) < 7
+        read(cell, nv, lin, hit)
+        read(cell, nv, lin + 1, hit & inner)
+        read(cell2, nv2, lin - 7, hit & ~inner & (cx + 1 < b) & (nv >= 0))
         v0 = torch.where(nv >= 0, pool(nv, lin), sent)
         v1_in = pool(nv, (lin + 1).clamp(max=BLOCK_VOXELS - 1))
         v1_next = torch.where((cx + 1 < b) & (nv2 >= 0),
@@ -326,5 +452,8 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, prime_t,
                                                                     INVALID)),
                           torch.where(ok, gy * inv, zero),
                           torch.where(ok, gz * inv, zero)], -1)
-    return (vertex.reshape(h, w, 3), normal.reshape(h, w, 3),
-            ok.reshape(h, w), overflow)
+    rays = Rays(vertex.reshape(h, w, 3), normal.reshape(h, w, 3),
+                ok.reshape(h, w), overflow)
+    if not with_probes:
+        return rays, None
+    return rays, Probes(probes.reshape(h, w), nav_read > 0, pool_read > 0)

@@ -12,9 +12,7 @@ The map is updated IN PLACE (JAX donated it); the returned state shares
 its tensors with the input.
 """
 
-import torch
-
-from supereight_tpu_torch.core import se3
+from supereight_tpu_torch.kernels.frame import frame_mats
 from supereight_tpu_torch.kernels.integrate import (as_timestamp,
                                                     integrate_blocks,
                                                     integrate_worklist)
@@ -24,22 +22,25 @@ from supereight_tpu_torch.kernels.node import node_pass
 def integrate(geom, state, field, depth, pose, k, mu: float, timestamp,
               frame_size, budget: int = 8192, depth_interp: bool = False,
               with_stats: bool = False, when=None,
-              noise_weighted: bool = False):
+              noise_weighted: bool = False, mats=None):
     """One fusion pass: block update + node (mip) update
     (ref projective_functor::apply, projective_functor.hpp:139-156).
 
     ``pose`` is camera-to-world; ``k`` the f32[4] intrinsics;
     ``timestamp`` the f32[] tensor the OFusion update stamps into channel
     y (None for TSDF, which ignores it). ``when`` (bool[] tensor)
-    masks all map writes. With ``with_stats`` also returns
-    {blocks_truncated, patch_skipped, mip_skipped} as i32[] tensors.
+    masks all map writes. ``mats`` is the frame's pose prologue of
+    ``pose`` and ``k`` (kernels/frame.frame_mats), run here when not
+    given. With ``with_stats`` also returns {blocks_truncated,
+    patch_skipped, mip_skipped} as i32[] tensors.
     """
     if depth_interp:
         raise NotImplementedError("the bilinear depth read is not ported yet")
     if noise_weighted:
         raise NotImplementedError("noise_weighted fusion is not ported yet")
-    t_cw = se3.inverse(pose)
-    kmat = se3.camera_matrix(k)
+    if mats is None:
+        mats = frame_mats(k, pose)
+    t_cw, kmat = mats.t_cw, mats.kmat
     budget = min(budget, geom.capacity)
     dev = depth.device
     timestamp = as_timestamp(field, timestamp, dev)
@@ -51,15 +52,12 @@ def integrate(geom, state, field, depth, pose, k, mu: float, timestamp,
     patch_skipped = integrate_blocks(geom, state, field, wl, depth, t_cw,
                                      kmat, mu, timestamp)
 
-    # ---- node (coarse mip) pass (K4) ----------------------------------
+    # ---- node (coarse mip) pass (K4: the parent rank, then the pass) ---
     mip_skipped = node_pass(geom, state, field, depth, t_cw, kmat, mu, budget,
                             timestamp, when)
 
     if not with_stats:
         return state
-    if when is not None:
-        mip_skipped = torch.where(when, mip_skipped,
-                                  torch.zeros_like(mip_skipped))
     return state, {"blocks_truncated": truncated,
                    "patch_skipped": patch_skipped,
                    "mip_skipped": mip_skipped}

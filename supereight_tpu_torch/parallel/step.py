@@ -2,14 +2,17 @@
 raycast, on torch tensors, for the TSDF and the OFusion field.
 
 Port of ``supereight_tpu/parallel/step.py:frame_step``. JAX compiled the
-frame into one XLA program; here it is an eager sequence of torch ops and
-the hand-written kernels K7 (the input pyramid), K6 (the whole ICP, one
-launch), K5 (allocation), K3 (integration's block pass), K4 (its node
-pass, one launch), K2 (nav grid) and K1 (raycast), each in its field's
-variant. Nothing inside :func:`frame_step` reads a device value back to
-the host: budgets are Python ints, and the reference's rate gates are
-``torch.where`` on device tensors, so on a GPU the whole frame is
-enqueued without a sync. Each stage runs under a
+frame into one XLA program; here it is a sequence of the hand-written
+kernels K7 (the input pyramid), the pose prologue (``kernels/frame.py``,
+before and after tracking: every matrix, gate and the time stamp), K6
+(the whole ICP, one launch), K5 (allocation), K3 (integration's block
+pass), K4 (its parent rank and node pass), K2 (nav grid, with the block
+count) and K1 (raycast, with its prime, overflow count and the state's
+select), each in its field's variant; only K5's touched-grid zero fill is
+a torch op. Nothing inside :func:`frame_step` reads a device value back
+to the host: budgets are Python ints, and the reference's rate gates are
+device flags the kernels read, so on a GPU the whole frame is enqueued
+without a sync. Each stage runs under a
 ``torch.profiler.record_function`` span named ``frame_step/<stage>``
 (preprocess, track, allocate, integrate, raycast), which a profiler run
 reads for the per-stage breakdown; with no profiler active a span costs
@@ -21,8 +24,9 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
-from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import MapState, make_map
+from supereight_tpu_torch.kernels.frame import frame_mats
+from supereight_tpu_torch.kernels.raycast import Previous
 from supereight_tpu_torch.ops import allocation, integration, raycast, \
     tracking
 from supereight_tpu_torch.pipeline import preprocess_and_pyramid
@@ -100,73 +104,62 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
     dev = depth_m.device
     if isinstance(frame, torch.Tensor):
         frame = frame.to(device=dev, dtype=torch.int32)
-    else:  # filled on the device: no host-to-device copy
-        frame = torch.full((), int(frame), dtype=torch.int32, device=dev)
     with record_function("frame_step/preprocess"):
         depths, verts, norms, valids = preprocess_and_pyramid(
             depth_m, k, len(iterations), neg_y, filter_input)
 
-    # ---- tracking (or ground-truth bypass) -----------------------------
+    # ---- tracking (or ground-truth bypass), then the frame's pose,
+    # gates and matrices (the pose prologue) ----------------------------
     with record_function("frame_step/track"):
         if use_gt_pose:
-            pose = torch.as_tensor(gt_pose, dtype=torch.float32, device=dev)
-            tracked = torch.ones((), dtype=torch.bool, device=dev)
+            pose_t = torch.as_tensor(gt_pose, dtype=torch.float32,
+                                     device=dev)
+            tracked_t = None  # the ground truth counts as tracked
             reduction = torch.zeros(32, dtype=torch.float32, device=dev)
             result = torch.zeros(depth_m.shape, dtype=torch.int32,
                                  device=dev)
         else:
-            do_track = (frame % tracking_rate) == 0
             pose_t, tracked_t, reduction, result = tracking.track(
                 state.pose, state.raycast_pose, k, verts, norms, valids,
                 state.vertex, state.normal, state.valid, iterations,
                 icp_threshold)
-            pose = torch.where(do_track, pose_t, state.pose)
-            tracked = do_track & tracked_t
+        # the pose select and the rate gates (ref DenseSLAMSystem.cpp:
+        # 206-212), every matrix of the stages below and the time stamp
+        mats = frame_mats(k, pose_t, state.pose, tracked_t, frame,
+                          tracking_rate, integration_rate)
 
     # ---- allocation + integration, masked by the rate gate -------------
-    # (ref DenseSLAMSystem.cpp:206-212)
-    do_integrate = (tracked | (frame <= 3)) \
-        & (((frame % integration_rate) == 0) | (frame <= 3))
     allocate = (allocation.allocate_ofusion if field.multiscale_alloc
                 else allocation.allocate_tsdf)
     with record_function("frame_step/allocate"):
-        m2, astats = allocate(geom, state.map, depths[0], pose, k, mu,
-                              with_stats=True, when=do_integrate,
-                              budget=alloc_budget)
+        m2, astats = allocate(geom, state.map, depths[0], mats.pose, k, mu,
+                              with_stats=True, when=mats.do_integrate,
+                              budget=alloc_budget, mats=mats)
     with record_function("frame_step/integrate"):
-        # the OFusion time stamp, f32 on the device like JAX's
-        # (1/30) * frame
-        timestamp = (1.0 / 30.0) * frame.to(torch.float32)
         new_map, istats = integration.integrate(
-            geom, m2, field, depth_m, pose, k, mu, timestamp, frame_size,
-            budget=budget, with_stats=True, when=do_integrate)
+            geom, m2, field, depth_m, mats.pose, k, mu, mats.timestamp,
+            frame_size, budget=budget, with_stats=True,
+            when=mats.do_integrate, mats=mats)
 
     # ---- raycast: primed with this frame's depth, kept from frame 3 ----
     with record_function("frame_step/raycast"):
-        view = se3.matmul4(pose, se3.inverse_camera_matrix(k))
-        prime = raycast.prime_from_depth(depth_m, k)
+        prev = Previous(mats.do_raycast, mats.pose, state.raycast_pose,
+                        state.vertex, state.normal, state.valid)
         r_vertex, r_normal, r_valid, rstats = raycast.raycast(
-            geom, new_map, field, view, mu, frame_size, prime_t=prime,
-            with_stats=True, pool_bucket=budget)
+            geom, new_map, field, mats.kpose, mu, frame_size, depth=depth_m,
+            k=k, with_stats=True, pool_bucket=budget, prev=prev)
 
-    do_raycast = frame > 2
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
     new_state = FrameState(
-        map=new_map, pose=pose,
-        raycast_pose=torch.where(do_raycast, pose, state.raycast_pose),
-        vertex=torch.where(do_raycast, r_vertex, state.vertex),
-        normal=torch.where(do_raycast, r_normal, state.normal),
-        valid=torch.where(do_raycast, r_valid, state.valid))
-    aux = {"tracked": tracked, "integrated": do_integrate,
+        map=new_map, pose=mats.pose, raycast_pose=rstats["raycast_pose"],
+        vertex=r_vertex, normal=r_normal, valid=r_valid)
+    aux = {"tracked": mats.tracked, "integrated": mats.do_integrate,
            "reduction": reduction, "track_result": result,
-           "n_blocks": new_map.n_blocks.clone(),
+           "n_blocks": rstats["n_blocks"],
            "alloc_overflow": astats["alloc_overflow"].to(torch.int32),
            "blocks_truncated": istats["blocks_truncated"],
            "patch_skipped": istats["patch_skipped"],
            "mip_skipped": istats["mip_skipped"],
-           "ray_overflow": torch.where(do_raycast, rstats["ray_overflow"],
-                                       zero),
+           "ray_overflow": rstats["ray_overflow"],
            # blocks past the raycast's pool bucket read as unknown there
-           "pool_bucket_overflow": torch.clamp(new_map.n_blocks - budget,
-                                               min=0)}
+           "pool_bucket_overflow": rstats["pool_bucket_overflow"]}
     return new_state, aux

@@ -55,11 +55,11 @@ def test_touched_mask_parity(setup):
     want = np.asarray(jax_allocation.tsdf_touched_mask(
         jax_geometry(), jnp.asarray(depth), jnp.asarray(pose), k_jax(), MU))
     tp = torch.from_numpy(pose)
-    got = touched_mask(torch_geometry(), torch.from_numpy(depth), tp,
-                       k_torch(), MU)
+    kpose = se3.matmul4(tp, se3.inverse_camera_matrix(k_torch()))
+    got = touched_mask(torch_geometry(), torch.from_numpy(depth), tp, kpose,
+                       MU)
     assert want.sum() > 50
     np.testing.assert_array_equal(got.numpy(), want)
-    kpose = se3.matmul4(tp, se3.inverse_camera_matrix(k_torch()))
     plain = touched_mask_plain(torch_geometry(), torch.from_numpy(depth), tp,
                                kpose, MU)
     np.testing.assert_array_equal(plain.numpy(), want)
@@ -149,9 +149,9 @@ def test_touched_masks_of_parity(setup_of):
     want = [np.asarray(m0), np.asarray(extra[1]), np.asarray(extra[2])]
     assert all(w.sum() > 0 for w in want)
     tp = torch.from_numpy(pose)
-    got = alloc.touched_masks_of(torch_geometry(), torch.from_numpy(depth),
-                                 tp, k_torch(), MU_OF)
     kpose = se3.matmul4(tp, se3.inverse_camera_matrix(k_torch()))
+    got = alloc.touched_masks_of(torch_geometry(), torch.from_numpy(depth),
+                                 tp, kpose, MU_OF)
     plain = alloc.touched_masks_of_plain(
         torch_geometry(), torch.from_numpy(depth), tp, kpose, MU_OF)
     for lvl in range(3):
@@ -196,8 +196,9 @@ def test_slot_grid_and_block_coord_one_to_one(request, field, short):
     np.testing.assert_array_equal(tm.slot[bc[:, 0], bc[:, 1], bc[:, 2]],
                                   np.arange(n))
     assert int((tm.slot >= 0).sum()) == n
-    args = (torch_geometry(), torch.from_numpy(depth),
-            torch.from_numpy(pose), k_torch())
+    tp = torch.from_numpy(pose)
+    args = (torch_geometry(), torch.from_numpy(depth), tp,
+            se3.matmul4(tp, se3.inverse_camera_matrix(k_torch())))
     touched = (alloc.touched_masks_of(*args, MU_OF)[0] if field == "ofusion"
                else touched_mask(*args, MU)).numpy()
     gathered = touched[bc[:, 0], bc[:, 1], bc[:, 2]]

@@ -17,10 +17,10 @@ from supereight_tpu_torch.core.map import MapGeometry, make_map
 from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
 from supereight_tpu_torch.constants import E_DELTA
-from supereight_tpu_torch.kernels import _lib, alloc, icp, integrate, nav, \
-    node, preprocess, raycast as kray
+from supereight_tpu_torch.kernels import _lib, alloc, frame, icp, \
+    integrate, nav, node, preprocess, raycast as kray
 from supereight_tpu_torch.kernels import gather_probe as gp
-from supereight_tpu_torch.ops import integration, raycast
+from supereight_tpu_torch.ops import tracking
 from supereight_tpu_torch.parallel import step
 from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
@@ -90,6 +90,77 @@ def test_cpu_node_pass_and_pyramid_take_the_twins(field):
     assert _lib.LAUNCHES == before
 
 
+def _prologue_rank_raycast(geom, state, k, depth, field, budget, when,
+                           frame_no):
+    """The pose prologue after a tracker's pose at ``frame_no`` (tracking
+    rate 2, integration rate 3), the parent rank under ``budget`` and
+    ``when``, and the raycast of ``depth`` at ``state``'s pose with the
+    state's maps kept where the prologue's raycast gate is shut; each
+    through its wrapper (the kernel on a card, the twin on the CPU)."""
+    dev = depth.device
+    moved = state.pose.clone()
+    moved[:3, 3] += 0.01
+    mats = frame.frame_mats(k, moved, state.pose,
+                            torch.ones((), dtype=torch.bool, device=dev),
+                            torch.full((), frame_no, dtype=torch.int32,
+                                       device=dev), 2, 3)
+    rank = node.node_rank(geom, state.map, budget, when)
+    nv = nav.nav_grid(geom, state.map, field)
+    prev = kray.Previous(mats.do_raycast, mats.pose, state.raycast_pose,
+                         state.vertex, state.normal, state.valid)
+    rays = kray.raycast_rays(geom, state.map, field, nv, mats.kpose, depth,
+                             k, MU[field.name], (W, H), prev=prev)
+    return mats, rank, rays
+
+
+def _prologue_rank_raycast_plain(geom, state, k, depth, field, budget, when,
+                                 frame_no):
+    """:func:`_prologue_rank_raycast` through the twins."""
+    dev = depth.device
+    moved = state.pose.clone()
+    moved[:3, 3] += 0.01
+    mats = frame.frame_mats_plain(k, moved, state.pose,
+                                  torch.ones((), dtype=torch.bool,
+                                             device=dev),
+                                  torch.full((), frame_no,
+                                             dtype=torch.int32, device=dev),
+                                  2, 3)
+    rank = node.node_rank_plain(geom, state.map, budget, when)
+    nv = nav.nav_grid_plain(geom, state.map, field)
+    prev = kray.Previous(mats.do_raycast, mats.pose, state.raycast_pose,
+                         state.vertex, state.normal, state.valid)
+    rays = kray.raycast_plain(geom, field, state.map.data_x,
+                              state.map.data_y, nv, mats.kpose, depth, k,
+                              MU[field.name], (W, H), prev=prev)
+    return mats, rank, rays
+
+
+# (frame, rank budget, when): a gated-off raycast and an untracked frame
+# (frame 2), a tracked and raycast frame under a parent budget of 2 (frame
+# 4), an untracked frame past the early gates with the rank's when False
+# (frame 5)
+PROLOGUE_CASES = ((2, 1024, True), (4, 2, True), (5, 1024, False))
+
+
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_cpu_prologue_rank_and_raycast_take_the_twins(field):
+    """On CPU tensors the pose prologue, K4's rank and K1 (with the state's
+    select) return their twins' results exactly and count no launch."""
+    torch.set_num_threads(1)
+    geom, state, k, depth = _frames("cpu", n=3, field=field)
+    before = dict(_lib.LAUNCHES)
+    for frame_no, budget, on in PROLOGUE_CASES:
+        when = torch.tensor(on)
+        got = _prologue_rank_raycast(geom, state, k, depth, field, budget,
+                                     when, frame_no)
+        want = _prologue_rank_raycast_plain(geom, state, k, depth, field,
+                                            budget, when, frame_no)
+        for a, b in zip(got[0] + got[1] + got[2], want[0] + want[1]
+                        + want[2]):
+            assert torch.equal(a, b)
+    assert _lib.LAUNCHES == before
+
+
 def _alloc_and_fuse(geom, m, pose, k, depth, field, plain):
     """K5's allocator, then K3's worklist, fused and fallback passes (the
     kernels, or their twins when ``plain``) for ``depth`` at ``pose``, in
@@ -97,11 +168,13 @@ def _alloc_and_fuse(geom, m, pose, k, depth, field, plain):
     mu = MU[field.name]
     dev = depth.device
     h, w = depth.shape
-    t_cw, kmat = se3.inverse(pose), se3.camera_matrix(k)
+    mats = frame.frame_mats(k, pose)
+    t_cw, kmat = mats.t_cw, mats.kmat
     ts = torch.full((), 0.2, device=dev)
     when = torch.ones((), dtype=torch.bool, device=dev)
-    grids = ((alloc.touched_mask(geom, depth, pose, k, mu),) if field is TSDF
-             else alloc.touched_masks_of(geom, depth, pose, k, mu))
+    grids = ((alloc.touched_mask(geom, depth, pose, mats.kpose, mu),)
+             if field is TSDF
+             else alloc.touched_masks_of(geom, depth, pose, mats.kpose, mu))
     fn = {name: getattr(mod, name + ("_plain" if plain else "")) for mod, name
           in ((alloc, "alloc_assign"), (integrate, "integrate_worklist"),
               (integrate, "integrate_fused"),
@@ -178,12 +251,13 @@ def test_other_devices_raise():
         icp.icp_track(p, p, (m,), (m,), (v,), m, m, v, (1,), 1e-5)
     with pytest.raises(ValueError, match="unsupported device"):
         alloc.touched_mask(MapGeometry(64, 2.0, 16),
-                           torch.zeros((4, 4), device="meta"), p,
-                           torch.ones(4, device="meta"), 0.1)
+                           torch.zeros((4, 4), device="meta"), p, p, 0.1)
     with pytest.raises(ValueError, match="unsupported device"):
         alloc.touched_masks_of(MapGeometry(64, 2.0, 16),
-                               torch.zeros((4, 4), device="meta"), p,
-                               torch.ones(4, device="meta"), 0.008)
+                               torch.zeros((4, 4), device="meta"), p, p,
+                               0.008)
+    with pytest.raises(ValueError, match="unsupported device"):
+        frame.frame_mats(torch.ones(4, device="meta"), p)
     geom = MapGeometry(64, 2.0, 16)
     with pytest.raises(ValueError, match="unsupported device"):
         nav.nav_grid(geom, make_map(geom, OFUSION, "meta"), OFUSION)
@@ -191,6 +265,12 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         node.node_pass(geom, make_map(geom, TSDF, "meta"), TSDF, d, p, p, 0.1,
                        16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        node.node_rank(geom, make_map(geom, TSDF, "meta"), 16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kray.raycast_rays(geom, make_map(geom, TSDF, "meta"), TSDF,
+                          torch.zeros(512, dtype=torch.int32, device="meta"),
+                          p, d, torch.ones(4, device="meta"), 0.1, (4, 4))
     with pytest.raises(ValueError, match="unsupported device"):
         preprocess.half_sample(d, 0.3)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -225,8 +305,8 @@ def test_check_rejects_bad_arguments():
 def test_build_hash_covers_every_source_and_flag():
     names = {p.name for p in _lib._sources()}
     assert {"icp.cu", "alloc.cu", "integrate.cu", "node.cu", "raycast.cu",
-            "nav.cu", "preprocess.cu", "gather_probe.cu", "common.cuh",
-            "compact.cuh", "fields.cuh"} <= names
+            "nav.cu", "preprocess.cu", "gather_probe.cu", "frame.cu",
+            "common.cuh", "compact.cuh", "fields.cuh"} <= names
     assert _lib.source_hash() == _lib.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _lib.NVCC_FLAGS
     assert "-fmad=false" in _lib.NVCC_FLAGS
@@ -251,10 +331,9 @@ def test_kernels_match_twins_on_cuda(cuda, field):
     nv = nav.nav_grid(geom, m, field)
     assert torch.equal(nv, nav.nav_grid_plain(geom, m, field))
     view = se3.matmul4(pose, se3.inverse_camera_matrix(k))
-    prime = raycast.prime_from_depth(depth, k)
-    got = kray.raycast_rays(geom, m, field, nv, view, prime, mu, (W, H))
+    got = kray.raycast_rays(geom, m, field, nv, view, depth, k, mu, (W, H))
     ref = kray.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
-                             prime, mu, (W, H))
+                             depth, k, mu, (W, H))
     both = got[2] & ref[2]
     assert (got[2] == ref[2]).float().mean() >= 0.999
     assert torch.allclose(got[0][both], ref[0][both], atol=1e-4, rtol=0)
@@ -271,11 +350,11 @@ def test_kernels_match_twins_on_cuda(cuda, field):
 
     kpose = se3.matmul4(pose, se3.inverse_camera_matrix(k))
     if field is TSDF:
-        assert torch.equal(alloc.touched_mask(geom, depth, pose, k, mu),
+        assert torch.equal(alloc.touched_mask(geom, depth, pose, kpose, mu),
                            alloc.touched_mask_plain(geom, depth, pose, kpose,
                                                     mu))
     else:
-        for a, b in zip(alloc.touched_masks_of(geom, depth, pose, k, mu),
+        for a, b in zip(alloc.touched_masks_of(geom, depth, pose, kpose, mu),
                         alloc.touched_masks_of_plain(geom, depth, pose,
                                                      kpose, mu)):
             assert torch.equal(a, b)
@@ -385,6 +464,74 @@ def test_node_pass_and_pyramid_match_twins_on_cuda(cuda, field):
             assert float((n - np_).abs().max()) <= 1e-6
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_prologue_rank_and_raycast_match_twins_on_cuda(cuda, field):
+    """The pose prologue bit for bit, K4's rank (gate grid and mip_skipped)
+    exactly and K1 with the state's select against their twins: where the
+    raycast gate is shut the old maps, pose and a zero ray_overflow
+    exactly, else the hit mask on >= 99.9 % of rays and vertices to 1e-4
+    m; one launch of each counted per call."""
+    geom, state, k, depth = _frames(cuda, field=field)
+    names = ("frame_mats", "node_rank", "raycast_of" if field is OFUSION
+             else "raycast")
+    for frame_no, budget, on in PROLOGUE_CASES:
+        when = torch.tensor(on, device=cuda)
+        before = {n: _lib.LAUNCHES[n] for n in names}
+        mats, rank, rays = _prologue_rank_raycast(geom, state, k, depth,
+                                                  field, budget, when,
+                                                  frame_no)
+        assert all(_lib.LAUNCHES[n] == before[n] + 1 for n in names)
+        pm, pr, prays = _prologue_rank_raycast_plain(
+            geom, state, k, depth, field, budget, when, frame_no)
+        for a, b in zip(mats + rank, pm + pr):
+            assert torch.equal(a, b)
+        assert torch.equal(rays.raycast_pose, prays.raycast_pose)
+        assert int(rays.overflow) == int(prays.overflow)
+        if not bool(mats.do_raycast):
+            for a, b in zip(rays[:3], (state.vertex, state.normal,
+                                       state.valid)):
+                assert torch.equal(a, b)
+            assert int(rays.overflow) == 0
+        else:
+            both = rays.valid & prays.valid
+            assert (rays.valid == prays.valid).float().mean() >= 0.999
+            assert torch.allclose(rays.vertex[both], prays.vertex[both],
+                                  atol=1e-4, rtol=0)
+    assert int(rank[1]) == 0 and int(pr[1]) == 0  # when False
+    torch.cuda.synchronize()
+    assert not any(bool(v.any()) for v in kray._SCRATCH.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_raycast_overflow_on_two_streams_on_cuda(cuda, field):
+    """K1 with a bound of 4 probes a ray, so that rays overflow, launched
+    four times on each of two streams with no sync between: every launch
+    counts ray_overflow as the twin does, each stream has its own overflow
+    scratch, and every scratch is left zero."""
+    geom, state, k, depth = _frames(cuda, field=field)
+    m, mu = state.map, MU[field.name]
+    nv = nav.nav_grid(geom, m, field)
+    view = se3.matmul4(state.pose, se3.inverse_camera_matrix(k))
+    max_steps = 4 - kray.EXTRA_PROBES
+    want = kray.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
+                              depth, k, mu, (W, H), max_steps)
+    assert int(want.overflow) > 0
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append(kray.raycast_rays(geom, m, field, nv, view, depth,
+                                             k, mu, (W, H), max_steps))
+    torch.cuda.synchronize()
+    assert all(int(r.overflow) == int(want.overflow) for r in got)
+    assert {(cuda, st.cuda_stream) for st in streams} <= set(kray._SCRATCH)
+    assert not any(bool(v.any()) for v in kray._SCRATCH.values())
+
+
 def _track_args(cuda, field):
     """Frame 5's tracking inputs after five frames of ``field`` on the
     card: (pose, view, pyramid maps, reference maps)."""
@@ -419,3 +566,52 @@ def test_icp_track_matches_plain_on_cuda(cuda, field):
     again = icp.icp_track(*args, iters, 1e-5)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_inverse_sum_order_on_the_tsdf_bench_slice_on_cuda(cuda,
+                                                           monkeypatch):
+    """chip_smoke.py's TSDF bench slice (43 frames, 512^3 voxels over
+    4.8 m) as the port runs it, the pose prologue summing R^T t of
+    inverse(pose) left to right, and again with R^T t summed by
+    torch.matmul (a cuBLAS product: the stages' order before the
+    prologue). Both pass the slice's checks (every frame from 4 on
+    tracked, no drop, final position error below MAX_POS_ERR) and their
+    block counts differ by at most 0.1 %. Prints each run's block count
+    and error and the frames whose pose differs (``-s`` shows them)."""
+    import chip_smoke
+
+    sc = chip_smoke.Scene(torch, TSDF, cuda)
+
+    def run():
+        state, poses, auxes = sc.init(), [], []
+        for i in range(sc.n_total):
+            state, aux = sc.frame(state, i)
+            poses.append(state.pose.clone())
+            auxes.append(aux)
+        err = float(np.linalg.norm(state.pose.cpu().numpy()[:3, 3]
+                                   - sc.poses[-1][:3, 3]))
+        assert all(bool(a["tracked"]) for a in auxes[4:])
+        assert all(int(a[c]) == 0 for a in auxes for c in chip_smoke.COUNTERS)
+        assert err < chip_smoke.MAX_POS_ERR
+        return int(state.map.n_blocks), err, poses
+
+    def matmul_prologue(*args, **kw):
+        m = frame.frame_mats_plain(*args, **kw)
+        t_cw = m.t_cw.clone()
+        t_cw[:3, 3] = -torch.matmul(m.pose[:3, :3].transpose(0, 1),
+                                    m.pose[:3, 3:])[:, 0]
+        return m._replace(t_cw=t_cw, view=se3.matmul4(m.kmat, t_cw))
+
+    runs = {"left to right": run()}
+    monkeypatch.setattr(step, "frame_mats", matmul_prologue)
+    monkeypatch.setattr(tracking, "frame_mats", matmul_prologue)
+    runs["torch.matmul"] = run()
+    for name, (n, err, _) in runs.items():
+        print(f"R^T t summed {name}: n_blocks {n}, final position error "
+              f"{err:.4f} m")
+    (n_a, _, a), (n_b, _, b) = runs.values()
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    print(f"frames whose pose differs: {len(differ)} of {len(a)}, first "
+          f"{differ[:1]}")
+    assert abs(n_a - n_b) <= 0.001 * n_a

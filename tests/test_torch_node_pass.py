@@ -11,7 +11,9 @@ map (4 blocks a side: level 0 is gated by mip_alloc[0], JAX's dense
 loop); and a budget of 2 parents, where ``mip_skipped`` > 0. TSDF: mip_x
 and mip_y to 1e-5. OFusion (mu 0.008, stamped with 3/30): log-odds to a
 relative 1e-5 (absolute 1e-5 near 0), time stamps exactly.
-``mip_skipped`` exactly.
+``mip_skipped`` exactly. K4's parent rank twin (``node_rank_plain``, the
+gate the rank kernel writes) against JAX's top_k ranking of the occupied
+parents: the gate grid and mip_skipped exactly.
 """
 
 import jax
@@ -83,8 +85,6 @@ def _run_both(geom, tgeom, field, depth, pose, jmap, budget=CAPACITY,
         tgeom, tm, FIELDS[field], torch.from_numpy(depth), se3.inverse(tp),
         se3.camera_matrix(kt), MU[field], budget, torch.tensor(TIMESTAMP),
         torch.tensor(when))
-    if not when:
-        skipped = torch.zeros_like(skipped)  # integrate masks it
     return (jax.tree.map(np.asarray, jm), int(stats["mip_skipped"]),
             convert.to_numpy(tm), int(skipped))
 
@@ -160,3 +160,42 @@ def test_node_pass_parity_dense_level0(scene, field):
     assert tskip == jskip == 0
     assert _changed(got_j, jmap, 0) > 0
     _assert_mips_close(field, got_t, got_j)
+
+
+def _jax_rank(jmap, pbudget, when):
+    """JAX's level-0 parent ranking (_node_pass_level0_sparse 449-458):
+    the gate of every parent (bool[B/2]^3) and mip_skipped, masked by
+    ``when`` as integrate masks it."""
+    b = jax_geometry().blocks_per_side
+    hp = b // 2
+    npar = hp ** 3
+    parent = jnp.asarray(jmap.mip_alloc[0]).reshape(hp, 2, hp, 2, hp, 2) \
+        .any(axis=(1, 3, 5)).reshape(-1)
+    ids = jnp.arange(npar, dtype=jnp.int32)
+    vals, _ = jax.lax.top_k(jnp.where(parent, npar - ids, 0), pbudget)
+    pw = jnp.where(vals > 0, npar - vals, -1)
+    present = pw >= 0
+    skipped = (jnp.sum(parent.astype(jnp.int32))
+               - jnp.sum(present.astype(jnp.int32))) * 8
+    gate = np.zeros(npar + 1, dtype=bool)
+    gate[np.where(np.asarray(present), np.asarray(pw), npar)] = True
+    return (gate[:npar].reshape(hp, hp, hp),
+            int(jnp.where(when, skipped, 0)))
+
+
+@pytest.mark.parametrize("budget,when", [(2, True), (CAPACITY, True),
+                                         (CAPACITY, False)])
+def test_rank_matches_jax_top_k(orbit, budget, when):
+    """The parent gate and mip_skipped of the rank twin against JAX's top_k
+    over the occupied parents: a budget of 2 (mip_skipped > 0), the full
+    budget, and ``when`` False (mip_skipped 0)."""
+    field, _, _, jmap = orbit
+    hp = jax_geometry().blocks_per_side // 2
+    pbudget = min(budget, hp ** 3)
+    want, jskip = _jax_rank(jmap, pbudget, when)
+    present, skipped = node.node_rank(torch_geometry(),
+                                      convert.map_to_torch(jmap, "cpu"),
+                                      budget, torch.tensor(when))
+    np.testing.assert_array_equal(present.numpy(), want)
+    assert int(skipped) == jskip
+    assert (jskip > 0) == (budget == 2 and when)

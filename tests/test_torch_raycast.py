@@ -9,6 +9,15 @@ must agree on >= 99.5% of rays (TSDF) or 99.9% (OFusion), vertices to
 exactly. A pool bucket below the block count checks that out-of-bucket
 blocks read as unknown, as in the JAX strip table. The nav grid must
 equal JAX ``build_nav`` exactly, with and without such a bucket.
+
+K1 computes each ray's prime from the depth frame and ``k``, and the
+frame state's select: on the CPU ``raycast_rays(view, depth, k)`` must
+equal the march primed by ``prime_from_depth`` bit for bit, frames 0-2
+must leave the state's maps and raycast pose as they were with
+ray_overflow 0, and the twin's per-ray probe counts must be nonzero
+exactly on the rays whose range is not empty. Its record of the nav
+entries and pool voxels read (K1's bound) must change no result and read
+voxels only in the slots whose nav entries it read.
 """
 
 import jax
@@ -26,9 +35,10 @@ from supereight_tpu_torch.core.map import make_map
 from supereight_tpu_torch.kernels import nav as knav
 from supereight_tpu_torch.kernels import raycast as kray
 from supereight_tpu_torch.ops import raycast
+from supereight_tpu_torch.io import synthetic
 from test_torch_step import (CAPACITY, FIELDS, MU, H, W, assert_no_drops,
                              jax_frames, jax_geometry, k_jax, k_torch,
-                             make_scene, torch_geometry)
+                             make_scene, torch_frames, torch_geometry)
 
 MIN_AGREE = {"tsdf": 0.995, "ofusion": 0.999}
 
@@ -60,14 +70,16 @@ def test_raycast_parity(setup, bucket):
 
     ts = convert.frame_to_torch(s, "cpu")
     view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
-    prime = raycast.prime_from_depth(torch.from_numpy(depth), k_torch())
+    prime = kray.prime_from_depth(torch.from_numpy(depth), k_torch())
     np.testing.assert_allclose(
         prime.numpy(),
         np.asarray(jax_raycast.prime_from_depth(jnp.asarray(depth), k_jax())),
         rtol=1e-6)
     tv, tn, tok, tst = raycast.raycast(torch_geometry(), ts.map, FIELDS[name],
-                                       view, mu, (W, H), prime_t=prime,
-                                       with_stats=True, pool_bucket=bucket)
+                                       view, mu, (W, H),
+                                       depth=torch.from_numpy(depth),
+                                       k=k_torch(), with_stats=True,
+                                       pool_bucket=bucket)
     tv, tn, tok = tv.numpy(), tn.numpy(), tok.numpy()
     assert int(tst["ray_overflow"]) == int(jst["ray_overflow"])
     assert np.mean(tok == jok) >= MIN_AGREE[name]
@@ -138,4 +150,106 @@ def test_unported_options_raise(setup):
     view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
     with pytest.raises(NotImplementedError):
         raycast.raycast(torch_geometry(), ts.map, FIELDS[name], view,
-                        MU[name], (W, H), prime_t=None)
+                        MU[name], (W, H), depth=None)
+
+
+def test_raycast_rays_primes_like_prime_from_depth(setup):
+    """The (view, depth, k) signature against the march primed by
+    prime_from_depth, the former path, bit for bit on the CPU."""
+    depth, s, name = setup
+    ts = convert.frame_to_torch(s, "cpu")
+    geom, field = torch_geometry(), FIELDS[name]
+    view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
+    d = torch.from_numpy(depth)
+    nv = knav.nav_grid(geom, ts.map, field)
+    got = kray.raycast_rays(geom, ts.map, field, nv, view, d, k_torch(),
+                            MU[name], (W, H))
+    want, _ = kray.march_plain(geom, field, ts.map.data_x, ts.map.data_y, nv,
+                               view, kray.prime_from_depth(d, k_torch()),
+                               MU[name], (W, H))
+    assert got.raycast_pose is None
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+    assert int(got.valid.sum()) > 0.3 * got.valid.numel()
+
+
+@pytest.mark.parametrize("name", ["tsdf", "ofusion"])
+def test_frames_0_to_2_keep_the_state(name):
+    """Frames 0-2 raycast nothing into the state: its maps and raycast pose
+    stay as init_frame_state made them and ray_overflow is 0; frame 3's
+    raycast replaces them. K1's select gated off directly returns the
+    state's tensors' values exactly."""
+    depths, poses = make_scene(4)
+    state, _, taux = torch_frames(depths, poses, 3, name)
+    assert all(int(a["ray_overflow"]) == 0 for a in taux)
+    assert torch.equal(state.raycast_pose,
+                       torch.from_numpy(poses[0].astype(np.float32)))
+    assert not (state.valid.any() or state.vertex.any()
+                or state.normal.any())
+    state, _, taux = torch_frames(depths, poses, 4, name)
+    assert int(state.valid.sum()) > 0.3 * state.valid.numel()
+    geom, field = torch_geometry(), FIELDS[name]
+    old_v = torch.rand((H, W, 3))
+    prev = kray.Previous(torch.tensor(False), state.pose, state.pose.T,
+                         old_v, -old_v, old_v[..., 0] > 0.5)
+    view = se3.matmul4(state.pose, se3.inverse_camera_matrix(k_torch()))
+    rays = kray.raycast_rays(geom, state.map, field,
+                             knav.nav_grid(geom, state.map, field), view,
+                             torch.from_numpy(depths[3]), k_torch(), MU[name],
+                             (W, H), prev=prev)
+    for a, b in zip(rays, (old_v, -old_v, old_v[..., 0] > 0.5,
+                           torch.zeros((), dtype=torch.int32),
+                           state.pose.T)):
+        assert torch.equal(a, b)
+
+
+def test_probe_counts_mark_the_rays_that_march(setup):
+    """A camera 2.5 m outside the map cube looking at it, no depth to
+    prime the march: a ray marches exactly where its clip to the cube and
+    the near/far planes leaves a range, and only those rays take probes."""
+    _, s, name = setup
+    ts = convert.frame_to_torch(s, "cpu")
+    geom, field = torch_geometry(), FIELDS[name]
+    pose = torch.from_numpy(synthetic.look_at(
+        np.array([-2.5, 1.2, 0.9]), np.array([1.0, 1.0, 1.0]))
+        .astype(np.float32))
+    view = se3.matmul4(pose, se3.inverse_camera_matrix(k_torch()))
+    nv = knav.nav_grid(geom, ts.map, field)
+    rays, probes = kray.raycast_plain(
+        geom, field, ts.map.data_x, ts.map.data_y, nv, view,
+        torch.zeros((H, W)), k_torch(), MU[name], (W, H), with_probes=True)
+    dx, dy, dz = kray.ray_directions_c(view, W, H)
+    tnear, tfar = kray.ray_box_range_c((view[0, 3], view[1, 3], view[2, 3]),
+                                       dx, dy, dz, geom.dim)
+    marches = (tnear < tfar).reshape(H, W)
+    assert 0 < int(marches.sum()) < marches.numel()
+    np.testing.assert_array_equal((probes.per_ray > 0).numpy(),
+                                  marches.numpy())
+    assert not (rays.valid & ~marches).any()
+
+
+def test_probe_reads_lie_in_the_slots_whose_nav_entries_were_read(setup):
+    """The twin's record of what K1 reads, at frame 4's primed view:
+    recording changes no result; every pool voxel read lies in a slot the
+    nav grid lists, whose nav entry was read; the hits read voxels; and
+    at most one nav entry is read per probe and eight per hit."""
+    depth, s, name = setup
+    ts = convert.frame_to_torch(s, "cpu")
+    geom, field = torch_geometry(), FIELDS[name]
+    view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
+    nv = knav.nav_grid(geom, ts.map, field)
+    args = (geom, field, ts.map.data_x, ts.map.data_y, nv, view,
+            torch.from_numpy(depth), k_torch(), MU[name], (W, H))
+    rays, probes = kray.raycast_plain(*args, with_probes=True)
+    for a, b in zip(rays[:4], kray.raycast_plain(*args)[:4]):
+        assert torch.equal(a, b)
+    read_slots = probes.pool.reshape(CAPACITY, -1).any(1)
+    cells = torch.nonzero(nv >= 0)[:, 0]
+    listed = torch.zeros(CAPACITY, dtype=torch.bool)
+    listed[nv[cells].long()] = True
+    hits = int(rays.valid.sum())
+    assert hits > 0 and int(read_slots.sum()) > 0
+    assert not (read_slots & ~listed).any()
+    assert bool(probes.nav[cells[read_slots[nv[cells].long()]]].all())
+    assert int(probes.nav.sum()) <= (int(probes.per_ray.sum())
+                                     + rays.valid.numel() + 8 * hits)
