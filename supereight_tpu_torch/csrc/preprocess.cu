@@ -1,65 +1,90 @@
 // K7: the input pyramid of the tracking stage (the filter_input=False
-// path), two kernels.
+// path), every level in one launch.
 //
 // Replaces supereight_tpu/pipeline.py:_preprocess_and_pyramid (26-58)
 // with ops/preprocess.py:half_sample_robust (79-98), depth2vertex
 // (101-114) and vertex2normal (117-143), which XLA runs as gathers,
 // concatenations and an einsum over each level's image.
 //
-//  * half_sample: one thread per output pixel of the next coarser level
-//    (ref preprocessing.cpp:190-226): the 2x2 window at offsets {0, 1}
-//    from (2r, 2c), clamped at the last row and column; samples with
-//    |cur - center| >= e_d are left out of the mean; t and s are summed in
-//    the twin's order (row offset outer, column offset inner) and the
-//    result is t / (s == 0 ? 1 : s). One launch per coarser level.
-//  * vertex_normal: one thread per pixel of a level (ref
+// Each CTA owns a square of the coarsest level, kRegion >> (L - 1) pixels
+// a side, and the same region of every finer level (kRegion >> l pixels a
+// side at level l). It reads the level-0 depth of that region plus a halo
+// of 2^(L-1) pixels into shared memory once, then
+//  * half-samples level by level in shared memory, each coarser level's
+//    region and halo (ref preprocessing.cpp:190-226): the 2x2 window at
+//    offsets {0, 1} from (2r, 2c), clamped at the last row and column;
+//    samples with |cur - center| >= e_d are left out of the mean; t and s
+//    summed in the twin's order (row offset outer, column offset inner),
+//    t / (s == 0 ? 1 : s);
+//  * writes every level's depth (levels >= 1), vertex, normal and valid
+//    for its regions in one pass over their pixels (ref
 //    preprocessing.cpp:91-159): the inverse intrinsics of k / 2^level as
-//    se3.inverse_camera_matrix builds them, the back-projected vertex
-//    d * (ik[r][0] x + ik[r][1] y + ik[r][2]) (0 where d <= 0), the four
-//    edge-replicated neighbours' vertices recomputed from depth, the
-//    cross product of the central differences over its norm (1 where the
-//    norm is 0), and the sentinel (INVALID, 0, 0) where the pixel or a
-//    neighbour has no depth. neg_y swaps the vertical neighbours. One
-//    launch per level.
+//    se3.inverse_camera_matrix builds them (once a CTA), the
+//    back-projected vertex d * (ik[r][0] x + ik[r][1] y + ik[r][2]) (0
+//    where d <= 0), the four edge-replicated neighbours' vertices
+//    recomputed from depth, the cross product of the central differences
+//    over its norm (1 where the norm is 0), and the sentinel (INVALID, 0,
+//    0) where the pixel or a neighbour has no depth; neg_y swaps the
+//    vertical neighbours.
+// Level l needs a halo of 2^(L-1-l): one pixel for its own normals,
+// doubled by each half-sample below it. Clamping uses global image
+// coordinates, so a CTA at the image's edge reads what the twins'
+// clamped gathers read; halo values are computed by every CTA that holds
+// them, with the same arithmetic. No CTA waits for another.
 //
-// Bound on the H100: bytes. A 320x240 level reads 300 KB of depth and
-// writes 1.9 MB of vertex, normal and valid (~0.66 us at 3.35 TB/s); the
-// ~50 operations a pixel are far below the f32 rate. The neighbours'
-// depths are re-read from L1, so each pixel's input comes from HBM once;
-// one launch per level replaces ~50 torch ops per level.
+// Bound on the H100: bytes. The level-0 depth is read once (300 KB at
+// 320x240) and every level's depth, vertex, normal and valid written once
+// (1.9 MB at level 0, 2.6 MB for three levels: ~0.9 us at 3.35 TB/s); the
+// ~60 operations a pixel are far below the f32 rate. The halo makes a CTA
+// read (16 + 2^L)^2 level-0 pixels for its 16^2, the rest from L2. The
+// region and block size are the fastest of those timed on the H100
+// (PERF.md).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kMaxLevels = 4;   // _lib.MAX_ICP_LEVELS
+constexpr int kRegion = 16;     // level-0 pixels a CTA owns a side
 constexpr float kInvalid = -2.f;  // constants.INVALID (ref commons.h)
 
-__global__ void __launch_bounds__(kThreads)
-half_sample_kernel(const float* __restrict__ in, int h, int w, float e_d,
-                   float* __restrict__ out, int oh, int ow) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= oh * ow) return;
-  const int r = 2 * (i / ow), c = 2 * (i % ow);
-  const float center = in[r * w + c];
-  float t = 0.f, s = 0.f;
-  for (int di = 0; di < 2; ++di)
-    for (int dj = 0; dj < 2; ++dj) {
-      const float cur = in[min(r + di, h - 1) * w + min(c + dj, w - 1)];
-      const bool take = fabsf(cur - center) < e_d;
-      t = t + (take ? cur : 0.f);
-      s = s + (take ? 1.f : 0.f);
-    }
-  out[i] = t / (s == 0.f ? 1.f : s);
+// the widest window of level l is (kRegion + 2^kMaxLevels) >> l a side;
+// the windows lie one after another in shared memory
+constexpr int kSide0 = kRegion + (1 << kMaxLevels);
+__host__ __device__ constexpr int window_offset(int l) {
+  int off = 0;
+  for (int j = 0; j < l; ++j) off += (kSide0 >> j) * (kSide0 >> j);
+  return off;
+}
+constexpr int kWindowFloats = window_offset(kMaxLevels);
+// a CTA's window of level l of n_lv: its region (kRegion >> l a side) and
+// a halo of 2^(n_lv - 1 - l); the global row or column of its first pixel
+// for CTA index t along that axis
+__device__ __forceinline__ int window_side(int l, int n_lv) {
+  return (kRegion >> l) + (2 << (n_lv - 1 - l));
+}
+__device__ __forceinline__ int window_origin(int t, int l, int n_lv) {
+  return t * (kRegion >> l) - (1 << (n_lv - 1 - l));
 }
 
-// The camera-frame vertex of pixel (r, c): depth times the ray of the
-// inverse intrinsics ik (rows 0 and 1; row 2 is (0, 0, 1)), summed left to
-// right like the twin's rays.
-__device__ __forceinline__ float3 vertex(const float* __restrict__ depth,
-                                         int w, int r, int c,
+// per-level outputs and sizes, passed by value (_lib.Levels); depth[0] is
+// unused (level 0 is the input)
+struct Levels {
+  float* depth[kMaxLevels];
+  float* vertex[kMaxLevels];
+  float* normal[kMaxLevels];
+  uint8_t* valid[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int n_levels;
+};
+
+// The camera-frame vertex of pixel (r, c) of depth d: d times the ray of
+// the inverse intrinsics ik (rows 0 and 1; row 2 is (0, 0, 1)), summed
+// left to right like the twin's rays.
+__device__ __forceinline__ float3 vertex(float d, int r, int c,
                                          const float* ik) {
-  const float d = depth[r * w + c];
   if (!(d > 0.f)) return make_float3(0.f, 0.f, 0.f);
   const float x = (float)c, y = (float)r;
   return make_float3(d * (ik[0] * x + ik[1] * y + ik[2]),
@@ -68,67 +93,141 @@ __device__ __forceinline__ float3 vertex(const float* __restrict__ depth,
 }
 
 __global__ void __launch_bounds__(kThreads)
-vertex_normal_kernel(const float* __restrict__ depth, int h, int w,
-                     const float* __restrict__ k, int level, int neg_y,
-                     float* __restrict__ vert, float* __restrict__ norm,
-                     uint8_t* __restrict__ valid) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h * w) return;
-  const int r = i / w, c = i % w;
+pyramid_kernel(const float* __restrict__ depth, const float* __restrict__ k,
+               float e_d, int neg_y, Levels lv) {
+  __shared__ float win[kWindowFloats];
+  // each level's inverse intrinsics, rows 0 and 1 (row 2 is (0, 0, 1))
+  __shared__ float inv_k[kMaxLevels][6];
+  const int n_lv = lv.n_levels;
+
   // se3.inverse_camera_matrix(k / 2^level): exact power-of-two scaling
-  const float scale = (float)(1 << level);
-  const float fx = k[0] / scale, fy = k[1] / scale;
-  const float cx = k[2] / scale, cy = k[3] / scale;
-  const float ik[6] = {1.f / fx, 0.f, -cx / fx, 0.f, 1.f / fy, -cy / fy};
-  const float3 v = vertex(depth, w, r, c, ik);
-  const float3 left = vertex(depth, w, r, max(c - 1, 0), ik);
-  const float3 right = vertex(depth, w, r, min(c + 1, w - 1), ik);
-  const float3 prev = vertex(depth, w, max(r - 1, 0), c, ik);
-  const float3 next = vertex(depth, w, min(r + 1, h - 1), c, ik);
-  const float3 up = neg_y ? prev : next;
-  const float3 down = neg_y ? next : prev;
-  const bool ok = v.z != 0.f && left.z != 0.f && right.z != 0.f &&
-                  up.z != 0.f && down.z != 0.f;
-  float3 n = make_float3(kInvalid, 0.f, 0.f);
-  if (ok) {
-    const float ax = right.x - left.x, ay = right.y - left.y,
-                az = right.z - left.z;
-    const float bx = up.x - down.x, by = up.y - down.y, bz = up.z - down.z;
-    const float nx = ay * bz - az * by;
-    const float ny = az * bx - ax * bz;
-    const float nz = ax * by - ay * bx;
-    const float len = sqrtf(nx * nx + ny * ny + nz * nz);
-    const float d = len == 0.f ? 1.f : len;
-    n = make_float3(nx / d, ny / d, nz / d);
+  if (threadIdx.x < n_lv) {
+    const int l = threadIdx.x;
+    const float scale = (float)(1 << l);
+    const float fx = k[0] / scale, fy = k[1] / scale;
+    const float cx = k[2] / scale, cy = k[3] / scale;
+    const float ik[6] = {1.f / fx, 0.f, -cx / fx, 0.f, 1.f / fy, -cy / fy};
+    for (int j = 0; j < 6; ++j) inv_k[l][j] = ik[j];
   }
-  vert[3 * i] = v.x;
-  vert[3 * i + 1] = v.y;
-  vert[3 * i + 2] = v.z;
-  norm[3 * i] = n.x;
-  norm[3 * i + 1] = n.y;
-  norm[3 * i + 2] = n.z;
-  valid[i] = ok ? 1 : 0;
+
+  // level 0's window: its region and halo, the pixels inside the image
+  {
+    const int side = window_side(0, n_lv);
+    const int oy = window_origin(blockIdx.y, 0, n_lv);
+    const int ox = window_origin(blockIdx.x, 0, n_lv);
+    for (int i = threadIdx.x; i < side * side; i += kThreads) {
+      const int gy = oy + i / side, gx = ox + i % side;
+      if (gy >= 0 && gy < lv.h[0] && gx >= 0 && gx < lv.w[0])
+        win[i] = depth[gy * lv.w[0] + gx];
+    }
+  }
+  __syncthreads();
+
+  // the coarser levels' windows, each the robust 2x2 mean of the one
+  // before over the pixels inside its image (a pixel (r, c) of level l + 1
+  // reads rows 2r, 2r + 1 and columns 2c, 2c + 1 of level l's window)
+  for (int l = 0; l + 1 < n_lv; ++l) {
+    const int h = lv.h[l], w = lv.w[l];
+    const int side = window_side(l, n_lv);
+    const int oy = window_origin(blockIdx.y, l, n_lv);
+    const int ox = window_origin(blockIdx.x, l, n_lv);
+    const float* cur = win + window_offset(l);
+    const int nside = window_side(l + 1, n_lv);
+    const int noy = window_origin(blockIdx.y, l + 1, n_lv);
+    const int nox = window_origin(blockIdx.x, l + 1, n_lv);
+    float* nxt = win + window_offset(l + 1);
+    for (int i = threadIdx.x; i < nside * nside; i += kThreads) {
+      const int ry = noy + i / nside, rx = nox + i % nside;
+      if (ry < 0 || ry >= lv.h[l + 1] || rx < 0 || rx >= lv.w[l + 1])
+        continue;
+      const int r = 2 * ry, c = 2 * rx;
+      const float center = cur[(r - oy) * side + c - ox];
+      float t = 0.f, s = 0.f;
+      for (int di = 0; di < 2; ++di)
+        for (int dj = 0; dj < 2; ++dj) {
+          const float v = cur[(min(r + di, h - 1) - oy) * side +
+                              min(c + dj, w - 1) - ox];
+          const bool take = fabsf(v - center) < e_d;
+          t = t + (take ? v : 0.f);
+          s = s + (take ? 1.f : 0.f);
+        }
+      nxt[i] = t / (s == 0.f ? 1.f : s);
+    }
+    __syncthreads();
+  }
+
+  // every level's outputs in one pass over the regions' pixels inside the
+  // images, finest level first
+  int n_px = 0;
+  for (int l = 0; l < n_lv; ++l) n_px += (kRegion >> l) * (kRegion >> l);
+  for (int i = threadIdx.x; i < n_px; i += kThreads) {
+    int l = 0, j = i;
+    while (j >= (kRegion >> l) * (kRegion >> l)) {
+      j -= (kRegion >> l) * (kRegion >> l);
+      ++l;
+    }
+    const int region = kRegion >> l, h = lv.h[l], w = lv.w[l];
+    const int r = blockIdx.y * region + j / region;
+    const int c = blockIdx.x * region + j % region;
+    if (r >= h || c >= w) continue;
+    const int side = window_side(l, n_lv);
+    const int oy = window_origin(blockIdx.y, l, n_lv);
+    const int ox = window_origin(blockIdx.x, l, n_lv);
+    const float* cur = win + window_offset(l);
+    // the level's depth at global (gy, gx), clamped into the image
+    auto at = [&](int gy, int gx) {
+      return cur[(min(max(gy, 0), h - 1) - oy) * side +
+                 min(max(gx, 0), w - 1) - ox];
+    };
+    const float* ik = inv_k[l];
+    const float d = at(r, c);
+    const float3 v = vertex(d, r, c, ik);
+    const float3 left = vertex(at(r, c - 1), r, max(c - 1, 0), ik);
+    const float3 right = vertex(at(r, c + 1), r, min(c + 1, w - 1), ik);
+    const float3 prev = vertex(at(r - 1, c), max(r - 1, 0), c, ik);
+    const float3 next = vertex(at(r + 1, c), min(r + 1, h - 1), c, ik);
+    const float3 up = neg_y ? prev : next;
+    const float3 down = neg_y ? next : prev;
+    const bool ok = v.z != 0.f && left.z != 0.f && right.z != 0.f &&
+                    up.z != 0.f && down.z != 0.f;
+    float3 n = make_float3(kInvalid, 0.f, 0.f);
+    if (ok) {
+      const float ax = right.x - left.x, ay = right.y - left.y,
+                  az = right.z - left.z;
+      const float bx = up.x - down.x, by = up.y - down.y, bz = up.z - down.z;
+      const float nx = ay * bz - az * by;
+      const float ny = az * bx - ax * bz;
+      const float nz = ax * by - ay * bx;
+      const float len = sqrtf(nx * nx + ny * ny + nz * nz);
+      const float dd = len == 0.f ? 1.f : len;
+      n = make_float3(nx / dd, ny / dd, nz / dd);
+    }
+    const int p = r * w + c;
+    if (l > 0) lv.depth[l][p] = d;
+    float* vo = lv.vertex[l] + 3 * p;
+    float* no = lv.normal[l] + 3 * p;
+    vo[0] = v.x;
+    vo[1] = v.y;
+    vo[2] = v.z;
+    no[0] = n.x;
+    no[1] = n.y;
+    no[2] = n.z;
+    lv.valid[l][p] = ok ? 1 : 0;
+  }
 }
 
 }  // namespace
 
-SE_EXPORT int se_half_sample(const float* in, int h, int w, float e_d,
-                             float* out, void* stream) {
-  const int oh = (h + 1) / 2, ow = (w + 1) / 2;
-  const int n_cta = (oh * ow + kThreads - 1) / kThreads;
-  if (n_cta == 0) return 0;
-  half_sample_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
-      in, h, w, e_d, out, oh, ow);
-  return (int)cudaGetLastError();
-}
-
-SE_EXPORT int se_vertex_normal(const float* depth, int h, int w,
-                               const float* k, int level, int neg_y,
-                               float* vert, float* norm, uint8_t* valid,
-                               void* stream) {
-  const int n_cta = (h * w + kThreads - 1) / kThreads;
-  if (n_cta == 0) return 0;
-  vertex_normal_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
-      depth, h, w, k, level, neg_y, vert, norm, valid);
+// lv.h and lv.w hold every level's size (each ceil(half) the one before)
+SE_EXPORT int se_pyramid(const float* depth, const float* k, float e_d,
+                         int neg_y, Levels lv, void* stream) {
+  const int n_lv = lv.n_levels;
+  if (n_lv < 1 || n_lv > kMaxLevels) return (int)cudaErrorInvalidValue;
+  const int tile = kRegion >> (n_lv - 1);
+  const dim3 grid((lv.w[n_lv - 1] + tile - 1) / tile,
+                  (lv.h[n_lv - 1] + tile - 1) / tile);
+  if (grid.x == 0 || grid.y == 0) return 0;
+  pyramid_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(depth, k, e_d,
+                                                              neg_y, lv);
   return (int)cudaGetLastError();
 }

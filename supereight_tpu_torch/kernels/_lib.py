@@ -37,11 +37,10 @@ LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
             "integrate_fallback": 0, "integrate_fallback_of": 0,
             "nav_grid": 0, "raycast": 0, "raycast_of": 0, "gather_a": 0,
             "gather_b": 0, "gather_c": 0, "gather_d": 0, "node_rank": 0,
-            "node_pass": 0, "half_sample": 0, "vertex_normal": 0,
-            "frame_mats": 0}
+            "node_pass": 0, "pyramid": 0, "frame_mats": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
-MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu's icp_track takes
+MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu and preprocess.cu take
 
 
 class Mips(ctypes.Structure):
@@ -66,6 +65,19 @@ class Pyramid(ctypes.Structure):
                 ("n_levels", ctypes.c_int)]
 
 
+class Levels(ctypes.Structure):
+    """Per-level pyramid outputs and sizes, passed by value
+    (csrc/preprocess.cu ``Levels``)."""
+
+    _fields_ = [("depth", ctypes.c_void_p * MAX_ICP_LEVELS),
+                ("vertex", ctypes.c_void_p * MAX_ICP_LEVELS),
+                ("normal", ctypes.c_void_p * MAX_ICP_LEVELS),
+                ("valid", ctypes.c_void_p * MAX_ICP_LEVELS),
+                ("h", ctypes.c_int * MAX_ICP_LEVELS),
+                ("w", ctypes.c_int * MAX_ICP_LEVELS),
+                ("n_levels", ctypes.c_int)]
+
+
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signature of each exported entry point (stream last, every one
 # returns the cudaError_t of its launch)
@@ -81,7 +93,7 @@ _SIGNATURES = {
                            P, P, P, P, P, P),
     "se_integrate_fallback": (P, I, P, P, P, F, I, I, P, I, F, F, F, P, I, P,
                               P, P, P, P, P, P, P),
-    "se_nav_grid": (P, I, I, I, I, Mips, P, P, P, P, P, P),
+    "se_nav_grid": (P, I, I, I, I, Mips, P, P, P, P),
     "se_raycast": (P, P, P, P, P, P, I, I, I, I, I, I, F, F, F, F, F, F, F,
                    F, F, F, F, F, F, F, P, P, P, P, P, P, P, P, P, P, P, P,
                    P),
@@ -92,8 +104,7 @@ _SIGNATURES = {
     "se_node_rank": (P, I, I, P, P, P, P),
     "se_node_pass": (Mips, I, I, D, P, P, P, P, I, I, P, I, F, F, F, P, P),
     "se_frame_mats": (P, P, P, P, P, I, I, I, P, P, P),
-    "se_half_sample": (P, I, I, F, P, P),
-    "se_vertex_normal": (P, I, I, P, I, I, P, P, P, P),
+    "se_pyramid": (P, P, F, I, Levels, P),
 }
 
 _lock = threading.Lock()

@@ -2,8 +2,9 @@
 
 Replaces ``supereight_tpu/ops/raycast.py:build_nav`` (138-174) with
 ``block_distance`` (103-112) and ``coarse_cell_grid`` (115-135). The CUDA
-kernels are ``csrc/nav.cu`` (a separable distance transform in three
-launches, the last fused with the OFusion payload and the slot pick);
+kernel is ``csrc/nav.cu`` (one launch: each column's occupancy as bit
+words along z, the capped distance transform as five dilations of them
+in shared memory, then the OFusion payload and the slot pick);
 :func:`nav_grid_plain` is the plain PyTorch version in the JAX form, used
 for CPU tensors and as the kernel's reference on the card.
 
@@ -55,14 +56,13 @@ def nav_grid(geom, state, field, bucket: int = None,
                                      torch.float32, s, dev).data_ptr()
     cap = geom.capacity
     bucket = cap if bucket is None else min(bucket, cap)
-    tmp = torch.empty((2, b * b * b), dtype=torch.uint8, device=dev)
     nav = torch.empty(b * b * b, dtype=torch.int32, device=dev)
     counts = None
     if with_counts:
         _lib.check(state.n_blocks, "n_blocks", torch.int32, (), dev)
         counts = torch.empty(2, dtype=torch.int32, device=dev)
     _lib.launch("nav_grid", "se_nav_grid", dev, state.slot, b, bucket,
-                int(ofusion), nl, mips, tmp[0], tmp[1], nav,
+                int(ofusion), nl, mips, nav,
                 state.n_blocks if with_counts else None, counts)
     return (nav, counts) if with_counts else nav
 

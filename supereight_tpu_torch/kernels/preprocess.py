@@ -1,67 +1,94 @@
-"""K7 wrappers and twins: the tracking stage's input pyramid.
+"""K7 wrapper and twins: the tracking stage's input pyramid.
 
 Replaces ``supereight_tpu/pipeline.py:_preprocess_and_pyramid`` (26-58,
 the ``filter_input=False`` path) with ``ops/preprocess.py``'s
 ``half_sample_robust`` (79-98), ``depth2vertex`` (101-114) and
 ``vertex2normal`` (117-143) (ref se_denseslam/src/preprocessing.cpp). The
-CUDA kernels are ``csrc/preprocess.cu``: :func:`half_sample`, one launch
-per coarser level, and :func:`vertex_normal`, one launch per level, which
-back-projects a level's depth and takes its central-difference normals in
-one pass. Their plain PyTorch versions (``*_plain``) run for CPU tensors
-and are the kernels' reference on the card.
+CUDA kernel is ``csrc/preprocess.cu``: :func:`pyramid`, one launch that
+half-samples every level in shared memory and writes each level's depth,
+vertices, normals and valid mask. Its plain PyTorch version,
+:func:`pyramid_plain`, composes the per-level twins
+:func:`half_sample_plain` and :func:`vertex_normal_plain`; it runs for
+CPU tensors and is the kernel's reference on the card.
 
 The input filters (bilateral, median) are not ported yet.
 """
 
 import torch
 
-from supereight_tpu_torch.constants import INVALID
+from supereight_tpu_torch.constants import E_DELTA, INVALID
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.kernels import _lib
 
+HALF_SAMPLE_E_D = E_DELTA * 3.0  # the robust mean's outlier distance
 
-def half_sample(depth, e_d: float):
-    """Robust 2x downsample of the f32[H, W] ``depth``: f32[ceil(H/2),
-    ceil(W/2)] (preprocessing.cpp:190-226)."""
+
+def pyramid(depth, k, levels: int, neg_y: bool):
+    """The ``levels``-level pyramid of the f32[H, W] ``depth``, finest
+    first: (depths, vertices, normals, valid masks), four tuples. Level 0's
+    depth is ``depth``; each coarser level is the robust 2x downsample of
+    the one before (f32[ceil(h/2), ceil(w/2)]). A level's camera-frame
+    vertices (f32[h, w, 3]), normals (f32[h, w, 3], the INVALID sentinel
+    where invalid) and valid mask (bool[h, w]) use the intrinsics ``k /
+    2^level`` (``k`` the f32[4] (fx, fy, cx, cy) of level 0)."""
     dev = depth.device
     if dev.type == "cpu":
-        return half_sample_plain(depth, e_d)
+        return pyramid_plain(depth, k, levels, neg_y)
     if dev.type != "cuda":
-        raise ValueError(f"half_sample: unsupported device {dev}")
-    h, w = depth.shape
-    _lib.check(depth, "depth", torch.float32, (h, w), dev)
-    out = torch.empty(((h + 1) // 2, (w + 1) // 2), dtype=torch.float32,
-                      device=dev)
-    _lib.launch("half_sample", "se_half_sample", dev, depth, h, w,
-                float(e_d), out)
-    return out
-
-
-def vertex_normal(depth, k, level: int, neg_y: bool):
-    """Camera-frame vertices (f32[H, W, 3]), normals (f32[H, W, 3], the
-    INVALID sentinel where invalid) and the valid mask (bool[H, W]) of
-    pyramid level ``level``'s depth, with the intrinsics ``k / 2^level``
-    (``k`` the f32[4] (fx, fy, cx, cy) of level 0)."""
-    dev = depth.device
-    if dev.type == "cpu":
-        return vertex_normal_plain(depth, k, level, neg_y)
-    if dev.type != "cuda":
-        raise ValueError(f"vertex_normal: unsupported device {dev}")
+        raise ValueError(f"pyramid: unsupported device {dev}")
+    if not 1 <= levels <= _lib.MAX_ICP_LEVELS:
+        raise ValueError(f"pyramid: {levels} levels, the kernel takes 1 to "
+                         f"{_lib.MAX_ICP_LEVELS}")
     h, w = depth.shape
     _lib.check(depth, "depth", torch.float32, (h, w), dev)
     _lib.check(k, "k", torch.float32, (4,), dev)
-    vert = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-    norm = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-    valid = torch.empty((h, w), dtype=torch.bool, device=dev)
-    _lib.launch("vertex_normal", "se_vertex_normal", dev, depth, h, w, k,
-                int(level), int(neg_y), vert, norm, valid)
-    return vert, norm, valid
+    shapes = [(h, w)]
+    for _ in range(1, levels):
+        shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
+    px = [a * b for a, b in shapes]
+    # every level's outputs as contiguous views of two allocations: the
+    # floats (coarser depths, then vertices and normals) and the masks
+    floats = torch.empty(sum(px[1:]) + 6 * sum(px), dtype=torch.float32,
+                         device=dev)
+    masks = torch.empty(sum(px), dtype=torch.bool, device=dev)
+    lv = _lib.Levels(n_levels=levels)
+    depths, verts, norms, valids = [depth], [], [], []
+    f_off = m_off = 0
+    for lvl, ((lh, lw), n) in enumerate(zip(shapes, px)):
+        if lvl:
+            depths.append(floats[f_off:f_off + n].view(lh, lw))
+            f_off += n
+        verts.append(floats[f_off:f_off + 3 * n].view(lh, lw, 3))
+        norms.append(floats[f_off + 3 * n:f_off + 6 * n].view(lh, lw, 3))
+        f_off += 6 * n
+        valids.append(masks[m_off:m_off + n].view(lh, lw))
+        m_off += n
+        lv.depth[lvl] = depths[lvl].data_ptr() if lvl else None
+        lv.vertex[lvl] = verts[lvl].data_ptr()
+        lv.normal[lvl] = norms[lvl].data_ptr()
+        lv.valid[lvl] = valids[lvl].data_ptr()
+        lv.h[lvl], lv.w[lvl] = lh, lw
+    _lib.launch("pyramid", "se_pyramid", dev, depth, k, HALF_SAMPLE_E_D,
+                int(neg_y), lv)
+    return tuple(depths), tuple(verts), tuple(norms), tuple(valids)
+
+
+def pyramid_plain(depth, k, levels: int, neg_y: bool):
+    """Plain PyTorch twin of :func:`pyramid`: :func:`half_sample_plain`
+    per coarser level, then :func:`vertex_normal_plain` per level."""
+    depths = [depth]
+    for _ in range(1, levels):
+        depths.append(half_sample_plain(depths[-1], HALF_SAMPLE_E_D))
+    verts, norms, valids = zip(*(vertex_normal_plain(d, k, lvl, neg_y)
+                                 for lvl, d in enumerate(depths)))
+    return tuple(depths), verts, norms, valids
 
 
 def half_sample_plain(depth, e_d: float):
-    """Plain PyTorch twin of :func:`half_sample`: the 2x2 window at
-    offsets {0, 1}; samples further than e_d from the center are excluded
-    from the average."""
+    """Robust 2x downsample of the f32[H, W] ``depth`` (f32[ceil(H/2),
+    ceil(W/2)], preprocessing.cpp:190-226): the 2x2 window at offsets {0,
+    1}; samples further than e_d from the center are excluded from the
+    average."""
     h, w = depth.shape
     dev = depth.device
     center = depth[0::2, 0::2]
@@ -127,8 +154,9 @@ def vertex2normal(vertex, neg_y: bool):
 
 
 def vertex_normal_plain(depth, k, level: int, neg_y: bool):
-    """Plain PyTorch twin of :func:`vertex_normal`: depth2vertex, then
-    vertex2normal."""
+    """Camera-frame vertices, normals and valid mask of pyramid level
+    ``level``'s depth with the intrinsics ``k / 2^level``: depth2vertex,
+    then vertex2normal."""
     v = depth2vertex(depth, se3.inverse_camera_matrix(k / (1 << level)))
     n, valid = vertex2normal(v, neg_y)
     return v, n, valid

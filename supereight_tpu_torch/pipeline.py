@@ -5,7 +5,6 @@ Port of ``supereight_tpu/pipeline.py:_preprocess_and_pyramid`` (the
 ``DenseSLAMSystem`` class, the CLI and rendering are not ported yet.
 """
 
-from supereight_tpu_torch import constants as C
 from supereight_tpu_torch.kernels import preprocess
 
 
@@ -19,9 +18,4 @@ def preprocess_and_pyramid(depth_m, k, levels: int, neg_y: bool,
     if filter_input:
         raise NotImplementedError(
             "input filters (bilateral, median) are not ported yet")
-    depths = [depth_m]
-    for _ in range(1, levels):
-        depths.append(preprocess.half_sample(depths[-1], C.E_DELTA * 3.0))
-    verts, norms, valids = zip(*(preprocess.vertex_normal(d, k, i, neg_y)
-                                 for i, d in enumerate(depths)))
-    return tuple(depths), verts, norms, valids
+    return preprocess.pyramid(depth_m, k, levels, neg_y)

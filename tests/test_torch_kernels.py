@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import MapGeometry, make_map
 from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
-from supereight_tpu_torch.constants import E_DELTA
 from supereight_tpu_torch.kernels import _lib, alloc, frame, icp, \
     integrate, nav, node, preprocess, raycast as kray
 from supereight_tpu_torch.kernels import gather_probe as gp
@@ -81,12 +81,10 @@ def test_cpu_node_pass_and_pyramid_take_the_twins(field):
     assert torch.equal(got, want)
     for a, b in zip(state.map.mip_x + state.map.mip_y, m2.mip_x + m2.mip_y):
         assert torch.equal(a, b)
-    half = preprocess.half_sample(depth, E_DELTA * 3.0)
-    assert torch.equal(half, preprocess.half_sample_plain(depth,
-                                                          E_DELTA * 3.0))
-    for a, b in zip(preprocess.vertex_normal(half, k, 1, True),
-                    preprocess.vertex_normal_plain(half, k, 1, True)):
-        assert torch.equal(a, b)
+    for a, b in zip(preprocess.pyramid(depth, k, 3, True),
+                    preprocess.pyramid_plain(depth, k, 3, True)):
+        assert len(a) == len(b) == 3
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert _lib.LAUNCHES == before
 
 
@@ -272,9 +270,7 @@ def test_other_devices_raise():
                           torch.zeros(512, dtype=torch.int32, device="meta"),
                           p, d, torch.ones(4, device="meta"), 0.1, (4, 4))
     with pytest.raises(ValueError, match="unsupported device"):
-        preprocess.half_sample(d, 0.3)
-    with pytest.raises(ValueError, match="unsupported device"):
-        preprocess.vertex_normal(d, torch.ones(4, device="meta"), 0, False)
+        preprocess.pyramid(d, torch.ones(4, device="meta"), 3, False)
     with pytest.raises(ValueError, match="unsupported device"):
         gp.take_rows_staged(torch.zeros((4, 4), device="meta"),
                             torch.zeros(2, dtype=torch.int32, device="meta"))
@@ -436,8 +432,8 @@ def clone_map(m):
 def test_node_pass_and_pyramid_match_twins_on_cuda(cuda, field):
     """K4 against its twin on two copies of the map: mip values to K3's
     UPDATE_TOL, time stamps and mip_skipped exactly, one launch counted.
-    K7 at every level of a 3-level pyramid, both neg_y: valid masks,
-    depth and vertices bit-equal, normals to 1e-6."""
+    K7's one launch against its composed twins on a 3-level pyramid, both
+    neg_y (:func:`assert_pyramid_matches_twins`)."""
     geom, state, k, depth = _frames(cuda, field=field)
     m2 = clone_map(state.map)
     before = _lib.LAUNCHES["node_pass"]
@@ -452,16 +448,75 @@ def test_node_pass_and_pyramid_match_twins_on_cuda(cuda, field):
         assert torch.allclose(a, b, atol=1e-5, rtol=0) if field is TSDF \
             else torch.equal(a, b)
     for neg_y in (False, True):
-        d_k = d_p = depth
-        for lvl in range(3):
-            if lvl:
-                d_k = preprocess.half_sample(d_k, E_DELTA * 3.0)
-                d_p = preprocess.half_sample_plain(d_p, E_DELTA * 3.0)
-                assert torch.equal(d_k, d_p)
-            v, n, ok = preprocess.vertex_normal(d_k, k, lvl, neg_y)
-            vp, np_, okp = preprocess.vertex_normal_plain(d_p, k, lvl, neg_y)
-            assert torch.equal(ok, okp) and torch.equal(v, vp)
-            assert float((n - np_).abs().max()) <= 1e-6
+        assert_pyramid_matches_twins(depth, k, 3, neg_y)
+
+
+def assert_pyramid_matches_twins(depth, k, levels, neg_y):
+    """K7 (one launch counted) against :func:`preprocess.pyramid_plain`:
+    depths, vertices and valid masks bit-equal, normals to 1e-6; every
+    level's tensor contiguous."""
+    before = _lib.LAUNCHES["pyramid"]
+    got = preprocess.pyramid(depth, k, levels, neg_y)
+    assert _lib.LAUNCHES["pyramid"] == before + 1
+    want = preprocess.pyramid_plain(depth, k, levels, neg_y)
+    for name, a, b in zip(("depth", "vertex", "normal", "valid"), got, want):
+        assert len(a) == len(b) == levels
+        for lvl, (x, y) in enumerate(zip(a, b)):
+            assert x.is_contiguous() and x.shape == y.shape, (name, lvl)
+            if name == "normal":
+                assert float((x - y).abs().max()) <= 1e-6, (name, lvl)
+            else:
+                assert torch.equal(x, y), (name, lvl)
+
+
+# K7 on the card: the bench size, an odd size that leaves a partial tile
+# at every level, and a small odd one whose coarse levels are a few pixels
+PYRAMID_SIZES = ((240, 320), (121, 161), (17, 33))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("size", PYRAMID_SIZES,
+                         ids=[f"{w}x{h}" for h, w in PYRAMID_SIZES])
+def test_pyramid_matches_twins_on_cuda(cuda, size, levels):
+    """K7 against its composed twins on a random depth frame with 10 %
+    holes and 5 % outliers (which the robust mean leaves out), both
+    neg_y."""
+    rng = np.random.RandomState(levels)
+    d = rng.uniform(0.3, 4.0, size).astype(np.float32)
+    d[rng.rand(*size) < 0.1] = 0.0
+    d[rng.rand(*size) < 0.05] *= 3.0
+    k = torch.tensor(K, device=cuda)
+    for neg_y in (False, True):
+        assert_pyramid_matches_twins(torch.from_numpy(d).to(cuda), k, levels,
+                                     neg_y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+@pytest.mark.parametrize("b", chip_smoke.NAV_SIDES)
+def test_nav_grid_matches_twin_on_cuda(cuda, b, field):
+    """K2 bit-equal to its twin, block count and bucket clamp exactly, on
+    ``chip_smoke.nav_cases`` of side b (multi-word columns past 64,
+    partial words below 32): random grids at 1 %, 10 % and 50 %
+    occupancy, one with a single block, whose cells lie at distances 0 to
+    b - 1 (5 and 6 among them for b >= 8), and an empty one; each with
+    the full pool and a bucket of half the blocks. One launch counted a
+    call."""
+    for i, (geom, m) in enumerate(chip_smoke.nav_cases(torch, b, cuda)):
+        n = int(m.n_blocks)
+        for bucket in (None, n // 2):
+            before = _lib.LAUNCHES["nav_grid"]
+            got, counts = nav.nav_grid(geom, m, field, bucket, True)
+            assert _lib.LAUNCHES["nav_grid"] == before + 1
+            want, wcounts = nav.nav_grid_plain(geom, m, field, bucket, True)
+            assert torch.equal(got, want), (i, bucket)
+            assert torch.equal(counts, wcounts), (i, bucket)
+        dist = ((-want - 1) & 7)[want < 0]
+        if i == len(chip_smoke.NAV_DENSITIES) and b >= 8:
+            assert bool((dist == 5).any()) and bool((dist == 6).any())
+        if i == len(chip_smoke.NAV_DENSITIES) + 1:
+            assert bool((want < 0).all()) and bool((dist == 6).all())
 
 
 @pytest.mark.cuda
@@ -579,8 +634,6 @@ def test_inverse_sum_order_on_the_tsdf_bench_slice_on_cuda(cuda,
     tracked, no drop, final position error below MAX_POS_ERR) and their
     block counts differ by at most 0.1 %. Prints each run's block count
     and error and the frames whose pose differs (``-s`` shows them)."""
-    import chip_smoke
-
     sc = chip_smoke.Scene(torch, TSDF, cuda)
 
     def run():

@@ -1,9 +1,11 @@
 """Parity of the port's depth pyramid (kernel K7's plain twins, through
-``pipeline.preprocess_and_pyramid`` and one by one) with JAX
+``pipeline.preprocess_and_pyramid``, ``kernels/preprocess.pyramid`` for 1
+to 4 levels and one by one) with JAX
 ``pipeline._preprocess_and_pyramid`` (filter_input=False) and its
 ``ops/preprocess`` functions.
 
-Valid masks must match exactly, depth/vertex/normal floats to 1e-5.
+Valid masks must match exactly, depth/vertex/normal floats to 1e-5
+(depths exactly in the level sweep).
 """
 
 import jax.numpy as jnp
@@ -41,6 +43,29 @@ def test_pyramid_parity(depths, frame, neg_y):
     for lvl in range(3):
         np.testing.assert_array_equal(tok[lvl].numpy(), np.asarray(jok[lvl]))
         for a, b in ((jd, td), (jv, tv), (jn, tn)):
+            np.testing.assert_allclose(b[lvl].numpy(), np.asarray(a[lvl]),
+                                       atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+@pytest.mark.parametrize("crop", [False, True], ids=["even", "odd"])
+@pytest.mark.parametrize("neg_y", [False, True])
+def test_pyramid_levels_parity(depths, levels, crop, neg_y):
+    """K7's wrapper on CPU tensors (its twin ``pyramid``) against JAX for 1
+    to 4 levels on the frame with holes, whole (64x48) and cropped to
+    63x47, whose odd sizes take the clamped last row and column at every
+    level: depths exactly, valid masks exactly, vertices and normals to
+    1e-5."""
+    d = depths[2][:47, :63] if crop else depths[2]
+    jd, jv, jn, jok = _preprocess_and_pyramid(jnp.asarray(d), k_jax(),
+                                              levels, neg_y, False)
+    td, tv, tn, tok = preprocess.pyramid(torch.from_numpy(d), k_torch(),
+                                         levels, neg_y)
+    assert len(td) == len(tv) == len(tn) == len(tok) == levels
+    for lvl in range(levels):
+        np.testing.assert_array_equal(td[lvl].numpy(), np.asarray(jd[lvl]))
+        np.testing.assert_array_equal(tok[lvl].numpy(), np.asarray(jok[lvl]))
+        for a, b in ((jv, tv), (jn, tn)):
             np.testing.assert_allclose(b[lvl].numpy(), np.asarray(a[lvl]),
                                        atol=1e-5, rtol=0)
 

@@ -8,7 +8,8 @@ must agree on >= 99.5% of rays (TSDF) or 99.9% (OFusion), vertices to
 1e-4 m and normals to 1e-3 on rays hit by both, and ray_overflow
 exactly. A pool bucket below the block count checks that out-of-bucket
 blocks read as unknown, as in the JAX strip table. The nav grid must
-equal JAX ``build_nav`` exactly, with and without such a bucket.
+equal JAX ``build_nav`` exactly, with and without such a bucket, on the
+frames' maps and on random slot grids and mip pyramids.
 
 K1 computes each ray's prime from the depth frame and ``k``, and the
 frame state's select: on the CPU ``raycast_rays(view, depth, k)`` must
@@ -20,13 +21,17 @@ entries and pool voxels read (K1's bound) must change no result and read
 voxels only in the slots whose nav entries it read.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import NAV_DENSITIES, random_nav_map
 from supereight_tpu.core import se3 as jax_se3
+from supereight_tpu.core.map import MapGeometry as JaxMapGeometry
 from supereight_tpu.fields import get_field
 from supereight_tpu.ops import raycast as jax_raycast
 from supereight_tpu_torch import convert
@@ -106,6 +111,34 @@ def test_nav_grid(setup):
                             bucket=bucket).numpy()
         np.testing.assert_array_equal(got, want)
         if name == "ofusion":  # the payload is exercised
+            assert ((-want - 1) >= 8).sum() > 0
+
+
+@pytest.mark.parametrize("b", [2, 8, 16])
+@pytest.mark.parametrize("density", NAV_DENSITIES)
+@pytest.mark.parametrize("name", ["tsdf", "ofusion"])
+def test_nav_grid_random_grids(b, density, name):
+    """K2's twin (the wrapper on CPU tensors) equals JAX ``build_nav`` on
+    random slot grids of side b at 1 %, 10 % and 50 % occupancy, with the
+    full pool and a bucket of half the blocks; for OFusion on random mip
+    pyramids whose payload (finest value, clip, rounding) shows."""
+    geom, m = random_nav_map(torch, b, density, b + int(100 * density),
+                             "cpu")
+    jgeom = JaxMapGeometry(size=geom.size, dim=geom.dim,
+                           capacity=geom.capacity)
+    jm = SimpleNamespace(**{k: jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                                            getattr(m, k))
+                            for k in ("slot", "mip_alloc", "mip_x", "mip_y")})
+    n = int(m.n_blocks)
+    for bucket in (None, n // 2):
+        want = np.asarray(jax_raycast.build_nav(jgeom, jm, get_field(name),
+                                                bucket=bucket))
+        got = knav.nav_grid(geom, m, FIELDS[name], bucket=bucket)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            knav.nav_grid_plain(geom, m, FIELDS[name], bucket=bucket).numpy(),
+            want)
+        if name == "ofusion":
             assert ((-want - 1) >= 8).sum() > 0
 
 
