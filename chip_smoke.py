@@ -15,17 +15,20 @@ checkout:
    card, checks them against the stated tolerances and times both; TSDF
    (the pose prologue, K2 nav grid on the map and on random grids of side
    1 to 256, K1 raycast with its prime, select and probe counts, K6 ICP
-   reduction and whole tracking step, K5 march and allocator, K3
+   reduction and whole tracking step, K5 march (also on a random depth
+   seen from the frame's pose and from outside the map) and allocator
+   (which must leave its grids all zero), K3
    worklist, fused pass and fallback on the map the allocator made, K4
    parent rank and node pass, K7 pyramid at 1 to 4 levels and an odd
-   size) and OFusion (the prologue, K5-OF march, K2, K1-OF, K6, the
+   size) and OFusion (the prologue, K5-OF march as K5's, K2, K1-OF, K6, the
    allocator, K3-OF, K4, K7); then, per field, the
    allocator with a budget of half frame 3's new blocks and into a pool
    with room for half of them (both must drop blocks), and a close view of
    the sphere, allocated
    and fused, whose near blocks take K3's exact-pixel fallback;
 4. probe phase: the four gather forms of the Pallas probe (K8) against
-   their twins, bit for bit, and both timed;
+   their twins, bit for bit, and both timed, the library call's device
+   time beside theirs;
 5. slice phases: drives ``parallel/step.frame_step`` at the bench config
    (320x240, 512^3 voxels over 4.8 m, capacity 36864, budget 8192, ICP
    10/5/4; TSDF at mu 0.1, then OFusion at mu 0.008, ``bench.py --field
@@ -39,9 +42,11 @@ checkout:
    truth and that every kernel of the path was launched (K7, K6, K4's
    rank and pass, K5's allocator, K3's three launches and K2 once a
    frame, the pose prologue twice, K3's former prepass never) and that
-   the profile shows K2 and K7 as one device kernel a frame each, holds
+   the profile shows K2 and K7 as one device kernel a frame each and the
+   frame as its 13 kernels alone (no fill in the allocate span), holds
    the tracking kernel and the prologue to their twins and the
    allocator's incremental mip_alloc to the dense rule on every frame,
+   checks the map's touched buffer all zero after every frame,
    and K6, K5, K3, K4 and K7 to their twins once more on the slice's
    last frame; then the probe's own path (``supereight_tpu_torch.tools.probe_gather.run``)
    likewise, each form bit for bit against the probe's numpy expectation;
@@ -83,6 +88,10 @@ MAX_POS_ERR = 0.02
 # bytes/s and f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+SECTOR = 32  # bytes: the least a scattered store moves to and from HBM
+# K3, K4, K5's allocator and K7 calls timed back to back against their
+# twins' (new_kernel_rows)
+KERNEL_REPS, TWIN_REPS = 50, 5
 # f32 operations of K6's per-pixel body (csrc/icp.cu icp_pixel +
 # pixel_terms + the accumulation): two 4x4 transforms 36, projection 4,
 # residual 3, normal rotation 15, distance 6, normal dot 5, error 5,
@@ -276,6 +285,17 @@ def bound(n_bytes, n_ops):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def set_sectors(torch, grids):
+    """The SECTOR-byte runs of the bool grids that hold a set cell: the
+    least a march into zeroed grids writes, and a clear writes back."""
+    n = 0
+    for g in grids:
+        f = g.reshape(-1)
+        f = torch.cat([f, f.new_zeros(-f.numel() % SECTOR)])
+        n += int(f.view(-1, SECTOR).any(1).sum())
+    return n
+
+
 def icp_bound(args, run):
     """K6 icp_track's bound for one frame: the pyramid and the reference
     read once, the finest result map written once, and the pixel body
@@ -366,7 +386,8 @@ def report_profile(prof, ms_frame, tag):
     """Print the per-stage and per-kernel device time of the profiled
     frames, and the device's busy share of the unprofiled frame time.
     Returns the launches a frame of each of the port's device kernels
-    (PROFILED's names) and of all kernels and copies."""
+    (PROFILED's names) and of all kernels and copies, and the device us a
+    frame of the torch ops in each span and outside them."""
     from torch.autograd import DeviceType
 
     def dev_us(e, self_only):
@@ -428,15 +449,17 @@ def report_profile(prof, ms_frame, tag):
             us = ev.cuda_time_total
         n, t = groups[group].get(ev.name, (0, 0.0))
         groups[group][ev.name] = (n + 1, t + us)
+    op_us = {}
     for group in sorted(groups):
         ops = sorted(((t, n, k) for k, (n, t) in groups[group].items()
                       if t > 0), reverse=True)
+        op_us[group] = sum(t for t, _, _ in ops) / N_PROFILED
         print(f"{tag} profile: {group} torch ops, device us/frame: "
               f"{sum(t for t, _, _ in ops) / N_PROFILED:.2f} in all, "
               f"{sum(n for _, n, _ in ops) / N_PROFILED:g} ops; "
               + ", ".join(f"{k} {t / N_PROFILED:.2f} ({n / N_PROFILED:g}x)"
                           for t, n, k in ops))
-    return per_frame, n_launch
+    return per_frame, n_launch, op_us
 
 
 def require(cond, msg):
@@ -500,32 +523,87 @@ class Scene:
         return state
 
 
-def alloc_bound(geom, depth, mu):
-    """K5 alloc_touch: the 2x2-sampled depth read once and the touched
-    grid written once; per valid sampled pixel the ray setup (~40
-    operations) and ~13 per band sample (csrc/alloc.cu)."""
+def alloc_bound(torch, geom, depth, pose, kpose, mu):
+    """K5 alloc_touch: the 2x2-sampled depth read once and the sectors
+    holding a touched cell written once (the grid is zero before the
+    march, so no other byte must move), counted from this run's grid (the
+    twin's, equal to the kernel's); per valid sampled pixel the ray setup
+    (~40 operations) and ~13 per band sample (csrc/alloc.cu)."""
     from supereight_tpu_torch.kernels import alloc
     _, num_steps, _ = alloc.band_schedule(geom, mu)
     rays = int((depth[::2, ::2] > 0).sum())
-    return bound(rays * 4 + geom.blocks_per_side ** 3 + 2 * 64,
+    grid = alloc.touched_mask_plain(geom, depth, pose, kpose, mu)
+    return bound(rays * 4 + SECTOR * set_sectors(torch, (grid,)) + 2 * 64,
                  rays * (40 + 13 * num_steps))
 
 
-def alloc_of_bound(geom, depth, mu):
-    """K5-OF alloc_touch_of: the 2x2- and 8x8-sampled depth read once and
-    the three touched grids written once; per valid ray the setup (~50
-    operations) and ~13 per sample of its levels of the static ladder."""
+def alloc_of_bound(torch, geom, depth, pose, kpose, mu):
+    """K5-OF alloc_touch_of: the 2x2- and 8x8-sampled depth and the ladder
+    read once and the sectors holding a touched cell of the three grids
+    written once, counted from this run's grids (the twin's); per valid
+    ray the setup (~50 operations) and ~13 per sample of its levels that
+    lies short of its surface (f32(t) < dist: a ray stops at its first
+    dead sample), counted from this run's rays."""
     from supereight_tpu_torch.kernels import alloc
-    band, max_dist = alloc._of_schedule(geom, mu, None)
-    _, levels = alloc.ofusion_step_ladder(geom, band, max_dist)
-    fine = int((depth[::2, ::2] > 0).sum())
-    coarse = int((depth[::8, ::8] > 0).sum())
-    n_fine = sum(1 for lvl in levels if lvl == 0)
-    b = geom.blocks_per_side
-    return bound((fine + coarse) * 4 + sum((b >> lvl) ** 3 for lvl in
-                                           range(3)) + 2 * 64,
-                 fine * (50 + 13 * n_fine)
-                 + coarse * (50 + 13 * (len(levels) - n_fine)))
+    ladder = alloc.of_ladder(geom, mu, None, depth.device)
+    n = ladder.t.numel()
+    rays = samples = 0
+    for stride, ts in ((2, ladder.t[:ladder.n_fine]),
+                       (8, ladder.t[ladder.n_fine:])):
+        _, _, valid, dist = alloc.of_rays(geom, depth, stride, pose, kpose,
+                                          mu)
+        rays += int(valid.sum())
+        samples += int((ts[:, None] < dist[valid][None, :]).sum())
+    grids = alloc.touched_masks_of_plain(geom, depth, pose, kpose, mu)
+    return bound(rays * 4 + 5 * n + 8 + SECTOR * set_sectors(torch, grids)
+                 + 2 * 64, rays * 50 + 13 * samples)
+
+
+def march_cases(torch, geom, depth, pose, seed):
+    """The marches' inputs beyond a frame of the orbit, (name, depth,
+    pose): a random depth of the frame's size, surfaces from 0.3 m to 1.25
+    times the occupancy march's range (dim x sqrt 3) and a tenth of the
+    pixels 0, from numpy's generator seeded with ``seed``, seen from the
+    frame's pose and from a camera outside the map (one dim in front of a
+    face, looking at the centre)."""
+    import numpy as np
+    from supereight_tpu_torch.io import synthetic
+    rng = np.random.RandomState(seed)
+    h, w = depth.shape
+    d = rng.uniform(0.3, 1.25 * geom.dim * np.sqrt(3.0),
+                    (h, w)).astype(np.float32)
+    d[rng.rand(h, w) < 0.1] = 0.0
+    c = np.full(3, geom.dim / 2)
+    outside = synthetic.look_at(c - np.array([0.0, 0.0, geom.dim]), c)
+    d = torch.from_numpy(d).to(depth.device)
+    return [("random depth", d, pose),
+            ("random depth, camera outside the map", d,
+             torch.from_numpy(outside).to(depth.device))]
+
+
+def check_marches(torch, geom, field, mu, k, cases, tag):
+    """The field's K5 march (alloc_touch, or alloc_touch_of) against its
+    twin on each (name, depth, pose) case, every grid bit for bit; each
+    kernel launch a fresh, zeroed touched buffer. Returns the mismatches
+    in all."""
+    from supereight_tpu_torch.core.map import touched_buffer
+    from supereight_tpu_torch.kernels import alloc
+    from supereight_tpu_torch.kernels.frame import frame_mats_plain
+    bad = 0
+    for name, depth, pose in cases:
+        kpose = frame_mats_plain(k, pose).kpose
+        out = touched_buffer(geom.blocks_per_side, depth.device)
+        if field.name == "tsdf":
+            got = (alloc.touched_mask(geom, depth, pose, kpose, mu, out),)
+            want = (alloc.touched_mask_plain(geom, depth, pose, kpose, mu),)
+        else:
+            got = alloc.touched_masks_of(geom, depth, pose, kpose, mu, out)
+            want = alloc.touched_masks_of_plain(geom, depth, pose, kpose, mu)
+        mism = [int((a != b).sum()) for a, b in zip(got, want)]
+        print(f"{tag} ({name}): touched cells per level "
+              f"{[int(g.sum()) for g in want]}, mismatches {mism} (== 0)")
+        bad += sum(mism)
+    return bad
 
 
 def check_alloc(torch, sc, m, pose, depth, tag, budget=None, capacity=None):
@@ -539,8 +617,12 @@ def check_alloc(torch, sc, m, pose, depth, tag, budget=None, capacity=None):
     row (error and bound: the touched grid read once, the slot grid under
     its touched cells, the extra grids, the new entries and the mip bytes
     set written once), its and its twin's calls, the kernel's map and
-    alloc_overflow."""
-    from supereight_tpu_torch.core.map import MapGeometry, refresh_mip_alloc
+    alloc_overflow. Each call consumes the grids it is given (they are all
+    zero on return, checked here for both), so each call, timed ones too,
+    is handed its own copy of the march's touched buffer, all made before
+    by one copy launch; the timed calls are the wrapper's alone."""
+    from supereight_tpu_torch.core.map import (MapGeometry, refresh_mip_alloc,
+                                               touched_buffer, touched_grids)
     from supereight_tpu_torch.kernels import alloc
     from supereight_tpu_torch.kernels.frame import frame_mats_plain
     geom, field, mu = sc.geom, sc.field, sc.mu
@@ -549,17 +631,29 @@ def check_alloc(torch, sc, m, pose, depth, tag, budget=None, capacity=None):
         m = m._replace(**{n: getattr(m, n)[:capacity] for n in
                           ("data_x", "data_y", "block_coord", "active")})
     kpose = frame_mats_plain(sc.kt, pose).kpose
-    grids = ((alloc.touched_mask(geom, depth, pose, kpose, mu),)
+    b = geom.blocks_per_side
+    buf = touched_buffer(b, sc.dev)
+    grids = ((alloc.touched_mask(geom, depth, pose, kpose, mu, buf),)
              if field.name == "tsdf"
-             else alloc.touched_masks_of(geom, depth, pose, kpose, mu))
+             else alloc.touched_masks_of(geom, depth, pose, kpose, mu, buf))
     when = torch.ones((), dtype=torch.bool, device=sc.dev)
     ma, mb, md = clone_map(m), clone_map(m), clone_map(m)
+    row_bytes = -(-buf.numel() // 16) * 16  # each copy 16-byte aligned
 
-    def args(mm):
-        return (geom, mm, grids[0], when, budget, grids[1:])
+    def copies(n):
+        """n copies of the march's grids, as the calls take them."""
+        work = torch.zeros((n, row_bytes), dtype=torch.bool, device=sc.dev)
+        work[:, :buf.numel()] = buf
+        return [touched_grids(w[:buf.numel()], b, len(grids)) for w in work]
 
-    over = int(alloc.alloc_assign(*args(ma)))
-    over_p = int(alloc.alloc_assign_plain(*args(mb)))
+    def call(fn, mm, views):
+        return fn(geom, mm, views[0], when, budget, views[1:])
+
+    (ka,), (kb,) = copies(1), copies(1)
+    over = int(call(alloc.alloc_assign, ma, ka))
+    left = sum(int(g.sum()) for g in ka)
+    over_p = int(call(alloc.alloc_assign_plain, mb, kb))
+    left_p = sum(int(g.sum()) for g in kb)
     refresh_mip_alloc(geom, md, ma.slot >= 0,
                       extra_levels=(None,) + tuple(grids[1:]))
     mism = {n: int((getattr(ma, n) != getattr(mb, n)).sum())
@@ -573,18 +667,23 @@ def check_alloc(torch, sc, m, pose, depth, tag, budget=None, capacity=None):
     print(f"{tag}: {touched} touched cells, {n_new - n_old} new blocks "
           f"({n_old} -> {n_new} of {geom.capacity}), alloc_overflow {over} "
           f"vs {over_p}, mismatches {mism} (all 0), mip_alloc against the "
-          f"dense rule {dense} mismatches (0)")
+          f"dense rule {dense} mismatches (0), grid bytes left set after "
+          f"the kernel / the twin {left} / {left_p} (0)")
     require(over == over_p and sum(mism.values()) == 0 and dense == 0,
             f"{tag} disagrees with twin")
+    require(left == 0 and left_p == 0, f"{tag} left its grids set")
     mip_set = sum(int((a != c).sum())
                   for a, c in zip(ma.mip_alloc, m.mip_alloc))
-    b = geom.blocks_per_side
     row = dict(max_abs_err=float(sum(mism.values()) + abs(over - over_p)),
                **bound(b ** 3 + 4 * touched
                        + sum(g.numel() for g in grids[1:])
+                       + SECTOR * set_sectors(torch, grids)
                        + 17 * (n_new - n_old) + mip_set + 8, b ** 3))
-    return (row, lambda: alloc.alloc_assign(*args(ma)),
-            lambda: alloc.alloc_assign_plain(*args(mb)), ma, over)
+    # cuda_ms makes one untimed call before its timed ones
+    timed, timed_p = (iter(copies(n + 1)) for n in (KERNEL_REPS, TWIN_REPS))
+    return (row, lambda: call(alloc.alloc_assign, ma, next(timed)),
+            lambda: call(alloc.alloc_assign_plain, mb, next(timed_p)), ma,
+            over)
 
 
 def payload_errors(field, a, b):
@@ -713,16 +812,18 @@ def check_caps_and_fallback(torch, sc, m, pose, ts, tag):
     blocks at the exact pixel. Returns each checked kernel's largest
     error."""
     import numpy as np
+    from supereight_tpu_torch.core.map import touched_buffer
     from supereight_tpu_torch.io import synthetic
     from supereight_tpu_torch.kernels import alloc
     from supereight_tpu_torch.kernels.frame import frame_mats_plain
     errs = {}
     n = int(m.n_blocks)
     kpose = frame_mats_plain(sc.kt, pose).kpose
+    out = touched_buffer(sc.geom.blocks_per_side, sc.dev)
     touched = (alloc.touched_mask(sc.geom, sc.depths_t[3], pose, kpose,
-                                  sc.mu)
+                                  sc.mu, out)
                if sc.field.name == "tsdf" else alloc.touched_masks_of(
-                   sc.geom, sc.depths_t[3], pose, kpose, sc.mu)[0])
+                   sc.geom, sc.depths_t[3], pose, kpose, sc.mu, out)[0])
     half = int((touched & (m.slot < 0)).sum()) // 2
     require(half > 0, f"{tag}: frame 3 has too few new blocks to cap")
     for kw, what in ((dict(budget=half), f"budget {half}"),
@@ -1150,8 +1251,8 @@ def new_kernel_rows(torch, sc, m, pose, depth, ts, tag):
     checked["pyramid"] = check_pyramid(torch, depth, f"K7 pyramid ({tag})")
     rows = {}
     for name, (row, call, plain) in checked.items():
-        rows[name] = dict(row, ms=cuda_ms(torch, call, 50),
-                          plain_ms=cuda_ms(torch, plain, 5))
+        rows[name] = dict(row, ms=cuda_ms(torch, call, KERNEL_REPS),
+                          plain_ms=cuda_ms(torch, plain, TWIN_REPS))
         print(f"{name} ({tag}): call {rows[name]['ms']:.4f} ms, twin "
               f"{rows[name]['plain_ms']:.4f} ms; bound "
               f"{rows[name]['bound_ms'] * 1e3:.3f} us "
@@ -1170,6 +1271,7 @@ def kernel_phase_tsdf(torch, sc):
     """Each TSDF-path kernel against its twin on a map built by three port
     frames."""
     from supereight_tpu_torch.core import se3
+    from supereight_tpu_torch.core.map import touched_buffer
     from supereight_tpu_torch.kernels import alloc, icp
     from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
@@ -1216,21 +1318,23 @@ def kernel_phase_tsdf(torch, sc):
         (pose, kview, verts, norms, valids, ref_vertex, ref_normal,
          ref_valid))
 
-    # K5: the band march of frame 3 at the frame-2 pose
+    # K5: the band march of frame 3 at the frame-2 pose, and of a random
+    # depth from there and from outside the map, into fresh grids; timed as
+    # the path calls it, into a touched buffer
     kpose = se3.matmul4(pose, se3.inverse_camera_matrix(kt))
-    t_k = alloc.touched_mask(geom, d3, pose, kpose, mu)
-    t_p = alloc.touched_mask_plain(geom, d3, pose, kpose, mu)
-    mism = int((t_k != t_p).sum())
-    print(f"K5 alloc_touch: {int(t_k.sum())} touched blocks, {mism} "
-          f"mismatches (== 0)")
+    mism = check_marches(torch, geom, sc.field, mu, kt,
+                         [("frame 3", d3, pose)]
+                         + march_cases(torch, geom, d3, pose, 3),
+                         "K5 alloc_touch")
     require(mism == 0, "K5 alloc_touch disagrees with twin")
+    buf = touched_buffer(geom.blocks_per_side, sc.dev)
     rows["alloc_touch"] = dict(
         max_abs_err=float(mism),
         ms=cuda_ms(torch, lambda: alloc.touched_mask(geom, d3, pose, kpose,
-                                                     mu), 50),
+                                                     mu, out=buf), 50),
         plain_ms=cuda_ms(torch, lambda: alloc.touched_mask_plain(
             geom, d3, pose, kpose, mu), 10),
-        **alloc_bound(geom, d3, mu))
+        **alloc_bound(torch, geom, d3, pose, kpose, mu))
 
     # K5's allocator, K3, K4 and K7: frame 3 at the frame-2 pose; then
     # K5's drop paths and K3's fallback
@@ -1245,6 +1349,7 @@ def kernel_phase_of(torch, sc):
     """Each OFusion-path kernel against its twin on a map built by three
     OFusion port frames."""
     from supereight_tpu_torch.core import se3
+    from supereight_tpu_torch.core.map import touched_buffer
     from supereight_tpu_torch.kernels import alloc
     from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
@@ -1255,21 +1360,23 @@ def kernel_phase_of(torch, sc):
     d2, d3 = sc.depths_t[2], sc.depths_t[3]
     rows = {}
 
-    # K5-OF: the multi-scale march of frame 3 at the frame-2 pose
+    # K5-OF: the multi-scale march of frame 3 at the frame-2 pose, and of
+    # a random depth from there and from outside the map, into fresh grids;
+    # timed as the path calls it, into a touched buffer
     kpose = se3.matmul4(pose, se3.inverse_camera_matrix(kt))
-    t_k = alloc.touched_masks_of(geom, d3, pose, kpose, mu)
-    t_p = alloc.touched_masks_of_plain(geom, d3, pose, kpose, mu)
-    mism = [int((a != b).sum()) for a, b in zip(t_k, t_p)]
-    print(f"K5-OF alloc_touch_of: touched octants per level "
-          f"{[int(t.sum()) for t in t_k]}, mismatches {mism} (== 0)")
-    require(sum(mism) == 0, "K5-OF alloc_touch_of disagrees with twin")
+    mism = check_marches(torch, geom, sc.field, mu, kt,
+                         [("frame 3", d3, pose)]
+                         + march_cases(torch, geom, d3, pose, 3),
+                         "K5-OF alloc_touch_of")
+    require(mism == 0, "K5-OF alloc_touch_of disagrees with twin")
+    buf = touched_buffer(geom.blocks_per_side, sc.dev)
     rows["alloc_touch_of"] = dict(
-        max_abs_err=float(sum(mism)),
+        max_abs_err=float(mism),
         ms=cuda_ms(torch, lambda: alloc.touched_masks_of(
-            geom, d3, pose, kpose, mu), 50),
+            geom, d3, pose, kpose, mu, out=buf), 50),
         plain_ms=cuda_ms(torch, lambda: alloc.touched_masks_of_plain(
             geom, d3, pose, kpose, mu), 10),
-        **alloc_of_bound(geom, d3, mu))
+        **alloc_of_bound(torch, geom, d3, pose, kpose, mu))
 
     # the pose prologue; K2 (OFusion payload) + K1-OF: the primed raycast
     # of frame 2
@@ -1336,14 +1443,17 @@ def probe_phase(torch, dev):
             plain_ms=cuda_ms(torch, lambda: plain(tt, it), 200),
             library_ms=cuda_ms(torch, library, 200),
             **bound(4 * (n_read + it.numel() + got.numel()), 0))
-        # device time per launch (the call times above are the host's)
-        us = [device_us(torch, lambda: fn(tt, it), 20)
-              for fn in (kernel, plain)]
+        # device time per call, of the kernel, its twin and the library
+        # call, under the same profiler (the call times above are the
+        # host's)
+        us = [device_us(torch, fn, 20) for fn in
+              (lambda: kernel(tt, it), lambda: plain(tt, it), library)]
+        rows[key].update(device_us=us[0], library_device_us=us[2])
         print(f"K8 {key}: call {rows[key]['ms']:.4f} ms, twin "
               f"{rows[key]['plain_ms']:.4f} ms, library "
               f"{rows[key]['library_ms']:.4f} ms; device {us[0]:.2f} "
-              f"us/call, twin {us[1]:.2f} us/call; bound "
-              f"{rows[key]['bound_ms'] * 1e3:.3f} us")
+              f"us/call, twin {us[1]:.2f} us/call, library {us[2]:.2f} "
+              f"us/call; bound {rows[key]['bound_ms'] * 1e3:.3f} us")
     return rows
 
 
@@ -1403,7 +1513,7 @@ def slice_phase(torch, sc, card):
                 if i in (first_timed - 1, first_timed + N_PROFILED - 1):
                     torch.cuda.synchronize()
                 prof.step()
-        per_frame, n_launch = report_profile(prof, ms_frame, tag)
+        per_frame, n_launch, op_us = report_profile(prof, ms_frame, tag)
         complete = len(per_frame) == n_path and all(
             v == (2 if k == "frame_mats" else 1) for k, v in per_frame.items())
         one = {k: per_frame.get(k, 0) for k in ("nav_grid", "pyramid")}
@@ -1417,6 +1527,15 @@ def slice_phase(torch, sc, card):
               f"{PROFILE_TRIES})")
     require(complete, f"{tag}: no profile showed the path's kernels once a "
             f"frame, K2 and K7 one device kernel each: {per_frame}")
+    # the frame is the path's kernels alone (the prologue twice): no torch
+    # op has device work, K5's touched grids no fill
+    alloc_ops = op_us.get("frame_step/allocate", 0.0)
+    print(f"{tag}: {n_launch:.0f} kernels and copies a frame (== "
+          f"{n_path + 1}), torch ops' device time in the allocate span "
+          f"{alloc_ops:.2f} us/frame (== 0)")
+    require(round(n_launch) == n_path + 1 and alloc_ops == 0,
+            f"{tag}: the frame runs more than its kernels: {n_launch} "
+            f"kernels and copies, torch ops {op_us}")
 
     tracked = [bool(a["tracked"]) for a in auxes]
     drops = {c: [int(a[c]) for a in auxes] for c in COUNTERS}
@@ -1470,12 +1589,16 @@ def slice_phase(torch, sc, card):
     # frame's; and on every frame the allocator's incremental mip_alloc
     # against the dense rule (JAX's refresh over every allocated block and
     # this frame's extra octants, on the mips the frame started from)
-    from supereight_tpu_torch.core.map import refresh_mip_alloc
+    from supereight_tpu_torch.core.map import (refresh_mip_alloc,
+                                               touched_buffer)
     from supereight_tpu_torch.kernels import alloc, icp
     from supereight_tpu_torch.kernels.frame import frame_mats, \
         frame_mats_plain
     n_exact, worst, mip_bad, mats_bad = 0, 0.0, 0, 0
     state = sc.init()
+    # the touched buffer's set bytes over every frame's end, summed on the
+    # device and read once after the slice
+    left = torch.zeros((), dtype=torch.int64, device=sc.dev)
     for i in range(sc.n_total):
         args = track_args(torch, sc, state, sc.depths_t[i])
         dense = state.map._replace(
@@ -1488,6 +1611,7 @@ def slice_phase(torch, sc, card):
         mats_bad += sum(not torch.equal(x, y) for m, a in zip(mats, calls)
                         for x, y in zip(m, frame_mats_plain(*a)))
         state, aux = sc.frame(state, i)
+        left += state.map.touched.sum()
         mats_bad += int(not torch.equal(mats[1].pose, state.pose))
         got = (state.pose, aux["tracked"], aux["reduction"],
                aux["track_result"])
@@ -1498,9 +1622,11 @@ def slice_phase(torch, sc, card):
         worst = max(worst, e["pose"])
         extra = ()
         if sc.field.name == "ofusion":
-            extra = tuple(t & aux["integrated"] for t in alloc.touched_masks_of(
+            grids = alloc.touched_masks_of(
                 sc.geom, sc.depths_t[i], state.pose,
-                frame_mats_plain(sc.kt, state.pose).kpose, sc.mu)[1:])
+                frame_mats_plain(sc.kt, state.pose).kpose, sc.mu,
+                touched_buffer(sc.geom.blocks_per_side, sc.dev))
+            extra = tuple(t & aux["integrated"] for t in grids[1:])
         refresh_mip_alloc(sc.geom, dense, state.map.slot >= 0,
                           extra_levels=(None,) + extra)
         mip_bad += sum(int((a != b).sum()) for a, b in
@@ -1512,6 +1638,10 @@ def slice_phase(torch, sc, card):
           f"outputs (== 0, bit for bit); incremental mip_alloc against the "
           f"dense rule on all {sc.n_total} frames: {mip_bad} mismatches "
           f"(== 0)")
+    left = int(left)
+    print(f"{tag}: the map's touched buffer after each of the "
+          f"{sc.n_total} frames: {left} bytes set in all (== 0)")
+    require(left == 0, f"{tag}: the touched buffer kept marks past a frame")
     require(mip_bad == 0, f"{tag}: mip_alloc departs from the dense rule")
     require(mats_bad == 0, f"{tag}: frame_mats disagrees with its twin")
     last = f"{sc.field.name}, frame {sc.n_total - 1}"

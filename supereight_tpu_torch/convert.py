@@ -4,13 +4,17 @@ Turns a JAX ``MapState`` or ``FrameState`` given as numpy arrays (for
 example ``jax.tree.map(np.asarray, state)``) into the port's tensors on a
 device (the card unless the caller asks for another), and back to numpy.
 The field names are the same in both packages, so any object with those
-attributes works; this module imports no JAX.
+attributes works; this module imports no JAX. The port's map has one field
+more, ``touched`` (the allocation march's scratch, ``core/map.py``): it is
+made zeroed on the way in and left out on the way back.
 """
+
+import collections
 
 import numpy as np
 import torch
 
-from supereight_tpu_torch.core.map import MapState
+from supereight_tpu_torch.core.map import MapState, touched_buffer
 from supereight_tpu_torch.parallel.step import FrameState
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
@@ -25,8 +29,14 @@ def _tensor(a, device):
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+# a map in the JAX layout: the port's MapState without ``touched``
+NumpyMap = collections.namedtuple(
+    "NumpyMap", [f for f in MapState._fields if f != "touched"])
+
+
 def map_to_torch(m, device="cuda") -> MapState:
-    """A JAX-layout map (numpy arrays) -> the port's MapState."""
+    """A JAX-layout map (numpy arrays) -> the port's MapState, with a
+    zeroed touched buffer."""
     return MapState(
         data_x=_tensor(m.data_x, device), data_y=_tensor(m.data_y, device),
         block_coord=_tensor(m.block_coord, device),
@@ -34,7 +44,8 @@ def map_to_torch(m, device="cuda") -> MapState:
         n_blocks=_tensor(m.n_blocks, device),
         mip_x=tuple(_tensor(a, device) for a in m.mip_x),
         mip_y=tuple(_tensor(a, device) for a in m.mip_y),
-        mip_alloc=tuple(_tensor(a, device) for a in m.mip_alloc))
+        mip_alloc=tuple(_tensor(a, device) for a in m.mip_alloc),
+        touched=touched_buffer(np.shape(m.slot)[0], device))
 
 
 def frame_to_torch(s, device="cuda") -> FrameState:
@@ -48,8 +59,12 @@ def frame_to_torch(s, device="cuda") -> FrameState:
 
 def to_numpy(state):
     """A port MapState or FrameState -> the same NamedTuple of numpy
-    arrays (tuples of mip levels stay tuples)."""
+    arrays (tuples of mip levels stay tuples), a map as a
+    :data:`NumpyMap`: the JAX fields, in JAX's order, without
+    ``touched``."""
     def conv(v):
+        if isinstance(v, MapState):
+            return NumpyMap(*(conv(getattr(v, f)) for f in NumpyMap._fields))
         if isinstance(v, tuple) and not hasattr(v, "_fields"):
             return tuple(conv(x) for x in v)
         if hasattr(v, "_fields"):

@@ -10,6 +10,10 @@ Allocation (``kernels/alloc.py:alloc_assign``, the counterpart of JAX's
 ``allocate_blocks``) updates the state's tensors IN PLACE (where JAX
 donated the buffers, parallel/step.py there): callers consume a state
 once per frame, and the returned state shares its tensors with the input.
+
+``MapState.touched`` is the one field with no JAX counterpart: the
+allocation march's scratch, kept with the map so that no frame allocates
+or fills it (see the field's comment).
 """
 
 import dataclasses
@@ -55,8 +59,37 @@ class MapGeometry:
         return int(math.log2(self.blocks_per_side)) + 1
 
 
+TOUCHED_LEVELS = 3  # levels of the touched buffer: OFusion marches 0-2
+
+
+def touched_size(b: int) -> int:
+    """Bytes of the touched buffer of a map of side ``b`` blocks: the grids
+    of levels 0, 1 and 2 back to back (299,008 at b = 64)."""
+    return sum((b >> lvl) ** 3 for lvl in range(TOUCHED_LEVELS))
+
+
+def touched_buffer(b: int, device="cuda") -> torch.Tensor:
+    """A zeroed touched buffer of a map of side ``b`` blocks on ``device``:
+    the map's (``make_map``), or a fresh one for a march's ``out``."""
+    return torch.zeros(touched_size(b), dtype=torch.bool, device=device)
+
+
+def touched_grids(touched: torch.Tensor, b: int,
+                  levels: int = TOUCHED_LEVELS):
+    """The grids of levels 0 .. levels - 1 (bool[b >> l]^3 views, one op
+    each) of a touched buffer; a level past the pyramid's top
+    (b >> l == 0) is empty."""
+    grids, offset = [], touched.storage_offset()
+    for lvl in range(levels):
+        s = b >> lvl
+        grids.append(touched.as_strided((s, s, s), (s * s, s, 1), offset))
+        offset += s ** 3
+    return tuple(grids)
+
+
 class MapState(NamedTuple):
-    """The dynamic map contents (field names of the JAX ``MapState``)."""
+    """The dynamic map contents: the field names of the JAX ``MapState``,
+    then ``touched``, the one field that has no JAX counterpart."""
 
     data_x: torch.Tensor      # f32[capacity, 512] channel 0 (sdf)
     data_y: torch.Tensor      # f32[capacity, 512] channel 1 (weight)
@@ -67,6 +100,12 @@ class MapState(NamedTuple):
     mip_x: Tuple[torch.Tensor, ...]      # f32[B>>l, B>>l, B>>l]
     mip_y: Tuple[torch.Tensor, ...]
     mip_alloc: Tuple[torch.Tensor, ...]  # bool[B>>l, ...] value exists
+    # bool[touched_size(B)]: the allocation march's touched grids of
+    # levels 0-2 back to back (touched_grids; TSDF uses level 0). All zero
+    # between frames: the march writes it and alloc_assign, which reads
+    # it, clears it. Its level-0 grid starts the buffer, 16-byte aligned
+    # as alloc_assign's loads need.
+    touched: torch.Tensor
 
 
 def make_map(geom: MapGeometry, field: FieldSpec,
@@ -93,6 +132,7 @@ def make_map(geom: MapGeometry, field: FieldSpec,
         mip_x=tuple(mips_x),
         mip_y=tuple(mips_y),
         mip_alloc=tuple(mips_a),
+        touched=touched_buffer(b, device),
     )
 
 

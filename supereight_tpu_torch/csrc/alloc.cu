@@ -1,29 +1,103 @@
-// K5: allocation, both fields: the TSDF band march (the touched-block
-// grid), the OFusion multi-scale march, and the bump allocator with the
-// mip refresh.
+// K5: allocation, both fields: the TSDF band march and the OFusion
+// multi-scale march (the touched-octant grids), and the bump allocator with
+// the mip refresh.
 //
-// alloc_touch, the TSDF band march:
+// The marches, alloc_touch (TSDF) and alloc_touch_of (OFusion):
 //
-// Replaces supereight_tpu/ops/allocation.py:tsdf_touched_mask (75-115)
-// with _pixel_rays_c_sub (32-58) and _touched_cell_ids (61-72), which XLA
-// runs as an unrolled sample stack plus a deduplicated scatter.
+// Replace supereight_tpu/ops/allocation.py:tsdf_touched_mask (75-115) and
+// ofusion_touched_masks (148-214) with the static ofusion_step_ladder
+// (118-145), _pixel_rays_c_sub (32-58) and _touched_cell_ids (61-72), which
+// XLA runs as unrolled sample stacks plus deduplicated scatters.
 //
-// One thread per pixel of depth[::stride, ::stride]: back-project the
-// pixel centre (+0.5) to a world vertex with kpose = pose @ invK, take the
-// unit direction toward the camera, and walk num_steps samples across the
-// +/- band around the surface, storing byte 1 into touched[B^3] for the
-// 8^3 block under each in-map sample. Repeated stores of the same byte
-// need no dedup and no atomics.
+// A ray per sub-sampled pixel (pixel_ray): back-project the pixel centre
+// (+0.5) to a world vertex with kpose = pose @ invK, take the unit
+// direction toward the camera and back off from the vertex by half the
+// band; then store byte 1 into the grid cell under each in-map sample
+// (mark). Repeated stores of the same byte need no dedup and no atomics.
+// The grids are the map's touched buffer (MapState.touched, levels 0-2
+// back to back), all zero between frames: alloc_assign, which reads them
+// next, clears them as it reads, so no launch fills them.
 //
-// Bound on the H100: scattered byte stores into a 262 KB grid (512^3 map),
-// which stays in L2; 19.2k rays x 8 samples at the bench config. The work
-// is small: the launch itself is the cost at this size.
+// alloc_touch: one thread per pixel of depth[::2, ::2], num_steps samples
+// at t = (float)(s * step) across the +/- band, into the level-0 grid.
+//
+// alloc_touch_of: the samples are the static ladder (steps of 1 voxel while
+// t < band, 10 voxels while t < 1.5 band, then 30 voxels up to max_dist;
+// the level of sample i is that of step i - 1), which the wrapper builds
+// once per (geometry, mu, max_dist) with the twin's own ofusion_step_ladder
+// and keeps on the card as f32 distances and u8 levels, of any length: the
+// kernel and its twin sample the same distances by construction. A sample
+// counts while f32(t) < dist, the distance from the camera to the ray's
+// origin; t only grows along the ladder, so every sample after the first
+// dead one is dead and the ray stops there. Threads [0, n2) take the rays of depth[::2, ::2]
+// and walk their n_fine level-0 samples. After them (from a warp boundary)
+// each ray of depth[::8, ::8] gets kCoarseLanes threads, and lane j takes
+// its coarse samples n_fine + j, n_fine + j + kCoarseLanes, ...: a coarse
+// ray's level-1 and 2 samples are independent stores instead of one
+// thread's serial walk, and each lane leaves at its first dead sample.
+// The threads read the ladder through the read-only cache: a warp's lanes
+// read the same entry (level 0) or 8 distinct ones (coarse). In a side
+// build on the bench's OFusion frame, 8 lanes a coarse ray ran faster than
+// 4 or 32, and copying the ladder into shared memory first was slower than
+// reading it from the kernel's parameters; parameters hold a few hundred
+// samples at most, which a fine map at a wide band exceeds.
+//
+// Bound on the H100: the sampled depth read once and the 32-byte sectors
+// that hold a set cell written once (the grids are already zero, so no
+// other byte must move), and 19.2k rays x 8 band samples (TSDF), or 19.2k
+// level-0 rays x 7 samples and 1.2k coarse rays x the samples short of
+// their surface (OFusion), at the bench config. The scattered byte stores
+// stay in L2 (grids of 262 KB, + 33 KB + 4 KB for OFusion, at 512^3). The
+// work is small: the launch itself is the cost at this size.
 
 #include "compact.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCoarseLanes = 8;  // threads of a coarse OFusion ray
+
+struct Ray {
+  float ox, oy, oz;  // origin: the vertex backed off by half the band
+  float dx, dy, dz;  // unit direction toward the camera
+};
+
+// The ray of the sub-sampled pixel (sx, sy) of a [::stride, ::stride]
+// sampling, or false where its depth is not positive; K = kpose, P = pose
+// (the JAX package's arithmetic, in its order).
+__device__ __forceinline__ bool pixel_ray(const float* __restrict__ depth,
+                                          int w, int stride, int sx, int sy,
+                                          const float* K, const float* P,
+                                          float band_half, Ray& r) {
+  const float d = depth[(sy * stride) * w + sx * stride];
+  if (!(d > 0.f)) return false;
+  const float px = (float)(sx * stride) + 0.5f;
+  const float py = (float)(sy * stride) + 0.5f;
+  const float3 wv = se::transform(K, px * d, py * d, d);
+  const float dx = P[3] - wv.x, dy = P[7] - wv.y, dz = P[11] - wv.z;
+  const float norm = sqrtf(dx * dx + dy * dy + dz * dz);
+  const float inv = 1.f / (norm == 0.f ? 1.f : norm);
+  r.dx = dx * inv;
+  r.dy = dy * inv;
+  r.dz = dz * inv;
+  r.ox = wv.x - band_half * r.dx;
+  r.oy = wv.y - band_half * r.dy;
+  r.oz = wv.z - band_half * r.dz;
+  return true;
+}
+
+// Byte 1 into the cell of a level's grid (side cells a side, octants of
+// 1 << shift voxels) under the ray's sample at t, if its voxel is in the map.
+__device__ __forceinline__ void mark(const Ray& r, float t, float inv_voxel,
+                                     int size, int side, int shift,
+                                     uint8_t* __restrict__ grid) {
+  const int vx = (int)floorf((r.ox + r.dx * t) * inv_voxel);
+  const int vy = (int)floorf((r.oy + r.dy * t) * inv_voxel);
+  const int vz = (int)floorf((r.oz + r.dz * t) * inv_voxel);
+  if (vx < 0 || vx >= size || vy < 0 || vy >= size || vz < 0 || vz >= size)
+    return;
+  grid[((vx >> shift) * side + (vy >> shift)) * side + (vz >> shift)] = 1;
+}
 
 __global__ void __launch_bounds__(kThreads)
 alloc_touch_kernel(const float* __restrict__ depth, int w, int stride,
@@ -38,62 +112,20 @@ alloc_touch_kernel(const float* __restrict__ depth, int w, int stride,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= hs * ws) return;
   const int sy = i / ws, sx = i - sy * ws;
-  const float d = depth[(sy * stride) * w + sx * stride];
-  if (!(d > 0.f)) return;
-  const float px = (float)(sx * stride) + 0.5f;
-  const float py = (float)(sy * stride) + 0.5f;
-  const float3 wv = se::transform(K, px * d, py * d, d);
-  float dx = P[3] - wv.x, dy = P[7] - wv.y, dz = P[11] - wv.z;
-  const float norm = sqrtf(dx * dx + dy * dy + dz * dz);
-  const float inv = 1.f / (norm == 0.f ? 1.f : norm);
-  dx = dx * inv;
-  dy = dy * inv;
-  dz = dz * inv;
-  const float ox = wv.x - band_half * dx;
-  const float oy = wv.y - band_half * dy;
-  const float oz = wv.z - band_half * dz;
-  for (int s = 0; s < num_steps; ++s) {
-    const float t = (float)(s * step);
-    const int vx = (int)floorf((ox + dx * t) * inv_voxel);
-    const int vy = (int)floorf((oy + dy * t) * inv_voxel);
-    const int vz = (int)floorf((oz + dz * t) * inv_voxel);
-    if (vx < 0 || vx >= size || vy < 0 || vy >= size || vz < 0 || vz >= size)
-      continue;
-    touched[((vx >> 3) * b + (vy >> 3)) * b + (vz >> 3)] = 1;
-  }
+  Ray r;
+  if (!pixel_ray(depth, w, stride, sx, sy, K, P, band_half, r)) return;
+  for (int s = 0; s < num_steps; ++s)
+    mark(r, (float)(s * step), inv_voxel, size, b, 3, touched);
 }
 
-// K5-OF: the occupancy allocation march (ofusion_touched_masks).
-//
-// Replaces supereight_tpu/ops/allocation.py:ofusion_touched_masks
-// (148-214) with ofusion_step_ladder (118-145), which XLA runs as one
-// unrolled sample stack per level plus deduplicated scatters.
-//
-// Threads [0, n2) take the rays of depth[::2, ::2] and mark the level-0
-// samples; threads [n2, n2 + n8) take the rays of depth[::8, ::8] and mark
-// the level-1 and level-2 samples (the coarse levels' 8x8 pixel stride).
-// Each ray starts at the depth point backed off by band/2 = 3 mu toward
-// the camera and walks the static ladder: steps of 1 voxel while t < band
-// (level 0), 10 voxels while t < 1.5 band (level 1), then 30 voxels
-// (level 2) up to max_dist, the level of sample i being that of step
-// i - 1. The ladder is rebuilt per thread in double precision with the
-// JAX package's own additions, so every sample distance is the f32
-// rounding of the same double. A sample counts while f32(t) < dist, the
-// distance from the camera to the ray origin. It marks byte 1 at octant
-// floor(p / voxel) >> (3 + level) of the level's grid when every voxel
-// coordinate lies in [0, size).
-//
-// Bound on the H100: scattered byte stores into grids of 262 KB + 33 KB +
-// 4 KB (512^3 map), which stay in L2; 19.2k level-0 rays x 7 samples and
-// 1.2k coarse rays x ~30 samples at the bench config. Like alloc_touch,
-// the launch itself is the cost at this size.
 __global__ void __launch_bounds__(kThreads)
 alloc_touch_of_kernel(const float* __restrict__ depth, int w, int hs2,
                       int ws2, int hs8, int ws8,
                       const float* __restrict__ kpose,
                       const float* __restrict__ pose, float band_half,
-                      double band, double voxel, double max_dist,
-                      float inv_voxel, int size, int b,
+                      const float* __restrict__ ladder_t,
+                      const uint8_t* __restrict__ ladder_level, int n_ladder,
+                      int n_fine, float inv_voxel, int size, int b,
                       uint8_t* __restrict__ touched0,
                       uint8_t* __restrict__ touched1,
                       uint8_t* __restrict__ touched2) {
@@ -101,59 +133,37 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int hs2,
   se::load_mat4(kpose, K);
   se::load_mat4(pose, P);
   __syncthreads();
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n2 = hs2 * ws2;
-  const bool coarse = i >= n2;
-  if (coarse) i -= n2;
-  const int stride = coarse ? 8 : 2, ws = coarse ? ws8 : ws2;
-  if (i >= (coarse ? hs8 * ws8 : n2)) return;
-  const int sy = i / ws, sx = i - sy * ws;
-  const float d = depth[(sy * stride) * w + sx * stride];
-  if (!(d > 0.f)) return;
-  const float px = (float)(sx * stride) + 0.5f;
-  const float py = (float)(sy * stride) + 0.5f;
-  const float3 wv = se::transform(K, px * d, py * d, d);
-  float dx = P[3] - wv.x, dy = P[7] - wv.y, dz = P[11] - wv.z;
-  const float norm = sqrtf(dx * dx + dy * dy + dz * dz);
-  const float inv = 1.f / (norm == 0.f ? 1.f : norm);
-  dx = dx * inv;
-  dy = dy * inv;
-  dz = dz * inv;
-  const float ox = wv.x - band_half * dx;
-  const float oy = wv.y - band_half * dy;
-  const float oz = wv.z - band_half * dz;
-  const float cx = P[3] - ox, cy = P[7] - oy, cz = P[11] - oz;
+  const int n2w = (n2 + 31) & ~31;  // the level-0 rays' threads, whole warps
+  const bool coarse = i >= n2w;
+  const int ray = coarse ? (i - n2w) / kCoarseLanes : i;
+  if (ray >= (coarse ? hs8 * ws8 : n2)) return;
+  const int ws = coarse ? ws8 : ws2;
+  const int sy = ray / ws, sx = ray - sy * ws;
+  Ray r;
+  if (!pixel_ray(depth, w, coarse ? 8 : 2, sx, sy, K, P, band_half, r))
+    return;
+  const float cx = P[3] - r.ox, cy = P[7] - r.oy, cz = P[11] - r.oz;
   const float dist = sqrtf(cx * cx + cy * cy + cz * cz);
-  double t = 0.0;
-  int lvl = 0;  // level of the sample at t
-  while (t < max_dist) {
-    int next;
-    double step;
-    if (t < band) {
-      step = voxel;
-      next = 0;
-    } else if (t < band * 1.5) {
-      step = 10.0 * voxel;
-      next = 1;
-    } else {
-      step = 30.0 * voxel;
-      next = 2;
+  // a sample marks while t < dist; the break's !(t < dist) also ends a ray
+  // whose dist is NaN, which marks nothing
+  if (!coarse) {
+    for (int s = 0; s < n_fine; ++s) {
+      const float t = __ldg(ladder_t + s);
+      if (!(t < dist)) break;
+      mark(r, t, inv_voxel, size, b, 3, touched0);
     }
-    const float tf = (float)t;
-    if ((lvl > 0) == coarse && tf < dist) {
-      const int vx = (int)floorf((ox + dx * tf) * inv_voxel);
-      const int vy = (int)floorf((oy + dy * tf) * inv_voxel);
-      const int vz = (int)floorf((oz + dz * tf) * inv_voxel);
-      const int side = b >> lvl, shift = 3 + lvl;
-      uint8_t* out = lvl == 0 ? touched0 : (lvl == 1 ? touched1 : touched2);
-      if (side > 0 && vx >= 0 && vx < size && vy >= 0 && vy < size &&
-          vz >= 0 && vz < size)
-        out[((vx >> shift) * side + (vy >> shift)) * side + (vz >> shift)] =
-            1;
-    }
-    if (!coarse && next > 0) break;  // the level-0 samples are all done
-    lvl = next;
-    t += step;
+    return;
+  }
+  for (int s = n_fine + (i - n2w) % kCoarseLanes; s < n_ladder;
+       s += kCoarseLanes) {
+    const float t = __ldg(ladder_t + s);
+    if (!(t < dist)) break;
+    const int lvl = __ldg(ladder_level + s);
+    if ((b >> lvl) > 0)
+      mark(r, t, inv_voxel, size, b >> lvl, 3 + lvl,
+           lvl == 1 ? touched1 : touched2);
   }
 }
 
@@ -177,8 +187,16 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int hs2,
 //     children of itself and its ancestors the same way;
 //  4. the root node always exists: level nl - 2 is all set, and level nl - 1
 //     never is; then n_blocks and alloc_overflow are written.
-// A device `when` that is false leaves every grid untouched but the root's
-// children, as JAX's masked allocation and unconditional refresh do.
+// A device `when` that is false leaves every map grid untouched but the
+// root's children, as JAX's masked allocation and unconditional refresh do.
+//
+// The touched grids are consumed: they are all zero on return, whatever
+// `when` says, so the map's touched buffer needs no fill before the next
+// frame's march. The scan clears each run it reads (the zero uint4s stored
+// back where its two loads found a byte set), and the extra grids' pass
+// zeroes each byte it finds set. Both read and clear before they test
+// `when`, so a masked frame leaves no mark for the next one. A level at or
+// past nl has no cell (b >> l == 0), so every cell the march wrote is read.
 //
 // The mip refresh is incremental. JAX's dense refresh ORs
 // broadcast(R(slot >= 0 | extra)) into mip_alloc, R being the OR-reduce
@@ -196,9 +214,10 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int hs2,
 // the touched cells with a slot flag the same slots, and the loop over all
 // slots and its coordinate reads go.
 //
-// Bound on the H100: the touched grid (B^3 bytes) read once, the slot grid
-// read only under touched cells, <= kb new entries written and the mip
-// bytes set: ~0.3 MB at 512^3, ~0.1 us at HBM rate. A thread reads its 32
+// Bound on the H100: the touched grid (B^3 bytes) read once and the sectors
+// of its set cells cleared, the slot grid read only under touched cells,
+// <= kb new entries written and the mip bytes set: ~0.3 MB at 512^3, ~0.1
+// us at HBM rate. A thread reads its 32
 // cells' touched bytes as two 16-byte loads and the slot grid only where a
 // byte is set; eight SMs share the reads, and the scan's cross-CTA step is
 // one cluster barrier, so allocation is one launch after the march. What
@@ -230,21 +249,25 @@ __device__ __forceinline__ void mark_ancestors(const Mips& M, int b, int nl,
     mark_children(M, b, a, x >> (a - l), y >> (a - l), z >> (a - l));
 }
 
+// each octant set in the level-l grid `extra` cleared, and, where `go`,
+// its ancestors' children marked
 __device__ __forceinline__ void mark_extra(const Mips& M, int b, int nl,
-                                           int l,
-                                           const uint8_t* __restrict__ extra,
-                                           int g, int n_threads) {
+                                           int l, uint8_t* __restrict__ extra,
+                                           bool go, int g, int n_threads) {
   if (extra == nullptr) return;
   const int s = b >> l;
-  for (int i = g; i < s * s * s; i += n_threads)
-    if (extra[i]) mark_ancestors(M, b, nl, l, i / (s * s), (i / s) % s, i % s);
+  for (int i = g; i < s * s * s; i += n_threads) {
+    if (!extra[i]) continue;
+    extra[i] = 0;
+    if (go) mark_ancestors(M, b, nl, l, i / (s * s), (i / s) % s, i % s);
+  }
 }
 
 __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
     __launch_bounds__(se::kCompactThreads)
-    alloc_assign_kernel(const uint8_t* __restrict__ touched,
-                        const uint8_t* __restrict__ extra1,
-                        const uint8_t* __restrict__ extra2,
+    alloc_assign_kernel(uint8_t* __restrict__ touched,
+                        uint8_t* __restrict__ extra1,
+                        uint8_t* __restrict__ extra2,
                         const uint8_t* __restrict__ when, int b, int nl,
                         int cap, int kb, int* __restrict__ slot,
                         int* __restrict__ block_coord,
@@ -258,18 +281,24 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
   const int room = max(0, min(kb, cap - n_old));  // slots this call may take
   auto run_mask = [&](int i0, int cnt) {
     uint32_t m = 0;
-    if (!go) return m;
     if (cnt == 32) {  // i0 is a multiple of 32: two aligned 16-byte loads
-      const uint4* t4 = reinterpret_cast<const uint4*>(touched + i0);
+      uint4* t4 = reinterpret_cast<uint4*>(touched + i0);
       const uint4 a = t4[0], c = t4[1];
       const uint32_t words[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
       for (int k = 0; k < 8; ++k)
         for (int j = 0; j < 4; ++j)
           if ((words[k] >> (8 * j)) & 0xffu) m |= 1u << (4 * k + j);
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      if (a.x | a.y | a.z | a.w) t4[0] = zero;
+      if (c.x | c.y | c.z | c.w) t4[1] = zero;
     } else {
       for (int j = 0; j < cnt; ++j)
-        if (touched[i0 + j]) m |= 1u << j;
+        if (touched[i0 + j]) {
+          m |= 1u << j;
+          touched[i0 + j] = 0;
+        }
     }
+    if (!go) return 0u;  // a masked step only clears
     for (uint32_t r = m; r; r &= r - 1) {  // keep the cells with no slot
       const int j = __ffs(r) - 1;
       const int s = slot[i0 + j];
@@ -292,10 +321,8 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
     mark_ancestors(M, b, nl, 0, x, y, z);
   };
   const int total = se::cluster_compact(b * b * b, run_mask, emit);
-  if (go) {
-    mark_extra(M, b, nl, 1, extra1, g, n_threads);
-    mark_extra(M, b, nl, 2, extra2, g, n_threads);
-  }
+  mark_extra(M, b, nl, 1, extra1, go, g, n_threads);
+  mark_extra(M, b, nl, 2, extra2, go, g, n_threads);
   if (nl >= 2 && g < 8) M.alloc[nl - 2][g] = 1;  // the root's children
   if (g == 0) {
     const int n_new = min(total, room);
@@ -307,9 +334,10 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
 }  // namespace
 
 // when (bool[]) may be null: always true; extra1 / extra2 (OFusion's level
-// 1 and 2 grids) may be null. kb = min(B^3, budget).
-SE_EXPORT int se_alloc_assign(const uint8_t* touched, const uint8_t* extra1,
-                              const uint8_t* extra2, const uint8_t* when,
+// 1 and 2 grids) may be null. kb = min(B^3, budget). touched, extra1 and
+// extra2 are all zero on return.
+SE_EXPORT int se_alloc_assign(uint8_t* touched, uint8_t* extra1,
+                              uint8_t* extra2, const uint8_t* when,
                               int b, int nl, int cap, int kb, int* slot,
                               int* block_coord, uint8_t* active,
                               int* n_blocks, int* overflow, Mips mips,
@@ -323,17 +351,20 @@ SE_EXPORT int se_alloc_assign(const uint8_t* touched, const uint8_t* extra1,
 
 SE_EXPORT int se_alloc_touch_of(const float* depth, int h, int w,
                                 const float* kpose, const float* pose,
-                                float band_half, double band, double voxel,
-                                double max_dist, float inv_voxel, int size,
-                                int b, uint8_t* touched0, uint8_t* touched1,
+                                float band_half, const float* ladder_t,
+                                const uint8_t* ladder_level, int n_ladder,
+                                int n_fine, float inv_voxel, int size, int b,
+                                uint8_t* touched0, uint8_t* touched1,
                                 uint8_t* touched2, void* stream) {
   const int hs2 = (h + 1) / 2, ws2 = (w + 1) / 2;
   const int hs8 = (h + 7) / 8, ws8 = (w + 7) / 8;
-  const int n_cta = (hs2 * ws2 + hs8 * ws8 + kThreads - 1) / kThreads;
+  const int n = ((hs2 * ws2 + 31) & ~31) + kCoarseLanes * hs8 * ws8;
+  const int n_cta = (n + kThreads - 1) / kThreads;
   if (n_cta == 0) return 0;
   alloc_touch_of_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
-      depth, w, hs2, ws2, hs8, ws8, kpose, pose, band_half, band, voxel,
-      max_dist, inv_voxel, size, b, touched0, touched1, touched2);
+      depth, w, hs2, ws2, hs8, ws8, kpose, pose, band_half, ladder_t,
+      ladder_level, n_ladder, n_fine, inv_voxel, size, b, touched0, touched1,
+      touched2);
   return (int)cudaGetLastError();
 }
 

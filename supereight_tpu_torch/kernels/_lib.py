@@ -86,7 +86,8 @@ _SIGNATURES = {
     "se_icp_track": (Pyramid, P, P, P, I, I, P, P, F, F, F, F, P, P, P, P, P,
                      P),
     "se_alloc_touch": (P, I, I, I, P, P, F, D, I, F, I, I, P, P),
-    "se_alloc_touch_of": (P, I, I, P, P, F, D, D, D, F, I, I, P, P, P, P),
+    "se_alloc_touch_of": (P, I, I, P, P, F, P, P, I, I, F, I, I, P, P, P,
+                          P),
     "se_alloc_assign": (P, P, P, P, I, I, I, I, P, P, P, P, P, Mips, P),
     "se_integrate_worklist": (P, P, P, I, P, P, F, I, I, I, P, P, P, P),
     "se_integrate_fused": (P, I, I, P, P, P, F, I, I, I, P, I, F, F, F, P, P,

@@ -11,14 +11,22 @@ with the static ``ofusion_step_ladder``, 118-145); both use
 versions, used for CPU tensors and as the kernels' reference on the card.
 The TPU's dedup of repeated samples was a scatter-cost trick and is not
 carried over: it changes no touched flag.
+
+On the main path the marches write into the map's touched buffer
+(``MapState.touched``, all zero between frames) and :func:`alloc_assign`
+consumes the grids it is given: they are all zero on return, so no frame
+fills them.
 """
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from supereight_tpu_torch.core import se3
-from supereight_tpu_torch.core.map import refresh_mip_alloc
+from supereight_tpu_torch.core.map import (refresh_mip_alloc, touched_grids,
+                                           touched_size)
 from supereight_tpu_torch.kernels import _lib
 
 # per-frame bound on NEW block allocations (the JAX package's value).
@@ -36,15 +44,35 @@ def band_schedule(geom, mu: float):
     return band, num_steps, band / num_steps
 
 
-def touched_mask(geom, depth, pose, kpose, mu: float):
+def _grids(geom, out, dev, levels):
+    """The grids of levels 0 .. levels - 1 a march writes: views of
+    ``out``, a touched buffer (checked)."""
+    b = geom.blocks_per_side
+    _lib.check(out, "out", torch.bool, (touched_size(b),), dev)
+    return touched_grids(out, b, levels)
+
+
+def _into(geom, out, grids):
+    """A twin's grids stored into ``out``'s as the kernel's stores of 1
+    do (an OR)."""
+    views = _grids(geom, out, out.device, len(grids))
+    for v, g in zip(views, grids):
+        v.logical_or_(g)
+    return views
+
+
+def touched_mask(geom, depth, pose, kpose, mu: float, out):
     """bool[B, B, B]: blocks crossed by the +/- 2 mu band around each
     sampled depth pixel (ref buildAllocationList,
     kfusion/alloc_impl.hpp:53-118). depth f32[H, W], pose [4, 4] and
     kpose = pose @ inverse_camera_matrix(k) [4, 4] (the frame's prologue,
-    kernels/frame.frame_mats) on one device."""
+    kernels/frame.frame_mats) on one device. ``out``: a touched buffer
+    (the map's ``MapState.touched``, or ``core.map.touched_buffer``), all
+    zero, whose level-0 grid the march writes and returns."""
     dev = depth.device
     if dev.type == "cpu":
-        return touched_mask_plain(geom, depth, pose, kpose, mu)
+        return _into(geom, out, (touched_mask_plain(geom, depth, pose, kpose,
+                                                    mu),))[0]
     if dev.type != "cuda":
         raise ValueError(f"touched_mask: unsupported device {dev}")
     h, w = depth.shape
@@ -53,47 +81,61 @@ def touched_mask(geom, depth, pose, kpose, mu: float):
     _lib.check(kpose, "kpose", torch.float32, (4, 4), dev)
     b = geom.blocks_per_side
     band, num_steps, step = band_schedule(geom, mu)
-    touched = torch.zeros((b, b, b), dtype=torch.bool, device=dev)
+    touched = _grids(geom, out, dev, 1)[0]
     _lib.launch("alloc_touch", "se_alloc_touch", dev, depth, h, w, _STRIDE,
                 kpose, pose, band * 0.5, step, num_steps,
                 geom.inv_voxel_size, geom.size, b, touched)
     return touched
 
 
-def touched_mask_plain(geom, depth, pose, kpose, mu: float):
-    """Plain PyTorch twin of :func:`touched_mask` (kpose = pose @ invK)."""
-    b = geom.blocks_per_side
+def pixel_rays(depth, stride: int, pose, kpose, half: float):
+    """The rays of depth[::stride, ::stride] (csrc/alloc.cu ``pixel_ray``):
+    (origins, unit directions toward the camera, valid) as component
+    tuples of [hs, ws] tensors; an origin is the back-projected pixel
+    centre backed off by ``half`` toward the camera (JAX
+    _pixel_rays_c_sub). A Python float scalar acts as its f32 rounding,
+    like a JAX constant."""
     dev = depth.device
-    band, num_steps, step = band_schedule(geom, mu)
-    d = depth[::_STRIDE, ::_STRIDE]
+    d = depth[::stride, ::stride]
     hs, ws = d.shape
-    xs = torch.arange(ws, dtype=torch.float32, device=dev) * _STRIDE + 0.5
-    ys = torch.arange(hs, dtype=torch.float32, device=dev) * _STRIDE + 0.5
+    xs = torch.arange(ws, dtype=torch.float32, device=dev) * stride + 0.5
+    ys = torch.arange(hs, dtype=torch.float32, device=dev) * stride + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     wvx, wvy, wvz = se3.transform_c(kpose, px * d, py * d, d)
     dx, dy, dz = pose[0, 3] - wvx, pose[1, 3] - wvy, pose[2, 3] - wvz
     norm = torch.sqrt(dx * dx + dy * dy + dz * dz)
     inv = 1.0 / torch.where(norm == 0, torch.ones_like(norm), norm)
     dx, dy, dz = dx * inv, dy * inv, dz * inv
-    # a Python float scalar acts as its f32 rounding, like a JAX constant
-    half = band * 0.5
-    ox, oy, oz = wvx - half * dx, wvy - half * dy, wvz - half * dz
-    valid = d > 0
-    iv = geom.inv_voxel_size
-    size = geom.size
-    flat = torch.zeros(b * b * b + 1, dtype=torch.bool, device=dev)
-    for i in range(num_steps):
-        t = i * step
-        vx = torch.floor((ox + dx * t) * iv).to(torch.int32)
-        vy = torch.floor((oy + dy * t) * iv).to(torch.int32)
-        vz = torch.floor((oz + dz * t) * iv).to(torch.int32)
-        inb = ((vx >= 0) & (vx < size) & (vy >= 0) & (vy < size)
-               & (vz >= 0) & (vz < size)) & valid
-        ids = ((vx >> 3) * b + (vy >> 3)) * b + (vz >> 3)
-        flat.index_fill_(0, torch.where(inb, ids, b * b * b).long()
-                         .reshape(-1), True)
-    return flat[:-1].reshape(b, b, b)
+    origin = (wvx - half * dx, wvy - half * dy, wvz - half * dz)
+    return origin, (dx, dy, dz), d > 0
 
+
+def _mark_plain(geom, flat, origin, direction, t, lvl, ok):
+    """Set the cells of the level-``lvl`` grid ``flat`` (its drop cell
+    last) under the rays' samples at ``t`` where ``ok`` and in the map
+    (csrc/alloc.cu ``mark``)."""
+    side = geom.blocks_per_side >> lvl
+    shift = 3 + lvl
+    iv, size = geom.inv_voxel_size, geom.size
+    vx, vy, vz = (torch.floor((o + d * t) * iv).to(torch.int32)
+                  for o, d in zip(origin, direction))
+    inb = ((vx >= 0) & (vx < size) & (vy >= 0) & (vy < size)
+           & (vz >= 0) & (vz < size)) & ok
+    ids = ((vx >> shift) * side + (vy >> shift)) * side + (vz >> shift)
+    flat.index_fill_(0, torch.where(inb, ids, side ** 3).long().reshape(-1),
+                     True)
+
+
+def touched_mask_plain(geom, depth, pose, kpose, mu: float):
+    """Plain PyTorch twin of :func:`touched_mask` (kpose = pose @ invK)."""
+    b = geom.blocks_per_side
+    band, num_steps, step = band_schedule(geom, mu)
+    origin, direction, valid = pixel_rays(depth, _STRIDE, pose, kpose,
+                                          band * 0.5)
+    flat = torch.zeros(b * b * b + 1, dtype=torch.bool, device=depth.device)
+    for i in range(num_steps):
+        _mark_plain(geom, flat, origin, direction, i * step, 0, valid)
+    return flat[:-1].reshape(b, b, b)
 
 
 _OF_STRIDES = (2, 8, 8)  # pixel stride of the level-0, 1 and 2 samples
@@ -128,32 +170,71 @@ def _of_schedule(geom, mu: float, max_dist):
     return band, max_dist
 
 
-def touched_masks_of(geom, depth, pose, kpose, mu: float, max_dist=None):
+class Ladder(NamedTuple):
+    """The occupancy march's static samples as the kernel reads them."""
+
+    t: torch.Tensor      # f32[n] distance travelled, rounded to f32
+    level: torch.Tensor  # u8[n] the level each sample marks, never falling
+    n_fine: int          # the leading level-0 samples
+
+
+@functools.lru_cache(maxsize=16)
+def of_ladder(geom, mu: float, max_dist=None, device="cpu") -> Ladder:
+    """The occupancy march's ladder on ``device``, built once per
+    (geometry, mu, max_dist, device): :func:`ofusion_step_ladder`'s
+    distances rounded to f32, as the twin's Python floats act on f32
+    tensors, and its levels, of any length. To a card it goes by one
+    asynchronous copy from pinned memory, so a frame step that builds it
+    still reads nothing back."""
+    band, max_dist = _of_schedule(geom, mu, max_dist)
+    travelled, levels = ofusion_step_ladder(geom, band, max_dist)
+    t = torch.tensor(travelled, dtype=torch.float32)
+    level = torch.tensor(levels, dtype=torch.uint8)
+    if torch.device(device).type == "cuda":
+        t, level = (x.pin_memory().to(device, non_blocking=True)
+                    for x in (t, level))
+    return Ladder(t, level, levels.count(0))
+
+
+def touched_masks_of(geom, depth, pose, kpose, mu: float, out,
+                     max_dist=None):
     """(bool[B]^3, bool[B/2]^3, bool[B/4]^3): the octants of levels 0-2
     that the occupancy march touches (ref buildOctantList,
     bfusion/alloc_impl.hpp:53-129). Level-0 samples come from every 2x2
     pixel, level 1-2 samples from every 8x8 pixel. depth f32[H, W],
     pose [4, 4] and kpose = pose @ inverse_camera_matrix(k) on one device.
-    The three grids are views of one buffer, zeroed by one fill."""
+    The three grids are views of ``out``, a touched buffer (the map's
+    ``MapState.touched``, or ``core.map.touched_buffer``), all zero."""
     dev = depth.device
     if dev.type == "cpu":
-        return touched_masks_of_plain(geom, depth, pose, kpose, mu, max_dist)
+        return _into(geom, out, touched_masks_of_plain(geom, depth, pose,
+                                                       kpose, mu, max_dist))
     if dev.type != "cuda":
         raise ValueError(f"touched_masks_of: unsupported device {dev}")
     h, w = depth.shape
     _lib.check(depth, "depth", torch.float32, (h, w), dev)
     _lib.check(pose, "pose", torch.float32, (4, 4), dev)
     _lib.check(kpose, "kpose", torch.float32, (4, 4), dev)
-    b = geom.blocks_per_side
-    band, max_dist = _of_schedule(geom, mu, max_dist)
-    sizes = [(b >> lvl) ** 3 for lvl in range(3)]
-    flat = torch.zeros(sum(sizes), dtype=torch.bool, device=dev)
-    masks = [g.view((b >> lvl,) * 3)
-             for lvl, g in enumerate(torch.split(flat, sizes))]
+    band, _ = _of_schedule(geom, mu, max_dist)
+    ladder = of_ladder(geom, mu, max_dist, dev)
+    masks = _grids(geom, out, dev, 3)
     _lib.launch("alloc_touch_of", "se_alloc_touch_of", dev, depth, h, w,
-                kpose, pose, band * 0.5, band, geom.voxel_size, max_dist,
-                geom.inv_voxel_size, geom.size, b, *masks)
-    return tuple(masks)
+                kpose, pose, band * 0.5, ladder.t, ladder.level,
+                ladder.t.numel(), ladder.n_fine, geom.inv_voxel_size,
+                geom.size, geom.blocks_per_side, *masks)
+    return masks
+
+
+def of_rays(geom, depth, stride: int, pose, kpose, mu: float):
+    """The occupancy march's rays of depth[::stride, ::stride]:
+    :func:`pixel_rays` backed off by half the band, and each ray's
+    distance from the camera to its origin (a sample counts while t is
+    below it)."""
+    band, _ = _of_schedule(geom, mu, None)
+    origin, direction, valid = pixel_rays(depth, stride, pose, kpose,
+                                          band * 0.5)
+    cx, cy, cz = (pose[i, 3] - origin[i] for i in range(3))
+    return origin, direction, valid, torch.sqrt(cx * cx + cy * cy + cz * cz)
 
 
 def touched_masks_of_plain(geom, depth, pose, kpose, mu: float,
@@ -161,43 +242,19 @@ def touched_masks_of_plain(geom, depth, pose, kpose, mu: float,
     """Plain PyTorch twin of :func:`touched_masks_of` (kpose = pose @
     invK), in the JAX form: one sample stack per level."""
     b = geom.blocks_per_side
-    dev = depth.device
     band, max_dist = _of_schedule(geom, mu, max_dist)
     travelled, sample_levels = ofusion_step_ladder(geom, band, max_dist)
-    iv = geom.inv_voxel_size
-    size = geom.size
-    half = band * 0.5
     masks = []
     for lvl, stride in enumerate(_OF_STRIDES):
         side = b >> lvl
-        flat = torch.zeros(side ** 3 + 1, dtype=torch.bool, device=dev)
-        d = depth[::stride, ::stride]
-        hs, ws = d.shape
-        xs = torch.arange(ws, dtype=torch.float32, device=dev) * stride + 0.5
-        ys = torch.arange(hs, dtype=torch.float32, device=dev) * stride + 0.5
-        py, px = torch.meshgrid(ys, xs, indexing="ij")
-        wvx, wvy, wvz = se3.transform_c(kpose, px * d, py * d, d)
-        dx, dy, dz = pose[0, 3] - wvx, pose[1, 3] - wvy, pose[2, 3] - wvz
-        norm = torch.sqrt(dx * dx + dy * dy + dz * dz)
-        inv = 1.0 / torch.where(norm == 0, torch.ones_like(norm), norm)
-        dx, dy, dz = dx * inv, dy * inv, dz * inv
-        ox, oy, oz = wvx - half * dx, wvy - half * dy, wvz - half * dz
-        cx, cy, cz = pose[0, 3] - ox, pose[1, 3] - oy, pose[2, 3] - oz
-        dist = torch.sqrt(cx * cx + cy * cy + cz * cz)
-        valid = d > 0
-        shift = 3 + lvl
+        flat = torch.zeros(side ** 3 + 1, dtype=torch.bool,
+                           device=depth.device)
+        origin, direction, valid, dist = of_rays(geom, depth, stride, pose,
+                                                 kpose, mu)
         for t, l in zip(travelled, sample_levels):
-            if l != lvl or side == 0:
-                continue
-            vx = torch.floor((ox + dx * t) * iv).to(torch.int32)
-            vy = torch.floor((oy + dy * t) * iv).to(torch.int32)
-            vz = torch.floor((oz + dz * t) * iv).to(torch.int32)
-            inb = ((vx >= 0) & (vx < size) & (vy >= 0) & (vy < size)
-                   & (vz >= 0) & (vz < size)) & valid & (t < dist)
-            ids = ((vx >> shift) * side + (vy >> shift)) * side \
-                + (vz >> shift)
-            flat.index_fill_(0, torch.where(inb, ids, side ** 3).long()
-                             .reshape(-1), True)
+            if l == lvl and side > 0:
+                _mark_plain(geom, flat, origin, direction, t, lvl,
+                            valid & (t < dist))
         masks.append(flat[:-1].reshape(side, side, side))
     return tuple(masks)
 
@@ -214,6 +271,10 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
     (bool[B>>l]^3; levels past the pyramid's top are ignored). ``when``
     (bool[] tensor) masks every grid. Returns alloc_overflow (i32[]): the
     new cells left unallocated. One launch, no host sync.
+
+    The grids are consumed: ``touched`` and every ``extra`` grid are all
+    zero on return, whatever ``when`` says (the kernel clears what it
+    reads), so the map's touched buffer starts the next frame zeroed.
     """
     dev = touched.device
     if dev.type == "cpu":
@@ -230,6 +291,8 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
     if touched.data_ptr() % 16:
         raise ValueError("touched: the kernel reads it 16 bytes at a time "
                          "and needs it 16-byte aligned")
+    # a level at or past nl has no cell (b >> l == 0): nothing to mark or
+    # clear there
     ext = [c(e, "extra", torch.bool, (b >> lvl,) * 3, dev)
            if lvl < nl else None for lvl, e in enumerate(extra, start=1)]
     ext += [None] * (2 - len(ext))
@@ -253,7 +316,8 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
 
 def alloc_assign_plain(geom, state, touched, when=None, budget: int = None,
                        extra=()):
-    """Plain PyTorch twin of :func:`alloc_assign` (same in-place contract).
+    """Plain PyTorch twin of :func:`alloc_assign` (same in-place contract,
+    and the grids likewise all zero on return).
 
     The bump allocator is JAX's ``allocate_blocks`` with a cumsum for its
     top_k. The mip refresh is incremental, as the kernel's:
@@ -269,6 +333,7 @@ def alloc_assign_plain(geom, state, touched, when=None, budget: int = None,
     n_cells = b * b * b
     dev = touched.device
     kb = min(n_cells, ALLOC_BUDGET if budget is None else budget)
+    grids = (touched,) + tuple(extra)
     if when is not None:
         touched = touched & when
         extra = tuple(e & when for e in extra)
@@ -304,4 +369,7 @@ def alloc_assign_plain(geom, state, touched, when=None, budget: int = None,
     new[new_cells] = True
     refresh_mip_alloc(geom, state, new.view(b, b, b),
                       extra_levels=(None,) + tuple(extra))
-    return torch.sum(flat_new.to(torch.int32)) - n_new
+    overflow = torch.sum(flat_new.to(torch.int32)) - n_new
+    for g in grids:  # consumed, as the kernel's
+        g.zero_()
+    return overflow

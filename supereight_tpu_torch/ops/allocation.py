@@ -5,8 +5,11 @@ Port of ``supereight_tpu/ops/allocation.py:allocate_tsdf`` (217-230) and
 (``kernels/alloc.py``): the march (one thread per sub-sampled pixel ray
 writing touched-octant grids), then ``alloc_assign``, which turns the
 level-0 grid into pool slots and ORs the new blocks and OFusion's level-1
-and level-2 octants into the mip pyramid. The march's ``pose @ invK`` is
-the frame's pose prologue's (``kernels/frame.py``).
+and level-2 octants into the mip pyramid. The march writes into the map's
+touched buffer (``MapState.touched``) and ``alloc_assign`` clears it as it
+reads, so the buffer is all zero between frames and the step allocates
+and fills nothing. The march's ``pose @ invK`` is the frame's pose
+prologue's (``kernels/frame.py``).
 """
 
 from supereight_tpu_torch.kernels.alloc import (alloc_assign, touched_mask,
@@ -24,7 +27,8 @@ def allocate_tsdf(geom, state, depth, pose, k, mu: float,
     (kernels/frame.frame_mats), run here when not given."""
     if mats is None:
         mats = frame_mats(k, pose)
-    touched = touched_mask(geom, depth, pose, mats.kpose, mu)
+    touched = touched_mask(geom, depth, pose, mats.kpose, mu,
+                           out=state.touched)
     overflow = alloc_assign(geom, state, touched, when, budget)
     return (state, {"alloc_overflow": overflow}) if with_stats else state
 
@@ -38,6 +42,7 @@ def allocate_ofusion(geom, state, depth, pose, k, mu: float,
     :func:`allocate_tsdf`."""
     if mats is None:
         mats = frame_mats(k, pose)
-    masks = touched_masks_of(geom, depth, pose, mats.kpose, mu)
+    masks = touched_masks_of(geom, depth, pose, mats.kpose, mu,
+                             out=state.touched)
     overflow = alloc_assign(geom, state, masks[0], when, budget, masks[1:])
     return (state, {"alloc_overflow": overflow}) if with_stats else state

@@ -8,8 +8,9 @@ before and after tracking: every matrix, gate and the time stamp), K6
 (the whole ICP, one launch), K5 (allocation), K3 (integration's block
 pass), K4 (its parent rank and node pass), K2 (nav grid, with the block
 count) and K1 (raycast, with its prime, overflow count and the state's
-select), each in its field's variant; only K5's touched-grid zero fill is
-a torch op. Nothing inside :func:`frame_step` reads a device value back
+select), each in its field's variant, and no torch op with device work
+(K5's touched grids live in the map and its allocator clears them).
+Nothing inside :func:`frame_step` reads a device value back
 to the host: budgets are Python ints, and the reference's rate gates are
 device flags the kernels read, so on a GPU the whole frame is enqueued
 without a sync. Each stage runs under a

@@ -14,7 +14,8 @@ import torch
 
 import chip_smoke
 from supereight_tpu_torch.core import se3
-from supereight_tpu_torch.core.map import MapGeometry, make_map
+from supereight_tpu_torch.core.map import (MapGeometry, make_map,
+                                           touched_buffer)
 from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
 from supereight_tpu_torch.kernels import _lib, alloc, frame, icp, \
@@ -170,9 +171,11 @@ def _alloc_and_fuse(geom, m, pose, k, depth, field, plain):
     t_cw, kmat = mats.t_cw, mats.kmat
     ts = torch.full((), 0.2, device=dev)
     when = torch.ones((), dtype=torch.bool, device=dev)
-    grids = ((alloc.touched_mask(geom, depth, pose, mats.kpose, mu),)
+    grids = ((alloc.touched_mask(geom, depth, pose, mats.kpose, mu,
+                                 m.touched),)
              if field is TSDF
-             else alloc.touched_masks_of(geom, depth, pose, mats.kpose, mu))
+             else alloc.touched_masks_of(geom, depth, pose, mats.kpose, mu,
+                                         m.touched))
     fn = {name: getattr(mod, name + ("_plain" if plain else "")) for mod, name
           in ((alloc, "alloc_assign"), (integrate, "integrate_worklist"),
               (integrate, "integrate_fused"),
@@ -249,11 +252,12 @@ def test_other_devices_raise():
         icp.icp_track(p, p, (m,), (m,), (v,), m, m, v, (1,), 1e-5)
     with pytest.raises(ValueError, match="unsupported device"):
         alloc.touched_mask(MapGeometry(64, 2.0, 16),
-                           torch.zeros((4, 4), device="meta"), p, p, 0.1)
+                           torch.zeros((4, 4), device="meta"), p, p, 0.1,
+                           touched_buffer(8, "meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         alloc.touched_masks_of(MapGeometry(64, 2.0, 16),
                                torch.zeros((4, 4), device="meta"), p, p,
-                               0.008)
+                               0.008, touched_buffer(8, "meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         frame.frame_mats(torch.ones(4, device="meta"), p)
     geom = MapGeometry(64, 2.0, 16)
@@ -344,16 +348,81 @@ def test_kernels_match_twins_on_cuda(cuda, field):
     np.testing.assert_allclose(sk.cpu().numpy(), sp.cpu().numpy(),
                                rtol=1e-4, atol=1e-4 * float(sp.abs().max()))
 
+    # K5's march bit-equal to its twin on the next frame, and on a random
+    # depth (surfaces from 0.3 m to past the occupancy range, a tenth of
+    # the pixels 0) from the frame's pose and from outside the map; into
+    # the map's touched buffer (all zero between frames) as into a fresh
+    # grid, one launch counted a call
+    cases = [("frame", depth, pose)] + chip_smoke.march_cases(
+        torch, geom, depth, pose, 0)
+    assert chip_smoke.check_marches(torch, geom, field, mu, k, cases,
+                                    "K5 march") == 0
+    assert not m.touched.any()
+    name = "alloc_touch" if field is TSDF else "alloc_touch_of"
+    march = alloc.touched_mask if field is TSDF else alloc.touched_masks_of
     kpose = se3.matmul4(pose, se3.inverse_camera_matrix(k))
-    if field is TSDF:
-        assert torch.equal(alloc.touched_mask(geom, depth, pose, kpose, mu),
-                           alloc.touched_mask_plain(geom, depth, pose, kpose,
-                                                    mu))
-    else:
-        for a, b in zip(alloc.touched_masks_of(geom, depth, pose, kpose, mu),
-                        alloc.touched_masks_of_plain(geom, depth, pose,
-                                                     kpose, mu)):
-            assert torch.equal(a, b)
+    before = _lib.LAUNCHES[name]
+    into = march(geom, depth, pose, kpose, mu, out=m.touched)
+    assert _lib.LAUNCHES[name] == before + 1
+    fresh = march(geom, depth, pose, kpose, mu,
+                  touched_buffer(geom.blocks_per_side, cuda))
+    for a, b in zip(into if field is OFUSION else (into,),
+                    fresh if field is OFUSION else (fresh,)):
+        assert torch.equal(a, b) and bool(a.any())
+    m.touched.zero_()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,mu", [(4096, 0.008), (512, 0.2)],
+                         ids=["b512", "wide-band"])
+def test_long_ladder_march_matches_twin_on_cuda(cuda, size, mu):
+    """The occupancy march on geometries whose ladder has more than 300
+    samples (the largest map the port admits, b = 512, at the OFusion mu;
+    b = 64 at a wide band), bit-equal to its twin on a frame and on a
+    random depth from the frame's pose and from outside the map."""
+    _, state, k, depth = _frames(cuda, n=1, field=OFUSION)
+    geom = MapGeometry(size=size, dim=2.0, capacity=1024)
+    assert alloc.of_ladder(geom, mu, None, cuda).t.numel() > 300
+    cases = [("frame", depth, state.pose)] + chip_smoke.march_cases(
+        torch, geom, depth, state.pose, 2)
+    assert chip_smoke.check_marches(torch, geom, OFUSION, mu, k, cases,
+                                    f"K5-OF march (b {size // 8})") == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_masked_then_allocating_step_matches_twins_on_cuda(cuda, field):
+    """Two allocation steps through the port's op, the march in the map's
+    touched buffer: ``when`` false on a random depth, then true on the next
+    frame, against the twins (fresh grids, alloc_assign_plain) on a copy of
+    the map: slot grid, block_coord, active, n_blocks and every mip_alloc
+    level bit for bit, and the buffer all zero after each step. The random
+    depth touches unallocated cells that the frame does not, so marks left
+    by the masked step would show."""
+    from supereight_tpu_torch.ops import allocation
+    geom, state, k, depth = _frames(cuda, field=field)
+    mu = MU[field.name]
+    pose = state.pose
+    kpose = frame.frame_mats(k, pose).kpose  # the op's own
+    a, b = clone_map(state.map), clone_map(state.map)
+    op = (allocation.allocate_tsdf if field is TSDF
+          else allocation.allocate_ofusion)
+    march = (alloc.touched_masks_of_plain if field is OFUSION
+             else lambda *x: (alloc.touched_mask_plain(*x),))
+    noise = chip_smoke.march_cases(torch, geom, depth, pose, 1)[0][1]
+    for d, on in ((noise, False), (depth, True)):
+        when = torch.tensor(on, device=cuda)
+        op(geom, a, d, pose, k, mu, when=when)
+        assert not a.touched.any(), on
+        grids = march(geom, d, pose, kpose, mu)
+        alloc.alloc_assign_plain(geom, b, grids[0], when, None, grids[1:])
+    for name in ("slot", "block_coord", "active", "n_blocks"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for x, y in zip(a.mip_alloc, b.mip_alloc):
+        assert torch.equal(x, y)
+    stale = march(geom, noise, pose, kpose, mu)[0]
+    assert bool((stale & ~march(geom, depth, pose, kpose, mu)[0]
+                 & (a.slot < 0)).any())
 
 
 

@@ -42,6 +42,32 @@ def test_make_map_and_geometry_match_jax():
             np.testing.assert_array_equal(y, np.asarray(x), err_msg=name)
 
 
+@pytest.mark.parametrize("size", [8, 16, 32, 64])
+@pytest.mark.parametrize("make", ["make_map", "map_to_torch"])
+def test_touched_buffer_zeroed_aligned_and_left_out(make, size):
+    """The port-only touched buffer: ``make_map`` and
+    ``convert.map_to_torch`` make it zeroed, holding levels 0-2 back to
+    back (1 to 2 levels at b = 1 and 2) with level 0 first and 16-byte
+    aligned; ``to_numpy`` leaves it out, so the numpy map has JAX's fields
+    in JAX's order."""
+    tg = tmap.MapGeometry(size=size, dim=DIM, capacity=CAPACITY)
+    b = tg.blocks_per_side
+    m = tmap.make_map(tg, TSDF, "cpu")
+    if make == "map_to_torch":
+        m = convert.map_to_torch(convert.to_numpy(m), "cpu")
+    assert m.touched.dtype == torch.bool and not m.touched.any()
+    assert m.touched.numel() == tmap.touched_size(b) == sum(
+        (b >> lvl) ** 3 for lvl in range(3))
+    assert m.touched.data_ptr() % 16 == 0
+    grids = tmap.touched_grids(m.touched, b)
+    assert [g.shape for g in grids] == [(b >> lvl,) * 3 for lvl in range(3)]
+    assert grids[0].data_ptr() == m.touched.data_ptr()
+    back = convert.to_numpy(m)
+    jg = jax_map.MapGeometry(size=size, dim=DIM, capacity=CAPACITY)
+    assert back._fields == jax_map.make_map(jg, get_field("tsdf"))._fields
+    assert "touched" not in back._fields
+
+
 def _random_map(rng):
     """A JAX-layout map (numpy) with CAPACITY random blocks allocated."""
     tg = _geoms()[1]

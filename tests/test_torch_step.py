@@ -106,7 +106,9 @@ def test_scene_matches_jax_generator():
 
 def torch_frames(depths, poses, n, field="tsdf", **options):
     """Run the port's frame_step over the first n frames on CPU tensors;
-    returns the last state and the (numpy) pose and aux of every frame."""
+    returns the last state and the (numpy) pose and aux of every frame,
+    each aux with ``touched_left``: the bytes set in the map's touched
+    buffer after the frame."""
     geom = torch_geometry()
     state = step.init_frame_state(geom, FIELDS[field], (W, H), poses[0],
                                   "cpu")
@@ -117,6 +119,7 @@ def torch_frames(depths, poses, n, field="tsdf", **options):
                                      i, **step_kw(field), **options)
         tposes.append(state.pose.numpy().copy())
         taux.append({k: v.numpy().copy() for k, v in aux.items()})
+        taux[-1]["touched_left"] = int(state.map.touched.sum())
     return state, tposes, taux
 
 
@@ -148,6 +151,14 @@ def test_frame_step_aux_parity(trajectories, key):
     _, jaux, _, taux = trajectories
     for i, (a, b) in enumerate(zip(jaux, taux)):
         assert int(b[key]) == int(a[key]), (i, key, a[key], b[key])
+
+
+def test_touched_buffer_is_zero_after_every_frame(trajectories):
+    """The map's touched buffer is all zero after every frame: the
+    allocator consumed the grids the march wrote."""
+    _, jaux, _, taux = trajectories
+    assert sum(bool(a["integrated"]) for a in jaux) >= len(jaux) - 1
+    assert [a["touched_left"] for a in taux] == [0] * len(taux)
 
 
 def test_frame_step_result_codes(trajectories):
