@@ -11,6 +11,7 @@ namespace se {
 // A sample point projected into the frame.
 struct Proj {
   float cx, cy, cz;  // camera-frame position
+  float px, py;      // pixel coordinates (the bilinear read's)
   int xi, yi;        // truncated pixel, clamped to the frame
   bool valid;
 };
@@ -30,6 +31,8 @@ __device__ __forceinline__ Proj project(const float* T, const float* K,
   p.cx = c.x;
   p.cy = c.y;
   p.cz = c.z;
+  p.px = px;
+  p.py = py;
   p.valid = c.z >= 1e-4f && px >= 0.5f && px <= (float)(w - 1.5) &&
             py >= 0.5f && py <= (float)(h - 1.5);
   p.xi = clampi((int)px, 0, w - 1);
@@ -52,7 +55,11 @@ struct FieldArgs {
   const float* timestamp;
 };
 
-// TSDF update (ref sdf_update, mapping_impl.hpp:35-65) of one value
+// TSDF update (ref sdf_update, mapping_impl.hpp:35-65) of one value. With
+// kNoise (the noise_weighted option, JAX fields/tsdf.py:52-60) a sample
+// weighs w = clip((1.5 / max(z, 1e-3))^2, 1/16, 1) instead of 1; without
+// it the arithmetic is the reference's, unchanged.
+template <bool kNoise>
 __device__ __forceinline__ void update_tsdf(const FieldArgs& A,
                                             const Proj& p, float ds,
                                             float* x, float* y) {
@@ -62,9 +69,17 @@ __device__ __forceinline__ void update_tsdf(const FieldArgs& A,
   if (ds > 0.f && diff > -A.mu) {
     const float ox = *x, oy = *y;
     const float sdf = fminf(1.f, diff / A.mu);
-    const float nx = (oy * ox + sdf) / (oy + 1.f);
-    *x = fminf(fmaxf(nx, -1.f), 1.f);
-    *y = fminf(oy + 1.f, A.max_weight);
+    if (kNoise) {
+      const float r = 1.5f / fmaxf(p.cz, 1e-3f);
+      const float w = fminf(fmaxf(r * r, 1.f / 16.f), 1.f);
+      const float nx = (oy * ox + w * sdf) / (oy + w);
+      *x = fminf(fmaxf(nx, -1.f), 1.f);
+      *y = fminf(oy + w, A.max_weight);
+    } else {
+      const float nx = (oy * ox + sdf) / (oy + 1.f);
+      *x = fminf(fmaxf(nx, -1.f), 1.f);
+      *y = fminf(oy + 1.f, A.max_weight);
+    }
   }
 }
 
@@ -90,14 +105,15 @@ __device__ __forceinline__ void update_ofusion(const FieldArgs& A,
   *y = ts;
 }
 
-template <bool kOFusion>
+// The field's update; OFusion ignores kNoise, as JAX's _field_update does
+template <bool kOFusion, bool kNoise = false>
 __device__ __forceinline__ void update_field(const FieldArgs& A,
                                              const Proj& p, float ds,
                                              float* x, float* y) {
   if (kOFusion)
     update_ofusion(A, p, ds, x, y);
   else
-    update_tsdf(A, p, ds, x, y);
+    update_tsdf<kNoise>(A, p, ds, x, y);
 }
 
 }  // namespace se

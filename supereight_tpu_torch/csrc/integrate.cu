@@ -18,8 +18,11 @@
 //    blocks_truncated. A cluster and not one CTA: each thread tests ~5
 //    slots instead of ~36, and the cross-CTA scan is one cluster barrier.
 //  * integrate_fused: one CTA of 512 threads per worklist entry (one 8^3
-//    block), one thread per voxel. Each voxel is projected once (valid when
-//    z >= 1e-4 and the pixel lies in [0.5, size - 1.5]); the block's pixel
+//    block), one thread per voxel; one body for the field's update, the
+//    TSDF noise_weighted one (a sample weighs clip((1.5 / z)^2, 1/16, 1),
+//    fields.cuh, as in the fallback) and the bilinear read (below). Each
+//    voxel is projected once (valid when z >= 1e-4 and the pixel lies in
+//    [0.5, size - 1.5]); the block's pixel
 //    bbox over its valid voxels is reduced with __reduce_min/max_sync in
 //    each warp and then over the 16 warps' partials; the depth level
 //    follows the JAX rule: level i when dx > 24 << (i-1) or dy > 15 << (i-1)
@@ -35,6 +38,10 @@
 //    its active flag; CTA 0 sums the valid voxels of the need blocks beyond
 //    rank 31 (patch_skipped) and clears their active flags: they skip
 //    fusion this frame, as JAX's top_k sub-worklist leaves them.
+//  * the bilinear mode of integrate_fused (depth_interp): every valid
+//    voxel reads JAX's _sample_depth_bilinear (229-270) at its float pixel:
+//    no depth level, no need flag and no fallback launch; CTA 0 writes the
+//    frame's patch_skipped, 0.
 //
 // Blocks are disjoint, so fusing the covered blocks in one launch and the
 // fallback blocks in the next gives the values of one pass. The OFusion
@@ -144,7 +151,35 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
   }
 }
 
-template <bool kOFusion>
+// JAX's _sample_depth_bilinear (ops/integration.py:229-270): inverse depth
+// interpolated over the 2x2 pixels at (px - 0.5, py - 0.5), x0 clamped to
+// [0, w - 2] and y0 to [0, h - 2]; 0 if any of them is 0; the nearest read
+// where the result lies 5 cm or more from any of them.
+__device__ __forceinline__ float sample_bilinear(const float* __restrict__ depth,
+                                                 int w, int h,
+                                                 const se::Proj& p) {
+  const float x0f = floorf(p.px - 0.5f), y0f = floorf(p.py - 0.5f);
+  const float fx = (p.px - 0.5f) - x0f, fy = (p.py - 0.5f) - y0f;
+  const int x0 = se::clampi((int)x0f, 0, w - 2);
+  const int y0 = se::clampi((int)y0f, 0, h - 2);
+  const float* r0 = depth + y0 * w + x0;
+  const float d00 = r0[0], d10 = r0[1], d01 = r0[w], d11 = r0[w + 1];
+  if (d00 == 0.f || d10 == 0.f || d01 == 0.f || d11 == 0.f) return 0.f;
+  const float inv = (1.f / d00) * (1.f - fx) * (1.f - fy) +
+                    (1.f / d10) * fx * (1.f - fy) +
+                    (1.f / d01) * (1.f - fx) * fy + (1.f / d11) * fx * fy;
+  const float d = 1.f / inv;
+  const bool consistent = fabsf(d - d00) < 0.05f && fabsf(d - d10) < 0.05f &&
+                          fabsf(d - d01) < 0.05f && fabsf(d - d11) < 0.05f;
+  return consistent ? d : depth[p.yi * w + p.xi];
+}
+
+// kNoise: the TSDF noise_weighted update (fields.cuh); kBilinear: every
+// valid voxel reads the bilinear sample, with no depth level and no
+// fallback (JAX sets patch_skipped to 0 and leaves valid alone,
+// integration.py:335-337): mode 0, need 0, and CTA 0 writes the frame's
+// patch_skipped, 0, into `skipped`.
+template <bool kOFusion, bool kNoise, bool kBilinear>
 __global__ void __launch_bounds__(kThreads)
 integrate_fused_kernel(const int* __restrict__ worklist, int cap,
                        const int* __restrict__ block_coord,
@@ -155,10 +190,11 @@ integrate_fused_kernel(const int* __restrict__ worklist, int cap,
                        float* __restrict__ data_y,
                        uint8_t* __restrict__ active, int* __restrict__ mode,
                        int* __restrict__ n_valid,
-                       uint8_t* __restrict__ need) {
+                       uint8_t* __restrict__ need, int* __restrict__ skipped) {
   __shared__ float T[16], K[16];
   __shared__ int part[5][kWarps];  // per warp: x0, x1, y0, y1, valid count
   const int e = blockIdx.x;
+  if (kBilinear && e == 0 && threadIdx.x == 0) *skipped = 0;
   const int slot = worklist[e];
   if (slot >= cap) {  // empty worklist entry: uniform exit
     if (threadIdx.x == 0) {
@@ -181,34 +217,42 @@ integrate_fused_kernel(const int* __restrict__ worklist, int cap,
     x = data_x[v];
     y = data_y[v];
   }
-  const unsigned full = 0xffffffffu;
-  const int x0 = __reduce_min_sync(full, p.valid ? p.xi : kBig);
-  const int x1 = __reduce_max_sync(full, p.valid ? p.xi : -1);
-  const int y0 = __reduce_min_sync(full, p.valid ? p.yi : kBig);
-  const int y1 = __reduce_max_sync(full, p.valid ? p.yi : -1);
-  const int c = __popc(__ballot_sync(full, p.valid));
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    part[0][warp] = x0;
-    part[1][warp] = x1;
-    part[2][warp] = y0;
-    part[3][warp] = y1;
-    part[4][warp] = c;
+  int l = 0, count;
+  if (kBilinear) {
+    count = __syncthreads_count(p.valid);
+  } else {
+    const unsigned full = 0xffffffffu;
+    const int x0 = __reduce_min_sync(full, p.valid ? p.xi : kBig);
+    const int x1 = __reduce_max_sync(full, p.valid ? p.xi : -1);
+    const int y0 = __reduce_min_sync(full, p.valid ? p.yi : kBig);
+    const int y1 = __reduce_max_sync(full, p.valid ? p.yi : -1);
+    const int c = __popc(__ballot_sync(full, p.valid));
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      part[0][warp] = x0;
+      part[1][warp] = x1;
+      part[2][warp] = y0;
+      part[3][warp] = y1;
+      part[4][warp] = c;
+    }
+    __syncthreads();
+    int bx0 = kBig, bx1 = -1, by0 = kBig, by1 = -1;
+    count = 0;
+    for (int i = 0; i < kWarps; ++i) {  // every thread, same order
+      bx0 = min(bx0, part[0][i]);
+      bx1 = max(bx1, part[1][i]);
+      by0 = min(by0, part[2][i]);
+      by1 = max(by1, part[3][i]);
+      count += part[4][i];
+    }
+    l = depth_level(bx1 - bx0, by1 - by0, n_levels);
   }
-  __syncthreads();
-  int bx0 = kBig, bx1 = -1, by0 = kBig, by1 = -1, count = 0;
-  for (int i = 0; i < kWarps; ++i) {  // every thread, same order
-    bx0 = min(bx0, part[0][i]);
-    bx1 = max(bx1, part[1][i]);
-    by0 = min(by0, part[2][i]);
-    by1 = max(by1, part[3][i]);
-    count += part[4][i];
-  }
-  const int l = depth_level(bx1 - bx0, by1 - by0, n_levels);
   if (l >= 0 && p.valid) {
-    const float ds = depth[((p.yi >> l) << l) * w + ((p.xi >> l) << l)];
+    const float ds =
+        kBilinear ? sample_bilinear(depth, w, h, p)
+                  : depth[((p.yi >> l) << l) * w + ((p.xi >> l) << l)];
     const int bx = __float_as_int(x), by = __float_as_int(y);
-    se::update_field<kOFusion>(A, p, ds, &x, &y);
+    se::update_field<kOFusion, kNoise>(A, p, ds, &x, &y);
     if (__float_as_int(x) != bx || __float_as_int(y) != by) {
       data_x[v] = x;
       data_y[v] = y;
@@ -226,7 +270,7 @@ integrate_fused_kernel(const int* __restrict__ worklist, int cap,
   }
 }
 
-template <bool kOFusion>
+template <bool kOFusion, bool kNoise>
 __global__ void __launch_bounds__(kThreads)
 integrate_fallback_kernel(const int* __restrict__ worklist, int n_work,
                           const int* __restrict__ block_coord,
@@ -288,8 +332,8 @@ integrate_fallback_kernel(const int* __restrict__ worklist, int n_work,
       project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
   if (p.valid) {
     const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
-    se::update_field<kOFusion>(A, p, depth[p.yi * w + p.xi], data_x + v,
-                               data_y + v);
+    se::update_field<kOFusion, kNoise>(A, p, depth[p.yi * w + p.xi],
+                                       data_x + v, data_y + v);
   }
   const int any = __syncthreads_or(p.valid);
   if (threadIdx.x == 0) {
@@ -315,37 +359,50 @@ SE_EXPORT int se_integrate_worklist(const int* block_coord,
   return (int)cudaGetLastError();
 }
 
-// field: 0 = TSDF, 1 = OFusion; timestamp (OFusion) is a device f32[]
+// field: 0 = TSDF, 1 = OFusion; timestamp (OFusion) is a device f32[];
+// noise (TSDF only): the noise_weighted update; bilinear: the bilinear
+// depth read, with `skipped` (i32[]) set to 0, else skipped may be null
 SE_EXPORT int se_integrate_fused(const int* worklist, int n_work, int cap,
                                  const int* block_coord, const float* t_cw,
                                  const float* kmat, float voxel, int w,
                                  int h, int n_levels, const float* depth,
-                                 int field, float mu, float max_weight,
+                                 int field, int noise, int bilinear,
+                                 float mu, float max_weight,
                                  float two_voxel, const float* timestamp,
                                  float* data_x, float* data_y,
                                  uint8_t* active, int* mode, int* n_valid,
-                                 uint8_t* need, void* stream) {
+                                 uint8_t* need, int* skipped, void* stream) {
   if (n_work == 0) return 0;
+  if (bilinear && skipped == nullptr) return (int)cudaErrorInvalidValue;
   const se::FieldArgs A{mu, max_weight, two_voxel, timestamp};
-  if (field == 1)
-    integrate_fused_kernel<true><<<n_work, kThreads, 0,
-                                   (cudaStream_t)stream>>>(
-        worklist, cap, block_coord, t_cw, kmat, voxel, w, h, n_levels, depth,
-        A, data_x, data_y, active, mode, n_valid, need);
+  cudaStream_t st = (cudaStream_t)stream;
+#define SE_FUSED(OF, NOISE, BILINEAR)                                       \
+  integrate_fused_kernel<OF, NOISE, BILINEAR><<<n_work, kThreads, 0, st>>>( \
+      worklist, cap, block_coord, t_cw, kmat, voxel, w, h, n_levels, depth, \
+      A, data_x, data_y, active, mode, n_valid, need, skipped)
+  if (field == 1 && bilinear)
+    SE_FUSED(true, false, true);
+  else if (field == 1)
+    SE_FUSED(true, false, false);
+  else if (noise && bilinear)
+    SE_FUSED(false, true, true);
+  else if (noise)
+    SE_FUSED(false, true, false);
+  else if (bilinear)
+    SE_FUSED(false, false, true);
   else
-    integrate_fused_kernel<false><<<n_work, kThreads, 0,
-                                    (cudaStream_t)stream>>>(
-        worklist, cap, block_coord, t_cw, kmat, voxel, w, h, n_levels, depth,
-        A, data_x, data_y, active, mode, n_valid, need);
+    SE_FUSED(false, false, false);
+#undef SE_FUSED
   return (int)cudaGetLastError();
 }
 
-// n_fb = min(32, n_work) CTAs, one per fallback block
+// n_fb = min(32, n_work) CTAs, one per fallback block; noise as
+// se_integrate_fused's
 SE_EXPORT int se_integrate_fallback(const int* worklist, int n_work,
                                     const int* block_coord, const float* t_cw,
                                     const float* kmat, float voxel, int w,
                                     int h, const float* depth, int field,
-                                    float mu, float max_weight,
+                                    int noise, float mu, float max_weight,
                                     float two_voxel, const float* timestamp,
                                     int n_fb, float* data_x, float* data_y,
                                     uint8_t* active, int* mode,
@@ -353,15 +410,17 @@ SE_EXPORT int se_integrate_fallback(const int* worklist, int n_work,
                                     int* patch_skipped, void* stream) {
   if (n_fb == 0) return 0;
   const se::FieldArgs A{mu, max_weight, two_voxel, timestamp};
+  cudaStream_t st = (cudaStream_t)stream;
+#define SE_FALLBACK(OF, NOISE)                                              \
+  integrate_fallback_kernel<OF, NOISE><<<n_fb, kThreads, 0, st>>>(          \
+      worklist, n_work, block_coord, t_cw, kmat, voxel, w, h, depth, A,     \
+      data_x, data_y, active, mode, n_valid, need, patch_skipped)
   if (field == 1)
-    integrate_fallback_kernel<true><<<n_fb, kThreads, 0,
-                                      (cudaStream_t)stream>>>(
-        worklist, n_work, block_coord, t_cw, kmat, voxel, w, h, depth, A,
-        data_x, data_y, active, mode, n_valid, need, patch_skipped);
+    SE_FALLBACK(true, false);
+  else if (noise)
+    SE_FALLBACK(false, true);
   else
-    integrate_fallback_kernel<false><<<n_fb, kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-        worklist, n_work, block_coord, t_cw, kmat, voxel, w, h, depth, A,
-        data_x, data_y, active, mode, n_valid, need, patch_skipped);
+    SE_FALLBACK(false, false);
+#undef SE_FALLBACK
   return (int)cudaGetLastError();
 }

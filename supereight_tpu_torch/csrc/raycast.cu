@@ -34,7 +34,13 @@
 //    counted in ray_overflow;
 //  * epilogue: bracket estimate, trilinear value and cell gradient, one
 //    Newton step clamped to [t_cross - ss, t_cross], normal (inverted for
-//    TSDF).
+//    TSDF);
+//  * TSDF with min_ref_weight > 0 (the map-maturity gate of the JAX frame
+//    step, parallel/step.py:171-192, before its select): a hit whose voxel
+//    at floor(vertex / voxel) has fused less weight (channel y) than
+//    min_ref_weight, read through the map's slot grid, is not valid; its
+//    vertex and normal are kept. One more dependent pair of loads (slot,
+//    then weight) per hit.
 // Reads go straight to the pool through the nav grid: nav[cell] >= 0 is
 // the pool slot of an allocated in-bucket block, else -(1 + e) with the
 // distance in bits 0-2 and, for OFusion, the coarse free-space value in
@@ -88,7 +94,7 @@ struct Params {
   int w, h, size, b, max_probes;
   float dim, inv_voxel, voxel, largestep, half_largestep, bstep, mu,
       near_plane, far_plane, small_backoff, big_backoff, floor_cap,
-      two_step, of_cap;
+      two_step, of_cap, min_ref_weight;
 };
 
 struct Probe {
@@ -188,14 +194,40 @@ __device__ __forceinline__ void corner_pair(const Params& P, Pool& pool,
   }
 }
 
+// The TSDF map-maturity gate's read (JAX parallel/step.py:185-191 with
+// core/map.py:get_voxel_channel_c): the fusion weight (channel y) of the
+// voxel at floor(h / voxel), through the map's slot grid (every allocated
+// block, not only the nav grid's bucket), 0 outside the map or where no
+// block is allocated.
+__device__ __forceinline__ float ref_weight(const Params& P,
+                                            const int* __restrict__ slot,
+                                            const float* __restrict__ data_y,
+                                            float hx, float hy, float hz) {
+  int vx = (int)floorf(hx * P.inv_voxel);
+  int vy = (int)floorf(hy * P.inv_voxel);
+  int vz = (int)floorf(hz * P.inv_voxel);
+  const bool inb = vx >= 0 && vx < P.size && vy >= 0 && vy < P.size &&
+                   vz >= 0 && vz < P.size;
+  vx = se::clampi(vx, 0, P.size - 1);
+  vy = se::clampi(vy, 0, P.size - 1);
+  vz = se::clampi(vz, 0, P.size - 1);
+  const int s = __ldg(slot + ((vx >> 3) * P.b + (vy >> 3)) * P.b + (vz >> 3));
+  if (s < 0 || !inb) return 0.f;
+  return __ldg(data_y + (size_t)s * se::kBlockVoxels + (vx & 7) +
+               ((vy & 7) << 3) + ((vz & 7) << 6));
+}
+
 // March pixel ray i of `view` (V) primed by depth[i] with the intrinsics
 // Kc, write its vertex, normal and valid flag; returns whether the ray was
-// still marching at the probe bound (ray_overflow).
-template <bool kOF>
+// still marching at the probe bound (ray_overflow). kGate (TSDF): a hit
+// whose voxel has fused less weight than P.min_ref_weight is not valid;
+// its vertex and normal stay as they are.
+template <bool kOF, bool kGate>
 __device__ __forceinline__ bool march_ray(
     const Params& P, const float* V, const float* Kc, Pool& pool,
-    const float* __restrict__ depth, int i, float* __restrict__ vertex,
-    float* __restrict__ normal, uint8_t* __restrict__ valid) {
+    const int* __restrict__ slot, const float* __restrict__ depth, int i,
+    float* __restrict__ vertex, float* __restrict__ normal,
+    uint8_t* __restrict__ valid) {
   const float pxf = (float)(i % P.w), pyf = (float)(i / P.w);
 
   // ray_directions_c (rendering.cpp:62-65)
@@ -338,21 +370,28 @@ __device__ __forceinline__ bool march_ray(
   float ninv = 1.f / (gn == 0.f ? 1.f : gn);
   if (!kOF) ninv = -ninv;  // TSDF invert_normals
   const bool ok = hit && gn > 0.f;
-  vertex[3 * i] = hit ? ox + dx * t_hit : 0.f;
-  vertex[3 * i + 1] = hit ? oy + dy * t_hit : 0.f;
-  vertex[3 * i + 2] = hit ? oz + dz * t_hit : 0.f;
+  const float hx = hit ? ox + dx * t_hit : 0.f;
+  const float hy = hit ? oy + dy * t_hit : 0.f;
+  const float hz = hit ? oz + dz * t_hit : 0.f;
+  vertex[3 * i] = hx;
+  vertex[3 * i + 1] = hy;
+  vertex[3 * i + 2] = hz;
   normal[3 * i] = ok ? gx * ninv : kInvalid;
   normal[3 * i + 1] = ok ? gy * ninv : 0.f;
   normal[3 * i + 2] = ok ? gz * ninv : 0.f;
-  valid[i] = ok ? 1 : 0;
+  bool keep = ok;
+  if (kGate && ok)
+    keep = ref_weight(P, slot, pool.data_y, hx, hy, hz) >= P.min_ref_weight;
+  valid[i] = keep ? 1 : 0;
   return status == 0;
 }
 
-template <bool kOF>
+template <bool kOF, bool kGate>
 __global__ void __launch_bounds__(kThreads)
 raycast_kernel(Params P, const float* __restrict__ view,
                const int* __restrict__ nav, const float* __restrict__ data_x,
                const float* __restrict__ data_y,
+               const int* __restrict__ slot,
                const float* __restrict__ depth, const float* __restrict__ k,
                const uint8_t* __restrict__ when,
                const float* __restrict__ pose,
@@ -381,7 +420,8 @@ raycast_kernel(Params P, const float* __restrict__ view,
   if (x < P.w && y < P.h) {
     if (go) {
       Pool pool{nav, data_x, data_y, -1, 0};
-      if (march_ray<kOF>(P, V, Kc, pool, depth, i, vertex, normal, valid))
+      if (march_ray<kOF, kGate>(P, V, Kc, pool, slot, depth, i, vertex,
+                                normal, valid))
         atomicAdd(&cta_live, 1);
     } else {  // the state's maps as they were
       for (int a = 0; a < 3; ++a) {
@@ -406,12 +446,15 @@ raycast_kernel(Params P, const float* __restrict__ view,
 
 }  // namespace
 
-// field: 0 = TSDF, 1 = OFusion. when, pose, old_rp, old_vertex,
+// field: 0 = TSDF, 1 = OFusion. slot (the map's i32[B^3] slot grid) is
+// null for no maturity gate, else (TSDF only) hits whose voxel weighs less
+// than min_ref_weight are not valid. when, pose, old_rp, old_vertex,
 // old_normal, old_valid and raycast_pose are null together (no select);
 // scratch is an i32[2] that is zero before the first launch and that every
 // launch leaves zero; launches that share it must not overlap.
 SE_EXPORT int se_raycast(const float* view, const int* nav,
                          const float* data_x, const float* data_y,
+                         const int* slot, float min_ref_weight,
                          const float* depth, const float* k, int field, int w,
                          int h, int size, int b, int max_probes, float dim,
                          float inv_voxel, float voxel, float largestep,
@@ -427,19 +470,22 @@ SE_EXPORT int se_raycast(const float* view, const int* nav,
                          void* stream) {
   Params P{w, h, size, b, max_probes, dim, inv_voxel, voxel, largestep,
            half_largestep, bstep, mu, near_plane, far_plane, small_backoff,
-           big_backoff, floor_cap, two_step, of_cap};
+           big_backoff, floor_cap, two_step, of_cap, min_ref_weight};
   if (w <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  if (field == 1 && slot != nullptr) return (int)cudaErrorInvalidValue;
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
   cudaStream_t st = (cudaStream_t)stream;
+#define SE_RAYCAST(OF, GATE)                                                \
+  raycast_kernel<OF, GATE><<<grid, kThreads, 0, st>>>(                      \
+      P, view, nav, data_x, data_y, slot, depth, k, when, pose, old_rp,     \
+      old_vertex, old_normal, old_valid, vertex, normal, valid,             \
+      raycast_pose, overflow, scratch)
   if (field == 1)
-    raycast_kernel<true><<<grid, kThreads, 0, st>>>(
-        P, view, nav, data_x, data_y, depth, k, when, pose, old_rp,
-        old_vertex, old_normal, old_valid, vertex, normal, valid,
-        raycast_pose, overflow, scratch);
+    SE_RAYCAST(true, false);
+  else if (slot != nullptr)
+    SE_RAYCAST(false, true);
   else
-    raycast_kernel<false><<<grid, kThreads, 0, st>>>(
-        P, view, nav, data_x, data_y, depth, k, when, pose, old_rp,
-        old_vertex, old_normal, old_valid, vertex, normal, valid,
-        raycast_pose, overflow, scratch);
+    SE_RAYCAST(false, false);
+#undef SE_RAYCAST
   return (int)cudaGetLastError();
 }

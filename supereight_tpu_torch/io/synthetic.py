@@ -1,10 +1,11 @@
 """Synthetic depth-sequence generator (numpy), for tests and the GPU smoke.
 
-A copy of the orbit path of ``supereight_tpu/io/synthetic.py`` so that
-the port runs on a host without JAX: a closed-form scene (sphere inside
-an axis-aligned room, rendered by exact ray intersection) with exact
-ground-truth poses and depth. Outputs are bit-identical to the JAX
-package's generator.
+A copy of the orbit path and the range-noise model of
+``supereight_tpu/io/synthetic.py`` so that the port runs on a host without
+JAX: a closed-form scene (sphere inside an axis-aligned room, rendered by
+exact ray intersection) with exact ground-truth poses and depth, and
+:func:`add_depth_noise`. Outputs are bit-identical to the JAX package's
+generator.
 """
 
 import numpy as np
@@ -113,3 +114,17 @@ def orbit_sequence(n_frames, k, width=320, height=240, radius=1.6,
         depths.append(d)
         poses.append(pose)
     return np.stack(depths), np.stack(poses)
+
+
+def add_depth_noise(depth, noise_factor, seed=0):
+    """Kinect-style range noise: sigma = noise_factor * z^2 (the same
+    model the OFusion update assumes, bfusion/mapping_impl.hpp:168-170),
+    plus millimeter quantization. 0 stays 0 (missing). Numpy's
+    ``RandomState(seed)``, so both packages draw the same noisy frame."""
+    rng = np.random.RandomState(seed)
+    sigma = noise_factor * depth * depth
+    noisy = depth + rng.standard_normal(depth.shape).astype(np.float32) \
+        * sigma
+    noisy = np.round(noisy * 1000.0) / 1000.0
+    return np.where(depth > 0, np.maximum(noisy, 0.0), 0.0) \
+        .astype(np.float32)

@@ -37,7 +37,12 @@ LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
             "integrate_fallback": 0, "integrate_fallback_of": 0,
             "nav_grid": 0, "raycast": 0, "raycast_of": 0, "gather_a": 0,
             "gather_b": 0, "gather_c": 0, "gather_d": 0, "node_rank": 0,
-            "node_pass": 0, "pyramid": 0, "frame_mats": 0}
+            "node_pass": 0, "pyramid": 0, "frame_mats": 0, "bilateral": 0,
+            "median": 0, "median2": 0, "integrate_fused_noise": 0,
+            "integrate_fused_bilinear": 0,
+            "integrate_fused_noise_bilinear": 0,
+            "integrate_fused_of_bilinear": 0,
+            "integrate_fallback_noise": 0, "raycast_gated": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu and preprocess.cu take
@@ -78,6 +83,16 @@ class Levels(ctypes.Structure):
                 ("n_levels", ctypes.c_int)]
 
 
+class Gauss(ctypes.Structure):
+    """The bilateral filter's five spatial weights, passed by value
+    (csrc/preprocess.cu ``Gauss``)."""
+
+    _fields_ = [("g", ctypes.c_float * 5)]
+
+    def __init__(self, g):
+        super().__init__((ctypes.c_float * 5)(*g))
+
+
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signature of each exported entry point (stream last, every one
 # returns the cudaError_t of its launch)
@@ -90,14 +105,14 @@ _SIGNATURES = {
                           P),
     "se_alloc_assign": (P, P, P, P, I, I, I, I, P, P, P, P, P, Mips, P),
     "se_integrate_worklist": (P, P, P, I, P, P, F, I, I, I, P, P, P, P),
-    "se_integrate_fused": (P, I, I, P, P, P, F, I, I, I, P, I, F, F, F, P, P,
-                           P, P, P, P, P, P),
-    "se_integrate_fallback": (P, I, P, P, P, F, I, I, P, I, F, F, F, P, I, P,
-                              P, P, P, P, P, P, P),
+    "se_integrate_fused": (P, I, I, P, P, P, F, I, I, I, P, I, I, I, F, F, F,
+                           P, P, P, P, P, P, P, P, P),
+    "se_integrate_fallback": (P, I, P, P, P, F, I, I, P, I, I, F, F, F, P, I,
+                              P, P, P, P, P, P, P, P),
     "se_nav_grid": (P, I, I, I, I, Mips, P, P, P, P),
-    "se_raycast": (P, P, P, P, P, P, I, I, I, I, I, I, F, F, F, F, F, F, F,
-                   F, F, F, F, F, F, F, P, P, P, P, P, P, P, P, P, P, P, P,
-                   P),
+    "se_raycast": (P, P, P, P, P, F, P, P, I, I, I, I, I, I, F, F, F, F, F,
+                   F, F, F, F, F, F, F, F, F, P, P, P, P, P, P, P, P, P, P,
+                   P, P, P),
     "se_gather_a": (P, P, I, I, I, P, P),
     "se_gather_b": (P, P, I, I, I, P, P),
     "se_gather_c": (P, P, I, I, I, P, P),
@@ -106,6 +121,8 @@ _SIGNATURES = {
     "se_node_pass": (Mips, I, I, D, P, P, P, P, I, I, P, I, F, F, F, P, P),
     "se_frame_mats": (P, P, P, P, P, I, I, I, P, P, P),
     "se_pyramid": (P, P, F, I, Levels, P),
+    "se_median": (P, I, I, I, P, P),
+    "se_bilateral": (P, I, I, Gauss, F, P, P),
 }
 
 _lock = threading.Lock()

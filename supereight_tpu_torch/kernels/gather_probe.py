@@ -74,9 +74,9 @@ def take_along_cols(table, idx):
 
 
 def take_rows_staged(table, idx):
-    """Form D: the dynamic row-slice loop with its indices in fast memory
-    (each CTA stages a block of indices in shared memory first); the same
-    result as form A."""
+    """Form D: the dynamic row-slice loop, the same result as form A: one
+    thread per 16-byte vector of the output over the whole grid, each
+    reading its row's index."""
     dev = _args(table, idx, "take_rows_staged")
     if dev.type == "cpu":
         return take_rows_plain(table, idx)

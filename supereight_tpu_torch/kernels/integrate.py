@@ -4,12 +4,18 @@ Replaces the block pass of ``supereight_tpu/ops/integration.py:integrate``
 (286-375) with ``build_active_worklist`` (60-75) and ``in_frustum_mask``
 (44-57), ``_project_voxels_c`` (78-94), ``_sample_depth_patch`` (123-213,
 the depth-level rule), the exact fallback for the first 32 uncovered
-blocks (340-356) and ``_field_update`` (273-279). The CUDA kernels are the
-three launches of ``csrc/integrate.cu``: :func:`integrate_worklist`, then
+blocks (340-356), ``_sample_depth_bilinear`` (229-270, the
+``depth_interp`` read) and ``_field_update`` (273-279, with the TSDF
+``noise_weighted`` weight). The CUDA kernels are the three launches of
+``csrc/integrate.cu``: :func:`integrate_worklist`, then
 :func:`integrate_fused` and :func:`integrate_fallback`, which
-:func:`integrate_blocks` makes in turn. Each has its plain PyTorch version
+:func:`integrate_blocks` makes in turn (the bilinear read has no level
+rule and no fallback: two launches). Each has its plain PyTorch version
 (``*_plain``), used for CPU tensors and as the kernel's reference on the
-card.
+card. A launch is counted under its kernel and mode: ``integrate_fused``
+with ``_of`` for OFusion, ``_noise`` for the TSDF ``noise_weighted``
+update and ``_bilinear`` for the bilinear read (``fused_name``,
+``fallback_name``).
 
 The fused and fallback passes write ``data_x``, ``data_y`` and ``active``
 of the map IN PLACE. The OFusion update's timestamp is a device f32[] (the
@@ -46,13 +52,29 @@ def patch_levels(h: int, w: int) -> int:
 
 
 def field_update(field, old_x, old_y, pos_cam, depth_sample, valid, mu,
-                 timestamp, voxel_size):
-    """The field's fusion functor (JAX integration.py:273-279)."""
+                 timestamp, voxel_size, noise_weighted=False):
+    """The field's fusion functor (JAX integration.py:273-279); OFusion
+    ignores ``noise_weighted``."""
     if field.name == "tsdf":
         return tsdf_field.update(old_x, old_y, pos_cam, depth_sample, mu,
-                                 valid)
+                                 valid, noise_weighted)
     return ofusion_field.update(old_x, old_y, pos_cam, depth_sample, mu,
                                 timestamp, voxel_size, valid)
+
+
+def fused_name(field, noise_weighted=False, bilinear=False) -> str:
+    """The launch count of :func:`integrate_fused` in this mode."""
+    of = field.name == "ofusion"
+    return ("integrate_fused" + ("_of" if of else "")
+            + ("_noise" if noise_weighted and not of else "")
+            + ("_bilinear" if bilinear else ""))
+
+
+def fallback_name(field, noise_weighted=False) -> str:
+    """The launch count of :func:`integrate_fallback` in this mode."""
+    of = field.name == "ofusion"
+    return ("integrate_fallback" + ("_of" if of else "")
+            + ("_noise" if noise_weighted and not of else ""))
 
 
 def as_timestamp(field, timestamp, dev):
@@ -140,17 +162,26 @@ def integrate_worklist_plain(geom, state, t_cw, kmat, frame_size,
 # ---- the block pass --------------------------------------------------------
 
 def integrate_blocks(geom, state, field, worklist, depth, t_cw, kmat,
-                     mu: float, timestamp=None):
+                     mu: float, timestamp=None, noise_weighted=False,
+                     bilinear=False):
     """Fuse ``depth`` into every block of ``worklist`` (i32[budget] slots,
     entries == capacity are empty), in place: :func:`integrate_fused`, then
-    :func:`integrate_fallback`. ``t_cw`` is world-to-camera [4, 4],
-    ``kmat`` the 4x4 intrinsics, ``timestamp`` the f32[] time the OFusion
-    update writes. Returns patch_skipped (i32[]): valid voxels of uncovered
-    blocks beyond the fallback bound."""
+    :func:`integrate_fallback` (not with ``bilinear``). ``t_cw`` is
+    world-to-camera [4, 4], ``kmat`` the 4x4 intrinsics, ``timestamp`` the
+    f32[] time the OFusion update writes. Returns patch_skipped (i32[]):
+    valid voxels of uncovered blocks beyond the fallback bound (0 with
+    ``bilinear``, written by the fused launch)."""
+    if bilinear:
+        skipped = torch.empty((), dtype=torch.int32, device=depth.device)
+        integrate_fused(geom, state, field, worklist, depth, t_cw, kmat, mu,
+                        timestamp, noise_weighted, True, skipped)
+        return skipped
     mode, n_valid, need = integrate_fused(geom, state, field, worklist, depth,
-                                          t_cw, kmat, mu, timestamp)
+                                          t_cw, kmat, mu, timestamp,
+                                          noise_weighted)
     return integrate_fallback(geom, state, field, worklist, depth, t_cw, kmat,
-                              mu, mode, n_valid, need, timestamp)
+                              mu, mode, n_valid, need, timestamp,
+                              noise_weighted)
 
 
 def _check_block_args(geom, state, worklist, depth, t_cw, kmat):
@@ -168,27 +199,38 @@ def _check_block_args(geom, state, worklist, depth, t_cw, kmat):
 
 
 def _field_args(field, mu, geom, timestamp, dev):
-    """The field arguments of the fused and fallback entries."""
-    return (int(field.name == "ofusion"), float(mu), float(MAX_WEIGHT),
-            2.0 * geom.voxel_size, as_timestamp(field, timestamp, dev))
+    """The update's arguments of the fused and fallback entries, after
+    their field and noise flags."""
+    return (float(mu), float(MAX_WEIGHT), 2.0 * geom.voxel_size,
+            as_timestamp(field, timestamp, dev))
 
 
 def integrate_fused(geom, state, field, worklist, depth, t_cw, kmat,
-                    mu: float, timestamp=None):
+                    mu: float, timestamp=None, noise_weighted=False,
+                    bilinear=False, patch_skipped=None):
     """Per worklist block: the depth level of its pixel bbox by the JAX
     rule; a covered block is fused at that level in place and its active
     flag set to (any voxel valid). Returns (mode i32 — the covered level,
     -1 when no level covers the bbox —, n_valid i32, need bool — uncovered
     with valid voxels: untouched, active flag included, for
-    :func:`integrate_fallback`). The launch count is kept per field
-    (``integrate_fused``, ``integrate_fused_of``)."""
+    :func:`integrate_fallback`). ``noise_weighted``: the TSDF update's
+    noise weight (OFusion ignores it). ``bilinear``: every valid voxel
+    reads the bilinear sample instead, with no level (mode 0, need False
+    for every entry) and the i32[] ``patch_skipped`` set to 0. The launch
+    is counted under :func:`fused_name`."""
     dev = depth.device
+    if bilinear and patch_skipped is None:
+        raise ValueError("integrate_fused: the bilinear read writes "
+                         "patch_skipped; pass an i32[] tensor")
     if dev.type == "cpu":
         return integrate_fused_plain(geom, state, field, worklist, depth,
-                                     t_cw, kmat, mu, timestamp)
+                                     t_cw, kmat, mu, timestamp,
+                                     noise_weighted, bilinear, patch_skipped)
     if dev.type != "cuda":
         raise ValueError(f"integrate_fused: unsupported device {dev}")
     _check_block_args(geom, state, worklist, depth, t_cw, kmat)
+    if bilinear:
+        _lib.check(patch_skipped, "patch_skipped", torch.int32, (), dev)
     h, w = depth.shape
     n_work = worklist.shape[0]
     mode = torch.empty(n_work, dtype=torch.int32, device=dev)
@@ -196,30 +238,34 @@ def integrate_fused(geom, state, field, worklist, depth, t_cw, kmat,
     need = torch.empty(n_work, dtype=torch.bool, device=dev)
     of = field.name == "ofusion"
     if n_work:
-        _lib.launch("integrate_fused_of" if of else "integrate_fused",
+        _lib.launch(fused_name(field, noise_weighted, bilinear),
                     "se_integrate_fused", dev, worklist, n_work,
                     geom.capacity, state.block_coord, t_cw, kmat,
                     geom.voxel_size, w, h, patch_levels(h, w), depth,
+                    int(of), int(noise_weighted and not of), int(bilinear),
                     *_field_args(field, mu, geom, timestamp, dev),
                     state.data_x, state.data_y, state.active, mode, n_valid,
-                    need)
+                    need, patch_skipped if bilinear else None)
+    elif bilinear:
+        patch_skipped.zero_()
     return mode, n_valid, need
 
 
 def integrate_fallback(geom, state, field, worklist, depth, t_cw, kmat,
-                       mu: float, mode, n_valid, need, timestamp=None):
+                       mu: float, mode, n_valid, need, timestamp=None,
+                       noise_weighted=False):
     """The need blocks of :func:`integrate_fused`, ranked in worklist
     order: the first min(32, budget) are fused at the exact pixel (level 0)
     in place, with their mode set to 0 and their active flag to (any voxel
     valid); the rest skip fusion this frame, with their active flag
     cleared. Returns patch_skipped (i32[]): the valid voxels of the blocks
-    skipped. The launch count is kept per field (``integrate_fallback``,
-    ``integrate_fallback_of``)."""
+    skipped. ``noise_weighted`` as :func:`integrate_fused`'s; the launch
+    is counted under :func:`fallback_name`."""
     dev = depth.device
     if dev.type == "cpu":
         return integrate_fallback_plain(geom, state, field, worklist, depth,
                                         t_cw, kmat, mu, mode, n_valid, need,
-                                        timestamp)
+                                        timestamp, noise_weighted)
     if dev.type != "cuda":
         raise ValueError(f"integrate_fallback: unsupported device {dev}")
     _check_block_args(geom, state, worklist, depth, t_cw, kmat)
@@ -233,9 +279,10 @@ def integrate_fallback(geom, state, field, worklist, depth, t_cw, kmat,
     h, w = depth.shape
     skipped = torch.empty((), dtype=torch.int32, device=dev)
     of = field.name == "ofusion"
-    _lib.launch("integrate_fallback_of" if of else "integrate_fallback",
+    _lib.launch(fallback_name(field, noise_weighted),
                 "se_integrate_fallback", dev, worklist, n_work,
                 state.block_coord, t_cw, kmat, geom.voxel_size, w, h, depth,
+                int(of), int(noise_weighted and not of),
                 *_field_args(field, mu, geom, timestamp, dev),
                 min(FALLBACK_BLOCKS, n_work), state.data_x, state.data_y,
                 state.active, mode, n_valid, need, skipped)
@@ -259,7 +306,7 @@ def project_voxels(wx, wy, wz, t_cw, kmat, frame_size):
 
 def _project_blocks(geom, state, worklist, depth, t_cw, kmat):
     """[budget, 512] voxel projection of the worklist blocks: (slots,
-    present, camera pos, xi, yi, valid)."""
+    present, camera pos, xi, yi, valid, (px, py))."""
     cap = geom.capacity
     dev = depth.device
     h, w = depth.shape
@@ -274,23 +321,64 @@ def _project_blocks(geom, state, worklist, depth, t_cw, kmat):
     pos, px, py, valid = project_voxels(wx, wy, wz, t_cw, kmat, (w, h))
     xi = px.to(torch.int32).clamp(0, w - 1)
     yi = py.to(torch.int32).clamp(0, h - 1)
-    return slots, present, pos, xi, yi, valid & present[:, None]
+    return slots, present, pos, xi, yi, valid & present[:, None], (px, py)
+
+
+def sample_bilinear_plain(depth, px, py, xi, yi):
+    """JAX's ``_sample_depth_bilinear`` at pixel coordinates (px, py)
+    (integration.py:229-270): inverse depth interpolated over the 2x2
+    pixels at (px - 0.5, py - 0.5), x0 clamped to [0, w - 2] and y0 to
+    [0, h - 2]; 0 if any of them is 0; the nearest read depth[yi, xi] where
+    the result lies 5 cm or more from any of them."""
+    h, w = depth.shape
+    flat = depth.reshape(-1)
+    x0f = torch.floor(px - 0.5)
+    y0f = torch.floor(py - 0.5)
+    fx = (px - 0.5) - x0f
+    fy = (py - 0.5) - y0f
+    x0 = x0f.to(torch.int32).clamp(0, w - 2)
+    y0 = y0f.to(torch.int32).clamp(0, h - 2)
+    i00 = (y0 * w + x0).long()
+    d00, d10 = flat[i00], flat[i00 + 1]
+    d01, d11 = flat[i00 + w], flat[i00 + w + 1]
+    any_zero = (d00 == 0) | (d10 == 0) | (d01 == 0) | (d11 == 0)
+
+    def safe(d):
+        return torch.where(d == 0, torch.ones_like(d), d)
+
+    inv = ((1.0 / safe(d00)) * (1 - fx) * (1 - fy)
+           + (1.0 / safe(d10)) * fx * (1 - fy)
+           + (1.0 / safe(d01)) * (1 - fx) * fy
+           + (1.0 / safe(d11)) * fx * fy)
+    d = 1.0 / inv
+    thr = 0.05
+    consistent = ((torch.abs(d - d00) < thr) & (torch.abs(d - d10) < thr)
+                  & (torch.abs(d - d01) < thr) & (torch.abs(d - d11) < thr))
+    out = torch.where(consistent, d, flat[(yi * w + xi).long()])
+    return torch.where(any_zero, torch.zeros_like(out), out)
 
 
 def _update_blocks(geom, state, field, worklist, depth, t_cw, kmat, mu,
-                   mode, write, timestamp):
+                   mode, write, timestamp, noise_weighted=False,
+                   bilinear=False):
     """Fuse each worklist block at its depth ``mode`` (i32: level, -1 =
-    skip) and write the payload and the active flag (any voxel fused) of
-    the entries that ``write`` selects, in place."""
+    skip; with ``bilinear`` the bilinear read) and write the payload and
+    the active flag (any voxel fused) of the entries that ``write``
+    selects, in place."""
     w = depth.shape[1]
-    slots, present, pos, xi, yi, valid = _project_blocks(
+    slots, present, pos, xi, yi, valid, (px, py) = _project_blocks(
         geom, state, worklist, depth, t_cw, kmat)
-    l = mode.clamp(min=0)[:, None]
-    ds = depth.reshape(-1)[(((yi >> l) << l) * w + ((xi >> l) << l)).long()]
+    if bilinear:
+        ds = sample_bilinear_plain(depth, px, py, xi, yi)
+    else:
+        l = mode.clamp(min=0)[:, None]
+        ds = depth.reshape(-1)[(((yi >> l) << l) * w
+                                + ((xi >> l) << l)).long()]
     valid = valid & (mode >= 0)[:, None]
     new_x, new_y, _ = field_update(
         field, state.data_x[slots], state.data_y[slots], pos, ds, valid, mu,
-        as_timestamp(field, timestamp, depth.device), geom.voxel_size)
+        as_timestamp(field, timestamp, depth.device), geom.voxel_size,
+        noise_weighted)
     sel = write & present
     dest = slots[sel]
     state.data_x[dest] = new_x[sel]
@@ -300,12 +388,21 @@ def _update_blocks(geom, state, field, worklist, depth, t_cw, kmat, mu,
 
 
 def integrate_fused_plain(geom, state, field, worklist, depth, t_cw, kmat,
-                          mu: float, timestamp=None):
+                          mu: float, timestamp=None, noise_weighted=False,
+                          bilinear=False, patch_skipped=None):
     """Plain PyTorch twin of :func:`integrate_fused` (same in-place
     contract)."""
     h, w = depth.shape
-    _, _, _, xi, yi, valid = _project_blocks(geom, state, worklist, depth,
-                                             t_cw, kmat)
+    _, _, _, xi, yi, valid, _ = _project_blocks(geom, state, worklist, depth,
+                                                t_cw, kmat)
+    if bilinear:
+        n_valid = valid.sum(1, dtype=torch.int32)
+        mode = torch.zeros_like(n_valid)
+        _update_blocks(geom, state, field, worklist, depth, t_cw, kmat, mu,
+                       mode, torch.ones_like(mode, dtype=torch.bool),
+                       timestamp, noise_weighted, True)
+        patch_skipped.zero_()
+        return mode, n_valid, torch.zeros_like(mode, dtype=torch.bool)
     # block pixel bbox over valid voxels -> depth level (JAX rule)
     big = 1 << 20
     x0 = torch.where(valid, xi, big).amin(1)
@@ -326,12 +423,13 @@ def integrate_fused_plain(geom, state, field, worklist, depth, t_cw, kmat,
     mode = torch.where(covered, lvl, -1).to(torch.int32)
     need = ~covered & (n_valid > 0)
     _update_blocks(geom, state, field, worklist, depth, t_cw, kmat, mu, mode,
-                   ~need, timestamp)
+                   ~need, timestamp, noise_weighted)
     return mode, n_valid, need
 
 
 def integrate_fallback_plain(geom, state, field, worklist, depth, t_cw, kmat,
-                             mu: float, mode, n_valid, need, timestamp=None):
+                             mu: float, mode, n_valid, need, timestamp=None,
+                             noise_weighted=False):
     """Plain PyTorch twin of :func:`integrate_fallback` (same in-place
     contract, ``mode`` included)."""
     rank = torch.cumsum(need.to(torch.int32), 0) - 1
@@ -339,5 +437,6 @@ def integrate_fallback_plain(geom, state, field, worklist, depth, t_cw, kmat,
     mode.masked_fill_(fb, 0)
     skipped = torch.sum(torch.where(need & ~fb, n_valid, 0))
     _update_blocks(geom, state, field, worklist, depth, t_cw, kmat, mu,
-                   torch.where(fb, 0, -1).to(torch.int32), need, timestamp)
+                   torch.where(fb, 0, -1).to(torch.int32), need, timestamp,
+                   noise_weighted)
     return skipped.to(torch.int32)

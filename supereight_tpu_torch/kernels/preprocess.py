@@ -1,26 +1,120 @@
-"""K7 wrapper and twins: the tracking stage's input pyramid.
+"""K7 wrappers and twins: the tracking stage's input filters and pyramid.
 
-Replaces ``supereight_tpu/pipeline.py:_preprocess_and_pyramid`` (26-58,
-the ``filter_input=False`` path) with ``ops/preprocess.py``'s
-``half_sample_robust`` (79-98), ``depth2vertex`` (101-114) and
-``vertex2normal`` (117-143) (ref se_denseslam/src/preprocessing.cpp). The
-CUDA kernel is ``csrc/preprocess.cu``: :func:`pyramid`, one launch that
+Replaces ``supereight_tpu/pipeline.py:_preprocess_and_pyramid`` (26-58)
+with ``ops/preprocess.py``'s ``bilateral_filter`` (28-52),
+``median_filter3`` (55-76), ``half_sample_robust`` (79-98),
+``depth2vertex`` (101-114) and ``vertex2normal`` (117-143) (ref
+se_denseslam/src/preprocessing.cpp). The CUDA kernels are in
+``csrc/preprocess.cu``: :func:`bilateral_filter` and
+:func:`median_filter3` (one launch each, ``median2`` included), which
+write the filtered level 0, and :func:`pyramid`, one launch that
 half-samples every level in shared memory and writes each level's depth,
-vertices, normals and valid mask. Its plain PyTorch version,
-:func:`pyramid_plain`, composes the per-level twins
-:func:`half_sample_plain` and :func:`vertex_normal_plain`; it runs for
-CPU tensors and is the kernel's reference on the card.
-
-The input filters (bilateral, median) are not ported yet.
+vertices, normals and valid mask. Their plain PyTorch versions
+(:func:`bilateral_filter_plain`, :func:`median_filter3_plain`, and
+:func:`pyramid_plain`, which composes the per-level twins
+:func:`half_sample_plain` and :func:`vertex_normal_plain`) run for CPU
+tensors and are the kernels' reference on the card.
 """
 
+import numpy as np
 import torch
 
-from supereight_tpu_torch.constants import E_DELTA, INVALID
+from supereight_tpu_torch.constants import (DELTA, E_DELTA, INVALID,
+                                            RADIUS)
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.kernels import _lib
 
 HALF_SAMPLE_E_D = E_DELTA * 3.0  # the robust mean's outlier distance
+# the bilateral filter's spatial weights exp(-i^2 / (2 DELTA^2)) for i in
+# -RADIUS..RADIUS, in f32 as JAX computes them (an int over a float, then
+# exp), and its range denominator 2 E_DELTA^2, rounded to f32 on use
+GAUSS = tuple(float(np.exp(np.float32(-(i * i)) / np.float32(2.0 * DELTA
+                                                              * DELTA)))
+              for i in range(-RADIUS, RADIUS + 1))
+E_D_SQ_2 = 2.0 * E_DELTA * E_DELTA
+
+
+def _filter_args(depth, name):
+    dev = depth.device
+    if depth.dim() != 2:
+        raise ValueError(f"{name}: depth must be [H, W], got "
+                         f"{tuple(depth.shape)}")
+    if dev.type == "cuda":
+        _lib.check(depth, "depth", torch.float32, tuple(depth.shape), dev)
+    elif dev.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def bilateral_filter(depth):
+    """The reference's 5x5 edge-preserving filter of the f32[H, W]
+    ``depth`` (preprocessing.cpp:42-89): each pixel the mean of its window
+    weighted by the spatial :data:`GAUSS` weights times
+    exp(-(d' - d)^2 / (2 E_DELTA^2)), zero neighbours left out, edges
+    replicated; a zero pixel stays 0. One launch (``bilateral``)."""
+    dev = _filter_args(depth, "bilateral_filter")
+    if dev.type == "cpu":
+        return bilateral_filter_plain(depth)
+    h, w = depth.shape
+    out = torch.empty_like(depth)
+    _lib.launch("bilateral", "se_bilateral", dev, depth, h, w,
+                _lib.Gauss(GAUSS), E_D_SQ_2, out)
+    return out
+
+
+def bilateral_filter_plain(depth):
+    """Plain PyTorch twin of :func:`bilateral_filter`: JAX's loop over the
+    25 offsets of the edge-padded image, row offset outer."""
+    h, w = depth.shape
+    r = RADIUS
+    pad = torch.nn.functional.pad(depth[None, None], (r, r, r, r),
+                                  mode="replicate")[0, 0]
+    g = torch.tensor(GAUSS, dtype=torch.float32, device=depth.device)
+    t = torch.zeros_like(depth)
+    s = torch.zeros_like(depth)
+    for i in range(2 * r + 1):
+        for j in range(2 * r + 1):
+            cur = pad[i:i + h, j:j + w]
+            mod = (cur - depth) ** 2
+            factor = g[i] * g[j] * torch.exp(-mod / E_D_SQ_2)
+            factor = torch.where(cur > 0, factor, torch.zeros_like(factor))
+            t = t + factor * cur
+            s = s + factor
+    out = t / torch.where(s == 0, torch.ones_like(s), s)
+    return torch.where(depth == 0, torch.zeros_like(out), out)
+
+
+def median_filter3(depth, passes: int = 1):
+    """``passes`` (1, or 2 for ``median2``) 3x3 median passes over the
+    f32[H, W] ``depth``: each pixel the median of its nine taps, zero taps
+    replaced by the pixel; a zero pixel stays 0; edges replicated (the
+    second pass pads the first pass's output). One launch, counted as
+    ``median`` or ``median2``."""
+    if passes not in (1, 2):
+        raise ValueError(f"median_filter3: passes must be 1 or 2, got "
+                         f"{passes}")
+    dev = _filter_args(depth, "median_filter3")
+    if dev.type == "cpu":
+        return median_filter3_plain(depth, passes)
+    h, w = depth.shape
+    out = torch.empty_like(depth)
+    _lib.launch("median" if passes == 1 else "median2", "se_median", dev,
+                depth, h, w, passes, out)
+    return out
+
+
+def median_filter3_plain(depth, passes: int = 1):
+    """Plain PyTorch twin of :func:`median_filter3`: the nine shifted
+    slices of the edge-padded image, sorted, element 4; once per pass."""
+    for _ in range(passes):
+        h, w = depth.shape
+        pad = torch.nn.functional.pad(depth[None, None], (1, 1, 1, 1),
+                                      mode="replicate")[0, 0]
+        taps = [torch.where(pad[i:i + h, j:j + w] > 0, pad[i:i + h, j:j + w],
+                            depth) for i in range(3) for j in range(3)]
+        med = torch.sort(torch.stack(taps), dim=0).values[4]
+        depth = torch.where(depth > 0, med, torch.zeros_like(med))
+    return depth
 
 
 def pyramid(depth, k, levels: int, neg_y: bool):

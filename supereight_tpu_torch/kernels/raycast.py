@@ -120,22 +120,35 @@ def march_params(geom, field, mu: float, max_steps: int = None):
     return q
 
 
+def gated(field, min_ref_weight) -> bool:
+    """Whether the map-maturity gate applies: TSDF only (OFusion's channel
+    y is a time stamp, so JAX makes the option a no-op there)."""
+    return field.name == "tsdf" and min_ref_weight > 0
+
+
 def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
-                 frame_size, max_steps: int = None, prev: Previous = None):
+                 frame_size, max_steps: int = None, prev: Previous = None,
+                 min_ref_weight=0):
     """March every pixel ray of ``view`` (= pose @ invK, the frame's
     prologue) through the map, each primed by ``depth`` (f32[H, W], this
     frame's, taken at the raycast pose) with the intrinsics ``k`` (f32[4]).
 
     nav: i32[B^3] navigation grid of ``field`` (kernels/nav.nav_grid).
     Returns :class:`Rays`; with ``prev`` the maps and the raycast pose are
-    the new frame state's, prev's where ``prev.when`` is False. One launch
-    on a CUDA device, no host sync; the launch count is kept per field
-    (``raycast`` for TSDF, ``raycast_of``).
+    the new frame state's, prev's where ``prev.when`` is False. With a
+    TSDF ``min_ref_weight`` > 0 a hit is valid only where its voxel, read
+    through ``state.slot``, has fused at least that weight (JAX's
+    map-maturity gate, before the select). One launch on a CUDA device,
+    no host sync; the launch count is kept per field and gate
+    (``raycast``, ``raycast_gated``, ``raycast_of``).
     """
     dev = view.device
+    gate = gated(field, min_ref_weight)
     if dev.type == "cpu":
         return raycast_plain(geom, field, state.data_x, state.data_y, nav,
-                             view, depth, k, mu, frame_size, max_steps, prev)
+                             view, depth, k, mu, frame_size, max_steps, prev,
+                             slot=state.slot if gate else None,
+                             min_ref_weight=min_ref_weight)
     if dev.type != "cuda":
         raise ValueError(f"raycast_rays: unsupported device {dev}")
     w, h = frame_size
@@ -148,6 +161,8 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     c(state.data_y, "data_y", torch.float32, (cap, BLOCK_VOXELS), dev)
     c(depth, "depth", torch.float32, (h, w), dev)
     c(k, "k", torch.float32, (4,), dev)
+    slot = c(state.slot, "slot", torch.int32, (b, b, b), dev) if gate \
+        else None
     sel = (None,) * 6
     raycast_pose = None
     if prev is not None:
@@ -168,8 +183,10 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     if key not in _SCRATCH:
         _SCRATCH[key] = torch.zeros(2, dtype=torch.int32, device=dev)
     of = field.name == "ofusion"
-    _lib.launch("raycast_of" if of else "raycast", "se_raycast", dev,
-                view, nav, state.data_x, state.data_y, depth, k, int(of),
+    _lib.launch("raycast_of" if of else
+                "raycast_gated" if gate else "raycast", "se_raycast", dev,
+                view, nav, state.data_x, state.data_y, slot,
+                float(min_ref_weight), depth, k, int(of),
                 w, h, geom.size, b, q["max_probes"], geom.dim,
                 geom.inv_voxel_size, q["step"], q["largestep"],
                 q["half_largestep"], q["bstep"], float(mu), NEAR_PLANE,
@@ -218,16 +235,39 @@ def ray_box_range_c(origin, dx, dy, dz, dim, near=NEAR_PLANE, far=FAR_PLANE):
     return tmin.clamp(min=near), tmax.clamp(max=far)
 
 
+def ref_weight_plain(geom, slot, data_y, vertex):
+    """The gate's read (JAX core/map.py:get_voxel_channel_c, channel 1,
+    fill 0): the fusion weight of the voxel at floor(vertex / voxel) of
+    each f32[..., 3] vertex, through the slot grid."""
+    size = geom.size
+    b = slot.shape[0]
+    v = torch.floor(vertex * geom.inv_voxel_size).to(torch.int32)
+    vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
+    inb = ((vx >= 0) & (vx < size) & (vy >= 0) & (vy < size)
+           & (vz >= 0) & (vz < size))
+    vx, vy, vz = (a.clamp(0, size - 1) for a in (vx, vy, vz))
+    s = slot.reshape(-1)[(((vx >> 3) * b + (vy >> 3)) * b
+                          + (vz >> 3)).long()]
+    lin = (vx & 7) + ((vy & 7) << 3) + ((vz & 7) << 6)
+    w = data_y.reshape(-1)[(s.clamp(min=0) * BLOCK_VOXELS + lin).long()]
+    return torch.where((s >= 0) & inb, w, torch.zeros_like(w))
+
+
 def raycast_plain(geom, field, data_x, data_y, nav, view, depth, k,
                   mu: float, frame_size, max_steps: int = None,
-                  prev: Previous = None, with_probes: bool = False):
+                  prev: Previous = None, with_probes: bool = False,
+                  slot=None, min_ref_weight=0):
     """Plain PyTorch twin of :func:`raycast_rays` (data_x/data_y are the
-    map's pool channels): :func:`prime_from_depth`, the march, and the
-    select of ``prev`` as the JAX frame step makes it. With
+    map's pool channels, ``slot`` its slot grid, read by the TSDF gate
+    when ``min_ref_weight`` > 0): :func:`prime_from_depth`, the march, the
+    gate and the select of ``prev`` as the JAX frame step makes them. With
     ``with_probes`` returns (rays, :class:`Probes`)."""
     rays, probes = march_plain(geom, field, data_x, data_y, nav, view,
                                prime_from_depth(depth, k), mu, frame_size,
                                max_steps, with_probes)
+    if gated(field, min_ref_weight):
+        w_ref = ref_weight_plain(geom, slot, data_y, rays.vertex)
+        rays = rays._replace(valid=rays.valid & (w_ref >= min_ref_weight))
     if prev is not None:
         when = prev.when
         rays = Rays(torch.where(when, rays.vertex, prev.vertex),

@@ -1,12 +1,13 @@
 """Projective map integration (fusion), TSDF and OFusion.
 
-Port of ``supereight_tpu/ops/integration.py:integrate`` with the nearest-
-depth read (ref se::functor::projective_functor,
-projective_functor.hpp:54-156): compact the active + in-frustum blocks
-into a fixed-budget worklist, update every voxel of those blocks with the
-field's functor (kernel K3, ``kernels/integrate.py``: three launches),
-then re-fuse every existing coarse (mip) value at its octant origin corner
-with the same functor (the node pass, kernel K4, ``kernels/node.py``).
+Port of ``supereight_tpu/ops/integration.py:integrate`` (ref
+se::functor::projective_functor, projective_functor.hpp:54-156): compact
+the active + in-frustum blocks into a fixed-budget worklist, update every
+voxel of those blocks with the field's functor (kernel K3,
+``kernels/integrate.py``: three launches with the nearest-depth read, two
+with the bilinear one), then re-fuse every existing coarse (mip) value at
+its octant origin corner with the same functor (the node pass, kernel K4,
+``kernels/node.py``: nearest read, no noise weight, as JAX's).
 
 The map is updated IN PLACE (JAX donated it); the returned state shares
 its tensors with the input.
@@ -31,13 +32,12 @@ def integrate(geom, state, field, depth, pose, k, mu: float, timestamp,
     y (None for TSDF, which ignores it). ``when`` (bool[] tensor)
     masks all map writes. ``mats`` is the frame's pose prologue of
     ``pose`` and ``k`` (kernels/frame.frame_mats), run here when not
-    given. With ``with_stats`` also returns {blocks_truncated,
-    patch_skipped, mip_skipped} as i32[] tensors.
+    given. ``depth_interp`` reads the block pass's depth bilinearly in
+    inverse depth (no level rule and no fallback: patch_skipped is 0);
+    ``noise_weighted`` weighs the TSDF block pass's samples by range
+    (OFusion ignores it). With ``with_stats`` also returns
+    {blocks_truncated, patch_skipped, mip_skipped} as i32[] tensors.
     """
-    if depth_interp:
-        raise NotImplementedError("the bilinear depth read is not ported yet")
-    if noise_weighted:
-        raise NotImplementedError("noise_weighted fusion is not ported yet")
     if mats is None:
         mats = frame_mats(k, pose)
     t_cw, kmat = mats.t_cw, mats.kmat
@@ -50,7 +50,8 @@ def integrate(geom, state, field, depth, pose, k, mu: float, timestamp,
                                           frame_size, budget, when)
     # with ``when`` False the worklist is empty: nothing is fused or skipped
     patch_skipped = integrate_blocks(geom, state, field, wl, depth, t_cw,
-                                     kmat, mu, timestamp)
+                                     kmat, mu, timestamp, noise_weighted,
+                                     depth_interp)
 
     # ---- node (coarse mip) pass (K4: the parent rank, then the pass) ---
     mip_skipped = node_pass(geom, state, field, depth, t_cw, kmat, mu, budget,

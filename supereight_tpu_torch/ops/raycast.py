@@ -8,7 +8,7 @@ bfusion/rendering_impl.hpp:35-68). The navigation grid is kernel K2
 allocated block, else -(1 + capped Chebyshev block distance), plus the
 OFusion coarse free-space payload); the per-ray prime, march and
 refinement, and the frame state's select, are kernel K1
-(``kernels/raycast.py``).
+(``kernels/raycast.py``), with the TSDF map-maturity gate.
 """
 
 from supereight_tpu_torch.kernels.nav import nav_grid
@@ -17,7 +17,8 @@ from supereight_tpu_torch.kernels.raycast import Previous, raycast_rays
 
 def raycast(geom, state, field, view, mu: float, frame_size, depth=None,
             k=None, max_steps: int = None, with_stats: bool = False,
-            pool_bucket: int = None, prev: Previous = None):
+            pool_bucket: int = None, prev: Previous = None,
+            min_ref_weight=0):
     """Vertex/normal/valid maps for tracking (ref raycastKernel).
 
     view = raycast_pose @ inverse_camera_matrix(k) (the frame's pose
@@ -26,7 +27,9 @@ def raycast(geom, state, field, view, mu: float, frame_size, depth=None,
     only this primed march of the fused frame step is ported. Returns
     (vertex [H,W,3] world meters, normal [H,W,3], valid [H,W]). With
     ``prev`` (:class:`Previous`) they are the new frame state's, prev's
-    where ``prev.when`` is False. With ``with_stats`` also returns
+    where ``prev.when`` is False; a TSDF ``min_ref_weight`` > 0 clears
+    ``valid`` where the hit's voxel has fused less weight (the frame
+    step's map-maturity gate). With ``with_stats`` also returns
     {"ray_overflow", "n_blocks", "pool_bucket_overflow"} (i32[]: the rays
     still marching at the probe bound, the block count, the blocks past
     ``pool_bucket``, which read as unknown here) and, with ``prev``, the
@@ -39,7 +42,7 @@ def raycast(geom, state, field, view, mu: float, frame_size, depth=None,
     if with_stats:
         nav, counts = nav
     rays = raycast_rays(geom, state, field, nav, view, depth, k, mu,
-                        frame_size, max_steps, prev)
+                        frame_size, max_steps, prev, min_ref_weight)
     if not with_stats:
         return rays.vertex, rays.normal, rays.valid
     stats = {"ray_overflow": rays.overflow, "n_blocks": counts[0],

@@ -3,13 +3,14 @@ raycast, on torch tensors, for the TSDF and the OFusion field.
 
 Port of ``supereight_tpu/parallel/step.py:frame_step``. JAX compiled the
 frame into one XLA program; here it is a sequence of the hand-written
-kernels K7 (the input pyramid), the pose prologue (``kernels/frame.py``,
-before and after tracking: every matrix, gate and the time stamp), K6
-(the whole ICP, one launch), K5 (allocation), K3 (integration's block
-pass), K4 (its parent rank and node pass), K2 (nav grid, with the block
-count) and K1 (raycast, with its prime, overflow count and the state's
-select), each in its field's variant, and no torch op with device work
-(K5's touched grids live in the map and its allocator clears them).
+kernels K7 (the input filter, if any, and the pyramid), the pose prologue
+(``kernels/frame.py``, before and after tracking: every matrix, gate and
+the time stamp), K6 (the whole ICP, one launch), K5 (allocation), K3
+(integration's block pass), K4 (its parent rank and node pass), K2 (nav
+grid, with the block count) and K1 (raycast, with its prime, overflow
+count, the TSDF map-maturity gate and the state's select), each in its
+field's and options' variant, and no torch op with device work (K5's
+touched grids live in the map and its allocator clears them).
 Nothing inside :func:`frame_step` reads a device value back
 to the host: budgets are Python ints, and the reference's rate gates are
 device flags the kernels read, so on a GPU the whole frame is enqueued
@@ -88,20 +89,17 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
     ``mip_skipped``, ``ray_overflow``, ``pool_bucket_overflow``) are all
     zero in a well-sized run.
 
-    Options that are not ported yet raise ``NotImplementedError`` here,
-    before any stage has touched the map. ``min_ref_weight`` is a no-op
-    for OFusion, as in JAX (channel y holds a timestamp there, not a
-    fusion weight); for TSDF it is not ported yet.
+    The noise-grade options, as JAX's: ``filter_input`` (False, True or
+    "bilateral", "median", "median2") filters the pyramid's level 0;
+    ``fuse_filtered`` integrates that filtered depth instead of the raw
+    one (allocation always marches the filtered level 0, the raycast's
+    prime always reads the raw depth); ``depth_interp`` reads the block
+    pass's depth bilinearly; ``noise_weighted`` weighs the TSDF block
+    pass's samples by range; a TSDF ``min_ref_weight`` > 0 keeps only the
+    reference pixels whose hit voxel has fused that much weight. OFusion
+    ignores the last two, as JAX does (its channel y holds a timestamp,
+    not a fusion weight).
     """
-    if filter_input:
-        raise NotImplementedError("input filters are not ported yet")
-    for name, value in (("depth_interp", depth_interp),
-                        ("noise_weighted", noise_weighted),
-                        ("min_ref_weight", min_ref_weight > 0
-                         and field.name == "tsdf"),
-                        ("fuse_filtered", fuse_filtered)):
-        if value:
-            raise NotImplementedError(f"{name} is not ported yet")
     dev = depth_m.device
     if isinstance(frame, torch.Tensor):
         frame = frame.to(device=dev, dtype=torch.int32)
@@ -136,19 +134,23 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
         m2, astats = allocate(geom, state.map, depths[0], mats.pose, k, mu,
                               with_stats=True, when=mats.do_integrate,
                               budget=alloc_budget, mats=mats)
+    fuse_depth = depths[0] if fuse_filtered else depth_m
     with record_function("frame_step/integrate"):
         new_map, istats = integration.integrate(
-            geom, m2, field, depth_m, mats.pose, k, mu, mats.timestamp,
-            frame_size, budget=budget, with_stats=True,
-            when=mats.do_integrate, mats=mats)
+            geom, m2, field, fuse_depth, mats.pose, k, mu, mats.timestamp,
+            frame_size, budget=budget, depth_interp=depth_interp,
+            with_stats=True, when=mats.do_integrate,
+            noise_weighted=noise_weighted, mats=mats)
 
-    # ---- raycast: primed with this frame's depth, kept from frame 3 ----
+    # ---- raycast: primed with this frame's raw depth, gated by the map's
+    # maturity (TSDF min_ref_weight), kept from frame 3 -------------------
     with record_function("frame_step/raycast"):
         prev = Previous(mats.do_raycast, mats.pose, state.raycast_pose,
                         state.vertex, state.normal, state.valid)
         r_vertex, r_normal, r_valid, rstats = raycast.raycast(
             geom, new_map, field, mats.kpose, mu, frame_size, depth=depth_m,
-            k=k, with_stats=True, pool_bucket=budget, prev=prev)
+            k=k, with_stats=True, pool_bucket=budget, prev=prev,
+            min_ref_weight=min_ref_weight)
 
     new_state = FrameState(
         map=new_map, pose=mats.pose, raycast_pose=rstats["raycast_pose"],

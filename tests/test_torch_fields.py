@@ -6,6 +6,9 @@ the surface, decayed from older time stamps, at both log-odds clamps
 (+/-1000), at the sample clamp's lower bound 0.03 and exactly at
 ``sample == 0.5`` (no write: on the surface, and 6 sigma behind it).
 Values to a relative 1e-6; the write mask and time stamps exactly.
+``fields/tsdf.update`` with and without ``noise_weighted`` on the same
+inputs: weights and the write mask exactly, values to 1e-6 (a ray
+scale's square, which torch and XLA may round an ulp apart).
 """
 
 import jax.numpy as jnp
@@ -15,8 +18,10 @@ import torch
 
 from supereight_tpu.fields import get_field as jax_get_field
 from supereight_tpu.fields import ofusion as jof
+from supereight_tpu.fields import tsdf as jtsdf
 from supereight_tpu_torch.fields import OFUSION, TSDF, get_field
 from supereight_tpu_torch.fields import ofusion as tof
+from supereight_tpu_torch.fields import tsdf as ttsdf
 
 MU = 0.008
 VOXEL = 2.0 / 64
@@ -114,3 +119,49 @@ def test_apply_window_and_logs_match_jax():
         tof.update_logs(torch.from_numpy(occ), torch.from_numpy(s)).numpy(),
         np.asarray(jof.update_logs(jnp.asarray(occ), jnp.asarray(s))),
         rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("noise_weighted", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tsdf_update_matches_jax(seed, noise_weighted):
+    """The TSDF functor, with the range weight clip((1.5 / z)^2, 1/16, 1)
+    when ``noise_weighted``: weights and the write mask exactly, values to
+    1e-6, on voxels from 0.3 to 8 m (both weight clamps), weights from 0
+    to past MAX_WEIGHT."""
+    px, py, pz, depth, old_x, _, valid, _ = _inputs(seed)
+    rng = np.random.default_rng(seed + 10)
+    old_x = np.clip(old_x / 20.0, -1.0, 1.0).astype(np.float32)
+    old_y = rng.uniform(0.0, 101.0, N).astype(np.float32)
+    old_y[:256] = 0.0
+    # fresh voxels, some past 6 m (the weight's 1/16 floor)
+    far = np.float32(rng.uniform(6.5, 8.0, 56)) / pz[200:256]
+    px[200:256] *= far
+    py[200:256] *= far
+    pz[200:256] *= far
+    depth[:256] = pz[:256] + 0.01
+    mu = 0.1
+    want = jtsdf.update(jnp.asarray(old_x), jnp.asarray(old_y),
+                        (jnp.asarray(px), jnp.asarray(py), jnp.asarray(pz)),
+                        jnp.asarray(depth), mu, jnp.asarray(valid),
+                        noise_weighted=noise_weighted)
+    got = ttsdf.update(torch.from_numpy(old_x), torch.from_numpy(old_y),
+                       (torch.from_numpy(px), torch.from_numpy(py),
+                        torch.from_numpy(pz)),
+                       torch.from_numpy(depth), mu, torch.from_numpy(valid),
+                       noise_weighted=noise_weighted)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=1e-6, rtol=0)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    wrote = np.asarray(want[2])
+    assert wrote.any() and (~wrote & valid).any()
+    # the first voxels start from weight 0: their new weight is the
+    # sample's; the cap holds everywhere
+    fresh = wrote & (old_y == 0.0)
+    w = np.asarray(want[1])[fresh]
+    assert np.asarray(want[1])[wrote].max() == 100.0
+    if noise_weighted:  # both clamps of the weight and the range between
+        assert (w == 1.0).any() and (w == np.float32(1 / 16)).any()
+        assert ((w < 1.0) & (w > 1 / 16)).any()
+    else:
+        assert set(np.unique(w)) == {1.0}

@@ -10,7 +10,15 @@ relative 1e-5 (absolute 1e-5 near 0) and the time stamps exactly, so the
 write gate agrees voxel for voxel. active and the three counters
 exactly. A second TSDF case fuses a 320x240 frame taken 0.5 m from the
 sphere into a fresh map, so that near blocks outgrow every depth patch
-and take the exact per-pixel fallback.
+and take the exact per-pixel fallback. Each case also with the
+noise-grade options: the bilinear depth read (``depth_interp``: no
+level rule, no fallback, patch_skipped 0), the TSDF range weight
+(``noise_weighted``, which OFusion ignores) and both, to the same
+tolerances except OFusion's log-odds after the bilinear read, to 1e-4:
+XLA on the CPU contracts the read's sum of products into fused
+multiply-adds (a fifth of its samples an ulp from the f32 sum that the
+port takes), and the occupancy update near sample 0.5 turns an ulp of
+depth into up to ~3e-5 of log-odds.
 """
 
 import jax
@@ -82,30 +90,30 @@ def case(request):
             jax.tree.map(np.asarray, jm))
 
 
-def _run_both(case, when=None, budget=1024):
+def _run_both(case, when=None, budget=1024, **options):
     name, depth, pose, k, size, jmap = case
     field, mu = FIELD[name]
     jm, jstats = jax_integration.integrate(
         jax_geometry(), jax.tree.map(jnp.asarray, jmap), get_field(field),
         jnp.asarray(depth), jnp.asarray(pose), jnp.asarray(k, jnp.float32),
         mu, jnp.float32(TIMESTAMP), size, budget=budget, with_stats=True,
-        when=None if when is None else jnp.bool_(when))
+        when=None if when is None else jnp.bool_(when), **options)
     tm, tstats = integration.integrate(
         torch_geometry(), convert.map_to_torch(jmap, "cpu"),
         OFUSION if field == "ofusion" else TSDF,
         torch.from_numpy(depth), torch.from_numpy(pose),
         torch.tensor(k, dtype=torch.float32), mu, torch.tensor(TIMESTAMP),
         size, budget=budget, with_stats=True,
-        when=None if when is None else torch.tensor(when))
+        when=None if when is None else torch.tensor(when), **options)
     return (jax.tree.map(np.asarray, jm), {k: int(v) for k, v in
                                            jstats.items()},
             convert.to_numpy(tm), {k: int(v) for k, v in tstats.items()})
 
 
-def _assert_payload_close(name, a, b, what):
+def _assert_payload_close(name, a, b, what, of_atol=1e-5):
     if FIELD[name][0] == "ofusion":
         # log-odds reach +/-1000: relative; time stamps exactly
-        np.testing.assert_allclose(a[0], b[0], rtol=1e-5, atol=1e-5,
+        np.testing.assert_allclose(a[0], b[0], rtol=1e-5, atol=of_atol,
                                    err_msg=what + " x")
         np.testing.assert_array_equal(a[1], b[1], err_msg=what + " y")
     else:
@@ -133,6 +141,35 @@ def test_integrate_parity(case, when):
         wrote = jm.data_y == TIMESTAMP
         assert wrote.any() and (~wrote & (jm.data_y > 0)).any()
         assert (jm.data_x[wrote] > 0).any() and (jm.data_x[wrote] < 0).any()
+
+
+@pytest.mark.parametrize("options", [
+    dict(depth_interp=True), dict(noise_weighted=True),
+    dict(depth_interp=True, noise_weighted=True)],
+    ids=["bilinear", "noise", "bilinear+noise"])
+def test_integrate_options_parity(case, options):
+    """The noise-grade options of integration against JAX's: the block
+    pass's bilinear read and the TSDF noise weight, alone and together
+    (the node pass reads the nearest depth and weighs 1 in both)."""
+    jm, jstats, tm, tstats = _run_both(case, True, **options)
+    assert tstats == jstats
+    assert jstats == {"blocks_truncated": 0, "patch_skipped": 0,
+                      "mip_skipped": 0}
+    name, jmap = case[0], case[-1]
+    np.testing.assert_array_equal(tm.active, jm.active)
+    _assert_payload_close(name, (tm.data_x, tm.data_y),
+                          (jm.data_x, jm.data_y), "data",
+                          1e-4 if options.get("depth_interp") else 1e-5)
+    for lvl in range(len(jm.mip_x)):
+        _assert_payload_close(name, (tm.mip_x[lvl], tm.mip_y[lvl]),
+                              (jm.mip_x[lvl], jm.mip_y[lvl]), f"mip {lvl}")
+    # the option changed the fused payload
+    plain, _ = _run_both(case, True)[:2]
+    assert not np.array_equal(jm.data_x, plain.data_x) \
+        or FIELD[name][0] == "ofusion" and "depth_interp" not in options
+    if options.get("noise_weighted") and FIELD[name][0] == "tsdf":
+        w = jm.data_y - jmap.data_y
+        assert ((w > 0) & (w < 1)).any()
 
 
 def _block_inputs(case):

@@ -241,6 +241,75 @@ def test_cpu_alloc_and_block_pass_take_the_twins(field):
     assert _lib.LAUNCHES == before
 
 
+def _options_pass(geom, m, pose, k, depth, field, plain, noise, bilinear):
+    """K3's worklist, then its fused pass in a noise-grade mode and (for the
+    nearest read) the fallback, for ``depth`` at ``pose`` in place on
+    ``m`` (the kernels, or their twins when ``plain``); returns their
+    outputs."""
+    mu = MU[field.name]
+    dev = depth.device
+    h, w = depth.shape
+    mats = frame.frame_mats(k, pose)
+    ts = torch.full((), 0.2, device=dev)
+    when = torch.ones((), dtype=torch.bool, device=dev)
+    sfx = "_plain" if plain else ""
+    wl, _, _ = getattr(integrate, "integrate_worklist" + sfx)(
+        geom, m, mats.t_cw, mats.kmat, (w, h), 1024, when)
+    blk = (geom, m, field, wl, depth, mats.t_cw, mats.kmat, mu, ts)
+    skipped = torch.full((), 7, dtype=torch.int32, device=dev)
+    out = getattr(integrate, "integrate_fused" + sfx)(
+        *blk, noise, bilinear, skipped if bilinear else None)
+    if not bilinear:
+        skipped = getattr(integrate, "integrate_fallback" + sfx)(
+            *blk[:8], *out, ts, noise)
+    return (wl, *out, skipped)
+
+
+# (noise_weighted, bilinear) modes of K3's fused pass for each field
+MODES = {"tsdf": ((True, False), (False, True), (True, True)),
+         "ofusion": ((False, True),)}
+
+
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_cpu_noise_options_take_the_twins(field):
+    """On CPU tensors the input filters, K3's noise-grade modes and K1's
+    maturity gate return their twins' results exactly and count no
+    launch."""
+    torch.set_num_threads(1)
+    geom, state, k, depth = _frames("cpu", n=3, field=field)
+    before = dict(_lib.LAUNCHES)
+    noisy = torch.from_numpy(synthetic.add_depth_noise(depth.numpy(), 0.002,
+                                                       seed=3))
+    assert torch.equal(preprocess.bilateral_filter(noisy),
+                       preprocess.bilateral_filter_plain(noisy))
+    for passes in (1, 2):
+        assert torch.equal(preprocess.median_filter3(noisy, passes),
+                           preprocess.median_filter3_plain(noisy, passes))
+    for noise, bilinear in MODES[field.name]:
+        for d, kk in ((depth, k), _close_frame("cpu")):
+            a, b = clone_map(state.map), clone_map(state.map)
+            got = _options_pass(geom, a, state.pose, kk, d, field, False,
+                                noise, bilinear)
+            want = _options_pass(geom, b, state.pose, kk, d, field, True,
+                                 noise, bilinear)
+            for x, y in zip(got + tuple(a), want + tuple(b)):
+                for u, v in zip(x if isinstance(x, tuple) else (x,),
+                                y if isinstance(y, tuple) else (y,)):
+                    assert torch.equal(u, v)
+            assert int(got[-1]) == 0 or not bilinear
+    view = se3.matmul4(state.pose, se3.inverse_camera_matrix(k))
+    nv = nav.nav_grid(geom, state.map, field)
+    m = state.map
+    rays = kray.raycast_rays(geom, m, field, nv, view, depth, k,
+                             MU[field.name], (W, H), min_ref_weight=2)
+    want = kray.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
+                              depth, k, MU[field.name], (W, H), slot=m.slot,
+                              min_ref_weight=2)
+    for a, b in zip(rays[:4], want[:4]):
+        assert torch.equal(a, b)
+    assert _lib.LAUNCHES == before
+
+
 def test_other_devices_raise():
     """A tensor on neither the CPU nor a CUDA card is refused."""
     m = torch.zeros((2, 2, 3), device="meta")
@@ -276,6 +345,10 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         preprocess.pyramid(d, torch.ones(4, device="meta"), 3, False)
     with pytest.raises(ValueError, match="unsupported device"):
+        preprocess.bilateral_filter(d)
+    with pytest.raises(ValueError, match="unsupported device"):
+        preprocess.median_filter3(d, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
         gp.take_rows_staged(torch.zeros((4, 4), device="meta"),
                             torch.zeros(2, dtype=torch.int32, device="meta"))
     mm = make_map(geom, TSDF, "meta")
@@ -287,6 +360,9 @@ def test_other_devices_raise():
     wl = torch.zeros(16, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         integrate.integrate_fused(geom, mm, TSDF, wl, d, p, p, 0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        integrate.integrate_fused(geom, mm, TSDF, wl, d, p, p, 0.1, None,
+                                  True, True, wl[0])
     with pytest.raises(ValueError, match="unsupported device"):
         integrate.integrate_fallback(geom, mm, TSDF, wl, d, p, p, 0.1, wl, wl,
                                      wl.bool())
@@ -479,6 +555,70 @@ def test_alloc_and_block_pass_match_twins_on_cuda(cuda, field):
         integrate.integrate_fallback(geom, m, field, wl, depth, p, p, 0.1,
                                      wl[:8], wl, wl.bool(),
                                      torch.zeros((), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_noise_options_match_twins_on_cuda(cuda, field):
+    """The noise-grade kernels against their twins: the median filters bit
+    for bit and the bilateral to 1e-5 m (CUDA's expf against torch's exp
+    of a reciprocal product) on a noisy frame with a tenth of its pixels
+    0; K3's modes (the TSDF noise weight, the bilinear read, both) as
+    ``test_alloc_and_block_pass_match_twins_on_cuda`` holds its nearest
+    read, on the next frame and on a close frame; K1's TSDF maturity
+    gate: the hit mask on >= 99.9 % of rays, vertices to 1e-4 m, and
+    some hits dropped. One launch of each counted per call."""
+    geom, state, k, depth = _frames(cuda, field=field)
+    rng = np.random.RandomState(5)
+    noisy = synthetic.add_depth_noise(depth.cpu().numpy(), 0.002, seed=5)
+    noisy[rng.rand(*noisy.shape) < 0.1] = 0.0
+    noisy = torch.from_numpy(noisy).to(cuda)
+    before = _lib.LAUNCHES["bilateral"]
+    got = preprocess.bilateral_filter(noisy)
+    assert _lib.LAUNCHES["bilateral"] == before + 1
+    assert torch.allclose(got, preprocess.bilateral_filter_plain(noisy),
+                          atol=1e-5, rtol=0)
+    for passes, name in ((1, "median"), (2, "median2")):
+        before = _lib.LAUNCHES[name]
+        got = preprocess.median_filter3(noisy, passes)
+        assert _lib.LAUNCHES[name] == before + 1
+        assert torch.equal(got, preprocess.median_filter3_plain(noisy,
+                                                                passes))
+    for noise, bilinear in MODES[field.name]:
+        fused = integrate.fused_name(field, noise, bilinear)
+        for d, kk in ((depth, k), _close_frame(cuda)):
+            a, b = clone_map(state.map), clone_map(state.map)
+            before = _lib.LAUNCHES[fused]
+            got = _options_pass(geom, a, state.pose, kk, d, field, False,
+                                noise, bilinear)
+            assert _lib.LAUNCHES[fused] == before + 1
+            want = _options_pass(geom, b, state.pose, kk, d, field, True,
+                                 noise, bilinear)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y)
+            assert torch.equal(a.active, b.active)
+            assert torch.allclose(a.data_x, b.data_x,
+                                  **UPDATE_TOL[field.name])
+            assert torch.equal(a.data_y, b.data_y)
+    if field is OFUSION:
+        return
+    m = state.map
+    view = se3.matmul4(state.pose, se3.inverse_camera_matrix(k))
+    nv = nav.nav_grid(geom, m, field)
+    before = _lib.LAUNCHES["raycast_gated"]
+    rays = kray.raycast_rays(geom, m, field, nv, view, depth, k, MU["tsdf"],
+                             (W, H), min_ref_weight=3)
+    assert _lib.LAUNCHES["raycast_gated"] == before + 1
+    want = kray.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
+                              depth, k, MU["tsdf"], (W, H), slot=m.slot,
+                              min_ref_weight=3)
+    ungated = kray.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
+                                 depth, k, MU["tsdf"], (W, H))
+    both = rays.valid & want.valid
+    assert (rays.valid == want.valid).float().mean() >= 0.999
+    assert torch.allclose(rays.vertex[both], want.vertex[both], atol=1e-4,
+                          rtol=0)
+    assert 0 < int(want.valid.sum()) < int(ungated.valid.sum())
 
 
 @pytest.mark.cuda

@@ -1,11 +1,14 @@
-"""Parity of the port's depth pyramid (kernel K7's plain twins, through
+"""Parity of the port's input stage (kernel K7's plain twins, through
 ``pipeline.preprocess_and_pyramid``, ``kernels/preprocess.pyramid`` for 1
-to 4 levels and one by one) with JAX
-``pipeline._preprocess_and_pyramid`` (filter_input=False) and its
-``ops/preprocess`` functions.
+to 4 levels and one by one, and the filters) with JAX
+``pipeline._preprocess_and_pyramid`` and its ``ops/preprocess``
+functions.
 
 Valid masks must match exactly, depth/vertex/normal floats to 1e-5
-(depths exactly in the level sweep).
+(depths exactly in the level sweep). The median filters (one pass and
+two) exactly. The bilateral filter to 1e-6 m: its range weight is an exp
+of the depth difference, and torch's exp and XLA's differ by an ulp on
+about a third of the pixels (4.8e-7 m at 4 m).
 """
 
 import jax.numpy as jnp
@@ -17,9 +20,12 @@ from supereight_tpu.core import se3 as jax_se3
 from supereight_tpu.ops import preprocess as jax_pre
 from supereight_tpu.pipeline import _preprocess_and_pyramid
 from supereight_tpu_torch.constants import E_DELTA
+from supereight_tpu_torch.io import synthetic
 from supereight_tpu_torch.kernels import preprocess
 from supereight_tpu_torch.pipeline import preprocess_and_pyramid
-from test_torch_step import K, k_jax, k_torch, make_scene
+from test_torch_step import k_jax, k_torch, make_scene
+
+BILATERAL_ATOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -30,6 +36,17 @@ def depths():
     holes = d[3].copy()
     holes[np.random.RandomState(0).rand(*holes.shape) < 0.1] = 0.0
     return [d[0], d[3], holes]
+
+
+@pytest.fixture(scope="module")
+def noisy():
+    """Range-noised frames (sigma 0.002 z^2, mm rounding) of the orbit,
+    the second with a tenth of its pixels 0."""
+    d, _ = make_scene(4)
+    a = synthetic.add_depth_noise(d[1], 0.002, seed=1)
+    b = synthetic.add_depth_noise(d[3], 0.002, seed=3)
+    b[np.random.RandomState(1).rand(*b.shape) < 0.1] = 0.0
+    return [a, b]
 
 
 @pytest.mark.parametrize("frame", [0, 1, 2])
@@ -103,8 +120,66 @@ def test_vertex_normal_plain_parity(depths, frame, neg_y):
                                        rtol=0)
 
 
-def test_filters_raise():
-    """Input filters are not ported: asking for one raises."""
+@pytest.mark.parametrize("frame", [0, 1])
+@pytest.mark.parametrize("crop", [False, True], ids=["even", "odd"])
+def test_bilateral_filter_plain_parity(noisy, frame, crop):
+    """K7's bilateral twin against JAX ``bilateral_filter`` on a noisy
+    frame, whole and cropped to odd sizes (the replicated edge)."""
+    d = noisy[frame][:47, :63].copy() if crop else noisy[frame]
+    want = np.asarray(jax_pre.bilateral_filter(jnp.asarray(d)))
+    got = preprocess.bilateral_filter_plain(torch.from_numpy(d)).numpy()
+    np.testing.assert_allclose(got, want, atol=BILATERAL_ATOL, rtol=0)
+    np.testing.assert_array_equal(got == 0, d == 0)
+    assert np.abs(want - d).max() > 1e-3  # the filter smooths
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+@pytest.mark.parametrize("crop", [False, True], ids=["even", "odd"])
+@pytest.mark.parametrize("passes", [1, 2])
+def test_median_filter3_plain_parity(noisy, frame, crop, passes):
+    """K7's median twin against JAX ``median_filter3``, once and twice
+    (median2), exactly."""
+    d = noisy[frame][:47, :63].copy() if crop else noisy[frame]
+    want = jnp.asarray(d)
+    for _ in range(passes):
+        want = jax_pre.median_filter3(want)
+    got = preprocess.median_filter3_plain(torch.from_numpy(d), passes)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        preprocess.median_filter3(torch.from_numpy(d), passes).numpy(),
+        np.asarray(want))
+
+
+@pytest.mark.parametrize("filter_input",
+                         [False, True, "bilateral", "median", "median2"])
+def test_preprocess_and_pyramid_dispatch(noisy, filter_input):
+    """``preprocess_and_pyramid`` dispatches each ``filter_input`` value as
+    JAX's (pipeline.py:36-45): level 0 is the filtered depth (the median
+    filters exactly, the bilateral to 1e-6), and the pyramid above it
+    matches to 1e-5 with the valid masks exact; after the bilateral,
+    normals to 1e-4: its ulps of depth move the central differences of a
+    smoothed surface, whose neighbours lie millimetres apart."""
+    d = noisy[1]
+    jd, jv, jn, jok = _preprocess_and_pyramid(jnp.asarray(d), k_jax(), 3,
+                                              False, filter_input)
+    td, tv, tn, tok = preprocess_and_pyramid(torch.from_numpy(d), k_torch(),
+                                             3, False, filter_input)
+    exact = filter_input in (False, "median", "median2")
+    np.testing.assert_allclose(td[0].numpy(), np.asarray(jd[0]),
+                               atol=0 if exact else BILATERAL_ATOL, rtol=0)
+    if filter_input:
+        assert not np.array_equal(td[0].numpy(), d)
+    for lvl in range(3):
+        np.testing.assert_array_equal(tok[lvl].numpy(), np.asarray(jok[lvl]))
+        for a, b, tol in ((jd, td, 1e-5), (jv, tv, 1e-5),
+                          (jn, tn, 1e-5 if exact else 1e-4)):
+            np.testing.assert_allclose(b[lvl].numpy(), np.asarray(a[lvl]),
+                                       atol=tol, rtol=0)
+
+
+def test_filters_refuse_bad_arguments():
     d = torch.zeros((48, 64))
-    with pytest.raises(NotImplementedError):
-        preprocess_and_pyramid(d, torch.tensor(K), 3, False, "median")
+    with pytest.raises(ValueError, match="passes"):
+        preprocess.median_filter3(d, 3)
+    with pytest.raises(ValueError, match=r"\[H, W\]"):
+        preprocess.bilateral_filter(d[None])

@@ -19,6 +19,13 @@ ray_overflow 0, and the twin's per-ray probe counts must be nonzero
 exactly on the rays whose range is not empty. Its record of the nav
 entries and pool voxels read (K1's bound) must change no result and read
 voxels only in the slots whose nav entries it read.
+
+The TSDF map-maturity gate (``min_ref_weight``, JAX parallel/step.py:
+171-192): the twin's weight read equals JAX ``get_voxel_channel_c``
+(channel 1, fill 0) exactly at any point, in the map or not; the gated
+raycast agrees with JAX's raycast gated by that read on the rays both
+hit (>= 99.9 %: a vertex 1e-4 m away may cross a voxel face) with its
+vertices and normals unchanged; for OFusion the option changes nothing.
 """
 
 from types import SimpleNamespace
@@ -32,6 +39,7 @@ import torch
 from chip_smoke import NAV_DENSITIES, random_nav_map
 from supereight_tpu.core import se3 as jax_se3
 from supereight_tpu.core.map import MapGeometry as JaxMapGeometry
+from supereight_tpu.core.map import get_voxel_channel_c
 from supereight_tpu.fields import get_field
 from supereight_tpu.ops import raycast as jax_raycast
 from supereight_tpu_torch import convert
@@ -286,3 +294,62 @@ def test_probe_reads_lie_in_the_slots_whose_nav_entries_were_read(setup):
     assert bool(probes.nav[cells[read_slots[nv[cells].long()]]].all())
     assert int(probes.nav.sum()) <= (int(probes.per_ray.sum())
                                      + rays.valid.numel() + 8 * hits)
+
+
+def test_ref_weight_plain_matches_jax(setup):
+    """The gate's read at random points of and around the cube (in
+    allocated blocks, in empty ones and outside the map), and at the
+    state's own vertices, against JAX ``get_voxel_channel_c``."""
+    _, s, name = setup
+    ts = convert.frame_to_torch(s, "cpu")
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-0.2, 2.2, (4096, 3)).astype(np.float32)
+    pts = np.concatenate([pts, s.vertex.reshape(-1, 3)])
+    iv = jax_geometry().inv_voxel_size
+    v = jnp.floor(jnp.asarray(pts) * iv).astype(jnp.int32)
+    want = np.asarray(get_voxel_channel_c(
+        jax_geometry(), jax.tree.map(jnp.asarray, s.map), get_field(name),
+        v[:, 0], v[:, 1], v[:, 2], channel=1, fill=0.0))
+    got = kray.ref_weight_plain(torch_geometry(), ts.map.slot,
+                                ts.map.data_y, torch.from_numpy(pts))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want > 0).any() and (want == 0).any()
+
+
+@pytest.mark.parametrize("weight", [3, 5])
+def test_maturity_gate_parity(setup, weight):
+    """K1's twin with the gate against JAX's raycast followed by the JAX
+    frame step's gate, at frame 4's primed view."""
+    depth, s, name = setup
+    jview = jnp.matmul(jnp.asarray(s.pose),
+                       jax_se3.inverse_camera_matrix(k_jax()),
+                       precision=jax.lax.Precision.HIGHEST)
+    jm = jax.tree.map(jnp.asarray, s.map)
+    jv, jn, jok = jax_raycast.raycast(
+        jax_geometry(), jm, get_field(name), jview, MU[name], (W, H),
+        prime_t=jax_raycast.prime_from_depth(jnp.asarray(depth), k_jax()))
+    iv = jax_geometry().inv_voxel_size
+    hv = jnp.floor(jv * iv).astype(jnp.int32)
+    w_ref = get_voxel_channel_c(jax_geometry(), jm, get_field(name),
+                                hv[..., 0], hv[..., 1], hv[..., 2],
+                                channel=1, fill=0.0)
+    jgate = np.asarray(jok & (w_ref >= weight))
+    jok = np.asarray(jok)
+
+    ts = convert.frame_to_torch(s, "cpu")
+    view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
+    args = (torch_geometry(), ts.map, FIELDS[name], view, MU[name], (W, H))
+    kw = dict(depth=torch.from_numpy(depth), k=k_torch())
+    ungated = raycast.raycast(*args, **kw)
+    gated = raycast.raycast(*args, **kw, min_ref_weight=weight)
+    for a, b in ((ungated[0], gated[0]), (ungated[1], gated[1])):
+        assert torch.equal(a, b)
+    tok, gok = ungated[2].numpy(), gated[2].numpy()
+    if name == "ofusion":  # a no-op: channel y is a time stamp
+        np.testing.assert_array_equal(gok, tok)
+        return
+    both = tok & jok
+    assert np.mean(gok[both] == jgate[both]) >= 0.999
+    assert not (gok & ~tok).any()
+    # the gate drops some hits and keeps others
+    assert 0 < int(gok.sum()) < int(tok.sum())

@@ -74,11 +74,12 @@ def step_kw(field="tsdf"):
     return {**STEP_KW, "mu": MU[field]}
 
 
-def jax_frames(depths, poses, n, field="tsdf"):
-    """Run JAX frame_step over the first n frames; returns the host
-    (numpy) state and aux of every frame."""
+def jax_frames(depths, poses, n, field="tsdf", **options):
+    """Run JAX frame_step over the first n frames (with the frame-step
+    ``options``); returns the host (numpy) state and aux of every
+    frame."""
     fn = functools.partial(jax_step.frame_step, jax_geometry(),
-                           get_field(field), **step_kw(field))
+                           get_field(field), **{**step_kw(field), **options})
     state = jax_step.init_frame_state(jax_geometry(), get_field(field),
                                       (W, H), poses[0])
     states, auxes = [], []
@@ -116,7 +117,7 @@ def torch_frames(depths, poses, n, field="tsdf", **options):
     for i in range(n):
         state, aux = step.frame_step(geom, FIELDS[field], state,
                                      torch.from_numpy(depths[i]), k_torch(),
-                                     i, **step_kw(field), **options)
+                                     i, **{**step_kw(field), **options})
         tposes.append(state.pose.numpy().copy())
         taux.append({k: v.numpy().copy() for k, v in aux.items()})
         taux[-1]["touched_left"] = int(state.map.touched.sum())
@@ -169,27 +170,11 @@ def test_frame_step_result_codes(trajectories):
         assert agree >= 0.999, (i, agree)
 
 
-@pytest.mark.parametrize("option", [
-    dict(depth_interp=True), dict(noise_weighted=True),
-    dict(min_ref_weight=2), dict(fuse_filtered=True),
-    dict(filter_input="median")])
-def test_unported_options_raise_before_any_work(option):
-    """An option that is not ported yet raises instead of being ignored,
-    and the map it was handed stays untouched."""
-    depths, poses = make_scene(1)
-    geom = torch_geometry()
-    state = step.init_frame_state(geom, TSDF, (W, H), poses[0], "cpu")
-    with pytest.raises(NotImplementedError):
-        step.frame_step(geom, TSDF, state, torch.from_numpy(depths[0]),
-                        k_torch(), 0, **{**STEP_KW, **option})
-    assert int(state.map.n_blocks) == 0
-    assert not state.map.active.any()
-
-
 def test_min_ref_weight_is_a_no_op_for_ofusion():
     """JAX gates the raycast on the fusion weight for TSDF only
     (supereight_tpu/parallel/step.py:171): for OFusion, channel y is a
-    time stamp and ``min_ref_weight`` changes nothing."""
+    time stamp and ``min_ref_weight`` changes nothing. For TSDF the gate
+    runs and the step keeps to JAX's, frame by frame."""
     torch.set_num_threads(1)
     depths, poses = make_scene(5)
     base, bposes, baux = torch_frames(depths, poses, 5, "ofusion")
@@ -203,8 +188,17 @@ def test_min_ref_weight_is_a_no_op_for_ofusion():
     for a, b in zip(jax.tree.leaves(convert.to_numpy(gated)),
                     jax.tree.leaves(convert.to_numpy(base))):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):     # TSDF: not ported yet
-        torch_frames(depths, poses, 1, "tsdf", min_ref_weight=3)
+    # TSDF: the gate against JAX's, poses to 2e-3, the aux keys exactly
+    jstates, jaux = jax_frames(depths, poses, 5, "tsdf", min_ref_weight=3)
+    _, tposes, taux = torch_frames(depths, poses, 5, "tsdf",
+                                   min_ref_weight=3)
+    for i, (js, a, tp, b) in enumerate(zip(jstates, jaux, tposes, taux)):
+        assert_no_drops(a)
+        np.testing.assert_allclose(tp, js.pose, atol=2e-3,
+                                   err_msg=f"frame {i} diverged")
+        for key in ("n_blocks", "tracked", "integrated") + COUNTERS:
+            assert int(b[key]) == int(a[key]), (i, key)
+    assert bool(jaux[4]["tracked"])
 
 
 @pytest.mark.parametrize("field", ["tsdf", "ofusion"])
