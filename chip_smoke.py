@@ -14,7 +14,10 @@ checkout:
    runs each kernel and its plain PyTorch twin on the same inputs on the
    card, checks them against the stated tolerances and times both; TSDF
    (the pose prologue, K2 nav grid on the map and on random grids of side
-   1 to 256, K1 raycast with its prime, select and probe counts, K6 ICP
+   1 to 256, K1 raycast with its prime, select and probe counts, K1's
+   unprimed launch (a fresh view's: the pose moved 0.5 m back, marched to
+   twice the far plane; and a view whose rays partly start behind the
+   surface, which must miss), K6 ICP
    reduction and whole tracking step, K5 march (also on a random depth
    seen from the frame's pose and from outside the map) and allocator
    (which must leave its grids all zero), K3
@@ -24,7 +27,8 @@ checkout:
    pass and two) on frame 3 with range noise and a tenth of its pixels
    0, K3's TSDF noise weight, bilinear read and both, K1's maturity gate
    at W = 4 on the map of frames 0-5 and at W = 2 on frame 3's) and
-   OFusion (the prologue, K5-OF march as K5's, K2, K1-OF, K6, the
+   OFusion (the prologue, K5-OF march as K5's, K2, K1-OF and its
+   unprimed launch, K6, the
    allocator, K3-OF with its bilinear read, K4, K7); then, per field,
    the allocator with a budget of half frame 3's new blocks and into a
    pool with room for half of them (both must drop blocks), and a close
@@ -33,7 +37,8 @@ checkout:
 4. probe phase: the four gather forms of the Pallas probe (K8) against
    their twins, bit for bit, and both timed, the library call's device
    time and the card's launch floor (a one-element ``zero_()``) beside
-   theirs;
+   theirs; and ``ops/preprocess.mm2meters`` on the card against numpy
+   for all 65,536 u16 values, bit for bit;
 5. slice phases: drives ``parallel/step.frame_step`` at the bench config
    (320x240, 512^3 voxels over 4.8 m, capacity 36864, budget 8192, ICP
    10/5/4; TSDF at mu 0.1, then OFusion at mu 0.008, ``bench.py --field
@@ -65,7 +70,22 @@ checkout:
    its worklist cost; then the probe's own path
    (``supereight_tpu_torch.tools.probe_gather.run``) likewise, each form
    bit for bit against the probe's numpy expectation;
-6. prints one JSON line of per-kernel results (each with its bound: the
+6. pipeline phases: the 250-frame closed loop (``io/convert.synthetic2raw
+   scene="loop"``, rendered into a temporary directory in four processes
+   while the phases above run) through the port's CLI (``cli.run``, in
+   this process) with ``tools/run_longseq_eval.py``'s arguments, TSDF
+   (with ``--dump-renders``) and OFusion, then one volume render from a
+   view 0.5 m behind the last raycast pose (K1's unprimed launch), each
+   path with the launch counts zeroed just before and read just after;
+   it holds the drop counters to 0, the tracked fraction to 0.98, the ATE
+   to EVAL_table.md's row plus 25 % (TSDF 0.025 m, OFusion 0.020 m), the
+   renders to one PPM a rendered frame, and, for TSDF, a checkpoint saved,
+   loaded into a new pipeline and run one more frame to the same frame
+   without the round trip, bit for bit; it prints each ATE beside its
+   row, the log's mean computation a frame, wall fps, peak device memory
+   and, from five more frames under torch.profiler, the device's busy
+   share;
+7. prints one JSON line of per-kernel results (each with its bound: the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted from this run's inputs; and, where one PyTorch call
    computes the same function, that call's time), the card line again,
@@ -75,13 +95,18 @@ Any failure raises, so the script exits non-zero without the ``ok`` line.
 It imports no JAX.
 """
 
+import ast
 import collections
+import contextlib
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 W, H = 320, 240
@@ -176,6 +201,29 @@ BILATERAL_TAP_OPS = 18
 MEDIAN_PIXEL_OPS = 9 + 2 * 19 + 1  # tap tests, 19 exchanges, the centre test
 # the gate's extra reads a hit: its slot entry and its weight
 GATE_HIT_BYTES = 8
+# K1's unprimed launch (a fresh view's raycast, ops/rendering.py): the
+# frame's pose moved this far (m) back along its optical axis, marched to
+# twice the far plane over every block; and a view moved forward until
+# its centre ray starts BEHIND m behind the surface the frame saw there,
+# where some rays start behind a surface and must miss
+BACK_VIEW = 0.5
+BEHIND = 0.03
+# the pipeline paths: the closed loop (io/convert.synthetic2raw
+# scene="loop", rendered in LOOP_WORKERS processes while the kernel phases
+# run) through the port's CLI with tools/run_longseq_eval.py's arguments
+# (35-42) and its rows' field options, and EVAL_table.md's ATE of each row
+# (JAX, bf16 raycast) and its limit, the row plus 25 %
+LOOP_FRAMES = 250
+LOOP_WORKERS = 4
+PIPE_ARGS = ("-s", "4.8", "-p", "0.5,0.4583,0.18", "-c", "2", "-r", "1",
+             "-t", "1", "-v", "512", "-k", "481.2,480,320,240", "-y",
+             "10,5,4", "--no-stage-sync", "--preset-budget", "36864")
+PIPE_FIELD_ARGS = {"tsdf": ("-f", "tsdf", "-m", "0.1", "-z", "4"),
+                   "ofusion": ("-f", "ofusion", "-m", "0.008", "-z", "0")}
+EVAL_ATE = {"tsdf": 0.0200, "ofusion": 0.0161}
+MAX_ATE = {"tsdf": 0.025, "ofusion": 0.020}
+MIN_TRACKED = 0.98
+N_PIPE_PROFILED = 5  # frames past the loop replayed under torch.profiler
 
 KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
     "icp_reduce": ("supereight_tpu_torch/csrc/icp.cu",
@@ -239,6 +287,10 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
                                     "supereight_tpu/ops/integration.py:229"),
     "raycast_gated": ("supereight_tpu_torch/csrc/raycast.cu",
                       "supereight_tpu/parallel/step.py:171"),
+    "raycast_cold": ("supereight_tpu_torch/csrc/raycast.cu",
+                     "supereight_tpu/ops/raycast.py:537"),
+    "raycast_cold_of": ("supereight_tpu_torch/csrc/raycast.cu",
+                        "supereight_tpu/ops/raycast.py:537"),
 }
 # why no single PyTorch call computes a kernel's function (its library_ms
 # is null)
@@ -274,11 +326,16 @@ NO_LIBRARY = {
     "integrate_fused_noise_bilinear": "no call runs a gated field update",
     "integrate_fused_of_bilinear": "no call runs a gated field update",
     "raycast_gated": "no call marches rays through a sparse grid",
+    "raycast_cold": "no call marches rays through a sparse grid",
+    "raycast_cold_of": "no call marches rays through a sparse grid",
 }
 # device kernel names (without "_kernel") reported from the profile, and
 # the frame_step stage that launches each; the OFusion instantiations are
-# the <true> ones
-PROFILED = {"pyramid": "preprocess", "bilateral": "preprocess",
+# the <true> ones; K1's unprimed instantiations (raycast_kernel<of, false,
+# false>) are named raycast_cold (port_kernel), launched by a fresh view's
+# render of the class pipeline
+PROFILED = {"raycast_cold": "render", "pyramid": "preprocess",
+            "bilateral": "preprocess",
             "median": "preprocess", "icp_reduce": "track",
             "icp_track": "track", "frame_mats": "track",
             "alloc_touch": "allocate", "alloc_touch_of": "allocate",
@@ -300,6 +357,16 @@ PATHS = {  # the kernels each main path must launch
                    "integrate_fused_noise", "integrate_fallback_noise",
                    "node_rank", "node_pass", "nav_grid", "raycast_gated"),
     "probe": ("gather_a", "gather_b", "gather_c", "gather_d"),
+    # the class pipeline through the CLI, then a fresh view's render
+    "pipeline-tsdf": ("pyramid", "frame_mats", "icp_track", "alloc_touch",
+                      "alloc_assign", "integrate_worklist", "integrate_fused",
+                      "integrate_fallback", "node_rank", "node_pass",
+                      "nav_grid", "raycast", "raycast_cold"),
+    "pipeline-ofusion": ("pyramid", "frame_mats", "icp_track",
+                         "alloc_touch_of", "alloc_assign",
+                         "integrate_worklist", "integrate_fused_of",
+                         "integrate_fallback_of", "node_rank", "node_pass",
+                         "nav_grid", "raycast_of", "raycast_cold_of"),
 }
 
 
@@ -469,6 +536,19 @@ def track_args(torch, sc, state, depth):
             state.normal, state.valid)
 
 
+def port_kernel(key):
+    """(name, label) of a profiled device kernel of the port (PROFILED's
+    names; K1's unprimed instantiations as raycast_cold), else None."""
+    m = re.search(r"(\w+)_kernel(<[^>(]*>)?\(", key)
+    if not m or m.group(1) not in PROFILED:
+        return None
+    name, targs = m.group(1), m.group(2) or ""
+    if name == "raycast" and targs.count(",") == 2 \
+            and targs.replace(" ", "").endswith(",false>"):
+        name = "raycast_cold"
+    return name, m.group(1) + "_kernel" + targs
+
+
 def report_profile(prof, ms_frame, tag):
     """Print the per-stage and per-kernel device time of the profiled
     frames, and the device's busy share of the unprofiled frame time.
@@ -493,10 +573,10 @@ def report_profile(prof, ms_frame, tag):
     # through ctypes with no op around them, are added to their stages
     port, port_us = [], {}  # (event, label); stage -> device us
     for e in kernels:
-        m = re.search(r"(\w+)_kernel(<[^>(]*>)?\(", e.key)
-        if m and m.group(1) in PROFILED:
-            port.append((e, m.group(1) + "_kernel" + (m.group(2) or "")))
-            stage = "frame_step/" + PROFILED[m.group(1)]
+        pk = port_kernel(e.key)
+        if pk:
+            port.append((e, pk[1]))
+            stage = "frame_step/" + PROFILED[pk[0]]
             port_us[stage] = port_us.get(stage, 0.0) + dev_us(e, True)
     for e in sorted(stages, key=lambda e: e.key):
         extra = port_us.get(e.key, 0.0)
@@ -1139,6 +1219,121 @@ def check_k1(torch, sc, state, depth, tag):
     return row, got
 
 
+def moved_pose(pose, shift):
+    """``pose`` moved ``shift`` m along its optical axis (forward > 0)."""
+    p = pose.clone()
+    p[:3, 3] += shift * p[:3, 2]
+    return p
+
+
+def blocked_starts(geom, view, probes, far):
+    """The rays of ``view`` whose range [near, far] in the map is not
+    empty and that took no march probe (the twin's ``Probes``): those
+    that start behind a surface (the unprimed start's test)."""
+    from supereight_tpu_torch.constants import NEAR_PLANE
+    from supereight_tpu_torch.kernels import raycast
+    h, w = probes.per_ray.shape
+    dx, dy, dz = raycast.ray_directions_c(view, w, h)
+    tnear, tfar = raycast.ray_box_range_c(
+        (view[0, 3], view[1, 3], view[2, 3]), dx, dy, dz, geom.dim,
+        NEAR_PLANE, far)
+    return (tnear < tfar).reshape(h, w) & (probes.per_ray == 0)
+
+
+def raycast_cold_bound(got, probes):
+    """K1's unprimed launch: the view read and the vertex, normal and hit
+    maps and the overflow written once; each nav entry and pool voxel
+    that this run's rays read (the twin's record), read once; per ray the
+    direction and box clip (~55 operations), per probe (the start's
+    included) ~25 and per hit the refinement and normal (~115)."""
+    rays = got[2].numel()
+    hits = int(got[2].sum())
+    n_probes = int(probes.per_ray.sum()) + rays
+    return bound(rays * (12 + 12 + 1) + 64 + 4 + 4 * int(probes.nav.sum())
+                 + 8 * int(probes.pool.sum()),
+                 rays * 55 + hits * 115 + RAY_PROBE_OPS * n_probes)
+
+
+def check_k1_cold(torch, sc, state, tag):
+    """K1's unprimed launch against its twin on the map of ``state``,
+    marched to twice the far plane through the nav grid of every block
+    (a fresh view's render): from the state's pose moved BACK_VIEW back
+    along its optical axis (timed; its probes, reads and bound), and from
+    a view moved forward until its centre ray starts BEHIND behind the
+    surface that frame 2 saw there, where some rays start behind a
+    surface and must miss (none marches, none hits). check_raycast's
+    tolerances on both. Returns the kernel's row."""
+    from supereight_tpu_torch.constants import FAR_PLANE, NEAR_PLANE
+    from supereight_tpu_torch.kernels import frame, nav, raycast
+    geom, field, m, mu = sc.geom, sc.field, state.map, sc.mu
+    far = 2.0 * FAR_PLANE
+    nv = nav.nav_grid(geom, m, field)
+
+    def call(view):
+        return raycast.raycast_rays(geom, m, field, nv, view, None, None, mu,
+                                    (W, H), far=far)
+
+    def plain(view, with_probes=False):
+        return raycast.raycast_plain(geom, field, m.data_x, m.data_y, nv,
+                                     view, None, None, mu, (W, H),
+                                     with_probes=with_probes, far=far)
+
+    centre = float(sc.depths[2][H // 2, W // 2])
+    views = {"back": moved_pose(state.pose, -BACK_VIEW),
+             "forward": moved_pose(state.pose, centre - NEAR_PLANE + BEHIND)}
+    errs, blocked = [], {}
+    for name, pose in views.items():
+        view = frame.frame_mats(sc.kt, pose).kpose
+        got = call(view)
+        ref, probes = plain(view, True)
+        errs.append(check_raycast(torch, f"{tag} ({name} view)", got, ref))
+        b = blocked_starts(geom, view, probes, far)
+        blocked[name] = (int(b.sum()), int((got.valid & b).sum()))
+        if name == "back":
+            st = probe_stats(torch, probes)
+            row = dict(probes=st,
+                       device_us=device_us(torch, lambda: call(view), 20, 1),
+                       ms=cuda_ms(torch, lambda: call(view), 20),
+                       plain_ms=cuda_ms(torch, lambda: plain(view), 2),
+                       **raycast_cold_bound(got, probes))
+            print(f"{tag}: march probes a ray (twin): mean {st['mean']:.3f}, "
+                  f"p99 {st['p99']:.0f}, max {st['max']}, {st['total']} in "
+                  f"all; sum over the {st['warps']} warps of each warp's "
+                  f"largest count {st['warp_max']}; distinct reads: "
+                  f"{st['nav']} nav entries, {st['voxels']} pool voxels; "
+                  f"{int(got.valid.sum())} hits; device "
+                  f"{row['device_us']:.2f} us/launch, call {row['ms']:.4f} "
+                  f"ms, twin {row['plain_ms']:.4f} ms; bound "
+                  f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    print(f"{tag}: rays that start behind a surface (a range in the map, no "
+          f"march probe), and of them hits: {blocked} (forward: > 0 and no "
+          f"hit)")
+    require(blocked["forward"][0] > 0 and blocked["forward"][1] == 0
+            and blocked["back"][1] == 0,
+            f"{tag}: no ray started behind a surface, or one hit")
+    row["max_abs_err"] = max(errs)
+    return row
+
+
+def check_mm2meters(torch, dev):
+    """ops/preprocess.mm2meters on the card against numpy's
+    ``u16.astype(f32) / f32(1000)`` for all 65,536 u16 values, bit for
+    bit; prints how many a product with the reciprocal would change."""
+    import numpy as np
+    from supereight_tpu_torch.ops.preprocess import mm2meters
+    v = np.arange(65536, dtype=np.uint16).reshape(256, 256)
+    want = v.astype(np.float32) / np.float32(1000)
+    got = mm2meters(v, (256, 256), dev).cpu().numpy()
+    bad = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+    recip = (torch.from_numpy(v.astype(np.float32)).to(dev) / 1000.0) \
+        .cpu().numpy()
+    n_recip = int((recip.view(np.uint32) != want.view(np.uint32)).sum())
+    print(f"mm2meters: all 65536 u16 values on the card against numpy, "
+          f"unequal bits: {bad} (== 0); a CUDA tensor divided by the "
+          f"Python scalar 1000.0 changes {n_recip}")
+    require(bad == 0, "mm2meters differs from numpy on the card")
+
+
 def check_frame_mats(torch, sc, state, tag):
     """The pose prologue against its twin, bit for bit, on ``state``'s
     poses: tracking's view of its raycast pose, and the frame's select of
@@ -1551,6 +1746,8 @@ def kernel_phase_tsdf(torch, sc):
                                           "frame_mats (TSDF, frame 3)")
     rows["nav_grid"] = check_nav(torch, sc, m, "K2 nav_grid (TSDF)")
     rows["raycast"], got = check_k1(torch, sc, state, d2, "K1 raycast")
+    rows["raycast_cold"] = check_k1_cold(torch, sc, state,
+                                         "K1 raycast_cold (TSDF)")
     ref_vertex, ref_normal, ref_valid = got[0], got[1], got[2]
 
     # K6: frame 3's finest pyramid level against that raycast
@@ -1661,6 +1858,8 @@ def kernel_phase_of(torch, sc):
     rows["nav_grid"] = check_nav(torch, sc, m, "K2 nav_grid (OFusion)")
     rows["raycast_of"], got = check_k1(torch, sc, state, d2,
                                        "K1-OF raycast_of")
+    rows["raycast_cold_of"] = check_k1_cold(torch, sc, state,
+                                            "K1-OF raycast_cold_of")
 
     # K6: the whole tracking step of frame 3 against that raycast
     _, verts, norms, valids = preprocess_and_pyramid(d3, kt, 3, False, False)
@@ -2042,6 +2241,220 @@ def probe_path(torch, dev):
     return {k: launches[k] for k in PATHS["probe"]}
 
 
+def start_loop_raw(tmp):
+    """Start rendering the LOOP_FRAMES-frame loop .raw (and its ground
+    truth) into ``tmp`` with the port's converter, in a process of its
+    own that spreads the frames over LOOP_WORKERS processes; returns the
+    process and the .raw's path."""
+    raw = os.path.join(tmp, "loop.raw")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "supereight_tpu_torch.io.convert",
+         "synthetic", raw, "--frames", str(LOOP_FRAMES), "--scene", "loop",
+         "--workers", str(LOOP_WORKERS)], cwd=root, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return proc, raw
+
+
+def wait_loop_raw(proc, t_start):
+    _, err = proc.communicate(timeout=900)
+    ready = time.perf_counter() - t_start
+    print(f"pipeline: the {LOOP_FRAMES}-frame loop .raw rendered in "
+          f"{LOOP_WORKERS} processes, ready {ready:.1f} s after its start "
+          f"(rc {proc.returncode})")
+    require(proc.returncode == 0, f"the loop .raw failed: {err[-2000:]}")
+
+
+def cli_stderr(text):
+    """The CLI's stderr lines: (ATE RMSE m, drop counters dict, wall fps
+    of the run)."""
+    ate, drops, fps = None, None, None
+    for line in text.splitlines():
+        if "ATE RMSE" in line:
+            ate = float(line.split("ATE RMSE")[1].split()[0])
+        if line.startswith("# drop counters"):
+            drops = ast.literal_eval(line.split(": ", 1)[1].strip())
+        if line.startswith("# frames=") and "fps=" in line:
+            fps = float(line.split("fps=")[1])
+    return ate, drops, fps
+
+
+def pipeline_run(torch, name, raw, tmp, card):
+    """The class pipeline's path for one field: the port's CLI
+    (``cli.run``, in this process) over the loop .raw with
+    run_longseq_eval.py's arguments, then one volume render from the last
+    raycast pose moved BACK_VIEW back (K1's unprimed launch), with every
+    launch count zeroed just before and read just after. Holds the drop
+    counters to 0, the tracked fraction (the log's) to MIN_TRACKED, the
+    ATE to MAX_ATE and, for TSDF, the PPM count to the rendered frames.
+    Returns the pipeline, the path's launch counts and its numbers."""
+    import numpy as np
+    from supereight_tpu_torch import cli
+    from supereight_tpu_torch.eval.sweep import parse_frame_log, summarize
+    from supereight_tpu_torch.kernels import _lib
+    tag = f"pipeline {name}"
+    path = "pipeline-" + name
+    log = os.path.join(tmp, name + ".log")
+    renders = os.path.join(tmp, "renders-" + name)
+    argv = (["-i", raw, "-g", raw + ".gt.txt", "-o", log,
+             "--trajectory-out", os.path.join(tmp, name + ".traj"),
+             "--max-frames", str(LOOP_FRAMES)] + list(PIPE_ARGS)
+            + list(PIPE_FIELD_ARGS[name]))
+    field_args = PIPE_FIELD_ARGS[name]
+    rate = int(field_args[field_args.index("-z") + 1])
+    if rate:
+        argv += ["--dump-renders", renders]
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        pipe = cli.run(argv)
+    # a fresh view: K1's unprimed launch over every block
+    view_pose = moved_pose(pipe.raycast_pose, -BACK_VIEW).cpu().numpy()
+    image = pipe.render_volume(view_pose=view_pose)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    wall = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    for line in err.getvalue().splitlines():
+        print(f"{tag}: cli: {line}")
+    ate, drops, fps = cli_stderr(err.getvalue())
+    rows = parse_frame_log(log)
+    summary = summarize(rows)
+    n_ppm = len(os.listdir(renders)) if rate else 0
+    want_ppm = sum(1 for f in range(LOOP_FRAMES) if rate and f % rate == 0
+                   and f > 2)
+    lit = int((image[..., :3].max(-1) > 0).sum())
+    print(f"{tag}: {len(rows)} frames; ATE RMSE {ate:.4f} m (EVAL_table.md "
+          f"row {EVAL_ATE[name]:.4f} m, limit {MAX_ATE[name]:.3f}); tracked "
+          f"fraction {summary['tracked_fraction']:.4f} (>= {MIN_TRACKED}); "
+          f"drops {drops}; mean computation "
+          f"{1e3 * summary['computation_mean']:.3f} ms/frame, total "
+          f"{1e3 * summary['total_mean']:.3f} ms/frame, wall fps {fps} "
+          f"({wall:.2f} s with the fresh view; {card}); peak device memory "
+          f"{peak_mib:.1f} MiB allocated; {n_ppm} PPM renders (== "
+          f"{want_ppm}); fresh view from {BACK_VIEW} m back: {lit} lit "
+          f"pixels of {image.shape[0] * image.shape[1]}")
+    print(f"{tag}: kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    require(len(rows) == LOOP_FRAMES and ate is not None
+            and np.isfinite(ate), f"{tag}: the run did not finish")
+    require(drops is not None and all(v == 0 for v in drops.values()),
+            f"{tag}: drop counters nonzero: {drops}")
+    require(summary["tracked_fraction"] >= MIN_TRACKED,
+            f"{tag}: tracked fraction {summary['tracked_fraction']}")
+    require(ate <= MAX_ATE[name], f"{tag}: ATE {ate:.4f} m over the limit")
+    require(n_ppm == want_ppm, f"{tag}: {n_ppm} renders, {want_ppm} due")
+    require(lit > 0, f"{tag}: the fresh view shows nothing")
+    require(all(launches[k] > 0 for k in PATHS[path]),
+            f"{tag}: a kernel of the path was not launched: {launches}")
+    cold = "raycast_cold_of" if name == "ofusion" else "raycast_cold"
+    require(launches[cold] == 1, f"{tag}: the fresh view launched "
+            f"{cold} {launches[cold]} times")
+    numbers = dict(ate=ate, tracked=summary["tracked_fraction"],
+                   computation_ms=1e3 * summary["computation_mean"],
+                   wall_fps=fps, peak_mib=peak_mib)
+    return pipe, {k: launches[k] for k in PATHS[path]}, numbers
+
+
+def loop_depth(raw, i):
+    from supereight_tpu_torch.io.dataset import RawDepthReader
+    return RawDepthReader(raw).read_frame(i)[0]
+
+
+def check_resume(torch, pipe, raw, tmp, tag):
+    """save_checkpoint, load_checkpoint into a new pipeline, and one more
+    frame (frame LOOP_FRAMES, the loop's first depth again) in both: the
+    pose, raycast pose and maps, the map and the frame's result equal bit
+    for bit."""
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    ckpt = os.path.join(tmp, "resume.npz")
+    pipe.save_checkpoint(ckpt)
+    w, h = pipe.computation_size
+    r = pipe.config.compute_size_ratio
+    other = DenseSLAMSystem((w * r, h * r), pipe.config, device=pipe.device)
+    other.load_checkpoint(ckpt)
+    depth = loop_depth(raw, 0)
+    ra = pipe.process_frame(depth, LOOP_FRAMES)
+    rb = other.process_frame(depth, LOOP_FRAMES)
+    names = ("pose", "raycast_pose", "vertex", "normal", "valid")
+    same = [torch.equal(getattr(pipe, a), getattr(other, a)) for a in names]
+
+    def leaves(m):
+        return [x for v in m for x in (v if isinstance(v, tuple) else (v,))]
+    same_map = all(torch.equal(a, b) for a, b in zip(leaves(pipe.map),
+                                                     leaves(other.map)))
+    # the counters a frame does not write carry over from earlier frames,
+    # which the checkpoint does not hold
+    same_res = all(int(ra[k]) == int(rb[k]) for k in ra if k in rb)
+    print(f"{tag}: save_checkpoint, load_checkpoint, frame {LOOP_FRAMES}: "
+          f"{dict(zip(names, same))}, map {same_map}, result {same_res} "
+          f"against the same frame without the round trip (bit for bit); "
+          f"tracked {ra['tracked']}, blocks {pipe.block_count()}")
+    require(all(same) and same_map and same_res,
+            f"{tag}: the resumed frame differs")
+
+
+def pipeline_profile(torch, pipe, raw, ms_frame, tag):
+    """N_PIPE_PROFILED more frames of the pipeline (the loop's frames 1 to
+    N_PIPE_PROFILED again, numbered on past the loop) under torch.profiler
+    after one warm-up step: the device's busy ms a frame and its share of
+    the run's mean computation time, and each port kernel's launches a
+    frame and device us a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    depths = [loop_depth(raw, i) for i in range(N_PIPE_PROFILED + 1)]
+    first = LOOP_FRAMES + 1
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=N_PIPE_PROFILED,
+                                   repeat=1)) as prof:
+        for j, d in enumerate(depths):
+            pipe.process_frame(d, first + j)
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 \
+        / N_PIPE_PROFILED
+    n = sum(e.count for e in events) / N_PIPE_PROFILED
+    per = {}
+    for e in events:
+        pk = port_kernel(e.key)
+        if pk:
+            c, us = per.get(pk[0], (0, 0.0))
+            per[pk[0]] = (c + e.count, us + e.self_device_time_total)
+    print(f"{tag} profile: device busy {busy:.3f} ms/frame in {n:.0f} "
+          f"kernels and copies a frame; busy share of the run's mean "
+          f"computation {ms_frame:.3f} ms/frame: {busy / ms_frame:.4f}; "
+          + ", ".join(f"{k} {c / N_PIPE_PROFILED:g}x {us / max(c, 1):.2f} us"
+                      for k, (c, us) in sorted(per.items())))
+    return dict(busy_ms=busy, launches_frame=n, busy_share=busy / ms_frame)
+
+
+def pipeline_phase(torch, raw, tmp, card):
+    """Both fields' class-pipeline paths over the loop; the TSDF pipeline
+    then resumes from a checkpoint; both profiled. Returns the paths'
+    launch counts."""
+    launches = {}
+    for name in ("tsdf", "ofusion"):
+        tag = f"pipeline {name}"
+        pipe, counts, numbers = pipeline_run(torch, name, raw, tmp, card)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if name == "tsdf":
+            check_resume(torch, pipe, raw, tmp, tag)
+        numbers.update(pipeline_profile(torch, pipe, raw,
+                                        numbers["computation_ms"], tag))
+        print(f"{tag}: {json.dumps(numbers)}")
+        del pipe
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2052,7 +2465,6 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from supereight_tpu_torch.fields import OFUSION, TSDF
     from supereight_tpu_torch.kernels import _lib
 
     t0 = time.perf_counter()
@@ -2073,6 +2485,22 @@ def main():
                 print("  ptxas:", line.strip())
 
     dev = torch.device("cuda", 0)
+    # the loop .raw of the pipeline paths renders while the kernel phases
+    # and the slices run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    t_raw = time.perf_counter()
+    raw_proc, raw = start_loop_raw(tmp)
+    try:
+        run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp)
+    finally:
+        if raw_proc.poll() is None:
+            raw_proc.kill()
+            raw_proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
+    from supereight_tpu_torch.fields import OFUSION, TSDF
     tsdf, of = Scene(torch, TSDF, dev), Scene(torch, OFUSION, dev)
     noise = Scene(torch, TSDF, dev, noisy=True)
     rows = kernel_phase_tsdf(torch, tsdf)
@@ -2089,6 +2517,7 @@ def main():
         else:
             rows[name] = row
     rows.update(probe_phase(torch, dev))
+    check_mm2meters(torch, dev)
     torch.cuda.synchronize()
 
     # ---- the main paths, each with the counts zeroed just before -------
@@ -2100,6 +2529,9 @@ def main():
         for k, v in path_launches.items():
             launches[k] += v
     launches.update(probe_path(torch, dev))
+    wait_loop_raw(raw_proc, t_raw)
+    for k, v in pipeline_phase(torch, raw, tmp, card).items():
+        launches[k] += v
     for k, e in errs.items():
         rows[k]["max_abs_err"] = max(e)
 

@@ -1,16 +1,17 @@
-// K1: the depth-primed raycast of both fields: prime, march, Newton
-// refinement, normal, overflow count and the frame state's select.
+// K1: the raycast of both fields, depth-primed (the frame step's) or
+// unprimed (a fresh view's): start, march, Newton refinement, normal,
+// overflow count and the frame state's select.
 //
 // Replaces supereight_tpu/ops/raycast.py:_march (454-769, with _probe
-// 262-299), prime_from_depth (772-798) and raycast_rays (841-899, with
-// _interp_grad 318-380), and the raycast's share of the JAX frame step
-// (parallel/step.py:194-200: the outputs kept before frame 3 and the
-// masked ray_overflow). On the TPU that is a lockstep march over strip
-// tables and a nav4 grid, cut into a top_k compaction cascade with
-// straggler tails.
+// 262-299; the unprimed start 537-544), prime_from_depth (772-798) and
+// raycast_rays (841-899, with _interp_grad 318-380), and the raycast's
+// share of the JAX frame step (parallel/step.py:194-200: the outputs kept
+// before frame 3 and the masked ray_overflow). On the TPU that is a
+// lockstep march over strip tables and a nav4 grid, cut into a top_k
+// compaction cascade with straggler tails.
 //
 // One thread per pixel ray, marching to its own end, in one body
-// instantiated per field (kOF = OFusion):
+// instantiated per field (kOF = OFusion) and start (kPrimed):
 //  * direction from view = pose @ invK (the frame's prologue,
 //    csrc/frame.cu), clipped to the map cube and the near/far planes;
 //  * the prime from this frame's depth d at the pixel (x, y): d * sqrt(ux^2
@@ -20,6 +21,12 @@
 //    in known space on the free side (TSDF f > 0, OFusion f <=
 //    SURF_BOUNDARY = 0), else the wide backoff, 2 mu (TSDF) or 6 mu
 //    (OFusion) + 2 voxels (raycast.py:510-536);
+//  * unprimed start (raycast.py:537-544): one probe at tnear, its value
+//    (the field's fill where unknown) on the free side or the ray misses
+//    without marching; no depth and no intrinsics are read. A zero prime
+//    is not this start: the primed status tests tnear < tfar alone, and
+//    the loop's first probe would take a start behind a surface for a
+//    hit;
 //  * TSDF: steps of max(f mu, floor) in known space, the floor rising one
 //    voxel per 8 consecutive floor-bound steps after 16 (crawl escalation,
 //    up to 4 voxels and 0.4 mu); hit where f < 0;
@@ -217,12 +224,13 @@ __device__ __forceinline__ float ref_weight(const Params& P,
                ((vy & 7) << 3) + ((vz & 7) << 6));
 }
 
-// March pixel ray i of `view` (V) primed by depth[i] with the intrinsics
-// Kc, write its vertex, normal and valid flag; returns whether the ray was
-// still marching at the probe bound (ray_overflow). kGate (TSDF): a hit
-// whose voxel has fused less weight than P.min_ref_weight is not valid;
-// its vertex and normal stay as they are.
-template <bool kOF, bool kGate>
+// March pixel ray i of `view` (V), primed by depth[i] with the intrinsics
+// Kc (kPrimed) or from its tnear probe, write its vertex, normal and valid
+// flag; returns whether the ray was still marching at the probe bound
+// (ray_overflow). kGate (TSDF): a hit whose voxel has fused less weight
+// than P.min_ref_weight is not valid; its vertex and normal stay as they
+// are.
+template <bool kOF, bool kGate, bool kPrimed>
 __device__ __forceinline__ bool march_ray(
     const Params& P, const float* V, const float* Kc, Pool& pool,
     const int* __restrict__ slot, const float* __restrict__ depth, int i,
@@ -260,22 +268,34 @@ __device__ __forceinline__ bool march_ray(
     zcos = dx * (ax * ainv) + dy * (ay * ainv) + dz * (az * ainv);
   }
 
-  // prime_from_depth: the depth frame's surface along the pixel ray
-  const float ux = (pxf - Kc[2]) / Kc[0];
-  const float uy = (pyf - Kc[3]) / Kc[1];
-  const float dep = depth[i];
-  const float tp = dep * sqrtf(ux * ux + uy * uy + 1.f);
-  const float prime = dep > 0.f ? tp : 0.f;
+  int status;  // 0 marching, 1 hit, 2 missed
+  if (kPrimed) {
+    // prime_from_depth: the depth frame's surface along the pixel ray
+    const float ux = (pxf - Kc[2]) / Kc[0];
+    const float uy = (pyf - Kc[3]) / Kc[1];
+    const float dep = depth[i];
+    const float tp = dep * sqrtf(ux * ux + uy * uy + 1.f);
+    const float prime = dep > 0.f ? tp : 0.f;
 
-  // primed start
-  const float t_tight =
-      prime > 0.f ? fmaxf(tnear, prime - P.small_backoff) : tnear;
-  const Probe pt = probe<kOF>(P, pool, ox + dx * t_tight, oy + dy * t_tight,
-                              oz + dz * t_tight);
-  const bool ok_tight = pt.known && (kOF ? pt.val <= 0.f : pt.val > 0.f);
-  tnear = ok_tight ? t_tight
-                   : (prime > 0.f ? fmaxf(tnear, prime - P.big_backoff) : tnear);
-  int status = tnear < tfar ? 0 : 2;  // 0 marching, 1 hit, 2 missed
+    // primed start
+    const float t_tight =
+        prime > 0.f ? fmaxf(tnear, prime - P.small_backoff) : tnear;
+    const Probe pt = probe<kOF>(P, pool, ox + dx * t_tight,
+                                oy + dy * t_tight, oz + dz * t_tight);
+    const bool ok_tight = pt.known && (kOF ? pt.val <= 0.f : pt.val > 0.f);
+    tnear = ok_tight
+                ? t_tight
+                : (prime > 0.f ? fmaxf(tnear, prime - P.big_backoff) : tnear);
+    status = tnear < tfar ? 0 : 2;
+  } else {
+    // unprimed start: the value at tnear (the fill where unknown) must lie
+    // on the free side
+    const Probe p0 =
+        probe<kOF>(P, pool, ox + dx * tnear, oy + dy * tnear, oz + dz * tnear);
+    const float v0 = p0.known ? p0.val : FieldConst<kOF>::fill;
+    const bool free_side = kOF ? v0 <= 0.f : v0 > 0.f;
+    status = tnear < tfar && free_side ? 0 : 2;
+  }
 
   float t = tnear, ss = kOF ? P.voxel : P.largestep,
         f_t = kOF ? 0.f : __int_as_float(0x7f800000), f_tt = 0.f,
@@ -386,7 +406,7 @@ __device__ __forceinline__ bool march_ray(
   return status == 0;
 }
 
-template <bool kOF, bool kGate>
+template <bool kOF, bool kGate, bool kPrimed>
 __global__ void __launch_bounds__(kThreads)
 raycast_kernel(Params P, const float* __restrict__ view,
                const int* __restrict__ nav, const float* __restrict__ data_x,
@@ -405,7 +425,7 @@ raycast_kernel(Params P, const float* __restrict__ view,
   __shared__ float V[16], Kc[4];
   __shared__ int cta_live;
   se::load_mat4(view, V);
-  if (threadIdx.x < 4) Kc[threadIdx.x] = k[threadIdx.x];
+  if (kPrimed && threadIdx.x < 4) Kc[threadIdx.x] = k[threadIdx.x];
   if (threadIdx.x == 0) cta_live = 0;
   __syncthreads();
   const bool go = when == nullptr || *when;
@@ -420,8 +440,8 @@ raycast_kernel(Params P, const float* __restrict__ view,
   if (x < P.w && y < P.h) {
     if (go) {
       Pool pool{nav, data_x, data_y, -1, 0};
-      if (march_ray<kOF, kGate>(P, V, Kc, pool, slot, depth, i, vertex,
-                                normal, valid))
+      if (march_ray<kOF, kGate, kPrimed>(P, V, Kc, pool, slot, depth, i,
+                                         vertex, normal, valid))
         atomicAdd(&cta_live, 1);
     } else {  // the state's maps as they were
       for (int a = 0; a < 3; ++a) {
@@ -446,9 +466,10 @@ raycast_kernel(Params P, const float* __restrict__ view,
 
 }  // namespace
 
-// field: 0 = TSDF, 1 = OFusion. slot (the map's i32[B^3] slot grid) is
-// null for no maturity gate, else (TSDF only) hits whose voxel weighs less
-// than min_ref_weight are not valid. when, pose, old_rp, old_vertex,
+// field: 0 = TSDF, 1 = OFusion. depth and k are null together for the
+// unprimed start (then slot must be null too). slot (the map's i32[B^3]
+// slot grid) is null for no maturity gate, else (TSDF only) hits whose
+// voxel weighs less than min_ref_weight are not valid. when, pose, old_rp, old_vertex,
 // old_normal, old_valid and raycast_pose are null together (no select);
 // scratch is an i32[2] that is zero before the first launch and that every
 // launch leaves zero; launches that share it must not overlap.
@@ -473,19 +494,26 @@ SE_EXPORT int se_raycast(const float* view, const int* nav,
            big_backoff, floor_cap, two_step, of_cap, min_ref_weight};
   if (w <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   if (field == 1 && slot != nullptr) return (int)cudaErrorInvalidValue;
+  const bool primed = depth != nullptr;
+  if (primed != (k != nullptr) || (!primed && slot != nullptr))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
   cudaStream_t st = (cudaStream_t)stream;
-#define SE_RAYCAST(OF, GATE)                                                \
-  raycast_kernel<OF, GATE><<<grid, kThreads, 0, st>>>(                      \
+#define SE_RAYCAST(OF, GATE, PRIMED)                                        \
+  raycast_kernel<OF, GATE, PRIMED><<<grid, kThreads, 0, st>>>(              \
       P, view, nav, data_x, data_y, slot, depth, k, when, pose, old_rp,     \
       old_vertex, old_normal, old_valid, vertex, normal, valid,             \
       raycast_pose, overflow, scratch)
-  if (field == 1)
-    SE_RAYCAST(true, false);
+  if (!primed && field == 1)
+    SE_RAYCAST(true, false, false);
+  else if (!primed)
+    SE_RAYCAST(false, false, false);
+  else if (field == 1)
+    SE_RAYCAST(true, false, true);
   else if (slot != nullptr)
-    SE_RAYCAST(false, true);
+    SE_RAYCAST(false, true, true);
   else
-    SE_RAYCAST(false, false);
+    SE_RAYCAST(false, false, true);
 #undef SE_RAYCAST
   return (int)cudaGetLastError();
 }

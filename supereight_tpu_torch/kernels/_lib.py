@@ -42,7 +42,8 @@ LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
             "integrate_fused_bilinear": 0,
             "integrate_fused_noise_bilinear": 0,
             "integrate_fused_of_bilinear": 0,
-            "integrate_fallback_noise": 0, "raycast_gated": 0}
+            "integrate_fallback_noise": 0, "raycast_gated": 0,
+            "raycast_cold": 0, "raycast_cold_of": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu and preprocess.cu take

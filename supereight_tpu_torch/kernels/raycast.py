@@ -1,13 +1,16 @@
-"""K1 wrapper and twin: the depth-primed raycast of both fields.
+"""K1 wrapper and twin: the raycast of both fields, depth-primed (the
+frame step's) or unprimed (a fresh view's).
 
 Replaces ``supereight_tpu/ops/raycast.py:_march`` (454-769, with
-``_probe`` 262-299), ``camera_zcos`` (436-452), ``prime_from_depth``
-(772-795) and ``raycast_rays`` (841-899, with ``_interp_grad`` 318-380),
-TSDF and OFusion branches, and the frame step's select of the raycast's
-outputs (``supereight_tpu/parallel/step.py:194-200``). The CUDA kernel is
-``csrc/raycast.cu`` (one body per field); :func:`raycast_plain` is the
-plain PyTorch version (every ray stepped in lockstep for the full probe
-bound), used for CPU tensors and as the kernel's reference on the card.
+``_probe`` 262-299 and the unprimed start 537-544), ``camera_zcos``
+(436-452), ``prime_from_depth`` (772-795) and ``raycast_rays`` (841-899,
+with ``_interp_grad`` 318-380), TSDF and OFusion branches, and the frame
+step's select of the raycast's outputs
+(``supereight_tpu/parallel/step.py:194-200``). The CUDA kernel is
+``csrc/raycast.cu`` (one body per field and start); :func:`raycast_plain`
+is the plain PyTorch version (every ray stepped in lockstep for the full
+probe bound), used for CPU tensors and as the kernel's reference on the
+card.
 
 The TPU's compaction cascade, straggler tails, strip tables and nav4 grid
 only shaped its cost; what they computed stays: a ray marches until it
@@ -128,10 +131,14 @@ def gated(field, min_ref_weight) -> bool:
 
 def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
                  frame_size, max_steps: int = None, prev: Previous = None,
-                 min_ref_weight=0):
+                 min_ref_weight=0, near=NEAR_PLANE, far=FAR_PLANE):
     """March every pixel ray of ``view`` (= pose @ invK, the frame's
-    prologue) through the map, each primed by ``depth`` (f32[H, W], this
-    frame's, taken at the raycast pose) with the intrinsics ``k`` (f32[4]).
+    prologue) through the map from ``near`` to ``far`` (and the map cube),
+    each primed by ``depth`` (f32[H, W], this frame's, taken at the
+    raycast pose) with the intrinsics ``k`` (f32[4]); with ``depth`` None
+    the march is unprimed (JAX's raycast without ``prime_t``: a ray starts
+    at its near end, on the free side of the field's value there, or
+    misses), ``k`` is not read, and ``prev`` and the gate are refused.
 
     nav: i32[B^3] navigation grid of ``field`` (kernels/nav.nav_grid).
     Returns :class:`Rays`; with ``prev`` the maps and the raycast pose are
@@ -139,16 +146,22 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     TSDF ``min_ref_weight`` > 0 a hit is valid only where its voxel, read
     through ``state.slot``, has fused at least that weight (JAX's
     map-maturity gate, before the select). One launch on a CUDA device,
-    no host sync; the launch count is kept per field and gate
-    (``raycast``, ``raycast_gated``, ``raycast_of``).
+    no host sync; the launch count is kept per field, gate and start
+    (``raycast``, ``raycast_gated``, ``raycast_of``, ``raycast_cold``,
+    ``raycast_cold_of``).
     """
     dev = view.device
     gate = gated(field, min_ref_weight)
+    primed = depth is not None
+    if not primed and (prev is not None or gate):
+        raise ValueError("raycast_rays: the unprimed march takes no select "
+                         "and no maturity gate")
     if dev.type == "cpu":
         return raycast_plain(geom, field, state.data_x, state.data_y, nav,
                              view, depth, k, mu, frame_size, max_steps, prev,
                              slot=state.slot if gate else None,
-                             min_ref_weight=min_ref_weight)
+                             min_ref_weight=min_ref_weight, near=near,
+                             far=far)
     if dev.type != "cuda":
         raise ValueError(f"raycast_rays: unsupported device {dev}")
     w, h = frame_size
@@ -159,8 +172,11 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     c(nav, "nav", torch.int32, (b * b * b,), dev)
     c(state.data_x, "data_x", torch.float32, (cap, BLOCK_VOXELS), dev)
     c(state.data_y, "data_y", torch.float32, (cap, BLOCK_VOXELS), dev)
-    c(depth, "depth", torch.float32, (h, w), dev)
-    c(k, "k", torch.float32, (4,), dev)
+    if primed:
+        c(depth, "depth", torch.float32, (h, w), dev)
+        c(k, "k", torch.float32, (4,), dev)
+    else:
+        k = None
     slot = c(state.slot, "slot", torch.int32, (b, b, b), dev) if gate \
         else None
     sel = (None,) * 6
@@ -183,14 +199,15 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     if key not in _SCRATCH:
         _SCRATCH[key] = torch.zeros(2, dtype=torch.int32, device=dev)
     of = field.name == "ofusion"
-    _lib.launch("raycast_of" if of else
-                "raycast_gated" if gate else "raycast", "se_raycast", dev,
+    name = ("raycast_of" if of else "raycast_gated" if gate else "raycast") \
+        if primed else ("raycast_cold_of" if of else "raycast_cold")
+    _lib.launch(name, "se_raycast", dev,
                 view, nav, state.data_x, state.data_y, slot,
                 float(min_ref_weight), depth, k, int(of),
                 w, h, geom.size, b, q["max_probes"], geom.dim,
                 geom.inv_voxel_size, q["step"], q["largestep"],
-                q["half_largestep"], q["bstep"], float(mu), NEAR_PLANE,
-                FAR_PLANE, q["small_backoff"], q["big_backoff"],
+                q["half_largestep"], q["bstep"], float(mu), float(near),
+                float(far), q["small_backoff"], q["big_backoff"],
                 q["floor_cap"], q["two_step"], q["of_cap"], *sel, vertex,
                 normal, valid, raycast_pose, overflow, _SCRATCH[key])
     return Rays(vertex, normal, valid, overflow, raycast_pose)
@@ -256,15 +273,18 @@ def ref_weight_plain(geom, slot, data_y, vertex):
 def raycast_plain(geom, field, data_x, data_y, nav, view, depth, k,
                   mu: float, frame_size, max_steps: int = None,
                   prev: Previous = None, with_probes: bool = False,
-                  slot=None, min_ref_weight=0):
+                  slot=None, min_ref_weight=0, near=NEAR_PLANE,
+                  far=FAR_PLANE):
     """Plain PyTorch twin of :func:`raycast_rays` (data_x/data_y are the
     map's pool channels, ``slot`` its slot grid, read by the TSDF gate
-    when ``min_ref_weight`` > 0): :func:`prime_from_depth`, the march, the
-    gate and the select of ``prev`` as the JAX frame step makes them. With
+    when ``min_ref_weight`` > 0): :func:`prime_from_depth` (none where
+    ``depth`` is None: the unprimed start), the march, the gate and the
+    select of ``prev`` as the JAX frame step makes them. With
     ``with_probes`` returns (rays, :class:`Probes`)."""
+    prime = None if depth is None else prime_from_depth(depth, k)
     rays, probes = march_plain(geom, field, data_x, data_y, nav, view,
-                               prime_from_depth(depth, k), mu, frame_size,
-                               max_steps, with_probes)
+                               prime, mu, frame_size, max_steps, with_probes,
+                               near, far)
     if gated(field, min_ref_weight):
         w_ref = ref_weight_plain(geom, slot, data_y, rays.vertex)
         rays = rays._replace(valid=rays.valid & (w_ref >= min_ref_weight))
@@ -280,9 +300,11 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, depth, k,
 
 
 def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
-                frame_size, max_steps: int = None, with_probes: bool = False):
+                frame_size, max_steps: int = None, with_probes: bool = False,
+                near=NEAR_PLANE, far=FAR_PLANE):
     """The march of :func:`raycast_plain` from a given prime (f32[H*W],
-    :func:`prime_from_depth`): (:class:`Rays` without a raycast pose,
+    :func:`prime_from_depth`; None for the unprimed start) between
+    ``near`` and ``far``: (:class:`Rays` without a raycast pose,
     :class:`Probes` with ``with_probes``, else None)."""
     w, h = frame_size
     size, b = geom.size, geom.blocks_per_side
@@ -293,7 +315,8 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
     step = q["step"]
     dx, dy, dz = ray_directions_c(view, w, h)
     ox, oy, oz = view[0, 3], view[1, 3], view[2, 3]
-    tnear, tfar = ray_box_range_c((ox, oy, oz), dx, dy, dz, geom.dim)
+    tnear, tfar = ray_box_range_c((ox, oy, oz), dx, dy, dz, geom.dim, near,
+                                  far)
     zcos = camera_zcos(view, dx, dy, dz) if of else None
     # pool values with y == 0 voxels carrying the unknown sentinel
     vals = torch.where(data_y == 0, torch.full_like(data_x, unk),
@@ -349,18 +372,27 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
     def free_side(v):  # the start's side of the surface
         return v <= SURF_BOUNDARY if of else v > 0
 
-    # primed start: tight backoff when it lands in known free space
-    t_tight = torch.where(prime_t > 0,
-                          torch.maximum(tnear, prime_t - q["small_backoff"]),
-                          tnear)
-    ft, kt, _, _ = probe(t_tight, torch.ones_like(prime_t, dtype=torch.bool))
-    ok_tight = kt & free_side(ft)
-    tnear = torch.where(ok_tight, t_tight,
-                        torch.where(prime_t > 0,
-                                    torch.maximum(tnear,
-                                                  prime_t - q["big_backoff"]),
-                                    tnear))
-    status = torch.where(tnear < tfar, 0, 2).to(torch.int32)
+    everyone = torch.ones_like(dx, dtype=torch.bool)
+    if prime_t is None:
+        # unprimed start (raycast.py:537-544): the value at tnear, the fill
+        # where unknown, on the free side, or the ray misses
+        f0, k0, _, _ = probe(tnear, everyone)
+        go = (tnear < tfar) & free_side(torch.where(k0, f0, fill))
+    else:
+        # primed start: tight backoff when it lands in known free space
+        t_tight = torch.where(prime_t > 0,
+                              torch.maximum(tnear,
+                                            prime_t - q["small_backoff"]),
+                              tnear)
+        ft, kt, _, _ = probe(t_tight, everyone)
+        ok_tight = kt & free_side(ft)
+        tnear = torch.where(ok_tight, t_tight,
+                            torch.where(prime_t > 0,
+                                        torch.maximum(
+                                            tnear, prime_t - q["big_backoff"]),
+                                        tnear))
+        go = tnear < tfar
+    status = torch.where(go, 0, 2).to(torch.int32)
 
     t = tnear + 0.0
     ss = torch.full_like(t, step if of else q["largestep"])

@@ -877,3 +877,107 @@ def test_inverse_sum_order_on_the_tsdf_bench_slice_on_cuda(cuda,
     print(f"frames whose pose differs: {len(differ)} of {len(a)}, first "
           f"{differ[:1]}")
     assert abs(n_a - n_b) <= 0.001 * n_a
+
+
+def _moved_view(k, pose, shift):
+    """The prologue's view of ``pose`` moved ``shift`` m along its optical
+    axis (forward > 0)."""
+    p = pose.clone()
+    p[:3, 3] += shift * p[:3, 2]
+    return frame.frame_mats(k, p).kpose
+
+
+def test_unprimed_raycast_refuses_select_and_gate():
+    """K1's unprimed launch takes neither the frame state's select nor the
+    maturity gate (JAX's unprimed raycast has neither)."""
+    torch.set_num_threads(1)
+    geom, state, k, _ = _frames("cpu", n=3)
+    m = state.map
+    nv = nav.nav_grid(geom, m, TSDF)
+    view = _moved_view(k, state.pose, -0.5)
+    prev = kray.Previous(torch.ones((), dtype=torch.bool), state.pose,
+                         state.raycast_pose, state.vertex, state.normal,
+                         state.valid)
+    with pytest.raises(ValueError, match="unprimed"):
+        kray.raycast_rays(geom, m, TSDF, nv, view, None, None, 0.1, (W, H),
+                          prev=prev)
+    with pytest.raises(ValueError, match="unprimed"):
+        kray.raycast_rays(geom, m, TSDF, nv, view, None, None, 0.1, (W, H),
+                          min_ref_weight=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_unprimed_raycast_matches_twin_on_cuda(cuda, field):
+    """K1's unprimed launch (``raycast_cold[_of]``) against its twin, over
+    the nav grid of every block: from the pose moved 0.5 m back, marched
+    to twice the far plane, and from a view whose centre ray starts 5 cm
+    behind the surface the last frame saw there, where some rays start
+    behind a surface: those march no probe in the twin and miss in the
+    kernel. Hit masks on >= 99.9 % of rays, vertices to 1e-4 m and
+    normals to 1e-3 on the rays both hit, ray_overflow exactly."""
+    from supereight_tpu_torch.constants import FAR_PLANE, NEAR_PLANE
+    geom, state, k, depth = _frames(cuda, field=field)
+    m, mu = state.map, MU[field.name]
+    nv = nav.nav_grid(geom, m, field)
+    name = "raycast_cold_of" if field is OFUSION else "raycast_cold"
+    centre = float(depth[H // 2, W // 2])
+    for shift, far in ((-0.5, 2.0 * FAR_PLANE),
+                       (centre - NEAR_PLANE + 0.05, FAR_PLANE)):
+        view = _moved_view(k, state.pose, shift)
+        before = _lib.LAUNCHES[name]
+        got = kray.raycast_rays(geom, m, field, nv, view, None, None, mu,
+                                (W, H), far=far)
+        assert _lib.LAUNCHES[name] == before + 1
+        want, probes = kray.raycast_plain(geom, field, m.data_x, m.data_y,
+                                          nv, view, None, None, mu, (W, H),
+                                          with_probes=True, far=far)
+        assert int(got.overflow) == int(want.overflow)
+        assert (got.valid == want.valid).float().mean() >= 0.999
+        both = got.valid & want.valid
+        assert int(both.sum()) > 0
+        assert torch.allclose(got.vertex[both], want.vertex[both], atol=1e-4,
+                              rtol=0)
+        assert torch.allclose(got.normal[both], want.normal[both], atol=1e-3,
+                              rtol=0)
+        blocked = chip_smoke.blocked_starts(geom, view, probes, far)
+        if shift > 0:
+            assert int(blocked.sum()) > 0
+        assert not bool((got.valid & blocked).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["tsdf", "ofusion"])
+def test_class_pipeline_on_cuda_matches_cpu(cuda, field):
+    """The class pipeline (``pipeline.DenseSLAMSystem``) on the card
+    against the same run on the CPU (its stages through the twins) over
+    six orbit frames: poses to 1e-4 m, block counts and every frame's
+    result exactly; the depth and track renders equal, the volume render
+    from the raycast pose and from a fresh view on >= 99.9 % of pixels."""
+    from supereight_tpu_torch.config import Configuration
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    depths, poses = synthetic.orbit_sequence(
+        6, K, width=W, height=H, radius=0.8, center=(1.0,) * 3,
+        sphere_radius=0.3, angle_span=0.3, room=((0.15,) * 3, (1.85,) * 3))
+    cfg = Configuration(volume_resolution=64, volume_size=2.0,
+                        mu=MU[field], camera=K, integration_rate=1,
+                        pyramid=(3, 2), block_capacity=1024, field=field)
+    pipes = [DenseSLAMSystem((W, H), cfg, init_pose=poses[0], device=d)
+             for d in (cuda, "cpu")]
+    for i, d in enumerate(depths):
+        res = [p.process_frame(d, i, is_mm=False,
+                               gt_pose=poses[i] if i < 2 else None)
+               for p in pipes]
+        assert {k: int(v) for k, v in res[0].items()} == \
+            {k: int(v) for k, v in res[1].items()}, i
+        np.testing.assert_allclose(pipes[0].get_pose(), pipes[1].get_pose(),
+                                   atol=1e-4)
+        assert pipes[0].block_count() == pipes[1].block_count()
+    a, b = pipes
+    np.testing.assert_array_equal(a.render_depth(), b.render_depth())
+    np.testing.assert_array_equal(a.render_track(), b.render_track())
+    view_pose = poses[-1].copy()
+    view_pose[:3, 3] -= 0.5 * view_pose[:3, 2]
+    for va, vb in ((a.render_volume(), b.render_volume()),
+                   (a.render_volume(view_pose), b.render_volume(view_pose))):
+        assert (va == vb).all(-1).mean() >= 0.999

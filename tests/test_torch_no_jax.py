@@ -2,8 +2,11 @@
 
 The port's host (a machine with an NVIDIA GPU) has no JAX: in a
 subprocess where importing ``jax``, ``jaxlib`` or ``supereight_tpu``
-raises, ``supereight_tpu_torch`` must import every module and run
-``frame_step`` for both fields and the gather-form probe on the CPU.
+raises, ``supereight_tpu_torch`` must import every module (the class
+pipeline, the CLI, IO, evaluation and the tools among them) and run
+``frame_step`` for both fields, the gather-form probe, and the CLI from a
+``.raw`` file made by its converter, with a fresh-view render and a
+checkpoint round trip, on the CPU.
 """
 
 import json
@@ -58,6 +61,24 @@ for field, mu in ((TSDF, 0.1), (OFUSION, 0.008)):
                        "finite": bool(torch.isfinite(state.pose).all()),
                        "keys": sorted(aux)}
 out["probe"] = all(ok for _, ok, _ in probe_gather.run(torch.device("cpu")))
+
+import os, tempfile
+from supereight_tpu_torch import cli
+from supereight_tpu_torch.io.convert import synthetic2raw
+tmp = tempfile.mkdtemp()
+raw = os.path.join(tmp, "seq.raw")
+synthetic2raw(raw, 5, scene="orbit")
+pipe = cli.run(["-i", raw, "-g", raw + ".gt.txt", "-c", "8", "-v", "32",
+                "-s", "4.8", "-r", "1", "--platform", "cpu", "-o",
+                os.path.join(tmp, "log"), "--dump-renders", tmp])
+view = pipe.get_pose()
+view[:3, 3] -= 0.5 * view[:3, 2]
+lit = int((pipe.render_volume(view)[..., :3] > 0).any(-1).sum())
+pipe.save_checkpoint(os.path.join(tmp, "ckpt.npz"))
+pipe.load_checkpoint(os.path.join(tmp, "ckpt.npz"))
+out["cli"] = {"blocks": pipe.block_count(), "lit": lit,
+              "renders": sorted(f for f in os.listdir(tmp)
+                                if f.endswith(".ppm"))}
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(json.dumps(out))
 '''
@@ -76,6 +97,9 @@ def test_port_runs_without_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     out = json.loads(out.stdout.strip().splitlines()[-1])
     assert out.pop("probe")
+    res = out.pop("cli")
+    assert res["blocks"] > 0 and res["lit"] > 0
+    assert res["renders"] == ["frame00004.ppm"]
     assert sorted(out) == ["ofusion", "tsdf"]
     for res in out.values():
         assert res["finite"] and res["n_blocks"] > 0

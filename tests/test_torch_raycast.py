@@ -186,12 +186,20 @@ def test_camera_zcos(setup):
 
 
 def test_unported_options_raise(setup):
+    """The unprimed raycast (no depth) takes no frame-state select and no
+    maturity gate: JAX's unprimed raycast has neither."""
     _, s, name = setup
     ts = convert.frame_to_torch(s, "cpu")
     view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
-    with pytest.raises(NotImplementedError):
+    prev = kray.Previous(torch.ones((), dtype=torch.bool), ts.pose,
+                         ts.raycast_pose, ts.vertex, ts.normal, ts.valid)
+    with pytest.raises(ValueError, match="unprimed"):
         raycast.raycast(torch_geometry(), ts.map, FIELDS[name], view,
-                        MU[name], (W, H), depth=None)
+                        MU[name], (W, H), depth=None, prev=prev)
+    if name == "tsdf":
+        with pytest.raises(ValueError, match="unprimed"):
+            raycast.raycast(torch_geometry(), ts.map, FIELDS[name], view,
+                            MU[name], (W, H), min_ref_weight=2)
 
 
 def test_raycast_rays_primes_like_prime_from_depth(setup):
