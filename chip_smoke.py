@@ -39,6 +39,18 @@ checkout:
    time and the card's launch floor (a one-element ``zero_()``) beside
    theirs; and ``ops/preprocess.mm2meters`` on the card against numpy
    for all 65,536 u16 values, bit for bit;
+   library phase (the library surface's sphere drive, a path of its own
+   with the launch counts zeroed just before and read just after): a
+   512^3 map over 4.8 m
+   with capacity 16,384, a sphere shell allocated by
+   ``core/map.allocate_blocks`` (K5's alloc_assign) and its analytic SDF
+   written with ``set_voxels``; interp and ``Volume.interp`` at 100k
+   points of the band against the SDF (< 1e-3 m), grad against the
+   normal (< 0.1 degree), the same allocation, writes and reads on a CPU
+   copy (the map equal, interp and grad to 1e-6), ``collides_with``
+   inside the sphere (OCCUPIED), in the band outside it (EMPTY) and in
+   unallocated space (UNSEEN), and marching cubes (every vertex within a
+   voxel of the sphere);
 5. slice phases: drives ``parallel/step.frame_step`` at the bench config
    (320x240, 512^3 voxels over 4.8 m, capacity 36864, budget 8192, ICP
    10/5/4; TSDF at mu 0.1, then OFusion at mu 0.008, ``bench.py --field
@@ -81,10 +93,16 @@ checkout:
    to EVAL_table.md's row plus 25 % (TSDF 0.025 m, OFusion 0.020 m), the
    renders to one PPM a rendered frame, and, for TSDF, a checkpoint saved,
    loaded into a new pipeline and run one more frame to the same frame
-   without the round trip, bit for bit; it prints each ATE beside its
-   row, the log's mean computation a frame, wall fps, peak device memory
-   and, from five more frames under torch.profiler, the device's busy
-   share;
+   without the round trip, bit for bit, and ``dump_mesh`` (triangles,
+   time); it prints each ATE beside its row, the log's mean computation a
+   frame, wall fps, peak device memory and, from five more frames under
+   torch.profiler, the device's busy share; then the TSDF path with the
+   keyframe pose graph (``--keyframe-rate 15``, EVAL_table.md's BA row):
+   drop counters 0, tracked fraction 0.98, ATE <= 0.0285 m, at least one
+   accepted loop closure, icp_track launched once a frame plus once a
+   closure try, and the first closure's icp_track (3x gate) against its
+   twin; it prints the closures tried and accepted and the BA solves'
+   host ms;
 7. prints one JSON line of per-kernel results (each with its bound: the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted from this run's inputs; and, where one PyTorch call
@@ -224,6 +242,28 @@ EVAL_ATE = {"tsdf": 0.0200, "ofusion": 0.0161}
 MAX_ATE = {"tsdf": 0.025, "ofusion": 0.020}
 MIN_TRACKED = 0.98
 N_PIPE_PROFILED = 5  # frames past the loop replayed under torch.profiler
+# the BA path: the TSDF pipeline with the keyframe pose graph, as
+# tools/run_longseq_eval.py's "tsdf icp+BA" row, held to that row's ATE
+# (EVAL_table.md, JAX) plus 25 %; a closure try re-tracks with the 3x gate
+BA_ARGS = ("--keyframe-rate", "15")
+EVAL_BA_ATE = 0.0228
+MAX_BA_ATE = 0.0285
+CLOSURE_DIST = 0.3
+# the library phase (the library surface's sphere drive): a sphere shell
+# at full width, its blocks those whose centre lies within 2 half
+# diagonals of the surface (tests/test_meshing.py:78-110), the analytic
+# SDF written with set_voxels, and reads in the band around the surface
+LIB_SIZE, LIB_DIM, LIB_CAPACITY = 512, 4.8, 16384
+LIB_CENTRE, LIB_RADIUS = 2.4, 1.0
+LIB_POINTS = 100_000
+LIB_BAND = 0.03           # m on either side of the surface
+# the SDF is linear to within ~2e-5 m across a voxel at this radius, so a
+# read shifted by more than 1 mm (about a ninth of a 9.4 mm voxel), or a
+# gradient 0.1 degree off, fails; the card is also held to the same drive
+# on the CPU at 1e-6
+MAX_INTERP_ERR = 1e-3     # m
+MAX_GRAD_ANGLE = 0.1      # degrees
+LIB_TWIN_TOL = 1e-6       # interp, grad: card against CPU (rtol and atol)
 
 KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
     "icp_reduce": ("supereight_tpu_torch/csrc/icp.cu",
@@ -367,6 +407,14 @@ PATHS = {  # the kernels each main path must launch
                          "integrate_worklist", "integrate_fused_of",
                          "integrate_fallback_of", "node_rank", "node_pass",
                          "nav_grid", "raycast_of", "raycast_cold_of"),
+    # the TSDF pipeline with keyframes: the loop-closure re-tracks are
+    # icp_track and frame_mats launches too
+    "pipeline-tsdf-ba": ("pyramid", "frame_mats", "icp_track",
+                         "alloc_touch", "alloc_assign", "integrate_worklist",
+                         "integrate_fused", "integrate_fallback",
+                         "node_rank", "node_pass", "nav_grid", "raycast"),
+    # the library surface: allocate_blocks over a sphere shell
+    "library": ("alloc_assign",),
 }
 
 
@@ -487,18 +535,22 @@ def track_errors(torch, got, want):
     return ok, e
 
 
-def check_icp_track(torch, tag, args):
-    """K6 icp_track against its twin on one frame's tracking inputs: the
-    tolerances of :func:`track_errors` and two launches bit-identical.
-    Returns the kernel's row."""
+def check_icp_track(torch, tag, args, dist_threshold=None):
+    """K6 icp_track against its twin on one frame's tracking inputs (with
+    ``dist_threshold``, else the tracker's own gate): the tolerances of
+    :func:`track_errors` and two launches bit-identical. Returns the
+    kernel's row."""
+    from supereight_tpu_torch.constants import DIST_THRESHOLD
     from supereight_tpu_torch.kernels import icp
+    gate = dict(dist_threshold=DIST_THRESHOLD if dist_threshold is None
+                else dist_threshold)
 
     def call():
-        return icp.icp_track(*args, ITERATIONS, 1e-5)
+        return icp.icp_track(*args, ITERATIONS, 1e-5, **gate)
 
-    want = icp.icp_track_plain(*args, ITERATIONS, 1e-5)
+    want = icp.icp_track_plain(*args, ITERATIONS, 1e-5, **gate)
     # the kernel's outputs and the iterations it ran at each level
-    got = icp._icp_track(*args, ITERATIONS, 1e-5)
+    got = icp._icp_track(*args, ITERATIONS, 1e-5, **gate)
     run = got[4].tolist()
     got = got[:4]
     same = all(torch.equal(a, b) for a, b in zip(got, call()))
@@ -517,7 +569,7 @@ def check_icp_track(torch, tag, args):
     require(ok and same, f"{tag}: icp_track disagrees with twin")
     row = dict(max_abs_err=e["pose"], ms=ms, **icp_bound(args, run))
     row["plain_ms"] = cuda_ms(torch, lambda: icp.icp_track_plain(
-        *args, ITERATIONS, 1e-5), 3)
+        *args, ITERATIONS, 1e-5, **gate), 3)
     print(f"{tag}: twin call {row['plain_ms']:.4f} ms; bound "
           f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
     return row
@@ -2437,8 +2489,9 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
 
 def pipeline_phase(torch, raw, tmp, card):
     """Both fields' class-pipeline paths over the loop; the TSDF pipeline
-    then resumes from a checkpoint; both profiled. Returns the paths'
-    launch counts."""
+    then resumes from a checkpoint and exports its mesh; both profiled;
+    then the TSDF path with keyframes (:func:`ba_run`). Returns the paths'
+    launch counts and the closure icp_track's error against its twin."""
     launches = {}
     for name in ("tsdf", "ofusion"):
         tag = f"pipeline {name}"
@@ -2447,12 +2500,285 @@ def pipeline_phase(torch, raw, tmp, card):
             launches[k] = launches.get(k, 0) + v
         if name == "tsdf":
             check_resume(torch, pipe, raw, tmp, tag)
+            check_dump_mesh(pipe, tmp, tag, card)
+            no_ba_ate = numbers["ate"]
         numbers.update(pipeline_profile(torch, pipe, raw,
                                         numbers["computation_ms"], tag))
         print(f"{tag}: {json.dumps(numbers)}")
         del pipe
         torch.cuda.empty_cache()
-    return launches
+    counts, closure_err, numbers = ba_run(torch, raw, tmp, card, no_ba_ate)
+    print(f"pipeline tsdf-ba: {json.dumps(numbers)}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    return launches, closure_err
+
+
+def sphere_shell(torch, geom, dev):
+    """The library phase's shell: bool[B, B, B], the blocks whose centre
+    lies within 2 half diagonals of the sphere's surface."""
+    b = geom.blocks_per_side
+    g = (torch.arange(b, dtype=torch.float64, device=dev) + 0.5) * 8 \
+        * geom.voxel_size
+    x, y, z = torch.meshgrid(g, g, g, indexing="ij")
+    dist = torch.sqrt((x - LIB_CENTRE) ** 2 + (y - LIB_CENTRE) ** 2
+                      + (z - LIB_CENTRE) ** 2) - LIB_RADIUS
+    return dist.abs() < 2 * 4 * 3 ** 0.5 * geom.voxel_size
+
+
+def band_points(torch, n, seed, dev):
+    """n metric points within LIB_BAND of the sphere's surface, and their
+    analytic SDF and unit normal."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    d = torch.randn((n, 3), generator=gen, dtype=torch.float64)
+    d = d / d.norm(dim=1, keepdim=True)
+    u = (torch.rand(n, generator=gen, dtype=torch.float64) * 2 - 1) \
+        * LIB_BAND
+    p = LIB_CENTRE + d * (LIB_RADIUS + u)[:, None]
+    sdf = (p - LIB_CENTRE).norm(dim=1) - LIB_RADIUS
+    return (p.to(torch.float32).to(dev), sdf.to(dev), d.to(dev))
+
+
+def library_phase(torch, dev, tmp, card):
+    """The library surface at full width on the card: a LIB_SIZE^3 map over
+    LIB_DIM m with capacity LIB_CAPACITY, the sphere shell allocated by
+    ``core/map.allocate_blocks`` (K5's alloc_assign, counted as the
+    library path, counts zeroed just before and read just after) and the
+    analytic SDF written with ``set_voxels``; then interp and
+    ``Volume.interp`` at LIB_POINTS points in the band against the SDF,
+    grad against the analytic normal, ``collides_with`` on a box inside
+    the sphere (OCCUPIED), one in the observed band outside it (EMPTY)
+    and one in unallocated space (UNSEEN), and marching cubes, whose
+    vertices must lie within a voxel of the sphere. The same allocation,
+    writes and reads on a CPU copy (the allocator's twin) must give the
+    same map exactly and interp and grad to LIB_TWIN_TOL. Returns the
+    path's launch counts."""
+    import numpy as np
+    from supereight_tpu_torch.core import geometry, interp
+    from supereight_tpu_torch.core import map as tmap
+    from supereight_tpu_torch.core.volume import Volume
+    from supereight_tpu_torch.fields import TSDF
+    from supereight_tpu_torch.io import meshing
+    from supereight_tpu_torch.kernels import _lib
+    tag = "library"
+    geom = tmap.MapGeometry(LIB_SIZE, LIB_DIM, LIB_CAPACITY)
+    state = tmap.make_map(geom, TSDF, dev)
+    shell = sphere_shell(torch, geom, dev)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    tmap.allocate_blocks(geom, state, shell)
+    torch.cuda.synchronize()
+    alloc_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(_lib.LAUNCHES)
+    n = int(state.n_blocks)
+    require(n == int(shell.sum()) and not state.touched.any(),
+            f"{tag}: {n} blocks for {int(shell.sum())} shell cells")
+    require(bool(shell.equal(state.slot >= 0)),
+            f"{tag}: the slot grid is not the shell")
+    # the analytic SDF (m) on every voxel of the allocated bricks
+    lin = torch.arange(512, device=dev)
+    local = torch.stack([lin % 8, (lin // 8) % 8, lin // 64], -1)
+    v = (state.block_coord[:n, None, :] * 8 + local[None]).reshape(-1, 3)
+    sdf = ((v.double() * geom.voxel_size - LIB_CENTRE).norm(dim=1)
+           - LIB_RADIUS).to(torch.float32)
+    t0 = time.perf_counter()
+    tmap.set_voxels(state, v, sdf, torch.ones_like(sdf))
+    torch.cuda.synchronize()
+    set_ms = 1e3 * (time.perf_counter() - t0)
+
+    p, want, normal = band_points(torch, LIB_POINTS, 7, dev)
+    vox = p * geom.inv_voxel_size
+    got = interp.interp(geom, state, TSDF, vox)
+    vol = Volume(geom, state, TSDF).interp(p)
+    err = (got.double() - want).abs().max().item()
+    err_vol = (vol.double() - want).abs().max().item()
+    g = interp.grad(geom, state, TSDF, vox).double()
+    cos = (g * normal).sum(1) / g.norm(dim=1)
+    angle = torch.rad2deg(torch.acos(cos.clamp(-1, 1)))
+    print(f"{tag}: {n} blocks of {LIB_CAPACITY} ({LIB_SIZE}^3 over "
+          f"{LIB_DIM} m), allocate_blocks {alloc_ms:.2f} ms (launches "
+          f"{ {k: c for k, c in launches.items() if c} }), set_voxels of "
+          f"{len(v)} voxels {set_ms:.2f} ms; interp at {LIB_POINTS} points "
+          f"within {LIB_BAND} m of the surface: max error {err:.3e} m, "
+          f"Volume.interp {err_vol:.3e} m (< {MAX_INTERP_ERR}); grad against "
+          f"the analytic normal: mean {angle.mean().item():.4f}, max "
+          f"{angle.max().item():.4f} degrees (< {MAX_GRAD_ANGLE})")
+    require(max(err, err_vol) < MAX_INTERP_ERR, f"{tag}: interp error")
+    require(angle.max().item() < MAX_GRAD_ANGLE, f"{tag}: grad angle")
+
+    # the same drive on the CPU: alloc_assign's twin, the writes, the reads
+    host = tmap.make_map(geom, TSDF, "cpu")
+    tmap.allocate_blocks(geom, host, shell.cpu())
+    tmap.set_voxels(host, v.cpu(), sdf.cpu(), torch.ones_like(sdf).cpu())
+    for f, a, b in zip(host._fields[:-1], host[:-1], state[:-1]):
+        for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            require(torch.equal(x, y.cpu()), f"{tag}: {f} differs from the "
+                    f"CPU twin's")
+    vox_h = vox.cpu()
+    dev_i = (got.cpu() - interp.interp(geom, host, TSDF, vox_h)).abs()
+    dev_g = (g.float().cpu() - interp.grad(geom, host, TSDF, vox_h)).abs()
+    print(f"{tag}: against the same drive on the CPU: the map equal, "
+          f"interp max |diff| {dev_i.max().item():.3e}, grad "
+          f"{dev_g.max().item():.3e} (tolerance {LIB_TWIN_TOL} + "
+          f"{LIB_TWIN_TOL} x value)")
+    for name, d, ref in (("interp", dev_i, got.cpu()), ("grad", dev_g,
+                                                        g.float().cpu())):
+        require(bool((d <= LIB_TWIN_TOL + LIB_TWIN_TOL * ref.abs()).all()),
+                f"{tag}: {name} differs from the CPU's")
+    del host
+
+    # boxes on the +x axis through the centre: just inside the surface,
+    # just outside it, and far from the shell
+    c = round(LIB_CENTRE * geom.inv_voxel_size)
+    r = LIB_RADIUS * geom.inv_voxel_size
+    inner = int(np.floor(c + r)) - 3
+    boxes = {"inside": ((inner, c - 1, c - 1), (inner + 3, c + 2, c + 2)),
+             "band outside": ((inner + 5, c - 1, c - 1),
+                              (inner + 8, c + 2, c + 2)),
+             "unallocated": ((c - 4, c - 4, c - 4), (c + 4, c + 4, c + 4))}
+    want_status = {"inside": geometry.CollisionStatus.OCCUPIED,
+                   "band outside": geometry.CollisionStatus.EMPTY,
+                   "unallocated": geometry.CollisionStatus.UNSEEN}
+    for name, (lo, hi) in boxes.items():
+        st = int(geometry.collides_with(geom, state, TSDF, lo, hi))
+        print(f"{tag}: collides_with {name} box {lo}-{hi}: "
+              f"{geometry.CollisionStatus(st).name} (want "
+              f"{want_status[name].name})")
+        require(st == want_status[name], f"{tag}: collision of {name}")
+
+    t0 = time.perf_counter()
+    tris = meshing.marching_cubes(geom, state)
+    mesh_s = time.perf_counter() - t0
+    dist = np.abs(np.linalg.norm(tris.reshape(-1, 3) - LIB_CENTRE, axis=1)
+                  - LIB_RADIUS)
+    print(f"{tag}: marching_cubes {len(tris)} triangles in {mesh_s:.2f} s "
+          f"(host numpy; {card}); vertex distance to the sphere max "
+          f"{dist.max() * 1e3:.3f} mm (< one voxel, "
+          f"{geom.voxel_size * 1e3:.3f} mm)")
+    require(len(tris) > 100_000 and dist.max() < geom.voxel_size,
+            f"{tag}: mesh off the sphere")
+    require(launches["alloc_assign"] > 0, f"{tag}: alloc_assign not "
+            f"launched: {launches}")
+    return {k: launches[k] for k in PATHS["library"]}
+
+
+@contextlib.contextmanager
+def watch_closures(torch):
+    """Record the loop-closure re-tracks (icp_track launches with the 3x
+    gate: the count and the first one's inputs, cloned) and the BA solves
+    (count and host ms, each ending with its host read) of the pipeline
+    runs inside."""
+    from supereight_tpu_torch.constants import DIST_THRESHOLD
+    from supereight_tpu_torch.ops import tracking
+    from supereight_tpu_torch.posegraph.keyframes import KeyframeManager
+    seen = dict(tries=0, args=None, solves_ms=[])
+    track, optimize = tracking.icp_track, KeyframeManager.optimize
+
+    def icp_track(*args, dist_threshold=DIST_THRESHOLD, **kw):
+        if dist_threshold != DIST_THRESHOLD:
+            seen["tries"] += 1
+            if seen["args"] is None:
+                seen["args"] = tuple(
+                    tuple(x.clone() for x in a) if isinstance(a, tuple)
+                    else a.clone() for a in args[:8])
+        return track(*args, dist_threshold=dist_threshold, **kw)
+
+    def timed(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = optimize(self, *args, **kw)
+        seen["solves_ms"].append(1e3 * (time.perf_counter() - t0))
+        return out
+    tracking.icp_track, KeyframeManager.optimize = icp_track, timed
+    try:
+        yield seen
+    finally:
+        tracking.icp_track, KeyframeManager.optimize = track, optimize
+
+
+def ba_run(torch, raw, tmp, card, no_ba_ate):
+    """The BA path: the TSDF pipeline through the CLI with keyframes
+    (BA_ARGS), launch counts zeroed just before and read just after.
+    Holds the drop counters to 0, the tracked fraction to MIN_TRACKED,
+    the ATE to MAX_BA_ATE, at least one accepted closure (an edge between
+    non-consecutive keyframes), icp_track launched once a frame plus once
+    a closure try, and one closure's icp_track against its twin with the
+    3x gate. Returns the path's launch counts and its row's error."""
+    import numpy as np
+    from supereight_tpu_torch import cli
+    from supereight_tpu_torch.eval.sweep import parse_frame_log, summarize
+    from supereight_tpu_torch.kernels import _lib
+    tag = "pipeline tsdf-ba"
+    log = os.path.join(tmp, "tsdf-ba.log")
+    argv = (["-i", raw, "-g", raw + ".gt.txt", "-o", log,
+             "--trajectory-out", os.path.join(tmp, "tsdf-ba.traj"),
+             "--max-frames", str(LOOP_FRAMES)] + list(PIPE_ARGS)
+            + list(PIPE_FIELD_ARGS["tsdf"]) + list(BA_ARGS))
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with watch_closures(torch) as seen, contextlib.redirect_stderr(err):
+        pipe = cli.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    wall = time.perf_counter() - t0
+    for line in err.getvalue().splitlines():
+        print(f"{tag}: cli: {line}")
+    ate, drops, fps = cli_stderr(err.getvalue())
+    summary = summarize(parse_frame_log(log))
+    km = pipe.keyframes
+    closures = [(i, j) for i, j, _, _ in km.edges if j - i > 1]
+    solves = seen["solves_ms"]
+    print(f"{tag}: ATE RMSE {ate:.4f} m (EVAL_table.md tsdf icp+BA "
+          f"{EVAL_BA_ATE:.4f} m, limit {MAX_BA_ATE}; this run's no-BA row "
+          f"{no_ba_ate:.4f} m); tracked fraction "
+          f"{summary['tracked_fraction']:.4f}; drops {drops}; keyframes "
+          f"{len(km.frames)} (frames {km.frames}); closures tried "
+          f"{seen['tries']}, accepted {len(closures)} {closures}, pinned "
+          f"{sum(km.pinned)}; BA solves {len(solves)}, host ms each "
+          f"{[round(x, 2) for x in solves]}; mean computation "
+          f"{1e3 * summary['computation_mean']:.3f} ms/frame, wall fps "
+          f"{fps} ({wall:.2f} s; {card})")
+    print(f"{tag}: kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    require(ate is not None and np.isfinite(ate), f"{tag}: no ATE")
+    require(drops is not None and all(v == 0 for v in drops.values()),
+            f"{tag}: drop counters nonzero: {drops}")
+    require(summary["tracked_fraction"] >= MIN_TRACKED,
+            f"{tag}: tracked fraction {summary['tracked_fraction']}")
+    require(ate <= MAX_BA_ATE, f"{tag}: ATE {ate:.4f} m over the limit")
+    require(closures and any(km.pinned), f"{tag}: no closure accepted")
+    require(solves, f"{tag}: no BA solve")
+    require(all(launches[k] > 0 for k in PATHS["pipeline-tsdf-ba"]),
+            f"{tag}: a kernel of the path was not launched: {launches}")
+    require(launches["icp_track"] == LOOP_FRAMES + seen["tries"],
+            f"{tag}: icp_track launched {launches['icp_track']} times for "
+            f"{LOOP_FRAMES} frames and {seen['tries']} closure tries")
+    row = check_icp_track(torch, f"{tag} closure icp_track (gate "
+                          f"{CLOSURE_DIST} m)", seen["args"],
+                          dist_threshold=CLOSURE_DIST)
+    del pipe
+    return ({k: launches[k] for k in PATHS["pipeline-tsdf-ba"]},
+            row["max_abs_err"], dict(ate=ate, closures=len(closures),
+                                     tries=seen["tries"],
+                                     solves=len(solves)))
+
+
+def check_dump_mesh(pipe, tmp, tag, card):
+    """dump_mesh of the pipeline's map to .obj: it must produce
+    triangles; its time and the triangle count are printed."""
+    path = os.path.join(tmp, "loop.obj")
+    t0 = time.perf_counter()
+    tris = pipe.dump_mesh(path)
+    dt = time.perf_counter() - t0
+    print(f"{tag}: dump_mesh of {pipe.block_count()} blocks: {len(tris)} "
+          f"triangles, {os.path.getsize(path) / 2**20:.1f} MiB .obj in "
+          f"{dt:.2f} s (one download, host numpy and the Python writer; "
+          f"{card})")
+    require(len(tris) > 0, f"{tag}: dump_mesh made no triangle")
+    os.remove(path)
 
 
 def main():
@@ -2529,9 +2855,15 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
         for k, v in path_launches.items():
             launches[k] += v
     launches.update(probe_path(torch, dev))
-    wait_loop_raw(raw_proc, t_raw)
-    for k, v in pipeline_phase(torch, raw, tmp, card).items():
+    for k, v in library_phase(torch, dev, tmp, card).items():
         launches[k] += v
+    torch.cuda.empty_cache()
+    wait_loop_raw(raw_proc, t_raw)
+    pipe_launches, closure_err = pipeline_phase(torch, raw, tmp, card)
+    for k, v in pipe_launches.items():
+        launches[k] += v
+    errs.setdefault("icp_track", [rows["icp_track"]["max_abs_err"]]) \
+        .append(closure_err)
     for k, e in errs.items():
         rows[k]["max_abs_err"] = max(e)
 

@@ -19,13 +19,16 @@ Layer map (mirrors the JAX package):
   ops/       -- tracking (K6), allocation (K5), integration (K3 block
                 pass, K4 node pass), raycast (K2 nav grid, K1, primed or
                 unprimed), rendering, mm2meters
-  core/      -- SE(3) helpers, the block-pool map
+  core/      -- SE(3) helpers, the block-pool map and its voxel queries,
+                interpolation, the Volume facade, collision, the functor
+                and the Morton key algebra
+  posegraph/ -- the keyframe pose graph and its windowed BA
   fields/    -- the TSDF and OFusion fields
   kernels/   -- kernel build, ctypes binding, wrappers and twins
                 (and K8, the gather-form probe)
   csrc/      -- CUDA C++ sources (sm_90a)
   io/        -- dataset readers, .raw conversion, map snapshots, the
-                synthetic scenes (numpy)
+                synthetic scenes, marching-cubes export (numpy)
   eval/      -- ATE, RPE and dataset sweeps (numpy)
   utils/     -- perfstats
   viewer     -- 2x2 composite snapshots (PPM)

@@ -8,8 +8,10 @@ stage as JAX's CLI does, on the card unless ``--platform cpu`` asks for
 the CPU. With stage syncs on (the default) each stage ends with
 ``torch.cuda.synchronize()``, so the log's stage columns are device time;
 ``--no-stage-sync`` leaves only the frame's one read of the pose and the
-drop counters. ``--serve``, ``--plot-out`` and ``--keyframe-rate`` are
-parsed, as JAX's, and refused: their modules are not ported yet.
+drop counters. ``--keyframe-rate`` turns on the keyframe pose graph with
+loop closure and windowed BA, and the trajectory written and scored at
+the end is the post-BA one. ``--serve`` and ``--plot-out`` are parsed, as
+JAX's, and refused: their modules are not ported yet.
 
 Usage:
   python -m supereight_tpu_torch.cli -i seq.raw -g seq.raw.gt.txt -s 4.8 ...
@@ -38,10 +40,8 @@ LOG_HEADER = ("frame\tacquisition\tpreprocessing\ttracking\tintegration\t"
 
 # options of JAX's CLI whose modules the port has not yet: the flag and
 # the ROADMAP.md item that brings it
-NOT_PORTED = (("serve", "--serve", "Queue 1 item 4 (webviewer.py)"),
-              ("plot_out", "--plot-out", "Queue 1 item 4 (plots.py)"),
-              ("keyframe_rate", "--keyframe-rate",
-               "Queue 1 item 5 (the pose graph)"))
+NOT_PORTED = (("serve", "--serve", "Queue 1 item 4b (webviewer.py)"),
+              ("plot_out", "--plot-out", "Queue 1 item 4b (plots.py)"))
 
 
 def rotation_to_quaternion(R):
@@ -86,7 +86,7 @@ def run(argv=None):
                         help="bypass tracking, use ground-truth poses")
     parser.add_argument("--plot-out", type=str, default="",
                         help="live perf/trajectory plots (not ported yet: "
-                             "ROADMAP.md Queue 1 item 4)")
+                             "ROADMAP.md Queue 1 item 4b)")
     parser.add_argument("--dump-renders", type=str, default="",
                         help="directory for 2x2 composite snapshots at "
                              "every render (viewer.composite_views)")
@@ -96,10 +96,10 @@ def run(argv=None):
                              "`computation`/`total` and ATE stay correct")
     parser.add_argument("--serve", type=int, default=0, metavar="PORT",
                         help="live interactive view (not ported yet: "
-                             "ROADMAP.md Queue 1 item 4)")
+                             "ROADMAP.md Queue 1 item 4b)")
     parser.add_argument("--keyframe-rate", type=int, default=0,
-                        help="windowed pose-graph BA (not ported yet: "
-                             "ROADMAP.md Queue 1 item 5)")
+                        help="enable windowed pose-graph BA: a keyframe "
+                             "every N frames (0 = off)")
     parser.add_argument("--ba-window", type=int, default=32)
     parser.add_argument("--ba-every", type=int, default=4,
                         help="optimize the window every N keyframes")
@@ -151,12 +151,17 @@ def run(argv=None):
 
     pipe = DenseSLAMSystem(input_size, cfg, init_pose=init_pose,
                            device=device)
+    if args.keyframe_rate:
+        pipe.enable_keyframes(every=args.keyframe_rate,
+                              window=args.ba_window,
+                              ba_every=args.ba_every)
     stats = PerfStats()
     out = sys.stdout
     log = open(cfg.log_file, "w") if cfg.log_file else out
     print(LOG_HEADER, file=log)
 
     est_traj = []
+    raw_traj = []   # (frame, pose as tracked) for the post-BA trajectory
     frame = 0
     t_start = time.perf_counter()
     while True:
@@ -196,6 +201,11 @@ def run(argv=None):
         t_int = time.perf_counter()
 
         pipe.raycasting(frame)
+        # keyframe recording, loop closure and windowed BA (the CLI drives
+        # the stages itself, so it calls the step process_frame calls)
+        if pipe.keyframes is not None and tracked \
+                and not args.groundtruth_mode and frame > 2:
+            pipe._keyframe_step(frame)
         if stage_sync:
             sync()
         t_ray = time.perf_counter()
@@ -236,9 +246,12 @@ def run(argv=None):
         print(row, file=log)
         stats.sample("computation", t_ray - t_pre, StatType.TIME)
 
+        # BA corrections (identity with keyframes off) apply to the
+        # published trajectory
         P = pipe.trajectory_correction @ pose_np
         q = rotation_to_quaternion(P[:3, :3])
         est_traj.append((frame / 30.0, *P[:3, 3], *q))
+        raw_traj.append((frame, pose_np))
         frame += 1
 
     wall = time.perf_counter() - t_start
@@ -251,6 +264,20 @@ def run(argv=None):
     if drops:
         print("# drop counters (should be 0; nonzero = budgets too small "
               f"for this scene): {drops}", file=sys.stderr)
+
+    if pipe.keyframes is not None and raw_traj:
+        # the final post-BA trajectory (what offline evaluation scores):
+        # each frame takes its nearest keyframe's BA correction, as JAX's
+        # CLI does; the online rows above carry corrections forward only
+        corr = pipe.keyframes.frame_corrections()
+        if corr:
+            kf_frames = np.asarray([c[0] for c in corr])
+            final = []
+            for f, P0 in raw_traj:
+                P = corr[int(np.argmin(np.abs(kf_frames - f)))][1] @ P0
+                q = rotation_to_quaternion(P[:3, :3])
+                final.append((f / 30.0, *P[:3, 3], *q))
+            est_traj = final
 
     if args.trajectory_out:
         with open(args.trajectory_out, "w") as f:

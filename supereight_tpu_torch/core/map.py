@@ -6,10 +6,13 @@ describes the design). Leaf storage is a fixed-capacity pool of dense
 x + 8y + 64z); a dense i32 grid ``slot[bx, by, bz]`` maps block coords to
 pool slots (-1 = unallocated); ``mip_*[l]`` hold the coarse node values.
 
-Allocation (``kernels/alloc.py:alloc_assign``, the counterpart of JAX's
-``allocate_blocks``) updates the state's tensors IN PLACE (where JAX
-donated the buffers, parallel/step.py there): callers consume a state
+Allocation (``kernels/alloc.py:alloc_assign``, and :func:`allocate_blocks`
+over it) and :func:`set_voxels` update the state's tensors IN PLACE (where
+JAX donated the buffers, parallel/step.py there): callers consume a state
 once per frame, and the returned state shares its tensors with the input.
+The voxel reads (:func:`get_voxel`, :func:`get_with_coarse`, ...) are
+JAX's, value for value. Reads and writes take coordinates as tensors,
+numpy arrays or lists, and carry them to the map's device (:func:`on_map`).
 
 ``MapState.touched`` is the one field with no JAX counterpart: the
 allocation march's scratch, kept with the map so that no frame allocates
@@ -23,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from supereight_tpu_torch.constants import BLOCK_SIDE, BLOCK_VOXELS
+from supereight_tpu_torch.core import morton
 from supereight_tpu_torch.fields.base import FieldSpec
 
 
@@ -136,6 +140,26 @@ def make_map(geom: MapGeometry, field: FieldSpec,
     )
 
 
+def on_map(state: MapState, a, dtype=torch.int32):
+    """``a`` as a tensor on the map's device. Tensors keep their dtype;
+    numpy arrays and lists take ``dtype`` (int32 coordinates, as JAX's
+    functions make of them)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(state.slot.device)
+    return torch.as_tensor(a, dtype=dtype, device=state.slot.device)
+
+
+def lookup_slot(state: MapState, bc):
+    """Block coord [..., 3] -> pool slot (or -1), replacing Octree::fetch;
+    out-of-range coordinates return -1."""
+    bc = on_map(state, bc)
+    b = state.slot.shape[0]
+    inb = ((bc >= 0) & (bc < b)).all(-1)
+    bcc = bc.clamp(0, b - 1).long()
+    s = state.slot[bcc[..., 0], bcc[..., 1], bcc[..., 2]]
+    return torch.where(inb, s, -1)
+
+
 def lookup_slot_c(state: MapState, bx, by, bz):
     """Component-wise block coord -> pool slot (coords must be in range)."""
     b = state.slot.shape[0]
@@ -160,6 +184,130 @@ def get_voxel_channel_c(geom: MapGeometry, state: MapState, field: FieldSpec,
     flat = (s.clamp(min=0) * BLOCK_VOXELS + lin).long()
     data = state.data_x if channel == 0 else state.data_y
     return torch.where(ok, data.reshape(-1)[flat], fill)
+
+
+def voxel_linear_index(local):
+    """In-brick linear index, x-major like the reference (node.hpp:139-153)."""
+    return (local[..., 0] + local[..., 1] * BLOCK_SIDE
+            + local[..., 2] * BLOCK_SIDE * BLOCK_SIDE)
+
+
+def _voxel_flat(geom: MapGeometry, state: MapState, v):
+    """(ok, flat pool index) of integer voxel coords ``v`` [..., 3]: ok
+    where the voxel is in the map and allocated, the index clamped to
+    slot 0 elsewhere."""
+    v = on_map(state, v)
+    vv = v.clamp(0, geom.size - 1)
+    inb = ((v >= 0) & (v < geom.size)).all(-1)
+    s = lookup_slot(state, vv // BLOCK_SIDE)
+    ok = (s >= 0) & inb
+    lin = voxel_linear_index(vv % BLOCK_SIDE)
+    return ok, (s.clamp(min=0) * BLOCK_VOXELS + lin).long()
+
+
+def get_voxel(geom: MapGeometry, state: MapState, field: FieldSpec, v,
+              fill: Tuple[float, float] = None):
+    """Read voxels at integer coords ``v`` [..., 3] (ref Octree::get_fine,
+    octree.hpp:357-380): unallocated or out-of-map voxels read ``fill``
+    (default: the field's init value). Returns (x, y) of shape
+    v.shape[:-1]."""
+    if fill is None:
+        fill = field.init
+    ok, flat = _voxel_flat(geom, state, v)
+    x = torch.where(ok, state.data_x.reshape(-1)[flat], fill[0])
+    y = torch.where(ok, state.data_y.reshape(-1)[flat], fill[1])
+    return x, y
+
+
+def get_voxel_channel(geom: MapGeometry, state: MapState, field: FieldSpec,
+                      v, channel: int, fill: float = None):
+    """Single-channel :func:`get_voxel`."""
+    if fill is None:
+        fill = field.init[channel]
+    ok, flat = _voxel_flat(geom, state, v)
+    data = state.data_x if channel == 0 else state.data_y
+    return torch.where(ok, data.reshape(-1)[flat], fill)
+
+
+def get_with_coarse(geom: MapGeometry, state: MapState, field: FieldSpec,
+                    v):
+    """Read voxels, falling back to the finest existing coarse value
+    (ref Octree::get(x,y,z), octree.hpp:333-355): the finest level l whose
+    octant value exists (``mip_alloc[l]``), the voxel itself first. The
+    coarse lookup clips the block coordinate to the map, so a voxel
+    outside the map reads its border octant's coarse value, as JAX's."""
+    v = on_map(state, v)
+    x, y = get_voxel(geom, state, field, v)
+    bv = torch.div(v, BLOCK_SIDE, rounding_mode="floor")
+    bc = bv.clamp(0, geom.blocks_per_side - 1).long()
+    have = lookup_slot(state, bv) >= 0
+    for lvl in range(geom.num_levels):
+        g = bc >> lvl
+        at = (g[..., 0], g[..., 1], g[..., 2])
+        exists = state.mip_alloc[lvl][at]
+        take = exists & ~have
+        x = torch.where(take, state.mip_x[lvl][at], x)
+        y = torch.where(take, state.mip_y[lvl][at], y)
+        have = have | exists
+    return x, y
+
+
+def set_voxels(state: MapState, v, x, y) -> MapState:
+    """Write values into allocated voxels, IN PLACE (the port's map
+    convention; JAX returns a new state): writes to unallocated or
+    out-of-map voxels are dropped (ref Octree::set, octree.hpp:310-330).
+    Duplicate coordinates have no defined winner. Returns ``state``."""
+    v = on_map(state, v)
+    s = lookup_slot(state, torch.div(v, BLOCK_SIDE, rounding_mode="floor"))
+    ok = s >= 0
+    flat = (s.long() * BLOCK_VOXELS
+            + voxel_linear_index(v % BLOCK_SIDE).long())
+    shape = ok.shape
+    x = torch.as_tensor(x, dtype=torch.float32,
+                        device=ok.device).expand(shape)
+    y = torch.as_tensor(y, dtype=torch.float32,
+                        device=ok.device).expand(shape)
+    # a library call: the mask sizes its index on the host
+    ok, flat = ok.reshape(-1), flat.reshape(-1)
+    idx = flat[ok]
+    state.data_x.view(-1)[idx] = x.reshape(-1)[ok]
+    state.data_y.view(-1)[idx] = y.reshape(-1)[ok]
+    return state
+
+
+def allocate_blocks(geom: MapGeometry, state: MapState, touched,
+                    with_stats: bool = False, budget: int = None):
+    """Allocate every block whose flag is set in the bool[B, B, B]
+    ``touched`` mask and refresh ``mip_alloc`` (JAX core/map.py:273-342;
+    ref octree.hpp:792-856), IN PLACE: the port's convention, as
+    ``kernels/alloc.alloc_assign``'s, which this runs (K5 on the card, its
+    twin on the CPU). New cells take slots in ascending cell-id order, at
+    most ``budget`` (default ALLOC_BUDGET) of them; touched old blocks are
+    re-activated. The mask is copied into the map's level-0 touched grid,
+    which the allocator consumes, so the caller's tensor is left as it
+    was. Returns the state, and with ``with_stats`` also
+    ``{"alloc_overflow": i32[]}``."""
+    from supereight_tpu_torch.kernels.alloc import alloc_assign
+    grid = touched_grids(state.touched, geom.blocks_per_side, 1)[0]
+    grid.copy_(touched)
+    overflow = alloc_assign(geom, state, grid, None, budget)
+    return (state, {"alloc_overflow": overflow}) if with_stats else state
+
+
+def count_blocks(state: MapState):
+    """Number of allocated voxel blocks (ref Octree::leavesCount)."""
+    return state.n_blocks
+
+
+def block_origin_voxel(state: MapState):
+    """Voxel coordinate of each slot's brick origin corner, i32[cap, 3]."""
+    return state.block_coord * BLOCK_SIDE
+
+
+def morton_keys(state: MapState):
+    """Morton key per slot (sort key for serialization and sharding):
+    int64 holding JAX's uint32 values (``core/morton.py``)."""
+    return morton.encode_v(state.block_coord)
 
 
 def _or_reduce2(occ):

@@ -12,6 +12,7 @@ is not saved: it is all zero between frames and made zeroed on load.
 import numpy as np
 import torch
 
+from supereight_tpu_torch.core import morton
 from supereight_tpu_torch.core.map import MapGeometry, MapState, \
     touched_buffer
 from supereight_tpu_torch.fields import get_field
@@ -19,24 +20,11 @@ from supereight_tpu_torch.fields import get_field
 FORMAT_VERSION = 1
 
 
-def _expand_bits(x):
-    """Spread the low 10 bits of each u32 to every third bit (JAX
-    core/morton.py:expand_bits, ref morton_utils.hpp:37-45)."""
-    x = np.asarray(x).astype(np.uint32) & np.uint32(0x3FF)
-    x = (x | (x << np.uint32(16))) & np.uint32(0x030000FF)
-    x = (x | (x << np.uint32(8))) & np.uint32(0x0300F00F)
-    x = (x | (x << np.uint32(4))) & np.uint32(0x030C30C3)
-    x = (x | (x << np.uint32(2))) & np.uint32(0x09249249)
-    return x
-
-
 def morton_keys(block_coord):
-    """u32 morton key of each [..., 3] block coordinate (JAX
-    core/map.py:morton_keys over core/morton.py:encode_v): bit k of x at
-    bit 3k, y at 3k + 1, z at 3k + 2."""
-    c = np.asarray(block_coord)
-    return (_expand_bits(c[..., 0]) | (_expand_bits(c[..., 1]) << np.uint32(1))
-            | (_expand_bits(c[..., 2]) << np.uint32(2)))
+    """u32 morton key of each [..., 3] block coordinate, host numpy in and
+    out (JAX core/map.py:morton_keys; the codes of ``core/morton.py``)."""
+    c = torch.from_numpy(np.asarray(block_coord))
+    return morton.encode_v(c, "cpu").numpy().astype(np.uint32)
 
 
 def _np(t):

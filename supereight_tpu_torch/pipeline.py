@@ -14,7 +14,10 @@ the rate gates on the host, the ground-truth bypass of
 :meth:`DenseSLAMSystem.process_frame`, the TSDF maturity gate after the
 raycast, and the raw depth for the raycast's prime and for fusion. Its
 host reads (``bool(tracked)``, ``int(n_blocks)``, the overflow poll every
-8th frame) are those rules' semantics, as in JAX's class.
+8th frame, and with keyframes on the keyframe step's reads on keyframe
+frames) are those rules' semantics, as in JAX's class. The keyframe
+pose graph (``posegraph/``) and the marching-cubes export
+(``io/meshing.py``) hang off the class as in JAX's.
 """
 
 from typing import Optional, Tuple
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 
 from supereight_tpu_torch.config import Configuration, default_camera
+from supereight_tpu_torch.constants import DIST_THRESHOLD
+from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import MapGeometry, make_map
 from supereight_tpu_torch.fields import get_field
 from supereight_tpu_torch.kernels import preprocess
@@ -112,7 +117,7 @@ class DenseSLAMSystem:
         # drop-accounting counters from the latest frame (device scalars;
         # all zero in a well-sized run)
         self.stats = {}
-        # the pose-graph layer is not ported (ROADMAP Queue 1 item 5)
+        # the pose-graph layer (enable_keyframes)
         self.keyframes = None
         self.trajectory_correction = np.eye(4, dtype=np.float32)
 
@@ -237,13 +242,89 @@ class DenseSLAMSystem:
         if tracked or frame <= 3:
             integrated = self.integration(frame)
         raycasted = self.raycasting(frame)
+        if self.keyframes is not None and tracked and gt_pose is None \
+                and frame > 2:
+            self._keyframe_step(frame)
         return {"tracked": tracked, "integrated": integrated,
                 "raycasted": raycasted, **self.stats}
 
-    def enable_keyframes(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the keyframe pose graph and windowed BA are not ported yet "
-            "(ROADMAP.md Queue 1 item 5)")
+    # ------------------------------------------------------------------
+    # windowed pose-graph BA (no reference equivalent: keyframe graph,
+    # loop-closure re-localization, Gauss-Newton window optimization)
+    # ------------------------------------------------------------------
+    def enable_keyframes(self, every: int = 10, window: int = 32,
+                         ba_every: int = 4, loop_closure: bool = True,
+                         reanchor: bool = False,
+                         closure_dist: float = 1.0):
+        """Turn on keyframe recording and windowed BA (JAX
+        pipeline.py:252-274).
+
+        ``every``: keyframe cadence in frames. ``ba_every``: optimize the
+        window every N keyframes (and at once after a loop closure).
+        ``loop_closure``: re-localize against the stored raycast maps of a
+        revisited keyframe (K6, with a 3x distance gate) and add that
+        constraint. ``reanchor``: also left-multiply the live pose by the
+        latest correction (off by default: the corrections reach the
+        output trajectory through ``trajectory_correction``).
+        ``closure_dist``: the revisit radius (m); it must exceed the
+        keyframe spacing, or a loop that closes between keyframes finds
+        no candidate.
+        """
+        from supereight_tpu_torch.posegraph.keyframes import KeyframeManager
+        self.keyframes = KeyframeManager(window=window, keyframe_every=every,
+                                         device=self.device)
+        self._ba_every = ba_every
+        self._loop_closure = loop_closure
+        self._reanchor = reanchor
+        self._closure_dist = closure_dist
+        self._pending_ba = False
+
+    def _keyframe_step(self, frame: int):
+        """Record a keyframe on schedule, try a loop closure against the
+        nearest revisited keyframe, and optimize the window when due (JAX
+        pipeline.py:276-326). On a keyframe frame it reads the pose and
+        the reduction to the host once, and a closure try's verdict, inlier
+        count and pose once: those reads are the class's semantics. On
+        other frames it reads nothing."""
+        km = self.keyframes
+        if frame % km.keyframe_every != 0:
+            return
+        host = torch.cat([self.pose.reshape(16), self.reduction]) \
+            .cpu().numpy()
+        km.maybe_add(frame, host[:16].reshape(4, 4), host[16:],
+                     ref_maps=(self.vertex, self.normal, self.valid))
+        idx = len(km.poses) - 1
+        if self._loop_closure:
+            cand = km.nearest_revisit(km.poses[idx],
+                                      max_dist=self._closure_dist)
+            if cand is not None and km.ref_maps[cand] is not None:
+                rv, rn, rok = km.ref_maps[cand]
+                _, verts, norms, valids = self.pyr
+                # a relaxed residual gate (3x the tracker's 0.1 m): a
+                # closure exists because the live pose has drifted
+                # decimeters from the revisited keyframe
+                pose_lc, ok_lc, red, _ = tracking.track(
+                    self.pose, self._pose_tensor(km.poses[cand]), self.k,
+                    verts, norms, valids, rv, rn, rok, self._iterations,
+                    self.config.icp_threshold,
+                    dist_threshold=3.0 * DIST_THRESHOLD)
+                lc = torch.cat([ok_lc.reshape(1).to(torch.float32),
+                                red[28:29], pose_lc.reshape(16)]) \
+                    .cpu().numpy()
+                if lc[0]:
+                    t_meas = np.linalg.inv(km.poses[cand]) \
+                        @ lc[2:].reshape(4, 4)
+                    w = max(float(lc[1]), 1.0) ** 0.5
+                    km.add_loop_closure(cand, idx, t_meas, w)
+                    self._pending_ba = True
+        if self._pending_ba or (len(km.poses) % self._ba_every == 0
+                                and len(km.edges) > 0):
+            km.optimize()
+            corr = km.correction_for_latest()
+            self.trajectory_correction = corr
+            if self._reanchor:
+                self.pose = se3.matmul4(self._pose_tensor(corr), self.pose)
+            self._pending_ba = False
 
     # ------------------------------------------------------------------
     # rendering + export (ref DenseSLAMSystem.cpp:270-322)
@@ -265,9 +346,17 @@ class DenseSLAMSystem:
             valid=self.valid, reuse_maps=reuse))
 
     def dump_mesh(self, filename: str):
-        raise NotImplementedError(
-            "marching-cubes export is not ported yet (ROADMAP.md Queue 1 "
-            "item 4)")
+        """Marching-cubes surface export (ref dump_mesh,
+        DenseSLAMSystem.cpp:302-322): the map is downloaded once and
+        meshed on the host; writes ``.obj``, else ``.vtk``. Returns the
+        triangles [N, 3, 3] (m)."""
+        from supereight_tpu_torch.io import meshing
+        tris = meshing.marching_cubes(self.geom, self.map)
+        if filename.endswith(".obj"):
+            meshing.write_obj(filename, tris)
+        else:
+            meshing.write_vtk(filename, tris)
+        return tris
 
     def save_map(self, filename: str):
         from supereight_tpu_torch.io.serialise import save_map

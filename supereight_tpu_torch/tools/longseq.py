@@ -11,8 +11,8 @@ one process each) at the reference's traj2 configuration (``-c 2``, 4.8
 m, 512^3 voxels, ICP mode) with the arguments and variants of the JAX
 package's ``tools/run_longseq_eval.py``, and prints the same markdown
 table (ATE RMSE, tracked fraction, wall and computation fps, drop
-counters). The rows that need the pose graph (``--keyframe-rate``) are
-left out until it is ported. ``--noise`` adds the noisy-depth variants on
+counters), the rows with the keyframe pose graph (``--keyframe-rate
+15``) included. ``--noise`` adds the noisy-depth variants on
 a second sequence with Kinect-model range noise of that factor. Each
 sequence renders in one process a CPU core; the CLI runs on the card.
 """
@@ -33,11 +33,12 @@ BASE_ARGS = ("-s", "4.8", "-p", "0.5,0.4583,0.18", "-z", "4", "-c", "2",
 VARIANTS = (
     ("tsdf icp", ("-f", "tsdf", "-m", "0.1")),
     ("ofusion icp", ("-f", "ofusion", "-m", "0.008", "-z", "0")),
+    ("tsdf icp+BA", ("-f", "tsdf", "-m", "0.1", "--keyframe-rate", "15")),
 )
 
 
 def noise_variants(noise):
-    """The noisy-depth rows of run_longseq_eval.py without its BA row."""
+    """The noisy-depth rows of run_longseq_eval.py."""
     return (
         (f"tsdf icp noise={noise}", ("-f", "tsdf", "-m", "0.1")),
         # the noise-grade stack: iterated median input filter fused into
@@ -47,6 +48,11 @@ def noise_variants(noise):
          ("-f", "tsdf", "-m", "0.1", "--filter", "median2",
           "--fuse-filtered", "--min-ref-weight", "4", "--noise-weighted",
           "--block-capacity", "49152", "--preset-budget", "49152")),
+        # partial levers leave a drift regime; loop closure and windowed
+        # BA recover it in the final trajectory
+        (f"tsdf icp noise={noise}+BA",
+         ("-f", "tsdf", "-m", "0.1", "--filter", "median",
+          "--fuse-filtered", "--keyframe-rate", "15", "-z", "0")),
         (f"tsdf icp noise={noise} partial-levers (BA baseline)",
          ("-f", "tsdf", "-m", "0.1", "--filter", "median",
           "--fuse-filtered", "-z", "0")),

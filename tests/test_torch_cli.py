@@ -9,9 +9,11 @@ with ``--platform cpu``, JAX on the CPU): the orbit (eight frames at
 ``--synthetic 6``. The frame logs' X/Y/Z agree to 2e-3 m and their tracked and
 integrated columns exactly, the TUM trajectories to 2e-3 (time stamps
 exactly), the ``# ATE RMSE`` lines to 2e-3 m and the drop-counter lines
-exactly; the 2x2 renders' depth quadrant is equal byte for byte. The
-options whose modules are not ported exit naming their ROADMAP item, and
-the module entry points run.
+exactly; the 2x2 renders' depth quadrant is equal byte for byte. With
+``--keyframe-rate`` both close a loop over an orbit that goes out and
+comes back, and their post-BA trajectories agree to 2e-3 and their ATE
+to 1 mm. The options whose modules are not ported exit naming their
+ROADMAP item, and the module entry points run.
 """
 
 import contextlib
@@ -76,7 +78,7 @@ def compare(tmp, argv, min_tracked, extra=None):
         stderr_line(je, "# drop counters")
     ate = [float(stderr_line(e, "# ATE RMSE").split()[3]) for e in (te, je)]
     assert abs(ate[0] - ate[1]) <= 2e-3, ate
-    return tr
+    return tr, ate
 
 
 def test_raw_orbit_matches_jax(tmp_path):
@@ -113,12 +115,35 @@ def test_synthetic_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--serve", "8080"], "Queue 1 item 4"),
-    (["--plot-out", "p.png"], "Queue 1 item 4"),
-    (["--keyframe-rate", "15"], "Queue 1 item 5")])
-def test_unported_options_exit_naming_their_item(flag, item):
+    (["--serve", "8080"], "Queue 1 item 4b"),
+    (["--plot-out", "p.png"], "Queue 1 item 4b"),
+    (["--keyframe-rate", "2", "--synthetic", "6", "-v", "64"], None)])
+def test_unported_options_exit_naming_their_item(flag, item, tmp_path):
+    """The options whose modules are not ported exit naming their ROADMAP
+    item; ``--keyframe-rate`` (item None), ported since, runs: the pose
+    graph records keyframes."""
+    argv = ["--synthetic", "2", "--platform", "cpu"] + flag
+    if item is None:
+        torch.set_num_threads(1)
+        pipe = cli.run(argv + ["-o", str(tmp_path / "log")])
+        assert pipe.keyframes is not None
+        assert pipe.keyframes.frames == [4]
+        return
     with pytest.raises(SystemExit, match=item):
-        cli.main(["--synthetic", "2", "--platform", "cpu"] + flag)
+        cli.main(argv)
+
+
+def test_keyframe_rate_matches_jax(tmp_path):
+    """Both CLIs with ``--keyframe-rate 2`` over the orbit that goes out
+    and comes back (``tests/test_torch_pipeline.py``), where both close
+    the loop at frame 10: the frame logs and the post-BA TUM trajectories
+    agree to 2e-3 and the ATE lines to 1 mm."""
+    from test_torch_pipeline import write_there_and_back
+    raw = write_there_and_back(str(tmp_path / "orbit.raw"))
+    argv = ["-i", raw, "-g", raw + ".gt.txt", "--keyframe-rate", "2"] \
+        + ORBIT_ARGS
+    _, ate = compare(tmp_path, argv, 7)
+    assert abs(ate[0] - ate[1]) <= 1e-3, ate
 
 
 def test_default_platform_is_the_card(tmp_path):

@@ -981,3 +981,93 @@ def test_class_pipeline_on_cuda_matches_cpu(cuda, field):
     for va, vb in ((a.render_volume(), b.render_volume()),
                    (a.render_volume(view_pose), b.render_volume(view_pose))):
         assert (va == vb).all(-1).mean() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["tsdf", "ofusion"])
+def test_library_surface_on_cuda_matches_cpu(cuda, field):
+    """``core/map.allocate_blocks`` (K5's alloc_assign on the card), the
+    voxel reads and writes, interp, grad, collision and marching cubes on
+    the card against the same calls on the CPU: the map and every integer
+    result exactly, the reads exactly, interp and grad to 1e-6."""
+    from supereight_tpu_torch.core import geometry, interp
+    from supereight_tpu_torch.core import map as tmap
+    from supereight_tpu_torch.fields import get_field
+    from supereight_tpu_torch.io import meshing
+    from supereight_tpu_torch.kernels import _lib
+    fld = get_field(field)
+    geom = tmap.MapGeometry(size=64, dim=2.0, capacity=300)
+    rng = np.random.default_rng(3)
+    mask = torch.from_numpy(rng.random((8, 8, 8)) < 0.4)
+    v = torch.from_numpy(rng.integers(-8, 72, (6000, 3)).astype(np.int32))
+    v = torch.unique(v, dim=0)
+    x = torch.from_numpy(rng.normal(size=len(v)).astype(np.float32))
+    y = torch.from_numpy((rng.random(len(v)) > 0.2).astype(np.float32))
+    p = torch.from_numpy(rng.uniform(-2, 66, (3000, 3)).astype(np.float32))
+    out = []
+    for dev in (cuda, "cpu"):
+        m = tmap.make_map(geom, fld, dev)
+        _lib.reset_launches()
+        _, st = tmap.allocate_blocks(geom, m, mask.to(dev), with_stats=True,
+                                     budget=100)
+        assert _lib.LAUNCHES["alloc_assign"] == (dev == cuda)
+        tmap.set_voxels(m, v.to(dev), x.to(dev), y.to(dev))
+        out.append(dict(
+            state=[t.cpu() for f in m[:-1] for t in
+                   (f if isinstance(f, tuple) else (f,))],
+            overflow=int(st["alloc_overflow"]),
+            reads=[t.cpu() for t in tmap.get_with_coarse(geom, m, fld,
+                                                         v.to(dev))],
+            interp=interp.interp(geom, m, fld, p.to(dev)).cpu(),
+            grad=interp.grad(geom, m, fld, p.to(dev)).cpu(),
+            collide=[int(geometry.collides_with(geom, m, fld, lo, hi))
+                     for lo, hi in (((0, 0, 0), (9, 9, 9)),
+                                    ((60, 60, 60), (70, 66, 66)))],
+            mesh=meshing.marching_cubes(geom, m)))
+    a, b = out
+    assert a["overflow"] == b["overflow"] > 0
+    for ta, tb in zip(a["state"] + a["reads"], b["state"] + b["reads"]):
+        assert torch.equal(ta, tb)
+    assert torch.allclose(a["interp"], b["interp"], rtol=1e-6, atol=1e-6)
+    assert torch.allclose(a["grad"], b["grad"], rtol=1e-6, atol=1e-6)
+    assert a["collide"] == b["collide"]
+    np.testing.assert_array_equal(a["mesh"], b["mesh"])
+
+
+@pytest.mark.cuda
+def test_pose_graph_on_cuda_matches_cpu(cuda):
+    """``posegraph/graph.optimize`` on the card against the CPU on a
+    drifting 24-node chain with closures, padded edges and a frozen node:
+    poses to 1e-5; two solves on the card bit-identical (no float
+    atomics)."""
+    from supereight_tpu_torch.core import se3
+    from supereight_tpu_torch.posegraph import graph as pg
+    gen = torch.Generator().manual_seed(5)
+    n = 24
+    steps = se3.exp(torch.randn((n, 6), generator=gen) * 0.1)
+    gt = [torch.eye(4)]
+    for k in range(1, n):
+        gt.append(se3.matmul4(gt[-1], steps[k]))
+    gt = torch.stack(gt)
+    est = se3.matmul4(gt, se3.exp(torch.randn((n, 6), generator=gen)
+                                  * 0.02))
+    pairs = [(k, k + 1) for k in range(n - 1)] + [(0, 12), (3, 20), (5, 23)]
+    cap = len(pairs) + 9
+    i = torch.zeros(cap, dtype=torch.int32)
+    j = torch.zeros(cap, dtype=torch.int32)
+    tm = torch.eye(4).repeat(cap, 1, 1)
+    valid = torch.zeros(cap, dtype=torch.bool)
+    for k, (a, b) in enumerate(pairs):
+        i[k], j[k], valid[k] = a, b, True
+        tm[k] = se3.matmul4(se3.inverse(gt[a]), gt[b])
+    w = torch.rand(cap, generator=gen) * 20 + 1
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[7] = True
+    graph = pg.PoseGraph(i, j, tm, w, valid)
+
+    def solve(dev):
+        return pg.optimize(est.to(dev), pg.PoseGraph(
+            *(x.to(dev) for x in graph)), n, fixed=fixed.to(dev))
+    got, again = solve(cuda), solve(cuda)
+    assert torch.equal(got, again)
+    assert torch.allclose(got.cpu(), solve("cpu"), atol=1e-5, rtol=0)

@@ -16,6 +16,7 @@ import torch
 from supereight_tpu.core import map as jax_map
 from supereight_tpu.fields import get_field
 from supereight_tpu_torch import convert
+from supereight_tpu_torch.core import geometry, keyops, morton
 from supereight_tpu_torch.core import map as tmap
 from supereight_tpu_torch.fields import TSDF
 
@@ -185,8 +186,20 @@ def test_incremental_mip_refresh_matches_dense_over_frames(field):
     assert grew >= 4
 
 
+def _two_keyframes():
+    """A keyframe manager made without a device, holding two keyframes:
+    its optimize runs the pose graph on the card."""
+    from supereight_tpu_torch.posegraph.keyframes import KeyframeManager
+    km = KeyframeManager(keyframe_every=1)
+    for f in range(2):
+        km.maybe_add(f, np.eye(4, dtype=np.float32))
+    return km
+
+
 @pytest.mark.parametrize("entry", ["make_map", "init_frame_state",
-                                   "map_to_torch", "frame_to_torch"])
+                                   "map_to_torch", "frame_to_torch",
+                                   "keyframes", "morton", "keyops",
+                                   "aabb"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, the port's entry points put their tensors
     on the card: on a host without one they raise torch's own error, and
@@ -204,6 +217,11 @@ def test_entry_points_default_to_the_card(entry):
             convert.to_numpy(tmap.make_map(tg, TSDF, "cpu"))),
         "frame_to_torch": lambda: convert.frame_to_torch(convert.to_numpy(
             step.init_frame_state(tg, TSDF, (8, 6), pose, "cpu"))),
+        "keyframes": lambda: _two_keyframes().optimize(),
+        "morton": lambda: morton.encode_v(np.zeros((4, 3), np.int32)),
+        "keyops": lambda: keyops.parent(np.arange(4), 2, 6),
+        "aabb": lambda: geometry.aabb_aabb_collision(
+            (0, 0, 0), (1, 1, 1), (2, 2, 2), (3, 3, 3)),
     }
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         calls[entry]()

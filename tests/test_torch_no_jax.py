@@ -5,8 +5,10 @@ subprocess where importing ``jax``, ``jaxlib`` or ``supereight_tpu``
 raises, ``supereight_tpu_torch`` must import every module (the class
 pipeline, the CLI, IO, evaluation and the tools among them) and run
 ``frame_step`` for both fields, the gather-form probe, and the CLI from a
-``.raw`` file made by its converter, with a fresh-view render and a
-checkpoint round trip, on the CPU.
+``.raw`` file made by its converter, with a fresh-view render, a
+checkpoint round trip, the mesh export and the library surface's
+queries, and a synthetic CLI run with ``--keyframe-rate`` (the pose
+graph), on the CPU.
 """
 
 import json
@@ -76,9 +78,20 @@ view[:3, 3] -= 0.5 * view[:3, 2]
 lit = int((pipe.render_volume(view)[..., :3] > 0).any(-1).sum())
 pipe.save_checkpoint(os.path.join(tmp, "ckpt.npz"))
 pipe.load_checkpoint(os.path.join(tmp, "ckpt.npz"))
+tris = pipe.dump_mesh(os.path.join(tmp, "mesh.obj"))
+from supereight_tpu_torch.core import geometry, volume
+vol = volume.Volume(pipe.geom, pipe.map, pipe.field)
+pts = pipe.get_pose()[:3, 3] + np.zeros((4, 3), np.float32)
 out["cli"] = {"blocks": pipe.block_count(), "lit": lit,
               "renders": sorted(f for f in os.listdir(tmp)
-                                if f.endswith(".ppm"))}
+                                if f.endswith(".ppm")),
+              "keyframes": cli.run([
+                  "--synthetic", "6", "-v", "64", "--keyframe-rate", "2",
+                  "--platform", "cpu", "-o", os.path.join(tmp, "kf.log")
+              ]).keyframes.frames, "triangles": len(tris),
+              "interp": bool(torch.isfinite(vol.interp(pts)).all()),
+              "collision": int(geometry.collides_with(
+                  pipe.geom, pipe.map, pipe.field, (0, 0, 0), (4, 4, 4)))}
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(json.dumps(out))
 '''
@@ -100,6 +113,8 @@ def test_port_runs_without_jax():
     res = out.pop("cli")
     assert res["blocks"] > 0 and res["lit"] > 0
     assert res["renders"] == ["frame00004.ppm"]
+    assert res["keyframes"] == [4] and res["triangles"] > 0
+    assert res["interp"] and res["collision"] in (0, 1, 2)
     assert sorted(out) == ["ofusion", "tsdf"]
     for res in out.values():
         assert res["finite"] and res["n_blocks"] > 0

@@ -11,16 +11,25 @@ started at 2 blocks so that frame 0 overflows and the budget doubles at
 frames 0 and 8 in both; a JAX checkpoint taken at frame 4 resumed by the
 port, which then follows JAX's poses; and the checkpoint resume test of
 ``tests/test_checkpoint.py`` run on the port, where the resumed run must
-equal the uninterrupted one bit for bit.
+equal the uninterrupted one bit for bit. With ``enable_keyframes`` the
+class runs beside JAX's over an orbit that goes out and comes back (at
+``-c 2 -v 128``, where the two packages' trackers agree), so that a loop
+closure is tried against a revisited keyframe and accepted in both:
+poses agree to 2e-3, the closure edges are equal and the trajectory
+correction agrees to 2e-3.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from supereight_tpu import config as jax_config
 from supereight_tpu.config import Configuration as JaxConfiguration
+from supereight_tpu.io import dataset as jax_dataset
 from supereight_tpu.pipeline import DenseSLAMSystem as JaxSystem
+from supereight_tpu_torch import config as port_config
 from supereight_tpu_torch.config import Configuration
+from supereight_tpu_torch.io import dataset as port_dataset
 from supereight_tpu_torch.pipeline import DenseSLAMSystem
 from test_torch_step import COUNTERS, K, MU, N_FRAMES, N_FRAMES_OF, H, W, \
     make_scene
@@ -151,12 +160,89 @@ def test_resume_matches_uninterrupted(tmp_path):
     np.testing.assert_array_equal(c.render_volume(), a.render_volume())
 
 
-def test_unported_layers_raise():
+def test_unported_layers_raise(tmp_path):
+    """The layers that raised until they were ported, the keyframe pose
+    graph and the mesh export, now run on a fresh pipeline:
+    ``enable_keyframes`` sets up the manager on the pipeline's device and
+    ``dump_mesh`` of the empty map writes an empty mesh."""
     _, tcfg = configs("tsdf")
     t = DenseSLAMSystem((W, H), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        t.enable_keyframes(every=10)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        t.dump_mesh("mesh.obj")
+    t.enable_keyframes(every=10)
+    assert t.keyframes.keyframe_every == 10
+    assert t.keyframes.device == t.device
+    path = str(tmp_path / "mesh.obj")
+    assert t.dump_mesh(path).shape == (0, 3, 3)
+    assert open(path).read().startswith("# OBJ")
     np.testing.assert_array_equal(t.get_position(), [1.0, 1.0, 0.0])
     assert t.get_depth().shape == (H, W) and t.block_count() == 0
+
+
+# the orbit of convert.synthetic2raw(scene="orbit") over 8 frames, out to
+# its end and back: frame 10 sees what frame 4 saw
+THERE_AND_BACK = list(range(8)) + [6, 5, 4]
+
+
+def write_there_and_back(raw):
+    """Write the out-and-back orbit .raw (640x480) and its TUM ground
+    truth."""
+    from supereight_tpu_torch.cli import rotation_to_quaternion
+    from supereight_tpu_torch.io import dataset, synthetic
+    dim = 4.8
+    depths, poses = synthetic.orbit_sequence(
+        8, (481.2, 480.0, 320.0, 240.0), width=640, height=480,
+        radius=0.3 * dim, center=(dim / 2,) * 3, sphere_radius=0.15 * dim,
+        angle_span=0.6, room=((0.55,) * 3, (dim - 0.55,) * 3))
+    dataset.write_raw(raw, np.round(depths[THERE_AND_BACK] * 1000.0)
+                      .astype(np.uint16))
+    with open(raw + ".gt.txt", "w") as f:
+        for i, p in enumerate(poses[THERE_AND_BACK]):
+            q = rotation_to_quaternion(p[:3, :3])
+            f.write(f"{i / 30.0:.6f} {p[0, 3]:.6f} {p[1, 3]:.6f} "
+                    f"{p[2, 3]:.6f} {q[0]:.6f} {q[1]:.6f} {q[2]:.6f} "
+                    f"{q[3]:.6f}\n")
+    return raw
+
+
+@pytest.fixture(scope="module")
+def there_and_back(tmp_path_factory):
+    return write_there_and_back(str(tmp_path_factory.mktemp("raw")
+                                    / "orbit.raw"))
+
+
+def test_class_keyframes_match_jax(there_and_back):
+    """The class pipeline with keyframes every 2nd frame beside JAX's:
+    keyframes at frames 4, 6, 8 and 10, the last a revisit of the first,
+    where both try a closure, accept it and optimize the window."""
+    raw = there_and_back
+    torch.set_num_threads(1)
+    argv = ["-i", raw, "-g", raw + ".gt.txt", "-c", "2", "-v", "128", "-s",
+            "4.8", "-p", "0.5,0.4583,0.18", "-r", "1"]
+
+    def build(cfg_mod, ds_mod, system, **kw):
+        cfg = cfg_mod.config_from_args(cfg_mod.build_parser().parse_args(
+            argv))
+        reader = ds_mod.RawDepthReader(raw, raw + ".gt.txt")
+        cfg.camera = reader.get_k()
+        to = ds_mod.first_pose_transform(
+            reader.poses[0],
+            np.asarray(cfg.initial_pos_factor) * cfg.volume_size)
+        s = system((reader.width, reader.height), cfg,
+                   init_pose=to @ reader.poses[0], **kw)
+        s.enable_keyframes(every=2)
+        return s, reader
+    j, jr = build(jax_config, jax_dataset, JaxSystem)
+    p, pr = build(port_config, port_dataset, DenseSLAMSystem, device="cpu")
+    for i in range(len(THERE_AND_BACK)):
+        d = pr.read_next()[0]
+        rj = j.process_frame(jr.read_next()[0], i)
+        rp = p.process_frame(d, i)
+        assert rp["tracked"] == rj["tracked"]
+        np.testing.assert_allclose(p.get_pose(), np.asarray(j.pose),
+                                   atol=2e-3)
+    edges = [(a, b) for a, b, _, _ in p.keyframes.edges]
+    assert edges == [(a, b) for a, b, _, _ in j.keyframes.edges]
+    assert (0, 3) in edges and p.keyframes.pinned[0]
+    assert p.keyframes.frames == j.keyframes.frames == [4, 6, 8, 10]
+    assert not np.allclose(p.trajectory_correction, np.eye(4), atol=1e-6)
+    np.testing.assert_allclose(p.trajectory_correction,
+                               j.trajectory_correction, atol=2e-3)
