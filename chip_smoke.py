@@ -103,7 +103,24 @@ checkout:
    closure try, and the first closure's icp_track (3x gate) against its
    twin; it prints the closures tried and accepted and the BA solves'
    host ms;
-7. prints one JSON line of per-kernel results (each with its bound: the
+7. dist phase: the sharded step (``parallel/dist_step.py``) as four
+   Gloo ranks sharing card 0, started through ``tools/dist_run.py``
+   (they load the library this process built), both fields at the bench
+   config (320x240, 512^3 over 4.8 m, 36,864 / 4 = 9,216 blocks a rank,
+   ICP 10/5/4, halo budget 4,096 a rank), exact and frustum halo, over
+   the 43 slice frames, each rank's launch counts zeroed before each case
+   and read after it: every exact-halo pose within 2e-3 of the
+   single-device frame step on this card, the frustum final pose within
+   5e-3 of the exact one, every drop counter 0, every rank owning blocks
+   (summed and printed beside the single run's), every kernel of the
+   sharded path launched (K6 icp_reduce over the rank's columns and
+   icp_update, K5's windowed march and owner-masked allocation,
+   halo_pack, K2 on the halo, K1 over the rank's columns); the sharded
+   modes against their twins on rank 1's inputs at frame 4 (captured by
+   the rank, checked here); it prints ms/frame per rank, the halo's
+   bytes and the share of a frame blocked in collectives, which measure
+   no scaling: the four ranks share one card;
+8. prints one JSON line of per-kernel results (each with its bound: the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted from this run's inputs; and, where one PyTorch call
    computes the same function, that call's time), the card line again,
@@ -134,6 +151,13 @@ MU = {"tsdf": 0.1, "ofusion": 0.008}   # bench.py:50
 K = (240.6, 240.0, 160.0, 120.0)
 ITERATIONS = (10, 5, 4)
 N_WARMUP, N_FRAMES, N_TIMED = 3, 20, 20
+# the bench scene: its orbit, map and tracking, in the form the sharded
+# step's launcher takes (tools/dist_run.py), so that the single-device
+# slices and the dist phase render and run the same frames
+ORBIT = dict(width=W, height=H, k=K, size=SIZE, dim=DIM, capacity=CAPACITY,
+             iterations=ITERATIONS, frames=N_WARMUP + N_FRAMES + N_TIMED,
+             radius=0.3 * DIM, center=DIM / 2, sphere_radius=0.15 * DIM,
+             angle_span=0.5, room=(0.55, DIM - 0.55))
 N_PROFILED = 5       # timed frames replayed under torch.profiler
 PROFILE_TRIES = 3    # profiled replays before a trace that missed launches
                      # fails the run
@@ -150,6 +174,16 @@ SECTOR = 32  # bytes: the least a scattered store moves to and from HBM
 # K3, K4, K5's allocator and K7 calls timed back to back against their
 # twins' (new_kernel_rows)
 KERNEL_REPS, TWIN_REPS = 50, 5
+# the dist phase: the sharded step (parallel/dist_step.py) as four Gloo
+# ranks sharing card 0, through tools/dist_run.py, at the bench config
+DIST_WORLD = 4
+DIST_HALO_BUDGET = 4096   # blocks a rank may send (the TSDF slice: ~7.3k)
+DIST_CAPTURE = 4          # the frame whose inputs the mode checks take
+DIST_POSE_TOL = 2e-3      # tests/test_dist.py:83
+DIST_FRUSTUM_TOL = 5e-3   # tests/test_dist.py:96
+DIST_DROPS = ("alloc_overflow", "blocks_truncated", "ray_overflow",
+              "halo_overflow")
+HALO_FLAG_OPS = 40        # halo_pack's test of a slot (two transforms ...)
 # f32 operations of K6's per-pixel body (csrc/icp.cu icp_pixel +
 # pixel_terms + the accumulation): two 4x4 transforms 36, projection 4,
 # residual 3, normal rotation 15, distance 6, normal dot 5, error 5,
@@ -331,6 +365,21 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
                      "supereight_tpu/ops/raycast.py:537"),
     "raycast_cold_of": ("supereight_tpu_torch/csrc/raycast.cu",
                         "supereight_tpu/ops/raycast.py:537"),
+    # the sharded step's modes (dist phase)
+    "icp_update": ("supereight_tpu_torch/csrc/icp.cu",
+                   "supereight_tpu/ops/tracking.py:293"),
+    "alloc_touch_cols": ("supereight_tpu_torch/csrc/alloc.cu",
+                         "supereight_tpu/parallel/dist_step.py:310"),
+    "alloc_touch_of_cols": ("supereight_tpu_torch/csrc/alloc.cu",
+                            "supereight_tpu/parallel/dist_step.py:304"),
+    "alloc_assign_owned": ("supereight_tpu_torch/csrc/alloc.cu",
+                           "supereight_tpu/parallel/dist_step.py:313"),
+    "halo_pack": ("supereight_tpu_torch/csrc/integrate.cu",
+                  "supereight_tpu/parallel/dist_step.py:190"),
+    "raycast_cols": ("supereight_tpu_torch/csrc/raycast.cu",
+                     "supereight_tpu/parallel/dist_step.py:415"),
+    "raycast_cols_of": ("supereight_tpu_torch/csrc/raycast.cu",
+                        "supereight_tpu/parallel/dist_step.py:415"),
 }
 # why no single PyTorch call computes a kernel's function (its library_ms
 # is null)
@@ -368,6 +417,14 @@ NO_LIBRARY = {
     "raycast_gated": "no call marches rays through a sparse grid",
     "raycast_cold": "no call marches rays through a sparse grid",
     "raycast_cold_of": "no call marches rays through a sparse grid",
+    "icp_update": "no call runs a Gauss-Newton step with a freeze",
+    "alloc_touch_cols": "no call marches rays into a grid",
+    "alloc_touch_of_cols": "no call marches rays into a grid",
+    "alloc_assign_owned": "no call bump-allocates a pool; nonzero would "
+                          "size its output on the host",
+    "halo_pack": "nonzero would size its output on the host",
+    "raycast_cols": "no call marches rays through a sparse grid",
+    "raycast_cols_of": "no call marches rays through a sparse grid",
 }
 # device kernel names (without "_kernel") reported from the profile, and
 # the frame_step stage that launches each; the OFusion instantiations are
@@ -415,6 +472,17 @@ PATHS = {  # the kernels each main path must launch
                          "node_rank", "node_pass", "nav_grid", "raycast"),
     # the library surface: allocate_blocks over a sphere shell
     "library": ("alloc_assign",),
+    # the sharded step, four ranks on one card (the dist phase)
+    "dist-tsdf": ("pyramid", "frame_mats", "icp_reduce", "icp_update",
+                  "alloc_touch_cols", "alloc_assign_owned",
+                  "integrate_worklist", "integrate_fused",
+                  "integrate_fallback", "node_rank", "node_pass",
+                  "halo_pack", "nav_grid", "raycast_cols"),
+    "dist-ofusion": ("pyramid", "frame_mats", "icp_reduce", "icp_update",
+                     "alloc_touch_of_cols", "alloc_assign_owned",
+                     "integrate_worklist", "integrate_fused_of",
+                     "integrate_fallback_of", "node_rank", "node_pass",
+                     "halo_pack", "nav_grid", "raycast_cols_of"),
 }
 
 
@@ -461,19 +529,26 @@ def device_us(torch, fn, reps, per_call=None):
     of the kernels and copies it runs, over reps calls. The device trace
     misses the first launches after it starts (1 to 5 of 20 on the H100),
     so where ``per_call``, the kernels and copies one call runs, is known,
-    the sum is averaged over the calls the trace shows, not over reps."""
+    the sum is averaged over the calls the trace shows, not over reps. A
+    trace that shows no device work at all (seen once: a K1 window
+    read 0.0 us) is taken again, up to PROFILE_TRIES times, and fails
+    after that."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    seen = sum(e.count for e in events)
-    calls = seen / per_call if per_call and seen else reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        seen = sum(e.count for e in events)
+        if seen:
+            break
+    require(seen > 0, "device_us: the trace showed no device work")
+    calls = seen / per_call if per_call else reps
     return sum(e.self_device_time_total for e in events) / calls
 
 
@@ -707,6 +782,7 @@ class Scene:
         from supereight_tpu_torch.core.map import MapGeometry
         from supereight_tpu_torch.io import synthetic
         from supereight_tpu_torch.parallel import step as pstep
+        from supereight_tpu_torch.tools import dist_run
         self.torch, self.np, self.pstep = torch, np, pstep
         self.field, self.mu, self.dev = field, MU[field.name], dev
         self.noisy = noisy
@@ -714,11 +790,8 @@ class Scene:
         capacity, budget = ((NOISE_CAPACITY, NOISE_BUDGET) if noisy
                             else (CAPACITY, BUDGET))
         self.geom = MapGeometry(size=SIZE, dim=DIM, capacity=capacity)
-        self.n_total = N_WARMUP + N_FRAMES + N_TIMED
-        self.depths, self.poses = synthetic.orbit_sequence(
-            self.n_total, K, width=W, height=H, radius=0.3 * DIM,
-            center=(DIM / 2,) * 3, sphere_radius=0.15 * DIM, angle_span=0.5,
-            room=((0.55, 0.55, 0.55), (DIM - 0.55,) * 3))
+        self.n_total = ORBIT["frames"]
+        self.depths, self.poses = dist_run.scene_frames(ORBIT)
         if noisy:
             self.depths = np.stack([
                 synthetic.add_depth_noise(d, NOISE_FACTOR, seed=i)
@@ -755,21 +828,22 @@ class Scene:
         return state
 
 
-def alloc_bound(torch, geom, depth, pose, kpose, mu):
+def alloc_bound(torch, geom, depth, pose, kpose, mu, x_offset=0):
     """K5 alloc_touch: the 2x2-sampled depth read once and the sectors
     holding a touched cell written once (the grid is zero before the
     march, so no other byte must move), counted from this run's grid (the
     twin's, equal to the kernel's); per valid sampled pixel the ray setup
-    (~40 operations) and ~13 per band sample (csrc/alloc.cu)."""
+    (~40 operations) and ~13 per band sample (csrc/alloc.cu). ``depth``
+    may be a column window of the frame from column ``x_offset``."""
     from supereight_tpu_torch.kernels import alloc
     _, num_steps, _ = alloc.band_schedule(geom, mu)
     rays = int((depth[::2, ::2] > 0).sum())
-    grid = alloc.touched_mask_plain(geom, depth, pose, kpose, mu)
+    grid = alloc.touched_mask_plain(geom, depth, pose, kpose, mu, x_offset)
     return bound(rays * 4 + SECTOR * set_sectors(torch, (grid,)) + 2 * 64,
                  rays * (40 + 13 * num_steps))
 
 
-def alloc_of_bound(torch, geom, depth, pose, kpose, mu):
+def alloc_of_bound(torch, geom, depth, pose, kpose, mu, x_offset=0):
     """K5-OF alloc_touch_of: the 2x2- and 8x8-sampled depth and the ladder
     read once and the sectors holding a touched cell of the three grids
     written once, counted from this run's grids (the twin's); per valid
@@ -783,10 +857,11 @@ def alloc_of_bound(torch, geom, depth, pose, kpose, mu):
     for stride, ts in ((2, ladder.t[:ladder.n_fine]),
                        (8, ladder.t[ladder.n_fine:])):
         _, _, valid, dist = alloc.of_rays(geom, depth, stride, pose, kpose,
-                                          mu)
+                                          mu, x_offset)
         rays += int(valid.sum())
         samples += int((ts[:, None] < dist[valid][None, :]).sum())
-    grids = alloc.touched_masks_of_plain(geom, depth, pose, kpose, mu)
+    grids = alloc.touched_masks_of_plain(geom, depth, pose, kpose, mu, None,
+                                         x_offset)
     return bound(rays * 4 + 5 * n + 8 + SECTOR * set_sectors(torch, grids)
                  + 2 * 64, rays * 50 + 13 * samples)
 
@@ -2781,6 +2856,428 @@ def check_dump_mesh(pipe, tmp, tag, card):
     os.remove(path)
 
 
+def dist_map(torch, geom, field, dev, **tensors):
+    """A map of ``geom`` on ``dev`` whose fields given by name are copies
+    of ``tensors`` (a mode check's captured inputs)."""
+    from supereight_tpu_torch.core.map import make_map
+    m = make_map(geom, field, dev)
+    for name, v in tensors.items():
+        if isinstance(v, tuple):
+            for a, b in zip(getattr(m, name), v):
+                a.copy_(b)
+        else:
+            getattr(m, name).copy_(v)
+    return m
+
+
+def captured(cap, name):
+    """(args, kwargs, result) of the step's call ``name`` at the capture
+    frame (``tools/dist_run.capturing``)."""
+    c = cap["calls"][name]
+    return c["args"], c["kwargs"], c["result"]
+
+
+def check_dist_icp(torch, cap, tag):
+    """Mode A on a rank's captured inputs (the step's track call): K6
+    icp_reduce over the rank's column window of every pyramid level (80,
+    40 and 20 columns at the bench config) against its twin, codes on >=
+    99.9 % of pixels and each of the 32 f64 sums to 1e-4 of itself (plus
+    1e-4 of the largest: the finest-level check of the kernel phase); then
+    icp_update from the finest level's sums (a level's first iteration
+    with check_pose, and a frozen iteration) against its twin: pose and
+    checked pose to 1e-6, the reduction, done and tracked exactly. Returns
+    icp_update's row and icp_reduce's largest absolute error."""
+    from supereight_tpu_torch.kernels import frame, icp
+    (pose, raycast_pose, k, verts, norms, valids, ref_v, ref_n, ref_ok,
+     *_), _, _ = captured(cap, "track")
+    view = frame.frame_mats(k, raycast_pose).view
+    agree, red_err, abs_err, wins = 1.0, 0.0, 0.0, []
+    for level in range(len(verts)):
+        wl = verts[level].shape[1] // cap["world"]
+        win = dict(x0=cap["rank"] * wl, width=wl)
+        args = (verts[level], norms[level], valids[level], ref_v, ref_n,
+                ref_ok, pose, view)
+        res, red = icp.icp_reduce64(*args, **win)
+        res_p, red_p = icp.icp_reduce64_plain(*args, **win)
+        agree = min(agree, (res == res_p).float().mean().item())
+        red_err = max(red_err, ((red - red_p).abs() / (
+            red_p.abs() + 1e-4 * red_p.abs().max())).max().item())
+        abs_err = max(abs_err, (red - red_p).abs().max().item())
+        wins.append(f"level {level} [{win['x0']}, {win['x0'] + wl})")
+        if level == 0:
+            args0, win0, red0 = args, win, red
+    size = tuple(ref_v.shape[:2])
+    frozen = icp.Carry(pose, red0.to(torch.float32),
+                       torch.ones((), dtype=torch.bool, device=pose.device))
+    errs, same = [], True
+    for carry, first, old in ((None, True, pose), (frozen, False, None)):
+        got = icp.icp_update(red0, pose, carry, first, 1e-5, old, size)
+        want = icp.icp_update_plain(red0, pose, carry, first, 1e-5, old,
+                                    size)
+        errs.append((got[0].pose - want[0].pose).abs().max().item())
+        same &= torch.equal(got[0].reduction, want[0].reduction) \
+            and torch.equal(got[0].done, want[0].done)
+        if old is not None:
+            errs.append((got[1][0] - want[1][0]).abs().max().item())
+            same &= torch.equal(got[1][1], want[1][1])
+    err = max(errs)
+    print(f"{tag}: icp_reduce over the columns of {', '.join(wins)}: codes "
+          f"agree on {agree:.6f} (>= 0.999), sums' largest relative err "
+          f"{red_err:.2e} (<= 1e-4), absolute {abs_err:.2e}; icp_update "
+          f"pose err {err:.2e} (<= 1e-6), reduction, done and tracked "
+          f"equal: {same}")
+    require(agree >= 0.999 and red_err <= 1e-4 and err <= 1e-6 and same,
+            f"{tag}: a sharded ICP mode disagrees with its twin")
+    carry = icp.Carry(pose.clone(), red0.to(torch.float32),
+                      torch.zeros((), dtype=torch.bool, device=pose.device))
+    win_us = device_us(torch, lambda: icp.icp_reduce64(*args0, **win0), 20,
+                       2)
+    print(f"{tag}: icp_reduce over the finest window and the f64 sum of its "
+          f"CTA partials: {win_us:.2f} device us (two launches)")
+    row = dict(max_abs_err=err,
+               device_us=device_us(torch, lambda: icp.icp_update(
+                   red0, pose, carry, False, 1e-5), 20, 1),
+               ms=cuda_ms(torch, lambda: icp.icp_update(
+                   red0, pose, carry, False, 1e-5), KERNEL_REPS),
+               plain_ms=cuda_ms(torch, lambda: icp.icp_update_plain(
+                   red0, pose, carry, False, 1e-5), TWIN_REPS),
+               # the sums, the pose, reduction and flag in and out
+               **bound(32 * 8 + 2 * (64 + 32 * 4 + 1), ICP_SOLVE_OPS))
+    return row, abs_err
+
+
+def check_dist_alloc(torch, cap, field, tag):
+    """Mode B on a rank's captured inputs: the field's march over the
+    rank's columns against its twin, every grid bit for bit, and
+    alloc_assign with the owner mask on the ranks' union of grids (the
+    touched buffer of the map the step passed it) against its twin (slot
+    grid, block_coord, active, n_blocks, mip_alloc and alloc_overflow
+    exactly; the grids all zero after either)."""
+    from supereight_tpu_torch.core.map import touched_buffer, touched_grids
+    from supereight_tpu_torch.kernels import alloc
+    march_name = "touched_mask" if field.name == "tsdf" \
+        else "touched_masks_of"
+    (geom, depth, pose, kpose, mu), kw, _ = captured(cap, march_name)
+    b = geom.blocks_per_side
+    x0, w = kw["x0"], kw["width"]
+    win = depth[:, x0:x0 + w]
+    levels = 1 if field.name == "tsdf" else 3
+
+    def march(out):
+        fn = getattr(alloc, march_name)
+        got = fn(geom, depth, pose, kpose, mu, out=out, x0=x0, width=w)
+        return (got,) if field.name == "tsdf" else got
+
+    def plain():
+        fn = getattr(alloc, march_name + "_plain")
+        return fn(geom, win, pose, kpose, mu, x_offset=x0)
+
+    got = march(touched_buffer(b, depth.device))
+    want = (plain(),) if field.name == "tsdf" else plain()
+    mism = sum(int((a != c).sum()) for a, c in zip(got, want))
+    scratch = touched_buffer(b, depth.device)
+    bnd = (alloc_bound if field.name == "tsdf" else alloc_of_bound)(
+        torch, geom, win, pose, kpose, mu, x0)
+    march_row = dict(max_abs_err=float(mism),
+                     device_us=device_us(torch, lambda: march(scratch), 20,
+                                         1),
+                     ms=cuda_ms(torch, lambda: march(scratch), KERNEL_REPS),
+                     plain_ms=cuda_ms(torch, plain, TWIN_REPS), **bnd)
+    print(f"{tag}: march over columns [{x0}, {x0 + w}): touched cells per "
+          f"level {[int(g.sum()) for g in want]}, mismatches {mism} (== 0)")
+    require(mism == 0, f"{tag}: the windowed march disagrees with its twin")
+
+    (geom, m0, _, when), kw, _ = captured(cap, "alloc_assign")
+    fields = {n: getattr(m0, n) for n in ("slot", "block_coord", "active",
+                                          "n_blocks", "mip_alloc")}
+    union, owner, rank = m0.touched, kw["owner"], kw["rank"]
+
+    def call(fn, m, buf):
+        g = touched_grids(buf, b, levels)
+        return fn(geom, m, g[0], when, None, g[1:], owner, rank)
+
+    ma = dist_map(torch, geom, field, depth.device, **fields)
+    mb = dist_map(torch, geom, field, depth.device, **fields)
+    ua, ub = union.clone(), union.clone()
+    over, over_p = int(call(alloc.alloc_assign, ma, ua)), int(call(
+        alloc.alloc_assign_plain, mb, ub))
+    bad = {n: int((getattr(ma, n) != getattr(mb, n)).sum())
+           for n in ("slot", "block_coord", "active", "n_blocks")}
+    bad["mip_alloc"] = sum(int((a != c).sum())
+                           for a, c in zip(ma.mip_alloc, mb.mip_alloc))
+    owned = (ma.slot >= 0) & (fields["slot"] < 0)
+    foreign = int((owner[owned] != rank).sum())
+    n_new = int(owned.sum())
+    print(f"{tag}: alloc_assign owned by rank {rank}: {n_new} new blocks "
+          f"(the union touched {int(touched_grids(union, b, 1)[0].sum())} "
+          f"cells), another rank's among them {foreign} (0), "
+          f"alloc_overflow {over} vs {over_p}, mismatches {bad} (all 0), "
+          f"grid bytes left set {int(ua.sum())} / {int(ub.sum())} (0)")
+    require(over == over_p and sum(bad.values()) == 0 and foreign == 0
+            and n_new > 0 and not ua.any() and not ub.any(),
+            f"{tag}: the owned allocation disagrees with its twin")
+    # each call its own copy of the union, made before: the timed calls,
+    # each timing's untimed first call and every profiler try's 20
+    copies = iter([union.clone() for _ in range(
+        KERNEL_REPS + TWIN_REPS + 2 + 1 + PROFILE_TRIES * 20)])
+    grids = touched_grids(union, b, levels)
+    mip_set = sum(int((a != c).sum())
+                  for a, c in zip(ma.mip_alloc, fields["mip_alloc"]))
+    assign_row = dict(
+        max_abs_err=float(sum(bad.values()) + abs(over - over_p)),
+        device_us=device_us(torch, lambda: call(alloc.alloc_assign, ma,
+                                                next(copies)), 20, 1),
+        ms=cuda_ms(torch, lambda: call(alloc.alloc_assign, ma, next(copies)),
+                   KERNEL_REPS),
+        plain_ms=cuda_ms(torch, lambda: call(alloc.alloc_assign_plain, mb,
+                                             next(copies)), TWIN_REPS),
+        # the level-0 grid, and the slot and owner entries under its set
+        # cells, read once; the coarse grids, the cleared sectors, the new
+        # entries and the mip bytes set written once
+        **bound(b ** 3 + 8 * int(grids[0].sum())
+                + sum(g.numel() for g in grids[1:])
+                + SECTOR * set_sectors(torch, grids) + 17 * n_new + mip_set
+                + 8, b ** 3))
+    return march_row, assign_row
+
+
+def check_dist_local(torch, cap, tag):
+    """K3 and K4 on the rank's captured local map (after its owned
+    allocation, before its integration; capacity and worklist budget
+    36,864 / 4), fusing the frame's depth at its pose, against their
+    twins with the single-device phases' checks (:func:`check_block_pass`,
+    :func:`check_node_pass`). Returns each kernel's max_abs_err."""
+    import types
+    (geom, m, field, depth, pose, k, mu, ts, _), kw, _ = captured(
+        cap, "integrate")
+    sc = types.SimpleNamespace(geom=geom, field=field, mu=mu, kt=k,
+                               dev=depth.device, budget=kw["budget"])
+    errs = {name: row["max_abs_err"] for name, (row, _, _) in
+            check_block_pass(torch, sc, m, pose, depth, ts,
+                             f"{tag} K3 (capacity {geom.capacity})")[0]
+            .items()}
+    errs.update((name, row["max_abs_err"]) for name, (row, _, _) in
+                check_node_pass(torch, sc, m, pose, depth, ts,
+                                f"{tag} K4 node_pass (capacity "
+                                f"{geom.capacity})").items())
+    return errs
+
+
+def check_dist_halo(torch, cap, field, tag):
+    """Mode C on a rank's captured map (after the frame's integration):
+    halo_pack with the frustum test and without, against its twin: the
+    counts and cell ids exactly, the flagged rows' bricks bit for bit."""
+    from supereight_tpu_torch.kernels import halo
+    args = captured(cap, "halo_pack")[0][:7]
+    m, budget = args[1], args[5]
+    err, rows = 0.0, {}
+    for frustum in (True, False):
+        got, cnt = halo.halo_pack(*args, frustum)
+        want, cnt_p = halo.halo_pack_plain(*args, frustum)
+        filled = int(cnt_p[0])
+        diff = [(got[r] - want[r]).abs().max().item() if filled else 0.0
+                for r in (slice(0, filled), slice(budget, budget + filled))]
+        same = torch.equal(cnt, cnt_p) and torch.equal(
+            halo.cells_of(got, budget), halo.cells_of(want, budget))
+        print(f"{tag}: halo_pack (frustum {frustum}): {filled} of "
+              f"{int(m.n_blocks)} blocks sent, overflow {int(cnt[1])}, counts "
+              f"and cells equal: {same}, brick max err {max(diff):.1e} (0)")
+        require(same and max(diff) == 0.0,
+                f"{tag}: halo_pack disagrees with its twin")
+        err = max(err, max(diff))
+        rows[frustum] = filled
+    n = int(m.n_blocks)
+    row = dict(max_abs_err=err,
+               device_us=device_us(torch, lambda: halo.halo_pack(*args, True),
+                                   20, 1),
+               ms=cuda_ms(torch, lambda: halo.halo_pack(*args, True),
+                          KERNEL_REPS),
+               plain_ms=cuda_ms(torch, lambda: halo.halo_pack_plain(
+                   *args, True), TWIN_REPS),
+               # the slots' coordinates, the sent bricks read and written,
+               # the cell ids and counts
+               **bound(12 * n + 4 + 2 * 4096 * rows[True] + 4 * budget + 8
+                       + 128, HALO_FLAG_OPS * n))
+    return row
+
+
+def check_dist_raycast(torch, cap, tag):
+    """Mode D on a rank's captured halo: K2 on the gathered table (its
+    capacity D x the halo rows less the budget, its slot grid the
+    scatter's) against its twin and equal to the nav grid the step used,
+    and K1 over the rank's columns against its twin
+    (:func:`check_raycast`'s tolerances). Returns K1's row and K2's
+    error."""
+    from supereight_tpu_torch.kernels import nav, raycast
+    (hgeom, hs_nav, field), _, step_nav = captured(cap, "nav_grid")
+    nv = nav.nav_grid(hgeom, hs_nav, field)
+    nv_p = nav.nav_grid_plain(hgeom, hs_nav, field)
+    nav_bad = int((nv != nv_p).sum())
+    print(f"{tag}: K2 nav_grid on the halo table (capacity "
+          f"{hgeom.capacity}, {int((hs_nav.slot >= 0).sum())} blocks): "
+          f"{nav_bad} entries differ from the twin (0), equal to the "
+          f"step's: {torch.equal(nv, step_nav)}")
+    require(nav_bad == 0 and torch.equal(nv, step_nav),
+            f"{tag}: K2 on the halo disagrees with its twin or the step")
+    (hgeom, hs, field, _, view, depth, k, mu, size), kw, _ = captured(
+        cap, "raycast_rays")
+    x0, w = kw["x0"], kw["width"]
+
+    def call():
+        return raycast.raycast_rays(hgeom, hs, field, nv, view, depth, k, mu,
+                                    size, x0=x0, width=w)
+
+    def plain(with_probes=False):
+        return raycast.raycast_plain(hgeom, field, hs.data_x, hs.data_y, nv,
+                                     view, depth, k, mu, size,
+                                     with_probes=with_probes, x0=x0,
+                                     width=w)
+
+    got = call()
+    ref, probes = plain(True)
+    v_err = check_raycast(torch, f"{tag}: K1 over columns [{x0}, {x0 + w})",
+                          got, ref)
+    return dict(max_abs_err=v_err, device_us=device_us(torch, call, 20, 1),
+                ms=cuda_ms(torch, call, 20),
+                plain_ms=cuda_ms(torch, plain, 2),
+                **raycast_bound(got, probes)), float(nav_bad)
+
+
+def single_trajectory(torch, sc):
+    """The single-device frame step's poses over the slice (numpy) and its
+    final block count, on the card."""
+    import numpy as np
+    state, poses = sc.init(), []
+    for i in range(sc.n_total):
+        state, _ = sc.frame(state, i)
+        poses.append(state.pose.clone())
+    return np.stack([p.cpu().numpy() for p in poses]), int(
+        state.map.n_blocks)
+
+
+def dist_phase(torch, dev, tmp, card):
+    """The sharded step (``parallel/dist_step.py``) as four Gloo ranks on
+    card 0 through ``tools/dist_run.py``, both fields at the bench config
+    (:data:`ORBIT`; per-rank capacity 36,864 / 4, halo budget
+    DIST_HALO_BUDGET), exact and frustum halo, over the 43 slice frames,
+    each rank's launch counts zeroed before each case and read after it.
+    Holds: every exact-halo pose within 2e-3 of the single-device frame
+    step on this card, the frustum run's final pose within 5e-3 of the
+    exact one's, every drop counter 0, every rank owning blocks, each
+    rank's collectives (1 + sum(ITERATIONS) + 3 a frame, one more for the
+    halo on frames > 2, and the all-gathers' bytes), and the kernels the
+    path runs against their twins on rank 1's captured calls at frame
+    DIST_CAPTURE: the sharded modes (K6 icp_update and the windowed
+    icp_reduce at every level, K5's windowed marches and owned allocation,
+    halo_pack, K2 on the halo table, K1's column window) and K3 and K4 at
+    the rank's capacity. Prints ms/frame per rank, the halo's bytes and
+    the collectives' share, which measure no scaling (four ranks share one
+    card, their collectives staged through host memory). Returns the
+    kernels' launches over both paths, the new modes' rows and the errors
+    of the other kernels' checks."""
+    import numpy as np
+    from supereight_tpu_torch.fields import OFUSION, TSDF
+    from supereight_tpu_torch.kernels import halo
+    from supereight_tpu_torch.tools import dist_run
+    t0 = time.perf_counter()
+    cases = [dict(name=f"{f}-{h}", field=f, frustum_halo=h == "frustum",
+                  halo_budget=DIST_HALO_BUDGET,
+                  **({"capture": DIST_CAPTURE} if h == "exact" else {}))
+             for f in ("tsdf", "ofusion") for h in ("exact", "frustum")]
+    out = os.path.join(tmp, "dist")
+    res = dist_run.launch(DIST_WORLD, "gloo", "cuda", out, ORBIT, cases)
+    t_ranks = time.perf_counter() - t0
+    launches, rows, errs = collections.Counter(), {}, {}
+    n = ORBIT["frames"]
+    send = halo.halo_rows(DIST_HALO_BUDGET) * 512 * 4
+    ref = H * (W // DIST_WORLD) * 7 * 4  # a rank's vertex, normal, valid
+    want_calls = {"all_gather": n + n - 3,
+                  "all_reduce": n * (3 + sum(ITERATIONS))}
+    want_gather = n * ref + (n - 3) * send
+    for field in (TSDF, OFUSION):
+        sc = Scene(torch, field, dev)
+        single, n_single = single_trajectory(torch, sc)
+        path = collections.Counter()
+        tag = f"dist {field.name}"
+        for h in ("exact", "frustum"):
+            name = f"{field.name}-{h}"
+            for r, rr in enumerate(res):
+                path.update(json.loads(str(rr[name + ".launches"])))
+                for c in DIST_DROPS:
+                    require(not rr[f"{name}.aux.{c}"].any(),
+                            f"{tag} rank {r} {h}: {c} nonzero")
+                calls = json.loads(str(rr[name + ".comm_calls"]))
+                sent = json.loads(str(rr[name + ".comm_bytes"]))
+                require(calls == want_calls
+                        and sent["all_gather"] == want_gather,
+                        f"{tag} rank {r} {h}: collectives {calls}, "
+                        f"all_gather bytes {sent['all_gather']}; want "
+                        f"{want_calls}, {want_gather}")
+                ms = rr[name + ".ms"][N_WARMUP + 1:]
+                share = rr[name + ".comm_s"][N_WARMUP + 1:].sum() / (
+                    ms.sum() / 1e3)
+                print(f"{tag} {h} rank {r}: {ms.mean():.2f} ms/frame over "
+                      f"frames 4-42 (CUDA events; {card}); {share:.3f} of it "
+                      f"blocked in collectives (host clock); collectives "
+                      f"{calls} over {n} frames, bytes a frame "
+                      f"{ {k: v / n for k, v in sent.items()} }; four ranks "
+                      f"share one card under Gloo: no scaling is measured")
+            blocks = res[0][name + ".aux.n_blocks_dev"][-1]
+            halo_blocks = res[0][name + ".aux.halo_blocks"]
+            print(f"{tag} {h}: blocks per rank {blocks.tolist()}, "
+                  f"{int(blocks.sum())} in all (single device {n_single}; "
+                  f"TSDF 7,335 / OFusion 3,197 in earlier runs); halo "
+                  f"blocks sent, frame 3 / {len(halo_blocks) - 1}: "
+                  f"{int(halo_blocks[3])} / {int(halo_blocks[-1])} "
+                  f"(halo_budget "
+                  f"{DIST_HALO_BUDGET} a rank); halo bytes a frame: "
+                  f"{send / 1e6:.2f} MB sent and {DIST_WORLD * send / 1e6:.2f}"
+                  f" MB gathered a rank")
+            require((blocks > 0).all(), f"{tag} {h}: a rank owns no block")
+        for r, rr in enumerate(res):
+            err = np.abs(rr[f"{field.name}-exact.poses"] - single).max(
+                axis=(1, 2))
+            fr = np.abs(rr[f"{field.name}-frustum.poses"][-1]
+                        - rr[f"{field.name}-exact.poses"][-1]).max()
+            print(f"{tag} rank {r}: exact-halo pose against the single "
+                  f"device, largest over the frames {err.max():.2e} (frame "
+                  f"{int(err.argmax())}; <= {DIST_POSE_TOL}); frustum "
+                  f"final pose against exact {fr:.2e} (<= "
+                  f"{DIST_FRUSTUM_TOL})")
+            require(err.max() <= DIST_POSE_TOL,
+                    f"{tag} rank {r}: exact halo left the single device")
+            require(fr <= DIST_FRUSTUM_TOL,
+                    f"{tag} rank {r}: frustum halo left the exact halo")
+        for k in PATHS["dist-" + field.name]:
+            require(path[k] > 0, f"{tag}: {k} was not launched")
+        print(f"{tag} launches (4 ranks, both halos): "
+              f"{ {k: path[k] for k in PATHS['dist-' + field.name]} }")
+        launches.update(path)
+
+        cap = torch.load(os.path.join(out, f"capture_{field.name}-exact.pt"),
+                         map_location=dev, weights_only=False)
+        ctag = f"{tag} modes (rank {cap['rank']}, frame {cap['frame']})"
+        icp_row, reduce_err = check_dist_icp(torch, cap, ctag)
+        march_row, assign_row = check_dist_alloc(torch, cap, field, ctag)
+        ray_row, nav_err = check_dist_raycast(torch, cap, ctag)
+        new = {"icp_update": icp_row,
+               "alloc_touch_cols" if field is TSDF
+               else "alloc_touch_of_cols": march_row,
+               "alloc_assign_owned": assign_row,
+               "halo_pack": check_dist_halo(torch, cap, field, ctag),
+               "raycast_cols" if field is TSDF else "raycast_cols_of":
+                   ray_row}
+        for name, row in new.items():
+            rows.setdefault(name, []).append(row)
+        local = check_dist_local(torch, cap, ctag)
+        local.update(icp_reduce=reduce_err, nav_grid=nav_err)
+        for name, e in local.items():
+            errs.setdefault(name, []).append(e)
+    print(f"dist phase: {time.perf_counter() - t0:.1f} s ({t_ranks:.1f} s "
+          f"of it the four ranks, start-up included)")
+    return launches, rows, errs
+
+
 def main():
     import torch
 
@@ -2864,6 +3361,21 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
         launches[k] += v
     errs.setdefault("icp_track", [rows["icp_track"]["max_abs_err"]]) \
         .append(closure_err)
+    # the sharded step last: its four ranks share the card and the host's
+    # cores, which the loop's renderers no longer use
+    dist_launches, dist_rows, dist_errs = dist_phase(torch, dev, tmp, card)
+    for k, e in dist_errs.items():
+        errs.setdefault(k, [rows[k]["max_abs_err"]]).extend(e)
+    for k, v in dist_launches.items():
+        if k in launches:
+            launches[k] += v
+    for name, (first, *more) in dist_rows.items():
+        rows[name] = first
+        for row in more:  # the OFusion path's row of a kernel both share
+            errs.setdefault(name, [first["max_abs_err"]]).append(
+                row["max_abs_err"])
+            first["ofusion"] = {k: row[k] for k in (
+                "device_us", "ms", "plain_ms", "bound_ms", "bound_by")}
     for k, e in errs.items():
         rows[k]["max_abs_err"] = max(e)
 

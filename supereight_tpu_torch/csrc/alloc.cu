@@ -18,6 +18,11 @@
 // back to back), all zero between frames: alloc_assign, which reads them
 // next, clears them as it reads, so no launch fills them.
 //
+// Both marches take a column window [x0, x0 + w_win) of the depth frame:
+// the sharded step (parallel/dist_step.py) marches each rank's own columns
+// with image coordinates kept (JAX allocation.py:44-48, x_offset); the
+// single-device step's window is the whole frame.
+//
 // alloc_touch: one thread per pixel of depth[::2, ::2], num_steps samples
 // at t = (float)(s * step) across the +/- band, into the level-0 grid.
 //
@@ -63,15 +68,18 @@ struct Ray {
 };
 
 // The ray of the sub-sampled pixel (sx, sy) of a [::stride, ::stride]
-// sampling, or false where its depth is not positive; K = kpose, P = pose
-// (the JAX package's arithmetic, in its order).
+// sampling of the columns from x0 on of a depth frame w wide, or false
+// where its depth is not positive; K = kpose, P = pose (the JAX package's
+// arithmetic, in its order: the column's centre is sx * stride + 0.5 +
+// x_offset, and x0 = 0 adds an exact zero).
 __device__ __forceinline__ bool pixel_ray(const float* __restrict__ depth,
-                                          int w, int stride, int sx, int sy,
-                                          const float* K, const float* P,
-                                          float band_half, Ray& r) {
-  const float d = depth[(sy * stride) * w + sx * stride];
+                                          int w, int x0, int stride, int sx,
+                                          int sy, const float* K,
+                                          const float* P, float band_half,
+                                          Ray& r) {
+  const float d = depth[(sy * stride) * w + x0 + sx * stride];
   if (!(d > 0.f)) return false;
-  const float px = (float)(sx * stride) + 0.5f;
+  const float px = (float)(sx * stride) + 0.5f + (float)x0;
   const float py = (float)(sy * stride) + 0.5f;
   const float3 wv = se::transform(K, px * d, py * d, d);
   const float dx = P[3] - wv.x, dy = P[7] - wv.y, dz = P[11] - wv.z;
@@ -100,8 +108,8 @@ __device__ __forceinline__ void mark(const Ray& r, float t, float inv_voxel,
 }
 
 __global__ void __launch_bounds__(kThreads)
-alloc_touch_kernel(const float* __restrict__ depth, int w, int stride,
-                   int hs, int ws, const float* __restrict__ kpose,
+alloc_touch_kernel(const float* __restrict__ depth, int w, int x0,
+                   int stride, int hs, int ws, const float* __restrict__ kpose,
                    const float* __restrict__ pose, float band_half,
                    double step, int num_steps, float inv_voxel, int size,
                    int b, uint8_t* __restrict__ touched) {
@@ -113,14 +121,14 @@ alloc_touch_kernel(const float* __restrict__ depth, int w, int stride,
   if (i >= hs * ws) return;
   const int sy = i / ws, sx = i - sy * ws;
   Ray r;
-  if (!pixel_ray(depth, w, stride, sx, sy, K, P, band_half, r)) return;
+  if (!pixel_ray(depth, w, x0, stride, sx, sy, K, P, band_half, r)) return;
   for (int s = 0; s < num_steps; ++s)
     mark(r, (float)(s * step), inv_voxel, size, b, 3, touched);
 }
 
 __global__ void __launch_bounds__(kThreads)
-alloc_touch_of_kernel(const float* __restrict__ depth, int w, int hs2,
-                      int ws2, int hs8, int ws8,
+alloc_touch_of_kernel(const float* __restrict__ depth, int w, int x0,
+                      int hs2, int ws2, int hs8, int ws8,
                       const float* __restrict__ kpose,
                       const float* __restrict__ pose, float band_half,
                       const float* __restrict__ ladder_t,
@@ -142,7 +150,7 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int hs2,
   const int ws = coarse ? ws8 : ws2;
   const int sy = ray / ws, sx = ray - sy * ws;
   Ray r;
-  if (!pixel_ray(depth, w, coarse ? 8 : 2, sx, sy, K, P, band_half, r))
+  if (!pixel_ray(depth, w, x0, coarse ? 8 : 2, sx, sy, K, P, band_half, r))
     return;
   const float cx = P[3] - r.ox, cy = P[7] - r.oy, cz = P[11] - r.oz;
   const float dist = sqrtf(cx * cx + cy * cy + cz * cz);
@@ -189,6 +197,9 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int hs2,
 //     never is; then n_blocks and alloc_overflow are written.
 // A device `when` that is false leaves every map grid untouched but the
 // root's children, as JAX's masked allocation and unconditional refresh do.
+// With an owner grid (the sharded step's, parallel/dist_step.py) a touched
+// cell that another rank owns is skipped in step 1 and 2, as JAX's
+// `touched & (own == idx)` (dist_step.py:313); it is still cleared.
 //
 // The touched grids are consumed: they are all zero on return, whatever
 // `when` says, so the map's touched buffer needs no fill before the next
@@ -268,8 +279,9 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
     alloc_assign_kernel(uint8_t* __restrict__ touched,
                         uint8_t* __restrict__ extra1,
                         uint8_t* __restrict__ extra2,
-                        const uint8_t* __restrict__ when, int b, int nl,
-                        int cap, int kb, int* __restrict__ slot,
+                        const uint8_t* __restrict__ when,
+                        const int* __restrict__ owner, int rank, int b,
+                        int nl, int cap, int kb, int* __restrict__ slot,
                         int* __restrict__ block_coord,
                         uint8_t* __restrict__ active,
                         int* __restrict__ n_blocks,
@@ -301,6 +313,10 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
     if (!go) return 0u;  // a masked step only clears
     for (uint32_t r = m; r; r &= r - 1) {  // keep the cells with no slot
       const int j = __ffs(r) - 1;
+      if (owner != nullptr && owner[i0 + j] != rank) {  // another rank's
+        m &= ~(1u << j);
+        continue;
+      }
       const int s = slot[i0 + j];
       if (s >= 0) {  // a touched block that exists: re-activated
         active[s] = 1;
@@ -334,50 +350,59 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
 }  // namespace
 
 // when (bool[]) may be null: always true; extra1 / extra2 (OFusion's level
-// 1 and 2 grids) may be null. kb = min(B^3, budget). touched, extra1 and
-// extra2 are all zero on return.
+// 1 and 2 grids) may be null. owner (i32[B^3], the sharded step's owner
+// grid) may be null: every cell is this map's; else only the touched
+// cells that owner gives to `rank` are allocated or re-activated (the
+// extra grids are not masked, as JAX's sharded step unions them). kb =
+// min(B^3, budget). touched, extra1 and extra2 are all zero on return.
 SE_EXPORT int se_alloc_assign(uint8_t* touched, uint8_t* extra1,
                               uint8_t* extra2, const uint8_t* when,
+                              const int* owner, int rank,
                               int b, int nl, int cap, int kb, int* slot,
                               int* block_coord, uint8_t* active,
                               int* n_blocks, int* overflow, Mips mips,
                               void* stream) {
   alloc_assign_kernel<<<se::kCompactCtas, se::kCompactThreads, 0,
                         (cudaStream_t)stream>>>(
-      touched, extra1, extra2, when, b, nl, cap, kb, slot, block_coord,
+      touched, extra1, extra2, when, owner, rank, b, nl, cap, kb, slot,
+      block_coord,
       active, n_blocks, overflow, mips);
   return (int)cudaGetLastError();
 }
 
-SE_EXPORT int se_alloc_touch_of(const float* depth, int h, int w,
-                                const float* kpose, const float* pose,
+// The marches sample the columns [x0, x0 + w_win) of a depth frame w
+// wide (a rank's slice, JAX's x_offset; the whole frame is x0 = 0, w_win
+// = w).
+SE_EXPORT int se_alloc_touch_of(const float* depth, int h, int w, int x0,
+                                int w_win, const float* kpose, const float* pose,
                                 float band_half, const float* ladder_t,
                                 const uint8_t* ladder_level, int n_ladder,
                                 int n_fine, float inv_voxel, int size, int b,
                                 uint8_t* touched0, uint8_t* touched1,
                                 uint8_t* touched2, void* stream) {
-  const int hs2 = (h + 1) / 2, ws2 = (w + 1) / 2;
-  const int hs8 = (h + 7) / 8, ws8 = (w + 7) / 8;
+  const int hs2 = (h + 1) / 2, ws2 = (w_win + 1) / 2;
+  const int hs8 = (h + 7) / 8, ws8 = (w_win + 7) / 8;
   const int n = ((hs2 * ws2 + 31) & ~31) + kCoarseLanes * hs8 * ws8;
   const int n_cta = (n + kThreads - 1) / kThreads;
   if (n_cta == 0) return 0;
   alloc_touch_of_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
-      depth, w, hs2, ws2, hs8, ws8, kpose, pose, band_half, ladder_t,
+      depth, w, x0, hs2, ws2, hs8, ws8, kpose, pose, band_half, ladder_t,
       ladder_level, n_ladder, n_fine, inv_voxel, size, b, touched0, touched1,
       touched2);
   return (int)cudaGetLastError();
 }
 
-SE_EXPORT int se_alloc_touch(const float* depth, int h, int w, int stride,
-                             const float* kpose, const float* pose,
+SE_EXPORT int se_alloc_touch(const float* depth, int h, int w, int x0,
+                             int w_win, int stride, const float* kpose, const float* pose,
                              float band_half, double step, int num_steps,
                              float inv_voxel, int size, int b,
                              uint8_t* touched, void* stream) {
-  const int hs = (h + stride - 1) / stride, ws = (w + stride - 1) / stride;
+  const int hs = (h + stride - 1) / stride;
+  const int ws = (w_win + stride - 1) / stride;
   const int n_cta = (hs * ws + kThreads - 1) / kThreads;
   if (n_cta == 0) return 0;
   alloc_touch_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
-      depth, w, stride, hs, ws, kpose, pose, band_half, step, num_steps,
+      depth, w, x0, stride, hs, ws, kpose, pose, band_half, step, num_steps,
       inv_voxel, size, b, touched);
   return (int)cudaGetLastError();
 }

@@ -17,8 +17,14 @@
 //  * icp_reduce: one pyramid level, one thread per pixel. Each CTA reduces
 //    its pixels' 32 terms in a fixed shuffle order into the f64
 //    partials[blockIdx.x][32]; the caller sums them. It computes one
-//    device's 32-vector without the solve, the part a summed multi-device
-//    reduction needs. Not on the frame's path.
+//    device's 32-vector without the solve: a rank's share of the sharded
+//    frame's reduction (parallel/dist_step.py), over a column window of
+//    the level (the rank's slice, read in place through the row pitch).
+//  * icp_update: one Gauss-Newton iteration of the sharded frame from the
+//    ranks' summed reduction, in one warp (the solve, the update, the
+//    freeze of a converged level and, last, check_pose), so a sharded
+//    iteration is icp_reduce, one all_reduce and icp_update, with no host
+//    read.
 //  * icp_track: a frame's whole tracking step in ONE launch of one
 //    thread-block cluster (CTAs on neighbouring SMs that read each other's
 //    shared memory; 16 CTAs of 512 threads, launched with
@@ -183,8 +189,8 @@ __device__ __forceinline__ void warp_reduce_terms(const double v[kTerms],
 __global__ void __launch_bounds__(kReduceThreads)
 icp_reduce_kernel(const float* __restrict__ in_vertex,
                   const float* __restrict__ in_normal,
-                  const uint8_t* __restrict__ in_valid, int n,
-                  const float* __restrict__ ref_vertex,
+                  const uint8_t* __restrict__ in_valid, int n, int w_win,
+                  int pitch, int x0, const float* __restrict__ ref_vertex,
                   const float* __restrict__ ref_normal,
                   const uint8_t* __restrict__ ref_valid, int ref_h, int ref_w,
                   const float* __restrict__ pose,
@@ -201,7 +207,10 @@ icp_reduce_kernel(const float* __restrict__ in_vertex,
   float z[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   int code = 2;  // lanes past the image count nowhere
   if (i < n) {
-    code = icp_pixel(i, in_vertex, in_normal, in_valid, ref_vertex,
+    // pixel i of the window: row i / w_win, image column x0 + i % w_win
+    const int row = i / w_win;
+    const int src = row * pitch + x0 + (i - row * w_win);
+    code = icp_pixel(src, in_vertex, in_normal, in_valid, ref_vertex,
                      ref_normal, ref_valid, ref_h, ref_w, T, V,
                      dist_threshold, normal_threshold, z);
     result[i] = code;
@@ -436,10 +445,78 @@ icp_track_kernel(Pyramid pyr, const float* __restrict__ ref_vertex,
   cluster.sync();  // no CTA leaves while another may still read its smem
 }
 
+// One Gauss-Newton iteration of a multi-device frame (icp_update): the
+// reduction the ranks summed (f64, rounded here once to f32), the solve,
+// the pose update and the freeze of a converged level, and on the frame's
+// last call check_pose against the frame's old pose. One warp: its lanes
+// load and round the 32 sums, lane 0 runs the code icp_track's rank 0 runs
+// (gauss_newton_step, the same solve6), so a sharded frame and a single one
+// solve alike. pose_in may be pose_out (lane 0 reads it before it writes);
+// red_in null reads as zeros, done_in null as false (a level's first
+// iteration); old_pose, checked and tracked are null but on the last call.
+__global__ void __launch_bounds__(32)
+icp_update_kernel(const double* __restrict__ red64,
+                  const float* pose_in, const float* red_in,
+                  const uint8_t* done_in, float* pose_out, float* red_out,
+                  uint8_t* done_out, float icp_threshold,
+                  const float* __restrict__ old_pose, float track_threshold,
+                  int ref_h, int ref_w, float* __restrict__ checked,
+                  uint8_t* __restrict__ tracked) {
+  __shared__ float red[kTerms], keep[kTerms], T[16];
+  const int lane = threadIdx.x;
+  red[lane] = (float)red64[lane];
+  keep[lane] = red_in == nullptr ? 0.f : red_in[lane];
+  if (lane < 16) T[lane] = pose_in[lane];
+  __syncwarp();
+  if (lane == 0) {
+    const bool done = done_in != nullptr && *done_in;
+    bool now_done = done;
+    if (!done) {  // a converged level keeps its pose and reduction
+      float next[16];
+      now_done = gauss_newton_step(red, T, icp_threshold, next);
+      for (int i = 0; i < 16; ++i) T[i] = next[i];
+      for (int i = 0; i < kTerms; ++i) keep[i] = red[i];
+    }
+    *done_out = now_done ? 1 : 0;
+  }
+  __syncwarp();
+  if (lane < 16) pose_out[lane] = T[lane];
+  red_out[lane] = keep[lane];
+  if (old_pose == nullptr) return;
+  // check_pose, as icp_track's ending
+  const float n_in = keep[28];
+  const float rms = sqrtf(keep[0] / (n_in == 0.f ? 1.f : n_in));
+  const float total = (float)(ref_h * ref_w);
+  const bool bad = rms > 2e-2f || n_in / total < track_threshold ||
+                   n_in == 0.f;
+  if (lane < 16) checked[lane] = bad ? old_pose[lane] : T[lane];
+  if (lane == 0) *tracked = bad ? 0 : 1;
+}
+
 }  // namespace
 
+// One Gauss-Newton iteration from a cross-device f64 reduction (see
+// icp_update_kernel).
+SE_EXPORT int se_icp_update(const double* red64, const float* pose_in,
+                            const float* red_in, const uint8_t* done_in,
+                            float* pose_out, float* red_out,
+                            uint8_t* done_out, float icp_threshold,
+                            const float* old_pose, float track_threshold,
+                            int ref_h, int ref_w, float* checked,
+                            uint8_t* tracked, void* stream) {
+  icp_update_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      red64, pose_in, red_in, done_in, pose_out, red_out, done_out,
+      icp_threshold, old_pose, track_threshold, ref_h, ref_w, checked,
+      tracked);
+  return (int)cudaGetLastError();
+}
+
+// The level's columns [x0, x0 + w_win) of its rows of `pitch` pixels
+// (n = rows x w_win; the whole level is x0 = 0, w_win = pitch); result is
+// the window's, [rows, w_win].
 SE_EXPORT int se_icp_reduce(const float* in_vertex, const float* in_normal,
-                            const uint8_t* in_valid, int n,
+                            const uint8_t* in_valid, int n, int w_win,
+                            int pitch, int x0,
                             const float* ref_vertex, const float* ref_normal,
                             const uint8_t* ref_valid, int ref_h, int ref_w,
                             const float* pose, const float* view,
@@ -448,9 +525,9 @@ SE_EXPORT int se_icp_reduce(const float* in_vertex, const float* in_normal,
   const int n_cta = (n + kReduceThreads - 1) / kReduceThreads;
   if (n_cta == 0) return 0;
   icp_reduce_kernel<<<n_cta, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      in_vertex, in_normal, in_valid, n, ref_vertex, ref_normal, ref_valid,
-      ref_h, ref_w, pose, view, dist_threshold, normal_threshold, result,
-      partials);
+      in_vertex, in_normal, in_valid, n, w_win, pitch, x0, ref_vertex,
+      ref_normal, ref_valid, ref_h, ref_w, pose, view, dist_threshold,
+      normal_threshold, result, partials);
   return (int)cudaGetLastError();
 }
 

@@ -43,6 +43,24 @@
 //    no depth level, no need flag and no fallback launch; CTA 0 writes the
 //    frame's patch_skipped, 0.
 //
+//  * halo_pack (the sharded step's halo, parallel/dist_step.py; replaces
+//    supereight_tpu/parallel/dist_step.py:build_halo_worklist, 190-221,
+//    and the gathers of its raycast branch, 336-350): one cluster, like
+//    integrate_worklist. Each slot below n_blocks is flagged when, with
+//    `frustum`, its block's CENTRE projects inside the image padded by
+//    margin x size or lies within 0.5 m of the camera (JAX's test, in its
+//    order), else always; the flagged slots are compacted in slot order
+//    into the first `budget` rows of the rank's send buffer: both 512-voxel
+//    channels and the block's cell id ((x b + y) b + z; b^3 pads the rows
+//    past the flagged ones). It writes halo_blocks = min(n, budget) and
+//    halo_overflow = max(n - budget, 0). The rows are copied after one
+//    more cluster barrier, a float4 a thread over every row at once (a
+//    row a CTA at a time, one dependent chain of copies a CTA, took 51 us
+//    for 749 rows on an H100, PERF.md), then the rows' slots become cell
+//    ids.
+//    Bound: the flagged bricks read and written once (4 KB each) plus 12
+//    bytes of coordinates a slot.
+//
 // Blocks are disjoint, so fusing the covered blocks in one launch and the
 // fallback blocks in the next gives the values of one pass. The OFusion
 // update's timestamp is a device f32[]; no launch reads a value on the host.
@@ -148,6 +166,96 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
   if (g == 0) {
     counts[0] = total;
     counts[1] = go ? max(total - budget, 0) : 0;
+  }
+}
+
+// JAX's halo predicate (dist_step.py:200-215): the block centre through
+// t_cw then K; in view when kz > 0 and u, v fall in [lo, hi) (the image
+// padded by the margin, bounds rounded to f32 as JAX's Python floats), or
+// near when its camera-frame distance squared is below 0.25.
+__device__ __forceinline__ bool halo_flag(const int* __restrict__ bc,
+                                          const float* T, const float* K,
+                                          float scale, float u_lo, float u_hi,
+                                          float v_lo, float v_hi) {
+  const float3 p = se::transform(T, ((float)bc[0] + 0.5f) * scale,
+                                 ((float)bc[1] + 0.5f) * scale,
+                                 ((float)bc[2] + 0.5f) * scale);
+  const float3 q = se::transform(K, p.x, p.y, p.z);
+  const float z = q.z == 0.f ? 1e-12f : q.z;
+  const float u = q.x / z, v = q.y / z;
+  const bool in_view = q.z > 0.f && u >= u_lo && u < u_hi && v >= v_lo &&
+                       v < v_hi;
+  const bool near = p.x * p.x + p.y * p.y + p.z * p.z < 0.25f;
+  return in_view || near;
+}
+
+// send: f32[rows, 512] with rows = 2 budget + ceil(budget / 512): the data_x
+// bricks in rows [0, budget), the data_y bricks in rows [budget, 2 budget),
+// then the i32 cell ids (halo_rows in kernels/halo.py).
+__global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
+    __launch_bounds__(se::kCompactThreads)
+    halo_pack_kernel(const int* __restrict__ block_coord,
+                     const int* __restrict__ n_blocks, int cap,
+                     const float* __restrict__ data_x,
+                     const float* __restrict__ data_y,
+                     const float* __restrict__ t_cw,
+                     const float* __restrict__ kmat, float scale, float u_lo,
+                     float u_hi, float v_lo, float v_hi, int frustum, int b,
+                     int budget, float* __restrict__ send,
+                     int* __restrict__ counts) {
+  namespace cg = cooperative_groups;
+  __shared__ float T[16], K[16];
+  se::load_mat4(t_cw, T);
+  se::load_mat4(kmat, K);
+  __syncthreads();
+  int* cells = reinterpret_cast<int*>(send + 2 * budget * se::kBlockVoxels);
+  const int n = min(*n_blocks, cap);
+  auto run_mask = [&](int i0, int cnt) {
+    uint32_t m = 0;
+    for (int j = 0; j < cnt; ++j)
+      if (!frustum || halo_flag(block_coord + 3 * (i0 + j), T, K, scale,
+                                u_lo, u_hi, v_lo, v_hi))
+        m |= 1u << j;
+    return m;
+  };
+  // a row's slot goes into its cell entry first; the copy below turns it
+  // into the cell id
+  auto emit = [&](int s, int r) {
+    if (r < budget) cells[r] = s;
+  };
+  const int total = se::cluster_compact(n, run_mask, emit);
+  const int filled = min(total, budget);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every row's slot is written
+  // the rows' bricks, a float4 a thread: each row is 2 x 128 float4s, and
+  // every thread of the cluster takes its own, so the copies of all rows
+  // are in flight at once
+  constexpr int kQuads = se::kBlockVoxels / 4;  // float4s a channel row
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_threads = gridDim.x * blockDim.x;
+  const float4* x4 = reinterpret_cast<const float4*>(data_x);
+  const float4* y4 = reinterpret_cast<const float4*>(data_y);
+  float4* send4 = reinterpret_cast<float4*>(send);
+  for (int i = g; i < filled * 2 * kQuads; i += n_threads) {
+    const int r = i / (2 * kQuads), q = i - r * 2 * kQuads;
+    const int s = cells[r];
+    if (q < kQuads)
+      send4[r * kQuads + q] = x4[s * kQuads + q];
+    else
+      send4[(budget + r) * kQuads + q - kQuads] = y4[s * kQuads + q - kQuads];
+  }
+  cluster.sync();  // every slot is read before it becomes a cell id
+  for (int r = g; r < budget; r += n_threads) {
+    if (r < filled) {
+      const int* c = block_coord + 3 * cells[r];
+      cells[r] = (c[0] * b + c[1]) * b + c[2];
+    } else {
+      cells[r] = b * b * b;
+    }
+  }
+  if (g == 0) {
+    counts[0] = filled;
+    counts[1] = total - filled;
   }
 }
 
@@ -356,6 +464,21 @@ SE_EXPORT int se_integrate_worklist(const int* block_coord,
                               (cudaStream_t)stream>>>(
       block_coord, active, n_blocks, cap, t_cw, kmat, scale, w, h, budget,
       when, worklist, counts);
+  return (int)cudaGetLastError();
+}
+
+// The sharded step's halo send buffer (see halo_pack_kernel); frustum 0
+// takes every allocated slot. counts: i32[2] halo_blocks, halo_overflow.
+SE_EXPORT int se_halo_pack(const int* block_coord, const int* n_blocks,
+                           int cap, const float* data_x, const float* data_y,
+                           const float* t_cw, const float* kmat, float scale,
+                           float u_lo, float u_hi, float v_lo, float v_hi,
+                           int frustum, int b, int budget, float* send,
+                           int* counts, void* stream) {
+  halo_pack_kernel<<<se::kCompactCtas, se::kCompactThreads, 0,
+                     (cudaStream_t)stream>>>(
+      block_coord, n_blocks, cap, data_x, data_y, t_cw, kmat, scale, u_lo,
+      u_hi, v_lo, v_hi, frustum, b, budget, send, counts);
   return (int)cudaGetLastError();
 }
 

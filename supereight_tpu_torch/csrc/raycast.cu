@@ -48,6 +48,11 @@
 //    min_ref_weight, read through the map's slot grid, is not valid; its
 //    vertex and normal are kept. One more dependent pair of loads (slot,
 //    then weight) per hit.
+// A launch may march a column window of the image (x0, w_out): the sharded
+// step's rank marches its own columns through the exchanged halo
+// (parallel/dist_step.py); the ray direction and the prime read use the
+// image column x0 + x, and the outputs are the window's. The whole image
+// (x0 = 0, w_out = w) indexes as before the window existed.
 // Reads go straight to the pool through the nav grid: nav[cell] >= 0 is
 // the pool slot of an allocated in-bucket block, else -(1 + e) with the
 // distance in bits 0-2 and, for OFusion, the coarse free-space value in
@@ -98,7 +103,9 @@ struct FieldConst {
 };
 
 struct Params {
-  int w, h, size, b, max_probes;
+  // w x h: the depth frame and the image the rays belong to; the launch
+  // marches the column window [x0, x0 + w_out) of it
+  int w, h, x0, w_out, size, b, max_probes;
   float dim, inv_voxel, voxel, largestep, half_largestep, bstep, mu,
       near_plane, far_plane, small_backoff, big_backoff, floor_cap,
       two_step, of_cap, min_ref_weight;
@@ -224,7 +231,8 @@ __device__ __forceinline__ float ref_weight(const Params& P,
                ((vy & 7) << 3) + ((vz & 7) << 6));
 }
 
-// March pixel ray i of `view` (V), primed by depth[i] with the intrinsics
+// March the ray of image pixel (x, y) of `view` (V) into output i, primed
+// by the depth frame's pixel (x, y) with the intrinsics
 // Kc (kPrimed) or from its tnear probe, write its vertex, normal and valid
 // flag; returns whether the ray was still marching at the probe bound
 // (ray_overflow). kGate (TSDF): a hit whose voxel has fused less weight
@@ -233,10 +241,11 @@ __device__ __forceinline__ float ref_weight(const Params& P,
 template <bool kOF, bool kGate, bool kPrimed>
 __device__ __forceinline__ bool march_ray(
     const Params& P, const float* V, const float* Kc, Pool& pool,
-    const int* __restrict__ slot, const float* __restrict__ depth, int i,
+    const int* __restrict__ slot, const float* __restrict__ depth, int x,
+    int y, int i,
     float* __restrict__ vertex, float* __restrict__ normal,
     uint8_t* __restrict__ valid) {
-  const float pxf = (float)(i % P.w), pyf = (float)(i / P.w);
+  const float pxf = (float)x, pyf = (float)y;
 
   // ray_directions_c (rendering.cpp:62-65)
   const float3 r = se::rotate(V, pxf, pyf, 1.f);
@@ -273,7 +282,7 @@ __device__ __forceinline__ bool march_ray(
     // prime_from_depth: the depth frame's surface along the pixel ray
     const float ux = (pxf - Kc[2]) / Kc[0];
     const float uy = (pyf - Kc[3]) / Kc[1];
-    const float dep = depth[i];
+    const float dep = depth[y * P.w + x];
     const float tp = dep * sqrtf(ux * ux + uy * uy + 1.f);
     const float prime = dep > 0.f ? tp : 0.f;
 
@@ -434,14 +443,17 @@ raycast_kernel(Params P, const float* __restrict__ view,
     raycast_pose[threadIdx.x] = go ? pose[threadIdx.x] : old_rp[threadIdx.x];
   // warp w of the CTA takes the 8 x 4 pixel tile (w % 4, w / 4)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // (x, y) of the window, whose outputs are w_out wide; the image column
+  // is x0 + x
   const int x = blockIdx.x * kTileW + (warp & 3) * 8 + (lane & 7);
   const int y = blockIdx.y * kTileH + (warp >> 2) * 4 + (lane >> 3);
-  const int i = y * P.w + x;
-  if (x < P.w && y < P.h) {
+  const int i = y * P.w_out + x;
+  if (x < P.w_out && y < P.h) {
     if (go) {
       Pool pool{nav, data_x, data_y, -1, 0};
-      if (march_ray<kOF, kGate, kPrimed>(P, V, Kc, pool, slot, depth, i,
-                                         vertex, normal, valid))
+      if (march_ray<kOF, kGate, kPrimed>(P, V, Kc, pool, slot, depth,
+                                         P.x0 + x, y, i, vertex, normal,
+                                         valid))
         atomicAdd(&cta_live, 1);
     } else {  // the state's maps as they were
       for (int a = 0; a < 3; ++a) {
@@ -466,6 +478,10 @@ raycast_kernel(Params P, const float* __restrict__ view,
 
 }  // namespace
 
+// The rays of the image columns [x0, x0 + w_out) of a w x h image (the
+// sharded step's rank slice; the whole image is x0 = 0, w_out = w), with
+// depth the whole w x h frame and the outputs (and the select's old maps)
+// h x w_out.
 // field: 0 = TSDF, 1 = OFusion. depth and k are null together for the
 // unprimed start (then slot must be null too). slot (the map's i32[B^3]
 // slot grid) is null for no maturity gate, else (TSDF only) hits whose
@@ -477,7 +493,7 @@ SE_EXPORT int se_raycast(const float* view, const int* nav,
                          const float* data_x, const float* data_y,
                          const int* slot, float min_ref_weight,
                          const float* depth, const float* k, int field, int w,
-                         int h, int size, int b, int max_probes, float dim,
+                         int h, int x0, int w_out, int size, int b, int max_probes, float dim,
                          float inv_voxel, float voxel, float largestep,
                          float half_largestep, float bstep, float mu,
                          float near_plane, float far_plane,
@@ -489,15 +505,17 @@ SE_EXPORT int se_raycast(const float* view, const int* nav,
                          float* vertex, float* normal, uint8_t* valid,
                          float* raycast_pose, int* overflow, int* scratch,
                          void* stream) {
-  Params P{w, h, size, b, max_probes, dim, inv_voxel, voxel, largestep,
-           half_largestep, bstep, mu, near_plane, far_plane, small_backoff,
-           big_backoff, floor_cap, two_step, of_cap, min_ref_weight};
-  if (w <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  Params P{w, h, x0, w_out, size, b, max_probes, dim, inv_voxel, voxel,
+           largestep, half_largestep, bstep, mu, near_plane, far_plane,
+           small_backoff, big_backoff, floor_cap, two_step, of_cap,
+           min_ref_weight};
+  if (w <= 0 || h <= 0 || w_out <= 0 || x0 < 0 || x0 + w_out > w)
+    return (int)cudaErrorInvalidValue;
   if (field == 1 && slot != nullptr) return (int)cudaErrorInvalidValue;
   const bool primed = depth != nullptr;
   if (primed != (k != nullptr) || (!primed && slot != nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+  const dim3 grid((w_out + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
   cudaStream_t st = (cudaStream_t)stream;
 #define SE_RAYCAST(OF, GATE, PRIMED)                                        \
   raycast_kernel<OF, GATE, PRIMED><<<grid, kThreads, 0, st>>>(              \

@@ -43,7 +43,11 @@ LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
             "integrate_fused_noise_bilinear": 0,
             "integrate_fused_of_bilinear": 0,
             "integrate_fallback_noise": 0, "raycast_gated": 0,
-            "raycast_cold": 0, "raycast_cold_of": 0}
+            "raycast_cold": 0, "raycast_cold_of": 0,
+            # the sharded step's modes (parallel/dist_step.py)
+            "icp_update": 0, "alloc_touch_cols": 0, "alloc_touch_of_cols": 0,
+            "alloc_assign_owned": 0, "halo_pack": 0, "raycast_cols": 0,
+            "raycast_cols_of": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu and preprocess.cu take
@@ -98,22 +102,26 @@ P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signature of each exported entry point (stream last, every one
 # returns the cudaError_t of its launch)
 _SIGNATURES = {
-    "se_icp_reduce": (P, P, P, I, P, P, P, I, I, P, P, F, F, P, P, P),
+    "se_icp_reduce": (P, P, P, I, I, I, I, P, P, P, I, I, P, P, F, F, P, P,
+                      P),
+    "se_icp_update": (P, P, P, P, P, P, P, F, P, F, I, I, P, P, P),
     "se_icp_track": (Pyramid, P, P, P, I, I, P, P, F, F, F, F, P, P, P, P, P,
                      P),
-    "se_alloc_touch": (P, I, I, I, P, P, F, D, I, F, I, I, P, P),
-    "se_alloc_touch_of": (P, I, I, P, P, F, P, P, I, I, F, I, I, P, P, P,
-                          P),
-    "se_alloc_assign": (P, P, P, P, I, I, I, I, P, P, P, P, P, Mips, P),
+    "se_alloc_touch": (P, I, I, I, I, I, P, P, F, D, I, F, I, I, P, P),
+    "se_alloc_touch_of": (P, I, I, I, I, P, P, F, P, P, I, I, F, I, I, P, P,
+                          P, P),
+    "se_alloc_assign": (P, P, P, P, P, I, I, I, I, I, P, P, P, P, P, Mips,
+                        P),
     "se_integrate_worklist": (P, P, P, I, P, P, F, I, I, I, P, P, P, P),
+    "se_halo_pack": (P, P, I, P, P, P, P, F, F, F, F, F, I, I, I, P, P, P),
     "se_integrate_fused": (P, I, I, P, P, P, F, I, I, I, P, I, I, I, F, F, F,
                            P, P, P, P, P, P, P, P, P),
     "se_integrate_fallback": (P, I, P, P, P, F, I, I, P, I, I, F, F, F, P, I,
                               P, P, P, P, P, P, P, P),
     "se_nav_grid": (P, I, I, I, I, Mips, P, P, P, P),
-    "se_raycast": (P, P, P, P, P, F, P, P, I, I, I, I, I, I, F, F, F, F, F,
-                   F, F, F, F, F, F, F, F, F, P, P, P, P, P, P, P, P, P, P,
-                   P, P, P),
+    "se_raycast": (P, P, P, P, P, F, P, P, I, I, I, I, I, I, I, I, F, F, F,
+                   F, F, F, F, F, F, F, F, F, F, F, P, P, P, P, P, P, P, P,
+                   P, P, P, P, P),
     "se_gather_a": (P, P, I, I, I, P, P),
     "se_gather_b": (P, P, I, I, I, P, P),
     "se_gather_c": (P, P, I, I, I, P, P),

@@ -12,6 +12,11 @@ versions, used for CPU tensors and as the kernels' reference on the card.
 The TPU's dedup of repeated samples was a scatter-cost trick and is not
 carried over: it changes no touched flag.
 
+The sharded step (``parallel/dist_step.py``) runs two modes of them: the
+marches over a rank's column window (JAX's ``x_offset``) and
+:func:`alloc_assign` with an owner grid, each counted under its own
+launch name.
+
 On the main path the marches write into the map's touched buffer
 (``MapState.touched``, all zero between frames) and :func:`alloc_assign`
 consumes the grids it is given: they are all zero on return, so no frame
@@ -61,18 +66,34 @@ def _into(geom, out, grids):
     return views
 
 
-def touched_mask(geom, depth, pose, kpose, mu: float, out):
+def _window(depth, x0, width):
+    """(x0, width) of a march's column window [x0, x0 + width) of
+    ``depth`` (width None: to the frame's edge), checked."""
+    w = depth.shape[1]
+    width = w - x0 if width is None else width
+    if not (0 <= x0 and 0 < width and x0 + width <= w):
+        raise ValueError(f"march: columns [{x0}, {x0 + width}) are not "
+                         f"inside a frame {w} wide")
+    return x0, width
+
+
+def touched_mask(geom, depth, pose, kpose, mu: float, out, x0=0,
+                 width=None):
     """bool[B, B, B]: blocks crossed by the +/- 2 mu band around each
     sampled depth pixel (ref buildAllocationList,
     kfusion/alloc_impl.hpp:53-118). depth f32[H, W], pose [4, 4] and
     kpose = pose @ inverse_camera_matrix(k) [4, 4] (the frame's prologue,
     kernels/frame.frame_mats) on one device. ``out``: a touched buffer
     (the map's ``MapState.touched``, or ``core.map.touched_buffer``), all
-    zero, whose level-0 grid the march writes and returns."""
+    zero, whose level-0 grid the march writes and returns. ``width`` given
+    marches only the columns [x0, x0 + width), in image coordinates (the
+    sharded step's rank slice, JAX's ``x_offset``), counted as
+    ``alloc_touch_cols``."""
     dev = depth.device
+    x0, win = _window(depth, x0, width)
     if dev.type == "cpu":
-        return _into(geom, out, (touched_mask_plain(geom, depth, pose, kpose,
-                                                    mu),))[0]
+        return _into(geom, out, (touched_mask_plain(
+            geom, depth[:, x0:x0 + win], pose, kpose, mu, x0),))[0]
     if dev.type != "cuda":
         raise ValueError(f"touched_mask: unsupported device {dev}")
     h, w = depth.shape
@@ -82,23 +103,26 @@ def touched_mask(geom, depth, pose, kpose, mu: float, out):
     b = geom.blocks_per_side
     band, num_steps, step = band_schedule(geom, mu)
     touched = _grids(geom, out, dev, 1)[0]
-    _lib.launch("alloc_touch", "se_alloc_touch", dev, depth, h, w, _STRIDE,
+    _lib.launch("alloc_touch" if width is None else "alloc_touch_cols",
+                "se_alloc_touch", dev, depth, h, w, x0, win, _STRIDE,
                 kpose, pose, band * 0.5, step, num_steps,
                 geom.inv_voxel_size, geom.size, b, touched)
     return touched
 
 
-def pixel_rays(depth, stride: int, pose, kpose, half: float):
+def pixel_rays(depth, stride: int, pose, kpose, half: float, x_offset=0):
     """The rays of depth[::stride, ::stride] (csrc/alloc.cu ``pixel_ray``):
     (origins, unit directions toward the camera, valid) as component
     tuples of [hs, ws] tensors; an origin is the back-projected pixel
     centre backed off by ``half`` toward the camera (JAX
-    _pixel_rays_c_sub). A Python float scalar acts as its f32 rounding,
-    like a JAX constant."""
+    _pixel_rays_c_sub). ``depth`` is a column slice of the frame starting
+    at column ``x_offset``. A Python float scalar acts as its f32
+    rounding, like a JAX constant."""
     dev = depth.device
     d = depth[::stride, ::stride]
     hs, ws = d.shape
-    xs = torch.arange(ws, dtype=torch.float32, device=dev) * stride + 0.5
+    xs = (torch.arange(ws, dtype=torch.float32, device=dev) * stride + 0.5
+          + float(x_offset))
     ys = torch.arange(hs, dtype=torch.float32, device=dev) * stride + 0.5
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     wvx, wvy, wvz = se3.transform_c(kpose, px * d, py * d, d)
@@ -126,12 +150,14 @@ def _mark_plain(geom, flat, origin, direction, t, lvl, ok):
                      True)
 
 
-def touched_mask_plain(geom, depth, pose, kpose, mu: float):
-    """Plain PyTorch twin of :func:`touched_mask` (kpose = pose @ invK)."""
+def touched_mask_plain(geom, depth, pose, kpose, mu: float, x_offset=0):
+    """Plain PyTorch twin of :func:`touched_mask` (kpose = pose @ invK) in
+    JAX's form: ``depth`` is the window's columns, which start at image
+    column ``x_offset``."""
     b = geom.blocks_per_side
     band, num_steps, step = band_schedule(geom, mu)
     origin, direction, valid = pixel_rays(depth, _STRIDE, pose, kpose,
-                                          band * 0.5)
+                                          band * 0.5, x_offset)
     flat = torch.zeros(b * b * b + 1, dtype=torch.bool, device=depth.device)
     for i in range(num_steps):
         _mark_plain(geom, flat, origin, direction, i * step, 0, valid)
@@ -197,18 +223,21 @@ def of_ladder(geom, mu: float, max_dist=None, device="cpu") -> Ladder:
 
 
 def touched_masks_of(geom, depth, pose, kpose, mu: float, out,
-                     max_dist=None):
+                     max_dist=None, x0=0, width=None):
     """(bool[B]^3, bool[B/2]^3, bool[B/4]^3): the octants of levels 0-2
     that the occupancy march touches (ref buildOctantList,
     bfusion/alloc_impl.hpp:53-129). Level-0 samples come from every 2x2
     pixel, level 1-2 samples from every 8x8 pixel. depth f32[H, W],
     pose [4, 4] and kpose = pose @ inverse_camera_matrix(k) on one device.
     The three grids are views of ``out``, a touched buffer (the map's
-    ``MapState.touched``, or ``core.map.touched_buffer``), all zero."""
+    ``MapState.touched``, or ``core.map.touched_buffer``), all zero.
+    ``width`` given marches only the columns [x0, x0 + width) as
+    :func:`touched_mask` does, counted as ``alloc_touch_of_cols``."""
     dev = depth.device
+    x0, win = _window(depth, x0, width)
     if dev.type == "cpu":
-        return _into(geom, out, touched_masks_of_plain(geom, depth, pose,
-                                                       kpose, mu, max_dist))
+        return _into(geom, out, touched_masks_of_plain(
+            geom, depth[:, x0:x0 + win], pose, kpose, mu, max_dist, x0))
     if dev.type != "cuda":
         raise ValueError(f"touched_masks_of: unsupported device {dev}")
     h, w = depth.shape
@@ -218,29 +247,30 @@ def touched_masks_of(geom, depth, pose, kpose, mu: float, out,
     band, _ = _of_schedule(geom, mu, max_dist)
     ladder = of_ladder(geom, mu, max_dist, dev)
     masks = _grids(geom, out, dev, 3)
-    _lib.launch("alloc_touch_of", "se_alloc_touch_of", dev, depth, h, w,
-                kpose, pose, band * 0.5, ladder.t, ladder.level,
+    _lib.launch("alloc_touch_of" if width is None else "alloc_touch_of_cols",
+                "se_alloc_touch_of", dev, depth, h, w, x0, win, kpose, pose, band * 0.5, ladder.t, ladder.level,
                 ladder.t.numel(), ladder.n_fine, geom.inv_voxel_size,
                 geom.size, geom.blocks_per_side, *masks)
     return masks
 
 
-def of_rays(geom, depth, stride: int, pose, kpose, mu: float):
+def of_rays(geom, depth, stride: int, pose, kpose, mu: float, x_offset=0):
     """The occupancy march's rays of depth[::stride, ::stride]:
     :func:`pixel_rays` backed off by half the band, and each ray's
     distance from the camera to its origin (a sample counts while t is
     below it)."""
     band, _ = _of_schedule(geom, mu, None)
     origin, direction, valid = pixel_rays(depth, stride, pose, kpose,
-                                          band * 0.5)
+                                          band * 0.5, x_offset)
     cx, cy, cz = (pose[i, 3] - origin[i] for i in range(3))
     return origin, direction, valid, torch.sqrt(cx * cx + cy * cy + cz * cz)
 
 
 def touched_masks_of_plain(geom, depth, pose, kpose, mu: float,
-                           max_dist=None):
+                           max_dist=None, x_offset=0):
     """Plain PyTorch twin of :func:`touched_masks_of` (kpose = pose @
-    invK), in the JAX form: one sample stack per level."""
+    invK), in the JAX form: one sample stack per level; ``depth`` is the
+    window's columns, from image column ``x_offset``."""
     b = geom.blocks_per_side
     band, max_dist = _of_schedule(geom, mu, max_dist)
     travelled, sample_levels = ofusion_step_ladder(geom, band, max_dist)
@@ -250,7 +280,7 @@ def touched_masks_of_plain(geom, depth, pose, kpose, mu: float,
         flat = torch.zeros(side ** 3 + 1, dtype=torch.bool,
                            device=depth.device)
         origin, direction, valid, dist = of_rays(geom, depth, stride, pose,
-                                                 kpose, mu)
+                                                 kpose, mu, x_offset)
         for t, l in zip(travelled, sample_levels):
             if l == lvl and side > 0:
                 _mark_plain(geom, flat, origin, direction, t, lvl,
@@ -260,7 +290,7 @@ def touched_masks_of_plain(geom, depth, pose, kpose, mu: float,
 
 
 def alloc_assign(geom, state, touched, when=None, budget: int = None,
-                 extra=()):
+                 extra=(), owner=None, rank: int = 0):
     """Allocate every block whose flag is set in the [B,B,B] ``touched``
     grid (ref octree.hpp:792-856) and refresh ``mip_alloc``, IN PLACE.
 
@@ -269,8 +299,13 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
     and up to capacity; touched pre-existing blocks are re-activated.
     ``extra`` holds OFusion's coarse octants touched at levels 1, 2, ...
     (bool[B>>l]^3; levels past the pyramid's top are ignored). ``when``
-    (bool[] tensor) masks every grid. Returns alloc_overflow (i32[]): the
-    new cells left unallocated. One launch, no host sync.
+    (bool[] tensor) masks every grid. ``owner`` (i32[B, B, B], the
+    sharded step's ``owner_grid``) keeps only the touched cells that it
+    gives to ``rank``, for allocation and re-activation alike (JAX's
+    ``touched & (own == idx)``, ``dist_step.py:313``), counted as
+    ``alloc_assign_owned``; ``extra`` is not masked by it. Returns
+    alloc_overflow (i32[]): the new cells left unallocated. One launch, no
+    host sync.
 
     The grids are consumed: ``touched`` and every ``extra`` grid are all
     zero on return, whatever ``when`` says (the kernel clears what it
@@ -278,7 +313,8 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
     """
     dev = touched.device
     if dev.type == "cpu":
-        return alloc_assign_plain(geom, state, touched, when, budget, extra)
+        return alloc_assign_plain(geom, state, touched, when, budget, extra,
+                                  owner, rank)
     if dev.type != "cuda":
         raise ValueError(f"alloc_assign: unsupported device {dev}")
     b, nl, cap = geom.blocks_per_side, geom.num_levels, geom.capacity
@@ -298,6 +334,8 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
     ext += [None] * (2 - len(ext))
     if when is not None:
         when = c(when.reshape(()), "when", torch.bool, (), dev)
+    if owner is not None:
+        c(owner, "owner", torch.int32, (b, b, b), dev)
     c(state.slot, "slot", torch.int32, (b, b, b), dev)
     c(state.block_coord, "block_coord", torch.int32, (cap, 3), dev)
     c(state.active, "active", torch.bool, (cap,), dev)
@@ -308,14 +346,15 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
                             (b >> lvl,) * 3, dev).data_ptr()
     kb = min(b ** 3, ALLOC_BUDGET if budget is None else budget)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
-    _lib.launch("alloc_assign", "se_alloc_assign", dev, touched, *ext, when,
-                b, nl, cap, kb, state.slot, state.block_coord, state.active,
+    _lib.launch("alloc_assign" if owner is None else "alloc_assign_owned",
+                "se_alloc_assign", dev, touched, *ext, when, owner,
+                int(rank), b, nl, cap, kb, state.slot, state.block_coord, state.active,
                 state.n_blocks, overflow, mips)
     return overflow
 
 
 def alloc_assign_plain(geom, state, touched, when=None, budget: int = None,
-                       extra=()):
+                       extra=(), owner=None, rank: int = 0):
     """Plain PyTorch twin of :func:`alloc_assign` (same in-place contract,
     and the grids likewise all zero on return).
 
@@ -334,6 +373,8 @@ def alloc_assign_plain(geom, state, touched, when=None, budget: int = None,
     dev = touched.device
     kb = min(n_cells, ALLOC_BUDGET if budget is None else budget)
     grids = (touched,) + tuple(extra)
+    if owner is not None:
+        touched = touched & (owner == rank)
     if when is not None:
         touched = touched & when
         extra = tuple(e & when for e in extra)

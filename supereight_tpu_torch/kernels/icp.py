@@ -9,16 +9,20 @@ the H100.
 * :func:`icp_track` — a frame's whole coarse-to-fine Gauss-Newton, 6x6
   solves, pose updates and ``check_pose`` in one launch of one
   thread-block cluster; the frame's path (``ops/tracking.track``).
-* :func:`icp_reduce` — one level's residuals and 32-float reduction,
-  without the solve: one device's share of a summed multi-device
-  reduction. Not on the frame's path.
+* :func:`icp_reduce` (:func:`icp_reduce64`) — one level's residuals and
+  32-float reduction (f64 sums over a column window), without the solve:
+  one rank's share of the sharded frame's summed reduction
+  (``ops/tracking.track`` with a process group).
+* :func:`icp_update` — one Gauss-Newton iteration from the ranks' summed
+  reduction: the solve, the update, the freeze of a converged level and,
+  on the frame's last call, ``check_pose``.
 
-:func:`icp_track_plain` and :func:`icp_reduce_plain` are the plain
-PyTorch versions, used for CPU tensors and as the kernels' reference on
-the card.
+:func:`icp_track_plain`, :func:`icp_reduce_plain` (:func:`icp_reduce64_plain`)
+and :func:`icp_update_plain` are the plain PyTorch versions, used for CPU
+tensors and as the kernels' reference on the card.
 """
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -45,14 +49,32 @@ def icp_reduce(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
     [4, 4]; view: K @ raycast_pose^-1 [4, 4]. All on one device.
     Returns (result i32[h, w], reduction f32[32]).
     """
+    result, red64 = icp_reduce64(in_vertex, in_normal, in_valid, ref_vertex,
+                                 ref_normal, ref_valid, pose, view,
+                                 dist_threshold, normal_threshold)
+    return result, red64.to(torch.float32)
+
+
+def icp_reduce64(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
+                 ref_valid, pose, view, dist_threshold=DIST_THRESHOLD,
+                 normal_threshold=NORMAL_THRESHOLD, x0=0, width=None):
+    """:func:`icp_reduce` with the 32 sums left in f64 (the kernel's CTA
+    partials added in f64) over the level's columns [x0, x0 + width)
+    (default: all of them): one rank's share of a reduction that the
+    ranks sum before it is rounded once to f32 (``ops/tracking.track``
+    with a process group). Returns (result i32[h, width], f64[32])."""
     dev = in_vertex.device
+    h, w = in_vertex.shape[:2]
+    width = w - x0 if width is None else width
+    if not (0 <= x0 and 0 < width and x0 + width <= w):
+        raise ValueError(f"icp_reduce: columns [{x0}, {x0 + width}) are "
+                         f"not inside a level {w} wide")
     if dev.type == "cpu":
-        return icp_reduce_plain(in_vertex, in_normal, in_valid, ref_vertex,
-                                ref_normal, ref_valid, pose, view,
-                                dist_threshold, normal_threshold)
+        return icp_reduce64_plain(in_vertex, in_normal, in_valid, ref_vertex,
+                                  ref_normal, ref_valid, pose, view,
+                                  dist_threshold, normal_threshold, x0, width)
     if dev.type != "cuda":
         raise ValueError(f"icp_reduce: unsupported device {dev}")
-    h, w = in_vertex.shape[:2]
     rh, rw = ref_vertex.shape[:2]
     c = _lib.check
     c(in_vertex, "in_vertex", torch.float32, (h, w, 3), dev)
@@ -63,17 +85,17 @@ def icp_reduce(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
     c(ref_valid, "ref_valid", torch.bool, (rh, rw), dev)
     c(pose, "pose", torch.float32, (4, 4), dev)
     c(view, "view", torch.float32, (4, 4), dev)
-    n = h * w
-    result = torch.empty((h, w), dtype=torch.int32, device=dev)
+    n = h * width
+    result = torch.empty((h, width), dtype=torch.int32, device=dev)
     # f64 CTA sums, added in f64 and rounded once, as reduce_tracking does
     partials = torch.empty(((n + _THREADS - 1) // _THREADS, 32),
                            dtype=torch.float64, device=dev)
     _lib.launch("icp_reduce", "se_icp_reduce", dev,
-                in_vertex, in_normal, in_valid, n,
+                in_vertex, in_normal, in_valid, n, width, w, x0,
                 ref_vertex, ref_normal, ref_valid, rh, rw, pose, view,
                 float(dist_threshold), float(normal_threshold), result,
                 partials)
-    return result, partials.sum(0).to(torch.float32)
+    return result, partials.sum(0)
 
 
 def track_residuals(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
@@ -141,6 +163,11 @@ def reduce_tracking(result, error, jac):
     differ by more than the Gauss-Newton step they feed, so a kernel and
     this twin would part ways within a few iterations (ROADMAP.md,
     Queue 3)."""
+    return reduce_tracking64(result, error, jac).to(torch.float32)
+
+
+def reduce_tracking64(result, error, jac):
+    """:func:`reduce_tracking`'s f64 sums, before the rounding."""
     z = (error,) + tuple(jac)
     terms = [z[0] * z[0]]
     terms += [z[0] * z[1 + i] for i in range(6)]
@@ -148,18 +175,31 @@ def reduce_tracking(result, error, jac):
     terms += [result == TRACK_OK, result == TRACK_TOO_FAR,
               result == TRACK_BAD_NORMAL,
               (result < 1) & (result > TRACK_TOO_FAR)]
-    return torch.stack([torch.sum(t, dtype=torch.float64)
-                        for t in terms]).to(torch.float32)
+    return torch.stack([torch.sum(t, dtype=torch.float64) for t in terms])
 
 
 def icp_reduce_plain(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
                      ref_valid, pose, view, dist_threshold=DIST_THRESHOLD,
                      normal_threshold=NORMAL_THRESHOLD):
     """Plain PyTorch twin of :func:`icp_reduce`."""
-    res, err, jac = track_residuals(in_vertex, in_normal, in_valid,
+    res, red64 = icp_reduce64_plain(in_vertex, in_normal, in_valid,
                                     ref_vertex, ref_normal, ref_valid, pose,
                                     view, dist_threshold, normal_threshold)
-    return res, reduce_tracking(res, err, jac)
+    return res, red64.to(torch.float32)
+
+
+def icp_reduce64_plain(in_vertex, in_normal, in_valid, ref_vertex,
+                       ref_normal, ref_valid, pose, view,
+                       dist_threshold=DIST_THRESHOLD,
+                       normal_threshold=NORMAL_THRESHOLD, x0=0, width=None):
+    """Plain PyTorch twin of :func:`icp_reduce64`: the columns [x0, x0 +
+    width) of the level, JAX's column slice."""
+    cols = slice(x0, None if width is None else x0 + width)
+    res, err, jac = track_residuals(
+        in_vertex[:, cols], in_normal[:, cols], in_valid[:, cols],
+        ref_vertex, ref_normal, ref_valid, pose, view, dist_threshold,
+        normal_threshold)
+    return res, reduce_tracking64(res, err, jac)
 
 
 def make_jtj(v21):
@@ -226,6 +266,81 @@ def check_pose(pose, old_pose, reduction, image_size,
     bad = (rms > 2e-2) | (n_inliers / total < track_threshold) \
         | (n_inliers == 0)
     return torch.where(bad, old_pose, pose), ~bad
+
+
+class Carry(NamedTuple):
+    """What one Gauss-Newton iteration of a sharded frame hands the next
+    (:func:`icp_update`): the pose estimate, the last reduction that was
+    not frozen (f32[32]) and whether the level has converged."""
+    pose: torch.Tensor
+    reduction: torch.Tensor
+    done: torch.Tensor
+
+
+def icp_update(red64, pose, carry: Carry = None, first_of_level=True,
+               icp_threshold=1e-5, old_pose=None, image_size=None,
+               track_threshold=TRACK_THRESHOLD):
+    """One Gauss-Newton iteration from the ranks' summed reduction
+    ``red64`` (f64[32], rounded here once to f32): JAX's ``track`` body in
+    its ``axis_name`` mode (``ops/tracking.py:281-293``). ``pose`` is the
+    estimate to step from (the frame's start pose on its first call,
+    else ``carry.pose``); ``carry`` None is the frame's first call (the
+    reduction reads as zeros); ``first_of_level`` clears ``done``, as
+    each level's loop starts unfrozen. A converged level keeps its pose
+    and reduction. With ``old_pose`` (the frame's last call) also runs
+    ``check_pose`` against it over the reference's ``image_size`` (h, w)
+    and returns (carry, (checked pose, tracked)), else (carry, None).
+    One launch of one warp on a CUDA device, no host sync."""
+    dev = red64.device
+    if dev.type == "cpu":
+        return icp_update_plain(red64, pose, carry, first_of_level,
+                                icp_threshold, old_pose, image_size,
+                                track_threshold)
+    if dev.type != "cuda":
+        raise ValueError(f"icp_update: unsupported device {dev}")
+    c = _lib.check
+    c(red64, "red64", torch.float64, (32,), dev)
+    c(pose, "pose", torch.float32, (4, 4), dev)
+    red_in = done_in = None
+    if carry is not None:
+        red_in = c(carry.reduction, "reduction", torch.float32, (32,), dev)
+        if not first_of_level:
+            done_in = c(carry.done, "done", torch.bool, (), dev)
+    out = Carry(torch.empty((4, 4), dtype=torch.float32, device=dev),
+                torch.empty(32, dtype=torch.float32, device=dev),
+                torch.empty((), dtype=torch.bool, device=dev))
+    checked = tracked = None
+    if old_pose is not None:
+        c(old_pose, "old_pose", torch.float32, (4, 4), dev)
+        checked = torch.empty((4, 4), dtype=torch.float32, device=dev)
+        tracked = torch.empty((), dtype=torch.bool, device=dev)
+    rh, rw = image_size if old_pose is not None else (0, 0)
+    _lib.launch("icp_update", "se_icp_update", dev, red64, pose, red_in,
+                done_in, out.pose, out.reduction, out.done,
+                float(icp_threshold), old_pose, float(track_threshold), rh,
+                rw, checked, tracked)
+    return out, (None if old_pose is None else (checked, tracked))
+
+
+def icp_update_plain(red64, pose, carry: Carry = None, first_of_level=True,
+                     icp_threshold=1e-5, old_pose=None, image_size=None,
+                     track_threshold=TRACK_THRESHOLD):
+    """Plain PyTorch twin of :func:`icp_update`: ``update_pose``, the
+    freeze by ``torch.where`` and ``check_pose``."""
+    red = red64.to(torch.float32)
+    new_pose, converged = update_pose(pose, red, icp_threshold)
+    if carry is None:
+        reduction = torch.zeros(32, dtype=torch.float32, device=pose.device)
+    else:
+        reduction = carry.reduction
+    done = torch.zeros((), dtype=torch.bool, device=pose.device) \
+        if carry is None or first_of_level else carry.done
+    out = Carry(torch.where(done, pose, new_pose),
+                torch.where(done, reduction, red), done | converged)
+    if old_pose is None:
+        return out, None
+    return out, check_pose(out.pose, old_pose, out.reduction, image_size,
+                           track_threshold)
 
 
 def icp_track(pose, view, pyr_vertex, pyr_normal, pyr_valid, ref_vertex,

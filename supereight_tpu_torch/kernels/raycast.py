@@ -131,7 +131,8 @@ def gated(field, min_ref_weight) -> bool:
 
 def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
                  frame_size, max_steps: int = None, prev: Previous = None,
-                 min_ref_weight=0, near=NEAR_PLANE, far=FAR_PLANE):
+                 min_ref_weight=0, near=NEAR_PLANE, far=FAR_PLANE, x0=0,
+                 width=None):
     """March every pixel ray of ``view`` (= pose @ invK, the frame's
     prologue) through the map from ``near`` to ``far`` (and the map cube),
     each primed by ``depth`` (f32[H, W], this frame's, taken at the
@@ -145,10 +146,13 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     the new frame state's, prev's where ``prev.when`` is False. With a
     TSDF ``min_ref_weight`` > 0 a hit is valid only where its voxel, read
     through ``state.slot``, has fused at least that weight (JAX's
-    map-maturity gate, before the select). One launch on a CUDA device,
-    no host sync; the launch count is kept per field, gate and start
+    map-maturity gate, before the select). ``width`` given marches only
+    the rays of the image columns [x0, x0 + width) (the sharded step's
+    rank slice, primed from the whole frame at those columns); the maps,
+    and ``prev``'s, are then [H, width]. One launch on a CUDA device, no
+    host sync; the launch count is kept per field, gate, start and window
     (``raycast``, ``raycast_gated``, ``raycast_of``, ``raycast_cold``,
-    ``raycast_cold_of``).
+    ``raycast_cold_of``, ``raycast_cols``, ``raycast_cols_of``).
     """
     dev = view.device
     gate = gated(field, min_ref_weight)
@@ -156,15 +160,21 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     if not primed and (prev is not None or gate):
         raise ValueError("raycast_rays: the unprimed march takes no select "
                          "and no maturity gate")
+    w, h = frame_size
+    w_out = w - x0 if width is None else width
+    if not (0 <= x0 and 0 < w_out and x0 + w_out <= w):
+        raise ValueError(f"raycast_rays: columns [{x0}, {x0 + w_out}) are "
+                         f"not inside an image {w} wide")
+    if width is not None and not primed:
+        raise ValueError("raycast_rays: a column window is primed")
     if dev.type == "cpu":
         return raycast_plain(geom, field, state.data_x, state.data_y, nav,
                              view, depth, k, mu, frame_size, max_steps, prev,
                              slot=state.slot if gate else None,
                              min_ref_weight=min_ref_weight, near=near,
-                             far=far)
+                             far=far, x0=x0, width=width)
     if dev.type != "cuda":
         raise ValueError(f"raycast_rays: unsupported device {dev}")
-    w, h = frame_size
     b = geom.blocks_per_side
     cap = geom.capacity
     c = _lib.check
@@ -186,14 +196,14 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
                c(prev.pose, "pose", torch.float32, (4, 4), dev),
                c(prev.raycast_pose, "raycast_pose", torch.float32, (4, 4),
                  dev),
-               c(prev.vertex, "vertex", torch.float32, (h, w, 3), dev),
-               c(prev.normal, "normal", torch.float32, (h, w, 3), dev),
-               c(prev.valid, "valid", torch.bool, (h, w), dev))
+               c(prev.vertex, "vertex", torch.float32, (h, w_out, 3), dev),
+               c(prev.normal, "normal", torch.float32, (h, w_out, 3), dev),
+               c(prev.valid, "valid", torch.bool, (h, w_out), dev))
         raycast_pose = torch.empty((4, 4), dtype=torch.float32, device=dev)
     q = march_params(geom, field, mu, max_steps)
-    vertex = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-    normal = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
-    valid = torch.empty((h, w), dtype=torch.bool, device=dev)
+    vertex = torch.empty((h, w_out, 3), dtype=torch.float32, device=dev)
+    normal = torch.empty((h, w_out, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((h, w_out), dtype=torch.bool, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
     key = (dev, torch.cuda.current_stream(dev).cuda_stream)
     if key not in _SCRATCH:
@@ -201,10 +211,12 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     of = field.name == "ofusion"
     name = ("raycast_of" if of else "raycast_gated" if gate else "raycast") \
         if primed else ("raycast_cold_of" if of else "raycast_cold")
+    if width is not None:
+        name = "raycast_cols_of" if of else "raycast_cols"
     _lib.launch(name, "se_raycast", dev,
                 view, nav, state.data_x, state.data_y, slot,
                 float(min_ref_weight), depth, k, int(of),
-                w, h, geom.size, b, q["max_probes"], geom.dim,
+                w, h, x0, w_out, geom.size, b, q["max_probes"], geom.dim,
                 geom.inv_voxel_size, q["step"], q["largestep"],
                 q["half_largestep"], q["bstep"], float(mu), float(near),
                 float(far), q["small_backoff"], q["big_backoff"],
@@ -213,12 +225,12 @@ def raycast_rays(geom, state, field, nav, view, depth, k, mu: float,
     return Rays(vertex, normal, valid, overflow, raycast_pose)
 
 
-def ray_directions_c(view, width, height):
-    """Per-pixel world-space unit ray directions (ref rendering.cpp:62-65),
-    three flat [H*W] tensors."""
+def ray_directions_c(view, width, height, x0=0):
+    """Per-pixel world-space unit ray directions (ref rendering.cpp:62-65)
+    of the image columns [x0, x0 + width), three flat [H*width] tensors."""
     dev = view.device
     ys = torch.arange(height, dtype=torch.float32, device=dev)
-    xs = torch.arange(width, dtype=torch.float32, device=dev)
+    xs = torch.arange(width, dtype=torch.float32, device=dev) + float(x0)
     py, px = torch.meshgrid(ys, xs, indexing="ij")
     dx, dy, dz = se3.rotate_c(view, px, py, torch.ones_like(px))
     inv = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
@@ -274,17 +286,24 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, depth, k,
                   mu: float, frame_size, max_steps: int = None,
                   prev: Previous = None, with_probes: bool = False,
                   slot=None, min_ref_weight=0, near=NEAR_PLANE,
-                  far=FAR_PLANE):
+                  far=FAR_PLANE, x0=0, width=None):
     """Plain PyTorch twin of :func:`raycast_rays` (data_x/data_y are the
     map's pool channels, ``slot`` its slot grid, read by the TSDF gate
     when ``min_ref_weight`` > 0): :func:`prime_from_depth` (none where
     ``depth`` is None: the unprimed start), the march, the gate and the
-    select of ``prev`` as the JAX frame step makes them. With
-    ``with_probes`` returns (rays, :class:`Probes`)."""
-    prime = None if depth is None else prime_from_depth(depth, k)
+    select of ``prev`` as the JAX frame step makes them; with ``width``
+    the image columns [x0, x0 + width) alone, as JAX's sharded step slices
+    them (``dist_step.py:411-419``). With ``with_probes`` returns (rays,
+    :class:`Probes`)."""
+    prime = None
+    if depth is not None:
+        prime = prime_from_depth(depth, k)
+        if width is not None:
+            h, w = depth.shape
+            prime = prime.view(h, w)[:, x0:x0 + width].reshape(-1)
     rays, probes = march_plain(geom, field, data_x, data_y, nav, view,
                                prime, mu, frame_size, max_steps, with_probes,
-                               near, far)
+                               near, far, x0, width)
     if gated(field, min_ref_weight):
         w_ref = ref_weight_plain(geom, slot, data_y, rays.vertex)
         rays = rays._replace(valid=rays.valid & (w_ref >= min_ref_weight))
@@ -301,19 +320,22 @@ def raycast_plain(geom, field, data_x, data_y, nav, view, depth, k,
 
 def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
                 frame_size, max_steps: int = None, with_probes: bool = False,
-                near=NEAR_PLANE, far=FAR_PLANE):
+                near=NEAR_PLANE, far=FAR_PLANE, x0=0, width=None):
     """The march of :func:`raycast_plain` from a given prime (f32[H*W],
     :func:`prime_from_depth`; None for the unprimed start) between
     ``near`` and ``far``: (:class:`Rays` without a raycast pose,
-    :class:`Probes` with ``with_probes``, else None)."""
+    :class:`Probes` with ``with_probes``, else None); with ``width`` the
+    rays of the image columns [x0, x0 + width) (the prime is theirs)."""
     w, h = frame_size
+    if width is not None:
+        w = width
     size, b = geom.size, geom.blocks_per_side
     iv = geom.inv_voxel_size
     of = field.name == "ofusion"
     unk, fill = _SENTINEL[field.name], _FILL[field.name]
     q = march_params(geom, field, mu, max_steps)
     step = q["step"]
-    dx, dy, dz = ray_directions_c(view, w, h)
+    dx, dy, dz = ray_directions_c(view, w, h, x0)
     ox, oy, oz = view[0, 3], view[1, 3], view[2, 3]
     tnear, tfar = ray_box_range_c((ox, oy, oz), dx, dy, dz, geom.dim, near,
                                   far)

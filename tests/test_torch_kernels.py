@@ -1071,3 +1071,156 @@ def test_pose_graph_on_cuda_matches_cpu(cuda):
     got, again = solve(cuda), solve(cuda)
     assert torch.equal(got, again)
     assert torch.allclose(got.cpu(), solve("cpu"), atol=1e-5, rtol=0)
+
+
+def _windows(width, n=4):
+    return [(r * (width // n), width // n) for r in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_sharded_icp_modes_match_twins_on_cuda(cuda, field):
+    """Mode A of the sharded step: K6's icp_reduce over a rank's column
+    window (its result the full launch's columns, bit for bit; its f64
+    sums the twin's to 1e-9 of the largest) and icp_update (the solve,
+    freeze and check_pose) against its twin, launches counted."""
+    geom, state, k, depth = _frames(cuda, field=field)
+    kview = se3.matmul4(se3.camera_matrix(k), se3.inverse(state.raycast_pose))
+    _, v, n, ok = preprocess_and_pyramid(depth, k, 2, False, False)
+    args = (v[0], n[0], ok[0], state.vertex, state.normal, state.valid,
+            state.pose, kview)
+    full, _ = icp.icp_reduce(*args)
+    total = torch.zeros(32, dtype=torch.float64, device=cuda)
+    for x0, w in _windows(W):
+        res, red = icp.icp_reduce64(*args, x0=x0, width=w)
+        res_p, red_p = icp.icp_reduce64_plain(*args, x0=x0, width=w)
+        assert torch.equal(res, full[:, x0:x0 + w])
+        assert torch.equal(res, res_p)
+        scale = float(red_p.abs().max())
+        assert torch.allclose(red, red_p, rtol=0, atol=1e-9 * scale)
+        total += red
+    before = _lib.LAUNCHES["icp_update"]
+    carry = carry_p = None
+    for it, first in enumerate((True, False, False)):
+        last = it == 2
+        got = icp.icp_update(total, state.pose if carry is None
+                             else carry.pose, carry, first, 1e-5,
+                             state.pose if last else None, (H, W))
+        want = icp.icp_update_plain(total, state.pose if carry_p is None
+                                    else carry_p.pose, carry_p, first, 1e-5,
+                                    state.pose if last else None, (H, W))
+        (carry, checked), (carry_p, checked_p) = got, want
+        assert torch.allclose(carry.pose, carry_p.pose, atol=1e-6, rtol=0)
+        assert torch.equal(carry.reduction, carry_p.reduction)
+        assert torch.equal(carry.done, carry_p.done)
+    assert torch.allclose(checked[0], checked_p[0], atol=1e-6, rtol=0)
+    assert torch.equal(checked[1], checked_p[1])
+    assert _lib.LAUNCHES["icp_update"] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_sharded_alloc_modes_match_twins_on_cuda(cuda, field):
+    """Mode B: K5's marches over a column window (bit-equal to the twin;
+    the four windows' union equals the whole frame's grids) and
+    alloc_assign with the owner mask against its twin, exactly."""
+    from supereight_tpu_torch.parallel.dist_step import owner_grid
+    geom, state, k, depth = _frames(cuda, field=field)
+    b = geom.blocks_per_side
+    mu = MU[field.name]
+    pose = state.pose
+    kpose = se3.matmul4(pose, se3.inverse_camera_matrix(k))
+    march = alloc.touched_mask if field is TSDF else alloc.touched_masks_of
+    whole = touched_buffer(b, cuda)
+    march(geom, depth, pose, kpose, mu, out=whole)
+    union = touched_buffer(b, cuda)
+    name = "alloc_touch_cols" if field is TSDF else "alloc_touch_of_cols"
+    before = _lib.LAUNCHES[name]
+    for x0, w in _windows(W):
+        got, want = touched_buffer(b, cuda), touched_buffer(b, cuda)
+        march(geom, depth, pose, kpose, mu, out=got, x0=x0, width=w)
+        plain = (alloc.touched_mask_plain(geom, depth[:, x0:x0 + w], pose,
+                                          kpose, mu, x0),) \
+            if field is TSDF else alloc.touched_masks_of_plain(
+                geom, depth[:, x0:x0 + w], pose, kpose, mu, None, x0)
+        for g, p in zip(alloc._grids(geom, got, cuda, len(plain)), plain):
+            assert torch.equal(g, p)
+        union |= got
+    assert torch.equal(union, whole)
+    assert _lib.LAUNCHES[name] == before + 4
+
+    owner = owner_grid(geom, 4, device=cuda)
+    grids = alloc._grids(geom, whole, cuda, 1 if field is TSDF else 3)
+    for rank in range(4):
+        ka, kb = chip_smoke.clone_map(state.map), chip_smoke.clone_map(
+            state.map)
+        ta, tb = whole.clone(), whole.clone()
+        ga = alloc._grids(geom, ta, cuda, len(grids))
+        gb = alloc._grids(geom, tb, cuda, len(grids))
+        oa = alloc.alloc_assign(geom, ka, ga[0], None, None, ga[1:], owner,
+                                rank)
+        ob = alloc.alloc_assign_plain(geom, kb, gb[0], None, None, gb[1:],
+                                      owner, rank)
+        assert int(oa) == int(ob)
+        for x, y in zip(ka, kb):
+            for u, v in zip(x if isinstance(x, tuple) else (x,),
+                            y if isinstance(y, tuple) else (y,)):
+                assert torch.equal(u, v)
+        owned = (ka.slot >= 0) & (state.map.slot < 0)
+        assert bool((owner[owned] == rank).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frustum", [True, False], ids=["frustum", "all"])
+def test_halo_pack_matches_twin_on_cuda(cuda, frustum):
+    """Mode C: halo_pack against its twin: counts and cell ids exactly, the
+    flagged rows' bricks bit for bit; a budget below the flagged count
+    overflows."""
+    from supereight_tpu_torch.kernels import frame as kframe
+    from supereight_tpu_torch.kernels import halo
+    geom, state, k, depth = _frames(cuda)
+    mats = kframe.frame_mats(k, state.pose)
+    n = int(state.map.n_blocks)
+    for budget in (geom.capacity, max(n // 2, 1)):
+        got, cnt = halo.halo_pack(geom, state.map, mats.t_cw, mats.kmat,
+                                  (W, H), budget, 0.3, frustum)
+        want, cnt_p = halo.halo_pack_plain(geom, state.map, mats.t_cw,
+                                           mats.kmat, (W, H), budget, 0.3,
+                                           frustum)
+        assert torch.equal(cnt, cnt_p)
+        filled = int(cnt[0])
+        assert filled > 0
+        assert torch.equal(halo.cells_of(got, budget),
+                           halo.cells_of(want, budget))
+        for rows in (slice(0, filled), slice(budget, budget + filled)):
+            assert torch.equal(got[rows], want[rows])
+        if budget < n and not frustum:
+            assert int(cnt[1]) == n - budget
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_raycast_window_matches_whole_image_on_cuda(cuda, field):
+    """Mode D: K1 over a column window gives the whole image's launch at
+    those columns bit for bit (the window at x0 = 0, w_out = w is that
+    launch), and matches its twin as the whole launch does."""
+    geom, state, k, depth = _frames(cuda, field=field)
+    m = state.map
+    mu = MU[field.name]
+    nv = nav.nav_grid(geom, m, field)
+    view = se3.matmul4(state.pose, se3.inverse_camera_matrix(k))
+    whole = kray.raycast_rays(geom, m, field, nv, view, depth, k, mu, (W, H))
+    name = "raycast_cols_of" if field is OFUSION else "raycast_cols"
+    before = _lib.LAUNCHES[name]
+    for x0, w in _windows(W):
+        got = kray.raycast_rays(geom, m, field, nv, view, depth, k, mu,
+                                (W, H), x0=x0, width=w)
+        for a, b in zip(got[:3], whole[:3]):
+            assert torch.equal(a, b[:, x0:x0 + w])
+        ref = kray.raycast_plain(geom, field, m.data_x, m.data_y, nv, view,
+                                 depth, k, mu, (W, H), x0=x0, width=w)
+        both = got.valid & ref.valid
+        assert (got.valid == ref.valid).float().mean() >= 0.999
+        assert torch.allclose(got.vertex[both], ref.vertex[both], atol=1e-4,
+                              rtol=0)
+    assert _lib.LAUNCHES[name] == before + 4

@@ -7,8 +7,10 @@ pipeline, the CLI, IO, evaluation and the tools among them) and run
 ``frame_step`` for both fields, the gather-form probe, and the CLI from a
 ``.raw`` file made by its converter, with a fresh-view render, a
 checkpoint round trip, the mesh export and the library surface's
-queries, and a synthetic CLI run with ``--keyframe-rate`` (the pose
-graph), on the CPU.
+queries, a synthetic CLI run with ``--keyframe-rate`` (the pose
+graph), and the sharded step (``parallel/dist_step.py``) for 4 frames in
+a world of one Gloo rank, in that process, on the CPU (ranks it spawned
+would not inherit the import blocker).
 """
 
 import json
@@ -92,6 +94,24 @@ out["cli"] = {"blocks": pipe.block_count(), "lit": lit,
               "interp": bool(torch.isfinite(vol.interp(pts)).all()),
               "collision": int(geometry.collides_with(
                   pipe.geom, pipe.map, pipe.field, (0, 0, 0), (4, 4, 4)))}
+
+# the sharded step in a world of one Gloo rank, in this process
+from supereight_tpu_torch.parallel import dist_step, distributed
+distributed.initialize("gloo", "cpu",
+                       init_method="file://" + os.path.join(tmp, "store"),
+                       world_size=1, rank=0)
+dstep = dist_step.make_dist_step(None, geom, TSDF, frame_size=(64, 48),
+                                 iterations=(3, 2), mu=0.1,
+                                 icp_threshold=1e-5)
+ds = dist_step.init_dist_state(None, geom, TSDF, (64, 48), poses[0], "cpu")
+for i in range(4):
+    ds, daux = dstep(ds, torch.from_numpy(depths[i]), torch.tensor(K), i)
+out["dist"] = {"blocks": daux["n_blocks_dev"].tolist(),
+               "halo": int(daux["halo_blocks"]),
+               "finite": bool(torch.isfinite(ds.pose).all()),
+               "keys": sorted(daux), "primary": distributed.is_primary(),
+               "scaling": distributed.scaling_report(2.0, 4)}
+torch.distributed.destroy_process_group()
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(json.dumps(out))
 '''
@@ -110,6 +130,15 @@ def test_port_runs_without_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     out = json.loads(out.stdout.strip().splitlines()[-1])
     assert out.pop("probe")
+    dist = out.pop("dist")
+    assert dist["finite"] and dist["blocks"][0] > 0
+    assert 0 < dist["halo"] <= dist["blocks"][0]
+    assert dist["primary"]
+    assert dist["scaling"] == {"fps": 2.0, "ranks": 1, "fps_per_rank": 2.0}
+    assert dist["keys"] == sorted(
+        ["tracked", "integrated", "reduction", "n_blocks_dev",
+         "alloc_overflow", "blocks_truncated", "ray_overflow",
+         "halo_overflow", "halo_blocks"])
     res = out.pop("cli")
     assert res["blocks"] > 0 and res["lit"] > 0
     assert res["renders"] == ["frame00004.ppm"]
