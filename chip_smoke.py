@@ -96,8 +96,23 @@ checkout:
    without the round trip, bit for bit, and ``dump_mesh`` (triangles,
    time); it prints each ATE beside its row, the log's mean computation a
    frame, wall fps, peak device memory and, from five more frames under
-   torch.profiler, the device's busy share; then the TSDF path with the
-   keyframe pose graph (``--keyframe-rate 15``, EVAL_table.md's BA row):
+   torch.profiler, the device's busy share; the host-IO step: the
+   native library built from ``native/src`` (its build time, whether it
+   came from the cache; its reader equal to the Python reader on every
+   frame of the loop, depth and RGB), ``dump_mesh`` through its native
+   writer (``io/meshing.WRITES``; time and size), the telemetry sample
+   after the TSDF run (the peak equal to ``max_memory_allocated()``, the
+   limit to the card's memory), a flag whose package does not import
+   refusing cleanly (``--plot-out`` without matplotlib; where matplotlib
+   imports, a PNG), and where Pillow imports the served TSDF loop as a
+   path of its own: a run with ``--serve`` and no control request equal
+   to pipeline-tsdf's first rows, then a session driven over HTTP (the
+   viewer starts paused; ``/stats`` advances, a pause holds for a second,
+   ``/stream``'s JPEG decodes to the composite's size, the static view
+   launches ``raycast_cold``, a reset makes the blocks fall and rise,
+   drops 0, peak memory within 1.2x pipeline-tsdf's); then the TSDF path
+   with the keyframe pose graph (``--keyframe-rate 15``, EVAL_table.md's
+   BA row):
    drop counters 0, tracked fraction 0.98, ATE <= 0.0285 m, at least one
    accepted loop closure, icp_track launched once a frame plus once a
    closure try, and the first closure's icp_track (3x gate) against its
@@ -283,6 +298,19 @@ BA_ARGS = ("--keyframe-rate", "15")
 EVAL_BA_ATE = 0.0228
 MAX_BA_ATE = 0.0285
 CLOSURE_DIST = 0.3
+# the host-IO step: the served TSDF loop. A run of SERVED_FRAMES
+# frames without controls must log pipeline-tsdf's first SERVED_FRAMES
+# rows; then a session whose viewer starts paused is driven over HTTP. It
+# runs with --groundtruth-mode: after a reset past frame 3 the new
+# pipeline has no raycast to track against, so in ICP mode its map stays
+# empty (JAX's semantics, copied); ground-truth poses let it grow again.
+# A reset frees the first pool before it builds the second, so the
+# session's peak memory stays within SERVED_PEAK_RATIO of pipeline-tsdf's.
+SERVED_FRAMES = 40
+SERVE_DEADLINE = 120.0   # s for any one state of the session
+SERVE_POLL = 0.005       # s between /stats reads while waiting
+PAUSE_HOLD = 1.0         # s a pause must hold the frame count
+SERVED_PEAK_RATIO = 1.2
 # the library phase (the library surface's sphere drive): a sphere shell
 # at full width, its blocks those whose centre lies within 2 half
 # diagonals of the surface (tests/test_meshing.py:78-110), the analytic
@@ -470,6 +498,12 @@ PATHS = {  # the kernels each main path must launch
                          "alloc_touch", "alloc_assign", "integrate_worklist",
                          "integrate_fused", "integrate_fallback",
                          "node_rank", "node_pass", "nav_grid", "raycast"),
+    # the served TSDF loop (host-IO step): a run without controls, then the
+    # controlled session, whose static view is K1's unprimed launch
+    "served": ("pyramid", "frame_mats", "icp_track", "alloc_touch",
+               "alloc_assign", "integrate_worklist", "integrate_fused",
+               "integrate_fallback", "node_rank", "node_pass", "nav_grid",
+               "raycast", "raycast_cold"),
     # the library surface: allocate_blocks over a sphere shell
     "library": ("alloc_assign",),
     # the sharded step, four ranks on one card (the dist phase)
@@ -2408,6 +2442,13 @@ def cli_stderr(text):
     return ate, drops, fps
 
 
+def loop_argv(raw, name, log, frames):
+    """The CLI's arguments for ``frames`` frames of the loop .raw at
+    run_longseq_eval.py's settings and field ``name``'s options."""
+    return (["-i", raw, "-g", raw + ".gt.txt", "-o", log, "--max-frames",
+             str(frames)] + list(PIPE_ARGS) + list(PIPE_FIELD_ARGS[name]))
+
+
 def pipeline_run(torch, name, raw, tmp, card):
     """The class pipeline's path for one field: the port's CLI
     (``cli.run``, in this process) over the loop .raw with
@@ -2425,10 +2466,8 @@ def pipeline_run(torch, name, raw, tmp, card):
     path = "pipeline-" + name
     log = os.path.join(tmp, name + ".log")
     renders = os.path.join(tmp, "renders-" + name)
-    argv = (["-i", raw, "-g", raw + ".gt.txt", "-o", log,
-             "--trajectory-out", os.path.join(tmp, name + ".traj"),
-             "--max-frames", str(LOOP_FRAMES)] + list(PIPE_ARGS)
-            + list(PIPE_FIELD_ARGS[name]))
+    argv = loop_argv(raw, name, log, LOOP_FRAMES) + [
+        "--trajectory-out", os.path.join(tmp, name + ".traj")]
     field_args = PIPE_FIELD_ARGS[name]
     rate = int(field_args[field_args.index("-z") + 1])
     if rate:
@@ -2563,25 +2602,40 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
 
 
 def pipeline_phase(torch, raw, tmp, card):
-    """Both fields' class-pipeline paths over the loop; the TSDF pipeline
-    then resumes from a checkpoint and exports its mesh; both profiled;
-    then the TSDF path with keyframes (:func:`ba_run`). Returns the paths'
-    launch counts and the closure icp_track's error against its twin."""
+    """Both fields' class-pipeline paths over the loop, with the host-IO
+    step around them (the native library and its reader first; after the
+    TSDF run its telemetry, then a checkpoint resume and the mesh export
+    through the native writer); both profiled; then the refusals of a
+    flag whose package does not import and, where Pillow imports, the
+    served loop (:func:`served_phase`); then the TSDF path with keyframes
+    (:func:`ba_run`). Returns the paths' launch counts and the closure
+    icp_track's error against its twin."""
     launches = {}
+    host_io = check_native(raw, card)
     for name in ("tsdf", "ofusion"):
         tag = f"pipeline {name}"
         pipe, counts, numbers = pipeline_run(torch, name, raw, tmp, card)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         if name == "tsdf":
+            host_io.update(check_telemetry(torch, card))
             check_resume(torch, pipe, raw, tmp, tag)
-            check_dump_mesh(pipe, tmp, tag, card)
+            host_io.update(check_dump_mesh(pipe, tmp, tag, card))
             no_ba_ate = numbers["ate"]
+            tsdf_peak_mib = numbers["peak_mib"]
         numbers.update(pipeline_profile(torch, pipe, raw,
                                         numbers["computation_ms"], tag))
         print(f"{tag}: {json.dumps(numbers)}")
         del pipe
         torch.cuda.empty_cache()
+    have = check_refusals(raw, tmp)
+    if have["PIL"]:
+        counts, numbers = served_phase(torch, raw, tmp, card, tsdf_peak_mib)
+        host_io.update(numbers)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    print(f"host-io: {json.dumps(host_io)}")
     counts, closure_err, numbers = ba_run(torch, raw, tmp, card, no_ba_ate)
     print(f"pipeline tsdf-ba: {json.dumps(numbers)}")
     for k, v in counts.items():
@@ -2842,18 +2896,343 @@ def ba_run(torch, raw, tmp, card, no_ba_ate):
 
 
 def check_dump_mesh(pipe, tmp, tag, card):
-    """dump_mesh of the pipeline's map to .obj: it must produce
-    triangles; its time and the triangle count are printed."""
+    """dump_mesh of the pipeline's map to .obj through the native writer
+    (``io/meshing.WRITES`` must count one native file and no Python one):
+    it must produce triangles; its time, the writer's alone (the same
+    triangles written again) and the file's size are printed."""
+    from supereight_tpu_torch.io import meshing
     path = os.path.join(tmp, "loop.obj")
+    before = dict(meshing.WRITES)
     t0 = time.perf_counter()
     tris = pipe.dump_mesh(path)
     dt = time.perf_counter() - t0
+    wrote = {k: meshing.WRITES[k] - before[k] for k in before}
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    meshing.write_obj(path, tris)
+    dt_write = time.perf_counter() - t0
     print(f"{tag}: dump_mesh of {pipe.block_count()} blocks: {len(tris)} "
-          f"triangles, {os.path.getsize(path) / 2**20:.1f} MiB .obj in "
-          f"{dt:.2f} s (one download, host numpy and the Python writer; "
-          f"{card})")
+          f"triangles, {size / 2**20:.1f} MiB .obj in {dt:.2f} s (one "
+          f"download, host numpy marching cubes and the native writer; the "
+          f"writer alone {dt_write:.2f} s; files by writer {wrote}; {card})")
     require(len(tris) > 0, f"{tag}: dump_mesh made no triangle")
+    require(wrote == {"native": 1, "python": 0},
+            f"{tag}: dump_mesh did not go through the native writer: "
+            f"{wrote}")
     os.remove(path)
+    return dict(mesh_s=dt, mesh_write_s=dt_write, triangles=len(tris),
+                obj_mib=size / 2**20)
+
+
+def check_native(raw, card):
+    """The native library, built from native/src at first use (or taken
+    from build/native/<hash>/): it must load, and its reader must give
+    every frame of the loop .raw as the Python reader does, depth and
+    RGB. Prints the build's time and the readers' times."""
+    import numpy as np
+    from supereight_tpu_torch.io import native
+    from supereight_tpu_torch.io.dataset import RawDepthReader
+    tag = "host-io native"
+    t0 = time.perf_counter()
+    ok = native.available()
+    dt = time.perf_counter() - t0
+    info = native.build_info
+    print(f"{tag}: library ready in {dt:.2f} s (g++ "
+          f"{info.get('seconds', 0.0):.2f} s, cached={info.get('cached')}, "
+          f"{info.get('path')}); available {ok}")
+    require(ok, f"{tag}: the native library did not build: "
+            f"{info.get('error')}")
+    fast, slow = native.NativeRawReader(raw), RawDepthReader(raw)
+    require((fast.width, fast.height, fast.num_frames)
+            == (slow.width, slow.height, slow.num_frames)
+            == (640, 480, LOOP_FRAMES), f"{tag}: the readers' sizes differ")
+    t_fast = t_slow = 0.0
+    for i in range(LOOP_FRAMES):
+        t0 = time.perf_counter()
+        d, rgb = fast.read_frame(i)
+        t1 = time.perf_counter()
+        pd, prgb = slow.read_frame(i)
+        t2 = time.perf_counter()
+        t_fast += t1 - t0
+        t_slow += t2 - t1
+        require(np.array_equal(d, pd) and np.array_equal(rgb, prgb),
+                f"{tag}: frame {i} differs from the Python reader's")
+    fast.close()
+    ms_fast, ms_slow = (1e3 * t / LOOP_FRAMES for t in (t_fast, t_slow))
+    print(f"{tag}: NativeRawReader equals RawDepthReader on all "
+          f"{LOOP_FRAMES} frames, depth and RGB ({ms_fast:.3f} against "
+          f"{ms_slow:.3f} ms a frame; {card})")
+    return dict(native_build_s=info.get("seconds", 0.0),
+                native_cached=info.get("cached"), native_read_ms=ms_fast,
+                python_read_ms=ms_slow)
+
+
+def check_telemetry(torch, card):
+    """DeviceMonitor's sample against the allocator and the card: the
+    peak equals max_memory_allocated(), the limit the card's memory."""
+    from supereight_tpu_torch.utils.telemetry import DeviceMonitor
+    series = DeviceMonitor().sample().series
+    got = {k: v[-1] for k, v in series.items()}
+    peak = torch.cuda.max_memory_allocated(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"host-io telemetry: {got}; max_memory_allocated {peak}, the "
+          f"card's memory {total} ({card})")
+    require(got.get("dev0.peak_bytes_in_use") == peak,
+            "host-io telemetry: the peak differs from max_memory_allocated")
+    require(got.get("dev0.bytes_limit") == total,
+            "host-io telemetry: the limit differs from the card's memory")
+    require(0 < got.get("dev0.bytes_in_use", 0) <= peak,
+            "host-io telemetry: bytes in use out of range")
+    return dict(peak_bytes=peak, bytes_limit=total)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.status, r.read()
+
+
+def read_stream_frame(port):
+    """The first JPEG of the viewer's MJPEG stream."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stream",
+                                timeout=10) as r:
+        require(r.readline().strip() == b"--se8frame",
+                "host-io served: no stream boundary")
+        r.readline()
+        n = int(r.readline().split(b":")[1])
+        r.readline()
+        return r.read(n)
+
+
+class ServedSession:
+    """The CLI with --serve in a daemon thread, its viewer started
+    paused so the script sets the pace over HTTP; every request has a
+    timeout and every wait a deadline."""
+
+    def __init__(self, argv):
+        import threading
+        from supereight_tpu_torch import webviewer
+        self.viewers = []
+        session = self
+
+        class Paused(webviewer.LiveViewer):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.paused = True
+                session.viewers.append(self)
+        self.webviewer, self.original = webviewer, webviewer.LiveViewer
+        webviewer.LiveViewer = Paused
+        self.port = free_port()
+        self.result = {}
+        self.thread = threading.Thread(
+            target=self._run, args=(argv + ["--serve", str(self.port)],),
+            daemon=True)
+        self.thread.start()
+
+    def _run(self, argv):
+        from supereight_tpu_torch import cli
+        try:
+            cli.run(argv)
+            self.result["done"] = True
+        except BaseException as e:   # raised again by the script's thread
+            self.result["error"] = e
+
+    def stats(self):
+        return json.loads(http_get(self.port, "/stats")[1])
+
+    def ctl(self, cmd):
+        require(http_get(self.port, "/ctl?cmd=" + cmd)[0] == 204,
+                f"host-io served: /ctl?cmd={cmd} refused")
+
+    def wait(self, cond, what):
+        end = time.perf_counter() + SERVE_DEADLINE
+        while time.perf_counter() < end:
+            if "error" in self.result:
+                raise self.result["error"]
+            got = cond()
+            if got:
+                return got
+            time.sleep(SERVE_POLL)
+        raise RuntimeError(f"host-io served: timed out waiting for {what}")
+
+    def settle(self):
+        """The stats of a paused run once its last frame is pushed."""
+        def still():
+            a = self.stats()
+            time.sleep(0.3)
+            return a == self.stats() and a
+        return self.wait(still, "the pause to settle")
+
+    def close(self):
+        self.webviewer.LiveViewer = self.original
+        for v in self.viewers:
+            v.paused = False
+        self.thread.join(SERVE_DEADLINE)
+        for v in self.viewers:
+            v.stop()
+
+
+def served_phase(torch, raw, tmp, card, tsdf_peak_mib):
+    """The served TSDF loop, a path with the launch counts zeroed just
+    before and read just after: SERVED_FRAMES frames with --serve and no
+    control request must log pipeline-tsdf's first rows bit for bit;
+    then the controlled session (ground-truth poses, the whole loop):
+    /stats advances, a pause holds the frame count PAUSE_HOLD s, resume
+    lets it go on, /stream's JPEG decodes to the composite's size, the
+    static view launches K1's unprimed march, a reset makes the block
+    count fall and rise again, every drop counter stays 0 and the peak
+    memory stays within SERVED_PEAK_RATIO of pipeline-tsdf's. Returns the
+    path's launch counts and its numbers."""
+    from PIL import Image
+    from supereight_tpu_torch import cli
+    from supereight_tpu_torch.kernels import _lib
+    tag = "host-io served"
+    log = os.path.join(tmp, "served.log")
+    rows_ref = open(os.path.join(tmp, "tsdf.log")).read().splitlines()
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    with contextlib.redirect_stderr(err):
+        cli.run(loop_argv(raw, "tsdf", log, SERVED_FRAMES)
+                + ["--serve", str(free_port())])
+    rows = open(log).read().splitlines()
+    xyz = [r.split("\t")[9:12] for r in rows[1:]]
+    require(len(xyz) == SERVED_FRAMES
+            and xyz == [r.split("\t")[9:12]
+                        for r in rows_ref[1:SERVED_FRAMES + 1]],
+            f"{tag}: the run without controls differs from pipeline-tsdf")
+    require("# live view: http://localhost:" in err.getvalue(),
+            f"{tag}: the run served nothing")
+    print(f"{tag}: {SERVED_FRAMES} frames with --serve and no control "
+          "request: X/Y/Z equal to pipeline-tsdf's first rows, as text")
+
+    torch.cuda.reset_peak_memory_stats()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        s = ServedSession(loop_argv(raw, "tsdf", log, LOOP_FRAMES)
+                          + ["--groundtruth-mode"])
+        try:
+            s.wait(lambda: s.viewers and s.stats() == {}, "the server")
+            s.ctl("resume")
+            first = s.wait(lambda: (st := s.stats()).get("frame", -1) >= 8
+                           and st, "frame 8")
+            second = s.wait(lambda: (st := s.stats())["frame"]
+                            > first["frame"] and st, "/stats to advance")
+            s.ctl("pause")
+            held = s.settle()
+            t0 = time.perf_counter()
+            time.sleep(PAUSE_HOLD)
+            after = s.stats()
+            hold = time.perf_counter() - t0
+            require(after == held, f"{tag}: the pause did not hold: "
+                    f"{held['frame']} -> {after['frame']}")
+            image = Image.open(io.BytesIO(read_stream_frame(s.port)))
+            image.load()
+            # the 2x2 composite of the computation-size views
+            ratio = int(PIPE_ARGS[PIPE_ARGS.index("-c") + 1])
+            require(image.size == (2 * 640 // ratio, 2 * 480 // ratio),
+                    f"{tag}: the stream's JPEG is {image.size}")
+            cold = _lib.LAUNCHES["raycast_cold"]
+            require(cold == 0, f"{tag}: the camera view launched "
+                    f"raycast_cold {cold} times")
+            s.ctl("view=static")
+            s.ctl("resume")
+            s.wait(lambda: s.stats()["frame"] >= held["frame"] + 8,
+                   "two static renders")
+            s.ctl("pause")
+            s.ctl("view=follow")
+            before = s.settle()
+            cold = _lib.LAUNCHES["raycast_cold"]
+            require(cold >= 2, f"{tag}: the static view launched "
+                    f"raycast_cold {cold} times")
+            s.ctl("reset")
+            s.ctl("resume")
+            fell = s.wait(lambda: (st := s.stats())["frame"]
+                          > before["frame"] and st, "a frame after reset")
+            require(fell["blocks"] < before["blocks"],
+                    f"{tag}: the reset did not empty the map: "
+                    f"{before['blocks']} -> {fell['blocks']}")
+            rose = s.wait(lambda: (st := s.stats())["blocks"]
+                          > fell["blocks"] and st, "the blocks to rise")
+            s.thread.join(SERVE_DEADLINE)
+            require(not s.thread.is_alive() and s.result.get("done"),
+                    f"{tag}: the session did not finish: {s.result}")
+        finally:
+            s.close()
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    _, drops, fps = cli_stderr(err.getvalue())
+    print(f"{tag}: session over the {LOOP_FRAMES}-frame loop (ground-truth "
+          f"poses): /stats frame {first['frame']:.0f} -> "
+          f"{second['frame']:.0f}; paused at frame {held['frame']:.0f}, "
+          f"held {hold:.2f} s; stream JPEG {image.size}; static view "
+          f"launched raycast_cold {cold} times; reset at frame "
+          f"{before['frame']:.0f}: blocks {before['blocks']:.0f} -> "
+          f"{fell['blocks']:.0f} (frame {fell['frame']:.0f}) -> "
+          f"{rose['blocks']:.0f} (frame {rose['frame']:.0f}); drops {drops}; "
+          f"peak device memory {peak_mib:.1f} MiB (pipeline-tsdf "
+          f"{tsdf_peak_mib:.1f}); wall fps {fps} ({card})")
+    print(f"{tag}: kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    require(drops is not None and all(v == 0 for v in drops.values()),
+            f"{tag}: drop counters nonzero: {drops}")
+    require(peak_mib <= SERVED_PEAK_RATIO * tsdf_peak_mib,
+            f"{tag}: peak {peak_mib:.1f} MiB: the reset kept two pools")
+    require(all(launches[k] > 0 for k in PATHS["served"]),
+            f"{tag}: a kernel of the path was not launched: {launches}")
+    numbers = dict(pause_hold_s=hold, paused_frame=held["frame"],
+                   reset_frame=before["frame"],
+                   blocks=[before["blocks"], fell["blocks"],
+                           rose["blocks"]],
+                   raycast_cold=cold, served_peak_mib=peak_mib,
+                   served_wall_fps=fps)
+    return {k: launches[k] for k in PATHS["served"]}, numbers
+
+
+def check_refusals(raw, tmp):
+    """A flag whose package does not import exits naming it before the
+    pipeline is built; where matplotlib imports, --plot-out writes a PNG
+    (Pillow's case is the served session)."""
+    import importlib.util
+    from supereight_tpu_torch import cli
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "matplotlib")}
+    print(f"host-io: Pillow imports {have['PIL']}, matplotlib imports "
+          f"{have['matplotlib']}")
+    png = os.path.join(tmp, "plot.png")
+    for flag, value, module, package in (
+            ("--serve", str(free_port()), "PIL", "Pillow"),
+            ("--plot-out", png, "matplotlib", "matplotlib")):
+        if have[module]:
+            continue
+        argv = loop_argv(raw, "tsdf", os.path.join(tmp, "refused.log"), 8)
+        try:
+            cli.run(argv + [flag, value])
+            msg = None
+        except SystemExit as e:
+            msg = str(e)
+        print(f"host-io: {flag} without {package}: exits with {msg!r}")
+        require(msg is not None and f"{flag} needs {package}" in msg,
+                f"host-io: {flag} did not refuse cleanly: {msg!r}")
+    if have["matplotlib"]:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            cli.run(loop_argv(raw, "tsdf", os.path.join(tmp, "plot.log"), 8)
+                    + ["--plot-out", png])
+        require(open(png, "rb").read(8) == b"\x89PNG\r\n\x1a\n",
+                "host-io: --plot-out wrote no PNG")
+        print(f"host-io: --plot-out wrote {os.path.getsize(png)} bytes")
+    return have
 
 
 def dist_map(torch, geom, field, dev, **tensors):

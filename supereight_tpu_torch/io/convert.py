@@ -3,10 +3,13 @@
 Port of ``supereight_tpu/io/convert.py`` (behavioral reference:
 se_tools/scene2raw.cpp, ICL-NUIM scene -> .raw, and se_tools/oni2raw.cpp,
 OpenNI recording -> .raw, which needs the OpenNI SDK and raises with
-guidance). ``scene2raw`` reads the scene with the Python reader
-(``io/dataset.SceneDepthReader``). ``synthetic2raw`` renders the orbit or
-the closed loop with ``io/synthetic`` (numpy) and writes the same bytes as
-JAX's; ``workers`` > 1 renders the frames in that many processes.
+guidance). ``scene2raw`` prefers the native converter (``io/native.py``),
+as JAX's does, and falls back to the Python reader
+(``io/dataset.SceneDepthReader``); the two paths write JAX's bytes of the
+same path (the native one rounds millimetres, the Python one
+truncates). ``synthetic2raw`` renders the orbit or the closed loop with
+``io/synthetic`` (numpy) and writes the same bytes as JAX's; ``workers``
+> 1 renders the frames in that many processes.
 
 Usage:
   python -m supereight_tpu_torch.io.convert scene2raw <scene_dir> <out.raw>
@@ -20,11 +23,14 @@ import sys
 
 import numpy as np
 
-from supereight_tpu_torch.io import dataset, synthetic
+from supereight_tpu_torch.io import dataset, native, synthetic
 
 
 def scene2raw(scene_dir: str, out_path: str) -> int:
-    """ICL-NUIM scene directory -> .raw; returns the frames written."""
+    """ICL-NUIM scene directory -> .raw; returns the frames written.
+    Prefers the native converter; falls back to the Python reader."""
+    if native.available():
+        return native.scene2raw(scene_dir, out_path)
     reader = dataset.SceneDepthReader(scene_dir)
     depths = []
     while True:

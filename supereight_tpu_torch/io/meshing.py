@@ -10,8 +10,10 @@ crossings along cell edges. It is an offline export (``dump_mesh`` at the
 end of a run), so it stays host numpy, as JAX's does: the map is
 downloaded once (:func:`host_map`) and JAX's numpy code runs on it
 unchanged, so the triangles equal JAX's bit for bit for the same state.
-The writers take JAX's Python path (its native writers are not part of
-the port), so their bytes equal those of JAX's Python writers.
+The writers prefer the native library (``io/native.py``), as JAX's do,
+and fall back to Python; each path writes the bytes of JAX's same path
+(the native writers print ``%g``, the Python ones each float's repr).
+:data:`WRITES` counts the files each path wrote.
 """
 
 from typing import NamedTuple
@@ -19,12 +21,16 @@ from typing import NamedTuple
 import numpy as np
 
 from supereight_tpu_torch.constants import BLOCK_SIDE
+from supereight_tpu_torch.io import native
 from supereight_tpu_torch.io.mc_tables import (CORNER_A, CORNER_B,
                                                CORNER_OFFSETS, TRI_TABLE)
 
 # blocks per chunk of the block-sparse pass: peak working set is
 # ~2 x 8 x chunk x 512 f32 corner arrays ≈ 130 MB
 _MESH_CHUNK = 4096
+
+# mesh files written by each path since the process started
+WRITES = {"native": 0, "python": 0}
 
 _HALO_NEIGHBOURS = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0),
                     (1, 0, 1), (0, 1, 1), (1, 1, 1))
@@ -175,8 +181,15 @@ def marching_cubes(geom, state, inside=None):
 
 
 def write_vtk(path, triangles):
-    """Legacy-VTK polydata export (ref writeVtkMesh, commons.h:325),
-    written in Python: each coordinate is the repr of its np.float32."""
+    """Legacy-VTK polydata export (ref writeVtkMesh, commons.h:325).
+
+    Uses the native writer when it builds (orders of magnitude faster
+    for large meshes); falls back to Python, where each coordinate is
+    the repr of its np.float32."""
+    if native.available() and native.write_vtk_native(path, triangles):
+        WRITES["native"] += 1
+        return
+    WRITES["python"] += 1
     n = len(triangles)
     verts = triangles.reshape(-1, 3)
     with open(path, "w") as f:
@@ -192,8 +205,12 @@ def write_vtk(path, triangles):
 
 
 def write_obj(path, triangles):
-    """Wavefront OBJ export (ref writeObjMesh, commons.h:393), written in
+    """Wavefront OBJ export (ref writeObjMesh, commons.h:393), native or
     Python as :func:`write_vtk`."""
+    if native.available() and native.write_obj_native(path, triangles):
+        WRITES["native"] += 1
+        return
+    WRITES["python"] += 1
     with open(path, "w") as f:
         f.write("# OBJ mesh generated from supereight-tpu\n")
         for tri in triangles:

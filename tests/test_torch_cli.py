@@ -12,15 +12,18 @@ exactly), the ``# ATE RMSE`` lines to 2e-3 m and the drop-counter lines
 exactly; the 2x2 renders' depth quadrant is equal byte for byte. With
 ``--keyframe-rate`` both close a loop over an orbit that goes out and
 comes back, and their post-BA trajectories agree to 2e-3 and their ATE
-to 1 mm. The options whose modules are not ported exit naming their
-ROADMAP item, and the module entry points run.
+to 1 mm. Every option of JAX's CLI runs (``--serve``, ``--plot-out`` and
+``--keyframe-rate`` among them); a flag whose package does not import
+exits naming it; and the module entry points run.
 """
 
 import contextlib
 import io
 import os
+import socket
 import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -115,22 +118,69 @@ def test_synthetic_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--serve", "8080"], "Queue 1 item 4b"),
-    (["--plot-out", "p.png"], "Queue 1 item 4b"),
-    (["--keyframe-rate", "2", "--synthetic", "6", "-v", "64"], None)])
-def test_unported_options_exit_naming_their_item(flag, item, tmp_path):
-    """The options whose modules are not ported exit naming their ROADMAP
-    item; ``--keyframe-rate`` (item None), ported since, runs: the pose
-    graph records keyframes."""
-    argv = ["--synthetic", "2", "--platform", "cpu"] + flag
-    if item is None:
-        torch.set_num_threads(1)
-        pipe = cli.run(argv + ["-o", str(tmp_path / "log")])
+    (["--serve", "PORT"], "webviewer"),
+    (["--serve", "0"], None),
+    (["--plot-out", "p.png"], "plots"),
+    (["--keyframe-rate", "2", "--synthetic", "6", "-v", "64"], "keyframes")])
+def test_unported_options_exit_naming_their_item(flag, item, tmp_path,
+                                                 monkeypatch):
+    """Every option of JAX's CLI runs in the port's (the ROADMAP items
+    that refused ``--serve`` and ``--plot-out`` are done): ``--serve``
+    starts the live view on the loopback interface and stops it at the
+    end, ``--serve 0`` is off as in JAX, ``--plot-out`` writes its PNG,
+    and ``--keyframe-rate``'s pose graph records keyframes."""
+    from supereight_tpu_torch import webviewer
+    torch.set_num_threads(1)
+    made = []
+
+    class Recorded(webviewer.LiveViewer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    monkeypatch.setattr(webviewer, "LiveViewer", Recorded)
+    if "PORT" in flag:
+        flag = ["--serve", str(free_port())]
+    if item == "plots":
+        pytest.importorskip("matplotlib")
+        flag = ["--plot-out", str(tmp_path / "p.png")]
+    argv = ["--synthetic", "2", "--platform", "cpu",
+            "-o", str(tmp_path / "log")] + flag
+    pipe = cli.run(argv)
+    assert len(made) == (item == "webviewer")
+    for v in made:
+        assert v._server.server_address == ("127.0.0.1", int(flag[1]))
+        with pytest.raises(OSError):   # stopped at the end of the run
+            urllib.request.urlopen(f"http://127.0.0.1:{flag[1]}/stats",
+                                   timeout=5)
+    if item == "plots":
+        assert open(flag[1], "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+    if item == "keyframes":
         assert pipe.keyframes is not None
         assert pipe.keyframes.frames == [4]
-        return
-    with pytest.raises(SystemExit, match=item):
-        cli.main(argv)
+
+
+@pytest.mark.parametrize("flag,module,package", [
+    ("--serve", "PIL", "Pillow"),
+    ("--plot-out", "matplotlib", "matplotlib")])
+def test_missing_package_exits_before_the_pipeline(flag, module, package,
+                                                   monkeypatch):
+    """Where the package a flag needs does not import, the CLI exits
+    naming it before it builds the pipeline (JAX fails at the first
+    render instead); there is no fallback encoder or plotter."""
+    monkeypatch.setitem(sys.modules, module, None)   # import raises
+
+    def refuse(*a, **kw):
+        raise AssertionError("the pipeline was built")
+    monkeypatch.setattr(cli, "DenseSLAMSystem", refuse)
+    value = str(free_port()) if flag == "--serve" else "p.png"
+    with pytest.raises(SystemExit, match=f"{flag} needs {package}"):
+        cli.main(["--synthetic", "2", "--platform", "cpu", flag, value])
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def test_keyframe_rate_matches_jax(tmp_path):

@@ -27,13 +27,14 @@ from supereight_tpu.eval import rpe as jax_rpe
 from supereight_tpu.eval import sweep as jax_sweep
 from supereight_tpu.io import convert as jax_convert
 from supereight_tpu.io import dataset as jax_dataset
+from supereight_tpu.io import native as jax_native
 from supereight_tpu.io import serialise as jax_serialise
 from supereight_tpu.io import synthetic as jax_synthetic
 from supereight_tpu.ops import preprocess as jax_preprocess
 from supereight_tpu_torch import config, convert
 from supereight_tpu_torch.eval import ate, rpe, sweep
 from supereight_tpu_torch.io import convert as io_convert
-from supereight_tpu_torch.io import dataset, serialise, synthetic
+from supereight_tpu_torch.io import dataset, native, serialise, synthetic
 from supereight_tpu_torch.ops.preprocess import mm2meters
 from supereight_tpu_torch.utils.perfstats import PerfStats, StatType
 
@@ -132,8 +133,12 @@ def test_synthetic2raw_bytes_equal_jax(tmp_path):
         io_convert.oni2raw()
 
 
-def test_scene2raw_reads_the_scene_directory(tmp_path):
-    """An ICL-NUIM scene directory of ray lengths becomes JAX's .raw."""
+@pytest.mark.parametrize("path", ["native", "python"])
+def test_scene2raw_reads_the_scene_directory(path, tmp_path, monkeypatch):
+    """An ICL-NUIM scene directory of ray lengths becomes JAX's .raw of
+    the same path: JAX's native converter's (millimetres rounded) when
+    the port's native library builds, else JAX's Python reader's
+    (truncated)."""
     d = tmp_path / "scene"
     d.mkdir()
     rng = np.random.default_rng(2)
@@ -141,11 +146,16 @@ def test_scene2raw_reads_the_scene_directory(tmp_path):
         np.savetxt(d / f"scene_00_{i:04d}.depth",
                    rng.uniform(0.5, 3.0, 640 * 480).reshape(-1, 640))
     a, b = str(tmp_path / "port.raw"), str(tmp_path / "jax.raw")
+    if path == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+        reader = jax_dataset.SceneDepthReader(str(d))
+        depths = [(reader.read_frame(i) * 1000.0).astype(np.uint16)
+                  for i in range(2)]
+        jax_dataset.write_raw(b, np.stack(depths))
+    else:
+        assert native.available(), native.build_info
+        assert jax_native.scene2raw(str(d), b) == 2
     assert io_convert.scene2raw(str(d), a) == 2
-    reader = jax_dataset.SceneDepthReader(str(d))
-    depths = [(reader.read_frame(i) * 1000.0).astype(np.uint16)
-              for i in range(2)]
-    jax_dataset.write_raw(b, np.stack(depths))
     assert open(a, "rb").read() == open(b, "rb").read()
 
 

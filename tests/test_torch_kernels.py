@@ -1224,3 +1224,47 @@ def test_raycast_window_matches_whole_image_on_cuda(cuda, field):
         assert torch.allclose(got.vertex[both], ref.vertex[both], atol=1e-4,
                               rtol=0)
     assert _lib.LAUNCHES[name] == before + 4
+
+
+@pytest.mark.cuda
+def test_device_monitor_on_cuda(cuda):
+    """telemetry.DeviceMonitor on the card: the peak is the allocator's
+    max_memory_allocated and the limit the card's memory."""
+    from supereight_tpu_torch.utils.telemetry import DeviceMonitor
+    torch.cuda.reset_peak_memory_stats(cuda)
+    x = torch.empty(1 << 22, dtype=torch.uint8, device=cuda)
+    del x
+    got = {k: v[-1] for k, v in DeviceMonitor().sample().series.items()}
+    i = cuda.index
+    assert got[f"dev{i}.peak_bytes_in_use"] == \
+        torch.cuda.max_memory_allocated(cuda) >= 1 << 22
+    assert got[f"dev{i}.bytes_limit"] == \
+        torch.cuda.get_device_properties(cuda).total_memory
+    assert 0 <= got[f"dev{i}.bytes_in_use"] \
+        < got[f"dev{i}.peak_bytes_in_use"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_debug_dumps_and_mesh_on_cuda_equal_cpu(cuda, field, tmp_path):
+    """A map built on the CPU and copied to the card dumps the same bytes
+    from either device: the field slice (one download), the block list
+    and the mesh through the native writer."""
+    from supereight_tpu_torch.core.map import MapState
+    from supereight_tpu_torch.io import debug_io, meshing
+    geom, state, _, _ = _frames("cpu", n=2, field=field)
+    cpu = state.map
+    card = MapState(*(tuple(t.to(cuda) for t in v) if isinstance(v, tuple)
+                      else v.to(cuda) for v in cpu))
+    before = dict(meshing.WRITES)
+    for tag, m in (("cpu", cpu), ("cuda", card)):
+        debug_io.save_3d_slice(str(tmp_path / f"{tag}.slice"), geom, m,
+                               field, (16, 16, 16), (48, 40, 36),
+                               select=lambda x, y: y)
+        debug_io.save_block_list(str(tmp_path / f"{tag}.blocks"), geom, m)
+        meshing.write_obj(str(tmp_path / f"{tag}.obj"),
+                          meshing.marching_cubes(geom, m))
+    for ext in ("slice", "blocks", "obj"):
+        assert (tmp_path / f"cpu.{ext}").read_bytes() == \
+            (tmp_path / f"cuda.{ext}").read_bytes(), ext
+    assert meshing.WRITES == dict(before, native=before["native"] + 2)

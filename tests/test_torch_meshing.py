@@ -5,8 +5,9 @@ package's.
 Maps come from JAX (an analytic sphere over every block, a sparse
 random map with unobserved voxels, a shell across block and map edges)
 and are carried into torch with ``convert.map_to_torch``: the triangles
-must be bit-equal and the writers' files byte-equal to JAX's Python
-writers (JAX's native writers are switched off for the comparison).
+must be bit-equal and the writers' files byte-equal to JAX's on the same
+path: both packages' native writers (``%g``), then both packages' Python
+writers (each float's repr) with the native libraries switched off.
 """
 
 import os
@@ -23,13 +24,23 @@ from supereight_tpu.io import meshing as jax_meshing
 from supereight_tpu.io import native as jax_native
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.config import Configuration
-from supereight_tpu_torch.io import mc_tables, meshing
+from supereight_tpu_torch.io import mc_tables, meshing, native
 from supereight_tpu_torch.pipeline import DenseSLAMSystem
 
 
-@pytest.fixture(autouse=True)
-def python_writers(monkeypatch):
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+@pytest.fixture(params=["native", "python"])
+def writer_path(request, monkeypatch):
+    """Both packages write through their native library, or both through
+    Python; yields the path and checks the port's files took it."""
+    if request.param == "python":
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+        monkeypatch.setattr(native, "available", lambda: False)
+    else:
+        assert jax_native.available() and native.available(), \
+            native.build_info
+    before = meshing.WRITES[request.param]
+    yield request.param
+    assert meshing.WRITES[request.param] > before
 
 
 def jax_sphere(size=32, dim=2.0, radius=0.5, field="tsdf", shell=None):
@@ -104,7 +115,7 @@ def test_marching_cubes_bit_equal(case, monkeypatch):
 
 
 @pytest.mark.parametrize("writer", ["write_vtk", "write_obj"])
-def test_writers_byte_equal(writer, tmp_path):
+def test_writers_byte_equal(writer, writer_path, tmp_path):
     geom, state, _, _ = jax_sphere(size=16, radius=0.4)
     tris = meshing.marching_cubes(*port(geom, state))
     assert len(tris) > 0
@@ -114,10 +125,11 @@ def test_writers_byte_equal(writer, tmp_path):
     assert open(a, "rb").read() == open(b, "rb").read()
 
 
-def test_dump_mesh(tmp_path):
+def test_dump_mesh(writer_path, tmp_path):
     """The class's export: a few frames of the test orbit, then dump_mesh
     writes the same triangles as JAX's marching_cubes on the same map, to
-    .obj and (any other name) .vtk."""
+    .obj and (any other name) .vtk, the files JAX's writers of the same
+    path write."""
     from test_torch_step import K, H, W, make_scene
     torch.set_num_threads(1)
     depths, poses = make_scene(4)
@@ -139,3 +151,7 @@ def test_dump_mesh(tmp_path):
         head = open(path).readline()
         assert head.startswith("# OBJ" if name.endswith(".obj")
                                else "# vtk DataFile")
+        jax_path = str(tmp_path / ("jax-" + name))
+        (jax_meshing.write_obj if name.endswith(".obj")
+         else jax_meshing.write_vtk)(jax_path, want)
+        assert open(path, "rb").read() == open(jax_path, "rb").read()

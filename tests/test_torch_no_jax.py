@@ -8,7 +8,10 @@ pipeline, the CLI, IO, evaluation and the tools among them) and run
 ``.raw`` file made by its converter, with a fresh-view render, a
 checkpoint round trip, the mesh export and the library surface's
 queries, a synthetic CLI run with ``--keyframe-rate`` (the pose
-graph), and the sharded step (``parallel/dist_step.py``) for 4 frames in
+graph), the host-side modules (the native library built from
+``native/src``, the ``.scf`` reader, the debug dumps, telemetry, the
+plots and the live viewer, the CLI's ``--serve`` and ``--plot-out``
+among them), and the sharded step (``parallel/dist_step.py``) for 4 frames in
 a world of one Gloo rank, in that process, on the CPU (ranks it spawned
 would not inherit the import blocker).
 """
@@ -72,9 +75,15 @@ from supereight_tpu_torch.io.convert import synthetic2raw
 tmp = tempfile.mkdtemp()
 raw = os.path.join(tmp, "seq.raw")
 synthetic2raw(raw, 5, scene="orbit")
+import socket
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
 pipe = cli.run(["-i", raw, "-g", raw + ".gt.txt", "-c", "8", "-v", "32",
                 "-s", "4.8", "-r", "1", "--platform", "cpu", "-o",
-                os.path.join(tmp, "log"), "--dump-renders", tmp])
+                os.path.join(tmp, "log"), "--dump-renders", tmp,
+                "--serve", str(port), "--plot-out",
+                os.path.join(tmp, "plot.png")])
 view = pipe.get_pose()
 view[:3, 3] -= 0.5 * view[:3, 2]
 lit = int((pipe.render_volume(view)[..., :3] > 0).any(-1).sum())
@@ -94,6 +103,39 @@ out["cli"] = {"blocks": pipe.block_count(), "lit": lit,
               "interp": bool(torch.isfinite(vol.interp(pts)).all()),
               "collision": int(geometry.collides_with(
                   pipe.geom, pipe.map, pipe.field, (0, 0, 0), (4, 4, 4)))}
+
+# the host-side modules
+import urllib.request
+from supereight_tpu_torch import plots, webviewer
+from supereight_tpu_torch.io import debug_io, meshing, native, scf
+from supereight_tpu_torch.utils.telemetry import DeviceMonitor
+reader = native.NativeRawReader(raw)
+frames = [reader.read_frame(i)[0] for i in range(reader.num_frames)]
+with open(os.path.join(tmp, "run.scf"), "w") as f:
+    f.write("volume_resolution = 64\npyramid = 3,2\n")
+cfg = scf.parse_scf(os.path.join(tmp, "run.scf"))
+debug_io.save_3d_slice(os.path.join(tmp, "slice.vtk"), pipe.geom, pipe.map,
+                       pipe.field, (0, 0, 0), (8, 8, 8))
+debug_io.save_block_list(os.path.join(tmp, "blocks.txt"), pipe.geom,
+                         pipe.map)
+debug_io.save_point_cloud(os.path.join(tmp, "pc.vtk"), np.zeros((3, 3)))
+debug_io.print_normals(os.path.join(tmp, "n.ppm"), pipe.normal)
+plots.plot_log_file(os.path.join(tmp, "log"), os.path.join(tmp, "p2.png"))
+live = webviewer.LiveViewer(0)
+live.start()
+live.push(np.zeros((4, 4, 4), np.uint8), {"frame": 1})
+served = json.loads(urllib.request.urlopen(
+    f"http://127.0.0.1:{live.port}/stats", timeout=10).read())
+live.stop()
+out["host"] = {"native": native.available(), "frames": len(frames),
+               "writes": meshing.WRITES,
+               "scf": [cfg.volume_resolution, list(cfg.pyramid)],
+               "blocks_listed": len(open(os.path.join(
+                   tmp, "blocks.txt")).read().splitlines()) - 1,
+               "telemetry": dict(DeviceMonitor().sample().series),
+               "plots": [os.path.getsize(os.path.join(tmp, n)) > 0
+                         for n in ("plot.png", "p2.png")],
+               "served": served}
 
 # the sharded step in a world of one Gloo rank, in this process
 from supereight_tpu_torch.parallel import dist_step, distributed
@@ -139,6 +181,14 @@ def test_port_runs_without_jax():
         ["tracked", "integrated", "reduction", "n_blocks_dev",
          "alloc_overflow", "blocks_truncated", "ray_overflow",
          "halo_overflow", "halo_blocks"])
+    host = out.pop("host")
+    assert host["native"] and host["frames"] == 5
+    assert host["writes"] == {"native": 1, "python": 0}
+    assert host["scf"] == [64, [3, 2]]
+    assert host["blocks_listed"] == out["cli"]["blocks"]
+    assert host["telemetry"] == {}
+    assert host["plots"] == [True, True]
+    assert host["served"] == {"frame": 1.0}
     res = out.pop("cli")
     assert res["blocks"] > 0 and res["lit"] > 0
     assert res["renders"] == ["frame00004.ppm"]
