@@ -79,7 +79,13 @@ checkout:
    frames must equal those of JAX's frame step over the same frames
    (JAX_NOISE_*, JAX on the CPU), with its block count and final error
    printed beside JAX's, and whose K3 prints what the empty entries of
-   its worklist cost; then the probe's own path
+   its worklist cost; then the bench phase: the port's headline bench
+   (``python -m supereight_tpu_torch.tools.bench``, whose configuration
+   the slices take) for each field in a process of its own, its one JSON
+   line held to its four keys, metric name, unit and vs_baseline, its
+   blocks, drops, tracked flag and final error to the field's slice, its
+   launches to the path's kernels once a frame (the prologue twice), and
+   its fps printed beside the slice's; then the probe's own path
    (``supereight_tpu_torch.tools.probe_gather.run``) likewise, each form
    bit for bit against the probe's numpy expectation;
 6. pipeline phases: the 250-frame closed loop (``io/convert.synthetic2raw
@@ -159,20 +165,22 @@ import sys
 import tempfile
 import time
 
-W, H = 320, 240
-SIZE, DIM, CAPACITY = 512, 4.8, 36864
-BUDGET = 8192       # integration worklist and raycast pool bucket (bench.py)
-MU = {"tsdf": 0.1, "ofusion": 0.008}   # bench.py:50
-K = (240.6, 240.0, 160.0, 120.0)
-ITERATIONS = (10, 5, 4)
-N_WARMUP, N_FRAMES, N_TIMED = 3, 20, 20
+from supereight_tpu_torch.tools import bench as port_bench
+
+# the bench configuration, the port's bench's own (tools/bench.py, a copy
+# of the JAX bench's), so that the slices and the bench cannot drift apart
+W, H = port_bench.W, port_bench.H
+SIZE, DIM, CAPACITY = port_bench.SIZE, port_bench.DIM, port_bench.CAPACITY
+BUDGET = port_bench.BUDGET  # integration worklist and raycast pool bucket
+MU = port_bench.MU
+K = port_bench.K
+ITERATIONS = port_bench.ITERATIONS
+N_WARMUP, N_FRAMES, N_TIMED = (port_bench.N_WARMUP, port_bench.N_FRAMES,
+                               port_bench.N_TIMED)
 # the bench scene: its orbit, map and tracking, in the form the sharded
 # step's launcher takes (tools/dist_run.py), so that the single-device
 # slices and the dist phase render and run the same frames
-ORBIT = dict(width=W, height=H, k=K, size=SIZE, dim=DIM, capacity=CAPACITY,
-             iterations=ITERATIONS, frames=N_WARMUP + N_FRAMES + N_TIMED,
-             radius=0.3 * DIM, center=DIM / 2, sphere_radius=0.15 * DIM,
-             angle_span=0.5, room=(0.55, DIM - 0.55))
+ORBIT = port_bench.scene()
 N_PROFILED = 5       # timed frames replayed under torch.profiler
 PROFILE_TRIES = 3    # profiled replays before a trace that missed launches
                      # fails the run
@@ -191,6 +199,9 @@ SECTOR = 32  # bytes: the least a scattered store moves to and from HBM
 KERNEL_REPS, TWIN_REPS = 50, 5
 # the dist phase: the sharded step (parallel/dist_step.py) as four Gloo
 # ranks sharing card 0, through tools/dist_run.py, at the bench config
+# a bench process of the bench phase: ~10 s of start-up, the orbit and
+# 64 frames (43, then the profiled replay of 21)
+BENCH_TIMEOUT_S = 300
 DIST_WORLD = 4
 DIST_HALO_BUDGET = 4096   # blocks a rank may send (the TSDF slice: ~7.3k)
 DIST_CAPTURE = 4          # the frame whose inputs the mode checks take
@@ -795,63 +806,51 @@ def require(cond, msg):
         raise RuntimeError("chip_smoke: " + msg)
 
 
-def clone_map(m):
-    return type(m)(*(tuple(x.clone() for x in v) if isinstance(v, tuple)
-                     else v.clone() for v in m))
-
-
-def clone_frame_state(s):
-    return s._replace(map=clone_map(s.map), pose=s.pose.clone(),
-                      raycast_pose=s.raycast_pose.clone())
+clone_map = port_bench.clone_map
+clone_frame_state = port_bench.clone_state
 
 
 class Scene:
-    """The bench scene and a frame runner for one field on the card; with
-    ``noisy`` the tsdf-noise slice: the orbit's frames noised (frame i
-    with seed i, made before any timing), the eval row's pool, budget and
-    options."""
+    """The bench scene and a frame runner for one field on the card
+    (``tools/bench.config``); with ``noisy`` the tsdf-noise slice: the
+    orbit's frames noised (frame i with seed i, made before any timing),
+    the eval row's pool, budget and options."""
 
     def __init__(self, torch, field, dev, noisy=False):
         import numpy as np
-        from supereight_tpu_torch.core.map import MapGeometry
         from supereight_tpu_torch.io import synthetic
         from supereight_tpu_torch.parallel import step as pstep
-        from supereight_tpu_torch.tools import dist_run
-        self.torch, self.np, self.pstep = torch, np, pstep
-        self.field, self.mu, self.dev = field, MU[field.name], dev
+        b = port_bench.config(field.name, dev, capacity=NOISE_CAPACITY
+                              if noisy else CAPACITY)
+        if noisy:
+            depths = np.stack([
+                synthetic.add_depth_noise(d, NOISE_FACTOR, seed=i)
+                for i, d in enumerate(b.depths)])
+            b = b._replace(
+                depths=depths,
+                frames=[torch.from_numpy(d).to(dev) for d in depths],
+                kw={**b.kw, **NOISE_OPTIONS,
+                    "budget": pstep.integration_budget(b.geom,
+                                                       NOISE_BUDGET)})
+        self.torch, self.bench = torch, b
+        self.field, self.mu, self.dev = field, b.kw["mu"], dev
         self.noisy = noisy
         self.name = field.name + ("-noise" if noisy else "")
-        capacity, budget = ((NOISE_CAPACITY, NOISE_BUDGET) if noisy
-                            else (CAPACITY, BUDGET))
-        self.geom = MapGeometry(size=SIZE, dim=DIM, capacity=capacity)
-        self.n_total = ORBIT["frames"]
-        self.depths, self.poses = dist_run.scene_frames(ORBIT)
-        if noisy:
-            self.depths = np.stack([
-                synthetic.add_depth_noise(d, NOISE_FACTOR, seed=i)
-                for i, d in enumerate(self.depths)])
-        self.kt = torch.tensor(K, dtype=torch.float32).to(dev)
-        self.depths_t = [torch.from_numpy(d).to(dev) for d in self.depths]
-        self.budget = pstep.integration_budget(self.geom, budget)
+        self.geom, self.kt, self.kw = b.geom, b.k, b.kw
+        self.n_total = len(b.frames)
+        self.depths, self.poses, self.depths_t = b.depths, b.poses, b.frames
+        self.budget = b.kw["budget"]
         self.options = NOISE_OPTIONS if noisy else {}
-        self.kw = dict(frame_size=(W, H), iterations=ITERATIONS, mu=self.mu,
-                       icp_threshold=1e-5, neg_y=False, filter_input=False,
-                       use_gt_pose=False, integration_rate=1,
-                       tracking_rate=1, budget=self.budget)
-        self.kw.update(self.options)
 
     def init(self):
-        return self.pstep.init_frame_state(self.geom, self.field, (W, H),
-                                           self.poses[0], self.dev)
+        return self.bench.init()
 
     def frame(self, state, i):
         # frame_step must enqueue without reading anything back: a
         # synchronising call inside it raises here
         self.torch.cuda.set_sync_debug_mode("error")
         try:
-            return self.pstep.frame_step(self.geom, self.field, state,
-                                         self.depths_t[i], self.kt, i,
-                                         **self.kw)
+            return self.bench.frame(state, i)
         finally:
             self.torch.cuda.set_sync_debug_mode("default")
 
@@ -2108,8 +2107,9 @@ def slice_phase(torch, sc, card):
     """The main path of one field: 43 frames with the launch counts zeroed
     just before and read just after; then K6 icp_track against its twin
     on every frame's tracking inputs, and K6, K4 and K7 against their
-    twins on the last frame's. Returns the path's launch counts and, per
-    kernel, the largest error of those checks."""
+    twins on the last frame's. Returns the path's launch counts, per
+    kernel the largest error of those checks, and the slice's blocks,
+    final position error, ms/frame and last tracked flag."""
     import numpy as np
     from supereight_tpu_torch.kernels import _lib
 
@@ -2337,7 +2337,9 @@ def slice_phase(torch, sc, card):
     errs.update((k, v[0]["max_abs_err"]) for k, v in brows.items())
     if sc.noisy:
         empty_cta_cost(torch, sc, m_alloc, state.pose, fuse, ts, last)
-    return {k: launches[k] for k in path}, errs
+    return {k: launches[k] for k in path}, errs, dict(
+        n_blocks=n_blocks, pos_err=pos_err, ms_frame=ms_frame,
+        tracked=tracked[-1])
 
 
 def check_noise_reference(sc, tracked, n_blocks, pos_err, tag):
@@ -2382,6 +2384,67 @@ def empty_cta_cost(torch, sc, m, pose, depth, ts, tag):
           f"{us[0]:.2f} us/launch over the path's {sc.budget} entries, "
           f"{us[1]:.2f} over the {listed} listed ones: the empty CTAs cost "
           f"{us[0] - us[1]:.2f} us a frame")
+
+
+def bench_phase(slices, card):
+    """The port's headline bench (``python -m
+    supereight_tpu_torch.tools.bench``), both fields, each in a process of
+    its own: its one stdout line held to the four keys, the metric name,
+    the unit and vs_baseline; its blocks, drops, tracked flag and final
+    error to the same field's slice (``slices``: slice_phase's summaries
+    by field); its launches to the path's kernels once a frame (the
+    prologue twice) over the 43 frames. Prints its fps beside the slice's
+    1000 / ms_frame, not held: two processes differ by host noise.
+    Returns the bench runs' launch counts."""
+    launches = collections.Counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    n = port_bench.N_TOTAL
+    for field in port_bench.FIELDS:
+        tag = f"bench {field}"
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "supereight_tpu_torch.tools.bench",
+             "--field", field], cwd=repo, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        for line in out.stderr.splitlines():
+            print(f"{tag} | {line}")
+        require(out.returncode == 0, f"{tag}: exit {out.returncode}")
+        lines = out.stdout.strip().splitlines()
+        require(len(lines) == 1, f"{tag}: stdout is not one line: "
+                f"{out.stdout!r}")
+        res = json.loads(lines[0])
+        metric = f"frames_per_sec_gpu_traj2cfg_c2_512v_{field}_icp"
+        require(sorted(res) == ["metric", "unit", "value", "vs_baseline"]
+                and res["metric"] == metric and res["unit"] == "fps"
+                and res["value"] > 0 and res["vs_baseline"] == round(
+                    res["value"] / port_bench.BASELINE_FPS, 3),
+                f"{tag}: the JSON line {res}")
+        m = re.search(r"blocks=(\d+), tracked=(True|False), final pos "
+                      r"err=([0-9.]+) m, drops=(\{.*\})", out.stderr)
+        require(m, f"{tag}: no result line on stderr")
+        blocks, tracked, err = int(m[1]), m[2] == "True", float(m[3])
+        drops = ast.literal_eval(m[4])
+        sl = slices[field]
+        require(blocks == sl["n_blocks"] and tracked == sl["tracked"]
+                and tracked and not any(drops.values())
+                and err < MAX_POS_ERR,
+                f"{tag}: blocks {blocks}, tracked {tracked}, error {err}, "
+                f"drops {drops}; the slice's {sl}")
+        m = re.search(r"^# launches (\{.*\})$", out.stderr, re.M)
+        require(m, f"{tag}: no launches line on stderr")
+        got = json.loads(m[1])
+        want = {k: (2 if k == "frame_mats" else 1) * n for k in PATHS[field]}
+        require(got["frames"] == n and got["total"] == want,
+                f"{tag}: launches {got}, expected {want}")
+        launches.update(got["total"])
+        print(f"{tag}: {res['value']:.3f} fps by CUDA events, the slice "
+              f"{1000 / sl['ms_frame']:.3f} (1000 / {sl['ms_frame']:.3f} "
+              f"ms/frame; two processes, not held); blocks {blocks} (the "
+              f"slice {sl['n_blocks']}), final error {err:.4f} m (the slice "
+              f"{sl['pos_err']:.4f}), drops {drops}; launches a frame "
+              f"{got['per_frame']:g}; the process {secs:.1f} s; {card}")
+    return launches
 
 
 def probe_path(torch, dev):
@@ -3724,12 +3787,16 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
 
     # ---- the main paths, each with the counts zeroed just before -------
     launches = {k: 0 for k in KERNELS}
+    slices = {}
     for sc in (tsdf, of, noise):
-        path_launches, slice_errs = slice_phase(torch, sc, card)
+        path_launches, slice_errs, slices[sc.name] = slice_phase(torch, sc,
+                                                                 card)
         for k, e in slice_errs.items():
             errs.setdefault(k, [rows[k]["max_abs_err"]]).append(e)
         for k, v in path_launches.items():
             launches[k] += v
+    for k, v in bench_phase(slices, card).items():
+        launches[k] += v
     launches.update(probe_path(torch, dev))
     for k, v in library_phase(torch, dev, tmp, card).items():
         launches[k] += v

@@ -4,7 +4,8 @@ The port's host (a machine with an NVIDIA GPU) has no JAX: in a
 subprocess where importing ``jax``, ``jaxlib`` or ``supereight_tpu``
 raises, ``supereight_tpu_torch`` must import every module (the class
 pipeline, the CLI, IO, evaluation and the tools among them) and run
-``frame_step`` for both fields, the gather-form probe, and the CLI from a
+``frame_step`` for both fields, the headline bench's frame callable
+(``tools/bench.py``) for 2 frames, the gather-form probe, and the CLI from a
 ``.raw`` file made by its converter, with a fresh-view render, a
 checkpoint round trip, the mesh export and the library surface's
 queries, a synthetic CLI run with ``--keyframe-rate`` (the pose
@@ -68,6 +69,20 @@ for field, mu in ((TSDF, 0.1), (OFUSION, 0.008)):
                        "finite": bool(torch.isfinite(state.pose).all()),
                        "keys": sorted(aux)}
 out["probe"] = all(ok for _, ok, _ in probe_gather.run(torch.device("cpu")))
+
+# the headline bench's frame callable, 2 frames at a test size
+from supereight_tpu_torch.tools import bench
+b = bench.config("ofusion", "cpu", size=32, dim=3.0, capacity=256,
+                 frame_size=(64, 48), n_frames=2)
+bstate = b.init()
+for i in range(2):
+    bstate, baux = b.frame(bstate, i)
+out["bench"] = {"n_blocks": int(bstate.map.n_blocks),
+                "finite": bool(torch.isfinite(bstate.pose).all()),
+                "drops": sum(int(baux[c]) for c in bench.DROPS),
+                "modules": sorted(m for m in sys.modules if m in (
+                    "supereight_tpu_torch.tools.bench",
+                    "supereight_tpu_torch.utils.deviceprof"))}
 
 import os, tempfile
 from supereight_tpu_torch import cli
@@ -172,6 +187,10 @@ def test_port_runs_without_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     out = json.loads(out.stdout.strip().splitlines()[-1])
     assert out.pop("probe")
+    res = out.pop("bench")
+    assert res["finite"] and res["n_blocks"] > 0 and res["drops"] == 0
+    assert res["modules"] == ["supereight_tpu_torch.tools.bench",
+                              "supereight_tpu_torch.utils.deviceprof"]
     dist = out.pop("dist")
     assert dist["finite"] and dist["blocks"][0] > 0
     assert 0 < dist["halo"] <= dist["blocks"][0]
