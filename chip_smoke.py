@@ -21,7 +21,9 @@ checkout:
    reduction and whole tracking step, K5 march (also on a random depth
    seen from the frame's pose and from outside the map) and allocator
    (which must leave its grids all zero), K3
-   worklist, fused pass and fallback on the map the allocator made, K4
+   worklist, fused pass and fallback on the map the allocator made (each
+   checked and timed at the slice's 8,192 entries and at the bucket's
+   49,152, the second's row under "bucket" in the JSON line), K4
    parent rank and node pass, K7 pyramid at 1 to 4 levels and an odd
    size; the noise-grade kernels: K7's bilateral and median filters (one
    pass and two) on frame 3 with range noise and a tenth of its pixels
@@ -79,7 +81,9 @@ checkout:
    frames must equal those of JAX's frame step over the same frames
    (JAX_NOISE_*, JAX on the CPU), with its block count and final error
    printed beside JAX's, and whose K3 prints what the empty entries of
-   its worklist cost; then the bench phase: the port's headline bench
+   its worklist cost (the fused pass and the fallback over the path's
+   entries beside the listed ones alone, as on the pipeline paths); then
+   the bench phase: the port's headline bench
    (``python -m supereight_tpu_torch.tools.bench``, whose configuration
    the slices take) for each field in a process of its own, its one JSON
    line held to its four keys, metric name, unit and vs_baseline, its
@@ -102,7 +106,9 @@ checkout:
    without the round trip, bit for bit, and ``dump_mesh`` (triangles,
    time); it prints each ATE beside its row, the log's mean computation a
    frame, wall fps, peak device memory and, from five more frames under
-   torch.profiler, the device's busy share; the host-IO step: the
+   torch.profiler, the device's busy share, and what the empty entries of
+   its 49,152-entry bucket cost K3 (as the noise slice's); the host-IO
+   step: the
    native library built from ``native/src`` (its build time, whether it
    came from the cache; its reader equal to the Python reader on every
    frame of the loop, depth and RGB), ``dump_mesh`` through its native
@@ -256,6 +262,10 @@ COUNTERS = ("alloc_overflow", "blocks_truncated", "patch_skipped",
 # integration budget and pool bucket (--preset-budget)
 NOISE_FACTOR = 0.002
 NOISE_CAPACITY = NOISE_BUDGET = 49152
+# K3's kernel rows are checked and timed at the slice's budget and at this
+# many entries: the noise row's budget and the class pipeline's bucket
+# (the next power of two over its --preset-budget, PIPE_ARGS)
+BUCKET = NOISE_BUDGET
 NOISE_OPTIONS = dict(filter_input="median2", fuse_filtered=True,
                      min_ref_weight=4, noise_weighted=True)
 # JAX on the CPU: supereight_tpu/parallel/step.py:frame_step over the same
@@ -1051,9 +1061,10 @@ def changed(a, b):
 
 
 def check_block_pass(torch, sc, m, pose, depth, ts, tag, noise=False,
-                     bilinear=False):
+                     bilinear=False, budget=None):
     """K3's three launches against their twins on two copies of ``m``,
-    fusing ``depth`` at ``pose`` stamped ``ts`` under a true ``when``: the
+    fusing ``depth`` at ``pose`` stamped ``ts`` under a true ``when``, at a
+    worklist of ``budget`` entries (the slice's by default): the
     worklist, n_active and blocks_truncated exactly; then the fused pass
     (mode, n_valid, need exactly, payloads by :func:`payload_errors`);
     then the fallback (patch_skipped and the final mode exactly, payloads
@@ -1079,10 +1090,11 @@ def check_block_pass(torch, sc, m, pose, depth, ts, tag, noise=False,
     from supereight_tpu_torch.core import se3
     from supereight_tpu_torch.kernels import integrate as ki
     geom, field, mu, dev = sc.geom, sc.field, sc.mu, sc.dev
+    budget = sc.budget if budget is None else budget
     h, w = depth.shape
     t_cw, kmat = se3.inverse(pose), se3.camera_matrix(sc.kt)
     when = torch.ones((), dtype=torch.bool, device=dev)
-    wl_args = (geom, m, t_cw, kmat, (w, h), sc.budget, when)
+    wl_args = (geom, m, t_cw, kmat, (w, h), budget, when)
     wk = ki.integrate_worklist(*wl_args)
     wp = ki.integrate_worklist_plain(*wl_args)
     wl_mism = sum(int((a != b).sum()) for a, b in zip(wk, wp))
@@ -1115,7 +1127,7 @@ def check_block_pass(torch, sc, m, pose, depth, ts, tag, noise=False,
     counts = dict(listed=nb, need=int(need.sum()), fallback=int(fb.sum()),
                   patch_skipped=int(sk))
     print(f"{tag}: worklist {nb} blocks of n_active {int(wk[1])} (budget "
-          f"{sc.budget}), blocks_truncated {int(wk[2])}, {wl_mism} "
+          f"{budget}), blocks_truncated {int(wk[2])}, {wl_mism} "
           f"mismatches (== 0); fused: {int((mode_f > 0).sum())} on a coarser "
           f"depth level, {counts['need']} uncovered, mode/n_valid/need "
           f"{f_mism} mismatches (== 0), {msg_f}; fallback: "
@@ -1130,16 +1142,17 @@ def check_block_pass(torch, sc, m, pose, depth, ts, tag, noise=False,
     nv_cov = int(fk[1][mode_f >= 0].sum())
     nv_fb = int(fk[1][fb].sum())
     upd = UPDATE_OPS[field.name] + (BILINEAR_OPS if bilinear else 0)
+    size = dict(entries=budget, listed=nb)
     rows = {
         "integrate_worklist": (
-            dict(max_abs_err=float(wl_mism), **bound(
-                n_blk + 12 * n_act + 4 * sc.budget + 12 + 2 * 64,
+            dict(max_abs_err=float(wl_mism), **size, **bound(
+                n_blk + 12 * n_act + 4 * budget + 12 + 2 * 64,
                 n_act * PROJECT_OPS)),
             lambda: ki.integrate_worklist(*wl_args),
             lambda: ki.integrate_worklist_plain(*wl_args)),
         ki.fused_name(field, *mode_kw): (
-            dict(max_abs_err=e_f, **bound(
-                4 * sc.budget + 22 * nb + 8 * nv_cov + 8 * changed(fused, m)
+            dict(max_abs_err=e_f, **size, **bound(
+                13 * budget + 13 * nb + 8 * nv_cov + 8 * changed(fused, m)
                 + 4 * min(nv_cov, w * h) + 2 * 64,
                 nb * 512 * (PROJECT_OPS + 4) + nv_cov * upd)),
             lambda: ki.integrate_fused(geom, ma, field, *blk, ts, *mode_kw,
@@ -1150,8 +1163,8 @@ def check_block_pass(torch, sc, m, pose, depth, ts, tag, noise=False,
     }
     if not bilinear:
         rows[ki.fallback_name(field, noise)] = (
-            dict(max_abs_err=max(e_b, float(b_mism)), **bound(
-                sc.budget + 8 * counts["need"] + 17 * counts["fallback"]
+            dict(max_abs_err=max(e_b, float(b_mism)), **size, **bound(
+                budget + 8 * counts["need"] + 17 * counts["fallback"]
                 + (counts["need"] - counts["fallback"]) + 12 * nv_fb
                 + 8 * changed(ma, fused) + 4 + 2 * 64,
                 counts["fallback"] * 512 * PROJECT_OPS + nv_fb * upd)),
@@ -1824,50 +1837,75 @@ def check_gate(torch, sc, n_frames, weight, depth_i, tag, timed=False):
     return row
 
 
+def timed_k3(torch, row, call, plain, tag):
+    """A K3 row with its call and twin timed (CUDA events over
+    KERNEL_REPS and TWIN_REPS back-to-back calls) and the kernel's device
+    us a launch (torch.profiler over 20)."""
+    row = dict(row, ms=cuda_ms(torch, call, KERNEL_REPS),
+               plain_ms=cuda_ms(torch, plain, TWIN_REPS),
+               device_us=device_us(torch, call, 20, 1))
+    print(f"{tag}: {row['entries']} entries, {row['listed']} listed: device "
+          f"{row['device_us']:.2f} us/launch, call {row['ms']:.4f} ms, twin "
+          f"{row['plain_ms']:.4f} ms; bound {row['bound_ms'] * 1e3:.3f} us "
+          f"({row['bound_by']})")
+    return row
+
+
+def k3_rows(torch, sc, m, pose, depth, ts, tag, noise=False,
+            bilinear=False):
+    """:func:`check_block_pass` at the slice's budget and at BUCKET
+    entries, each kernel timed at both (:func:`timed_k3`): the first's
+    rows, each with the bucket's under "bucket" and the larger error of
+    the two."""
+    mode = (f", {'noise' if noise else ''}{'+' if noise and bilinear else ''}"
+            f"{'bilinear' if bilinear else ''}" if noise or bilinear else "")
+    rows = {}
+    for budget in (sc.budget, BUCKET):
+        checked, _ = check_block_pass(
+            torch, sc, m, pose, depth, ts, f"K3 ({tag}{mode}, {budget} "
+            f"entries)", noise, bilinear, budget)
+        for name, (row, call, plain) in checked.items():
+            row = timed_k3(torch, row, call, plain,
+                           f"{name} ({tag}, {budget} entries)")
+            if name not in rows:
+                rows[name] = row
+            else:
+                rows[name]["bucket"] = row
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                row["max_abs_err"])
+    return rows
+
+
 def option_rows(torch, sc, m, pose, depth, ts, tag):
     """K3's noise-grade modes on the map the allocator made for ``depth``
-    (:func:`check_block_pass`): TSDF the noise weight, the bilinear read
-    and both; OFusion the bilinear read; each timed with its twin."""
+    (:func:`k3_rows`): TSDF the noise weight, the bilinear read and both;
+    OFusion the bilinear read."""
     _, _, _, m_alloc, _ = check_alloc(torch, sc, m, pose, depth,
                                       f"K5 alloc_assign ({tag}, modes)")
     modes = (((True, False), (False, True), (True, True))
              if sc.field.name == "tsdf" else ((False, True),))
     rows = {}
     for noise, bilinear in modes:
-        checked, _ = check_block_pass(
-            torch, sc, m_alloc, pose, depth, ts,
-            f"K3 ({tag}, {'noise' if noise else ''}"
-            f"{'+' if noise and bilinear else ''}"
-            f"{'bilinear' if bilinear else ''})", noise, bilinear)
-        for name, (row, call, plain) in checked.items():
-            if name == "integrate_worklist":
-                continue
-            rows[name] = dict(row, ms=cuda_ms(torch, call, KERNEL_REPS),
-                              plain_ms=cuda_ms(torch, plain, TWIN_REPS),
-                              device_us=device_us(torch, call, 20, 1))
-            print(f"{name} ({tag}): device {rows[name]['device_us']:.2f} "
-                  f"us/launch, call {rows[name]['ms']:.4f} ms, twin "
-                  f"{rows[name]['plain_ms']:.4f} ms; bound "
-                  f"{rows[name]['bound_ms'] * 1e3:.3f} us "
-                  f"({rows[name]['bound_by']})")
+        checked = k3_rows(torch, sc, m_alloc, pose, depth, ts, tag, noise,
+                          bilinear)
+        rows.update((k, v) for k, v in checked.items()
+                    if k != "integrate_worklist")
     return rows
 
 
 def new_kernel_rows(torch, sc, m, pose, depth, ts, tag):
     """K5's allocator, then K3's three launches on the map it made
-    (:func:`check_alloc`, :func:`check_block_pass`), K4 and K7 against
-    their twins (:func:`check_node_pass`, :func:`check_pyramid`), each
-    with its call and its twin's timed: the kernel over 50 back-to-back
-    calls, the twin over 5."""
+    (:func:`check_alloc`, :func:`k3_rows`), K4 and K7 against their twins
+    (:func:`check_node_pass`, :func:`check_pyramid`), each with its call
+    and its twin's timed: the kernel over 50 back-to-back calls, the twin
+    over 5."""
     row, call, plain, m_alloc, _ = check_alloc(
         torch, sc, m, pose, depth, f"K5 alloc_assign ({tag})")
     checked = {"alloc_assign": (row, call, plain)}
-    checked.update(check_block_pass(torch, sc, m_alloc, pose, depth, ts,
-                                    f"K3 ({tag})")[0])
     checked.update(check_node_pass(torch, sc, m, pose, depth, ts,
                                    f"K4 node_pass ({tag})"))
     checked["pyramid"] = check_pyramid(torch, depth, f"K7 pyramid ({tag})")
-    rows = {}
+    rows = k3_rows(torch, sc, m_alloc, pose, depth, ts, tag)
     for name, (row, call, plain) in checked.items():
         rows[name] = dict(row, ms=cuda_ms(torch, call, KERNEL_REPS),
                           plain_ms=cuda_ms(torch, plain, TWIN_REPS))
@@ -2336,7 +2374,8 @@ def slice_phase(torch, sc, card):
                                 f"K3 ({last})", noise)
     errs.update((k, v[0]["max_abs_err"]) for k, v in brows.items())
     if sc.noisy:
-        empty_cta_cost(torch, sc, m_alloc, state.pose, fuse, ts, last)
+        empty_cta_cost(torch, sc.geom, sc.field, m_alloc, state.pose, sc.kt,
+                       fuse, sc.mu, ts, sc.budget, noise, last)
     return {k: launches[k] for k in path}, errs, dict(
         n_blocks=n_blocks, pos_err=pos_err, ms_frame=ms_frame,
         tracked=tracked[-1])
@@ -2361,29 +2400,26 @@ def check_noise_reference(sc, tracked, n_blocks, pos_err, tag):
             f"{tag}: tracked frames {got} differ from JAX's")
 
 
-def empty_cta_cost(torch, sc, m, pose, depth, ts, tag):
-    """The cost of the noise slice's budget in K3's fused pass: its device
-    time with the worklist of NOISE_BUDGET entries (the path's) and with
-    only the entries that list a block, on copies of the last frame's
-    map."""
-    from supereight_tpu_torch.core import se3
+def empty_cta_cost(torch, geom, field, m, pose, k, depth, mu, ts, budget,
+                   noise, tag):
+    """What the empty entries of a bucketed path's worklist cost K3: the
+    device us a launch of its fused pass and its fallback over the path's
+    ``budget`` entries and over the listed entries alone, on copies of the
+    map ``m`` the path ended with, fusing its last ``depth`` at its
+    ``pose`` (``tools/k3_bucket.k3_times``). Printed, not held; returns
+    the times."""
     from supereight_tpu_torch.kernels import integrate as ki
-    h, w = depth.shape
-    t_cw, kmat = se3.inverse(pose), se3.camera_matrix(sc.kt)
-    when = torch.ones((), dtype=torch.bool, device=sc.dev)
-    wl = ki.integrate_worklist(sc.geom, m, t_cw, kmat, (w, h), sc.budget,
-                               when)[0]
-    listed = int((wl < sc.geom.capacity).sum())
-    us = []
-    for entries in (wl, wl[:listed].contiguous()):
-        mm = clone_map(m)
-        us.append(device_us(torch, lambda: ki.integrate_fused(
-            sc.geom, mm, sc.field, entries, depth, t_cw, kmat, sc.mu, ts,
-            True), 20, 1))
-    print(f"K3 integrate_fused_noise ({tag}): {listed} listed blocks; device "
-          f"{us[0]:.2f} us/launch over the path's {sc.budget} entries, "
-          f"{us[1]:.2f} over the {listed} listed ones: the empty CTAs cost "
-          f"{us[0] - us[1]:.2f} us a frame")
+    from supereight_tpu_torch.tools.k3_bucket import k3_times
+    r = k3_times(geom, field, m, pose, k, depth, mu, ts, budget, noise,
+                 lambda fn: device_us(torch, fn, 20, 1))
+    for name, key in ((ki.fused_name(field, noise), "fused_us"),
+                      (ki.fallback_name(field, noise), "fallback_us")):
+        print(f"K3 {name} ({tag}): {r['listed']} listed blocks; device "
+              f"{r[key]:.2f} us/launch over the path's {budget} entries, "
+              f"{r[key + '_listed']:.2f} over the {r['listed']} listed "
+              f"ones: the empty entries cost "
+              f"{r[key] - r[key + '_listed']:.2f} us a frame")
+    return r
 
 
 def bench_phase(slices, card):
@@ -2664,6 +2700,18 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
     return dict(busy_ms=busy, launches_frame=n, busy_share=busy / ms_frame)
 
 
+def pipeline_empty_cost(torch, pipe, tag):
+    """:func:`empty_cta_cost` on the class pipeline's last frame: its map,
+    pose and fused depth, at its bucket."""
+    c = pipe.config
+    depth = pipe.pyr[0][0] if c.fuse_filtered else pipe.float_depth
+    ts = torch.tensor((LOOP_FRAMES + N_PIPE_PROFILED) / 30.0,
+                      dtype=torch.float32, device=depth.device)
+    return empty_cta_cost(torch, pipe.geom, pipe.field, pipe.map, pipe.pose,
+                          pipe.k, depth, c.mu, ts, pipe._budget_bucket(),
+                          c.noise_weighted, f"{tag}, last frame")
+
+
 def pipeline_phase(torch, raw, tmp, card):
     """Both fields' class-pipeline paths over the loop, with the host-IO
     step around them (the native library and its reader first; after the
@@ -2688,6 +2736,7 @@ def pipeline_phase(torch, raw, tmp, card):
             tsdf_peak_mib = numbers["peak_mib"]
         numbers.update(pipeline_profile(torch, pipe, raw,
                                         numbers["computation_ms"], tag))
+        numbers["k3"] = pipeline_empty_cost(torch, pipe, tag)
         print(f"{tag}: {json.dumps(numbers)}")
         del pipe
         torch.cuda.empty_cache()

@@ -15,6 +15,9 @@
 namespace se {
 
 constexpr int kBlockVoxels = 512;
+// devices a launch keeps a per-device setting for (a checked cluster, a
+// grid size)
+constexpr int kMaxDevices = 16;
 
 // 4x4 row-major transform of a point, summed left to right like the JAX
 // package's se3.transform_c: ((T0 x + T1 y) + T2 z) + T3.

@@ -75,7 +75,6 @@ namespace {
 constexpr int kReduceThreads = 256;
 constexpr int kTerms = 32;
 constexpr int kMaxLevels = 4;   // pyramid levels icp_track takes
-constexpr int kMaxDevices = 16;
 // icp_track's cluster: 16 CTAs (a non-portable size, the portable maximum
 // is 8) of 512 threads, the fastest of 8/16 CTAs x 512/1024 threads
 // without register spills on an H100 (PERF.md, Findings)
@@ -545,13 +544,13 @@ SE_EXPORT int se_icp_track(Pyramid pyr, const float* ref_vertex,
                            uint8_t* tracked_out, float* reduction_out,
                            int* result, int* iterations_run, void* stream) {
   // one flag per device: the cluster was allowed and checked to fit
-  static bool fits[kMaxDevices];
+  static bool fits[se::kMaxDevices];
   if (pyr.n_levels < 1 || pyr.n_levels > kMaxLevels)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   int dev = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (dev >= se::kMaxDevices) return (int)cudaErrorInvalidDevice;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kTrackCluster, 1, 1);
   cfg.blockDim = dim3(kTrackThreads, 1, 1);

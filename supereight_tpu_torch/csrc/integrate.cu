@@ -17,12 +17,22 @@
 //    device `when` that is false empties the worklist and zeroes
 //    blocks_truncated. A cluster and not one CTA: each thread tests ~5
 //    slots instead of ~36, and the cross-CTA scan is one cluster barrier.
-//  * integrate_fused: one CTA of 512 threads per worklist entry (one 8^3
-//    block), one thread per voxel; one body for the field's update, the
-//    TSDF noise_weighted one (a sample weighs clip((1.5 / z)^2, 1/16, 1),
-//    fields.cuh, as in the fallback) and the bilinear read (below). Each
-//    voxel is projected once (valid when z >= 1e-4 and the pixel lies in
-//    [0.5, size - 1.5]); the block's pixel
+//  * integrate_fused: a grid of the CTAs the card holds at once (SMs x
+//    the CTAs of 512 threads an SM holds, queried once a device), never
+//    more than the worklist's entries. CTA c takes the entries c, c + G,
+//    c + 2G, ..., 512 a tile, one a thread: an empty entry costs its
+//    thread one load and three stores, not a CTA, so a worklist far longer
+//    than the blocks it lists (the class pipeline's bucket and the noise
+//    row's budget, 49,152) costs about what its listed blocks do. The
+//    tile's listed entries are compacted in shared memory (a warp ballot,
+//    then the warps' counts, in entry order) and fused one 8^3 block at a
+//    time, one thread per voxel; dealing entries one at a time spreads a
+//    prefix worklist's blocks evenly over the CTAs (runs of a tile each
+//    would hand a prefix's blocks to a few CTAs). One body for the field's
+//    update, the TSDF noise_weighted one (a sample weighs
+//    clip((1.5 / z)^2, 1/16, 1), fields.cuh, as in the fallback) and the
+//    bilinear read (below). Each voxel is projected once (valid when
+//    z >= 1e-4 and the pixel lies in [0.5, size - 1.5]); the block's pixel
 //    bbox over its valid voxels is reduced with __reduce_min/max_sync in
 //    each warp and then over the 16 warps' partials; the depth level
 //    follows the JAX rule: level i when dx > 24 << (i-1) or dy > 15 << (i-1)
@@ -33,11 +43,13 @@
 //    active flag to (any voxel valid). An uncovered block with valid
 //    voxels is left as it is, with need = 1, for the fallback.
 //  * integrate_fallback: min(32, budget) CTAs of 512 threads. Each CTA
-//    ranks `need` in worklist order (a CTA scan of per-thread counts); CTA r
-//    fuses the need block of rank r at the exact pixel (level 0) and sets
-//    its active flag; CTA 0 sums the valid voxels of the need blocks beyond
-//    rank 31 (patch_skipped) and clears their active flags: they skip
-//    fusion this frame, as JAX's top_k sub-worklist leaves them.
+//    ranks `need` in worklist order: a thread counts the flags of its run
+//    of 16-byte words (one load and a popcount a word), and a CTA scan of
+//    the counts gives each run's first rank. CTA r fuses the need block of
+//    rank r at the exact pixel (level 0) and sets its active flag; CTA 0
+//    sums the valid voxels of the need blocks beyond rank 31
+//    (patch_skipped) and clears their active flags: they skip fusion this
+//    frame, as JAX's top_k sub-worklist leaves them.
 //  * the bilinear mode of integrate_fused (depth_interp): every valid
 //    voxel reads JAX's _sample_depth_bilinear (229-270) at its float pixel:
 //    no depth level, no need flag and no fallback launch; CTA 0 writes the
@@ -68,15 +80,19 @@
 // Bound on the H100: the pool's read-modify-write, 8 bytes (two f32
 // channels) per valid voxel of a listed block read and, where it changes,
 // written: 3-5 us at HBM rate for the bench config's 2-5k listed blocks;
-// the worklist reads 13 bytes per active slot (<= 0.5 MB) and the 300 KB
+// the worklist reads 4 bytes and writes 9 per entry (0.6 MB at 49,152
+// entries), the worklist kernel 13 bytes per active slot, and the 300 KB
 // depth frame stays in L2. The fused kernel projects each voxel once, for
 // the level and the update alike, reads each block's two 2 KB rows once,
-// coalesced (one CTA per contiguous row), issuing the load
-// before the bbox reduction so that its latency passes under it, and
-// writes back only the voxels whose bits changed; the update's few dozen
-// flops per voxel stay far below the card's rate. What is left is latency:
-// a chain of dependent loads (entry, coordinates, payload, depth) per CTA
-// over ~10 waves of 512-thread CTAs.
+// coalesced, and writes back only the voxels whose bits changed; the
+// update's few dozen flops per voxel stay far below the card's rate. What
+// is left is instruction issue and latency: per voxel two IEEE divisions
+// and the transforms (-fmad=false), per block a CTA barrier for the bbox
+// and the depth read that waits on it. So the kernel keeps 32 registers,
+// four CTAs an SM: loading the next block's coordinates and payload under
+// the current block's update took 49 registers (two CTAs an SM) and made
+// it 9-17 % slower on an H100 (PERF.md). The fallback's need flags are
+// 49 KB at 49,152 entries, read in 16-byte words by each of its CTAs.
 
 #include "compact.cuh"
 #include "fields.cuh"
@@ -85,18 +101,20 @@ namespace {
 
 constexpr int kThreads = se::kBlockVoxels;
 constexpr int kWarps = kThreads / 32;
+static_assert((kWarps & (kWarps - 1)) == 0 && kWarps <= 32,
+              "a warp reduces the warps' partials, one a lane");
 constexpr int kBig = 1 << 20;  // an empty bbox's low corner
 
-// The projection of this thread's voxel (its block's origin + the thread's
+// The projection of this thread's voxel (the block's origin + the thread's
 // in-brick offset); t_cw and K live in shared memory.
-__device__ __forceinline__ se::Proj project_voxel(const int* __restrict__ bc,
+__device__ __forceinline__ se::Proj project_voxel(int bx, int by, int bz,
                                                   const float* T,
                                                   const float* K, float voxel,
                                                   int w, int h) {
   const int lin = threadIdx.x;
-  const float wx = (float)(bc[0] * 8 + (lin & 7)) * voxel;
-  const float wy = (float)(bc[1] * 8 + ((lin >> 3) & 7)) * voxel;
-  const float wz = (float)(bc[2] * 8 + (lin >> 6)) * voxel;
+  const float wx = (float)(bx * 8 + (lin & 7)) * voxel;
+  const float wy = (float)(by * 8 + ((lin >> 3) & 7)) * voxel;
+  const float wz = (float)(bz * 8 + (lin >> 6)) * voxel;
   return se::project(T, K, wx, wy, wz, w, h);
 }
 
@@ -282,14 +300,47 @@ __device__ __forceinline__ float sample_bilinear(const float* __restrict__ depth
   return consistent ? d : depth[p.yi * w + p.xi];
 }
 
+// The need flags of entries [16 w, 16 w + 16) as bits 0-15, from one
+// 16-byte load where the word lies wholly below n_work (``need`` 16-byte
+// aligned); entries at or past n_work read as 0.
+__device__ __forceinline__ uint32_t need_bits(const uint8_t* __restrict__ need,
+                                              int n_work, int w) {
+  const int i0 = w * 16;
+  if (i0 + 16 <= n_work) {
+    const uint4 q = reinterpret_cast<const uint4*>(need)[w];
+    uint32_t m = 0;
+    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t v = __vcmpne4(words[k], 0u);  // 0xff a nonzero byte
+      m |= ((v & 1u) | (v >> 7 & 2u) | (v >> 14 & 4u) | (v >> 21 & 8u))
+           << (4 * k);
+    }
+    return m;
+  }
+  uint32_t m = 0;
+  for (int j = 0; i0 + j < n_work && j < 16; ++j)
+    if (need[i0 + j]) m |= 1u << j;
+  return m;
+}
+
 // kNoise: the TSDF noise_weighted update (fields.cuh); kBilinear: every
 // valid voxel reads the bilinear sample, with no depth level and no
 // fallback (JAX sets patch_skipped to 0 and leaves valid alone,
 // integration.py:335-337): mode 0, need 0, and CTA 0 writes the frame's
 // patch_skipped, 0, into `skipped`.
+//
+// A grid of resident CTAs (se_integrate_fused sizes it from the card). CTA
+// c takes the entries c, c + G, c + 2G, ... (G = gridDim.x), 512 of them a
+// tile, one a thread: an empty entry's thread writes its three outputs and
+// is done; the tile's listed entries are compacted in shared memory in
+// entry order (a warp ballot, then the warps' counts) and fused one block
+// at a time by the whole CTA. Entries are dealt one at a time, not in runs,
+// so that the listed blocks of any worklist, a prefix or not, spread evenly
+// over the CTAs.
 template <bool kOFusion, bool kNoise, bool kBilinear>
 __global__ void __launch_bounds__(kThreads)
-integrate_fused_kernel(const int* __restrict__ worklist, int cap,
+integrate_fused_kernel(const int* __restrict__ worklist, int n_work, int cap,
                        const int* __restrict__ block_coord,
                        const float* __restrict__ t_cw,
                        const float* __restrict__ kmat, float voxel, int w,
@@ -300,84 +351,119 @@ integrate_fused_kernel(const int* __restrict__ worklist, int cap,
                        int* __restrict__ n_valid,
                        uint8_t* __restrict__ need, int* __restrict__ skipped) {
   __shared__ float T[16], K[16];
-  __shared__ int part[5][kWarps];  // per warp: x0, x1, y0, y1, valid count
-  const int e = blockIdx.x;
-  if (kBilinear && e == 0 && threadIdx.x == 0) *skipped = 0;
-  const int slot = worklist[e];
-  if (slot >= cap) {  // empty worklist entry: uniform exit
-    if (threadIdx.x == 0) {
-      mode[e] = 0;
-      n_valid[e] = 0;
-      need[e] = 0;
-    }
-    return;
-  }
+  // per warp: x0, x1, y0, y1, valid count; two buffers, by block parity,
+  // so that one barrier a block suffices
+  __shared__ int part[2][5][kWarps];
+  __shared__ int list_e[kThreads], list_s[kThreads];  // the tile's listed
+  __shared__ int warp_n[kWarps];
+  if (kBilinear && blockIdx.x == 0 && threadIdx.x == 0) *skipped = 0;
   se::load_mat4(t_cw, T);
   se::load_mat4(kmat, K);
-  __syncthreads();
-  const se::Proj p =
-      project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
-  // the voxel's payload is loaded now, so that its latency passes under the
-  // bbox reduction; it is stored back only where the update changed a bit
-  const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
-  float x = 0.f, y = 0.f;
-  if (p.valid) {
-    x = data_x[v];
-    y = data_y[v];
-  }
-  int l = 0, count;
-  if (kBilinear) {
-    count = __syncthreads_count(p.valid);
-  } else {
-    const unsigned full = 0xffffffffu;
-    const int x0 = __reduce_min_sync(full, p.valid ? p.xi : kBig);
-    const int x1 = __reduce_max_sync(full, p.valid ? p.xi : -1);
-    const int y0 = __reduce_min_sync(full, p.valid ? p.yi : kBig);
-    const int y1 = __reduce_max_sync(full, p.valid ? p.yi : -1);
-    const int c = __popc(__ballot_sync(full, p.valid));
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) {
-      part[0][warp] = x0;
-      part[1][warp] = x1;
-      part[2][warp] = y0;
-      part[3][warp] = y1;
-      part[4][warp] = c;
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = gridDim.x;
+  const int mine = (n_work - (int)blockIdx.x + G - 1) / G;  // this CTA's
+  for (int j0 = 0; j0 < mine; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    const int e = (int)blockIdx.x + j * G;
+    int slot = cap;
+    if (j < mine) {
+      slot = worklist[e];
+      if (slot >= cap) {  // empty entry
+        mode[e] = 0;
+        n_valid[e] = 0;
+        need[e] = 0;
+      }
     }
-    __syncthreads();
-    int bx0 = kBig, bx1 = -1, by0 = kBig, by1 = -1;
-    count = 0;
+    const bool listed = slot < cap;
+    const unsigned b = __ballot_sync(full, listed);
+    if (lane == 0) warp_n[warp] = __popc(b);
+    __syncthreads();  // warp_n (and, on the first tile, T and K) written
+    int before = 0, n_list = 0;
     for (int i = 0; i < kWarps; ++i) {  // every thread, same order
-      bx0 = min(bx0, part[0][i]);
-      bx1 = max(bx1, part[1][i]);
-      by0 = min(by0, part[2][i]);
-      by1 = max(by1, part[3][i]);
-      count += part[4][i];
+      before += i < warp ? warp_n[i] : 0;
+      n_list += warp_n[i];
     }
-    l = depth_level(bx1 - bx0, by1 - by0, n_levels);
-  }
-  if (l >= 0 && p.valid) {
-    const float ds =
-        kBilinear ? sample_bilinear(depth, w, h, p)
-                  : depth[((p.yi >> l) << l) * w + ((p.xi >> l) << l)];
-    const int bx = __float_as_int(x), by = __float_as_int(y);
-    se::update_field<kOFusion, kNoise>(A, p, ds, &x, &y);
-    if (__float_as_int(x) != bx || __float_as_int(y) != by) {
-      data_x[v] = x;
-      data_y[v] = y;
+    if (listed) {
+      const int r = before + __popc(b & ((1u << lane) - 1u));
+      list_e[r] = e;
+      list_s[r] = slot;
     }
-  }
-  if (threadIdx.x == 0) {
-    const bool needs = l < 0 && count > 0;
-    mode[e] = l;
-    n_valid[e] = count;
-    need[e] = needs ? 1 : 0;
-    // a block stays active iff any voxel projected into the frame (ref
-    // update_block, projective_functor.hpp:104-110); a need block's flag
-    // is the fallback's to write
-    if (!needs) active[slot] = (l >= 0 && count > 0) ? 1 : 0;
+    __syncthreads();  // the tile's list written
+    for (int i = 0; i < n_list; ++i) {
+      const int ei = list_e[i], si = list_s[i];
+      const int* bc = block_coord + 3 * si;
+      const se::Proj p = project_voxel(bc[0], bc[1], bc[2], T, K, voxel, w, h);
+      // the payload is loaded before the bbox reduction, so that its
+      // latency passes under it; stored back only where a bit changed
+      const size_t v = (size_t)si * se::kBlockVoxels + threadIdx.x;
+      float x = 0.f, y = 0.f;
+      if (p.valid) {
+        x = data_x[v];
+        y = data_y[v];
+      }
+      int l = 0, count;
+      if (kBilinear) {
+        count = __syncthreads_count(p.valid);
+      } else {
+        const int x0 = __reduce_min_sync(full, p.valid ? p.xi : kBig);
+        const int x1 = __reduce_max_sync(full, p.valid ? p.xi : -1);
+        const int y0 = __reduce_min_sync(full, p.valid ? p.yi : kBig);
+        const int y1 = __reduce_max_sync(full, p.valid ? p.yi : -1);
+        const int c = __popc(__ballot_sync(full, p.valid));
+        int(*pt)[kWarps] = part[i & 1];
+        if (lane == 0) {
+          pt[0][warp] = x0;
+          pt[1][warp] = x1;
+          pt[2][warp] = y0;
+          pt[3][warp] = y1;
+          pt[4][warp] = c;
+        }
+        __syncthreads();
+        // every warp reduces the 16 partials itself, lane q reading warp
+        // q's (lanes 16-31 again, but for the count): five loads and five
+        // reductions a thread, exact in any order
+        const int q = lane & (kWarps - 1);
+        const int bx0 = __reduce_min_sync(full, pt[0][q]);
+        const int bx1 = __reduce_max_sync(full, pt[1][q]);
+        const int by0 = __reduce_min_sync(full, pt[2][q]);
+        const int by1 = __reduce_max_sync(full, pt[3][q]);
+        count = __reduce_add_sync(full, lane < kWarps ? pt[4][q] : 0);
+        l = depth_level(bx1 - bx0, by1 - by0, n_levels);
+      }
+      if (l >= 0 && p.valid) {
+        const float ds =
+            kBilinear ? sample_bilinear(depth, w, h, p)
+                      : depth[((p.yi >> l) << l) * w + ((p.xi >> l) << l)];
+        const int bx = __float_as_int(x), by = __float_as_int(y);
+        se::update_field<kOFusion, kNoise>(A, p, ds, &x, &y);
+        if (__float_as_int(x) != bx || __float_as_int(y) != by) {
+          data_x[v] = x;
+          data_y[v] = y;
+        }
+      }
+      if (threadIdx.x == 0) {
+        const bool needs = l < 0 && count > 0;
+        mode[ei] = l;
+        n_valid[ei] = count;
+        need[ei] = needs ? 1 : 0;
+        // a block stays active iff any voxel projected into the frame (ref
+        // update_block, projective_functor.hpp:104-110); a need block's
+        // flag is the fallback's to write
+        if (!needs) active[si] = (l >= 0 && count > 0) ? 1 : 0;
+      }
+    }
+    __syncthreads();  // the list and warp_n are read before the next tile
   }
 }
 
+// gridDim.x = min(32, n_work) CTAs. Each ranks the need flags in worklist
+// order: thread t counts the flags of its run of 16-byte words (one load
+// and a popcount a word), one CTA scan gives each run's first rank, and
+// the thread whose run holds rank blockIdx.x finds that entry among its
+// words. CTA r fuses the need block of rank r; CTA 0 also sums the valid
+// voxels of the need blocks of rank 32 and on (patch_skipped) and clears
+// their active flags.
 template <bool kOFusion, bool kNoise>
 __global__ void __launch_bounds__(kThreads)
 integrate_fallback_kernel(const int* __restrict__ worklist, int n_work,
@@ -395,11 +481,12 @@ integrate_fallback_kernel(const int* __restrict__ worklist, int n_work,
   __shared__ float T[16], K[16];
   __shared__ int entry;
   const int n_fb = gridDim.x;  // min(32, budget) fallback blocks
-  const int per = (n_work + kThreads - 1) / kThreads;
-  const int i0 = min((int)threadIdx.x * per, n_work);
-  const int i1 = min(i0 + per, n_work);
+  const int n_words = (n_work + 15) / 16;
+  const int per = (n_words + kThreads - 1) / kThreads;
+  const int w0 = min((int)threadIdx.x * per, n_words);
+  const int w1 = min(w0 + per, n_words);
   int cnt = 0;
-  for (int i = i0; i < i1; ++i) cnt += need[i];
+  for (int q = w0; q < w1; ++q) cnt += __popc(need_bits(need, n_work, q));
   if (threadIdx.x == 0) entry = -1;
   int total;
   const int before = se::block_exclusive_scan(cnt, &total);
@@ -407,24 +494,28 @@ integrate_fallback_kernel(const int* __restrict__ worklist, int n_work,
   const int r = blockIdx.x;
   if (r >= before && r < before + cnt) {
     int k = before;
-    for (int i = i0; i < i1; ++i) {
-      if (!need[i]) continue;
-      if (k == r) {
-        entry = i;
+    for (int q = w0; q < w1; ++q) {
+      uint32_t m = need_bits(need, n_work, q);
+      const int c = __popc(m);
+      if (r < k + c) {
+        for (; k < r; ++k) m &= m - 1u;  // drop the lower set bits
+        entry = q * 16 + __ffs(m) - 1;
         break;
       }
-      ++k;
+      k += c;
     }
   }
   if (blockIdx.x == 0) {  // the need blocks beyond the bound skip fusion
     int skipped = 0, k = before;
-    for (int i = i0; i < i1; ++i) {
-      if (!need[i]) continue;
-      if (k >= n_fb) {
-        skipped += n_valid[i];
-        active[worklist[i]] = 0;
+    if (before + cnt > n_fb) {
+      for (int q = w0; q < w1; ++q) {
+        for (uint32_t m = need_bits(need, n_work, q); m; m &= m - 1u, ++k) {
+          if (k < n_fb) continue;
+          const int i = q * 16 + __ffs(m) - 1;
+          skipped += n_valid[i];
+          active[worklist[i]] = 0;
+        }
       }
-      ++k;
     }
     int sum;
     se::block_exclusive_scan(skipped, &sum);
@@ -436,8 +527,8 @@ integrate_fallback_kernel(const int* __restrict__ worklist, int n_work,
   const int e = entry;
   if (e < 0) return;  // uniform exit: fewer need blocks than this rank
   const int slot = worklist[e];
-  const se::Proj p =
-      project_voxel(block_coord + 3 * slot, T, K, voxel, w, h);
+  const int* bc = block_coord + 3 * slot;
+  const se::Proj p = project_voxel(bc[0], bc[1], bc[2], T, K, voxel, w, h);
   if (p.valid) {
     const size_t v = (size_t)slot * se::kBlockVoxels + threadIdx.x;
     se::update_field<kOFusion, kNoise>(A, p, depth[p.yi * w + p.xi],
@@ -448,6 +539,30 @@ integrate_fallback_kernel(const int* __restrict__ worklist, int n_work,
     active[slot] = any ? 1 : 0;
     mode[e] = 0;
   }
+}
+
+// The CTAs of kThreads threads of `kernel` that the current device holds at
+// once: its SMs times the CTAs one SM holds, queried once a device and kept
+// in `cache` (one array a kernel instance).
+template <class Kernel>
+cudaError_t resident_ctas(Kernel kernel, int* cache, int* out) {
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev >= se::kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, 0)) != cudaSuccess)
+      return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    cache[dev] = per_sm * sms;
+  }
+  *out = cache[dev];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -484,7 +599,9 @@ SE_EXPORT int se_halo_pack(const int* block_coord, const int* n_blocks,
 
 // field: 0 = TSDF, 1 = OFusion; timestamp (OFusion) is a device f32[];
 // noise (TSDF only): the noise_weighted update; bilinear: the bilinear
-// depth read, with `skipped` (i32[]) set to 0, else skipped may be null
+// depth read, with `skipped` (i32[]) set to 0, else skipped may be null.
+// The grid is min(n_work, the CTAs the card holds at once), its size
+// queried once a device and kernel instance.
 SE_EXPORT int se_integrate_fused(const int* worklist, int n_work, int cap,
                                  const int* block_coord, const float* t_cw,
                                  const float* kmat, float voxel, int w,
@@ -499,10 +616,19 @@ SE_EXPORT int se_integrate_fused(const int* worklist, int n_work, int cap,
   if (bilinear && skipped == nullptr) return (int)cudaErrorInvalidValue;
   const se::FieldArgs A{mu, max_weight, two_voxel, timestamp};
   cudaStream_t st = (cudaStream_t)stream;
-#define SE_FUSED(OF, NOISE, BILINEAR)                                       \
-  integrate_fused_kernel<OF, NOISE, BILINEAR><<<n_work, kThreads, 0, st>>>( \
-      worklist, cap, block_coord, t_cw, kmat, voxel, w, h, n_levels, depth, \
-      A, data_x, data_y, active, mode, n_valid, need, skipped)
+#define SE_FUSED(OF, NOISE, BILINEAR)                                        \
+  do {                                                                       \
+    static int ctas[se::kMaxDevices];                                        \
+    int g = 0;                                                               \
+    const cudaError_t err = resident_ctas(                                   \
+        integrate_fused_kernel<OF, NOISE, BILINEAR>, ctas, &g);              \
+    if (err != cudaSuccess) return (int)err;                                 \
+    integrate_fused_kernel<OF, NOISE, BILINEAR>                              \
+        <<<min(g, n_work), kThreads, 0, st>>>(                               \
+            worklist, n_work, cap, block_coord, t_cw, kmat, voxel, w, h,     \
+            n_levels, depth, A, data_x, data_y, active, mode, n_valid, need, \
+            skipped);                                                        \
+  } while (0)
   if (field == 1 && bilinear)
     SE_FUSED(true, false, true);
   else if (field == 1)
@@ -520,7 +646,7 @@ SE_EXPORT int se_integrate_fused(const int* worklist, int n_work, int cap,
 }
 
 // n_fb = min(32, n_work) CTAs, one per fallback block; noise as
-// se_integrate_fused's
+// se_integrate_fused's; need 16-byte aligned (read a 16-byte word a load)
 SE_EXPORT int se_integrate_fallback(const int* worklist, int n_work,
                                     const int* block_coord, const float* t_cw,
                                     const float* kmat, float voxel, int w,
@@ -532,6 +658,7 @@ SE_EXPORT int se_integrate_fallback(const int* worklist, int n_work,
                                     const int* n_valid, const uint8_t* need,
                                     int* patch_skipped, void* stream) {
   if (n_fb == 0) return 0;
+  if ((uintptr_t)need % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const se::FieldArgs A{mu, max_weight, two_voxel, timestamp};
   cudaStream_t st = (cudaStream_t)stream;
 #define SE_FALLBACK(OF, NOISE)                                              \

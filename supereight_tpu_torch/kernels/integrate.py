@@ -17,6 +17,15 @@ with ``_of`` for OFusion, ``_noise`` for the TSDF ``noise_weighted``
 update and ``_bilinear`` for the bilinear read (``fused_name``,
 ``fallback_name``).
 
+The fused pass runs on a grid of the CTAs the card holds at once, never
+more than the worklist's entries: CTA c takes the entries c, c + G, ...,
+an empty entry costs its thread one load and three stores, and the listed
+blocks are fused one at a time by the whole CTA (512 threads, one a
+voxel). So a worklist far longer than the blocks it lists, the class
+pipeline's bucket of 49,152, costs about what its listed blocks do. The
+fallback's min(32, budget) CTAs each rank the ``need`` flags in 16-byte
+words (``need`` 16-byte aligned, as a fresh tensor is).
+
 The fused and fallback passes write ``data_x``, ``data_y`` and ``active``
 of the map IN PLACE. The OFusion update's timestamp is a device f32[] (the
 fused step computes it from the frame tensor), so no launch reads it on
@@ -260,7 +269,8 @@ def integrate_fallback(geom, state, field, worklist, depth, t_cw, kmat,
     valid); the rest skip fusion this frame, with their active flag
     cleared. Returns patch_skipped (i32[]): the valid voxels of the blocks
     skipped. ``noise_weighted`` as :func:`integrate_fused`'s; the launch
-    is counted under :func:`fallback_name`."""
+    is counted under :func:`fallback_name`. On the card ``need`` must be
+    16-byte aligned (the kernel reads it 16 flags a load)."""
     dev = depth.device
     if dev.type == "cpu":
         return integrate_fallback_plain(geom, state, field, worklist, depth,
@@ -274,6 +284,8 @@ def integrate_fallback(geom, state, field, worklist, depth, t_cw, kmat,
     c(mode, "mode", torch.int32, (n_work,), dev)
     c(n_valid, "n_valid", torch.int32, (n_work,), dev)
     c(need, "need", torch.bool, (n_work,), dev)
+    if need.data_ptr() % 16:
+        raise ValueError("integrate_fallback: need must be 16-byte aligned")
     if not n_work:
         return torch.zeros((), dtype=torch.int32, device=dev)
     h, w = depth.shape
