@@ -82,7 +82,12 @@ checkout:
    (JAX_NOISE_*, JAX on the CPU), with its block count and final error
    printed beside JAX's, and whose K3 prints what the empty entries of
    its worklist cost (the fused pass and the fallback over the path's
-   entries beside the listed ones alone, as on the pipeline paths); then
+   entries beside the listed ones alone, as on the pipeline paths), and
+   on whose last frame K1's gated launch and K7's median2 are held to
+   their twins and measured (``tools/noise_kernels.py``: the gated
+   march's probes a ray, the longest ray's probes by kind, device us, the
+   launch with its probe bound cut to the p50/p90/p99/max of the probe
+   counts); then
    the bench phase: the port's headline bench
    (``python -m supereight_tpu_torch.tools.bench``, whose configuration
    the slices take) for each field in a process of its own, its one JSON
@@ -106,8 +111,10 @@ checkout:
    without the round trip, bit for bit, and ``dump_mesh`` (triangles,
    time); it prints each ATE beside its row, the log's mean computation a
    frame, wall fps, peak device memory and, from five more frames under
-   torch.profiler, the device's busy share, and what the empty entries of
-   its 49,152-entry bucket cost K3 (as the noise slice's); the host-IO
+   torch.profiler (taken again, up to PROFILE_TRIES times, until its
+   trace shows the frame's 21 kernels and copies), the device's busy
+   share, and what the empty entries of its 49,152-entry bucket cost K3
+   (as the noise slice's); the host-IO
    step: the
    native library built from ``native/src`` (its build time, whether it
    came from the cache; its reader equal to the Python reader on every
@@ -129,7 +136,14 @@ checkout:
    accepted loop closure, icp_track launched once a frame plus once a
    closure try, and the first closure's icp_track (3x gate) against its
    twin; it prints the closures tried and accepted and the BA solves'
-   host ms;
+   host ms; then the tracked noise map (``tools/noise_kernels.py``), a
+   path of its own: the first 60 frames of the loop with range noise
+   0.002 (rendered there in four processes) through the CLI with
+   the noise+levers row's options, every frame from frame 4 on tracked
+   and every drop counter 0, median2 once a frame and the gated raycast
+   once a frame from frame 3, and on its last frame the same checks and
+   measurements of K1's gated launch and K7's median2 as the noise
+   slice's;
 7. dist phase: the sharded step (``parallel/dist_step.py``) as four
    Gloo ranks sharing card 0, started through ``tools/dist_run.py``
    (they load the library this process built), both fields at the bench
@@ -172,6 +186,7 @@ import tempfile
 import time
 
 from supereight_tpu_torch.tools import bench as port_bench
+from supereight_tpu_torch.tools import noise_kernels as noise_tool
 
 # the bench configuration, the port's bench's own (tools/bench.py, a copy
 # of the JAX bench's), so that the slices and the bench cannot drift apart
@@ -260,14 +275,13 @@ COUNTERS = ("alloc_overflow", "blocks_truncated", "patch_skipped",
 # EVAL_table.md's "tsdf icp noise=0.002+levers" row
 # (tools/run_longseq_eval.py:127-131): its pool (--block-capacity) and its
 # integration budget and pool bucket (--preset-budget)
-NOISE_FACTOR = 0.002
-NOISE_CAPACITY = NOISE_BUDGET = 49152
+NOISE_FACTOR = noise_tool.NOISE_FACTOR
+NOISE_CAPACITY = NOISE_BUDGET = noise_tool.NOISE_BUDGET
 # K3's kernel rows are checked and timed at the slice's budget and at this
 # many entries: the noise row's budget and the class pipeline's bucket
 # (the next power of two over its --preset-budget, PIPE_ARGS)
 BUCKET = NOISE_BUDGET
-NOISE_OPTIONS = dict(filter_input="median2", fuse_filtered=True,
-                     min_ref_weight=4, noise_weighted=True)
+NOISE_OPTIONS = noise_tool.NOISE_OPTIONS
 # JAX on the CPU: supereight_tpu/parallel/step.py:frame_step over the same
 # 43 noisy frames with the same options (run once, not by this script:
 # PERF.md §4). JAX loses the trajectory there (the maturity gate leaves
@@ -312,6 +326,10 @@ EVAL_ATE = {"tsdf": 0.0200, "ofusion": 0.0161}
 MAX_ATE = {"tsdf": 0.025, "ofusion": 0.020}
 MIN_TRACKED = 0.98
 N_PIPE_PROFILED = 5  # frames past the loop replayed under torch.profiler
+# device events a pipeline frame runs (PR 15's complete pipeline-ofusion
+# trace): 14 launches of the path's 12 kernels (the prologue three times)
+# and 7 copies of the class's own (the depth's upload, its host reads)
+PIPE_EVENTS = 21
 # the BA path: the TSDF pipeline with the keyframe pose graph, as
 # tools/run_longseq_eval.py's "tsdf icp+BA" row, held to that row's ATE
 # (EVAL_table.md, JAX) plus 25 %; a closure try re-tracks with the 3x gate
@@ -513,6 +531,13 @@ PATHS = {  # the kernels each main path must launch
                          "integrate_worklist", "integrate_fused_of",
                          "integrate_fallback_of", "node_rank", "node_pass",
                          "nav_grid", "raycast_of", "raycast_cold_of"),
+    # the tracked noise map: the CLI with the noise+levers row's options
+    # over the first frames of the noisy loop (tools/noise_kernels.py)
+    "pipeline-tsdf-levers": ("median2", "pyramid", "frame_mats",
+                             "icp_track", "alloc_touch", "alloc_assign",
+                             "integrate_worklist", "integrate_fused_noise",
+                             "integrate_fallback_noise", "node_rank",
+                             "node_pass", "nav_grid", "raycast_gated"),
     # the TSDF pipeline with keyframes: the loop-closure re-tracks are
     # icp_track and frame_mats launches too
     "pipeline-tsdf-ba": ("pyramid", "frame_mats", "icp_track",
@@ -827,21 +852,8 @@ class Scene:
     the eval row's pool, budget and options."""
 
     def __init__(self, torch, field, dev, noisy=False):
-        import numpy as np
-        from supereight_tpu_torch.io import synthetic
-        from supereight_tpu_torch.parallel import step as pstep
-        b = port_bench.config(field.name, dev, capacity=NOISE_CAPACITY
-                              if noisy else CAPACITY)
-        if noisy:
-            depths = np.stack([
-                synthetic.add_depth_noise(d, NOISE_FACTOR, seed=i)
-                for i, d in enumerate(b.depths)])
-            b = b._replace(
-                depths=depths,
-                frames=[torch.from_numpy(d).to(dev) for d in depths],
-                kw={**b.kw, **NOISE_OPTIONS,
-                    "budget": pstep.integration_budget(b.geom,
-                                                       NOISE_BUDGET)})
+        b = noise_tool.slice_config(dev) if noisy \
+            else port_bench.config(field.name, dev, capacity=CAPACITY)
         self.torch, self.bench = torch, b
         self.field, self.mu, self.dev = field, b.kw["mu"], dev
         self.noisy = noisy
@@ -1311,21 +1323,15 @@ def raycast_bound(got, probes, extra_bytes=0):
                  + RAY_PROBE_OPS * n_probes)
 
 
-def probe_stats(torch, probes):
+def probe_stats(probes):
     """The march's probes from the twin's record (``kernels/raycast.py``
-    ``Probes``): the mean, 99th percentile and largest count a ray, the
-    total, the sum over the kernel's warps (8 x 4 pixel tiles) of each
-    warp's largest count (the probes a warp in lockstep takes), and the
-    distinct nav entries and pool voxels read."""
-    p = probes.per_ray
-    h, w = p.shape
-    f = p.reshape(-1).to(torch.float64)
-    return dict(
-        mean=f.mean().item(), p99=torch.quantile(f, 0.99).item(),
-        max=int(p.max()), total=int(p.sum()),
-        warp_max=int(p.reshape(h // 4, 4, w // 8, 8).amax(dim=(1, 3)).sum()),
-        warps=p.numel() // 32, nav=int(probes.nav.sum()),
-        voxels=int(probes.pool.sum()))
+    ``Probes``; ``tools/noise_kernels.probe_stats``: the mean, percentiles
+    and largest count a ray, the total, the sum over the kernel's warps
+    (8 x 4 pixel tiles) of each warp's largest count (the probes a warp in
+    lockstep takes), the longest ray's probes by kind), and the distinct
+    nav entries and pool voxels read."""
+    return dict(noise_tool.probe_stats(probes), nav=int(probes.nav.sum()),
+                voxels=int(probes.pool.sum()))
 
 
 def check_k1(torch, sc, state, depth, tag):
@@ -1371,7 +1377,7 @@ def check_k1(torch, sc, state, depth, tag):
     print(f"{tag}: select on/off against the twin's where: raycast pose, "
           f"kept maps and a zero overflow exactly: {sel_ok}")
     require(sel_ok, f"{tag}: the state's select disagrees with the twin")
-    st = probe_stats(torch, probes)
+    st = probe_stats(probes)
     print(f"{tag}: march probes a ray (twin): mean {st['mean']:.3f}, p99 "
           f"{st['p99']:.0f}, max {st['max']}, {st['total']} in all; sum "
           f"over the {st['warps']} warps (8x4 pixel tiles) of each warp's "
@@ -1463,7 +1469,7 @@ def check_k1_cold(torch, sc, state, tag):
         b = blocked_starts(geom, view, probes, far)
         blocked[name] = (int(b.sum()), int((got.valid & b).sum()))
         if name == "back":
-            st = probe_stats(torch, probes)
+            st = probe_stats(probes)
             row = dict(probes=st,
                        device_us=device_us(torch, lambda: call(view), 20, 1),
                        ms=cuda_ms(torch, lambda: call(view), 20),
@@ -2373,12 +2379,117 @@ def slice_phase(torch, sc, card):
     brows, _ = check_block_pass(torch, sc, m_alloc, state.pose, fuse, ts,
                                 f"K3 ({last})", noise)
     errs.update((k, v[0]["max_abs_err"]) for k, v in brows.items())
+    noise_map = None
     if sc.noisy:
         empty_cta_cost(torch, sc.geom, sc.field, m_alloc, state.pose, sc.kt,
                        fuse, sc.mu, ts, sc.budget, noise, last)
+        noise_map = check_noise_map(
+            torch, noise_tool.slice_inputs(sc.bench, state), last)
     return {k: launches[k] for k in path}, errs, dict(
         n_blocks=n_blocks, pos_err=pos_err, ms_frame=ms_frame,
-        tracked=tracked[-1])
+        tracked=tracked[-1], noise_map=noise_map)
+
+
+def check_noise_map(torch, inp, tag):
+    """K1's gated launch and K7's median2 on a noise map's last frame
+    (``tools/noise_kernels.GateInputs``) against their twins: the rays to
+    :func:`check_raycast`'s tolerances (bit-equality of the vertex,
+    normal and hit maps and ray_overflow printed), median2 on the frame's
+    raw depth bit for bit; then (``noise_kernels.measure``) the gated
+    march's probes a ray, the longest ray's probes by kind, both kernels'
+    device us and the gated launch's time against its probe bound. Returns
+    those numbers."""
+    from supereight_tpu_torch.kernels import preprocess as pre
+    got, ref = noise_tool.gated(inp), noise_tool.gated_plain(inp)
+    v_err = check_raycast(torch, f"K1 raycast_gated ({tag})", got, ref)
+    exact = all(torch.equal(a, b) for a, b in zip(got[:4], ref[:4]))
+    med = torch.equal(pre.median_filter3(inp.depth, 2),
+                      pre.median_filter3_plain(inp.depth, 2))
+    print(f"K1 raycast_gated ({tag}): vertex, normal, hit maps and "
+          f"ray_overflow bit-equal to the twin: {exact}; K7 median2 on the "
+          f"frame's raw depth bit-equal to the twin: {med}")
+    require(med, f"K7 median2 ({tag}) disagrees with twin")
+    out = noise_tool.measure(inp, lambda fn: device_us(torch, fn, 20, 1),
+                             f"K1 raycast_gated, K7 median2 ({tag})")
+    out.update(bit_equal=exact, max_abs_err=v_err)
+    return out
+
+
+def start_noisy_raw(tmp):
+    """Start rendering the tracked noise map's .raw (the first
+    TRACKED_FRAMES frames of the loop with range noise,
+    ``tools/noise_kernels.py --render``) into ``tmp`` in a process of its
+    own; returns the process and the .raw's path."""
+    raw = os.path.join(tmp, "noisy_loop.raw")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "supereight_tpu_torch.tools.noise_kernels",
+         "--render", raw], cwd=root, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    return proc, raw
+
+
+def tracked_noise_phase(torch, tmp, card):
+    """The tracked noise map (``tools/noise_kernels.py``), a path of its
+    own with the launch counts zeroed just before and read just after:
+    the first noise_tool.TRACKED_FRAMES frames of the loop with range
+    noise, rendered first (here, so that the renderers share the host with
+    no timed phase), through the CLI (``cli.run``, in this process) with
+    tools/longseq.py's arguments and the noise=0.002+levers row's options.
+    Every frame from frame 4 on must track (the log's column) and every
+    drop counter be 0; then :func:`check_noise_map` on its last frame.
+    Returns the path's launch counts and those numbers."""
+    from supereight_tpu_torch.eval.sweep import parse_frame_log
+    from supereight_tpu_torch.kernels import _lib
+    tag = "tracked noise map"
+    path = "pipeline-tsdf-levers"
+    n = noise_tool.TRACKED_FRAMES
+    t_render = time.perf_counter()
+    proc, raw = start_noisy_raw(tmp)
+    try:
+        wait_loop_raw(proc, t_render, f"the tracked noise map's {n}-frame "
+                      "noisy loop .raw (the phase's set-up)")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    _lib.reset_launches()
+    pipe, err = noise_tool.run_tracked(raw, os.path.join(tmp, "tracked.log"))
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    t_run = time.perf_counter() - t_run
+    ate, drops, _ = cli_stderr(err)
+    rows = parse_frame_log(os.path.join(tmp, "tracked.log"))
+    untracked = [i for i, r in enumerate(rows) if not r.get("tracked")]
+    print(f"{tag}: {len(rows)} frames in {t_run:.2f} s ({card}); ATE RMSE "
+          f"{ate:.4f} m; untracked frames {untracked} (frames 0-3 cannot "
+          f"track); drops {drops}; blocks {pipe.block_count()}; kernel "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    require(len(rows) == n, f"{tag}: {len(rows)} frames of {n}")
+    require(all(i < 4 for i in untracked),
+            f"{tag}: a frame from frame 4 on did not track: {untracked}")
+    require(drops is not None and all(v == 0 for v in drops.values()),
+            f"{tag}: drop counters nonzero: {drops}")
+    require(all(launches[k] > 0 for k in PATHS[path]),
+            f"{tag}: a kernel of the path was not launched: {launches}")
+    require(launches["median2"] == n and launches["raycast_gated"] == n - 3,
+            f"{tag}: median2 {launches['median2']} (== {n}) and "
+            f"raycast_gated {launches['raycast_gated']} (== {n - 3}, from "
+            f"frame 3) launches")
+    out = check_noise_map(torch, noise_tool.pipeline_inputs(pipe),
+                          f"{tag}, frame {n - 1}")
+    out.update(ate=ate, blocks=pipe.block_count(),
+               seconds=time.perf_counter() - t0)
+    print(f"{tag}: the phase took {out['seconds']:.1f} s (< 30) after its "
+          f"set-up, the render")
+    del pipe
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in PATHS[path]}, out
 
 
 def check_noise_reference(sc, tracked, n_blocks, pos_err, tag):
@@ -2518,13 +2629,12 @@ def start_loop_raw(tmp):
     return proc, raw
 
 
-def wait_loop_raw(proc, t_start):
+def wait_loop_raw(proc, t_start, what=f"the {LOOP_FRAMES}-frame loop .raw"):
     _, err = proc.communicate(timeout=900)
     ready = time.perf_counter() - t_start
-    print(f"pipeline: the {LOOP_FRAMES}-frame loop .raw rendered in "
-          f"{LOOP_WORKERS} processes, ready {ready:.1f} s after its start "
-          f"(rc {proc.returncode})")
-    require(proc.returncode == 0, f"the loop .raw failed: {err[-2000:]}")
+    print(f"pipeline: {what} rendered in {LOOP_WORKERS} processes, ready "
+          f"{ready:.1f} s after its start (rc {proc.returncode})")
+    require(proc.returncode == 0, f"{what} failed: {err[-2000:]}")
 
 
 def cli_stderr(text):
@@ -2669,35 +2779,56 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
     N_PIPE_PROFILED again, numbered on past the loop) under torch.profiler
     after one warm-up step: the device's busy ms a frame and its share of
     the run's mean computation time, and each port kernel's launches a
-    frame and device us a launch."""
+    frame and device us a launch. The trace is complete when it shows
+    PIPE_EVENTS kernels and copies a frame; one that missed launches is
+    taken again over the next frames, up to PROFILE_TRIES times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     depths = [loop_depth(raw, i) for i in range(N_PIPE_PROFILED + 1)]
-    first = LOOP_FRAMES + 1
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=N_PIPE_PROFILED,
-                                   repeat=1)) as prof:
-        for j, d in enumerate(depths):
-            pipe.process_frame(d, first + j)
-            torch.cuda.synchronize()
-            prof.step()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / 1e3 \
-        / N_PIPE_PROFILED
-    n = sum(e.count for e in events) / N_PIPE_PROFILED
-    per = {}
-    for e in events:
-        pk = port_kernel(e.key)
-        if pk:
-            c, us = per.get(pk[0], (0, 0.0))
-            per[pk[0]] = (c + e.count, us + e.self_device_time_total)
-    print(f"{tag} profile: device busy {busy:.3f} ms/frame in {n:.0f} "
-          f"kernels and copies a frame; busy share of the run's mean "
-          f"computation {ms_frame:.3f} ms/frame: {busy / ms_frame:.4f}; "
-          + ", ".join(f"{k} {c / N_PIPE_PROFILED:g}x {us / max(c, 1):.2f} us"
-                      for k, (c, us) in sorted(per.items())))
-    return dict(busy_ms=busy, launches_frame=n, busy_share=busy / ms_frame)
+    for attempt in range(PROFILE_TRIES):
+        first = LOOP_FRAMES + 1 + attempt * len(depths)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1,
+                                       active=N_PIPE_PROFILED,
+                                       repeat=1)) as prof:
+            for j, d in enumerate(depths):
+                pipe.process_frame(d, first + j)
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3 \
+            / N_PIPE_PROFILED
+        n = sum(e.count for e in events) / N_PIPE_PROFILED
+        per = {}
+        for e in events:
+            pk = port_kernel(e.key)
+            if pk:
+                c, us = per.get(pk[0], (0, 0.0))
+                per[pk[0]] = (c + e.count, us + e.self_device_time_total)
+        print(f"{tag} profile: device busy {busy:.3f} ms/frame in {n:.0f} "
+              f"kernels and copies a frame (== {PIPE_EVENTS}); busy share "
+              f"of the run's mean computation {ms_frame:.3f} ms/frame: "
+              f"{busy / ms_frame:.4f}; "
+              + ", ".join(f"{k} {c / N_PIPE_PROFILED:g}x "
+                          f"{us / max(c, 1):.2f} us"
+                          for k, (c, us) in sorted(per.items())))
+        # every kernel of the frame (the path's, the fresh view's render
+        # aside) once a frame, the prologue three times
+        n_path = sum(not k.startswith("raycast_cold")
+                     for k in PATHS["pipeline-" + pipe.field.name])
+        complete = round(n) == PIPE_EVENTS and len(per) == n_path and all(
+            c == N_PIPE_PROFILED * (3 if k == "frame_mats" else 1)
+            for k, (c, _) in per.items())
+        if complete:
+            break
+        print(f"{tag}: the profile missed launches (try {attempt + 1} of "
+              f"{PROFILE_TRIES})")
+    require(complete, f"{tag}: no profile showed {PIPE_EVENTS} kernels and "
+            f"copies a frame, each kernel of the frame once (the prologue "
+            f"three times): {n}, {per}")
+    return dict(busy_ms=busy, launches_frame=n, busy_share=busy / ms_frame,
+                device_us={k: us / max(c, 1) for k, (c, us) in per.items()})
 
 
 def pipeline_empty_cost(torch, pipe, tag):
@@ -3854,6 +3985,20 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
     pipe_launches, closure_err = pipeline_phase(torch, raw, tmp, card)
     for k, v in pipe_launches.items():
         launches[k] += v
+    noise_launches, tracked = tracked_noise_phase(torch, tmp, card)
+    for k, v in noise_launches.items():
+        launches[k] += v
+    # the noise maps' gated raycast and median2 (device us, the probes,
+    # the time against the probe bound) beside their kernel phase rows
+    maps = {"slice": slices["tsdf-noise"]["noise_map"], "tracked": tracked}
+    rows["raycast_gated"]["noise_maps"] = {
+        k: {"device_us": v["gated_us"], "probes": v["probes"],
+            "probe_bound_line": v["line"], "hits": v["hits"],
+            "bit_equal": v["bit_equal"]} for k, v in maps.items()}
+    rows["median2"]["noise_maps"] = {k: {"device_us": v["median2_us"]}
+                                     for k, v in maps.items()}
+    errs.setdefault("raycast_gated", [rows["raycast_gated"]["max_abs_err"]]) \
+        .extend(v["max_abs_err"] for v in maps.values())
     errs.setdefault("icp_track", [rows["icp_track"]["max_abs_err"]]) \
         .append(closure_err)
     # the sharded step last: its four ranks share the card and the host's

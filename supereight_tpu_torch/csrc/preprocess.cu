@@ -4,28 +4,42 @@
 // The filters (filter_input = True / "bilateral", "median", "median2")
 // replace supereight_tpu/ops/preprocess.py:bilateral_filter (28-52) and
 // median_filter3 (55-76), which XLA runs as 25 or 9 shifted slices of an
-// edge-padded image. Each is one launch, one thread per pixel of a 16 x 16
-// tile, over a window of the tile and its halo in shared memory; reads
-// clamp global coordinates into the image, so the edge is replicated as
-// jnp.pad(mode="edge") replicates it:
-//  * bilateral_kernel: the 5 x 5 window (halo 2); the weight of a
+// edge-padded image. Each is one launch; reads clamp global coordinates
+// into the image, so the edge is replicated as jnp.pad(mode="edge")
+// replicates it:
+//  * bilateral_kernel: one thread per pixel of a 16 x 16 tile, over the
+//    tile and its halo of 2 in shared memory; the weight of a
 //    neighbour cur at row offset i and column offset j is
 //    (g[i] g[j]) exp(-(cur - d)^2 / (2 e_d^2)), 0 where cur <= 0; t and s
 //    summed i outer, j inner, as JAX's loop; t / (s == 0 ? 1 : s), and 0
 //    where the centre d == 0. The spatial weights g are the wrapper's, the
 //    f32 values of JAX's exp(-i^2 / (2 DELTA^2)).
-//  * median_kernel<P>: P passes of the 3 x 3 median (halo P): the nine
-//    taps, each zero (<= 0) tap replaced by the centre, through a
-//    19-exchange selection network (Paeth's opt_med9) for the fifth
-//    smallest; 0 where the centre <= 0. With P = 2 the first pass is
-//    evaluated into a second window over the tile and a halo of one at
-//    clamped coordinates, which is JAX's edge padding of the first pass's
-//    output, and the second pass reads that window.
+//  * median_kernel<P>: P passes of the 3 x 3 median: the nine taps, each
+//    zero (<= 0) tap replaced by the centre, their fifth smallest; 0 where
+//    the centre <= 0. No shared memory and no barrier: a warp owns 32
+//    columns of a strip of kMedRows rows and outputs the 32 - 2P columns
+//    inside them; each lane loads its column's kMedRows + 2P rows (clamped
+//    into the image, so the edge is replicated) into registers and reads
+//    its neighbours' columns by shuffle. Each row's three taps are sorted
+//    once and shared by the three windows that hold the row; a window's
+//    median is med3(max of the rows' minima, med3 of their medians, min
+//    of their maxima) (Paeth's identity). The centre replacement would
+//    break that sharing, so where a warp holds a tap <= 0 the rows are
+//    sorted twice, with those taps as -inf and as +inf, and the median is
+//    clamp(centre, the first median, the second) (median_rows); a warp
+//    without one sorts once. With P = 2 the first pass is evaluated for
+//    the kMedRows + 2 rows the second reads, each row and column outside
+//    the image then taking the value of the nearest one inside it (JAX's
+//    edge padding of the first pass's output). Every output is one of its
+//    taps, so the result is the twin's bit for bit.
 // Bound on the H100: bytes, the depth read once and the filtered depth
 // written once (614 KB at 320x240: 0.18 us at 3.35 TB/s); the bilateral's
 // 25 exp a pixel (~20 operations each) stay below the f32 rate at that
-// size; the halo makes a CTA read (16 + 2P)^2 pixels for its 16^2, the
-// rest from L2.
+// size; its halo makes a CTA read 20^2 pixels for its 16^2, a median warp
+// (kMedRows + 2P) x 32 for kMedRows x (32 - 2P), the rest from L2. At
+// that size the filters are latency-bound: a median warp is one load
+// round trip and ~20 min/max operations a row and an output (twice that
+// where it holds a zero tap), with no phase waiting on another.
 //
 // The pyramid (the filter_input=False path, and the pass after a filter).
 //
@@ -276,56 +290,129 @@ __device__ __forceinline__ void sort2(float& a, float& b) {
   b = hi;
 }
 
-// The 3 x 3 median of pixel (r, c) (ops/preprocess.py:median_filter3):
-// zero taps replaced by the centre, 0 where the centre is.
-__device__ __forceinline__ float median3(const Window& win, int r, int c) {
-  const float d = win.at(r, c);
-  float p[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float cur = win.at(r + i - 1, c + j - 1);
-      p[3 * i + j] = cur > 0.f ? cur : d;
-    }
-  // opt_med9 (A. Paeth, Graphics Gems, "Median finding on a 3x3 grid")
-  sort2(p[1], p[2]); sort2(p[4], p[5]); sort2(p[7], p[8]);
-  sort2(p[0], p[1]); sort2(p[3], p[4]); sort2(p[6], p[7]);
-  sort2(p[1], p[2]); sort2(p[4], p[5]); sort2(p[7], p[8]);
-  sort2(p[0], p[3]); sort2(p[5], p[8]); sort2(p[4], p[7]);
-  sort2(p[3], p[6]); sort2(p[1], p[4]); sort2(p[2], p[5]);
-  sort2(p[4], p[7]); sort2(p[4], p[2]); sort2(p[6], p[4]);
-  sort2(p[4], p[2]);
-  return d > 0.f ? p[4] : 0.f;
+__device__ __forceinline__ float med3(float a, float b, float c) {
+  return fmaxf(fminf(a, b), fminf(fmaxf(a, b), c));
 }
 
+// a row's three taps, sorted
+struct Sorted3 {
+  float lo, mid, hi;
+};
+
+__device__ __forceinline__ Sorted3 sort3(float a, float b, float c) {
+  sort2(a, b);
+  sort2(b, c);
+  sort2(a, b);
+  return {a, b, c};
+}
+
+// the fifth smallest of the 3 x 3 window of rows j - 1, j, j + 1, from
+// their sorted taps (exact for any values: Paeth's identity)
+template <int N>
+__device__ __forceinline__ float med9(const Sorted3 (&s)[N], int j) {
+  return med3(fmaxf(fmaxf(s[j - 1].lo, s[j].lo), s[j + 1].lo),
+              med3(s[j - 1].mid, s[j].mid, s[j + 1].mid),
+              fminf(fminf(s[j - 1].hi, s[j].hi), s[j + 1].hi));
+}
+
+constexpr unsigned kFullMask = 0xffffffffu;
+// output rows a median lane owns: median2 on the noise maps' 320x240
+// depths took 1.91 / 2.09-2.11 us on the H100 at 2, against 1.95 /
+// 2.47-2.51 at 4, 2.16 / 2.46-2.47 at 1 and 2.22 / 3.34 at 8 (PERF.md,
+// PR 16): fewer rows shorten a lane's chain, more share a lane's sorts
+// between more outputs
+constexpr int kMedRows = 2;
+constexpr int kMedWarps = 4;  // warps of a median CTA, strips stacked
+
+// One 3 x 3 median pass down a lane's column (ops/preprocess.py:
+// median_filter3): in[j] is the column's value at row q0 + j, the lanes
+// either side hold the columns either side; out[j] is the median at row
+// q0 + 1 + j: the taps' fifth smallest with each tap <= 0 replaced by the
+// centre d, 0 where d <= 0. With z of the nine taps <= 0 (and d > 0) that
+// is clamp(d, T5, U5), T5 the fifth smallest of the taps with those z as
+// -inf and U5 with them as +inf: the replaced taps are z copies of d
+// among the positive taps, and T5, U5 are the positive taps' (5 - z)-th
+// and fifth smallest. A warp none of whose taps is <= 0 takes T5 = U5
+// alone. Either way the taps are replaced before the rows are sorted, so
+// each row's sort serves the three windows that hold it. Every lane of
+// the warp calls it (the shuffles); the edge lanes' results are not the
+// image's.
+template <int N>
+__device__ __forceinline__ void median_rows(const float (&in)[N],
+                                            float (&out)[N - 2]) {
+  const float inf = __int_as_float(0x7f800000);
+  float l[N], r[N];
+  bool zero = false;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    l[j] = __shfl_up_sync(kFullMask, in[j], 1);
+    r[j] = __shfl_down_sync(kFullMask, in[j], 1);
+    zero |= !(l[j] > 0.f && in[j] > 0.f && r[j] > 0.f);
+  }
+  if (!__any_sync(kFullMask, zero)) {
+    Sorted3 s[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] = sort3(l[j], in[j], r[j]);
+#pragma unroll
+    for (int j = 1; j < N - 1; ++j) out[j - 1] = med9(s, j);
+    return;
+  }
+  Sorted3 lo[N], hi[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    lo[j] = sort3(l[j] > 0.f ? l[j] : -inf, in[j] > 0.f ? in[j] : -inf,
+                  r[j] > 0.f ? r[j] : -inf);
+    hi[j] = sort3(l[j] > 0.f ? l[j] : inf, in[j] > 0.f ? in[j] : inf,
+                  r[j] > 0.f ? r[j] : inf);
+  }
+#pragma unroll
+  for (int j = 1; j < N - 1; ++j) {
+    const float d = in[j];
+    out[j - 1] = d > 0.f ? fminf(fmaxf(d, med9(lo, j)), med9(hi, j)) : 0.f;
+  }
+}
+
+// kPasses (1 or 2) median passes. Warp (blockIdx.y * kMedWarps + warp)
+// takes the strip of rows [r0, r0 + kMedRows), lane the column c = x0 +
+// lane - kPasses of the warp's 32, and writes the 32 - 2 kPasses columns
+// from x0.
 template <int kPasses>
-__global__ void __launch_bounds__(kFilterThreads)
+__global__ void __launch_bounds__(kMedWarps * 32)
 median_kernel(const float* __restrict__ depth, int h, int w,
               float* __restrict__ out) {
-  constexpr int kSide0 = kFilterTile + 2 * kPasses;
-  constexpr int kSide1 = kFilterTile + 2;
-  __shared__ float win0[kSide0 * kSide0];
-  __shared__ float win1[kPasses == 2 ? kSide1 * kSide1 : 1];
-  const int ty = blockIdx.y * kFilterTile, tx = blockIdx.x * kFilterTile;
-  const Window w0{win0, ty - kPasses, tx - kPasses, kSide0, h, w};
-  load_window(depth, w0);
-  __syncthreads();
-  Window src = w0;
-  if (kPasses == 2) {
-    // the first pass over the tile and a halo of one, inside the image
-    const Window w1{win1, ty - 1, tx - 1, kSide1, h, w};
-    for (int i = threadIdx.x; i < kSide1 * kSide1; i += blockDim.x) {
-      const int gy = w1.oy + i / kSide1, gx = w1.ox + i % kSide1;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-        win1[i] = median3(w0, gy, gx);
-    }
-    __syncthreads();
-    src = w1;
+  constexpr int kCols = 32 - 2 * kPasses;
+  constexpr int kIn = kMedRows + 2 * kPasses;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.y * kMedWarps + (threadIdx.x >> 5)) * kMedRows;
+  if (r0 >= h) return;  // the whole warp
+  const int c = blockIdx.x * kCols + lane - kPasses;
+  const int cc = min(max(c, 0), w - 1);
+  float v[kIn];
+#pragma unroll
+  for (int j = 0; j < kIn; ++j)
+    v[j] = __ldg(depth + min(max(r0 - kPasses + j, 0), h - 1) * w + cc);
+  float o[kMedRows];
+  if constexpr (kPasses == 1) {
+    median_rows<kIn>(v, o);
+  } else {
+    // the first pass at rows r0 - 1 .. r0 + kMedRows; a row or column
+    // outside the image takes the nearest one's
+    float p1[kMedRows + 2];
+    median_rows<kIn>(v, p1);
+    if (r0 == 0) p1[0] = p1[1];
+#pragma unroll
+    for (int j = 1; j < kMedRows + 2; ++j)
+      if (r0 - 1 + j > h - 1) p1[j] = p1[j - 1];
+    const int src = lane + cc - c;
+#pragma unroll
+    for (int j = 0; j < kMedRows + 2; ++j)
+      p1[j] = __shfl_sync(kFullMask, p1[j], src);
+    median_rows<kMedRows + 2>(p1, o);
   }
-  const int r = ty + threadIdx.x / kFilterTile;
-  const int c = tx + threadIdx.x % kFilterTile;
-  if (r < h && c < w) out[r * w + c] = median3(src, r, c);
+  if (lane < kPasses || lane >= 32 - kPasses || c >= w) return;
+#pragma unroll
+  for (int j = 0; j < kMedRows; ++j)
+    if (r0 + j < h) out[(r0 + j) * w + c] = o[j];
 }
 
 // The spatial weights of the bilateral filter, by value (_lib.Gauss)
@@ -384,15 +471,15 @@ SE_EXPORT int se_pyramid(const float* depth, const float* k, float e_d,
 SE_EXPORT int se_median(const float* depth, int h, int w, int passes,
                         float* out, void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  const dim3 grid((w + kFilterTile - 1) / kFilterTile,
-                  (h + kFilterTile - 1) / kFilterTile);
+  if (passes != 1 && passes != 2) return (int)cudaErrorInvalidValue;
+  constexpr int kStrip = kMedRows * kMedWarps;
+  const int cols = 32 - 2 * passes;  // a warp's output columns
+  const dim3 grid((w + cols - 1) / cols, (h + kStrip - 1) / kStrip);
   cudaStream_t st = (cudaStream_t)stream;
   if (passes == 1)
-    median_kernel<1><<<grid, kFilterThreads, 0, st>>>(depth, h, w, out);
-  else if (passes == 2)
-    median_kernel<2><<<grid, kFilterThreads, 0, st>>>(depth, h, w, out);
+    median_kernel<1><<<grid, kMedWarps * 32, 0, st>>>(depth, h, w, out);
   else
-    return (int)cudaErrorInvalidValue;
+    median_kernel<2><<<grid, kMedWarps * 32, 0, st>>>(depth, h, w, out);
   return (int)cudaGetLastError();
 }
 

@@ -46,8 +46,9 @@
 //    step, parallel/step.py:171-192, before its select): a hit whose voxel
 //    at floor(vertex / voxel) has fused less weight (channel y) than
 //    min_ref_weight, read through the map's slot grid, is not valid; its
-//    vertex and normal are kept. One more dependent pair of loads (slot,
-//    then weight) per hit.
+//    vertex and normal are kept. The slot is the hit cell's nav entry
+//    where that is >= 0 (the same value), so a hit reads its weight
+//    alone; the slot grid only where the block lies outside the bucket.
 // A launch may march a column window of the image (x0, w_out): the sharded
 // step's rank marches its own columns through the exchanged halo
 // (parallel/dist_step.py); the ray direction and the prime read use the
@@ -79,11 +80,24 @@
 // they read. A probe in the same block cell as the last one keeps the nav
 // entry it has in a register, and a voxel's two channels are loaded
 // together, so a probe inside a block is one L2 round trip instead of
-// three. A warp is as slow as its longest ray, and neighbouring rays of a
-// scene's surface run to similar lengths, so each warp takes an 8 x 4
-// pixel tile rather than 32 pixels of a row: at the bench config the
-// warps' longest rays take 24 % (TSDF) and 15 % (OFusion) fewer probes in
-// all (PERF.md). A CTA of 8 warps covers 32 x 8 pixels.
+// three. The launch runs in one wave (all CTAs resident), so it lasts as
+// long as its longest ray's chain of dependent reads: on the noise maps
+// (PERF.md, PR 16) ~0.3 us a probe, the longest rays mostly nav jumps
+// through unknown space, one dependent nav read each, on top of ~6.4 us
+// with no march probe (start, epilogue, gate and launch). The
+// refinement's and the gate's reads are therefore batched (corner_pairs,
+// ref_weight). Two ways to shorten the jumps' chain were tried and made
+// the launch slower (PERF.md, PR 16): asking L1 or L2 for the next jump's
+// six candidate nav cells while a probe's own entry is read (a probe 0.31
+// -> 0.56 us), and handing the rays still marching after 8-24 probes to
+// their whole warp, one at a time, whose lanes read the nav entries of
+// the next 16 blocks at once (a warp's long rays then run one after
+// another: 21 -> 24-107 us). A warp is as slow as its longest ray, and
+// neighbouring rays of a scene's surface run to similar lengths, so each
+// warp takes an 8 x 4 pixel tile rather than 32 pixels of a row: at the
+// bench config the warps' longest rays take 24 % (TSDF) and 15 %
+// (OFusion) fewer probes in all (PERF.md). A CTA of 8 warps covers 32 x 8
+// pixels.
 
 #include "common.cuh"
 
@@ -131,7 +145,26 @@ struct Pool {
     }
     return nv;
   }
+  // the entry of cell c, the kept one where c is the last cell read; the
+  // kept entry stays
+  __device__ __forceinline__ int nav_of(int c) const {
+    return c == cell ? nv : __ldg(nav + c);
+  }
 };
+
+// A ray: origin and unit direction
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// the nav cell of voxel (vx, vy, vz), clamped into the map
+__device__ __forceinline__ int cell_of(const Params& P, int vx, int vy,
+                                       int vz) {
+  vx = se::clampi(vx, 0, P.size - 1);
+  vy = se::clampi(vy, 0, P.size - 1);
+  vz = se::clampi(vz, 0, P.size - 1);
+  return ((vx >> 3) * P.b + (vy >> 3)) * P.b + (vz >> 3);
+}
 
 // value at a pool voxel, y == 0 voxels carrying the unknown sentinel; both
 // channels are loaded before either is used
@@ -149,10 +182,10 @@ __device__ __forceinline__ float pool_value(const Pool& pool, int slot,
 // nav payload of an empty cell: a coarse free-space value makes it known.
 template <bool kOF>
 __device__ __forceinline__ Probe probe(const Params& P, Pool& pool,
-                                       float px, float py, float pz) {
-  int vx = (int)(px * P.inv_voxel);
-  int vy = (int)(py * P.inv_voxel);
-  int vz = (int)(pz * P.inv_voxel);
+                                       const Ray& ray, float t) {
+  int vx = (int)((ray.ox + ray.dx * t) * P.inv_voxel);
+  int vy = (int)((ray.oy + ray.dy * t) * P.inv_voxel);
+  int vz = (int)((ray.oz + ray.dz * t) * P.inv_voxel);
   const bool inb = vx >= 0 && vx < P.size && vy >= 0 && vy < P.size &&
                    vz >= 0 && vz < P.size;
   vx = se::clampi(vx, 0, P.size - 1);
@@ -183,52 +216,72 @@ __device__ __forceinline__ float corner(const Pool& pool, int slot,
   return v < 0.5f * FieldConst<kOF>::sentinel ? v : FieldConst<kOF>::fill;
 }
 
-// (x, x+1) pair of one (y, z) corner row (raycast.py:_interp_grad pair()).
+// The four (x, x+1) pairs of the refinement's eight corners
+// (raycast.py:_interp_grad pair()), rows (y, z) = (y0, z0), (y1, z0), (y0,
+// z1), (y1, z1): a row whose x cell holds no in-bucket block is the fill
+// (the JAX strip table's sentinel brick), x + 1 lies in the same block or,
+// at the block's last voxel, in the next cell's (the fill past the map's
+// edge or where that cell holds none). The nav entries of the <= 2 x 2 x
+// 2 block cells they lie in are read together (the kept entry where a
+// cell is the march's last), then all sixteen pool values together: two
+// dependent round trips for the eight corners, where a pair at a time
+// took up to eight.
 template <bool kOF>
-__device__ __forceinline__ void corner_pair(const Params& P, Pool& pool,
-                                            int ix, int y, int z, float& v0,
-                                            float& v1) {
-  const int cy = y >> 3, cz = z >> 3, cx = ix >> 3;
+__device__ __forceinline__ void corner_pairs(const Params& P,
+                                             const Pool& pool, int ix,
+                                             int y0, int y1, int z0, int z1,
+                                             float (&v0)[4], float (&v1)[4]) {
   constexpr float fill = FieldConst<kOF>::fill;
-  const int nv = pool.nav_at((cx * P.b + cy) * P.b + cz);
-  if (nv < 0) {  // the whole strip row is the sentinel brick
-    v0 = fill;
-    v1 = fill;
-    return;
+  const int cx = ix >> 3, lx = ix & 7;
+  const bool next = lx == 7 && cx + 1 < P.b;  // x + 1 in the next cell
+  int nv[4], nv2[4], lin[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int y = r & 1 ? y1 : y0, z = r & 2 ? z1 : z0;
+    const int c = (cx * P.b + (y >> 3)) * P.b + (z >> 3);
+    nv[r] = pool.nav_of(c);
+    nv2[r] = next ? pool.nav_of(c + P.b * P.b) : -1;
+    lin[r] = lx + ((y & 7) << 3) + ((z & 7) << 6);
   }
-  const int lin = (ix & 7) + ((y & 7) << 3) + ((z & 7) << 6);
-  v0 = corner<kOF>(pool, nv, lin);
-  if ((ix & 7) < 7) {
-    v1 = corner<kOF>(pool, nv, lin + 1);
-  } else if (cx + 1 < P.b) {
-    const int nv2 = pool.nav_at(((cx + 1) * P.b + cy) * P.b + cz);
-    v1 = nv2 >= 0 ? corner<kOF>(pool, nv2, lin - 7) : fill;
-  } else {
-    v1 = fill;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // x + 1: the same block inside it, else the next cell's (its entry
+    // -1 past the map's edge)
+    const int s1 = lx < 7 ? nv[r] : nv2[r];
+    const int l1 = lx < 7 ? lin[r] + 1 : lin[r] - 7;
+    v0[r] = nv[r] >= 0 ? corner<kOF>(pool, nv[r], lin[r]) : fill;
+    v1[r] = nv[r] >= 0 && s1 >= 0 ? corner<kOF>(pool, s1, l1) : fill;
   }
 }
 
 // The TSDF map-maturity gate's read (JAX parallel/step.py:185-191 with
 // core/map.py:get_voxel_channel_c): the fusion weight (channel y) of the
-// voxel at floor(h / voxel), through the map's slot grid (every allocated
-// block, not only the nav grid's bucket), 0 outside the map or where no
-// block is allocated.
+// voxel at floor(h / voxel) of the map's slot grid's block (every
+// allocated block, not only the nav grid's bucket), 0 outside the map or
+// where no block is allocated. Where the hit's cell has a nav entry >= 0
+// (an in-bucket block) that entry is the block's pool slot, the slot
+// grid's entry there, so only the weight is read, one round trip (none
+// more for the entry where the cell is the march's last, whose entry is
+// kept); where it is < 0 (a block outside the bucket, or none) the slot
+// grid is read first, as before.
 __device__ __forceinline__ float ref_weight(const Params& P,
+                                            const Pool& pool,
                                             const int* __restrict__ slot,
-                                            const float* __restrict__ data_y,
                                             float hx, float hy, float hz) {
-  int vx = (int)floorf(hx * P.inv_voxel);
-  int vy = (int)floorf(hy * P.inv_voxel);
-  int vz = (int)floorf(hz * P.inv_voxel);
+  const int vx = (int)floorf(hx * P.inv_voxel);
+  const int vy = (int)floorf(hy * P.inv_voxel);
+  const int vz = (int)floorf(hz * P.inv_voxel);
   const bool inb = vx >= 0 && vx < P.size && vy >= 0 && vy < P.size &&
                    vz >= 0 && vz < P.size;
-  vx = se::clampi(vx, 0, P.size - 1);
-  vy = se::clampi(vy, 0, P.size - 1);
-  vz = se::clampi(vz, 0, P.size - 1);
-  const int s = __ldg(slot + ((vx >> 3) * P.b + (vy >> 3)) * P.b + (vz >> 3));
+  const int c = cell_of(P, vx, vy, vz);
+  int s = pool.nav_of(c);
+  if (s < 0) s = __ldg(slot + c);
   if (s < 0 || !inb) return 0.f;
-  return __ldg(data_y + (size_t)s * se::kBlockVoxels + (vx & 7) +
-               ((vy & 7) << 3) + ((vz & 7) << 6));
+  const int lx = se::clampi(vx, 0, P.size - 1) & 7;
+  const int ly = se::clampi(vy, 0, P.size - 1) & 7;
+  const int lz = se::clampi(vz, 0, P.size - 1) & 7;
+  return __ldg(pool.data_y + (size_t)s * se::kBlockVoxels + lx + (ly << 3) +
+               (lz << 6));
 }
 
 // March the ray of image pixel (x, y) of `view` (V) into output i, primed
@@ -252,6 +305,7 @@ __device__ __forceinline__ bool march_ray(
   const float rinv = 1.f / sqrtf(r.x * r.x + r.y * r.y + r.z * r.z);
   const float dx = r.x * rinv, dy = r.y * rinv, dz = r.z * rinv;
   const float ox = V[3], oy = V[7], oz = V[11];
+  const Ray ray{ox, oy, oz, dx, dy, dz};
 
   // ray_box_range_c
   float lo[3], hi[3];
@@ -289,8 +343,7 @@ __device__ __forceinline__ bool march_ray(
     // primed start
     const float t_tight =
         prime > 0.f ? fmaxf(tnear, prime - P.small_backoff) : tnear;
-    const Probe pt = probe<kOF>(P, pool, ox + dx * t_tight,
-                                oy + dy * t_tight, oz + dz * t_tight);
+    const Probe pt = probe<kOF>(P, pool, ray, t_tight);
     const bool ok_tight = pt.known && (kOF ? pt.val <= 0.f : pt.val > 0.f);
     tnear = ok_tight
                 ? t_tight
@@ -299,8 +352,7 @@ __device__ __forceinline__ bool march_ray(
   } else {
     // unprimed start: the value at tnear (the fill where unknown) must lie
     // on the free side
-    const Probe p0 =
-        probe<kOF>(P, pool, ox + dx * tnear, oy + dy * tnear, oz + dz * tnear);
+    const Probe p0 = probe<kOF>(P, pool, ray, tnear);
     const float v0 = p0.known ? p0.val : FieldConst<kOF>::fill;
     const bool free_side = kOF ? v0 <= 0.f : v0 > 0.f;
     status = tnear < tfar && free_side ? 0 : 2;
@@ -310,7 +362,7 @@ __device__ __forceinline__ bool march_ray(
         f_t = kOF ? 0.f : __int_as_float(0x7f800000), f_tt = 0.f,
         crawl = 0.f;
   for (int n = 0; n < P.max_probes && status == 0; ++n) {
-    const Probe q = probe<kOF>(P, pool, ox + dx * t, oy + dy * t, oz + dz * t);
+    const Probe q = probe<kOF>(P, pool, ray, t);
     const bool hit = q.known && (kOF ? q.val > 0.f : q.val < 0.f);
     if (q.known) f_tt = q.val;
     if (hit) {
@@ -368,11 +420,11 @@ __device__ __forceinline__ bool march_ray(
   const int iz0 = se::clampi((int)bz, 0, P.size - 1);
   const int iy1 = min(iy0 + 1, P.size - 1);
   const int iz1 = min(iz0 + 1, P.size - 1);
-  float v000, v100, v010, v110, v001, v101, v011, v111;
-  corner_pair<kOF>(P, pool, ix, iy0, iz0, v000, v100);
-  corner_pair<kOF>(P, pool, ix, iy1, iz0, v010, v110);
-  corner_pair<kOF>(P, pool, ix, iy0, iz1, v001, v101);
-  corner_pair<kOF>(P, pool, ix, iy1, iz1, v011, v111);
+  float at_x[4], at_x1[4];  // the four rows' corners at x and x + 1
+  corner_pairs<kOF>(P, pool, ix, iy0, iy1, iz0, iz1, at_x, at_x1);
+  const float v000 = at_x[0], v100 = at_x1[0], v010 = at_x[1],
+              v110 = at_x1[1], v001 = at_x[2], v101 = at_x1[2],
+              v011 = at_x[3], v111 = at_x1[3];
   const float c00 = v000 * (1.f - fx) + v100 * fx;
   const float c10 = v010 * (1.f - fx) + v110 * fx;
   const float c01 = v001 * (1.f - fx) + v101 * fx;
@@ -410,7 +462,7 @@ __device__ __forceinline__ bool march_ray(
   normal[3 * i + 2] = ok ? gz * ninv : 0.f;
   bool keep = ok;
   if (kGate && ok)
-    keep = ref_weight(P, slot, pool.data_y, hx, hy, hz) >= P.min_ref_weight;
+    keep = ref_weight(P, pool, slot, hx, hy, hz) >= P.min_ref_weight;
   valid[i] = keep ? 1 : 0;
   return status == 0;
 }

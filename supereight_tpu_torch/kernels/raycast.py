@@ -74,10 +74,21 @@ class Probes(NamedTuple):
     that march; the start's probe is not counted), ``nav`` the nav entries
     (bool[B^3]) and ``pool`` the pool voxels (bool[capacity * 512], both
     channels) that the start probe, the march probes and the hits'
-    refinement read."""
+    refinement read. Each ray's march probes by kind (i32[H, W], summing
+    to ``per_ray``): ``known`` those in known space that step above the
+    crawl floor (TSDF; OFusion: inside an allocated block), the hit
+    included; ``crawl`` the TSDF ones that step at the floor
+    (f mu <= floor); ``jump`` those that jump (unknown space; OFusion:
+    outside the allocated blocks). ``new_nav`` counts the march probes
+    that read a nav entry: a block cell other than the last one the ray
+    read, the start's probe included (the kernel keeps one entry)."""
     per_ray: torch.Tensor
     nav: torch.Tensor
     pool: torch.Tensor
+    known: torch.Tensor = None
+    crawl: torch.Tensor = None
+    jump: torch.Tensor = None
+    new_nav: torch.Tensor = None
 
 
 def prime_from_depth(depth, k):
@@ -389,7 +400,7 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
         known = ((val < 0.5 * unk) & in_block) | (coarse_known & inb)
         dist = torch.where(nv < 0, e & 7, 0).to(torch.float32)
         dist = torch.where(inb, dist, float(MAX_JUMP))
-        return val, known, dist, in_block
+        return val, known, dist, in_block, cell
 
     def free_side(v):  # the start's side of the surface
         return v <= SURF_BOUNDARY if of else v > 0
@@ -398,7 +409,7 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
     if prime_t is None:
         # unprimed start (raycast.py:537-544): the value at tnear, the fill
         # where unknown, on the free side, or the ray misses
-        f0, k0, _, _ = probe(tnear, everyone)
+        f0, k0, _, _, cell0 = probe(tnear, everyone)
         go = (tnear < tfar) & free_side(torch.where(k0, f0, fill))
     else:
         # primed start: tight backoff when it lands in known free space
@@ -406,7 +417,7 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
                               torch.maximum(tnear,
                                             prime_t - q["small_backoff"]),
                               tnear)
-        ft, kt, _, _ = probe(t_tight, everyone)
+        ft, kt, _, _, cell0 = probe(t_tight, everyone)
         ok_tight = kt & free_side(ft)
         tnear = torch.where(ok_tight, t_tight,
                             torch.where(prime_t > 0,
@@ -415,6 +426,10 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
                                         tnear))
         go = tnear < tfar
     status = torch.where(go, 0, 2).to(torch.int32)
+    if with_probes:  # the kernel's one cached nav entry: the start's cell
+        last_cell = cell0
+        kinds = {k: torch.zeros_like(status)
+                 for k in ("known", "crawl", "jump", "new_nav")}
 
     t = tnear + 0.0
     ss = torch.full_like(t, step if of else q["largestep"])
@@ -424,7 +439,7 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
     probes = torch.zeros_like(status)
     for _ in range(q["max_probes"]):
         active = status == 0
-        mx, known, dist, in_block = probe(t, active)
+        mx, known, dist, in_block, cell = probe(t, active)
         probes += active.to(torch.int32)
         hit = active & known & ((mx > SURF_BOUNDARY) if of else (mx < 0))
         f_tt = torch.where(active & known, mx, f_tt)
@@ -451,6 +466,15 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
             crawl = torch.where(crawling, crawl + 1.0,
                                 torch.where(adv, torch.zeros_like(crawl),
                                             crawl))
+        if with_probes:
+            at_floor = torch.zeros_like(known) if of else crawling
+            in_known = in_block if of else known
+            kinds["crawl"] += at_floor.to(torch.int32)
+            kinds["known"] += (active & in_known & ~at_floor).to(torch.int32)
+            kinds["jump"] += (active & ~in_known).to(torch.int32)
+            moved = active & (cell != last_cell)
+            kinds["new_nav"] += moved.to(torch.int32)
+            last_cell = torch.where(active, cell, last_cell)
         ss = torch.where(adv, new_ss, ss)
         t = torch.where(adv, t + ss, t)
         status = torch.where(hit, 1, status)
@@ -550,4 +574,5 @@ def march_plain(geom, field, data_x, data_y, nav, view, prime_t, mu: float,
                 ok.reshape(h, w), overflow)
     if not with_probes:
         return rays, None
-    return rays, Probes(probes.reshape(h, w), nav_read > 0, pool_read > 0)
+    return rays, Probes(probes.reshape(h, w), nav_read > 0, pool_read > 0,
+                        **{k: v.reshape(h, w) for k, v in kinds.items()})

@@ -1268,3 +1268,161 @@ def test_debug_dumps_and_mesh_on_cuda_equal_cpu(cuda, field, tmp_path):
         assert (tmp_path / f"cpu.{ext}").read_bytes() == \
             (tmp_path / f"cuda.{ext}").read_bytes(), ext
     assert meshing.WRITES == dict(before, native=before["native"] + 2)
+
+
+# K1 on a grazing view: along the room's far wall (z = 1.85 m) at about
+# 1.4 degrees, whose rays crawl at the floor past the 16 steps after which
+# it rises (tests/test_torch_raycast.py holds the twin to JAX there)
+GRAZE_EYE, GRAZE_TARGET = (1.8, 1.2, 1.80), (0.2, 1.2, 1.84)
+NOISE_OPTIONS = chip_smoke.NOISE_OPTIONS
+
+
+def _noisy_frames(device, n=8):
+    """The test orbit with frame i noised as add_depth_noise(d, 0.002,
+    seed=i), through the frame step with the noise+levers options:
+    (geometry, state)."""
+    depths, poses = synthetic.orbit_sequence(
+        n, K, width=W, height=H, radius=0.8, center=(1.0,) * 3,
+        sphere_radius=0.3, angle_span=0.3, room=((0.15,) * 3, (1.85,) * 3))
+    geom = MapGeometry(size=64, dim=2.0, capacity=1024)
+    k = torch.tensor(K).to(device)
+    state = step.init_frame_state(geom, TSDF, (W, H), poses[0], device)
+    for i in range(n):
+        d = synthetic.add_depth_noise(depths[i], 0.002, seed=i)
+        state, aux = step.frame_step(
+            geom, TSDF, state, torch.from_numpy(d).to(device), k, i,
+            frame_size=(W, H), iterations=(3, 2), mu=MU["tsdf"],
+            icp_threshold=1e-5, neg_y=False, integration_rate=1,
+            budget=1024, **NOISE_OPTIONS)
+    return geom, state
+
+
+def hit_cells(geom, vertex, valid):
+    """The nav-grid cells of the voxels at floor(vertex / voxel) of the
+    hits (the gate's voxels), clamped into the map."""
+    v = torch.floor(vertex[valid] * geom.inv_voxel_size).to(torch.int64)
+    v = v.clamp(0, geom.size - 1) >> 3
+    b = geom.blocks_per_side
+    return (v[:, 0] * b + v[:, 1]) * b + v[:, 2]
+
+
+def _grazing_view(k, device):
+    pose = synthetic.look_at(np.array(GRAZE_EYE), np.array(GRAZE_TARGET))
+    return se3.matmul4(torch.from_numpy(pose.astype(np.float32)).to(device),
+                       se3.inverse_camera_matrix(k))
+
+
+@pytest.mark.cuda
+def test_raycast_on_a_grazing_view_bit_equal_on_cuda(cuda):
+    """Every TSDF K1 instance on the noisy map from the grazing view,
+    bit for bit against its twin (vertex, normal, hit mask, ray_overflow):
+    primed by a zero depth (the march from the near plane), gated at the
+    options' weight and not, over the whole image and a column window, and
+    unprimed; some ray takes more than 16 steps at the crawl floor and
+    some more than 5 jumps. Where a hit voxel's nav entry is >= 0 it is
+    the slot grid's entry (the gated instance reads the weight through
+    it)."""
+    geom, state = _noisy_frames(cuda)
+    k = torch.tensor(K).to(cuda)
+    m, field, mu = state.map, TSDF, MU["tsdf"]
+    view = _grazing_view(k, cuda)
+    zero = torch.zeros((H, W), device=cuda)
+    nv = nav.nav_grid(geom, m, field)
+    weight = NOISE_OPTIONS["min_ref_weight"]
+    cases = {"raycast": dict(depth=zero, k=k),
+             "raycast_gated": dict(depth=zero, k=k, min_ref_weight=weight),
+             "raycast_cols": dict(depth=zero, k=k, x0=16, width=24),
+             "raycast_cold": dict(depth=None, k=None)}
+    for name, kw in cases.items():
+        before = _lib.LAUNCHES[name]
+        got = kray.raycast_rays(geom, m, field, nv, view, mu=mu,
+                                frame_size=(W, H), **kw)
+        assert _lib.LAUNCHES[name] == before + 1
+        plain_kw = dict(kw)
+        if "min_ref_weight" in kw:
+            plain_kw["slot"] = m.slot
+        want, probes = kray.raycast_plain(
+            geom, field, m.data_x, m.data_y, nv, view, mu=mu,
+            frame_size=(W, H), with_probes=True, **plain_kw)
+        for a, b in zip(got[:4], want[:4]):
+            assert torch.equal(a, b), name
+        assert int(got.valid.sum()) > 0, name
+        if name == "raycast":
+            assert int(probes.crawl.max()) > 16
+            assert int(probes.jump.max()) > 5
+            cells = hit_cells(geom, got.vertex, got.valid)
+            listed = nv[cells] >= 0
+            assert int(listed.sum()) > 0
+            assert torch.equal(nv[cells][listed],
+                               m.slot.reshape(-1)[cells][listed])
+    torch.cuda.synchronize()
+    assert not any(bool(v.any()) for v in kray._SCRATCH.values())
+
+
+# sizes that are not multiples of the median's warp tile (28 or 30 columns
+# by 16 rows), 1 and 2 pixels wide or high, and the bench frame's
+MEDIAN_SIZES = [(1, 1), (1, 2), (2, 1), (7, 1), (9, 2), (2, 33), (17, 29),
+                (33, 57), (16, 28), (239, 319), (240, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("size", MEDIAN_SIZES,
+                         ids=[f"{h}x{w}" for h, w in MEDIAN_SIZES])
+def test_median_filters_bit_equal_on_cuda(cuda, size, passes):
+    """K7's median (one pass) and median2 bit for bit against the twin:
+    positive depths, then a sixth of the pixels 0, then also runs of 0
+    along the warp tiles' edges (columns 26-31, rows 14-17) and the first
+    column; one launch counted a call."""
+    h, w = size
+    rng = np.random.default_rng(h * 1000 + w)
+    name = "median" if passes == 1 else "median2"
+    for trial in range(3):
+        d = (rng.random((h, w)) * 3 + 0.5).astype(np.float32)
+        if trial:
+            d[rng.random((h, w)) < 1 / 6] = 0.0
+        if trial == 2:
+            d[:, 26:32] = 0.0
+            d[14:18, :] = 0.0
+            d[:, 0] = 0.0
+        dt = torch.from_numpy(d).to(cuda)
+        before = _lib.LAUNCHES[name]
+        got = preprocess.median_filter3(dt, passes)
+        assert _lib.LAUNCHES[name] == before + 1
+        assert torch.equal(got, preprocess.median_filter3_plain(dt, passes))
+
+
+def test_noise_kernels_tool_on_the_cpu(tmp_path):
+    """``tools/noise_kernels``: without a card it exits 2; its noisy loop
+    is frames 0, 1, ... of the 250-frame loop with range noise, in mm as
+    the .raw holds them; its probe statistics and probe-bound line on the
+    test orbit's gated raycast (a timer that counts its calls): the
+    longest ray's kinds sum to its probes, one timed launch a bound."""
+    from supereight_tpu_torch.io.dataset import RawDepthReader
+    from supereight_tpu_torch.tools import noise_kernels as nk
+    torch.set_num_threads(1)
+    if not torch.cuda.is_available():
+        assert nk.main([]) == 2
+    raw = str(tmp_path / "noisy.raw")
+    nk.render_noisy_loop(raw, frames=2, workers=2)
+    for i in range(2):
+        d, _ = synthetic.loop_frame(i, nk.LOOP_FRAMES, nk.LOOP_K,
+                                    noise_factor=nk.NOISE_FACTOR)
+        got = RawDepthReader(raw).read_frame(i)[0]
+        np.testing.assert_array_equal(
+            got, np.round(d * 1000.0).astype(np.uint16))
+    assert len(open(raw + ".gt.txt").read().splitlines()) == 2
+    geom, state, k, depth = _frames("cpu", n=3)
+    view = se3.matmul4(state.pose, se3.inverse_camera_matrix(k))
+    inp = nk.GateInputs(geom, TSDF, state.map, nav.nav_grid(geom, state.map,
+                                                           TSDF),
+                        view, depth, k, MU["tsdf"], (W, H), 2)
+    calls = []
+    out = nk.measure(inp, lambda fn: (fn(), calls.append(1), 1.0)[-1])
+    st = out["probes"]
+    assert st["p50"] <= st["p90"] <= st["p99"] <= st["max"] > 0
+    assert sum(st["longest_split"][k] for k in ("known", "crawl", "jump")) \
+        == st["max"]
+    assert out["line"]["bounds"][-1] == st["max"]
+    assert len(calls) == 3 + len(out["line"]["bounds"])
+    assert out["hits"] > 0 and out["overflow"] == 0

@@ -26,6 +26,11 @@ The TSDF map-maturity gate (``min_ref_weight``, JAX parallel/step.py:
 raycast agrees with JAX's raycast gated by that read on the rays both
 hit (>= 99.9 %: a vertex 1e-4 m away may cross a voxel face) with its
 vertices and normals unchanged; for OFusion the option changes nothing.
+The same holds on a noisy map (JAX's frame step over the noisy orbit with
+the noise+levers options) from a view grazing the room's far wall, where
+some rays crawl at the floor for more than 16 steps. The twin's per-ray
+probe kinds sum to its probes a ray, and where a hit voxel's nav entry is
+>= 0 it is the slot grid's entry (K1's gate reads the weight through it).
 """
 
 from types import SimpleNamespace
@@ -49,6 +54,7 @@ from supereight_tpu_torch.kernels import nav as knav
 from supereight_tpu_torch.kernels import raycast as kray
 from supereight_tpu_torch.ops import raycast
 from supereight_tpu_torch.io import synthetic
+from test_torch_kernels import GRAZE_EYE, GRAZE_TARGET, hit_cells
 from test_torch_step import (CAPACITY, FIELDS, MU, H, W, assert_no_drops,
                              jax_frames, jax_geometry, k_jax, k_torch,
                              make_scene, torch_frames, torch_geometry)
@@ -361,3 +367,119 @@ def test_maturity_gate_parity(setup, weight):
     assert not (gok & ~tok).any()
     # the gate drops some hits and keeps others
     assert 0 < int(gok.sum()) < int(tok.sum())
+
+
+def test_probe_kinds_sum_to_the_probes_a_ray(setup):
+    """The twin's per-ray probe kinds at frame 4's primed view: known steps
+    (above the crawl floor; OFusion: inside a block), floor steps (TSDF
+    only) and jumps sum to each ray's probes; a probe reads at most one
+    new nav entry, and recording them changes no result."""
+    depth, s, name = setup
+    ts = convert.frame_to_torch(s, "cpu")
+    geom, field = torch_geometry(), FIELDS[name]
+    view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
+    nv = knav.nav_grid(geom, ts.map, field)
+    args = (geom, field, ts.map.data_x, ts.map.data_y, nv, view,
+            torch.from_numpy(depth), k_torch(), MU[name], (W, H))
+    rays, probes = kray.raycast_plain(*args, with_probes=True)
+    for a, b in zip(rays[:4], kray.raycast_plain(*args)[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(probes.known + probes.crawl + probes.jump,
+                       probes.per_ray)
+    assert bool((probes.new_nav <= probes.per_ray).all())
+    assert int(probes.known.sum()) > 0 and int(probes.jump.sum()) > 0
+    assert int(probes.new_nav.sum()) > 0
+    if name == "ofusion":
+        assert int(probes.crawl.sum()) == 0
+    else:
+        assert int(probes.crawl.sum()) > 0
+
+
+def test_nav_entry_of_a_hit_is_its_slot(setup):
+    """Where a hit voxel's nav entry is >= 0 it is the block's pool slot,
+    the slot grid's entry there (K1's gate reads the weight through it),
+    with the full pool and with a bucket below the block count."""
+    depth, s, name = setup
+    ts = convert.frame_to_torch(s, "cpu")
+    geom, field = torch_geometry(), FIELDS[name]
+    view = se3.matmul4(ts.pose, se3.inverse_camera_matrix(k_torch()))
+    for bucket in (CAPACITY, 48):
+        nv = knav.nav_grid(geom, ts.map, field, bucket=bucket)
+        rays = kray.raycast_plain(geom, field, ts.map.data_x, ts.map.data_y,
+                                  nv, view, torch.from_numpy(depth),
+                                  k_torch(), MU[name], (W, H))
+        cells = hit_cells(geom, rays.vertex, rays.valid)
+        listed = nv[cells] >= 0
+        assert int(listed.sum()) > 0
+        assert torch.equal(nv[cells][listed],
+                           ts.map.slot.reshape(-1)[cells][listed])
+
+
+@pytest.fixture(scope="module")
+def noisy_map():
+    """JAX's map after the noisy orbit of test_torch_noise.py's tsdf-noise
+    case (8 frames, the noise+levers options), its drop counters 0, and
+    the options' maturity weight."""
+    from test_torch_noise import CASES, noisy_scene
+    torch.set_num_threads(1)
+    field, n, options = CASES["tsdf-noise"]
+    depths, poses = noisy_scene(n)
+    states, auxes = jax_frames(depths, poses, n, field, **options)
+    for a in auxes:
+        assert_no_drops(a)
+    return states[-1], options["min_ref_weight"]
+
+
+def test_gate_parity_on_a_grazing_view_of_a_noisy_map(noisy_map):
+    """K1's gated twin against JAX's raycast and the frame step's gate
+    (parallel/step.py:171-192) on the noisy map from a grazing view along
+    the room's far wall with no depth to prime it, at
+    test_maturity_gate_parity's tolerances; some ray of the view takes more
+    than 16 steps at the crawl floor (after which the floor rises)."""
+    s, weight = noisy_map
+    pose = synthetic.look_at(np.array(GRAZE_EYE),
+                             np.array(GRAZE_TARGET)).astype(np.float32)
+    zero = np.zeros((H, W), np.float32)
+    jview = jnp.matmul(jnp.asarray(pose),
+                       jax_se3.inverse_camera_matrix(k_jax()),
+                       precision=jax.lax.Precision.HIGHEST)
+    jm = jax.tree.map(jnp.asarray, s.map)
+    jv, jn, jok, jst = jax_raycast.raycast(
+        jax_geometry(), jm, get_field("tsdf"), jview, MU["tsdf"], (W, H),
+        prime_t=jax_raycast.prime_from_depth(jnp.asarray(zero), k_jax()),
+        with_stats=True)
+    iv = jax_geometry().inv_voxel_size
+    hv = jnp.floor(jv * iv).astype(jnp.int32)
+    w_ref = get_voxel_channel_c(jax_geometry(), jm, get_field("tsdf"),
+                                hv[..., 0], hv[..., 1], hv[..., 2],
+                                channel=1, fill=0.0)
+    jgate = np.asarray(jok & (w_ref >= weight))
+    jv, jn, jok = np.asarray(jv), np.asarray(jn), np.asarray(jok)
+
+    ts = convert.frame_to_torch(s, "cpu")
+    geom, field = torch_geometry(), FIELDS["tsdf"]
+    view = se3.matmul4(torch.from_numpy(pose),
+                       se3.inverse_camera_matrix(k_torch()))
+    nv = knav.nav_grid(geom, ts.map, field)
+    args = (geom, field, ts.map.data_x, ts.map.data_y, nv, view,
+            torch.from_numpy(zero), k_torch(), MU["tsdf"], (W, H))
+    ungated = kray.raycast_plain(*args)
+    gated, probes = kray.raycast_plain(*args, with_probes=True,
+                                       slot=ts.map.slot,
+                                       min_ref_weight=weight)
+    assert int(gated.overflow) == int(jst["ray_overflow"]) == 0
+    tok, gok = ungated.valid.numpy(), gated.valid.numpy()
+    assert np.mean(tok == jok) >= MIN_AGREE["tsdf"]
+    both = tok & jok
+    assert both.sum() > 0.1 * both.size
+    np.testing.assert_allclose(gated.vertex.numpy()[both], jv[both],
+                               atol=1e-4, rtol=0)
+    np.testing.assert_allclose(gated.normal.numpy()[both], jn[both],
+                               atol=1e-3, rtol=0)
+    for a, b in ((ungated.vertex, gated.vertex),
+                 (ungated.normal, gated.normal)):
+        assert torch.equal(a, b)
+    assert np.mean(gok[both] == jgate[both]) >= 0.999
+    assert not (gok & ~tok).any()
+    assert 0 < int(gok.sum()) < int(tok.sum())
+    assert int(probes.crawl.max()) > 16
