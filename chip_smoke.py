@@ -154,13 +154,16 @@ checkout:
    single-device frame step on this card, the frustum final pose within
    5e-3 of the exact one, every drop counter 0, every rank owning blocks
    (summed and printed beside the single run's), every kernel of the
-   sharded path launched (K6 icp_reduce over the rank's columns and
-   icp_update, K5's windowed march and owner-masked allocation,
-   halo_pack, K2 on the halo, K1 over the rank's columns); the sharded
-   modes against their twins on rank 1's inputs at frame 4 (captured by
-   the rank, checked here); it prints ms/frame per rank, the halo's
-   bytes and the share of a frame blocked in collectives, which measure
-   no scaling: the four ranks share one card;
+   sharded path launched (K6 icp_reduce over the rank's columns,
+   icp_reduce_step and icp_update, each rank's K6 launches a frame one,
+   sum(ITERATIONS) - 1 and one, K5's windowed march and owner-masked
+   allocation, halo_pack, K2 on the halo, K1 over the rank's columns);
+   the sharded modes against their twins on rank 1's inputs at frame 4
+   (captured by the rank, checked here) and that rank's ICP of the frame
+   replayed without collectives (device us, launches); it prints
+   ms/frame per rank, the halo's bytes and the share of a frame blocked
+   in collectives, which measure no scaling: the four ranks share one
+   card;
 8. prints one JSON line of per-kernel results (each with its bound: the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted from this run's inputs; and, where one PyTorch call
@@ -228,6 +231,9 @@ DIST_HALO_BUDGET = 4096   # blocks a rank may send (the TSDF slice: ~7.3k)
 DIST_CAPTURE = 4          # the frame whose inputs the mode checks take
 DIST_POSE_TOL = 2e-3      # tests/test_dist.py:83
 DIST_FRUSTUM_TOL = 5e-3   # tests/test_dist.py:96
+# the sharded tracking's launches (one icp_reduce, then one
+# icp_reduce_step an iteration, then one icp_update a frame)
+DIST_K6 = ("icp_reduce", "icp_reduce_step", "icp_update")
 DIST_DROPS = ("alloc_overflow", "blocks_truncated", "ray_overflow",
               "halo_overflow")
 HALO_FLAG_OPS = 40        # halo_pack's test of a slot (two transforms ...)
@@ -433,6 +439,8 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
     "raycast_cold_of": ("supereight_tpu_torch/csrc/raycast.cu",
                         "supereight_tpu/ops/raycast.py:537"),
     # the sharded step's modes (dist phase)
+    "icp_reduce_step": ("supereight_tpu_torch/csrc/icp.cu",
+                        "supereight_tpu/ops/tracking.py:286"),
     "icp_update": ("supereight_tpu_torch/csrc/icp.cu",
                    "supereight_tpu/ops/tracking.py:293"),
     "alloc_touch_cols": ("supereight_tpu_torch/csrc/alloc.cu",
@@ -484,6 +492,8 @@ NO_LIBRARY = {
     "raycast_gated": "no call marches rays through a sparse grid",
     "raycast_cold": "no call marches rays through a sparse grid",
     "raycast_cold_of": "no call marches rays through a sparse grid",
+    "icp_reduce_step": "no call runs a Gauss-Newton step with a freeze, "
+                       "nor a gather plus 28 Gram sums",
     "icp_update": "no call runs a Gauss-Newton step with a freeze",
     "alloc_touch_cols": "no call marches rays into a grid",
     "alloc_touch_of_cols": "no call marches rays into a grid",
@@ -494,7 +504,8 @@ NO_LIBRARY = {
     "raycast_cols_of": "no call marches rays through a sparse grid",
 }
 # device kernel names (without "_kernel") reported from the profile, and
-# the frame_step stage that launches each; the OFusion instantiations are
+# the frame_step stage that launches each (icp_reduce's kernel runs its
+# icp_reduce_step mode too); the OFusion instantiations are
 # the <true> ones; K1's unprimed instantiations (raycast_kernel<of, false,
 # false>) are named raycast_cold (port_kernel), launched by a fresh view's
 # render of the class pipeline
@@ -553,12 +564,13 @@ PATHS = {  # the kernels each main path must launch
     # the library surface: allocate_blocks over a sphere shell
     "library": ("alloc_assign",),
     # the sharded step, four ranks on one card (the dist phase)
-    "dist-tsdf": ("pyramid", "frame_mats", "icp_reduce", "icp_update",
-                  "alloc_touch_cols", "alloc_assign_owned",
+    "dist-tsdf": ("pyramid", "frame_mats", "icp_reduce", "icp_reduce_step",
+                  "icp_update", "alloc_touch_cols", "alloc_assign_owned",
                   "integrate_worklist", "integrate_fused",
                   "integrate_fallback", "node_rank", "node_pass",
                   "halo_pack", "nav_grid", "raycast_cols"),
-    "dist-ofusion": ("pyramid", "frame_mats", "icp_reduce", "icp_update",
+    "dist-ofusion": ("pyramid", "frame_mats", "icp_reduce",
+                     "icp_reduce_step", "icp_update",
                      "alloc_touch_of_cols", "alloc_assign_owned",
                      "integrate_worklist", "integrate_fused_of",
                      "integrate_fallback_of", "node_rank", "node_pass",
@@ -1969,12 +1981,8 @@ def kernel_phase_tsdf(torch, sc):
           f"inliers {red_p[28].item():.0f}")
     require(code_agree >= 0.999 and red_err <= 1e-4,
             "K6 icp_reduce disagrees with twin")
-    rows["icp_reduce"] = dict(
-        max_abs_err=(red_k - red_p).abs().max().item(),
-        ms=cuda_ms(torch, lambda: icp.icp_reduce(*args), 50),
-        plain_ms=cuda_ms(torch, lambda: icp.icp_reduce_plain(*args), 10),
-        **bound((2 * H * W) * ICP_PIXEL_BYTES + H * W * 4 + 2 * 64 + 32 * 4,
-                H * W * ICP_PIXEL_OPS))
+    # timed in the dist phase, where the path launches it (a rank's window)
+    rows["icp_reduce"] = dict(max_abs_err=(red_k - red_p).abs().max().item())
 
     # K6: the whole tracking step of frame 3 against that raycast
     rows["icp_track"] = check_icp_track(
@@ -2268,7 +2276,7 @@ def slice_phase(torch, sc, card):
     noise = sc.options.get("noise_weighted", False)
     expect = {"icp_track": sc.n_total, "node_pass": sc.n_total,
               "pyramid": sc.n_total, "nav_grid": sc.n_total,
-              "icp_reduce": 0,
+              "icp_reduce": 0, "icp_reduce_step": 0, "icp_update": 0,
               "alloc_assign": sc.n_total, "integrate_worklist": sc.n_total,
               ki.fused_name(sc.field, noise): sc.n_total,
               ki.fallback_name(sc.field, noise): sc.n_total,
@@ -3501,19 +3509,29 @@ def captured(cap, name):
 
 def check_dist_icp(torch, cap, tag):
     """Mode A on a rank's captured inputs (the step's track call): K6
-    icp_reduce over the rank's column window of every pyramid level (80,
-    40 and 20 columns at the bench config) against its twin, codes on >=
-    99.9 % of pixels and each of the 32 f64 sums to 1e-4 of itself (plus
-    1e-4 of the largest: the finest-level check of the kernel phase); then
-    icp_update from the finest level's sums (a level's first iteration
+    icp_reduce (one cluster launch) over the rank's column window of every
+    pyramid level (80, 40 and 20 columns at the bench config) against its
+    twin, codes on >= 99.9 % of pixels and each of the 32 f64 sums to
+    1e-4 of itself (plus 1e-4 of the largest: the finest-level check of
+    the kernel phase), the sums without a result map and a second launch
+    bit-identical; the fused mode icp_reduce_step from the finest level's
+    sums (the frame's first update, a mid-level one, one before a level's
+    first iteration and a frozen one, whose sums must be zeros) against
+    its twin: the carry's pose to 1e-6, its reduction and done exactly,
+    the sums as icp_reduce's; then icp_update (a level's first iteration
     with check_pose, and a frozen iteration) against its twin: pose and
-    checked pose to 1e-6, the reduction, done and tracked exactly. Returns
-    icp_update's row and icp_reduce's largest absolute error."""
+    checked pose to 1e-6, the reduction, done and tracked exactly. Then
+    the rank's whole tracking of the frame, replayed without collectives
+    (``tools/sharded_icp``): its ICP device us and launches. Returns the
+    three kernels' rows (each timed as the path launches it: no result
+    map, the update with check_pose)."""
     from supereight_tpu_torch.kernels import frame, icp
+    from supereight_tpu_torch.tools import sharded_icp
+    track_args = captured(cap, "track")[0]
     (pose, raycast_pose, k, verts, norms, valids, ref_v, ref_n, ref_ok,
-     *_), _, _ = captured(cap, "track")
+     *_) = track_args
     view = frame.frame_mats(k, raycast_pose).view
-    agree, red_err, abs_err, wins = 1.0, 0.0, 0.0, []
+    agree, red_err, abs_err, wins, same = 1.0, 0.0, 0.0, [], True
     for level in range(len(verts)):
         wl = verts[level].shape[1] // cap["world"]
         win = dict(x0=cap["rank"] * wl, width=wl)
@@ -3521,6 +3539,8 @@ def check_dist_icp(torch, cap, tag):
                 ref_ok, pose, view)
         res, red = icp.icp_reduce64(*args, **win)
         res_p, red_p = icp.icp_reduce64_plain(*args, **win)
+        none, again = icp.icp_reduce64(*args, **win, with_result=False)
+        same &= none is None and torch.equal(again, red)
         agree = min(agree, (res == res_p).float().mean().item())
         red_err = max(red_err, ((red - red_p).abs() / (
             red_p.abs() + 1e-4 * red_p.abs().max())).max().item())
@@ -3529,9 +3549,29 @@ def check_dist_icp(torch, cap, tag):
         if level == 0:
             args0, win0, red0 = args, win, red
     size = tuple(ref_v.shape[:2])
-    frozen = icp.Carry(pose, red0.to(torch.float32),
-                       torch.ones((), dtype=torch.bool, device=pose.device))
-    errs, same = [], True
+    zero = torch.zeros((), dtype=torch.bool, device=pose.device)
+    mid = icp.Carry(pose, red0.to(torch.float32), zero)
+    frozen = mid._replace(done=~zero)
+    level0 = args0[:6] + (view,)
+    step_err, step_same, frozen_zero = 0.0, True, True
+    for carry, first, next_first in ((None, True, False), (mid, False, False),
+                                     (mid, False, True),
+                                     (frozen, False, False)):
+        got = icp.icp_reduce_step(red0, pose, carry, first, next_first, 1e-5,
+                                  *level0, **win0)
+        want = icp.icp_reduce_step_plain(red0, pose, carry, first,
+                                         next_first, 1e-5, *level0, **win0)
+        step_err = max(step_err,
+                       (got[0].pose - want[0].pose).abs().max().item())
+        step_same &= torch.equal(got[0].reduction, want[0].reduction) \
+            and torch.equal(got[0].done, want[0].done)
+        red_err = max(red_err, ((got[1] - want[1]).abs() / (
+            want[1].abs() + 1e-4 * want[1].abs().max() + 1e-30)).max()
+            .item())
+        abs_err = max(abs_err, (got[1] - want[1]).abs().max().item())
+        if carry is frozen:
+            frozen_zero = not bool(got[1].any())
+    errs = []
     for carry, first, old in ((None, True, pose), (frozen, False, None)):
         got = icp.icp_update(red0, pose, carry, first, 1e-5, old, size)
         want = icp.icp_update_plain(red0, pose, carry, first, 1e-5, old,
@@ -3545,27 +3585,89 @@ def check_dist_icp(torch, cap, tag):
     err = max(errs)
     print(f"{tag}: icp_reduce over the columns of {', '.join(wins)}: codes "
           f"agree on {agree:.6f} (>= 0.999), sums' largest relative err "
-          f"{red_err:.2e} (<= 1e-4), absolute {abs_err:.2e}; icp_update "
-          f"pose err {err:.2e} (<= 1e-6), reduction, done and tracked "
-          f"equal: {same}")
-    require(agree >= 0.999 and red_err <= 1e-4 and err <= 1e-6 and same,
+          f"{red_err:.2e} (<= 1e-4), absolute {abs_err:.2e}; "
+          f"icp_reduce_step pose err {step_err:.2e} (<= 1e-6), reduction "
+          f"and done equal: {step_same}, frozen sums zero: {frozen_zero}; "
+          f"icp_update pose err {err:.2e} (<= 1e-6), reduction, done and "
+          f"tracked equal, no-result sums and a second launch bit-equal: "
+          f"{same}")
+    require(agree >= 0.999 and red_err <= 1e-4 and err <= 1e-6 and same
+            and step_err <= 1e-6 and step_same and frozen_zero,
             f"{tag}: a sharded ICP mode disagrees with its twin")
-    carry = icp.Carry(pose.clone(), red0.to(torch.float32),
-                      torch.zeros((), dtype=torch.bool, device=pose.device))
-    win_us = device_us(torch, lambda: icp.icp_reduce64(*args0, **win0), 20,
-                       2)
-    print(f"{tag}: icp_reduce over the finest window and the f64 sum of its "
-          f"CTA partials: {win_us:.2f} device us (two launches)")
-    row = dict(max_abs_err=err,
-               device_us=device_us(torch, lambda: icp.icp_update(
-                   red0, pose, carry, False, 1e-5), 20, 1),
-               ms=cuda_ms(torch, lambda: icp.icp_update(
-                   red0, pose, carry, False, 1e-5), KERNEL_REPS),
-               plain_ms=cuda_ms(torch, lambda: icp.icp_update_plain(
-                   red0, pose, carry, False, 1e-5), TWIN_REPS),
-               # the sums, the pose, reduction and flag in and out
-               **bound(32 * 8 + 2 * (64 + 32 * 4 + 1), ICP_SOLVE_OPS))
-    return row, abs_err
+
+    # a rank's tracking of this frame, replayed with the ranks' sums and
+    # no collective
+    sargs, iterations, thr = sharded_icp.sharded_args(track_args)
+    sums, frozen_its = sharded_icp.record(sargs, iterations, thr)
+    replays = sharded_icp.split_replays(sharded_icp.device_events(
+        lambda: sharded_icp.replay(sargs, iterations, thr, sums)),
+        len(sums))
+    require(len(replays) > 0, f"{tag}: no replay of the rank's tracking "
+            "showed all its launches in the trace")
+    frame_icp = sharded_icp.summarize(replays, iterations, frozen_its)
+    print(f"{tag}: rank {cap['rank']}'s ICP of the frame, replayed without "
+          f"collectives: {frame_icp['icp_us']:.2f} device us in "
+          f"{frame_icp['launches']:.1f} launches ({sum(frozen_its)} of "
+          f"{len(frozen_its)} iterations frozen; per level, finest first, "
+          f"icp_reduce us a launch "
+          f"{[round(lv['reduce_us'], 2) for lv in frame_icp['levels']]}; "
+          f"{frame_icp['replays']} replays seen whole; a frozen "
+          f"iteration's launch {frame_icp['frozen_us']} us)")
+
+    # each timed as the path launches it
+    n0 = args0[0].shape[0] * win0["width"]
+    # the window's pixels and one reference pixel each, pose, view, sums
+    reduce_bytes = 2 * n0 * ICP_PIXEL_BYTES + 2 * 64 + 32 * 8
+    carry_bytes = 64 + 32 * 4 + 1
+    out = torch.empty(32, dtype=torch.float64, device=pose.device)
+    cout = icp.Carry(torch.empty_like(pose), torch.empty_like(mid.reduction),
+                     torch.empty_like(zero))
+
+    def reduce():
+        return icp.icp_reduce64(*args0, **win0, with_result=False, out=out)
+
+    def reduce_plain():
+        return icp.icp_reduce64_plain(*args0, **win0)
+
+    def step():
+        return icp.icp_reduce_step(red0, pose, mid, False, False, 1e-5,
+                                   *level0, **win0, out=out, carry_out=cout)
+
+    def step_plain():
+        return icp.icp_reduce_step_plain(red0, pose, mid, False, False, 1e-5,
+                                         *level0, **win0)
+
+    def update():
+        return icp.icp_update(red0, pose, mid, False, 1e-5, pose, size)
+
+    def update_plain():
+        return icp.icp_update_plain(red0, pose, mid, False, 1e-5, pose, size)
+
+    rows = {}
+    for name, fn, plain, n_bytes, n_ops in (
+            ("icp_reduce", reduce, reduce_plain, reduce_bytes,
+             n0 * ICP_PIXEL_OPS),
+            # the sums, the carry in and out besides
+            ("icp_reduce_step", step, step_plain,
+             reduce_bytes + 32 * 8 + 2 * carry_bytes - 64,
+             n0 * ICP_PIXEL_OPS + ICP_SOLVE_OPS),
+            # the sums, the carry in and out, the old pose, the checked
+            # pose and flag
+            ("icp_update", update, update_plain,
+             32 * 8 + 2 * carry_bytes + 64 + 64 + 1, ICP_SOLVE_OPS)):
+        rows[name] = dict(max_abs_err=abs_err if name == "icp_reduce"
+                          else step_err if name == "icp_reduce_step"
+                          else err,
+                          device_us=device_us(torch, fn, 20, 1),
+                          ms=cuda_ms(torch, fn, KERNEL_REPS),
+                          plain_ms=cuda_ms(torch, plain, TWIN_REPS),
+                          **bound(n_bytes, n_ops))
+        print(f"{tag}: {name} as the path launches it: "
+              f"{rows[name]['device_us']:.2f} device us; bound "
+              f"{rows[name]['bound_ms'] * 1e3:.4f} us "
+              f"({rows[name]['bound_by']})")
+    rows["icp_reduce_step"]["rank_frame"] = frame_icp
+    return rows
 
 
 def check_dist_alloc(torch, cap, field, tag):
@@ -3789,10 +3891,12 @@ def dist_phase(torch, dev, tmp, card):
     rank's collectives (1 + sum(ITERATIONS) + 3 a frame, one more for the
     halo on frames > 2, and the all-gathers' bytes), and the kernels the
     path runs against their twins on rank 1's captured calls at frame
-    DIST_CAPTURE: the sharded modes (K6 icp_update and the windowed
-    icp_reduce at every level, K5's windowed marches and owned allocation,
-    halo_pack, K2 on the halo table, K1's column window) and K3 and K4 at
-    the rank's capacity. Prints ms/frame per rank, the halo's bytes and
+    DIST_CAPTURE: the sharded modes (K6's windowed icp_reduce at every
+    level, icp_reduce_step and icp_update, K5's windowed marches and owned
+    allocation, halo_pack, K2 on the halo table, K1's column window) and
+    K3 and K4 at the rank's capacity; and each rank's K6 launches: one
+    icp_reduce, sum(ITERATIONS) - 1 icp_reduce_step and one icp_update a
+    frame. Prints ms/frame per rank, the halo's bytes and
     the collectives' share, which measure no scaling (four ranks share one
     card, their collectives staged through host memory). Returns the
     kernels' launches over both paths, the new modes' rows and the errors
@@ -3824,7 +3928,15 @@ def dist_phase(torch, dev, tmp, card):
         for h in ("exact", "frustum"):
             name = f"{field.name}-{h}"
             for r, rr in enumerate(res):
-                path.update(json.loads(str(rr[name + ".launches"])))
+                counts = json.loads(str(rr[name + ".launches"]))
+                path.update(counts)
+                k6 = {k: counts[k] for k in DIST_K6}
+                require(k6 == {"icp_reduce": n, "icp_reduce_step":
+                               n * (sum(ITERATIONS) - 1), "icp_update": n},
+                        f"{tag} rank {r} {h}: K6 launches {k6} over {n} "
+                        f"frames; want one icp_reduce, "
+                        f"{sum(ITERATIONS) - 1} icp_reduce_step and one "
+                        f"icp_update a frame")
                 for c in DIST_DROPS:
                     require(not rr[f"{name}.aux.{c}"].any(),
                             f"{tag} rank {r} {h}: {c} nonzero")
@@ -3879,20 +3991,19 @@ def dist_phase(torch, dev, tmp, card):
         cap = torch.load(os.path.join(out, f"capture_{field.name}-exact.pt"),
                          map_location=dev, weights_only=False)
         ctag = f"{tag} modes (rank {cap['rank']}, frame {cap['frame']})"
-        icp_row, reduce_err = check_dist_icp(torch, cap, ctag)
+        new = check_dist_icp(torch, cap, ctag)
         march_row, assign_row = check_dist_alloc(torch, cap, field, ctag)
         ray_row, nav_err = check_dist_raycast(torch, cap, ctag)
-        new = {"icp_update": icp_row,
-               "alloc_touch_cols" if field is TSDF
+        new.update({"alloc_touch_cols" if field is TSDF
                else "alloc_touch_of_cols": march_row,
                "alloc_assign_owned": assign_row,
                "halo_pack": check_dist_halo(torch, cap, field, ctag),
                "raycast_cols" if field is TSDF else "raycast_cols_of":
-                   ray_row}
+                   ray_row})
         for name, row in new.items():
             rows.setdefault(name, []).append(row)
         local = check_dist_local(torch, cap, ctag)
-        local.update(icp_reduce=reduce_err, nav_grid=nav_err)
+        local.update(nav_grid=nav_err)
         for name, e in local.items():
             errs.setdefault(name, []).append(e)
     print(f"dist phase: {time.perf_counter() - t0:.1f} s ({t_ranks:.1f} s "
@@ -4010,10 +4121,12 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
         if k in launches:
             launches[k] += v
     for name, (first, *more) in dist_rows.items():
+        e = errs.setdefault(name, [])
+        if name in rows:  # a check of the same kernel outside the path
+            e.append(rows[name]["max_abs_err"])
+        e.extend(row["max_abs_err"] for row in (first, *more))
         rows[name] = first
         for row in more:  # the OFusion path's row of a kernel both share
-            errs.setdefault(name, [first["max_abs_err"]]).append(
-                row["max_abs_err"])
             first["ofusion"] = {k: row[k] for k in (
                 "device_us", "ms", "plain_ms", "bound_ms", "bound_by")}
     for k, e in errs.items():

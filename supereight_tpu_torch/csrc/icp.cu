@@ -1,4 +1,4 @@
-// K6: projective ICP, two kernels around one per-pixel body.
+// K6: projective ICP, three kernels around one per-pixel body.
 //
 // Replaces supereight_tpu/ops/tracking.py:track (242-319) with
 // track_residuals (56-118), reduce_tracking (125-153), the 6x6 solve
@@ -14,17 +14,33 @@
 // terms: [0] e^2, [1:7] J^T e, [7:28] the upper triangle of J^T J, row
 // major, [28:32] the inlier / too-far / bad-normal / other-reject counts.
 //
-//  * icp_reduce: one pyramid level, one thread per pixel. Each CTA reduces
-//    its pixels' 32 terms in a fixed shuffle order into the f64
-//    partials[blockIdx.x][32]; the caller sums them. It computes one
-//    device's 32-vector without the solve: a rank's share of the sharded
-//    frame's reduction (parallel/dist_step.py), over a column window of
-//    the level (the rank's slice, read in place through the row pitch).
+//  * icp_reduce: one level's 32 sums (f64) over a column window of the
+//    level (a rank's slice, read in place through the row pitch): one
+//    device's 32-vector without the solve, a rank's share of the sharded
+//    frame's reduction (parallel/dist_step.py). ONE launch of one
+//    thread-block cluster (kReduceCluster CTAs of kReduceThreads threads,
+//    the shape checked once a device): every thread walks its pixels in a
+//    grid-stride loop and accumulates their 32 terms in f64 registers in
+//    pixel order; each warp reduce-scatters them (lane k ends with term k:
+//    31 f64 shuffles a warp, against 160 for a shuffle-down tree a term);
+//    the CTA adds its warps in index order and writes its partial into
+//    CTA rank 0's shared memory (distributed shared memory; one cluster
+//    barrier, its arrival made before the pixel pass); rank 0 adds the
+//    partials in rank order and writes the f64[32] that the caller
+//    all-reduces. The result map is optional (null writes none). No
+//    atomics, so two launches are bit-identical. With a step (red64 not
+//    null) the launch first runs icp_update's iteration from the ranks'
+//    summed reduction of the previous iteration (sharded_update, by warp 0
+//    of every CTA on the same inputs, so every CTA steps to the same pose;
+//    rank 0 writes the carry) and reduces at the stepped pose; where the
+//    stepped level has converged
+//    and the next iteration is not its level's first, the pixel pass is
+//    skipped and the sums are zeros, which the next update ignores (JAX
+//    freezes such an iteration with where(done)). So a sharded iteration
+//    is one launch and one all_reduce.
 //  * icp_update: one Gauss-Newton iteration of the sharded frame from the
-//    ranks' summed reduction, in one warp (the solve, the update, the
-//    freeze of a converged level and, last, check_pose), so a sharded
-//    iteration is icp_reduce, one all_reduce and icp_update, with no host
-//    read.
+//    ranks' summed reduction, in one warp (sharded_update and, last,
+//    check_pose): the frame's last iteration, after its last all_reduce.
 //  * icp_track: a frame's whole tracking step in ONE launch of one
 //    thread-block cluster (CTAs on neighbouring SMs that read each other's
 //    shared memory; 16 CTAs of 512 threads, launched with
@@ -44,7 +60,7 @@
 //    iterations' work. No float atomics anywhere, so two launches are
 //    bit-identical.
 //
-// Both kernels sum the f32 per-pixel terms in f64 and round each of the 32
+// The kernels sum the f32 per-pixel terms in f64 and round each of the 32
 // sums to f32 once, and so does their twin (kernels/icp.py
 // reduce_tracking). With f32 sums the two orders (this kernel's and
 // torch.sum's) differ in the last bits; near convergence J^T e cancels to
@@ -54,15 +70,18 @@
 // Rounded once from f64, both sides get the same f32 sums and the same
 // trajectory.
 //
-// Bound on the H100: bytes. icp_reduce moves ~4 MB at the finest level
-// (25 B of input + 4 B of result a pixel, plus the 1.92 MB reference);
-// icp_track ~4.75 MB a frame once (three levels, the reference, the level-0
-// result map), the repeated iterations hitting L2. The ~140 flops a
+// Bound on the H100: bytes. icp_reduce moves ~0.96 MB over a rank's
+// window of the finest level (19,200 pixels of 25 B, each gathering at
+// most one 25 B reference pixel, 256 B of sums; 4 B a pixel more with a
+// result map); icp_track
+// ~4.75 MB a frame once (three levels, the reference, the level-0 result
+// map), the repeated iterations hitting L2. The ~140 flops a
 // pixel-iteration stay below the byte time unless every iteration runs.
-// At these sizes icp_reduce is launch-bound; icp_track replaces its 19
-// launches a frame and the solve's few hundred torch ops with one launch. Its time is latency: the pixel passes on 16 SMs (two dependent
-// loads a pixel, ~10 pixels a thread at the finest level), two cluster
-// barriers and a one-thread solve per iteration.
+// Both are latency-bound at these sizes: the pixel passes on 16 SMs (two
+// dependent loads a pixel, a few pixels a thread), the cluster barriers,
+// the one-thread solve. icp_track replaces the single device's 19 launches
+// a frame and the solve's few hundred torch ops with one launch; the
+// sharded frame is 19 icp_reduce launches and one icp_update.
 
 #include <cooperative_groups.h>
 
@@ -72,7 +91,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kReduceThreads = 256;
 constexpr int kTerms = 32;
 constexpr int kMaxLevels = 4;   // pyramid levels icp_track takes
 // icp_track's cluster: 16 CTAs (a non-portable size, the portable maximum
@@ -80,8 +98,12 @@ constexpr int kMaxLevels = 4;   // pyramid levels icp_track takes
 // without register spills on an H100 (PERF.md, Findings)
 constexpr int kTrackCluster = 16;
 constexpr int kTrackThreads = 512;
-// returned by se_icp_track when no cluster of the asked shape fits an SM
-// group of the card (cudaOccupancyMaxActiveClusters == 0)
+// icp_reduce's cluster: icp_track's shape, the fastest a frame of 16 / 8 /
+// 4 CTAs x 512 and 16 / 8 x 256 threads on an H100 (PERF.md, Findings)
+constexpr int kReduceCluster = 16;
+constexpr int kReduceThreads = 512;
+// returned by se_icp_track and se_icp_reduce when no cluster of the asked
+// shape fits an SM group of the card (cudaOccupancyMaxActiveClusters == 0)
 constexpr int kNoClusterFits = -1;
 
 // tracking-status codes (constants.py)
@@ -185,49 +207,32 @@ __device__ __forceinline__ void warp_reduce_terms(const double v[kTerms],
   }
 }
 
-__global__ void __launch_bounds__(kReduceThreads)
-icp_reduce_kernel(const float* __restrict__ in_vertex,
-                  const float* __restrict__ in_normal,
-                  const uint8_t* __restrict__ in_valid, int n, int w_win,
-                  int pitch, int x0, const float* __restrict__ ref_vertex,
-                  const float* __restrict__ ref_normal,
-                  const uint8_t* __restrict__ ref_valid, int ref_h, int ref_w,
-                  const float* __restrict__ pose,
-                  const float* __restrict__ view, float dist_threshold,
-                  float normal_threshold, int* __restrict__ result,
-                  double* __restrict__ partials) {
-  __shared__ float T[16], V[16];
-  __shared__ double warp_sums[kReduceThreads / 32][kTerms];
-  se::load_mat4(pose, T);
-  se::load_mat4(view, V);
-  __syncthreads();
+// One step of warp_sum_scatter over a lane's first 2h values: the lane
+// keeps the lower or the upper h of them, by its bit h, and adds its
+// partner's (lane ^ h) copy of those, into v[0:h).
+template <int kHalf>
+__device__ __forceinline__ void scatter_step(double v[kTerms], int lane) {
+  const bool upper = (lane & kHalf) != 0;
+#pragma unroll
+  for (int k = 0; k < kHalf; ++k) {
+    const double send = upper ? v[k] : v[k + kHalf];
+    const double keep = upper ? v[k + kHalf] : v[k];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, kHalf);
+  }
+}
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float z[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int code = 2;  // lanes past the image count nowhere
-  if (i < n) {
-    // pixel i of the window: row i / w_win, image column x0 + i % w_win
-    const int row = i / w_win;
-    const int src = row * pitch + x0 + (i - row * w_win);
-    code = icp_pixel(src, in_vertex, in_normal, in_valid, ref_vertex,
-                     ref_normal, ref_valid, ref_h, ref_w, T, V,
-                     dist_threshold, normal_threshold, z);
-    result[i] = code;
-  }
-  float t[kTerms];
-  pixel_terms(z, code, t);
-  double d[kTerms];
-#pragma unroll
-  for (int k = 0; k < kTerms; ++k) d[k] = (double)t[k];
-  warp_reduce_terms(d, warp_sums[threadIdx.x >> 5]);
-  __syncthreads();
-  if (threadIdx.x < kTerms) {
-    double s = 0.0;
-#pragma unroll
-    for (int w = 0; w < kReduceThreads / 32; ++w)
-      s += warp_sums[w][threadIdx.x];
-    partials[blockIdx.x * kTerms + threadIdx.x] = s;
-  }
+// Sum each of a warp's 32 values v[k] over its lanes by reduce-scatter:
+// at each step a lane keeps half of its values and adds its partner's
+// copy of them, so lane k returns the sum of v[k] over the warp, in a
+// fixed order, after 16 + 8 + 4 + 2 + 1 shuffles. v is scratch.
+__device__ __forceinline__ double warp_sum_scatter(double v[kTerms]) {
+  const int lane = threadIdx.x & 31;
+  scatter_step<16>(v, lane);
+  scatter_step<8>(v, lane);
+  scatter_step<4>(v, lane);
+  scatter_step<2>(v, lane);
+  scatter_step<1>(v, lane);
+  return v[0];
 }
 
 // A[r][c] of the symmetric J^T J held as the row-major upper triangle in
@@ -444,15 +449,43 @@ icp_track_kernel(Pyramid pyr, const float* __restrict__ ref_vertex,
   cluster.sync();  // no CTA leaves while another may still read its smem
 }
 
-// One Gauss-Newton iteration of a multi-device frame (icp_update): the
-// reduction the ranks summed (f64, rounded here once to f32), the solve,
-// the pose update and the freeze of a converged level, and on the frame's
-// last call check_pose against the frame's old pose. One warp: its lanes
-// load and round the 32 sums, lane 0 runs the code icp_track's rank 0 runs
-// (gauss_newton_step, the same solve6), so a sharded frame and a single one
-// solve alike. pose_in may be pose_out (lane 0 reads it before it writes);
-// red_in null reads as zeros, done_in null as false (a level's first
-// iteration); old_pose, checked and tracked are null but on the last call.
+// One Gauss-Newton iteration of a multi-device frame, run by one warp
+// (its lane index in lane): the reduction the ranks summed (f64, rounded
+// here once to f32), the solve, the pose update and the freeze of a
+// converged level. Its lanes load and round the 32 sums, lane 0 runs the
+// code icp_track's rank 0 runs (gauss_newton_step, the same solve6), so a
+// sharded frame and a single one solve alike. Leaves the pose in T[16],
+// the reduction kept in keep[32] and the flag in *done (shared memory; red
+// is scratch). red_in null reads as zeros, done_in null as false (a
+// level's first iteration); pose_in is read before anything is written.
+__device__ void sharded_update(int lane, const double* __restrict__ red64,
+                               const float* pose_in, const float* red_in,
+                               const uint8_t* done_in, float icp_threshold,
+                               float* red, float* keep, float* T, int* done) {
+  // the flag is read with the sums, not after them
+  const bool was = lane == 0 && done_in != nullptr && *done_in;
+  red[lane] = (float)red64[lane];
+  keep[lane] = red_in == nullptr ? 0.f : red_in[lane];
+  if (lane < 16) T[lane] = pose_in[lane];
+  __syncwarp();
+  if (lane == 0) {
+    bool now = was;
+    if (!was) {  // a converged level keeps its pose and reduction
+      float next[16];
+      now = gauss_newton_step(red, T, icp_threshold, next);
+      for (int i = 0; i < 16; ++i) T[i] = next[i];
+    }
+    *done = now ? 1 : 0;
+  }
+  if (!__shfl_sync(0xffffffffu, was, 0)) keep[lane] = red[lane];
+  __syncwarp();
+}
+
+// One Gauss-Newton iteration of a sharded frame in its own launch
+// (icp_update; the path runs the frame's last one so): sharded_update and,
+// on the frame's last call, check_pose against the frame's old pose.
+// pose_in may be pose_out; old_pose, checked and tracked are null but on
+// the frame's last call.
 __global__ void __launch_bounds__(32)
 icp_update_kernel(const double* __restrict__ red64,
                   const float* pose_in, const float* red_in,
@@ -462,23 +495,11 @@ icp_update_kernel(const double* __restrict__ red64,
                   int ref_h, int ref_w, float* __restrict__ checked,
                   uint8_t* __restrict__ tracked) {
   __shared__ float red[kTerms], keep[kTerms], T[16];
+  __shared__ int done;
   const int lane = threadIdx.x;
-  red[lane] = (float)red64[lane];
-  keep[lane] = red_in == nullptr ? 0.f : red_in[lane];
-  if (lane < 16) T[lane] = pose_in[lane];
-  __syncwarp();
-  if (lane == 0) {
-    const bool done = done_in != nullptr && *done_in;
-    bool now_done = done;
-    if (!done) {  // a converged level keeps its pose and reduction
-      float next[16];
-      now_done = gauss_newton_step(red, T, icp_threshold, next);
-      for (int i = 0; i < 16; ++i) T[i] = next[i];
-      for (int i = 0; i < kTerms; ++i) keep[i] = red[i];
-    }
-    *done_out = now_done ? 1 : 0;
-  }
-  __syncwarp();
+  sharded_update(lane, red64, pose_in, red_in, done_in, icp_threshold, red,
+                 keep, T, &done);
+  if (lane == 0) *done_out = (uint8_t)done;
   if (lane < 16) pose_out[lane] = T[lane];
   red_out[lane] = keep[lane];
   if (old_pose == nullptr) return;
@@ -490,6 +511,148 @@ icp_update_kernel(const double* __restrict__ red64,
                    n_in == 0.f;
   if (lane < 16) checked[lane] = bad ? old_pose[lane] : T[lane];
   if (lane == 0) *tracked = bad ? 0 : 1;
+}
+
+// The previous iteration's update folded into a launch of icp_reduce
+// (sharded_update's inputs, the carry it writes, and whether the iteration
+// this launch reduces is the first of its level); red64 null: no step.
+struct Step {
+  const double* red64;
+  const float* red_in;
+  const uint8_t* done_in;
+  float* pose_out;
+  float* red_out;
+  uint8_t* done_out;
+  float icp_threshold;
+  int next_first;
+};
+
+__global__ void __launch_bounds__(kReduceThreads, 1)
+icp_reduce_kernel(const float* __restrict__ in_vertex,
+                  const float* __restrict__ in_normal,
+                  const uint8_t* __restrict__ in_valid, int n, int w_win,
+                  int pitch, int x0, const float* __restrict__ ref_vertex,
+                  const float* __restrict__ ref_normal,
+                  const uint8_t* __restrict__ ref_valid, int ref_h, int ref_w,
+                  const float* __restrict__ pose,
+                  const float* __restrict__ view, float dist_threshold,
+                  float normal_threshold, int* __restrict__ result,
+                  double* __restrict__ out, Step step) {
+  constexpr int kWarps = kReduceThreads / 32;
+  __shared__ float T[16], V[16];  // the pose reduced at, K @ raycast^-1
+  __shared__ float red[kTerms], keep[kTerms];  // the step's
+  __shared__ int done;
+  __shared__ double warp_sums[kWarps][kTerms];
+  // rank 0's: every rank's sums, written by each rank into rank 0's copy
+  __shared__ double gathered[kReduceCluster][kTerms];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = rank * kReduceThreads + threadIdx.x;
+  constexpr int kStride = kReduceCluster * kReduceThreads;
+
+  se::load_mat4(view, V);
+  if (step.red64 == nullptr) {
+    se::load_mat4(pose, T);
+    if (threadIdx.x == 0) done = 0;
+  } else if (warp == 0) {
+    sharded_update(lane, step.red64, pose, step.red_in, step.done_in,
+                   step.icp_threshold, red, keep, T, &done);
+    if (rank == 0) {
+      if (lane < 16) step.pose_out[lane] = T[lane];
+      step.red_out[lane] = keep[lane];
+      if (lane == 0) *step.done_out = (uint8_t)done;
+    }
+  }
+  __syncthreads();
+  if (done && !step.next_first) {
+    // a frozen iteration: its sums are never read (every CTA returns
+    // here, before any cluster barrier)
+    if (rank == 0 && threadIdx.x < kTerms) out[threadIdx.x] = 0.0;
+    return;
+  }
+
+  double acc[kTerms];
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) acc[k] = 0.0;
+  // arrive now, wait before writing into rank 0's shared memory: by then
+  // every CTA of the cluster has started
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  for (int i = first; i < n; i += kStride) {
+    // pixel i of the window: row i / w_win, image column x0 + i % w_win
+    const int row = i / w_win;
+    const int src = row * pitch + x0 + (i - row * w_win);
+    float z[7];
+    const int code = icp_pixel(src, in_vertex, in_normal, in_valid,
+                               ref_vertex, ref_normal, ref_valid, ref_h,
+                               ref_w, T, V, dist_threshold, normal_threshold,
+                               z);
+    if (result != nullptr) result[i] = code;
+    float t[kTerms];
+    pixel_terms(z, code, t);
+#pragma unroll
+    for (int k = 0; k < kTerms; ++k) acc[k] += (double)t[k];
+  }
+  warp_sums[warp][lane] = warp_sum_scatter(acc);
+  __syncthreads();
+  double cta = 0.0;  // this CTA's sum of term threadIdx.x
+  if (threadIdx.x < kTerms) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) cta += warp_sums[w][threadIdx.x];
+  }
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (threadIdx.x < kTerms)
+    cluster.map_shared_rank(&gathered[0][0], 0)[rank * kTerms + threadIdx.x] =
+        cta;
+  cluster.sync();  // every rank's partial is in rank 0's gathered
+  if (rank == 0 && warp == 0) {
+    double s = 0.0;
+#pragma unroll
+    for (int r = 0; r < kReduceCluster; ++r) s += gathered[r][lane];
+    out[lane] = s;
+  }
+  // the other CTAs may leave: rank 0 reads only its own shared memory
+}
+
+// Launch `kernel` as one cluster of `ctas` CTAs of `threads` threads on
+// `stream`, after checking once a device (fits[dev]) that such a cluster
+// fits the card. Returns a cudaError_t, or kNoClusterFits.
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, bool* fits, int ctas, int threads,
+                   void* stream, Args... args) {
+  cudaError_t err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev >= se::kMaxDevices) return (int)cudaErrorInvalidDevice;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!fits[dev]) {
+    if (ctas > 8 &&
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+            cudaSuccess)
+      return (int)err;
+    int n_clusters = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg)) !=
+        cudaSuccess)
+      return (int)err;
+    if (n_clusters < 1) return kNoClusterFits;
+    fits[dev] = true;
+  }
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, args...)) != cudaSuccess)
+    return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -511,8 +674,11 @@ SE_EXPORT int se_icp_update(const double* red64, const float* pose_in,
 }
 
 // The level's columns [x0, x0 + w_win) of its rows of `pitch` pixels
-// (n = rows x w_win; the whole level is x0 = 0, w_win = pitch); result is
-// the window's, [rows, w_win].
+// (n = rows x w_win; the whole level is x0 = 0, w_win = pitch) at `pose`,
+// or, with a step, at the pose stepped from it: the 32 f64 sums into out
+// and, unless result is null, the window's codes [rows, w_win]. One cluster
+// of kReduceCluster CTAs of kReduceThreads threads. Returns a cudaError_t,
+// or kNoClusterFits when no such cluster fits the card.
 SE_EXPORT int se_icp_reduce(const float* in_vertex, const float* in_normal,
                             const uint8_t* in_valid, int n, int w_win,
                             int pitch, int x0,
@@ -520,14 +686,14 @@ SE_EXPORT int se_icp_reduce(const float* in_vertex, const float* in_normal,
                             const uint8_t* ref_valid, int ref_h, int ref_w,
                             const float* pose, const float* view,
                             float dist_threshold, float normal_threshold,
-                            int* result, double* partials, void* stream) {
-  const int n_cta = (n + kReduceThreads - 1) / kReduceThreads;
-  if (n_cta == 0) return 0;
-  icp_reduce_kernel<<<n_cta, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      in_vertex, in_normal, in_valid, n, w_win, pitch, x0, ref_vertex,
-      ref_normal, ref_valid, ref_h, ref_w, pose, view, dist_threshold,
-      normal_threshold, result, partials);
-  return (int)cudaGetLastError();
+                            int* result, double* out, Step step,
+                            void* stream) {
+  static bool fits[se::kMaxDevices];
+  return launch_cluster(icp_reduce_kernel, fits, kReduceCluster,
+                        kReduceThreads, stream, in_vertex, in_normal,
+                        in_valid, n, w_win, pitch, x0, ref_vertex,
+                        ref_normal, ref_valid, ref_h, ref_w, pose, view,
+                        dist_threshold, normal_threshold, result, out, step);
 }
 
 // The whole tracking step of a frame: one cluster of kTrackCluster CTAs of
@@ -547,40 +713,9 @@ SE_EXPORT int se_icp_track(Pyramid pyr, const float* ref_vertex,
   static bool fits[se::kMaxDevices];
   if (pyr.n_levels < 1 || pyr.n_levels > kMaxLevels)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  int dev = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if (dev >= se::kMaxDevices) return (int)cudaErrorInvalidDevice;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kTrackCluster, 1, 1);
-  cfg.blockDim = dim3(kTrackThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kTrackCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (!fits[dev]) {
-    if ((err = cudaFuncSetAttribute(
-             icp_track_kernel,
-             cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
-        cudaSuccess)
-      return (int)err;
-    int n_clusters = 0;
-    if ((err = cudaOccupancyMaxActiveClusters(&n_clusters, icp_track_kernel,
-                                              &cfg)) != cudaSuccess)
-      return (int)err;
-    if (n_clusters < 1) return kNoClusterFits;
-    fits[dev] = true;
-  }
-  err = cudaLaunchKernelEx(&cfg, icp_track_kernel, pyr, ref_vertex,
-                           ref_normal, ref_valid, ref_h, ref_w, pose, view,
-                           icp_threshold, dist_threshold, normal_threshold,
-                           track_threshold, pose_out, tracked_out,
-                           reduction_out, result, iterations_run);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cluster(icp_track_kernel, fits, kTrackCluster, kTrackThreads,
+                        stream, pyr, ref_vertex, ref_normal, ref_valid, ref_h,
+                        ref_w, pose, view, icp_threshold, dist_threshold,
+                        normal_threshold, track_threshold, pose_out,
+                        tracked_out, reduction_out, result, iterations_run);
 }

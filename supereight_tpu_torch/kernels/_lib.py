@@ -31,8 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"icp_reduce": 0, "icp_track": 0, "alloc_touch": 0,
-            "alloc_touch_of": 0, "alloc_assign": 0, "integrate_worklist": 0,
+LAUNCHES = {"icp_reduce": 0, "icp_reduce_step": 0, "icp_track": 0,
+            "alloc_touch": 0, "alloc_touch_of": 0, "alloc_assign": 0, "integrate_worklist": 0,
             "integrate_fused": 0, "integrate_fused_of": 0,
             "integrate_fallback": 0, "integrate_fallback_of": 0,
             "nav_grid": 0, "raycast": 0, "raycast_of": 0, "gather_a": 0,
@@ -75,6 +75,17 @@ class Pyramid(ctypes.Structure):
                 ("n_levels", ctypes.c_int)]
 
 
+class Step(ctypes.Structure):
+    """The previous iteration's update that a launch of icp_reduce runs
+    first, passed by value (csrc/icp.cu ``Step``); all zero: none."""
+
+    _fields_ = [("red64", ctypes.c_void_p), ("red_in", ctypes.c_void_p),
+                ("done_in", ctypes.c_void_p), ("pose_out", ctypes.c_void_p),
+                ("red_out", ctypes.c_void_p), ("done_out", ctypes.c_void_p),
+                ("icp_threshold", ctypes.c_float),
+                ("next_first", ctypes.c_int)]
+
+
 class Levels(ctypes.Structure):
     """Per-level pyramid outputs and sizes, passed by value
     (csrc/preprocess.cu ``Levels``)."""
@@ -103,7 +114,7 @@ P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # returns the cudaError_t of its launch)
 _SIGNATURES = {
     "se_icp_reduce": (P, P, P, I, I, I, I, P, P, P, I, I, P, P, F, F, P, P,
-                      P),
+                      Step, P),
     "se_icp_update": (P, P, P, P, P, P, P, F, P, F, I, I, P, P, P),
     "se_icp_track": (Pyramid, P, P, P, I, I, P, P, F, F, F, F, P, P, P, P, P,
                      P),

@@ -12,14 +12,19 @@ the H100.
 * :func:`icp_reduce` (:func:`icp_reduce64`) — one level's residuals and
   32-float reduction (f64 sums over a column window), without the solve:
   one rank's share of the sharded frame's summed reduction
-  (``ops/tracking.track`` with a process group).
+  (``ops/tracking.track`` with a process group), in one launch of one
+  thread-block cluster.
+* :func:`icp_reduce_step` — :func:`icp_update` folded into the launch of
+  the next iteration's :func:`icp_reduce64`: a sharded Gauss-Newton
+  iteration is one launch and one all-reduce.
 * :func:`icp_update` — one Gauss-Newton iteration from the ranks' summed
   reduction: the solve, the update, the freeze of a converged level and,
   on the frame's last call, ``check_pose``.
 
-:func:`icp_track_plain`, :func:`icp_reduce_plain` (:func:`icp_reduce64_plain`)
-and :func:`icp_update_plain` are the plain PyTorch versions, used for CPU
-tensors and as the kernels' reference on the card.
+:func:`icp_track_plain`, :func:`icp_reduce_plain` (:func:`icp_reduce64_plain`),
+:func:`icp_reduce_step_plain` and :func:`icp_update_plain` are the plain
+PyTorch versions, used for CPU tensors and as the kernels' reference on
+the card.
 """
 
 from typing import NamedTuple, Sequence
@@ -34,7 +39,6 @@ from supereight_tpu_torch.constants import (DIST_THRESHOLD, NORMAL_THRESHOLD,
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.kernels import _lib
 
-_THREADS = 256  # CTA size of csrc/icp.cu's icp_reduce (kReduceThreads)
 # upper-triangle index pairs of the 6x6 JtJ, row-major (makeJTJ layout)
 _TRIU = [(r, c) for r in range(6) for c in range(r, 6)]
 
@@ -57,22 +61,99 @@ def icp_reduce(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
 
 def icp_reduce64(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
                  ref_valid, pose, view, dist_threshold=DIST_THRESHOLD,
-                 normal_threshold=NORMAL_THRESHOLD, x0=0, width=None):
-    """:func:`icp_reduce` with the 32 sums left in f64 (the kernel's CTA
-    partials added in f64) over the level's columns [x0, x0 + width)
-    (default: all of them): one rank's share of a reduction that the
-    ranks sum before it is rounded once to f32 (``ops/tracking.track``
-    with a process group). Returns (result i32[h, width], f64[32])."""
+                 normal_threshold=NORMAL_THRESHOLD, x0=0, width=None,
+                 with_result=True, out=None):
+    """:func:`icp_reduce` with the 32 sums left in f64 over the level's
+    columns [x0, x0 + width) (default: all of them): one rank's share of a
+    reduction that the ranks sum before it is rounded once to f32
+    (``ops/tracking.track`` with a process group). Returns (result
+    i32[h, width], or None without ``with_result``, f64[32]); ``out`` is
+    the f64[32] to write the sums into (the tensor the ranks all-reduce).
+    """
+    width = _window(in_vertex, x0, width)
+    if in_vertex.device.type == "cpu":
+        res, red = icp_reduce64_plain(in_vertex, in_normal, in_valid,
+                                      ref_vertex, ref_normal, ref_valid,
+                                      pose, view, dist_threshold,
+                                      normal_threshold, x0, width)
+        return (res if with_result else None), _into(out, red)
+    return _reduce("icp_reduce", in_vertex, in_normal, in_valid, ref_vertex,
+                   ref_normal, ref_valid, pose, view, dist_threshold,
+                   normal_threshold, x0, width, with_result, out,
+                   _lib.Step())
+
+
+def icp_reduce_step(red64, pose, carry, first_of_level, next_first_of_level,
+                    icp_threshold, in_vertex, in_normal, in_valid,
+                    ref_vertex, ref_normal, ref_valid, view,
+                    dist_threshold=DIST_THRESHOLD,
+                    normal_threshold=NORMAL_THRESHOLD, x0=0, width=None,
+                    out=None, carry_out: "Carry" = None):
+    """One sharded Gauss-Newton iteration's update and the next one's
+    reduction in one launch: :func:`icp_update` from the ranks' summed
+    reduction ``red64`` of the previous iteration (``pose``, ``carry`` and
+    ``first_of_level`` as it takes them, without ``check_pose``), then
+    :func:`icp_reduce64` over the columns [x0, x0 + width) of the level
+    at the stepped pose, without a result map. Where the stepped level
+    has converged and the next iteration is not the first of its level
+    (``next_first_of_level``), the pass is skipped and the sums are
+    zeros: the next update ignores them. Returns (the stepped carry,
+    f64[32]), written into ``carry_out`` and ``out`` where given (neither
+    may overlap the inputs)."""
+    dev = red64.device
+    width = _window(in_vertex, x0, width)
+    if dev.type == "cpu":
+        new, red = icp_reduce_step_plain(
+            red64, pose, carry, first_of_level, next_first_of_level,
+            icp_threshold, in_vertex, in_normal, in_valid, ref_vertex,
+            ref_normal, ref_valid, view, dist_threshold, normal_threshold,
+            x0, width)
+        if carry_out is not None:
+            new = Carry(*(_into(o, t) for o, t in zip(carry_out, new)))
+        return new, _into(out, red)
+    if dev.type != "cuda":
+        raise ValueError(f"icp_reduce_step: unsupported device {dev}")
+    c = _lib.check
+    c(red64, "red64", torch.float64, (32,), dev)
+    c(pose, "pose", torch.float32, (4, 4), dev)
+    red_in = done_in = None
+    if carry is not None:
+        red_in = c(carry.reduction, "reduction", torch.float32, (32,), dev)
+        if not first_of_level:
+            done_in = c(carry.done, "done", torch.bool, (), dev)
+    if carry_out is None:
+        carry_out = _empty_carry(dev)
+    c(carry_out.pose, "carry_out.pose", torch.float32, (4, 4), dev)
+    c(carry_out.reduction, "carry_out.reduction", torch.float32, (32,), dev)
+    c(carry_out.done, "carry_out.done", torch.bool, (), dev)
+    read = [red64, pose] + ([] if carry is None else [carry.reduction,
+                                                      carry.done])
+    if any(_overlap(a, b) for a in read for b in carry_out):
+        raise ValueError("icp_reduce_step: carry_out overlaps an input")
+    if out is not None and any(_overlap(out, b)
+                               for b in read + list(carry_out)):
+        raise ValueError("icp_reduce_step: out overlaps an input or "
+                         "carry_out")
+    step = _lib.Step(red64.data_ptr(), _ptr(red_in), _ptr(done_in),
+                     carry_out.pose.data_ptr(),
+                     carry_out.reduction.data_ptr(),
+                     carry_out.done.data_ptr(), float(icp_threshold),
+                     int(bool(next_first_of_level)))
+    _, red = _reduce("icp_reduce_step", in_vertex, in_normal, in_valid,
+                     ref_vertex, ref_normal, ref_valid, pose, view,
+                     dist_threshold, normal_threshold, x0, width, False, out,
+                     step)
+    return carry_out, red
+
+
+def _reduce(name, in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
+            ref_valid, pose, view, dist_threshold, normal_threshold, x0,
+            width, with_result, out, step):
+    """Launch csrc/icp.cu's icp_reduce (counted as ``name``) over the
+    columns [x0, x0 + width) (a checked :func:`_window`) with ``step`` (a
+    :class:`_lib.Step`)."""
     dev = in_vertex.device
     h, w = in_vertex.shape[:2]
-    width = w - x0 if width is None else width
-    if not (0 <= x0 and 0 < width and x0 + width <= w):
-        raise ValueError(f"icp_reduce: columns [{x0}, {x0 + width}) are "
-                         f"not inside a level {w} wide")
-    if dev.type == "cpu":
-        return icp_reduce64_plain(in_vertex, in_normal, in_valid, ref_vertex,
-                                  ref_normal, ref_valid, pose, view,
-                                  dist_threshold, normal_threshold, x0, width)
     if dev.type != "cuda":
         raise ValueError(f"icp_reduce: unsupported device {dev}")
     rh, rw = ref_vertex.shape[:2]
@@ -85,17 +166,49 @@ def icp_reduce64(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
     c(ref_valid, "ref_valid", torch.bool, (rh, rw), dev)
     c(pose, "pose", torch.float32, (4, 4), dev)
     c(view, "view", torch.float32, (4, 4), dev)
-    n = h * width
-    result = torch.empty((h, width), dtype=torch.int32, device=dev)
-    # f64 CTA sums, added in f64 and rounded once, as reduce_tracking does
-    partials = torch.empty(((n + _THREADS - 1) // _THREADS, 32),
-                           dtype=torch.float64, device=dev)
-    _lib.launch("icp_reduce", "se_icp_reduce", dev,
-                in_vertex, in_normal, in_valid, n, width, w, x0,
-                ref_vertex, ref_normal, ref_valid, rh, rw, pose, view,
-                float(dist_threshold), float(normal_threshold), result,
-                partials)
-    return result, partials.sum(0)
+    if out is None:
+        out = torch.empty(32, dtype=torch.float64, device=dev)
+    c(out, "out", torch.float64, (32,), dev)
+    result = torch.empty((h, width), dtype=torch.int32, device=dev) \
+        if with_result else None
+    _lib.launch(name, "se_icp_reduce", dev, in_vertex, in_normal, in_valid,
+                h * width, width, w, x0, ref_vertex, ref_normal, ref_valid,
+                rh, rw, pose, view, float(dist_threshold),
+                float(normal_threshold), result, out, step)
+    return result, out
+
+
+def _window(in_vertex, x0, width):
+    """The window's width (default: from x0 to the level's end), checked
+    to lie inside the level."""
+    w = in_vertex.shape[1]
+    width = w - x0 if width is None else width
+    if not (0 <= x0 and 0 < width and x0 + width <= w):
+        raise ValueError(f"icp_reduce: columns [{x0}, {x0 + width}) are "
+                         f"not inside a level {w} wide")
+    return width
+
+
+def _into(out, t):
+    """``t``, copied into ``out`` where one is given."""
+    return t if out is None else out.copy_(t)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _overlap(a, b):
+    """Whether two tensors' bytes overlap."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and \
+        b0 < a0 + a.numel() * a.element_size()
+
+
+def _empty_carry(dev):
+    return Carry(torch.empty((4, 4), dtype=torch.float32, device=dev),
+                 torch.empty(32, dtype=torch.float32, device=dev),
+                 torch.empty((), dtype=torch.bool, device=dev))
 
 
 def track_residuals(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
@@ -306,9 +419,7 @@ def icp_update(red64, pose, carry: Carry = None, first_of_level=True,
         red_in = c(carry.reduction, "reduction", torch.float32, (32,), dev)
         if not first_of_level:
             done_in = c(carry.done, "done", torch.bool, (), dev)
-    out = Carry(torch.empty((4, 4), dtype=torch.float32, device=dev),
-                torch.empty(32, dtype=torch.float32, device=dev),
-                torch.empty((), dtype=torch.bool, device=dev))
+    out = _empty_carry(dev)
     checked = tracked = None
     if old_pose is not None:
         c(old_pose, "old_pose", torch.float32, (4, 4), dev)
@@ -341,6 +452,25 @@ def icp_update_plain(red64, pose, carry: Carry = None, first_of_level=True,
         return out, None
     return out, check_pose(out.pose, old_pose, out.reduction, image_size,
                            track_threshold)
+
+
+def icp_reduce_step_plain(red64, pose, carry, first_of_level,
+                          next_first_of_level, icp_threshold, in_vertex,
+                          in_normal, in_valid, ref_vertex, ref_normal,
+                          ref_valid, view, dist_threshold=DIST_THRESHOLD,
+                          normal_threshold=NORMAL_THRESHOLD, x0=0,
+                          width=None):
+    """Plain PyTorch twin of :func:`icp_reduce_step`:
+    :func:`icp_update_plain`, then :func:`icp_reduce64_plain` at the
+    stepped pose, zeros where the stepped carry is done and the next
+    iteration is not its level's first."""
+    new, _ = icp_update_plain(red64, pose, carry, first_of_level,
+                              icp_threshold)
+    _, red = icp_reduce64_plain(in_vertex, in_normal, in_valid, ref_vertex,
+                                ref_normal, ref_valid, new.pose, view,
+                                dist_threshold, normal_threshold, x0, width)
+    frozen = new.done & (not next_first_of_level)
+    return new, torch.where(frozen, torch.zeros_like(red), red)
 
 
 def icp_track(pose, view, pyr_vertex, pyr_normal, pyr_valid, ref_vertex,

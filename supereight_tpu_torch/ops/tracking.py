@@ -11,19 +11,26 @@ prologue (``kernels/frame.py``) of the raycast pose.
 
 With a process group (the sharded step, ``parallel/dist_step.py``) each
 rank takes its column slice of every level against the full reference
-maps, and each Gauss-Newton iteration is K6's ``icp_reduce`` over the
-slice (f64 sums), one ``all_reduce`` of the 32 f64 sums, and K6's
-``icp_update`` (the sum rounded once to f32, the solve, the update and the
-freeze), at the full trip counts: JAX's ``axis_name`` mode
+maps, and each Gauss-Newton iteration is one launch of K6's
+``icp_reduce`` over the slice (f64 sums into the tensor the ranks
+all-reduce), with the previous iteration's update (the sum rounded once
+to f32, the solve, the update and the freeze) folded in front of it
+(``icp_reduce_step``), and one ``all_reduce`` of the 32 f64 sums; the
+frame's last update, with ``check_pose``, is K6's ``icp_update``. It runs
+the full trip counts, JAX's ``axis_name`` mode
 (``ops/tracking.py:241-327``), which skips the early exit so that every
-device issues the same collectives.
+device issues the same collectives; an iteration of a converged level
+skips its pixel pass (its sums are never read).
 """
 
 from typing import Sequence
 
+import torch
+
 from supereight_tpu_torch.constants import DIST_THRESHOLD
 from supereight_tpu_torch.kernels.frame import frame_mats
-from supereight_tpu_torch.kernels.icp import (icp_reduce64, icp_track,
+from supereight_tpu_torch.kernels.icp import (Carry, icp_reduce64,
+                                              icp_reduce_step, icp_track,
                                               icp_update)
 
 
@@ -60,22 +67,34 @@ def _track_sharded(pose, view, pyr_vertex, pyr_normal, pyr_valid,
         raise ValueError("sharded tracking runs at least one iteration a "
                          "level")
     d, r = group.world, group.rank
+    dev = pose.device
+    # (level, first of its level) of each iteration, coarsest level first
+    sched = [(lvl, it == 0) for lvl in range(len(iterations) - 1, -1, -1)
+             for it in range(iterations[lvl])]
+    # each iteration's sums and carry, alternating between two buffers:
+    # a launch reads the one the launch before it wrote
+    sums = torch.empty((2, 32), dtype=torch.float64, device=dev).unbind(0)
+    carries = [Carry(*c) for c in zip(
+        torch.empty((2, 4, 4), dtype=torch.float32, device=dev).unbind(0),
+        torch.empty((2, 32), dtype=torch.float32, device=dev).unbind(0),
+        torch.empty(2, dtype=torch.bool, device=dev).unbind(0))]
     carry = None
-    for level in range(len(iterations) - 1, -1, -1):
-        w_loc = pyr_vertex[level].shape[1] // d
-        for it in range(iterations[level]):
-            _, red64 = icp_reduce64(
-                pyr_vertex[level], pyr_normal[level], pyr_valid[level],
-                ref_vertex, ref_normal, ref_valid,
-                pose if carry is None else carry.pose, view, dist_threshold,
-                x0=r * w_loc, width=w_loc)
-            group.all_reduce_sum(red64)
-            last = level == 0 and it == iterations[0] - 1
-            new, checked = icp_update(
-                red64, pose if carry is None else carry.pose, carry,
-                first_of_level=it == 0, icp_threshold=icp_threshold,
-                old_pose=pose if last else None,
-                image_size=tuple(ref_vertex.shape[:2]))
-            carry = new
-    new_pose, tracked = checked
+    for i, (level, first) in enumerate(sched):
+        lvl = (pyr_vertex[level], pyr_normal[level], pyr_valid[level])
+        w_loc = lvl[0].shape[1] // d
+        win = dict(x0=r * w_loc, width=w_loc, out=sums[i % 2])
+        if i == 0:
+            icp_reduce64(*lvl, ref_vertex, ref_normal, ref_valid, pose, view,
+                         dist_threshold, with_result=False, **win)
+        else:
+            carry, _ = icp_reduce_step(
+                sums[1 - i % 2], pose if carry is None else carry.pose,
+                carry, sched[i - 1][1], first, icp_threshold, *lvl,
+                ref_vertex, ref_normal, ref_valid, view, dist_threshold,
+                carry_out=carries[i % 2], **win)
+        group.all_reduce_sum(sums[i % 2])
+    carry, (new_pose, tracked) = icp_update(
+        sums[(len(sched) - 1) % 2], pose if carry is None else carry.pose,
+        carry, first_of_level=sched[-1][1], icp_threshold=icp_threshold,
+        old_pose=pose, image_size=tuple(ref_vertex.shape[:2]))
     return new_pose, tracked, carry.reduction, None

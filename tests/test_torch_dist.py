@@ -40,7 +40,7 @@ from supereight_tpu.parallel import dist_step as jax_dist
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.core.map import MapGeometry, touched_buffer
 from supereight_tpu_torch.fields import OFUSION, TSDF
-from supereight_tpu_torch.kernels import alloc, frame, halo, icp, nav
+from supereight_tpu_torch.kernels import _lib, alloc, frame, halo, icp, nav
 from supereight_tpu_torch.kernels import raycast as kray
 from supereight_tpu_torch.parallel import dist_step, step
 from supereight_tpu_torch.parallel.distributed import Collectives
@@ -328,6 +328,70 @@ def test_mode_a_sharded_reduction_and_update_match_jax(frame4):
     np.testing.assert_allclose(checked[0].numpy(), np.asarray(pose),
                                atol=1e-5)
     assert bool(checked[1]) == bool(tracked)
+
+
+# the fused mode's cases: (the update's first_of_level, the reduced
+# iteration's first_of_level, whether a carry comes in, its done flag)
+STEP_CASES = {"first_of_frame": (True, False, False, False),
+              "first_of_level": (False, True, True, False),
+              "mid_level": (False, False, True, False),
+              "frozen": (False, False, True, True)}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_mode_a_fused_step_equals_update_then_reduce(frame4, case):
+    """K6's fused mode (``icp_reduce_step``: the previous iteration's
+    update folded into the next one's reduction) on rank 1's window of
+    level 0, after level 1's reduction summed over the four windows: its
+    twin equals ``icp_update_plain`` then ``icp_reduce64_plain`` at the
+    stepped pose bit for bit, and so does the wrapper on CPU tensors,
+    writing into the buffers it is given and counting no launch. A
+    frozen iteration's sums are zeros, and the next update from them
+    leaves the carry as it was."""
+    st, depth, _ = frame4
+    k = k_torch()
+    ts = convert.frame_to_torch(st, "cpu")
+    _, v, n, ok = preprocess_and_pyramid(torch.from_numpy(depth), k, 2,
+                                         False, False)
+    view = frame.frame_mats(k, ts.raycast_pose).view
+    ref = (ts.vertex, ts.normal, ts.valid)
+    red = torch.zeros(32, dtype=torch.float64)
+    for r in range(D):
+        red += icp.icp_reduce64_plain(v[1], n[1], ok[1], *ref, ts.pose, view,
+                                      x0=r * (W // 2 // D),
+                                      width=W // 2 // D)[1]
+    first, next_first, with_carry, done = STEP_CASES[case]
+    carry = icp.Carry(ts.pose.clone(), red.to(torch.float32) * 0.5,
+                      torch.tensor(done)) if with_carry else None
+    level0 = (v[0], n[0], ok[0], *ref, view)
+    win = dict(x0=W // D, width=W // D)
+    new, sums = icp.icp_reduce_step_plain(red, ts.pose, carry, first,
+                                          next_first, 1e-5, *level0, **win)
+    want, _ = icp.icp_update_plain(red, ts.pose, carry, first, 1e-5)
+    for a, b in zip(new, want):
+        assert torch.equal(a, b)
+    if done:
+        assert not bool(sums.any())
+        again, _ = icp.icp_update_plain(sums, new.pose, new, False, 1e-5)
+        for a, b in zip(again, new):
+            assert torch.equal(a, b)
+        for a, b in zip(new, carry):
+            assert torch.equal(a, b)
+    else:
+        _, direct = icp.icp_reduce64_plain(*level0[:6], want.pose, view,
+                                           **win)
+        assert torch.equal(sums, direct) and bool(sums.any())
+    before = dict(_lib.LAUNCHES)
+    out = torch.full((32,), float("nan"), dtype=torch.float64)
+    bufs = icp.Carry(torch.zeros(4, 4), torch.zeros(32),
+                     torch.zeros((), dtype=torch.bool))
+    got, got_sums = icp.icp_reduce_step(red, ts.pose, carry, first,
+                                        next_first, 1e-5, *level0, out=out,
+                                        carry_out=bufs, **win)
+    assert got_sums is out and torch.equal(out, sums)
+    for a, b, c in zip(got, bufs, new):
+        assert a is b and torch.equal(a, c)
+    assert _lib.LAUNCHES == before
 
 
 @pytest.mark.parametrize("field", ["tsdf", "ofusion"])

@@ -1077,38 +1077,98 @@ def _windows(width, n=4):
     return [(r * (width // n), width // n) for r in range(n)]
 
 
+def _sharded_args(device, field=TSDF, levels=3):
+    """``_track_sharded``'s leading arguments at the test orbit's frame 5
+    (three pyramid levels: windows of 16, 8 and 4 columns at D = 4, 768,
+    192 and 48 pixels, none a multiple of a CTA's 512 threads)."""
+    _, state, k, depth = _frames(device, field=field)
+    view = frame.frame_mats(k, state.raycast_pose).view
+    _, v, n, ok = preprocess_and_pyramid(depth, k, levels, False, False)
+    return (state.pose, view, v, n, ok, state.vertex, state.normal,
+            state.valid)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
 def test_sharded_icp_modes_match_twins_on_cuda(cuda, field):
-    """Mode A of the sharded step: K6's icp_reduce over a rank's column
-    window (its result the full launch's columns, bit for bit; its f64
-    sums the twin's to 1e-9 of the largest) and icp_update (the solve,
-    freeze and check_pose) against its twin, launches counted."""
-    geom, state, k, depth = _frames(cuda, field=field)
-    kview = se3.matmul4(se3.camera_matrix(k), se3.inverse(state.raycast_pose))
-    _, v, n, ok = preprocess_and_pyramid(depth, k, 2, False, False)
-    args = (v[0], n[0], ok[0], state.vertex, state.normal, state.valid,
-            state.pose, kview)
-    full, _ = icp.icp_reduce(*args)
+    """Mode A of the sharded step. K6's icp_reduce (one cluster launch)
+    over each rank's column window of every level: its codes the full
+    launch's columns and the twin's, bit for bit, its f64 sums the
+    twin's to 1e-9 of the largest, none without a result map, two
+    launches bit-identical. The fused mode (icp_reduce_step) against
+    its twin at the first iteration of a frame, mid-level, before a
+    level's first iteration and frozen (sums exactly zero): the carry's
+    pose to 1e-6, reduction and done exactly, the sums to 1e-9; sums
+    over the summed reduction or the carry refused. Then
+    icp_update (the solve, freeze and check_pose) against its twin, and
+    ``_track_sharded`` with a stand-in group that hands it the four
+    ranks' sums: its pose to 1e-6 of the CPU's, one icp_reduce, one
+    icp_reduce_step an iteration after that and one icp_update a frame.
+    """
+    from supereight_tpu_torch.tools import sharded_icp as si
+    args = _sharded_args(cuda, field)
+    pose, view, v, n, ok, ref = args[0], args[1], args[2], args[3], \
+        args[4], args[5:]
     total = torch.zeros(32, dtype=torch.float64, device=cuda)
-    for x0, w in _windows(W):
-        res, red = icp.icp_reduce64(*args, x0=x0, width=w)
-        res_p, red_p = icp.icp_reduce64_plain(*args, x0=x0, width=w)
-        assert torch.equal(res, full[:, x0:x0 + w])
-        assert torch.equal(res, res_p)
-        scale = float(red_p.abs().max())
-        assert torch.allclose(red, red_p, rtol=0, atol=1e-9 * scale)
-        total += red
+    for lvl in range(len(v)):
+        lv = (v[lvl], n[lvl], ok[lvl], *ref, pose, view)
+        full, _ = icp.icp_reduce(*lv)
+        for x0, w in _windows(v[lvl].shape[1]):
+            res, red = icp.icp_reduce64(*lv, x0=x0, width=w)
+            res_p, red_p = icp.icp_reduce64_plain(*lv, x0=x0, width=w)
+            assert torch.equal(res, full[:, x0:x0 + w])
+            assert torch.equal(res, res_p)
+            scale = float(red_p.abs().max())
+            assert torch.allclose(red, red_p, rtol=0, atol=1e-9 * scale)
+            none, again = icp.icp_reduce64(*lv, x0=x0, width=w,
+                                           with_result=False)
+            assert none is None and torch.equal(again, red)
+            if lvl == 0:
+                total += red
+    level0 = (v[0], n[0], ok[0], *ref, view)
+    win = dict(x0=W // 4, width=W // 4)
+    zero = torch.zeros((), dtype=torch.bool, device=cuda)
+    carry = icp.Carry(pose.clone(), total.to(torch.float32) * 0.5, zero)
+    frozen = carry._replace(done=~zero)
+    before = _lib.LAUNCHES["icp_reduce_step"]
+    for c, first, next_first in ((None, True, False), (carry, False, False),
+                                 (carry, False, True), (frozen, False,
+                                                        False)):
+        got = icp.icp_reduce_step(total, pose, c, first, next_first, 1e-5,
+                                  *level0, **win)
+        twice = icp.icp_reduce_step(total, pose, c, first, next_first, 1e-5,
+                                    *level0, **win)
+        want = icp.icp_reduce_step_plain(total, pose, c, first, next_first,
+                                         1e-5, *level0, **win)
+        assert torch.allclose(got[0].pose, want[0].pose, atol=1e-6, rtol=0)
+        assert torch.equal(got[0].reduction, want[0].reduction)
+        assert torch.equal(got[0].done, want[0].done)
+        scale = float(want[1].abs().max())
+        assert torch.allclose(got[1], want[1], rtol=0, atol=1e-9 * scale)
+        assert torch.equal(got[1], twice[1])
+        if c is frozen:
+            assert not bool(got[1].any())
+    assert _lib.LAUNCHES["icp_reduce_step"] == before + 8
+    # sums written over the summed reduction or the carry race the CTAs
+    # still reading them: refused before any launch
+    buf = torch.empty(32, dtype=torch.float64, device=cuda)
+    aliased = icp.Carry(torch.empty_like(pose), buf.view(torch.float32)[:32],
+                        torch.empty_like(zero))
+    for out, cout in ((total, None), (buf, aliased)):
+        with pytest.raises(ValueError, match="out overlaps"):
+            icp.icp_reduce_step(total, pose, carry, False, False, 1e-5,
+                                *level0, **win, out=out, carry_out=cout)
+    assert _lib.LAUNCHES["icp_reduce_step"] == before + 8
     before = _lib.LAUNCHES["icp_update"]
     carry = carry_p = None
     for it, first in enumerate((True, False, False)):
         last = it == 2
-        got = icp.icp_update(total, state.pose if carry is None
-                             else carry.pose, carry, first, 1e-5,
-                             state.pose if last else None, (H, W))
-        want = icp.icp_update_plain(total, state.pose if carry_p is None
+        got = icp.icp_update(total, pose if carry is None else carry.pose,
+                             carry, first, 1e-5, pose if last else None,
+                             (H, W))
+        want = icp.icp_update_plain(total, pose if carry_p is None
                                     else carry_p.pose, carry_p, first, 1e-5,
-                                    state.pose if last else None, (H, W))
+                                    pose if last else None, (H, W))
         (carry, checked), (carry_p, checked_p) = got, want
         assert torch.allclose(carry.pose, carry_p.pose, atol=1e-6, rtol=0)
         assert torch.equal(carry.reduction, carry_p.reduction)
@@ -1116,6 +1176,72 @@ def test_sharded_icp_modes_match_twins_on_cuda(cuda, field):
     assert torch.allclose(checked[0], checked_p[0], atol=1e-6, rtol=0)
     assert torch.equal(checked[1], checked_p[1])
     assert _lib.LAUNCHES["icp_update"] == before + 3
+
+    iterations = (3, 2, 2)
+    sums, _ = si.record(args, iterations, 1e-5)
+    cpu = tuple(tuple(t.cpu() for t in a) if isinstance(a, tuple)
+                else a.cpu() for a in args)
+    _lib.reset_launches()
+    got = si.replay(args, iterations, 1e-5, sums)
+    counts = dict(_lib.LAUNCHES)
+    want = si.replay(cpu, iterations, 1e-5, sums.cpu())
+    assert torch.allclose(got[0].cpu(), want[0], atol=1e-6, rtol=0)
+    assert bool(got[1]) == bool(want[1])
+    assert {k: v for k, v in counts.items() if v} == {
+        "icp_reduce": 1, "icp_reduce_step": 6, "icp_update": 1}
+
+
+def test_sharded_icp_tool_on_the_cpu():
+    """``tools/sharded_icp``: without a card it exits 2; its recorded sums
+    replayed through ``_track_sharded`` (the stand-in group) give the
+    pose of the updates run on them alone; its trace split drops a
+    replay the trace shows in part and counts each level's launches."""
+    from supereight_tpu_torch.tools import sharded_icp as si
+    torch.set_num_threads(1)
+    if not torch.cuda.is_available():
+        assert si.main([]) == 2
+    args = _sharded_args("cpu", levels=2)
+    iterations = (3, 2)
+    sums, frozen = si.record(args, iterations, 1e-5)
+    assert sums.shape == (5, 32) and not frozen[0] and not frozen[2]
+    got = si.replay(args, iterations, 1e-5, sums)
+    pose, carry = args[0], None
+    for i, first in enumerate((True, False, True, False, False)):
+        carry, checked = icp.icp_update_plain(
+            sums[i], pose if carry is None else carry.pose, carry, first,
+            1e-5, pose if i == 4 else None, (H, W))
+    assert torch.equal(got[0], checked[0]) and torch.equal(got[1],
+                                                           checked[1])
+
+    def ev(name, t, dur, cat="kernel"):
+        return (name, cat, float(t), float(dur))
+
+    def one(t0, parent):
+        out, t = [], t0
+        for i in range(5):
+            out.append(ev("icp_reduce_kernel", t, 5.0 if i < 2 else 6.0))
+            if parent:
+                out.append(ev("reduce_kernel", t + 10, 3.0))
+            out.append(ev("Memcpy DtoD", t + 20, 1.0, "gpu_memcpy"))
+            if parent or i == 4:
+                out.append(ev("icp_update_kernel", t + 30, 4.0))
+            t += 50
+        return out
+    for parent in (True, False):
+        events = one(0, parent)[3:] + one(10_000, parent) + one(
+            20_000, parent)
+        reps = si.split_replays(events, 5)
+        assert len(reps) == 2
+        s = si.summarize(reps, iterations, [False, True, False, False,
+                                            True])
+        lv0, lv1 = s["levels"]
+        assert (lv0["iterations"], lv0["frozen"], lv1["frozen"]) == (3, 1, 1)
+        assert lv1["reduce_us"] == 5.0 and lv0["reduce_us"] == 6.0
+        assert lv0["other_us"] == (3.0 if parent else 0.0)
+        assert lv0["update_us"] == 4.0
+        assert s["frozen_us"] == 5.5
+        assert s["launches"] == (15 if parent else 6)
+        assert s["icp_us"] == 28.0 + (35.0 if parent else 4.0)
 
 
 @pytest.mark.cuda
