@@ -3679,6 +3679,7 @@ def check_dist_alloc(torch, cap, field, tag):
     exactly; the grids all zero after either)."""
     from supereight_tpu_torch.core.map import touched_buffer, touched_grids
     from supereight_tpu_torch.kernels import alloc
+    from supereight_tpu_torch.parallel.dist_step import owner_grid
     march_name = "touched_mask" if field.name == "tsdf" \
         else "touched_masks_of"
     (geom, depth, pose, kpose, mu), kw, _ = captured(cap, march_name)
@@ -3715,6 +3716,9 @@ def check_dist_alloc(torch, cap, field, tag):
     fields = {n: getattr(m0, n) for n in ("slot", "block_coord", "active",
                                           "n_blocks", "mip_alloc")}
     union, owner, rank = m0.touched, kw["owner"], kw["rank"]
+    # the kernel computes each cell's owner (alloc.Owners); the foreign
+    # check reads the step's morton owner grid
+    own = owner_grid(geom, owner.world, owner.tile, device=depth.device)
 
     def call(fn, m, buf):
         g = touched_grids(buf, b, levels)
@@ -3730,7 +3734,7 @@ def check_dist_alloc(torch, cap, field, tag):
     bad["mip_alloc"] = sum(int((a != c).sum())
                            for a, c in zip(ma.mip_alloc, mb.mip_alloc))
     owned = (ma.slot >= 0) & (fields["slot"] < 0)
-    foreign = int((owner[owned] != rank).sum())
+    foreign = int((own[owned] != rank).sum())
     n_new = int(owned.sum())
     print(f"{tag}: alloc_assign owned by rank {rank}: {n_new} new blocks "
           f"(the union touched {int(touched_grids(union, b, 1)[0].sum())} "
@@ -3755,10 +3759,10 @@ def check_dist_alloc(torch, cap, field, tag):
                    KERNEL_REPS),
         plain_ms=cuda_ms(torch, lambda: call(alloc.alloc_assign_plain, mb,
                                              next(copies)), TWIN_REPS),
-        # the level-0 grid, and the slot and owner entries under its set
-        # cells, read once; the coarse grids, the cleared sectors, the new
-        # entries and the mip bytes set written once
-        **bound(b ** 3 + 8 * int(grids[0].sum())
+        # the level-0 grid, and the slot entries under its set cells, read
+        # once; the coarse grids, the cleared sectors, the new entries and
+        # the mip bytes set written once
+        **bound(b ** 3 + 4 * int(grids[0].sum())
                 + sum(g.numel() for g in grids[1:])
                 + SECTOR * set_sectors(torch, grids) + 17 * n_new + mip_set
                 + 8, b ** 3))
@@ -3789,27 +3793,34 @@ def check_dist_local(torch, cap, tag):
 
 def check_dist_halo(torch, cap, field, tag):
     """Mode C on a rank's captured map (after the frame's integration):
-    halo_pack with the frustum test and without, against its twin: the
-    counts and cell ids exactly, the flagged rows' bricks bit for bit."""
+    halo_pack with the frustum test and without, and with the frustum
+    test under a budget of half the rows it sends (overflow > 0), against
+    its twin: the counts and cell ids exactly, the flagged rows' bricks
+    bit for bit."""
     from supereight_tpu_torch.kernels import halo
     args = captured(cap, "halo_pack")[0][:7]
     m, budget = args[1], args[5]
     err, rows = 0.0, {}
-    for frustum in (True, False):
-        got, cnt = halo.halo_pack(*args, frustum)
-        want, cnt_p = halo.halo_pack_plain(*args, frustum)
-        filled = int(cnt_p[0])
+    for frustum, cut in ((True, False), (False, False), (True, True)):
+        a = list(args)
+        if cut:
+            a[5] = max(rows[True] // 2, 1)
+        got, cnt = halo.halo_pack(*a, frustum)
+        want, cnt_p = halo.halo_pack_plain(*a, frustum)
+        filled, bud = int(cnt_p[0]), a[5]
         diff = [(got[r] - want[r]).abs().max().item() if filled else 0.0
-                for r in (slice(0, filled), slice(budget, budget + filled))]
+                for r in (slice(0, filled), slice(bud, bud + filled))]
         same = torch.equal(cnt, cnt_p) and torch.equal(
-            halo.cells_of(got, budget), halo.cells_of(want, budget))
-        print(f"{tag}: halo_pack (frustum {frustum}): {filled} of "
-              f"{int(m.n_blocks)} blocks sent, overflow {int(cnt[1])}, counts "
-              f"and cells equal: {same}, brick max err {max(diff):.1e} (0)")
-        require(same and max(diff) == 0.0,
+            halo.cells_of(got, bud), halo.cells_of(want, bud))
+        print(f"{tag}: halo_pack (frustum {frustum}, budget {bud}): "
+              f"{filled} of {int(m.n_blocks)} blocks sent, overflow "
+              f"{int(cnt[1])}, counts and cells equal: {same}, brick max err "
+              f"{max(diff):.1e} (0)")
+        require(same and max(diff) == 0.0 and (int(cnt[1]) > 0) == cut,
                 f"{tag}: halo_pack disagrees with its twin")
         err = max(err, max(diff))
-        rows[frustum] = filled
+        if not cut:
+            rows[frustum] = filled
     n = int(m.n_blocks)
     row = dict(max_abs_err=err,
                device_us=device_us(torch, lambda: halo.halo_pack(*args, True),
@@ -3894,9 +3905,10 @@ def dist_phase(torch, dev, tmp, card):
     DIST_CAPTURE: the sharded modes (K6's windowed icp_reduce at every
     level, icp_reduce_step and icp_update, K5's windowed marches and owned
     allocation, halo_pack, K2 on the halo table, K1's column window) and
-    K3 and K4 at the rank's capacity; and each rank's K6 launches: one
-    icp_reduce, sum(ITERATIONS) - 1 icp_reduce_step and one icp_update a
-    frame. Prints ms/frame per rank, the halo's bytes and
+    K3 and K4 at the rank's capacity; and each rank's launches: one
+    icp_reduce, sum(ITERATIONS) - 1 icp_reduce_step, one icp_update and
+    one alloc_assign_owned a frame, one halo_pack a frame from frame 3.
+    Prints ms/frame per rank, the halo's bytes and
     the collectives' share, which measure no scaling (four ranks share one
     card, their collectives staged through host memory). Returns the
     kernels' launches over both paths, the new modes' rows and the errors
@@ -3937,6 +3949,13 @@ def dist_phase(torch, dev, tmp, card):
                         f"frames; want one icp_reduce, "
                         f"{sum(ITERATIONS) - 1} icp_reduce_step and one "
                         f"icp_update a frame")
+                # one owned allocation a frame, one halo from frame 3
+                own = {k: counts[k] for k in ("alloc_assign_owned",
+                                              "halo_pack")}
+                require(own == {"alloc_assign_owned": n, "halo_pack": n - 3},
+                        f"{tag} rank {r} {h}: launches {own} over {n} "
+                        f"frames; want one alloc_assign_owned a frame and "
+                        f"one halo_pack a frame from frame 3")
                 for c in DIST_DROPS:
                     require(not rr[f"{name}.aux.{c}"].any(),
                             f"{tag} rank {r} {h}: {c} nonzero")

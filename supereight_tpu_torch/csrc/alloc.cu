@@ -182,7 +182,10 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int x0,
 // three scatters, a per-slot gather and the OR-reduce pyramid with its
 // broadcasts.
 //
-// One cluster of 8 CTAs x 1024 threads (compact.cuh), one launch:
+// One launch: a cluster of kAllocCtas CTAs x kAllocThreads threads
+// (compact.cuh) runs steps 1, 2 and 4, and for OFusion one or two more
+// clusters (a 4-byte word of the coarse grids a thread, 9,216 words at
+// 512^3) run step 3 beside it:
 //  1. a touched cell that has a slot re-activates it (ref
 //     alloc_impl.hpp:109), from the slot entry the scan reads anyway;
 //  2. the new cells (touched, no slot yet) are compacted in ascending cell
@@ -197,17 +200,23 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int x0,
 //     never is; then n_blocks and alloc_overflow are written.
 // A device `when` that is false leaves every map grid untouched but the
 // root's children, as JAX's masked allocation and unconditional refresh do.
-// With an owner grid (the sharded step's, parallel/dist_step.py) a touched
-// cell that another rank owns is skipped in step 1 and 2, as JAX's
-// `touched & (own == idx)` (dist_step.py:313); it is still cleared.
+// In the sharded step (parallel/dist_step.py, world > 0) a touched cell
+// that another rank owns is skipped in step 1 and 2, as JAX's
+// `touched & (own == idx)` (dist_step.py:313); it is still cleared. The
+// owner is arithmetic, not read: JAX's owner_grid deals 64 consecutive
+// morton cells to a rank, and those are the 4^3 super-brick (x >> 2,
+// y >> 2, z >> 2), so a cell's owner is the super-brick's morton code mod
+// the world size (tile_owner), computed once for each 4 cells of a run.
 //
 // The touched grids are consumed: they are all zero on return, whatever
 // `when` says, so the map's touched buffer needs no fill before the next
 // frame's march. The scan clears each run it reads (the zero uint4s stored
-// back where its two loads found a byte set), and the extra grids' pass
-// zeroes each byte it finds set. Both read and clear before they test
-// `when`, so a masked frame leaves no mark for the next one. A level at or
-// past nl has no cell (b >> l == 0), so every cell the march wrote is read.
+// back where its two loads found a byte set), and the coarse grids' pass
+// reads them 4 bytes a load and stores a zero word back where a byte was
+// set (16-byte words put up to 16 set octants, and their marks, on one
+// thread). Both read and clear before they test `when`, so a masked frame
+// leaves no mark for the next one. A level at or past nl has no cell
+// (b >> l == 0), so every cell the march wrote is read.
 //
 // The mip refresh is incremental. JAX's dense refresh ORs
 // broadcast(R(slot >= 0 | extra)) into mip_alloc, R being the OR-reduce
@@ -216,7 +225,10 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int x0,
 // call: slots are never freed, mip_alloc only grows, and every call marks
 // its own new blocks' ancestors (kernels/alloc.py states it; the CPU tests
 // and chip_smoke.py hold it frame by frame against the dense rule). Stores
-// of the byte 1 from several threads race harmlessly.
+// of the byte 1 from several threads race harmlessly. A thread walks its
+// cells in ascending order and stops climbing at the first ancestor that
+// its previous cell of the same level shares (mark_up): the neighbours of
+// a run share most of theirs.
 //
 // The re-activation is JAX's per-slot gather (active[s] |= touched[cell of
 // block_coord[s]] for s < n_blocks) turned around: slot[cell] = s exactly
@@ -228,11 +240,25 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int x0,
 // Bound on the H100: the touched grid (B^3 bytes) read once and the sectors
 // of its set cells cleared, the slot grid read only under touched cells,
 // <= kb new entries written and the mip bytes set: ~0.3 MB at 512^3, ~0.1
-// us at HBM rate. A thread reads its 32
-// cells' touched bytes as two 16-byte loads and the slot grid only where a
-// byte is set; eight SMs share the reads, and the scan's cross-CTA step is
-// one cluster barrier, so allocation is one launch after the march. What
-// is left is latency: two cluster barriers and the dependent slot loads.
+// us at HBM rate. What costs is latency and the scattered mip stores on
+// few SMs, so each thread's reads go out in as few dependent rounds as
+// the data allows: its 32 cells' touched bytes as two 16-byte loads, then
+// the slot entries under its set cells as one round of 16-byte loads (the
+// words that hold a set cell, all in flight at once; a set cell after set
+// cell cost a read after a read, PERF.md); the scan's cross-CTA step is
+// one cluster barrier; a mark is four 16-bit stores, and a thread's run
+// of neighbours shares its ancestors' marks (mark_up). The coarse grids'
+// marks, 3 us of the launch when the compacting cluster made them after
+// its scan (H100 80GB HBM3 at 700 W, PERF.md), run on their own SMs
+// meanwhile.
+
+// the compacting cluster's shape (each coarse cluster's too): 16 SMs
+// share the scan's reads and the marks' stores, 32 cells a thread (16 x
+// 512 beat 8 x 1024, 16 x 1024 and 8 x 512 on the bench, H100 at 700 W,
+// PERF.md)
+constexpr int kAllocCtas = 16;
+constexpr int kAllocThreads = 512;
+constexpr int kMaxCoarseClusters = 8;
 
 struct Mips {  // per-level pointers, as csrc/nav.cu and node.cu pass them
   uint8_t* alloc[10];
@@ -240,67 +266,167 @@ struct Mips {  // per-level pointers, as csrc/nav.cu and node.cu pass them
   float* y[10];
 };
 
-// 1 into the 8 children (level a - 1) of the level-a octant (ax, ay, az)
+// 1 into the 8 children (level a - 1) of the level-a octant (ax, ay, az):
+// two z-adjacent bytes in each of 4 (x, y) rows, one 16-bit store each
+// (the level's side is even, so the pair is 2-byte aligned in a 2-byte
+// aligned grid)
 __device__ __forceinline__ void mark_children(const Mips& M, int b, int a,
                                               int ax, int ay, int az) {
   const int s = b >> (a - 1);
   uint8_t* out = M.alloc[a - 1];
-  for (int k = 0; k < 8; ++k) {
-    const int x = 2 * ax + (k >> 2), y = 2 * ay + ((k >> 1) & 1),
-              z = 2 * az + (k & 1);
-    out[(x * s + y) * s + z] = 1;
+  for (int k = 0; k < 4; ++k) {
+    const int x = 2 * ax + (k >> 1), y = 2 * ay + (k & 1);
+    *reinterpret_cast<uint16_t*>(out + (x * s + y) * s + 2 * az) = 0x0101u;
   }
 }
 
-// the children of every ancestor at levels max(l, 1) .. nl - 1 of the
-// level-l octant (x, y, z), itself included when l >= 1
-__device__ __forceinline__ void mark_ancestors(const Mips& M, int b, int nl,
-                                               int l, int x, int y, int z) {
-  for (int a = max(l, 1); a < nl; ++a)
-    mark_children(M, b, a, x >> (a - l), y >> (a - l), z >> (a - l));
-}
-
-// each octant set in the level-l grid `extra` cleared, and, where `go`,
-// its ancestors' children marked
-__device__ __forceinline__ void mark_extra(const Mips& M, int b, int nl,
-                                           int l, uint8_t* __restrict__ extra,
-                                           bool go, int g, int n_threads) {
-  if (extra == nullptr) return;
-  const int s = b >> l;
-  for (int i = g; i < s * s * s; i += n_threads) {
-    if (!extra[i]) continue;
-    extra[i] = 0;
-    if (go) mark_ancestors(M, b, nl, l, i / (s * s), (i / s) % s, i % s);
+// The children of every ancestor at levels max(l, 1) .. nl - 1 of the
+// level-l octant (x, y, z), itself included when l >= 1, up to the first
+// ancestor that `prev` shares (the octant of level l this thread marked
+// last, or -1s): prev's ancestors from there up are marked already. Then
+// prev is (x, y, z).
+__device__ __forceinline__ void mark_up(const Mips& M, int b, int nl, int l,
+                                        int x, int y, int z, int3& prev) {
+  for (int a = max(l, 1); a < nl; ++a) {
+    const int d = a - l;
+    const int ax = x >> d, ay = y >> d, az = z >> d;
+    if (ax == prev.x >> d && ay == prev.y >> d && az == prev.z >> d) break;
+    mark_children(M, b, a, ax, ay, az);
   }
+  prev = make_int3(x, y, z);
 }
 
-__global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
-    __launch_bounds__(se::kCompactThreads)
+// bits 0-9 of v to every third bit (core/morton.py expand_bits)
+__device__ __forceinline__ uint32_t spread3(uint32_t v) {
+  v &= 0x3ffu;
+  v = (v | (v << 16)) & 0x030000ffu;
+  v = (v | (v << 8)) & 0x0300f00fu;
+  v = (v | (v << 4)) & 0x030c30c3u;
+  v = (v | (v << 2)) & 0x09249249u;
+  return v;
+}
+
+// The rank of `world` that owns the block cell (x, y, z): the morton code
+// of its 4^3 super-brick mod world (parallel/dist_step.owner_grid at
+// TILE = 64: a cell's code // 64 is that super-brick's code). xy is
+// spread3(x >> 2) | spread3(y >> 2) << 1, shared by a z-row's cells.
+__device__ __forceinline__ int tile_owner(uint32_t xy, int z, int world) {
+  const uint32_t code = xy | (spread3(z >> 2) << 2);
+  return (int)((world & (world - 1)) ? code % (uint32_t)world
+                                     : code & (uint32_t)(world - 1));
+}
+__device__ __forceinline__ uint32_t row_code(int x, int y) {
+  return spread3(x >> 2) | (spread3(y >> 2) << 1);
+}
+
+// bit k of the result: byte k of w is not 0
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  const uint32_t nz = __vcmpne4(w, 0u);
+  return ((nz >> 7) & 1u) | ((nz >> 14) & 2u) | ((nz >> 21) & 4u) |
+         ((nz >> 28) & 8u);
+}
+
+// OFusion's coarse grids (levels 1 and 2; null where absent), read 4
+// bytes a load: per level its whole 4-byte words (none for a grid off a
+// 4-byte boundary) and its bytes; word w < words() is word w of level 1's,
+// then of level 2's.
+struct Coarse {
+  uint8_t* g[2];
+  int vec[2], bytes[2];
+
+  __device__ Coarse(uint8_t* e1, uint8_t* e2, int b) {
+    g[0] = e1;
+    g[1] = e2;
+    for (int i = 0; i < 2; ++i) {
+      const int s = b >> (i + 1);
+      bytes[i] = g[i] == nullptr ? 0 : s * s * s;
+      vec[i] = ((uintptr_t)g[i] & 3u) ? 0 : bytes[i] / 4;
+    }
+  }
+  __device__ int words() const { return vec[0] + vec[1]; }
+  __device__ uint32_t load(int w) const {
+    const int i = w < vec[0] ? 0 : 1;
+    return reinterpret_cast<const uint32_t*>(g[i])[w - (i ? vec[0] : 0)];
+  }
+  // word w, found to hold v: cleared where a byte is set, and each set
+  // octant's ancestors marked where go (prev: the octant this thread
+  // marked last, of level prev_l)
+  __device__ void apply(const Mips& M, int b, int nl, bool go, int w,
+                        uint32_t v, int3& prev, int& prev_l) const {
+    if (v == 0u) return;
+    const int i = w < vec[0] ? 0 : 1, wl = w - (i ? vec[0] : 0);
+    reinterpret_cast<uint32_t*>(g[i])[wl] = 0u;
+    if (!go) return;
+    const int s = b >> (i + 1);
+    level(i + 1, prev, prev_l);
+    for (uint32_t r = nonzero_bytes(v); r; r &= r - 1) {
+      const int c = 4 * wl + __ffs(r) - 1;
+      mark_up(M, b, nl, i + 1, c / (s * s), (c / s) % s, c % s, prev);
+    }
+  }
+  // the bytes past the whole words (a grid off a 4-byte boundary is all
+  // bytes), thread t of n_threads
+  __device__ void bytes_pass(const Mips& M, int b, int nl, bool go, int t,
+                             int n_threads, int3& prev, int& prev_l) const {
+    for (int i = 0; i < 2; ++i) {
+      const int s = b >> (i + 1);
+      for (int c = 4 * vec[i] + t; c < bytes[i]; c += n_threads) {
+        if (!g[i][c]) continue;
+        g[i][c] = 0;
+        if (!go) continue;
+        level(i + 1, prev, prev_l);
+        mark_up(M, b, nl, i + 1, c / (s * s), (c / s) % s, c % s, prev);
+      }
+    }
+  }
+  // prev holds an octant of level l from here on (none when it held
+  // another level's)
+  __device__ static void level(int l, int3& prev, int& prev_l) {
+    if (prev_l != l) prev = make_int3(-1, -1, -1);
+    prev_l = l;
+  }
+};
+
+__global__ void __launch_bounds__(kAllocThreads)
     alloc_assign_kernel(uint8_t* __restrict__ touched,
                         uint8_t* __restrict__ extra1,
                         uint8_t* __restrict__ extra2,
-                        const uint8_t* __restrict__ when,
-                        const int* __restrict__ owner, int rank, int b,
-                        int nl, int cap, int kb, int* __restrict__ slot,
+                        const uint8_t* __restrict__ when, int world,
+                        int rank, int b, int nl, int cap, int kb,
+                        int* __restrict__ slot,
                         int* __restrict__ block_coord,
                         uint8_t* __restrict__ active,
                         int* __restrict__ n_blocks,
                         int* __restrict__ overflow, Mips M) {
   const bool go = when == nullptr || *when;
+  if (blockIdx.x >= kAllocCtas) {  // a coarse cluster
+    const Coarse coarse(extra1, extra2, b);
+    const int t = (blockIdx.x - kAllocCtas) * blockDim.x + threadIdx.x;
+    const int n_t = (gridDim.x - kAllocCtas) * blockDim.x;
+    int3 prev = make_int3(-1, -1, -1);
+    int prev_l = 0;
+    for (int w = t; w < coarse.words(); w += n_t)
+      coarse.apply(M, b, nl, go, w, coarse.load(w), prev, prev_l);
+    coarse.bytes_pass(M, b, nl, go, t, n_t, prev, prev_l);
+    return;
+  }
   const int n_old = *n_blocks;  // read by all before rank 0 writes it
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_threads = gridDim.x * blockDim.x;
+  const int lb = __ffs(b) - 1;
   const int room = max(0, min(kb, cap - n_old));  // slots this call may take
   auto run_mask = [&](int i0, int cnt) {
     uint32_t m = 0;
-    if (cnt == 32) {  // i0 is a multiple of 32: two aligned 16-byte loads
+    // a run of 16 or 32 cells starts at a multiple of its length (runs are
+    // powers of two: b is one), so with b >= cnt it is one z-row
+    const bool whole = cnt == 32 || cnt == 16;
+    if (whole) {  // one or two aligned 16-byte loads
       uint4* t4 = reinterpret_cast<uint4*>(touched + i0);
-      const uint4 a = t4[0], c = t4[1];
-      const uint32_t words[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
-      for (int k = 0; k < 8; ++k)
-        for (int j = 0; j < 4; ++j)
-          if ((words[k] >> (8 * j)) & 0xffu) m |= 1u << (4 * k + j);
       const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      const uint4 a = t4[0], c = cnt == 32 ? t4[1] : zero;
+      m = nonzero_bytes(a.x) | (nonzero_bytes(a.y) << 4) |
+          (nonzero_bytes(a.z) << 8) | (nonzero_bytes(a.w) << 12) |
+          (nonzero_bytes(c.x) << 16) | (nonzero_bytes(c.y) << 20) |
+          (nonzero_bytes(c.z) << 24) | (nonzero_bytes(c.w) << 28);
       if (a.x | a.y | a.z | a.w) t4[0] = zero;
       if (c.x | c.y | c.z | c.w) t4[1] = zero;
     } else {
@@ -310,64 +436,117 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
           touched[i0 + j] = 0;
         }
     }
-    if (!go) return 0u;  // a masked step only clears
-    for (uint32_t r = m; r; r &= r - 1) {  // keep the cells with no slot
-      const int j = __ffs(r) - 1;
-      if (owner != nullptr && owner[i0 + j] != rank) {  // another rank's
-        m &= ~(1u << j);
-        continue;
+    if (!go || m == 0u) return 0u;  // a masked step only clears
+    if (world > 0) {  // keep this rank's cells (b is a power of two)
+      if (whole && b >= cnt) {  // one owner for each 4 cells of the row
+        const uint32_t xy = row_code(i0 >> (2 * lb), (i0 >> lb) & (b - 1));
+        const int z0 = i0 & (b - 1);
+        for (int k = 0; k < 8; ++k)
+          if (((m >> (4 * k)) & 0xfu) &&
+              tile_owner(xy, z0 + 4 * k, world) != rank)
+            m &= ~(0xfu << (4 * k));
+      } else {
+        for (uint32_t r = m; r; r &= r - 1) {
+          const int j = __ffs(r) - 1, c = i0 + j;
+          if (tile_owner(row_code(c >> (2 * lb), (c >> lb) & (b - 1)),
+                         c & (b - 1), world) != rank)
+            m &= ~(1u << j);
+        }
       }
-      const int s = slot[i0 + j];
-      if (s >= 0) {  // a touched block that exists: re-activated
-        active[s] = 1;
-        m &= ~(1u << j);
+    }
+    // a touched block that exists is re-activated and leaves the mask
+    if (whole) {  // the slot words under set cells, all loads at once
+      // (m has no bit past cnt)
+      const int4* s4 = reinterpret_cast<const int4*>(slot + i0);
+      int4 v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = ((m >> (4 * k)) & 0xfu) ? s4[k] : make_int4(-1, -1, -1, -1);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int s[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (((m >> (4 * k + j)) & 1u) && s[j] >= 0) {
+            active[s[j]] = 1;
+            m &= ~(1u << (4 * k + j));
+          }
+      }
+    } else {
+      for (uint32_t r = m; r; r &= r - 1) {
+        const int j = __ffs(r) - 1;
+        const int s = slot[i0 + j];
+        if (s >= 0) {
+          active[s] = 1;
+          m &= ~(1u << j);
+        }
       }
     }
     return m;
   };
+  int3 prev0 = make_int3(-1, -1, -1);
   auto emit = [&](int cell, int r) {
     if (r >= room) return;  // beyond the budget or the pool: dropped
     const int dest = n_old + r;
-    const int x = cell / (b * b), y = (cell / b) % b, z = cell % b;
+    const int x = cell >> (2 * lb), y = (cell >> lb) & (b - 1),
+              z = cell & (b - 1);
     slot[cell] = dest;
     block_coord[3 * dest] = x;
     block_coord[3 * dest + 1] = y;
     block_coord[3 * dest + 2] = z;
     active[dest] = 1;
-    mark_ancestors(M, b, nl, 0, x, y, z);
+    mark_up(M, b, nl, 0, x, y, z, prev0);
   };
-  const int total = se::cluster_compact(b * b * b, run_mask, emit);
-  mark_extra(M, b, nl, 1, extra1, go, g, n_threads);
-  mark_extra(M, b, nl, 2, extra2, go, g, n_threads);
-  if (nl >= 2 && g < 8) M.alloc[nl - 2][g] = 1;  // the root's children
-  if (g == 0) {
-    const int n_new = min(total, room);
-    *n_blocks = n_old + n_new;
-    *overflow = total - n_new;
-  }
+  se::cluster_compact(b * b * b, run_mask, emit, [&](int total) {
+    if (nl >= 2 && g < 8) M.alloc[nl - 2][g] = 1;  // the root's children
+    if (g == 0) {
+      const int n_new = min(total, room);
+      *n_blocks = n_old + n_new;
+      *overflow = total - n_new;
+    }
+  });
 }
 
 }  // namespace
 
 // when (bool[]) may be null: always true; extra1 / extra2 (OFusion's level
-// 1 and 2 grids) may be null. owner (i32[B^3], the sharded step's owner
-// grid) may be null: every cell is this map's; else only the touched
-// cells that owner gives to `rank` are allocated or re-activated (the
-// extra grids are not masked, as JAX's sharded step unions them). kb =
-// min(B^3, budget). touched, extra1 and extra2 are all zero on return.
+// 1 and 2 grids) may be null. world > 0: the sharded step's owner mask:
+// only the touched cells that tile_owner gives to `rank` of `world` are
+// allocated or re-activated (the extra grids are not masked, as JAX's
+// sharded step unions them), in tiles of 64 morton cells (the caller,
+// kernels/alloc.py, refuses any other tile). world 0: every cell
+// is this map's. kb = min(B^3, budget). touched and slot
+// 16-byte aligned, the mip levels below the top 2-byte aligned, b a power
+// of two. touched, extra1 and extra2 are all zero on return. Returns a
+// cudaError_t, or -1 when no such cluster fits the card.
 SE_EXPORT int se_alloc_assign(uint8_t* touched, uint8_t* extra1,
                               uint8_t* extra2, const uint8_t* when,
-                              const int* owner, int rank,
-                              int b, int nl, int cap, int kb, int* slot,
-                              int* block_coord, uint8_t* active,
-                              int* n_blocks, int* overflow, Mips mips,
-                              void* stream) {
-  alloc_assign_kernel<<<se::kCompactCtas, se::kCompactThreads, 0,
-                        (cudaStream_t)stream>>>(
-      touched, extra1, extra2, when, owner, rank, b, nl, cap, kb, slot,
-      block_coord,
-      active, n_blocks, overflow, mips);
-  return (int)cudaGetLastError();
+                              int world, int rank, int b, int nl, int cap,
+                              int kb, int* slot, int* block_coord,
+                              uint8_t* active, int* n_blocks, int* overflow,
+                              Mips mips, void* stream) {
+  if (world < 0 || (world > 0 && (rank < 0 || rank >= world)) || b < 1 ||
+      (b & (b - 1)))
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)touched % 16 || (uintptr_t)slot % 16)
+    return (int)cudaErrorMisalignedAddress;
+  for (int l = 0; l + 1 < nl; ++l)  // mark_children's 16-bit stores
+    if ((uintptr_t)mips.alloc[l] % 2) return (int)cudaErrorMisalignedAddress;
+  // the coarse grids' clusters: a 4-byte word (or less) a thread
+  int coarse = 0;
+  for (int i = 0; i < 2; ++i) {
+    const int s = b >> (i + 1);
+    if ((i ? extra2 : extra1) != nullptr) coarse += s * s * s;
+  }
+  const int per_cluster = 4 * kAllocCtas * kAllocThreads;
+  const int n_coarse = min(kMaxCoarseClusters,
+                           (coarse + per_cluster - 1) / per_cluster);
+  static int held[se::kMaxDevices];  // clusters a device holds, 0: unknown
+  return se::launch_clusters(alloc_assign_kernel, held, kAllocCtas,
+                             kAllocThreads, 1 + n_coarse, 0, stream, touched,
+                             extra1, extra2, when, world, rank, b, nl, cap,
+                             kb, slot, block_coord, active, n_blocks,
+                             overflow, mips);
 }
 
 // The marches sample the columns [x0, x0 + w_win) of a depth frame w

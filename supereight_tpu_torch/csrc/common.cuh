@@ -39,6 +39,74 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// The launch configuration of `kernel` (no __cluster_dims__) as n_ctas
+// CTAs of `threads` threads in clusters of `ctas`, `smem` bytes of dynamic
+// shared memory each, on `stream`; attr holds the cluster attribute.
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int ctas,
+                                         int n_ctas, int threads,
+                                         size_t smem, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_ctas, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// *out: how many clusters of `ctas` CTAs of `threads` threads of `kernel`
+// the current device holds at once, queried once a device into held[dev]
+// (sizes above 8 are allowed as non-portable there, before any launch).
+// Returns a cudaError_t, or -1 when no such cluster fits the card.
+template <typename Kernel>
+int clusters_held(Kernel kernel, int* held, int ctas, int threads,
+                  int* out) {
+  cudaError_t err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (held[dev] == 0) {
+    if (ctas > 8 &&
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+            cudaSuccess)
+      return (int)err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(&attr, ctas, ctas, threads, 0, nullptr);
+    int c = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&c, kernel, &cfg)) !=
+        cudaSuccess)
+      return (int)err;
+    if (c < 1) return -1;
+    held[dev] = c;
+  }
+  *out = held[dev];
+  return 0;
+}
+
+// Launch `kernel` as n_clusters clusters of `ctas` CTAs of `threads`
+// threads, once clusters_held (held: its cache) finds that such a cluster
+// fits the card. Returns a cudaError_t, or -1 when none fits.
+template <typename Kernel, typename... Args>
+int launch_clusters(Kernel kernel, int* held, int ctas, int threads,
+                    int n_clusters, size_t smem, void* stream,
+                    Args... args) {
+  int n_held = 0;
+  const int fits = clusters_held(kernel, held, ctas, threads, &n_held);
+  if (fits != 0) return fits;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      &attr, ctas, ctas * n_clusters, threads, smem, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 // Copy a 4x4 matrix from device memory into shared memory; the caller
 // synchronises the block afterwards.
 __device__ __forceinline__ void load_mat4(const float* __restrict__ src,

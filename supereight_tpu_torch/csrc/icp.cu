@@ -102,9 +102,6 @@ constexpr int kTrackThreads = 512;
 // 4 CTAs x 512 and 16 / 8 x 256 threads on an H100 (PERF.md, Findings)
 constexpr int kReduceCluster = 16;
 constexpr int kReduceThreads = 512;
-// returned by se_icp_track and se_icp_reduce when no cluster of the asked
-// shape fits an SM group of the card (cudaOccupancyMaxActiveClusters == 0)
-constexpr int kNoClusterFits = -1;
 
 // tracking-status codes (constants.py)
 constexpr int kOk = 1, kNoInput = -1, kOutOfFrame = -2, kNoRefNormal = -3,
@@ -615,46 +612,6 @@ icp_reduce_kernel(const float* __restrict__ in_vertex,
   // the other CTAs may leave: rank 0 reads only its own shared memory
 }
 
-// Launch `kernel` as one cluster of `ctas` CTAs of `threads` threads on
-// `stream`, after checking once a device (fits[dev]) that such a cluster
-// fits the card. Returns a cudaError_t, or kNoClusterFits.
-template <typename Kernel, typename... Args>
-int launch_cluster(Kernel kernel, bool* fits, int ctas, int threads,
-                   void* stream, Args... args) {
-  cudaError_t err;
-  int dev = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if (dev >= se::kMaxDevices) return (int)cudaErrorInvalidDevice;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (!fits[dev]) {
-    if (ctas > 8 &&
-        (err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
-            cudaSuccess)
-      return (int)err;
-    int n_clusters = 0;
-    if ((err = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg)) !=
-        cudaSuccess)
-      return (int)err;
-    if (n_clusters < 1) return kNoClusterFits;
-    fits[dev] = true;
-  }
-  if ((err = cudaLaunchKernelEx(&cfg, kernel, args...)) != cudaSuccess)
-    return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // One Gauss-Newton iteration from a cross-device f64 reduction (see
@@ -678,7 +635,7 @@ SE_EXPORT int se_icp_update(const double* red64, const float* pose_in,
 // or, with a step, at the pose stepped from it: the 32 f64 sums into out
 // and, unless result is null, the window's codes [rows, w_win]. One cluster
 // of kReduceCluster CTAs of kReduceThreads threads. Returns a cudaError_t,
-// or kNoClusterFits when no such cluster fits the card.
+// or -1 when no such cluster fits the card.
 SE_EXPORT int se_icp_reduce(const float* in_vertex, const float* in_normal,
                             const uint8_t* in_valid, int n, int w_win,
                             int pitch, int x0,
@@ -688,19 +645,20 @@ SE_EXPORT int se_icp_reduce(const float* in_vertex, const float* in_normal,
                             float dist_threshold, float normal_threshold,
                             int* result, double* out, Step step,
                             void* stream) {
-  static bool fits[se::kMaxDevices];
-  return launch_cluster(icp_reduce_kernel, fits, kReduceCluster,
-                        kReduceThreads, stream, in_vertex, in_normal,
-                        in_valid, n, w_win, pitch, x0, ref_vertex,
-                        ref_normal, ref_valid, ref_h, ref_w, pose, view,
-                        dist_threshold, normal_threshold, result, out, step);
+  static int held[se::kMaxDevices];  // clusters a device holds, 0: unknown
+  return se::launch_clusters(icp_reduce_kernel, held, kReduceCluster,
+                             kReduceThreads, 1, 0, stream, in_vertex,
+                             in_normal, in_valid, n, w_win, pitch, x0,
+                             ref_vertex, ref_normal, ref_valid, ref_h, ref_w,
+                             pose, view, dist_threshold, normal_threshold,
+                             result, out, step);
 }
 
 // The whole tracking step of a frame: one cluster of kTrackCluster CTAs of
 // kTrackThreads threads. Writes the checked pose f32[16], the tracked
 // flag, the last reduction f32[32], the finest level's result map and the
-// iterations run at each level. Returns a cudaError_t, or kNoClusterFits
-// when no such cluster fits the card.
+// iterations run at each level. Returns a cudaError_t, or -1 when no such
+// cluster fits the card.
 SE_EXPORT int se_icp_track(Pyramid pyr, const float* ref_vertex,
                            const float* ref_normal, const uint8_t* ref_valid,
                            int ref_h, int ref_w, const float* pose,
@@ -709,13 +667,13 @@ SE_EXPORT int se_icp_track(Pyramid pyr, const float* ref_vertex,
                            float track_threshold, float* pose_out,
                            uint8_t* tracked_out, float* reduction_out,
                            int* result, int* iterations_run, void* stream) {
-  // one flag per device: the cluster was allowed and checked to fit
-  static bool fits[se::kMaxDevices];
+  static int held[se::kMaxDevices];  // clusters a device holds, 0: unknown
   if (pyr.n_levels < 1 || pyr.n_levels > kMaxLevels)
     return (int)cudaErrorInvalidValue;
-  return launch_cluster(icp_track_kernel, fits, kTrackCluster, kTrackThreads,
-                        stream, pyr, ref_vertex, ref_normal, ref_valid, ref_h,
-                        ref_w, pose, view, icp_threshold, dist_threshold,
-                        normal_threshold, track_threshold, pose_out,
-                        tracked_out, reduction_out, result, iterations_run);
+  return se::launch_clusters(icp_track_kernel, held, kTrackCluster,
+                             kTrackThreads, 1, 0, stream, pyr, ref_vertex,
+                             ref_normal, ref_valid, ref_h, ref_w, pose, view,
+                             icp_threshold, dist_threshold, normal_threshold,
+                             track_threshold, pose_out, tracked_out,
+                             reduction_out, result, iterations_run);
 }

@@ -57,19 +57,26 @@
 //
 //  * halo_pack (the sharded step's halo, parallel/dist_step.py; replaces
 //    supereight_tpu/parallel/dist_step.py:build_halo_worklist, 190-221,
-//    and the gathers of its raycast branch, 336-350): one cluster, like
-//    integrate_worklist. Each slot below n_blocks is flagged when, with
-//    `frustum`, its block's CENTRE projects inside the image padded by
-//    margin x size or lies within 0.5 m of the camera (JAX's test, in its
-//    order), else always; the flagged slots are compacted in slot order
-//    into the first `budget` rows of the rank's send buffer: both 512-voxel
-//    channels and the block's cell id ((x b + y) b + z; b^3 pads the rows
-//    past the flagged ones). It writes halo_blocks = min(n, budget) and
-//    halo_overflow = max(n - budget, 0). The rows are copied after one
-//    more cluster barrier, a float4 a thread over every row at once (a
-//    row a CTA at a time, one dependent chain of copies a CTA, took 51 us
-//    for 749 rows on an H100, PERF.md), then the rows' slots become cell
-//    ids.
+//    and the gathers of its raycast branch, 336-350): each slot below
+//    n_blocks is flagged when, with `frustum`, its block's CENTRE projects
+//    inside the image padded by margin x size or lies within 0.5 m of the
+//    camera (JAX's test, in its order), else always; the flagged slots are
+//    compacted in slot order into the first `budget` rows of the rank's
+//    send buffer: both 512-voxel channels and the block's cell id ((x b +
+//    y) b + z; b^3 pads the rows past the flagged ones). It writes
+//    halo_blocks = min(n, budget) and halo_overflow = max(n - budget, 0).
+//    The copy is what costs: 4 KB read and 4 KB written a row, 6.1 MB at
+//    749 rows, which one cluster's eight SMs moved at ~0.5 TB/s (13 of
+//    17.5 us on an H100 80GB HBM3 at 700 W, PERF.md). So the launch is
+//    as many clusters of kHaloCluster CTAs as the card holds at once
+//    (queried once a device), and every cluster runs the same
+//    compaction over the ~2k slots (12 bytes of
+//    coordinates each, from L2): no cluster waits on another, and the
+//    launch needs no scratch and no reset. Row r is copied by CTA r mod
+//    the grid, whose shared memory alone gets its slot (from the emit of
+//    its own cluster), so the copies of all rows are in flight on every
+//    SM; that CTA also writes the row's cell id, and cluster 0 the
+//    padding and the counts.
 //    Bound: the flagged bricks read and written once (4 KB each) plus 12
 //    bytes of coordinates a slot.
 //
@@ -176,15 +183,16 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
   auto emit = [&](int s, int r) {
     if (go && r < budget) worklist[r] = s;
   };
-  const int total = se::cluster_compact(n, run_mask, emit);
-  const int filled = go ? min(total, budget) : 0;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int i = g; i < budget; i += gridDim.x * blockDim.x)
-    if (i >= filled) worklist[i] = cap;
-  if (g == 0) {
-    counts[0] = total;
-    counts[1] = go ? max(total - budget, 0) : 0;
-  }
+  se::cluster_compact(n, run_mask, emit, [&](int total) {
+    const int filled = go ? min(total, budget) : 0;
+    const int g = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int i = g; i < budget; i += gridDim.x * blockDim.x)
+      if (i >= filled) worklist[i] = cap;
+    if (g == 0) {
+      counts[0] = total;
+      counts[1] = go ? max(total - budget, 0) : 0;
+    }
+  });
 }
 
 // JAX's halo predicate (dist_step.py:200-215): the block centre through
@@ -207,11 +215,20 @@ __device__ __forceinline__ bool halo_flag(const int* __restrict__ bc,
   return in_view || near;
 }
 
+// the shape of a halo_pack cluster: each cluster compacts every slot, so
+// its size trades the compaction's reads a thread against its cluster
+// barrier, and its CTAs' threads the rows a CTA copies against the CTAs an
+// SM holds (8 x 256 beat 8 x 512, 8 x 1024, 4 x 512, 4 x 1024, 16 x 512
+// and one-CTA clusters on the bench, H100 at 700 W, PERF.md)
+constexpr int kHaloCluster = 8;
+constexpr int kHaloThreads = 256;
+
 // send: f32[rows, 512] with rows = 2 budget + ceil(budget / 512): the data_x
 // bricks in rows [0, budget), the data_y bricks in rows [budget, 2 budget),
-// then the i32 cell ids (halo_rows in kernels/halo.py).
-__global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
-    __launch_bounds__(se::kCompactThreads)
+// then the i32 cell ids (halo_rows in kernels/halo.py). A grid of whole
+// clusters; rows: the slots of the rows this CTA copies, ceil(budget /
+// CTAs) entries of dynamic shared memory.
+__global__ void __launch_bounds__(kHaloThreads)
     halo_pack_kernel(const int* __restrict__ block_coord,
                      const int* __restrict__ n_blocks, int cap,
                      const float* __restrict__ data_x,
@@ -222,13 +239,18 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
                      int budget, float* __restrict__ send,
                      int* __restrict__ counts) {
   namespace cg = cooperative_groups;
+  extern __shared__ int rows[];
   __shared__ float T[16], K[16];
   se::load_mat4(t_cw, T);
   se::load_mat4(kmat, K);
   __syncthreads();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int cid = (int)blockIdx.x / csize;  // this CTA's cluster
+  const int n_ctas = (int)gridDim.x;
   int* cells = reinterpret_cast<int*>(send + 2 * budget * se::kBlockVoxels);
   const int n = min(*n_blocks, cap);
-  auto run_mask = [&](int i0, int cnt) {
+  auto flag = [&](int i0, int cnt) {
     uint32_t m = 0;
     for (int j = 0; j < cnt; ++j)
       if (!frustum || halo_flag(block_coord + 3 * (i0 + j), T, K, scale,
@@ -236,45 +258,60 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
         m |= 1u << j;
     return m;
   };
-  // a row's slot goes into its cell entry first; the copy below turns it
-  // into the cell id
+  // row r's slot into the shared memory of CTA r mod the grid, where that
+  // CTA is in this cluster
   auto emit = [&](int s, int r) {
-    if (r < budget) cells[r] = s;
+    const int cta = r % n_ctas;
+    if (r < budget && cta / csize == cid)
+      *cluster.map_shared_rank(rows + r / n_ctas, cta % csize) = s;
   };
-  const int total = se::cluster_compact(n, run_mask, emit);
-  const int filled = min(total, budget);
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();  // every row's slot is written
-  // the rows' bricks, a float4 a thread: each row is 2 x 128 float4s, and
-  // every thread of the cluster takes its own, so the copies of all rows
-  // are in flight at once
-  constexpr int kQuads = se::kBlockVoxels / 4;  // float4s a channel row
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_threads = gridDim.x * blockDim.x;
-  const float4* x4 = reinterpret_cast<const float4*>(data_x);
-  const float4* y4 = reinterpret_cast<const float4*>(data_y);
-  float4* send4 = reinterpret_cast<float4*>(send);
-  for (int i = g; i < filled * 2 * kQuads; i += n_threads) {
-    const int r = i / (2 * kQuads), q = i - r * 2 * kQuads;
-    const int s = cells[r];
-    if (q < kQuads)
-      send4[r * kQuads + q] = x4[s * kQuads + q];
-    else
-      send4[(budget + r) * kQuads + q - kQuads] = y4[s * kQuads + q - kQuads];
-  }
-  cluster.sync();  // every slot is read before it becomes a cell id
-  for (int r = g; r < budget; r += n_threads) {
-    if (r < filled) {
-      const int* c = block_coord + 3 * cells[r];
-      cells[r] = (c[0] * b + c[1]) * b + c[2];
-    } else {
-      cells[r] = b * b * b;
+  // the tail runs once this CTA's rows are in its shared memory
+  se::cluster_compact<true>(n, flag, emit, [&](int total) {
+    const int filled = min(total, budget);
+    // this CTA's rows r = blockIdx.x + j n_ctas, a float4 a thread: each row
+    // is 2 x 128 float4s
+    constexpr int kQuads = se::kBlockVoxels / 4;  // float4s a channel row
+    const int mine = (int)blockIdx.x < filled
+                         ? (filled - (int)blockIdx.x + n_ctas - 1) / n_ctas
+                         : 0;
+    const float4* x4 = reinterpret_cast<const float4*>(data_x);
+    const float4* y4 = reinterpret_cast<const float4*>(data_y);
+    float4* send4 = reinterpret_cast<float4*>(send);
+    // four float4s a thread in flight: all loads, then all stores
+    const int n_quads = mine * 2 * kQuads;
+    for (int i0 = threadIdx.x; i0 < n_quads; i0 += 4 * blockDim.x) {
+      float4 v[4];
+      int dst[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * blockDim.x;
+        dst[u] = -1;
+        if (i < n_quads) {
+          const int j = i / (2 * kQuads), q = i - j * 2 * kQuads;
+          const int r = (int)blockIdx.x + j * n_ctas, s = rows[j];
+          v[u] = q < kQuads ? x4[s * kQuads + q] : y4[s * kQuads + q - kQuads];
+          dst[u] = q < kQuads ? r * kQuads + q : (budget + r) * kQuads + q -
+                                                     kQuads;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (dst[u] >= 0) send4[dst[u]] = v[u];
     }
-  }
-  if (g == 0) {
-    counts[0] = filled;
-    counts[1] = total - filled;
-  }
+    for (int j = threadIdx.x; j < mine; j += blockDim.x) {  // their cell ids
+      const int* c = block_coord + 3 * rows[j];
+      cells[(int)blockIdx.x + j * n_ctas] = (c[0] * b + c[1]) * b + c[2];
+    }
+    if (cid == 0) {  // the padding cells and the counts
+      const int t = (int)cluster.block_rank() * (int)blockDim.x + threadIdx.x;
+      for (int r = filled + t; r < budget; r += csize * (int)blockDim.x)
+        cells[r] = b * b * b;
+      if (t == 0) {
+        counts[0] = filled;
+        counts[1] = total - filled;
+      }
+    }
+  });
 }
 
 // JAX's _sample_depth_bilinear (ops/integration.py:229-270): inverse depth
@@ -584,17 +621,30 @@ SE_EXPORT int se_integrate_worklist(const int* block_coord,
 
 // The sharded step's halo send buffer (see halo_pack_kernel); frustum 0
 // takes every allocated slot. counts: i32[2] halo_blocks, halo_overflow.
+// The grid: the clusters of kHaloCluster CTAs the card holds at once,
+// queried once a device. Returns a cudaError_t, or -1 when no such cluster
+// fits the card; a budget of over 12,288 rows a CTA (48 KB of shared
+// memory) is refused.
 SE_EXPORT int se_halo_pack(const int* block_coord, const int* n_blocks,
                            int cap, const float* data_x, const float* data_y,
                            const float* t_cw, const float* kmat, float scale,
                            float u_lo, float u_hi, float v_lo, float v_hi,
                            int frustum, int b, int budget, float* send,
                            int* counts, void* stream) {
-  halo_pack_kernel<<<se::kCompactCtas, se::kCompactThreads, 0,
-                     (cudaStream_t)stream>>>(
-      block_coord, n_blocks, cap, data_x, data_y, t_cw, kmat, scale, u_lo,
-      u_hi, v_lo, v_hi, frustum, b, budget, send, counts);
-  return (int)cudaGetLastError();
+  static int held[se::kMaxDevices];  // clusters a device holds, 0: unknown
+  int n_clusters = 0;
+  const int err = se::clusters_held(halo_pack_kernel, held, kHaloCluster,
+                                    kHaloThreads, &n_clusters);
+  if (err != 0) return err;
+  const int n_ctas = kHaloCluster * n_clusters;
+  const size_t smem = (size_t)((budget + n_ctas - 1) / n_ctas) * sizeof(int);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  return se::launch_clusters(halo_pack_kernel, held, kHaloCluster,
+                             kHaloThreads, n_clusters, smem, stream,
+                             block_coord, n_blocks,
+                             cap, data_x, data_y, t_cw, kmat, scale, u_lo,
+                             u_hi, v_lo, v_hi, frustum, b, budget, send,
+                             counts);
 }
 
 // field: 0 = TSDF, 1 = OFusion; timestamp (OFusion) is a device f32[];

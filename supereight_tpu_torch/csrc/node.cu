@@ -120,11 +120,12 @@ __global__ void __cluster_dims__(se::kCompactCtas, 1, 1)
     return m;
   };
   auto emit = [&](int p, int rank) { present[p] = rank < pbudget; };
-  const int total = se::cluster_compact(hp * hp * hp, run_mask, emit);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const bool go = when == nullptr || *when;
-    *skipped = go ? (total - min(total, pbudget)) * 8 : 0;
-  }
+  se::cluster_compact(hp * hp * hp, run_mask, emit, [&](int total) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      const bool go = when == nullptr || *when;
+      *skipped = go ? (total - min(total, pbudget)) * 8 : 0;
+    }
+  });
 }
 
 }  // namespace

@@ -121,7 +121,7 @@ _SIGNATURES = {
     "se_alloc_touch": (P, I, I, I, I, I, P, P, F, D, I, F, I, I, P, P),
     "se_alloc_touch_of": (P, I, I, I, I, P, P, F, P, P, I, I, F, I, I, P, P,
                           P, P),
-    "se_alloc_assign": (P, P, P, P, P, I, I, I, I, I, P, P, P, P, P, Mips,
+    "se_alloc_assign": (P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, Mips,
                         P),
     "se_integrate_worklist": (P, P, P, I, P, P, F, I, I, I, P, P, P, P),
     "se_halo_pack": (P, P, I, P, P, P, P, F, F, F, F, F, I, I, I, P, P, P),

@@ -14,8 +14,8 @@ carried over: it changes no touched flag.
 
 The sharded step (``parallel/dist_step.py``) runs two modes of them: the
 marches over a rank's column window (JAX's ``x_offset``) and
-:func:`alloc_assign` with an owner grid, each counted under its own
-launch name.
+:func:`alloc_assign` with the ranks' ownership (:class:`Owners`), each
+counted under its own launch name.
 
 On the main path the marches write into the map's touched buffer
 (``MapState.touched``, all zero between frames) and :func:`alloc_assign`
@@ -29,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from supereight_tpu_torch.core import se3
+from supereight_tpu_torch.core import morton, se3
 from supereight_tpu_torch.core.map import (refresh_mip_alloc, touched_grids,
                                            touched_size)
 from supereight_tpu_torch.kernels import _lib
@@ -37,6 +37,39 @@ from supereight_tpu_torch.kernels import _lib
 # per-frame bound on NEW block allocations (the JAX package's value).
 # Overflow cells stay unallocated and are re-touched on later frames.
 ALLOC_BUDGET = 8192
+OWNER_TILE = 64  # morton cells a rank owns together: a 4^3 super-brick
+
+
+class Owners(NamedTuple):
+    """The sharded step's ownership of block cells: ``tile`` consecutive
+    morton cells go to one of ``world`` ranks, the tiles round-robin
+    (JAX's ``owner_grid``). With the tile of 64 cells, the 4^3
+    super-brick, a cell's owner is the morton code of (x >> 2, y >> 2,
+    z >> 2) mod ``world`` (:func:`owner_cells`), which ``csrc/alloc.cu``
+    computes instead of reading a grid; no other tile is taken."""
+
+    world: int
+    tile: int = OWNER_TILE
+
+
+def owner_cells(b: int, owners: Owners, device="cuda"):
+    """i32[b, b, b]: the rank that owns each block cell, by the arithmetic
+    of ``csrc/alloc.cu`` ``tile_owner``: the morton code of the cell's 4^3
+    super-brick mod the world size. The port's one owner function
+    (``parallel/dist_step.owner_grid`` returns it)."""
+    _check_owners(owners)
+    g = torch.arange(b, dtype=torch.int32, device=device) >> 2
+    x, y, z = torch.meshgrid(g, g, g, indexing="ij")
+    code = (morton.expand_bits(x) | (morton.expand_bits(y) << 1)
+            | (morton.expand_bits(z) << 2))
+    return (code % owners.world).to(torch.int32)
+
+
+def _check_owners(owners):
+    if owners.tile != OWNER_TILE or owners.world < 1:
+        raise ValueError(f"alloc_assign: ownership of {owners.world} ranks "
+                         f"in tiles of {owners.tile} cells; the kernel "
+                         f"takes tiles of {OWNER_TILE} (a 4^3 super-brick)")
 
 _STRIDE = 2  # pixels are sampled 2x2 (JAX tsdf_touched_mask)
 
@@ -299,24 +332,35 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
     and up to capacity; touched pre-existing blocks are re-activated.
     ``extra`` holds OFusion's coarse octants touched at levels 1, 2, ...
     (bool[B>>l]^3; levels past the pyramid's top are ignored). ``when``
-    (bool[] tensor) masks every grid. ``owner`` (i32[B, B, B], the
-    sharded step's ``owner_grid``) keeps only the touched cells that it
-    gives to ``rank``, for allocation and re-activation alike (JAX's
-    ``touched & (own == idx)``, ``dist_step.py:313``), counted as
-    ``alloc_assign_owned``; ``extra`` is not masked by it. Returns
-    alloc_overflow (i32[]): the new cells left unallocated. One launch, no
-    host sync.
+    (bool[] tensor) masks every grid. ``owner`` (the sharded step's
+    :class:`Owners`) keeps only the touched cells that it gives to
+    ``rank``, for allocation and re-activation alike (JAX's ``touched &
+    (own == idx)``, ``dist_step.py:313``), counted as
+    ``alloc_assign_owned``; ``extra`` is not masked by it. The kernel
+    computes each cell's owner and reads no grid. The twin also takes an
+    i32[B, B, B] owner grid (``parallel/dist_step.owner_grid``), on the
+    CPU only: that form is there for the mode-B parity test of
+    ``tests/test_torch_dist.py``, which predates :class:`Owners`.
+    Returns alloc_overflow (i32[]): the new cells left unallocated. One
+    launch, no host sync.
 
     The grids are consumed: ``touched`` and every ``extra`` grid are all
     zero on return, whatever ``when`` says (the kernel clears what it
     reads), so the map's touched buffer starts the next frame zeroed.
     """
     dev = touched.device
+    if isinstance(owner, Owners):
+        _check_owners(owner)
+        if not 0 <= rank < owner.world:
+            raise ValueError(f"alloc_assign: rank {rank} of {owner.world}")
     if dev.type == "cpu":
         return alloc_assign_plain(geom, state, touched, when, budget, extra,
                                   owner, rank)
     if dev.type != "cuda":
         raise ValueError(f"alloc_assign: unsupported device {dev}")
+    if owner is not None and not isinstance(owner, Owners):
+        raise TypeError("alloc_assign: the kernel computes each cell's "
+                        "owner; pass Owners(world), not an owner grid")
     b, nl, cap = geom.blocks_per_side, geom.num_levels, geom.capacity
     if nl > _lib.MAX_MIP_LEVELS or len(extra) > 2:
         raise ValueError(f"alloc_assign: {nl} mip levels and {len(extra)} "
@@ -324,9 +368,10 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
                          f"{_lib.MAX_MIP_LEVELS} and 2")
     c = _lib.check
     c(touched, "touched", torch.bool, (b, b, b), dev)
-    if touched.data_ptr() % 16:
-        raise ValueError("touched: the kernel reads it 16 bytes at a time "
-                         "and needs it 16-byte aligned")
+    for t, name in ((touched, "touched"), (state.slot, "slot")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads it 16 bytes at a "
+                             f"time and needs it 16-byte aligned")
     # a level at or past nl has no cell (b >> l == 0): nothing to mark or
     # clear there
     ext = [c(e, "extra", torch.bool, (b >> lvl,) * 3, dev)
@@ -334,8 +379,6 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
     ext += [None] * (2 - len(ext))
     if when is not None:
         when = c(when.reshape(()), "when", torch.bool, (), dev)
-    if owner is not None:
-        c(owner, "owner", torch.int32, (b, b, b), dev)
     c(state.slot, "slot", torch.int32, (b, b, b), dev)
     c(state.block_coord, "block_coord", torch.int32, (cap, 3), dev)
     c(state.active, "active", torch.bool, (cap,), dev)
@@ -344,12 +387,17 @@ def alloc_assign(geom, state, touched, when=None, budget: int = None,
     for lvl in range(nl):
         mips.alloc[lvl] = c(state.mip_alloc[lvl], "mip_alloc", torch.bool,
                             (b >> lvl,) * 3, dev).data_ptr()
+        if lvl < nl - 1 and mips.alloc[lvl] % 2:
+            raise ValueError("mip_alloc: the kernel marks two bytes a store "
+                             "and needs each level below the top 2-byte "
+                             "aligned")
     kb = min(b ** 3, ALLOC_BUDGET if budget is None else budget)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
+    world = 0 if owner is None else owner.world
     _lib.launch("alloc_assign" if owner is None else "alloc_assign_owned",
-                "se_alloc_assign", dev, touched, *ext, when, owner,
-                int(rank), b, nl, cap, kb, state.slot, state.block_coord, state.active,
-                state.n_blocks, overflow, mips)
+                "se_alloc_assign", dev, touched, *ext, when, world,
+                int(rank), b, nl, cap, kb, state.slot, state.block_coord,
+                state.active, state.n_blocks, overflow, mips)
     return overflow
 
 
@@ -373,6 +421,8 @@ def alloc_assign_plain(geom, state, touched, when=None, budget: int = None,
     dev = touched.device
     kb = min(n_cells, ALLOC_BUDGET if budget is None else budget)
     grids = (touched,) + tuple(extra)
+    if isinstance(owner, Owners):
+        owner = owner_cells(b, owner, dev)
     if owner is not None:
         touched = touched & (owner == rank)
     if when is not None:

@@ -21,8 +21,9 @@ rank (D ranks, rank r, columns [r w/D, (r + 1) w/D) of every image):
   ``all_reduce(MAX)`` over the whole buffer (levels 0-2 back to back: the
   union of the ranks' grids), then K5's ``alloc_assign`` with the owner
   mask: a rank allocates only the cells it owns (:func:`owner_grid`:
-  64-cell tiles of the morton curve dealt round-robin). OFusion's coarse
-  levels are unioned and gated, not masked by owner.
+  64-cell tiles of the morton curve dealt round-robin; the kernel computes
+  a cell's owner from its 4^3 super-brick, ``kernels/alloc.Owners``).
+  OFusion's coarse levels are unioned and gated, not masked by owner.
 * **mip existence**: one ``all_reduce(MAX)`` of the ranks' ``mip_alloc``
   levels (one buffer, :func:`init_dist_state`) after each rank's
   incremental refresh. It equals JAX's dense refresh over the global
@@ -60,10 +61,11 @@ from typing import NamedTuple
 
 import torch
 
-from supereight_tpu_torch.core import morton
 from supereight_tpu_torch.core.map import MapState, make_map
 from supereight_tpu_torch.kernels.alloc import (_OF_STRIDES, _STRIDE,
-                                                alloc_assign, touched_mask,
+                                                OWNER_TILE, Owners,
+                                                alloc_assign, owner_cells,
+                                                touched_mask,
                                                 touched_masks_of)
 from supereight_tpu_torch.kernels.frame import frame_mats
 from supereight_tpu_torch.kernels.halo import halo_pack, halo_rows
@@ -73,7 +75,7 @@ from supereight_tpu_torch.ops import integration, tracking
 from supereight_tpu_torch.parallel.distributed import Collectives
 from supereight_tpu_torch.pipeline import preprocess_and_pyramid
 
-TILE = 64  # consecutive morton cells a rank owns together (4^3 blocks)
+TILE = OWNER_TILE  # consecutive morton cells a rank owns together (4^3)
 # the aux counters carried by the frame's one int32 all_reduce, in order
 COUNTERS = ("alloc_overflow", "blocks_truncated", "ray_overflow",
             "halo_overflow", "halo_blocks")
@@ -95,12 +97,13 @@ def owner_grid(geom, n_shards: int, tile: int = TILE, device="cuda"):
     """i32[B, B, B]: the rank that owns each block cell. Block-cyclic over
     the morton curve: ``tile`` consecutive morton cells (64 = a 4x4x4
     super-brick) go to one rank, tiles round-robin over the ranks (JAX
-    ``owner_grid``, ``dist_step.py:82-99``)."""
-    b = geom.blocks_per_side
-    g = torch.arange(b, dtype=torch.int32, device=device)
-    x, y, z = torch.meshgrid(g, g, g, indexing="ij")
-    codes = morton.encode_v(torch.stack([x, y, z], -1).reshape(-1, 3))
-    return ((codes // tile) % n_shards).to(torch.int32).reshape(b, b, b)
+    ``owner_grid``, ``dist_step.py:82-99``), which is the morton code of
+    the cell's super-brick mod ``n_shards``:
+    :func:`~supereight_tpu_torch.kernels.alloc.owner_cells`, which takes
+    only the tile of 64. The step passes ``alloc_assign`` its
+    :class:`~supereight_tpu_torch.kernels.alloc.Owners` instead, whose
+    kernel computes the same owners from the cells."""
+    return owner_cells(geom.blocks_per_side, Owners(n_shards, tile), device)
 
 
 def _world(group):
@@ -200,14 +203,8 @@ class DistStep:
         # rows budget later; its geometry holds both as views
         self.halo_geom = dataclasses.replace(
             geom, capacity=d * rows - self.halo_budget)
-        self._owner = {}
+        self.owners = Owners(d, TILE)
         self._halo_slots = {}
-
-    def owner(self, device):
-        if device not in self._owner:
-            self._owner[device] = owner_grid(self.geom, self.comm.world,
-                                             device=device)
-        return self._owner[device]
 
     def halo_slots(self, device):
         """i32[D, halo_budget]: the halo table's slot of each gathered
@@ -295,7 +292,7 @@ class DistStep:
         comm.all_reduce_max(m.touched)
         alloc_overflow = alloc_assign(geom, m, grids[0], mats.do_integrate,
                                       extra=grids[1:],
-                                      owner=self.owner(dev), rank=comm.rank)
+                                      owner=self.owners, rank=comm.rank)
         comm.all_reduce_max(mip_buffer(m))
         m, istats = integration.integrate(
             geom, m, field, depth, mats.pose, k, self.mu, mats.timestamp,

@@ -254,6 +254,51 @@ def test_owner_grid_matches_jax(d):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("b", [8, 16, 64])
+@pytest.mark.parametrize("d", [2, 4])
+def test_arithmetic_owner_matches_owner_grid_and_jax(d, b):
+    """The owner that ``csrc/alloc.cu`` computes (``tile_owner``: the
+    morton code of the cell's 4^3 super-brick mod D), in its plain form
+    ``alloc.owner_cells``, is the step's ``owner_grid`` and equals JAX's
+    ``owner_grid`` (morton code // 64 mod D), cell for cell."""
+    size = 8 * b
+    geom = MapGeometry(size=size, dim=2.0, capacity=64)
+    got = alloc.owner_cells(b, alloc.Owners(d), device="cpu")
+    assert got.dtype == torch.int32 and got.shape == (b, b, b)
+    np.testing.assert_array_equal(
+        got.numpy(), dist_step.owner_grid(geom, d, device="cpu").numpy())
+    want = jax_dist.owner_grid(JaxGeometry(size=size, dim=2.0, capacity=64),
+                               d)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert set(np.unique(want).tolist()) == set(range(d))
+
+
+def test_owners_take_only_the_super_brick_tile():
+    """``alloc_assign`` refuses ownership in tiles other than the 4^3
+    super-brick the kernel's arithmetic takes, and a rank outside the
+    world; with :class:`Owners` its twin allocates as with the owner
+    grid."""
+    geom = MapGeometry(size=64, dim=2.0, capacity=512)
+    b = geom.blocks_per_side
+    rng = np.random.default_rng(7)
+    grid = torch.from_numpy(rng.random((b, b, b)) < 0.3)
+    for bad, rank in ((alloc.Owners(4, 8), 0), (alloc.Owners(4), 4)):
+        with pytest.raises(ValueError):
+            alloc.alloc_assign(geom, step.init_frame_state(
+                geom, TSDF, (W, H), np.eye(4), "cpu").map, grid.clone(),
+                owner=bad, rank=rank)
+    maps = [step.init_frame_state(geom, TSDF, (W, H), np.eye(4), "cpu").map
+            for _ in range(2)]
+    for m, owner in zip(maps, (alloc.Owners(4),
+                               dist_step.owner_grid(geom, 4, device="cpu"))):
+        t = grid.clone()
+        alloc.alloc_assign(geom, m, t, owner=owner, rank=2)
+        assert not t.any()
+    for key in ("slot", "block_coord", "active", "n_blocks"):
+        assert torch.equal(getattr(maps[0], key), getattr(maps[1], key))
+    assert 0 < int(maps[0].n_blocks) < int(grid.sum())
+
+
 def _comm(world, rank=0):
     """A :class:`Collectives` of ``world`` ranks without a process group
     (its collectives are not called)."""

@@ -1191,6 +1191,45 @@ def test_sharded_icp_modes_match_twins_on_cuda(cuda, field):
         "icp_reduce": 1, "icp_reduce_step": 6, "icp_update": 1}
 
 
+def test_sharded_kernels_tool_on_the_cpu(tmp_path):
+    """``tools/sharded_kernels``: without a card it exits 2; each of its
+    side builds edits these sources, and a source its edit does not fit
+    gives none; it reads each launch of the named kernel from a chrome
+    trace, and nothing else; its copies of a map for the allocation are
+    its own, their touched buffers 16-byte aligned."""
+    from supereight_tpu_torch.tools import sharded_kernels as sk
+    torch.set_num_threads(1)
+    if not torch.cuda.is_available():
+        assert sk.main([]) == 2
+    for name in sk.SIDE:
+        fname, text = sk.side_source(name, _lib.CSRC)
+        assert text != (_lib.CSRC / fname).read_text()
+    assert "const int n_coarse = 0;" in sk.side_source(
+        "alloc_no_extra", _lib.CSRC)[1]
+    assert "if (total >= 0) return;" in sk.side_source(
+        "halo_compaction_only", _lib.CSRC)[1]
+    (tmp_path / "alloc.cu").write_text("const int n_coarse = 1;\n")
+    assert sk.side_source("alloc_no_extra", tmp_path) is None
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "void halo_pack_kernel(int)",
+         "dur": 5.5},
+        {"ph": "X", "cat": "Kernel", "name": "halo_pack_kernel", "dur": 6},
+        {"ph": "X", "cat": "cuda_runtime", "name": "halo_pack_kernel",
+         "dur": 9.0},
+        {"ph": "X", "cat": "kernel", "name": "alloc_assign_kernel",
+         "dur": 7.0},
+        {"ph": "i", "cat": "kernel", "name": "halo_pack_kernel"}]}
+    assert sk.launch_durations(trace, "halo_pack_kernel") == [5.5, 6.0]
+    geom, state, _, _ = _frames("cpu", n=1)
+    copies = sk.fresh(state.map, 3)
+    copies[0].slot.fill_(7)
+    copies[1].touched.fill_(True)
+    assert not bool((copies[2].slot == 7).all())
+    assert torch.equal(copies[2].touched, state.map.touched)
+    assert all(c.touched.data_ptr() % 16 == 0 for c in copies)
+    assert copies[0].data_x is state.map.data_x
+
+
 def test_sharded_icp_tool_on_the_cpu():
     """``tools/sharded_icp``: without a card it exits 2; its recorded sums
     replayed through ``_track_sharded`` (the stand-in group) give the
@@ -1249,7 +1288,8 @@ def test_sharded_icp_tool_on_the_cpu():
 def test_sharded_alloc_modes_match_twins_on_cuda(cuda, field):
     """Mode B: K5's marches over a column window (bit-equal to the twin;
     the four windows' union equals the whole frame's grids) and
-    alloc_assign with the owner mask against its twin, exactly."""
+    alloc_assign with the owner mask against its twin, exactly; the
+    kernel, which computes each cell's owner, refuses an owner grid."""
     from supereight_tpu_torch.parallel.dist_step import owner_grid
     geom, state, k, depth = _frames(cuda, field=field)
     b = geom.blocks_per_side
@@ -1275,8 +1315,11 @@ def test_sharded_alloc_modes_match_twins_on_cuda(cuda, field):
     assert torch.equal(union, whole)
     assert _lib.LAUNCHES[name] == before + 4
 
-    owner = owner_grid(geom, 4, device=cuda)
+    owner, grid = alloc.Owners(4), owner_grid(geom, 4, device=cuda)
     grids = alloc._grids(geom, whole, cuda, 1 if field is TSDF else 3)
+    with pytest.raises(TypeError, match="Owners"):
+        alloc.alloc_assign(geom, chip_smoke.clone_map(state.map),
+                           grids[0].clone(), owner=grid, rank=0)
     for rank in range(4):
         ka, kb = chip_smoke.clone_map(state.map), chip_smoke.clone_map(
             state.map)
@@ -1293,7 +1336,7 @@ def test_sharded_alloc_modes_match_twins_on_cuda(cuda, field):
                             y if isinstance(y, tuple) else (y,)):
                 assert torch.equal(u, v)
         owned = (ka.slot >= 0) & (state.map.slot < 0)
-        assert bool((owner[owned] == rank).all())
+        assert bool((grid[owned] == rank).all())
 
 
 @pytest.mark.cuda
@@ -1322,6 +1365,132 @@ def test_halo_pack_matches_twin_on_cuda(cuda, frustum):
             assert torch.equal(got[rows], want[rows])
         if budget < n and not frustum:
             assert int(cnt[1]) == n - budget
+
+
+def _random_alloc_map(dev, field, seed, capacity):
+    """A 512^3 map (64 blocks a side, the bench's) whose blocks come from a
+    random touched grid through the twin, and the next frame's touched
+    buffer: runs of set cells along z and scattered ones, over allocated
+    and new cells alike, and (OFusion) random level-1 and level-2
+    octants."""
+    from supereight_tpu_torch.core.map import touched_grids
+    geom = MapGeometry(size=512, dim=4.8, capacity=capacity)
+    b = geom.blocks_per_side
+    rng = np.random.default_rng(seed)
+
+    def grid(p):
+        g = rng.random((b, b, b)) < p
+        for _ in range(40):  # runs of a z-row
+            x, y, z = rng.integers(0, b, 3)
+            g[x, y, z:z + rng.integers(1, 40)] = True
+        return torch.from_numpy(g).to(dev)
+
+    m = make_map(geom, field, dev)
+    g0 = grid(0.01)
+    alloc.alloc_assign_plain(geom, m, g0.clone())
+    buf = touched_buffer(b, dev)
+    views = touched_grids(buf, b, 1 if field is TSDF else 3)
+    views[0].copy_(grid(0.02) | (g0 & torch.from_numpy(
+        rng.random((b, b, b)) < 0.5).to(dev)))
+    for lvl, v in enumerate(views[1:], start=1):
+        v.copy_(torch.from_numpy(rng.random(v.shape) < 0.01 * lvl).to(dev))
+    return geom, m, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+@pytest.mark.parametrize("owned", [False, True], ids=["single", "owned"])
+def test_alloc_assign_cases_match_twin_on_cuda(cuda, field, owned):
+    """alloc_assign (and alloc_assign_owned, for every rank of 4) against
+    its twin at the bench's 64 blocks a side, where a thread reads 32
+    cells: ``when`` false, a budget below the new cells and a pool one
+    block from full (alloc_overflow > 0), OFusion's coarse grids; slot,
+    block_coord, active, n_blocks, mip_alloc and alloc_overflow exactly,
+    every grid all zero on return."""
+    from supereight_tpu_torch.core.map import touched_grids
+    levels = 1 if field is TSDF else 3
+    seen_overflow = False
+    for seed, capacity, budget, when in ((1, 36864, None, True),
+                                         (2, 36864, None, False),
+                                         (3, 36864, 37, True),
+                                         (4, 9000, None, True)):
+        geom, m, buf = _random_alloc_map(cuda, field, seed, capacity)
+        b = geom.blocks_per_side
+        if capacity < 36864:  # one block from full
+            geom = MapGeometry(size=512, dim=4.8,
+                               capacity=int(m.n_blocks) + 1)
+            m = m._replace(**{n: getattr(m, n)[:geom.capacity] for n in
+                              ("data_x", "data_y", "block_coord",
+                               "active")})
+        w = torch.full((), when, dtype=torch.bool, device=cuda)
+        for rank in range(4) if owned else (0,):
+            kw = dict(owner=alloc.Owners(4), rank=rank) if owned else {}
+            ka, kb = clone_map(m), clone_map(m)
+            ta, tb = buf.clone(), buf.clone()
+            ga, gb = (touched_grids(t, b, levels) for t in (ta, tb))
+            oa = alloc.alloc_assign(geom, ka, ga[0], w, budget, ga[1:], **kw)
+            ob = alloc.alloc_assign_plain(geom, kb, gb[0], w, budget, gb[1:],
+                                          **kw)
+            assert int(oa) == int(ob)
+            seen_overflow |= int(oa) > 0
+            for x, y in zip(ka, kb):
+                for u, v in zip(x if isinstance(x, tuple) else (x,),
+                                y if isinstance(y, tuple) else (y,)):
+                    assert torch.equal(u, v)
+            assert not ta.any() and not tb.any()
+            if not when:
+                assert torch.equal(ka.slot, m.slot)
+            elif budget is None and capacity == 36864:
+                assert int(ka.n_blocks) > int(m.n_blocks)
+    assert seen_overflow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frustum", [True, False], ids=["frustum", "all"])
+def test_halo_pack_cases_match_twin_on_cuda(cuda, frustum):
+    """halo_pack against its twin on a random 512^3 map of 3,000 blocks
+    (more rows than the card has SMs, so every CTA of the launch copies
+    several), under a budget that holds them, one that overflows and on
+    an empty map (n_blocks = 0): counts and cell ids exactly, the sent
+    rows bit for bit, the rows past them left as they were."""
+    from supereight_tpu_torch.kernels import frame as kframe
+    from supereight_tpu_torch.kernels import halo
+    geom = MapGeometry(size=512, dim=4.8, capacity=4096)
+    b = geom.blocks_per_side
+    rng = np.random.default_rng(5)
+    m = make_map(geom, TSDF, cuda)
+    cells = rng.choice(b ** 3, 3000, replace=False)
+    coords = np.stack([cells // (b * b), cells // b % b, cells % b], -1)
+    m.block_coord[:3000] = torch.from_numpy(coords.astype(np.int32))
+    m.n_blocks.fill_(3000)
+    m.data_x.copy_(torch.from_numpy(rng.standard_normal(
+        m.data_x.shape).astype(np.float32)))
+    m.data_y.copy_(torch.from_numpy(rng.standard_normal(
+        m.data_y.shape).astype(np.float32)))
+    pose = torch.tensor([[1, 0, 0, 2.4], [0, 1, 0, 2.4], [0, 0, 1, 0.5],
+                         [0, 0, 0, 1]], dtype=torch.float32, device=cuda)
+    mats = kframe.frame_mats(torch.tensor(K, device=cuda), pose)
+    empty = m._replace(n_blocks=torch.zeros_like(m.n_blocks))
+    for mm, budget in ((m, 4096), (m, 700), (empty, 512)):
+        got, cnt = halo.halo_pack(geom, mm, mats.t_cw, mats.kmat, (W, H),
+                                  budget, 0.3, frustum)
+        want, cnt_p = halo.halo_pack_plain(geom, mm, mats.t_cw, mats.kmat,
+                                           (W, H), budget, 0.3, frustum)
+        assert torch.equal(cnt, cnt_p)
+        filled = int(cnt[0])
+        assert torch.equal(halo.cells_of(got, budget),
+                           halo.cells_of(want, budget))
+        for rows in (slice(0, filled), slice(budget, budget + filled)):
+            assert torch.equal(got[rows], want[rows])
+        if mm is empty:
+            assert cnt.tolist() == [0, 0]
+            assert bool((halo.cells_of(got, budget) == b ** 3).all())
+        elif budget == 700:
+            assert filled == 700 and int(cnt[1]) > 0
+        else:
+            assert filled > 132 and int(cnt[1]) == 0
+            if not frustum:
+                assert filled == 3000
 
 
 @pytest.mark.cuda
