@@ -206,8 +206,10 @@ N_WARMUP, N_FRAMES, N_TIMED = (port_bench.N_WARMUP, port_bench.N_FRAMES,
 # slices and the dist phase render and run the same frames
 ORBIT = port_bench.scene()
 N_PROFILED = 5       # timed frames replayed under torch.profiler
-PROFILE_TRIES = 3    # profiled replays before a trace that missed launches
-                     # fails the run
+PROFILE_TRIES = 5    # profiled replays before a trace that missed launches
+                     # fails the run (a trace can lose every event: a
+                     # pipeline's three tries on an H100 showed 20, 12
+                     # and 0 of its 21 a frame)
 # m, final position error against ground truth after the 43 frames, both
 # fields: the accuracy bar of EVAL_table.md (TSDF loop ATE 0.0200 m). The
 # JAX package reaches 0.0047 m at the TSDF config (BENCH_r05.json); its
@@ -301,11 +303,12 @@ JAX_NOISE_POS_ERR = 1.8616660833358765
 JAX_NOISE_AT = {4: (0.1564, 5332), 5: (0.5135, 7599), 10: (0.8294, 10510),
                 20: (1.3445, 13848), 30: (1.7091, 16507),
                 42: (1.8617, 19148)}
-# the filters of K7: a filter CTA's pixels a side, and the operations of
-# one bilateral tap (difference, square, divide, exp ~10, two products,
-# test, two sums)
-FILTER_TILE = 16
-BILATERAL_TAP_OPS = 18
+# the filters of K7: the operations of one bilateral pair weight
+# (difference, square, divide, exp ~10, product), of which a pixel needs
+# 12 (a pair's weight serves both its pixels), and of one of its 25 taps
+# (test, product, two sums)
+BILATERAL_PAIR_OPS = 14
+BILATERAL_TAP_OPS = 4
 MEDIAN_PIXEL_OPS = 9 + 2 * 19 + 1  # tap tests, 19 exchanges, the centre test
 # the gate's extra reads a hit: its slot entry and its weight
 GATE_HIT_BYTES = 8
@@ -1762,16 +1765,18 @@ def check_filters(torch, depth, tag):
     """K7's input filters against their twins on ``depth``: the median
     (one pass and two) bit for bit, the bilateral to 1e-5 m (CUDA's expf
     against torch's exp, whose argument the twin on the card divides by
-    multiplying with a reciprocal: ulps). Returns their rows, each bound
+    multiplying with a reciprocal: ulps), the bilateral also on a noisy
+    640x480 loop frame and on a 333x251 crop of it (no multiple of a
+    tile's 28 output columns or its rows). Returns their rows, each bound
     by the depth read once and the filtered depth written once, or by its
-    operations (the bilateral's 25 taps a pixel)."""
+    operations (the bilateral's 12 pair weights and 25 taps a pixel)."""
     from supereight_tpu_torch.kernels import preprocess as pre
     h, w = depth.shape
     rows = {}
     for name, call, plain, tol, ops in (
             ("bilateral", lambda: pre.bilateral_filter(depth),
              lambda: pre.bilateral_filter_plain(depth), 1e-5,
-             25 * BILATERAL_TAP_OPS + 2),
+             12 * BILATERAL_PAIR_OPS + 25 * BILATERAL_TAP_OPS + 2),
             ("median", lambda: pre.median_filter3(depth),
              lambda: pre.median_filter3_plain(depth), 0.0, MEDIAN_PIXEL_OPS),
             ("median2", lambda: pre.median_filter3(depth, 2),
@@ -1796,6 +1801,18 @@ def check_filters(torch, depth, tag):
               f"{rows[name]['plain_ms']:.4f} ms; bound "
               f"{rows[name]['bound_ms'] * 1e3:.3f} us "
               f"({rows[name]['bound_by']})")
+    loop = noise_tool.loop_depth(depth.device)
+    for d in (loop, loop[:251, :333].contiguous()):
+        got, want = pre.bilateral_filter(d), pre.bilateral_filter_plain(d)
+        err = (got - want).abs().max().item()
+        print(f"K7 bilateral (loop frame {noise_tool.BILATERAL_FRAME}, "
+              f"noisy): {d.shape[1]}x{d.shape[0]}, {int((d == 0).sum())} "
+              f"zero pixels; max err against the twin {err:.3e} (<= 1e-5), "
+              f"bit-equal {bool(torch.equal(got, want))}")
+        require(err <= 1e-5 and bool((want != d).any()),
+                f"K7 bilateral at {d.shape[1]}x{d.shape[0]} disagrees "
+                f"with twin")
+        merge_errs(rows, {"bilateral": err})
     return rows
 
 

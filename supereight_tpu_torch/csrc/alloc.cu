@@ -13,7 +13,7 @@
 // (+0.5) to a world vertex with kpose = pose @ invK, take the unit
 // direction toward the camera and back off from the vertex by half the
 // band; then store byte 1 into the grid cell under each in-map sample
-// (mark). Repeated stores of the same byte need no dedup and no atomics.
+// (mark). Stores of the same byte from several rays need no atomics.
 // The grids are the map's touched buffer (MapState.touched, levels 0-2
 // back to back), all zero between frames: alloc_assign, which reads them
 // next, clears them as it reads, so no launch fills them.
@@ -47,6 +47,20 @@
 // reading it from the kernel's parameters; parameters hold a few hundred
 // samples at most, which a fine map at a wide band exceeds.
 //
+// A thread's chain before its first store is one round trip: it issues
+// its depth read before the barrier behind which the CTA's first 15
+// threads copy kpose's rows 0-2 and pose's translation into shared
+// memory, so the two reads are in flight together. Reading the matrices
+// straight into registers instead (15 broadcast loads a thread, no
+// barrier) was 0.1 us slower (PERF.md, H100 80GB HBM3 at 700 W).
+// Most of a launch above the floor is its stores (the samples' 1 us
+// against 0.3 for the rest at the bench's TSDF frame), whose cost barely
+// grows with their number (the whole frame's 4x the window's cost 0.2 us
+// more). A launch that would give fewer than half the SMs a CTA of 256
+// threads takes smaller CTAs (march_threads): the sharded step's window
+// of 80 columns (19 CTAs of 256) spreads over 75 CTAs of 64, 0.1-0.2 us
+// faster, while the whole frame keeps 256, faster than 64 or 128 there.
+//
 // Bound on the H100: the sampled depth read once and the 32-byte sectors
 // that hold a set cell written once (the grids are already zero, so no
 // other byte must move), and 19.2k rays x 8 band samples (TSDF), or 19.2k
@@ -59,30 +73,78 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;    // a march CTA's threads, at most
+constexpr int kMinThreads = 64;  // and at least
 constexpr int kCoarseLanes = 8;  // threads of a coarse OFusion ray
+
+// *threads: the threads of a march's CTAs for n threads in all, the most
+// (from kThreads, halving down to kMinThreads) that still give half the
+// current device's SMs a CTA (the SM count queried once a device).
+// Returns a cudaError_t.
+int march_threads(int n, int* threads) {
+  static int sms[se::kMaxDevices];
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev >= se::kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  int t = kThreads;
+  while (t > kMinThreads && (n + t - 1) / t < sms[dev] / 2) t /= 2;
+  *threads = t;
+  return 0;
+}
 
 struct Ray {
   float ox, oy, oz;  // origin: the vertex backed off by half the band
   float dx, dy, dz;  // unit direction toward the camera
 };
 
-// The ray of the sub-sampled pixel (sx, sy) of a [::stride, ::stride]
-// sampling of the columns from x0 on of a depth frame w wide, or false
-// where its depth is not positive; K = kpose, P = pose (the JAX package's
-// arithmetic, in its order: the column's centre is sx * stride + 0.5 +
-// x_offset, and x0 = 0 adds an exact zero).
-__device__ __forceinline__ bool pixel_ray(const float* __restrict__ depth,
-                                          int w, int x0, int stride, int sx,
-                                          int sy, const float* K,
-                                          const float* P, float band_half,
-                                          Ray& r) {
-  const float d = depth[(sy * stride) * w + x0 + sx * stride];
+// What a march reads of the frame's matrices: rows 0-2 of kpose = pose @
+// invK, and pose's translation (the camera centre).
+struct Mats {
+  float K[12];
+  float cx, cy, cz;
+};
+
+// The matrices, copied into shared memory by the CTA's first 15
+// threads: every thread of the CTA calls it (a barrier).
+__device__ __forceinline__ Mats load_mats(const float* __restrict__ kpose,
+                                          const float* __restrict__ pose) {
+  __shared__ float sh[15];
+  const int t = threadIdx.x;
+  if (t < 15) sh[t] = __ldg(t < 12 ? kpose + t : pose + 3 + 4 * (t - 12));
+  __syncthreads();
+  Mats m;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) m.K[i] = sh[i];
+  m.cx = sh[12];
+  m.cy = sh[13];
+  m.cz = sh[14];
+  return m;
+}
+
+// The depth of the sub-sampled pixel (sx, sy) of a [::stride, ::stride]
+// sampling of the columns from x0 on of a depth frame w wide.
+__device__ __forceinline__ float pixel_depth(const float* __restrict__ depth,
+                                             int w, int x0, int stride,
+                                             int sx, int sy) {
+  return __ldg(depth + (sy * stride) * w + x0 + sx * stride);
+}
+
+// The ray of that pixel, of depth d, or false where d is not positive (the
+// JAX package's arithmetic, in its order: the column's centre is
+// sx * stride + 0.5 + x_offset, and x0 = 0 adds an exact zero).
+__device__ __forceinline__ bool pixel_ray(float d, int x0, int stride,
+                                          int sx, int sy, const Mats& M,
+                                          float band_half, Ray& r) {
   if (!(d > 0.f)) return false;
   const float px = (float)(sx * stride) + 0.5f + (float)x0;
   const float py = (float)(sy * stride) + 0.5f;
-  const float3 wv = se::transform(K, px * d, py * d, d);
-  const float dx = P[3] - wv.x, dy = P[7] - wv.y, dz = P[11] - wv.z;
+  const float3 wv = se::transform(M.K, px * d, py * d, d);
+  const float dx = M.cx - wv.x, dy = M.cy - wv.y, dz = M.cz - wv.z;
   const float norm = sqrtf(dx * dx + dy * dy + dz * dz);
   const float inv = 1.f / (norm == 0.f ? 1.f : norm);
   r.dx = dx * inv;
@@ -95,7 +157,8 @@ __device__ __forceinline__ bool pixel_ray(const float* __restrict__ depth,
 }
 
 // Byte 1 into the cell of a level's grid (side cells a side, octants of
-// 1 << shift voxels) under the ray's sample at t, if its voxel is in the map.
+// 1 << shift voxels) under the ray's sample at t, if its voxel is in the
+// map.
 __device__ __forceinline__ void mark(const Ray& r, float t, float inv_voxel,
                                      int size, int side, int shift,
                                      uint8_t* __restrict__ grid) {
@@ -104,7 +167,9 @@ __device__ __forceinline__ void mark(const Ray& r, float t, float inv_voxel,
   const int vz = (int)floorf((r.oz + r.dz * t) * inv_voxel);
   if (vx < 0 || vx >= size || vy < 0 || vy >= size || vz < 0 || vz >= size)
     return;
-  grid[((vx >> shift) * side + (vy >> shift)) * side + (vz >> shift)] = 1;
+  const int cell = ((vx >> shift) * side + (vy >> shift)) * side +
+                   (vz >> shift);
+  grid[cell] = 1;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -113,15 +178,14 @@ alloc_touch_kernel(const float* __restrict__ depth, int w, int x0,
                    const float* __restrict__ pose, float band_half,
                    double step, int num_steps, float inv_voxel, int size,
                    int b, uint8_t* __restrict__ touched) {
-  __shared__ float K[16], P[16];
-  se::load_mat4(kpose, K);
-  se::load_mat4(pose, P);
-  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= hs * ws) return;
   const int sy = i / ws, sx = i - sy * ws;
+  const float d = i < hs * ws ? pixel_depth(depth, w, x0, stride, sx, sy)
+                              : 0.f;
+  const Mats M = load_mats(kpose, pose);
+  if (i >= hs * ws) return;
   Ray r;
-  if (!pixel_ray(depth, w, x0, stride, sx, sy, K, P, band_half, r)) return;
+  if (!pixel_ray(d, x0, stride, sx, sy, M, band_half, r)) return;
   for (int s = 0; s < num_steps; ++s)
     mark(r, (float)(s * step), inv_voxel, size, b, 3, touched);
 }
@@ -137,22 +201,20 @@ alloc_touch_of_kernel(const float* __restrict__ depth, int w, int x0,
                       uint8_t* __restrict__ touched0,
                       uint8_t* __restrict__ touched1,
                       uint8_t* __restrict__ touched2) {
-  __shared__ float K[16], P[16];
-  se::load_mat4(kpose, K);
-  se::load_mat4(pose, P);
-  __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int n2 = hs2 * ws2;
   const int n2w = (n2 + 31) & ~31;  // the level-0 rays' threads, whole warps
   const bool coarse = i >= n2w;
   const int ray = coarse ? (i - n2w) / kCoarseLanes : i;
-  if (ray >= (coarse ? hs8 * ws8 : n2)) return;
-  const int ws = coarse ? ws8 : ws2;
+  const bool live = ray < (coarse ? hs8 * ws8 : n2);
+  const int ws = coarse ? ws8 : ws2, stride = coarse ? 8 : 2;
   const int sy = ray / ws, sx = ray - sy * ws;
+  const float d = live ? pixel_depth(depth, w, x0, stride, sx, sy) : 0.f;
+  const Mats M = load_mats(kpose, pose);
+  if (!live) return;
   Ray r;
-  if (!pixel_ray(depth, w, x0, coarse ? 8 : 2, sx, sy, K, P, band_half, r))
-    return;
-  const float cx = P[3] - r.ox, cy = P[7] - r.oy, cz = P[11] - r.oz;
+  if (!pixel_ray(d, x0, stride, sx, sy, M, band_half, r)) return;
+  const float cx = M.cx - r.ox, cy = M.cy - r.oy, cz = M.cz - r.oz;
   const float dist = sqrtf(cx * cx + cy * cy + cz * cz);
   // a sample marks while t < dist; the break's !(t < dist) also ends a ray
   // whose dist is NaN, which marks nothing
@@ -562,9 +624,11 @@ SE_EXPORT int se_alloc_touch_of(const float* depth, int h, int w, int x0,
   const int hs2 = (h + 1) / 2, ws2 = (w_win + 1) / 2;
   const int hs8 = (h + 7) / 8, ws8 = (w_win + 7) / 8;
   const int n = ((hs2 * ws2 + 31) & ~31) + kCoarseLanes * hs8 * ws8;
-  const int n_cta = (n + kThreads - 1) / kThreads;
-  if (n_cta == 0) return 0;
-  alloc_touch_of_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
+  if (n == 0) return 0;
+  int threads = 0;
+  if (const int err = march_threads(n, &threads)) return err;
+  alloc_touch_of_kernel<<<(n + threads - 1) / threads, threads, 0,
+                          (cudaStream_t)stream>>>(
       depth, w, x0, hs2, ws2, hs8, ws8, kpose, pose, band_half, ladder_t,
       ladder_level, n_ladder, n_fine, inv_voxel, size, b, touched0, touched1,
       touched2);
@@ -578,9 +642,12 @@ SE_EXPORT int se_alloc_touch(const float* depth, int h, int w, int x0,
                              uint8_t* touched, void* stream) {
   const int hs = (h + stride - 1) / stride;
   const int ws = (w_win + stride - 1) / stride;
-  const int n_cta = (hs * ws + kThreads - 1) / kThreads;
-  if (n_cta == 0) return 0;
-  alloc_touch_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
+  const int n = hs * ws;
+  if (n == 0) return 0;
+  int threads = 0;
+  if (const int err = march_threads(n, &threads)) return err;
+  alloc_touch_kernel<<<(n + threads - 1) / threads, threads, 0,
+                       (cudaStream_t)stream>>>(
       depth, w, x0, stride, hs, ws, kpose, pose, band_half, step, num_steps,
       inv_voxel, size, b, touched);
   return (int)cudaGetLastError();

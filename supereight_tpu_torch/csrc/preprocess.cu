@@ -7,13 +7,24 @@
 // edge-padded image. Each is one launch; reads clamp global coordinates
 // into the image, so the edge is replicated as jnp.pad(mode="edge")
 // replicates it:
-//  * bilateral_kernel: one thread per pixel of a 16 x 16 tile, over the
-//    tile and its halo of 2 in shared memory; the weight of a
-//    neighbour cur at row offset i and column offset j is
-//    (g[i] g[j]) exp(-(cur - d)^2 / (2 e_d^2)), 0 where cur <= 0; t and s
-//    summed i outer, j inner, as JAX's loop; t / (s == 0 ? 1 : s), and 0
-//    where the centre d == 0. The spatial weights g are the wrapper's, the
-//    f32 values of JAX's exp(-i^2 / (2 DELTA^2)).
+//  * bilateral_kernel: the weight of a neighbour cur at row offset i and
+//    column offset j is (g[i] g[j]) exp(-(cur - d)^2 / (2 e_d^2)), 0
+//    where cur <= 0; t and s summed i outer, j inner, as JAX's loop;
+//    t / (s == 0 ? 1 : s), and 0 where the centre d == 0. The spatial
+//    factors g[i] g[j] are the wrapper's f32 products of the f32 values of
+//    JAX's exp(-i^2 / (2 DELTA^2)). Each pair of pixels is weighed once:
+//    the weight of p's tap on q at (i, j) is the weight of q's tap on p
+//    at (-i, -j) to the bit (a - b is -(b - a) exactly, and g is
+//    symmetric to the bit), so a position weighs its 12 pairs in one
+//    half-plane (i > 0, or i == 0 < j) and its partners read them; the
+//    centre's factor is g[0]^2 with no expf. A CTA owns a kBilW x kBilH
+//    tile: it reads the tile's depths with a halo (clamped on load, so no
+//    tap clamps) into shared memory, weighs the half-plane pairs of every
+//    position that an output pixel pairs with (a thread a position, 12
+//    independent weights each) into a shared table, and after a barrier
+//    sums each output pixel's 25 taps from the table (a warp an output
+//    row). The division and expf a pair stay as the twin's, so the
+//    output is the per-tap kernel's bit for bit.
 //  * median_kernel<P>: P passes of the 3 x 3 median: the nine taps, each
 //    zero (<= 0) tap replaced by the centre, their fifth smallest; 0 where
 //    the centre <= 0. No shared memory and no barrier: a warp owns 32
@@ -33,13 +44,20 @@
 //    edge padding of the first pass's output). Every output is one of its
 //    taps, so the result is the twin's bit for bit.
 // Bound on the H100: bytes, the depth read once and the filtered depth
-// written once (614 KB at 320x240: 0.18 us at 3.35 TB/s); the bilateral's
-// 25 exp a pixel (~20 operations each) stay below the f32 rate at that
-// size; its halo makes a CTA read 20^2 pixels for its 16^2, a median warp
-// (kMedRows + 2P) x 32 for kMedRows x (32 - 2P), the rest from L2. At
-// that size the filters are latency-bound: a median warp is one load
-// round trip and ~20 min/max operations a row and an output (twice that
-// where it holds a zero tap), with no phase waiting on another.
+// written once (614 KB at 320x240: 0.18 us at 3.35 TB/s), or the
+// bilateral's 12 pair weights (~14 operations each) and 25 taps (~4) a
+// pixel (0.31 us at the f32 rate). The range weights, a division and an
+// expf each, were 5.4 of the per-tap kernel's 7.9 us (PERF.md): sharing
+// the pairs leaves 15 an output (12, the halo positions' besides) of 25.
+// They need threads in flight: warp strips that kept a lane's rows and
+// their weights in registers (4 rows a lane, 5.5 warps an SM at
+// 320x240) took 13.1 us against the per-tap kernel's 8.0. A median warp
+// reads (kMedRows + 2P) x 32 pixels for kMedRows x (32 - 2P), a
+// bilateral CTA (kBilH + 4) x (kBilW + 8) for kBilH x kBilW, the rest
+// from L2. At that size the filters are latency-bound: a median warp is
+// one load round trip and ~20 min/max operations a row and an output
+// (twice that where it holds a zero tap), with no phase waiting on
+// another.
 //
 // The pyramid (the filter_input=False path, and the pass after a filter).
 //
@@ -258,31 +276,7 @@ pyramid_kernel(const float* __restrict__ depth, const float* __restrict__ k,
   }
 }
 
-constexpr int kFilterTile = 16;  // output pixels a side a filter CTA owns
-constexpr int kFilterThreads = kFilterTile * kFilterTile;
-constexpr int kMaxHalo = 2;
-
-// A window of an image in shared memory: the pixels inside the image of
-// the square side x side at global (oy, ox); at() reads global (gy, gx)
-// clamped into the image, which the window holds when the caller's reads
-// stay within one pixel of its region.
-struct Window {
-  float* v;
-  int oy, ox, side, h, w;
-  __device__ __forceinline__ float at(int gy, int gx) const {
-    return v[(min(max(gy, 0), h - 1) - oy) * side + min(max(gx, 0), w - 1) -
-             ox];
-  }
-};
-
-__device__ __forceinline__ void load_window(const float* __restrict__ img,
-                                            const Window& win) {
-  for (int i = threadIdx.x; i < win.side * win.side; i += blockDim.x) {
-    const int gy = win.oy + i / win.side, gx = win.ox + i % win.side;
-    if (gy >= 0 && gy < win.h && gx >= 0 && gx < win.w)
-      win.v[i] = img[gy * win.w + gx];
-  }
-}
+constexpr int kMaxHalo = 2;  // the bilateral filter's radius
 
 __device__ __forceinline__ void sort2(float& a, float& b) {
   const float lo = fminf(a, b), hi = fmaxf(a, b);
@@ -415,40 +409,111 @@ median_kernel(const float* __restrict__ depth, int h, int w,
     if (r0 + j < h) out[(r0 + j) * w + c] = o[j];
 }
 
-// The spatial weights of the bilateral filter, by value (_lib.Gauss)
-struct Gauss {
-  float g[5];
+// The bilateral filter's spatial factors g[i] g[j] for i, j in -2..2, by
+// value (_lib.Spatial): the wrapper's f32 products of its f32 weights,
+// the twin's g[i] * g[j] to the bit.
+struct Spatial {
+  float gg[5][5];
 };
 
-__global__ void __launch_bounds__(kFilterThreads)
-bilateral_kernel(const float* __restrict__ depth, int h, int w, Gauss G,
+// A bilateral CTA's output tile, and the region of positions whose
+// half-plane pairs it weighs (a thread each): rows ty - 2 .. ty + kBilH - 1
+// and columns tx - 2 .. tx + kBilW + 1, every partner of an output pixel;
+// the depths it reads: 2 more rows below and 2 more columns either side.
+constexpr int kBilW = 28;
+constexpr int kBilH = 22;
+constexpr int kRegW = kBilW + 2 * kMaxHalo;  // 32: a warp a region row
+constexpr int kRegH = kBilH + kMaxHalo;
+constexpr int kBilThreads = kRegW * kRegH;
+constexpr int kValW = kBilW + 4 * kMaxHalo;
+constexpr int kValH = kBilH + 2 * kMaxHalo;
+constexpr int kHalf = 12;  // the pairs a position weighs: one half-plane
+static_assert(kBilH <= kRegH, "an output row a warp");
+
+// the half-plane's offsets (i, j), i > 0 or i == 0 < j, in order o
+__host__ __device__ constexpr int half_i(int o) {
+  return o < 2 ? 0 : (o < 7 ? 1 : 2);
+}
+__host__ __device__ constexpr int half_j(int o) {
+  return o < 2 ? o + 1 : (o < 7 ? o - 4 : o - 9);
+}
+__host__ __device__ constexpr int half_index(int i, int j) {
+  return i == 0 ? j - 1 : (i == 1 ? j + 4 : j + 9);
+}
+
+// the weight of the pair of depths (a, b) at spatial factor gg, as the
+// twin weighs b's tap on a: symmetric in (a, b) to the bit, since b - a
+// is -(a - b) exactly and so their squares are equal. Equal depths weigh
+// gg, as the twin's exp(-0) = 1 makes them, and their quotient is not
+// taken: a zero dividend sends the IEEE division down its slow path
+// (PERF.md), and 3-9 % of a noisy frame's taps pair equal
+// millimetres.
+__device__ __forceinline__ float pair_weight(float gg, float a, float b,
+                                             float e_d_sq_2) {
+  const float diff = b - a;
+  const float mod = diff * diff;
+  const float q = -(mod == 0.f ? 1.f : mod) / e_d_sq_2;
+  return mod == 0.f ? gg : gg * expf(q);
+}
+
+// The tile (blockIdx.x * kBilW, blockIdx.y * kBilH): its depths, clamped
+// into the image on load (so every position, inside or outside, holds
+// the value its tap reads, and no tap clamps), into val; thread (ry, rx)
+// weighs the 12 half-plane pairs of region position (ry, rx) into
+// wt[o][ry][rx]; after the barrier warp oy's lane ox sums output pixel
+// (oy, ox)'s 25 taps in JAX's order, its own half-plane's weights at
+// wt[o][oy + 2][ox + 2] and the other half's, those of its partners, at
+// wt[o][oy + 2 - i][ox + 2 - j].
+__global__ void __launch_bounds__(kBilThreads)
+bilateral_kernel(const float* __restrict__ depth, int h, int w, Spatial S,
                  float e_d_sq_2, float* __restrict__ out) {
-  constexpr int kSide = kFilterTile + 2 * kMaxHalo;
-  __shared__ float win[kSide * kSide];
-  const int ty = blockIdx.y * kFilterTile, tx = blockIdx.x * kFilterTile;
-  const Window win0{win, ty - kMaxHalo, tx - kMaxHalo, kSide, h, w};
-  load_window(depth, win0);
+  __shared__ float val[kValH][kValW];
+  __shared__ float wt[kHalf][kRegH][kRegW];
+  const int ty = blockIdx.y * kBilH, tx = blockIdx.x * kBilW;
+  for (int k = threadIdx.x; k < kValH * kValW; k += kBilThreads) {
+    const int gy = min(max(ty - kMaxHalo + k / kValW, 0), h - 1);
+    const int gx = min(max(tx - 2 * kMaxHalo + k % kValW, 0), w - 1);
+    val[k / kValW][k % kValW] = __ldg(depth + gy * w + gx);
+  }
   __syncthreads();
-  const int r = ty + threadIdx.x / kFilterTile;
-  const int c = tx + threadIdx.x % kFilterTile;
-  if (r >= h || c >= w) return;
-  const float d = win0.at(r, c);
+  {
+    const int ry = threadIdx.x / kRegW, rx = threadIdx.x % kRegW;
+    const float a = val[ry][rx + kMaxHalo];
+#pragma unroll
+    for (int o = 0; o < kHalf; ++o) {
+      const int i = half_i(o), j = half_j(o);
+      wt[o][ry][rx] = pair_weight(S.gg[i + 2][j + 2], a,
+                                  val[ry + i][rx + kMaxHalo + j], e_d_sq_2);
+    }
+  }
+  __syncthreads();
+  const int oy = threadIdx.x >> 5, ox = threadIdx.x & 31;
+  const int r = ty + oy, c = tx + ox;
+  if (oy >= kBilH || ox >= kBilW || r >= h || c >= w) return;
+  const int py = oy + kMaxHalo, px = ox + kMaxHalo;  // p's region position
+  const float d = val[py][px + kMaxHalo];
   float t = 0.f, s = 0.f;
 #pragma unroll
   for (int i = -kMaxHalo; i <= kMaxHalo; ++i)
 #pragma unroll
     for (int j = -kMaxHalo; j <= kMaxHalo; ++j) {
-      const float cur = win0.at(r + i, c + j);
-      const float diff = cur - d;
-      const float mod = diff * diff;
-      float factor = G.g[i + kMaxHalo] * G.g[j + kMaxHalo] *
-                     expf(-mod / e_d_sq_2);
+      const float cur = val[py + i][px + kMaxHalo + j];
+      float factor;
+      if (i == 0 && j == 0) {
+        // the twin's exp(-(d - d)^2 ...) is 1 for a finite d, NaN else
+        const float z = d - d;
+        factor = z == 0.f ? S.gg[2][2] : z;
+      } else if (i > 0 || (i == 0 && j > 0)) {
+        factor = wt[half_index(i, j)][py][px];
+      } else {
+        factor = wt[half_index(-i, -j)][py + i][px + j];
+      }
       factor = cur > 0.f ? factor : 0.f;
       t = t + factor * cur;
       s = s + factor;
     }
-  const float res = t / (s == 0.f ? 1.f : s);
-  out[r * w + c] = d == 0.f ? 0.f : res;
+  const float q = t / (s == 0.f ? 1.f : s);
+  out[r * w + c] = d == 0.f ? 0.f : q;
 }
 
 }  // namespace
@@ -483,12 +548,11 @@ SE_EXPORT int se_median(const float* depth, int h, int w, int passes,
   return (int)cudaGetLastError();
 }
 
-SE_EXPORT int se_bilateral(const float* depth, int h, int w, Gauss g,
+SE_EXPORT int se_bilateral(const float* depth, int h, int w, Spatial g,
                            float e_d_sq_2, float* out, void* stream) {
   if (h <= 0 || w <= 0) return 0;
-  const dim3 grid((w + kFilterTile - 1) / kFilterTile,
-                  (h + kFilterTile - 1) / kFilterTile);
-  bilateral_kernel<<<grid, kFilterThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((w + kBilW - 1) / kBilW, (h + kBilH - 1) / kBilH);
+  bilateral_kernel<<<grid, kBilThreads, 0, (cudaStream_t)stream>>>(
       depth, h, w, g, e_d_sq_2, out);
   return (int)cudaGetLastError();
 }

@@ -99,14 +99,15 @@ class Levels(ctypes.Structure):
                 ("n_levels", ctypes.c_int)]
 
 
-class Gauss(ctypes.Structure):
-    """The bilateral filter's five spatial weights, passed by value
-    (csrc/preprocess.cu ``Gauss``)."""
+class Spatial(ctypes.Structure):
+    """The bilateral filter's 5 x 5 spatial factors, passed by value
+    (csrc/preprocess.cu ``Spatial``)."""
 
-    _fields_ = [("g", ctypes.c_float * 5)]
+    _fields_ = [("gg", (ctypes.c_float * 5) * 5)]
 
-    def __init__(self, g):
-        super().__init__((ctypes.c_float * 5)(*g))
+    def __init__(self, gg):
+        super().__init__(((ctypes.c_float * 5) * 5)(
+            *((ctypes.c_float * 5)(*row) for row in gg)))
 
 
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
@@ -142,7 +143,7 @@ _SIGNATURES = {
     "se_frame_mats": (P, P, P, P, P, I, I, I, P, P, P),
     "se_pyramid": (P, P, F, I, Levels, P),
     "se_median": (P, I, I, I, P, P),
-    "se_bilateral": (P, I, I, Gauss, F, P, P),
+    "se_bilateral": (P, I, I, Spatial, F, P, P),
 }
 
 _lock = threading.Lock()

@@ -32,6 +32,11 @@ GAUSS = tuple(float(np.exp(np.float32(-(i * i)) / np.float32(2.0 * DELTA
                                                               * DELTA)))
               for i in range(-RADIUS, RADIUS + 1))
 E_D_SQ_2 = 2.0 * E_DELTA * E_DELTA
+# the kernel's spatial factors GAUSS[i] * GAUSS[j], each the f32 product
+# of two f32 weights (the twin's g[i] * g[j]); GAUSS is symmetric to the
+# bit, so SPATIAL[i][j] == SPATIAL[-1 - i][-1 - j]
+SPATIAL = tuple(tuple(float(np.float32(a) * np.float32(b)) for b in GAUSS)
+                for a in GAUSS)
 
 
 def _filter_args(depth, name):
@@ -58,28 +63,36 @@ def bilateral_filter(depth):
     h, w = depth.shape
     out = torch.empty_like(depth)
     _lib.launch("bilateral", "se_bilateral", dev, depth, h, w,
-                _lib.Gauss(GAUSS), E_D_SQ_2, out)
+                _lib.Spatial(SPATIAL), E_D_SQ_2, out)
     return out
 
 
-def bilateral_filter_plain(depth):
-    """Plain PyTorch twin of :func:`bilateral_filter`: JAX's loop over the
-    25 offsets of the edge-padded image, row offset outer."""
+def bilateral_taps_plain(depth):
+    """The twin's 25 taps of the f32[H, W] ``depth``, offset (i, j) row
+    offset outer: (cur, factor), cur the edge-padded image shifted by
+    (i, j) and factor g[i] g[j] exp(-(cur - depth)^2 / (2 E_DELTA^2)),
+    before zero taps are left out."""
     h, w = depth.shape
     r = RADIUS
     pad = torch.nn.functional.pad(depth[None, None], (r, r, r, r),
                                   mode="replicate")[0, 0]
     g = torch.tensor(GAUSS, dtype=torch.float32, device=depth.device)
-    t = torch.zeros_like(depth)
-    s = torch.zeros_like(depth)
     for i in range(2 * r + 1):
         for j in range(2 * r + 1):
             cur = pad[i:i + h, j:j + w]
             mod = (cur - depth) ** 2
-            factor = g[i] * g[j] * torch.exp(-mod / E_D_SQ_2)
-            factor = torch.where(cur > 0, factor, torch.zeros_like(factor))
-            t = t + factor * cur
-            s = s + factor
+            yield cur, g[i] * g[j] * torch.exp(-mod / E_D_SQ_2)
+
+
+def bilateral_filter_plain(depth):
+    """Plain PyTorch twin of :func:`bilateral_filter`: JAX's loop over the
+    25 offsets of the edge-padded image, row offset outer."""
+    t = torch.zeros_like(depth)
+    s = torch.zeros_like(depth)
+    for cur, factor in bilateral_taps_plain(depth):
+        factor = torch.where(cur > 0, factor, torch.zeros_like(factor))
+        t = t + factor * cur
+        s = s + factor
     out = t / torch.where(s == 0, torch.ones_like(s), s)
     return torch.where(depth == 0, torch.zeros_like(out), out)
 

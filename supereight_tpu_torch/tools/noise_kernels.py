@@ -2,6 +2,7 @@
 maps, with the gated raycast's probe statistics.
 
     python3 -m supereight_tpu_torch.tools.noise_kernels [--workdir DIR]
+    python3 -m supereight_tpu_torch.tools.noise_kernels --bilateral [--split]
     python3 -m supereight_tpu_torch.tools.noise_kernels --render RAW
 
 The two maps:
@@ -33,9 +34,26 @@ gate and the launch). median2 is timed on the frame's raw depth, the
 filter's input. Device microseconds a launch: the kernels' device time
 under ``torch.profiler`` over 20 launches divided by the launches the
 trace shows (``tools/k3_bucket.device_us``). Then K1's other instances
-on the bench orbit's last frame of each field (:func:`k1_instances`). One
-line a map and one of the other instances on stdout, then one JSON line
-of them all with the card's name and power limit.
+on the bench orbit's last frame of each field (:func:`k1_instances`).
+Last, K7's bilateral filter (:func:`bilateral`) on two depths: the
+slice's last raw frame (320x240, the bench's ``-c 2``) and frame
+BILATERAL_FRAME of the noisy loop at 640x480 (the ``-c 1`` compute
+size, from its millimetres as the CLI reads them); a launch's device
+time is the median of 20
+(``tools/sharded_kernels.kernel_us``), and each output is printed with
+its max error against the twin and the first 16 hex digits of the
+SHA-256 of its bytes, so that two checkouts' outputs compare bit for
+bit across runs. One line a map, one of the other instances and one a
+bilateral input on stdout, then one JSON line of them all with the
+card's name and power limit.
+
+``--bilateral`` times the bilateral filter alone; with ``--split`` also
+``tools/sharded_kernels``'s side builds of it (:data:`BILATERAL_SIDE`):
+on these sources tiles of 14 output rows, every tap weighed by its own
+pixel, equal depths' zero divided too, the range weight replaced by 1,
+and the division's fast approximation; on commit 58e8608's the range
+weight replaced by 1 and the edge clamps moved from the taps to the
+tile's load.
 
 ``--render RAW`` only renders the tracked map's noisy frames into RAW
 (no card needed; ``chip_smoke.py`` renders them so).
@@ -50,6 +68,7 @@ without a CUDA device it exits 2.
 import argparse
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import multiprocessing
@@ -76,6 +95,10 @@ LOOP_WORKERS = 4
 LOOP_K = (481.2, 480.0, 320.0, 240.0)
 LOOP_DIM = 4.8
 WARP_TILE = (4, 8)  # K1's warp: 8 x 4 pixels (rows, columns)
+BILATERAL_FRAME = TRACKED_FRAMES - 1  # the loop frame the filter takes
+BILATERAL_SIDE = ("bilateral_unit_weight", "bilateral_no_clamp",
+                  "bilateral_fast_div", "bilateral_zero_div",
+                  "bilateral_tile14", "bilateral_no_sharing")
 
 
 class GateInputs(NamedTuple):
@@ -279,6 +302,71 @@ def k1_instances(dev, timer):
     return out
 
 
+def digest(t):
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def loop_depth(dev, i=BILATERAL_FRAME):
+    """Frame ``i`` of the noisy loop at 640x480 on ``dev``, rounded to
+    millimetres and read back as ``ops/preprocess.mm2meters`` reads a
+    .raw frame."""
+    from supereight_tpu_torch.io import synthetic
+    from supereight_tpu_torch.ops.preprocess import mm2meters
+    d, _ = synthetic.loop_frame(i, LOOP_FRAMES, LOOP_K, width=640,
+                                height=480, dim=LOOP_DIM,
+                                noise_factor=NOISE_FACTOR)
+    mm = np.round(d * 1000.0).astype(np.uint16)
+    return mm2meters(mm, (480, 640), dev)
+
+
+def bilateral_inputs(dev):
+    """The bilateral filter's depths on ``dev``: ``slice_320x240``, the
+    tsdf-noise slice's last raw frame, and ``loop_640x480``
+    (:func:`loop_depth`)."""
+    return {"slice_320x240": slice_config(dev).frames[-1],
+            "loop_640x480": loop_depth(dev)}
+
+
+def bilateral(inputs, side=None, timer=None):
+    """K7's bilateral filter on each of ``inputs`` (name -> depth): with
+    the library's kernel (``whole``) and each side build of ``side``
+    (name -> library, or None where it does not fit the sources), the
+    output's max error against the twin and :func:`digest`, and the
+    device us a launch by ``timer(fn)`` (default
+    ``tools/sharded_kernels.kernel_us``: median, fastest, slowest).
+    Prints one line a build; returns the numbers."""
+    from supereight_tpu_torch.kernels import preprocess
+    from supereight_tpu_torch.tools import sharded_kernels as sk
+    timer = timer or (lambda fn: sk.kernel_us(fn, "bilateral_kernel"))
+    out = {}
+    for name, depth in inputs.items():
+        h, w = depth.shape
+        twin = preprocess.bilateral_filter_plain(depth)
+        r = dict(size=[w, h], zeros=int((depth == 0).sum()))
+        for build, lib in (("whole", None),) + tuple((side or {}).items()):
+            if build != "whole" and lib is None:
+                print(f"bilateral {name} {build}: no such side build of "
+                      f"these sources", flush=True)
+                r[build] = None
+                continue
+            with sk.using(lib) if lib is not None \
+                    else contextlib.nullcontext():
+                got = preprocess.bilateral_filter(depth)
+                med, lo, hi = timer(
+                    lambda: preprocess.bilateral_filter(depth))
+            r[build] = dict(us=med, fastest=lo, slowest=hi,
+                            max_err=float((got - twin).abs().max()),
+                            sha256=digest(got))
+            print(f"bilateral {name} {build}: {w}x{h}, {r['zeros']} zero "
+                  f"pixels; {med:.2f} device us a launch (median; "
+                  f"{lo:.2f}-{hi:.2f}); max err against the twin "
+                  f"{r[build]['max_err']:.3e}; sha256 "
+                  f"{r[build]['sha256']}", flush=True)
+        out[name] = r
+    return out
+
+
 def _write_gt(path, poses):
     """The TUM ground truth ``io/convert.synthetic2raw`` writes beside a
     .raw (kept here: the script also runs against checkouts whose
@@ -334,6 +422,10 @@ def main(argv=None):
                    help="directory of the noisy loop .raw (kept)")
     p.add_argument("--render", metavar="RAW", default=None,
                    help="only render the noisy loop's frames into RAW")
+    p.add_argument("--bilateral", action="store_true",
+                   help="only time the bilateral filter")
+    p.add_argument("--split", action="store_true",
+                   help="with --bilateral: also its side builds")
     args = p.parse_args(argv)
     if args.render:
         render_noisy_loop(args.render)
@@ -347,6 +439,12 @@ def main(argv=None):
     print(f"# {card()}; kernels of {supereight_tpu_torch.__file__}",
           flush=True)
     dev = torch.device("cuda", 0)
+    if args.bilateral:
+        from supereight_tpu_torch.tools import sharded_kernels as sk
+        side = sk.build_side(BILATERAL_SIDE) if args.split else None
+        res = bilateral(bilateral_inputs(dev), side)
+        print(json.dumps({"card": card(), "bilateral": res}))
+        return 0
     b = slice_config(dev)
     state = b.init()
     for i in range(len(b.frames)):
@@ -365,6 +463,7 @@ def main(argv=None):
                              f"tracked, frame {TRACKED_FRAMES - 1}")
     del pipe
     res["k1"] = k1_instances(dev, device_us)
+    res["bilateral"] = bilateral(bilateral_inputs(dev))
     print(json.dumps({"card": card(), "noise_kernels": res}))
     return 0
 

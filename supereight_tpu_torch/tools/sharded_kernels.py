@@ -1,8 +1,9 @@
-"""The sharded step's halo_pack and owned allocation, and the single-device
-allocation, timed on the card.
+"""The sharded step's windowed marches, halo_pack and owned allocation,
+and the single device's march and allocation, timed on the card.
 
     python3 -m supereight_tpu_torch.tools.sharded_kernels
         [--field tsdf|ofusion] [--frame N ...] [--workdir DIR]
+        [--kernels marches|halo_pack|alloc_assign ...]
 
 For each field: four Gloo ranks of the sharded step (``tools/dist_run.py``)
 on card 0 over the bench orbit (``tools/bench.scene()``, the scene of
@@ -10,25 +11,34 @@ on card 0 over the bench orbit (``tools/bench.scene()``, the scene of
 HALO_BUDGET blocks a rank, one case a ``--frame`` (default 4, the frame
 the dist phase captures, and 42, the last) that runs up to that frame and
 writes rank 1's kernel arguments there. Then the single-device bench
-(``tools/bench.config``) through ``frame_step``, with ``alloc_assign``'s
-arguments copied at the same frames. On rank 1's inputs:
+(``tools/bench.config``) through ``frame_step``, with the march's and
+``alloc_assign``'s arguments copied at the same frames. Each of
+``--kernels`` (default all):
 
-* ``halo_pack`` with the frustum test (the step's default) and without:
-  the rows sent, device microseconds of the whole launch and of a side
-  build that stops after the compaction (flagging and compaction timed
-  apart from the copy);
-* ``alloc_assign_owned``: the whole launch;
-
-and on the single device's, ``alloc_assign``'s whole launch and the two
-other kernels on ``csrc/compact.cuh``'s compaction, K3's
-``integrate_worklist`` and K4's ``node_rank``. For OFusion both
-allocations also run a side build without the coarse grids' clusters.
-Every allocation call is handed its own copy of the map fields it writes
-and of the touched grids it consumes, made before the timing, so each
-launch does the frame's work.
+* ``marches``: the field's march over rank 1's columns
+  (``alloc_touch_cols`` / ``alloc_touch_of_cols``) and over the single
+  device's whole frame (``alloc_touch`` / ``alloc_touch_of``), into a
+  scratch touched buffer: the whole launch and the side builds of
+  :data:`TOUCH_SIDE` (without the samples' stores; on these sources also
+  in CTAs of 256 threads whatever the rays, and with the matrices read
+  straight into registers; on commit 58e8608's also with the depth read
+  before the matrices' barrier and, for OFusion, the fine samples' ladder
+  reads hoisted);
+* ``halo_pack`` on rank 1's inputs, with the frustum test (the step's
+  default) and without: the rows sent, device microseconds of the whole
+  launch and of a side build that stops after the compaction (flagging
+  and compaction timed apart from the copy);
+* ``alloc_assign``: rank 1's ``alloc_assign_owned`` and the single
+  device's ``alloc_assign`` (for OFusion also a side build without the
+  coarse grids' clusters), and the two other kernels on
+  ``csrc/compact.cuh``'s compaction, K3's ``integrate_worklist`` and
+  K4's ``node_rank``. Every allocation call is handed its own copy of
+  the map fields it writes and of the touched grids it consumes, made
+  before the timing, so each launch does the frame's work.
 
 A side build is one source of the checkout in use with a few lines
-edited (:data:`SIDE`), compiled with the library's flags into its own
+edited (:data:`SIDE`, and :data:`PARENT_SIDE` for the sources of
+commit 58e8608), compiled with the library's flags into its own
 library under ``build/side/`` and swapped in for the duration of its
 timing; a build whose edit does not fit the source is reported as
 absent. Side builds live here only, and no flag of the program selects
@@ -61,9 +71,17 @@ import tempfile
 import torch
 
 WORLD, RANK = 4, 1
+# what the script times (--kernels): the marches (alloc_touch_cols[_of]
+# on rank 1's window, alloc_touch[_of] on the single device's frame),
+# halo_pack, and the allocations with the single device's other
+# compaction kernels
+PARTS = ("marches", "halo_pack", "alloc_assign")
+# a field's march: (the wrapper in kernels/alloc.py, the launch name)
+MARCHES = {"tsdf": ("touched_mask", "alloc_touch"),
+           "ofusion": ("touched_masks_of", "alloc_touch_of")}
 FRAMES = (4, 42)
 REPS = 20
-TRIES = 3           # traces taken before a shortfall of launches fails
+TRIES = 5           # traces taken before a shortfall of launches fails
 HALO_BUDGET = 4096  # chip_smoke.DIST_HALO_BUDGET
 
 # side builds: name -> (source file, [(old, new), ...]), applied where the
@@ -81,19 +99,161 @@ SIDE = {
         "                           (coarse + per_cluster - 1) / "
         "per_cluster);\n",
         "  const int n_coarse = 0;\n")]),
+    # the marches without their samples' stores: each sample's cell is
+    # computed and kept alive, and nothing is written
+    "touch_no_stores": ("alloc.cu", [(
+        "  grid[cell] = 1;\n", "  asm volatile(\"\" :: \"r\"(cell));\n")]),
+    # the marches in CTAs of 256 threads whatever their rays
+    "touch_threads_256": ("alloc.cu", [(
+        "  while (t > kMinThreads && ", "  while (false && ")]),
+    # the marches reading the matrices straight into registers, 15
+    # broadcast loads a thread, with no barrier
+    "touch_mats_ldg": ("alloc.cu", [
+        ("  __shared__ float sh[15];\n  const int t = threadIdx.x;\n"
+         "  if (t < 15) sh[t] = __ldg(t < 12 ? kpose + t : pose + 3 + 4 * "
+         "(t - 12));\n"
+         "  __syncthreads();\n  Mats m;\n#pragma unroll\n"
+         "  for (int i = 0; i < 12; ++i) m.K[i] = sh[i];\n"
+         "  m.cx = sh[12];\n  m.cy = sh[13];\n  m.cz = sh[14];\n",
+         "  Mats m;\n#pragma unroll\n"
+         "  for (int i = 0; i < 12; ++i) m.K[i] = __ldg(kpose + i);\n"
+         "  m.cx = __ldg(pose + 3);\n  m.cy = __ldg(pose + 7);\n"
+         "  m.cz = __ldg(pose + 11);\n")]),
+    # the bilateral filter in tiles of 14 output rows (CTAs of 512
+    # threads); with every tap weighed by its own pixel (no pair shared);
+    # dividing equal depths' zero too; with the range weight replaced by 1
+    # (no division, no expf); with the division's fast approximation (not
+    # the twin's: its output differs)
+    "bilateral_tile14": ("preprocess.cu", [(
+        "constexpr int kBilH = 22;", "constexpr int kBilH = 14;")]),
+    "bilateral_no_sharing": ("preprocess.cu", [(
+        "        factor = wt[half_index(-i, -j)][py + i][px + j];\n",
+        "        factor = pair_weight(S.gg[i + 2][j + 2], d, cur, "
+        "e_d_sq_2);\n")]),
+    "bilateral_zero_div": ("preprocess.cu", [(
+        "  const float q = -(mod == 0.f ? 1.f : mod) / e_d_sq_2;\n"
+        "  return mod == 0.f ? gg : gg * expf(q);\n",
+        "  return gg * expf(-mod / e_d_sq_2);\n")]),
+    "bilateral_unit_weight": ("preprocess.cu", [(
+        "  return mod == 0.f ? gg : gg * expf(q);\n",
+        "  return gg + 0.f * q;\n")]),
+    "bilateral_fast_div": ("preprocess.cu", [(
+        "  const float q = -(mod == 0.f ? 1.f : mod) / e_d_sq_2;\n",
+        "  const float q = __fdividef(-(mod == 0.f ? 1.f : mod), "
+        "e_d_sq_2);\n")]),
+}
+
+# side builds of the sources of commit 58e8608, whose marches read the
+# matrices into shared memory behind a barrier and whose bilateral filter
+# is a shared-memory tile: the split measured before their redesign (run
+# them on a tree whose csrc/ is that commit's). Later sources fit none of
+# them, and the tool reports them absent there; a name in both tables
+# takes the edits that fit.
+_RAY_AT = "  const float d = depth[(sy * stride) * w + x0 + sx * stride];\n"
+PARENT_SIDE = {
+    "touch_no_stores": ("alloc.cu", [(
+        "  grid[((vx >> shift) * side + (vy >> shift)) * side + "
+        "(vz >> shift)] = 1;\n",
+        "  asm volatile(\"\" :: \"r\"(((vx >> shift) * side + "
+        "(vy >> shift)) * side + (vz >> shift)));\n")]),
+    # the marches with each thread's depth read issued before the
+    # matrices' barrier
+    "touch_depth_first": ("alloc.cu", [
+        ("bool pixel_ray(const float* __restrict__ depth,",
+         "bool pixel_ray(const float d,"),
+        (_RAY_AT, ""),
+        ("  se::load_mat4(kpose, K);\n  se::load_mat4(pose, P);\n"
+         "  __syncthreads();\n"
+         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+         "  if (i >= hs * ws) return;\n"
+         "  const int sy = i / ws, sx = i - sy * ws;\n",
+         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+         "  const int sy = i / ws, sx = i - sy * ws;\n"
+         "  const float d0 = i < hs * ws ? __ldg(depth + (sy * stride) * w"
+         " + x0 + sx * stride) : 0.f;\n"
+         "  se::load_mat4(kpose, K);\n  se::load_mat4(pose, P);\n"
+         "  __syncthreads();\n  if (i >= hs * ws) return;\n"),
+        ("  se::load_mat4(kpose, K);\n  se::load_mat4(pose, P);\n"
+         "  __syncthreads();\n"
+         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+         "  const int n2 = hs2 * ws2;\n",
+         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+         "  const int n2 = hs2 * ws2;\n"
+         "  const int early = i >= ((n2 + 31) & ~31) ? (i - ((n2 + 31) & "
+         "~31)) / kCoarseLanes : i;\n"
+         "  const int early_ws = i >= ((n2 + 31) & ~31) ? ws8 : ws2;\n"
+         "  const int early_s = i >= ((n2 + 31) & ~31) ? 8 : 2;\n"
+         "  const float d0 = early < (i >= ((n2 + 31) & ~31) ? hs8 * ws8 :"
+         " n2) ? __ldg(depth + (early / early_ws * early_s) * w + x0 + "
+         "(early % early_ws) * early_s) : 0.f;\n"
+         "  se::load_mat4(kpose, K);\n  se::load_mat4(pose, P);\n"
+         "  __syncthreads();\n"),
+        ("pixel_ray(depth, w, x0, stride, sx, sy, K, P, band_half, r)",
+         "pixel_ray(d0, w, x0, stride, sx, sy, K, P, band_half, r)"),
+        ("pixel_ray(depth, w, x0, coarse ? 8 : 2, sx, sy, K, P, band_half,"
+         " r)",
+         "pixel_ray(d0, w, x0, coarse ? 8 : 2, sx, sy, K, P, band_half,"
+         " r)")]),
+    # the occupancy march with its fine samples' first 8 ladder reads
+    # issued before the ray's, not one after another in the loop
+    "touch_of_ladder_hoisted": ("alloc.cu", [
+        ("  Ray r;\n  if (!pixel_ray(depth, w, x0, coarse ? 8 : 2,",
+         "  float lt[8];\n#pragma unroll\n"
+         "  for (int k = 0; k < 8; ++k) lt[k] = __ldg(ladder_t + min(k, "
+         "n_ladder - 1));\n"
+         "  Ray r;\n  if (!pixel_ray(depth, w, x0, coarse ? 8 : 2,"),
+        ("      const float t = __ldg(ladder_t + s);\n"
+         "      if (!(t < dist)) break;\n"
+         "      mark(r, t, inv_voxel, size, b, 3, touched0);\n",
+         "      float t = s < 8 ? lt[0] : __ldg(ladder_t + s);\n"
+         "#pragma unroll\n"
+         "      for (int k = 1; k < 8; ++k) t = s == k ? lt[k] : t;\n"
+         "      if (!(t < dist)) break;\n"
+         "      mark(r, t, inv_voxel, size, b, 3, touched0);\n")]),
+    # the bilateral filter with the range weight replaced by 1: no
+    # division and no expf a tap
+    "bilateral_unit_weight": ("preprocess.cu", [(
+        "      float factor = G.g[i + kMaxHalo] * G.g[j + kMaxHalo] *\n"
+        "                     expf(-mod / e_d_sq_2);\n",
+        "      float factor = G.g[i + kMaxHalo] * G.g[j + kMaxHalo];\n"
+        "      (void)mod;\n")]),
+    # the bilateral filter with the edge clamps moved from its 25 taps a
+    # pixel to the window's load (the output unchanged)
+    "bilateral_no_clamp": ("preprocess.cu", [
+        ("    return v[(min(max(gy, 0), h - 1) - oy) * side + "
+         "min(max(gx, 0), w - 1) -\n             ox];\n",
+         "    return v[(gy - oy) * side + gx - ox];\n"),
+        ("    if (gy >= 0 && gy < win.h && gx >= 0 && gx < win.w)\n"
+         "      win.v[i] = img[gy * win.w + gx];\n",
+         "    win.v[i] = img[min(max(gy, 0), win.h - 1) * win.w + "
+         "min(max(gx, 0), win.w - 1)];\n")]),
 }
 
 
+# the part of PARTS each side build's name starts with (the bilateral
+# filter's are tools/noise_kernels.py's), and the marches' by field
+SIDE_PREFIX = {"halo": "halo_pack", "alloc": "alloc_assign",
+               "touch": "marches", "bilateral": "bilateral"}
+TOUCH_SIDE = {f: ("touch_no_stores", "touch_threads_256", "touch_mats_ldg",
+                  "touch_depth_first")
+              + (("touch_of_ladder_hoisted",) if f == "ofusion" else ())
+              for f in ("tsdf", "ofusion")}
+
+
 def side_source(name, csrc):
-    """(file name, edited text) of side build ``name`` of :data:`SIDE` on
-    the sources in ``csrc``, or None where its edits do not fit them."""
-    fname, edits = SIDE[name]
-    text = (csrc / fname).read_text()
-    if not all(text.count(old) == 1 for old, _ in edits):
-        return None
-    for old, new in edits:
-        text = text.replace(old, new)
-    return fname, text
+    """(file name, edited text) of side build ``name`` of :data:`SIDE` or
+    :data:`PARENT_SIDE` on the sources in ``csrc``, or None where its
+    edits do not fit them."""
+    for table in (SIDE, PARENT_SIDE):
+        if name not in table:
+            continue
+        fname, edits = table[name]
+        text = (csrc / fname).read_text()
+        if all(text.count(old) == 1 for old, _ in edits):
+            for old, new in edits:
+                text = text.replace(old, new)
+            return fname, text
+    return None
 
 
 def build_side(names):
@@ -223,9 +383,10 @@ def capture_dist(field_name, frames, workdir):
 def capture_single(field_name, frames):
     """The single-device bench's calls at each of ``frames`` of the
     kernels on ``csrc/compact.cuh``'s compaction besides the sharded
-    ones: frame -> {"alloc_assign": (geom, a copy of the map with the
-    march's touched buffer, when, budget), "integrate_worklist" and
-    "node_rank": (args with a copy of the map, kwargs)}."""
+    ones, and of its march: frame -> {"alloc_assign": (geom, a copy of
+    the map with the march's touched buffer, when, budget),
+    "integrate_worklist" and "node_rank": (args with a copy of the map,
+    kwargs), the march's name: its arguments before ``out``}."""
     from supereight_tpu_torch.kernels import node
     from supereight_tpu_torch.ops import allocation, integration
     from supereight_tpu_torch.tools import bench
@@ -246,6 +407,7 @@ def capture_single(field_name, frames):
     wrap(allocation, "alloc_assign", lambda a, kw: (
         a[0], bench.clone_map(a[1]), _copy(a[3] if len(a) > 3 else None),
         a[4] if len(a) > 4 else None))
+    wrap(allocation, MARCHES[field_name][0], lambda a, kw: _copy(a[:5]))
     for module, name in ((integration, "integrate_worklist"),
                          (node, "node_rank")):
         wrap(module, name, lambda a, kw: (
@@ -302,20 +464,88 @@ def side_times(make, kernel, side, tag):
     return out
 
 
-def measure(field_name, frames, workdir, libs):
-    """Rank 1's halo_pack and owned allocation and the single device's
-    allocation, worklist and parent rank at each of ``frames``; returns
-    them as a dict."""
-    from supereight_tpu_torch.core.map import touched_grids
-    from supereight_tpu_torch.kernels import alloc, halo, node
-    from supereight_tpu_torch.kernels import integrate as ki
-    levels = 1 if field_name == "tsdf" else 3
-    extra_side = {} if field_name == "tsdf" else {
-        "no_extra": libs["alloc_no_extra"]}
-    halo_side = {"compaction_only": libs["halo_compaction_only"]}
+def march_times(tag, march, args, window, side):
+    """The march ``march`` (:data:`MARCHES`) on ``args`` (geom, depth,
+    pose, kpose, mu) over the column window ``window`` ({} for the whole
+    frame, else x0 and width), into a scratch touched buffer: its rays
+    and CTAs, printed, and :func:`side_times` with ``side``."""
+    from supereight_tpu_torch.core.map import touched_buffer
+    from supereight_tpu_torch.kernels import alloc
+    name, kernel = march
+    geom, depth = args[:2]
+    fn = getattr(alloc, name)
+    scratch = touched_buffer(geom.blocks_per_side, depth.device)
+    h, w = depth.shape
+    width = window.get("width", w)
+    rays = -(-h // 2) * -(-width // 2)
+    coarse = -(-h // 8) * -(-width // 8) if kernel.endswith("_of") else 0
+    print(f"{tag} {kernel}: columns [{window.get('x0', 0)}, "
+          f"{window.get('x0', 0) + width}) of {w}, {rays} rays"
+          + (f" and {coarse} coarse rays" if coarse else ""), flush=True)
+    out = dict(columns=width, rays=rays, coarse_rays=coarse)
+    out.update(side_times(lambda: (lambda: fn(*args, out=scratch, **window)),
+                          kernel + "_kernel", side, f"{tag} {kernel}"))
+    return out
+
+
+def measure(field_name, frames, workdir, libs, parts=PARTS):
+    """Rank 1's windowed march, halo_pack and owned allocation and the
+    single device's march, allocation, worklist and parent rank at each
+    of ``frames``, those of ``parts`` (:data:`PARTS`); returns them as a
+    dict."""
+    march = MARCHES[field_name]
     dist = capture_dist(field_name, frames, workdir)
     single = capture_single(field_name, frames)
     res = {}
+    for f in frames:
+        calls, r = dist[f], {}
+        tag = f"{field_name} frame {f}"
+        if "marches" in parts:
+            side = {k: libs[k] for k in TOUCH_SIDE[field_name]}
+            cols = calls[march[0]]
+            r["march_cols"] = march_times(
+                f"{tag} rank {RANK}", march, cols["args"],
+                {k: cols["kwargs"][k] for k in ("x0", "width")}, side)
+            r["march"] = march_times(f"{tag} single device", march,
+                                     single[f][march[0]], {}, side)
+        if "halo_pack" in parts:
+            r.update(halo_times(tag, calls["halo_pack"]["args"][:7], {
+                "compaction_only": libs["halo_compaction_only"]}))
+        if "alloc_assign" in parts:
+            r.update(allocation_times(tag, field_name, calls, single[f], {
+                } if field_name == "tsdf" else {
+                    "no_extra": libs["alloc_no_extra"]}))
+        res[f] = r
+    return res
+
+
+def halo_times(tag, args, side):
+    """halo_pack on rank 1's ``args``, with the frustum test and without:
+    the rows sent and :func:`side_times` with ``side``."""
+    from supereight_tpu_torch.kernels import halo
+    r = {}
+    n = int(args[1].n_blocks)
+    for frustum in (True, False):
+        key = "halo_pack" + ("" if frustum else "_all")
+        cnt = halo.halo_pack(*args, frustum)[1]
+        r[key] = dict(rows=int(cnt[0]), overflow=int(cnt[1]), n_blocks=n)
+        print(f"{tag} {key}: {r[key]['rows']} of {n} blocks sent "
+              f"(overflow {r[key]['overflow']})", flush=True)
+        r[key].update(side_times(
+            lambda: (lambda: halo.halo_pack(*args, frustum)),
+            "halo_pack_kernel", side, f"{tag} {key}"))
+    return r
+
+
+def allocation_times(tag, field_name, calls, single, side):
+    """Rank 1's owned allocation (its captured ``calls``) and the single
+    device's allocation, worklist and parent rank (``single``, from
+    :func:`capture_single`), each allocation on its own copies of the
+    map and grids, the allocations also with ``side``."""
+    from supereight_tpu_torch.core.map import touched_grids
+    from supereight_tpu_torch.kernels import alloc, node
+    from supereight_tpu_torch.kernels import integrate as ki
+    levels = 1 if field_name == "tsdf" else 3
 
     def allocations(geom, m, call):
         """A maker of calls of ``call(map, grids)``, each on its own copy
@@ -331,53 +561,38 @@ def measure(field_name, frames, workdir, libs):
             return one
         return make
 
-    for f in frames:
-        calls, r = dist[f], {}
-        tag = f"{field_name} frame {f}"
-        args = calls["halo_pack"]["args"][:7]
-        n = int(args[1].n_blocks)
-        for frustum in (True, False):
-            key = "halo_pack" + ("" if frustum else "_all")
-            cnt = halo.halo_pack(*args, frustum)[1]
-            r[key] = dict(rows=int(cnt[0]), overflow=int(cnt[1]), n_blocks=n)
-            print(f"{tag} {key}: {r[key]['rows']} of {n} blocks sent "
-                  f"(overflow {r[key]['overflow']})", flush=True)
-            r[key].update(side_times(
-                lambda: (lambda: halo.halo_pack(*args, frustum)),
-                "halo_pack_kernel", halo_side, f"{tag} {key}"))
+    r = {}
+    (geom, m0, _, when), kw = (calls["alloc_assign"]["args"],
+                               calls["alloc_assign"]["kwargs"])
+    owned = dict(touched=int(touched_grids(
+        m0.touched, geom.blocks_per_side, 1)[0].sum()))
+    print(f"{tag} alloc_assign_owned: the union touched "
+          f"{owned['touched']} cells", flush=True)
+    owned.update(side_times(allocations(
+        geom, m0,
+        lambda c, g: alloc.alloc_assign(geom, c, g[0], when, None,
+                                        g[1:], kw["owner"], kw["rank"])),
+        "alloc_assign_kernel", side, f"{tag} alloc_assign_owned"))
+    r["alloc_assign_owned"] = owned
 
-        (geom, m0, _, when), kw = (calls["alloc_assign"]["args"],
-                                   calls["alloc_assign"]["kwargs"])
-        owned = dict(touched=int(touched_grids(
-            m0.touched, geom.blocks_per_side, 1)[0].sum()))
-        print(f"{tag} alloc_assign_owned: the union touched "
-              f"{owned['touched']} cells", flush=True)
-        owned.update(side_times(allocations(
-            geom, m0,
-            lambda c, g: alloc.alloc_assign(geom, c, g[0], when, None,
-                                            g[1:], kw["owner"], kw["rank"])),
-            "alloc_assign_kernel", extra_side, f"{tag} alloc_assign_owned"))
-        r["alloc_assign_owned"] = owned
-
-        for name, kernel in (("integrate_worklist", ki.integrate_worklist),
-                             ("node_rank", node.node_rank)):
-            c_args, c_kwargs = single[f][name]
-            r[name] = timed(f"{tag} {name} (single device)",
-                            lambda: kernel(*c_args, **c_kwargs),
-                            name + "_kernel")
-        geom1, m1, when1, budget1 = single[f]["alloc_assign"]
-        one = dict(touched=int(touched_grids(
-            m1.touched, geom1.blocks_per_side, 1)[0].sum()))
-        print(f"{tag} alloc_assign (single device): {one['touched']} "
-              f"touched cells", flush=True)
-        one.update(side_times(allocations(
-            geom1, m1,
-            lambda c, g: alloc.alloc_assign(geom1, c, g[0], when1, budget1,
-                                            g[1:])),
-            "alloc_assign_kernel", extra_side, f"{tag} alloc_assign"))
-        r["alloc_assign"] = one
-        res[f] = r
-    return res
+    for name, kernel in (("integrate_worklist", ki.integrate_worklist),
+                         ("node_rank", node.node_rank)):
+        c_args, c_kwargs = single[name]
+        r[name] = timed(f"{tag} {name} (single device)",
+                        lambda: kernel(*c_args, **c_kwargs),
+                        name + "_kernel")
+    geom1, m1, when1, budget1 = single["alloc_assign"]
+    one = dict(touched=int(touched_grids(
+        m1.touched, geom1.blocks_per_side, 1)[0].sum()))
+    print(f"{tag} alloc_assign (single device): {one['touched']} "
+          f"touched cells", flush=True)
+    one.update(side_times(allocations(
+        geom1, m1,
+        lambda c, g: alloc.alloc_assign(geom1, c, g[0], when1, budget1,
+                                        g[1:])),
+        "alloc_assign_kernel", side, f"{tag} alloc_assign"))
+    r["alloc_assign"] = one
+    return r
 
 
 def main(argv=None):
@@ -386,6 +601,8 @@ def main(argv=None):
     p.add_argument("--frame", type=int, action="append")
     p.add_argument("--workdir", help="where the ranks write their captures "
                    "(default: a temporary directory)")
+    p.add_argument("--kernels", choices=PARTS, action="append",
+                   help="time only these (default: all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("sharded_kernels: needs a CUDA device", file=sys.stderr)
@@ -394,13 +611,16 @@ def main(argv=None):
     from supereight_tpu_torch.tools.bench import card
     print(f"# {card()}; kernels of {supereight_tpu_torch.__file__}",
           flush=True)
-    libs = build_side(tuple(SIDE))
+    parts = tuple(args.kernels or PARTS)
+    libs = build_side(tuple(
+        name for name in {**SIDE, **PARENT_SIDE}
+        if SIDE_PREFIX[name.split("_")[0]] in parts))
     floor = launch_floor_us()
     print(f"launch floor (a one-element zero_()): {floor:.2f} device us",
           flush=True)
     frames = tuple(args.frame or FRAMES)
     with tempfile.TemporaryDirectory() as tmp:
-        res = {f: measure(f, frames, args.workdir or tmp, libs)
+        res = {f: measure(f, frames, args.workdir or tmp, libs, parts)
                for f in args.field or ("tsdf", "ofusion")}
     print(json.dumps({"card": card(), "launch_floor_us": floor,
                       "side_builds": {k: v is not None

@@ -1191,12 +1191,14 @@ def test_sharded_icp_modes_match_twins_on_cuda(cuda, field):
         "icp_reduce": 1, "icp_reduce_step": 6, "icp_update": 1}
 
 
-def test_sharded_kernels_tool_on_the_cpu(tmp_path):
+def test_sharded_kernels_tool_on_the_cpu(tmp_path, monkeypatch):
     """``tools/sharded_kernels``: without a card it exits 2; each of its
-    side builds edits these sources, and a source its edit does not fit
-    gives none; it reads each launch of the named kernel from a chrome
-    trace, and nothing else; its copies of a map for the allocation are
-    its own, their touched buffers 16-byte aligned."""
+    side builds edits these sources, each of commit 58e8608's alone fits
+    none of them, and a source its edit does not fit gives none; every
+    side build has its part; it reads each launch of the named kernel
+    from a chrome trace, and nothing else; its copies of a map for the
+    allocation are its own, their touched buffers 16-byte aligned; it
+    times a march on its window as the wrapper's launch."""
     from supereight_tpu_torch.tools import sharded_kernels as sk
     torch.set_num_threads(1)
     if not torch.cuda.is_available():
@@ -1204,6 +1206,10 @@ def test_sharded_kernels_tool_on_the_cpu(tmp_path):
     for name in sk.SIDE:
         fname, text = sk.side_source(name, _lib.CSRC)
         assert text != (_lib.CSRC / fname).read_text()
+    for name in set(sk.PARENT_SIDE) - set(sk.SIDE):
+        assert sk.side_source(name, _lib.CSRC) is None
+    assert {sk.SIDE_PREFIX[n.split("_")[0]] for n in {
+        **sk.SIDE, **sk.PARENT_SIDE}} <= set(sk.PARTS) | {"bilateral"}
     assert "const int n_coarse = 0;" in sk.side_source(
         "alloc_no_extra", _lib.CSRC)[1]
     assert "if (total >= 0) return;" in sk.side_source(
@@ -1228,6 +1234,19 @@ def test_sharded_kernels_tool_on_the_cpu(tmp_path):
     assert torch.equal(copies[2].touched, state.map.touched)
     assert all(c.touched.data_ptr() % 16 == 0 for c in copies)
     assert copies[0].data_x is state.map.data_x
+    geom, state, k, depth = _frames("cpu", n=1, field=OFUSION)
+    kpose = se3.matmul4(state.pose, se3.inverse_camera_matrix(k))
+    args = (geom, depth, state.pose, kpose, MU["ofusion"])
+    timed = []
+    monkeypatch.setattr(sk, "kernel_us", lambda fn, kernel: (
+        fn(), timed.append(kernel), (2.0, 1.0, 3.0))[-1])
+    r = sk.march_times("t", sk.MARCHES["ofusion"], args,
+                       dict(x0=16, width=17), {"touch_no_stores": None})
+    assert (r["columns"], r["rays"], r["coarse_rays"]) == (17, 24 * 9,
+                                                           6 * 3)
+    assert r["whole"] == dict(us=2.0, fastest=1.0, slowest=3.0)
+    assert r["touch_no_stores"] is None
+    assert timed == ["alloc_touch_of_kernel"]
 
 
 def test_sharded_icp_tool_on_the_cpu():
@@ -1337,6 +1356,42 @@ def test_sharded_alloc_modes_match_twins_on_cuda(cuda, field):
                 assert torch.equal(u, v)
         owned = (ka.slot >= 0) & (state.map.slot < 0)
         assert bool((grid[owned] == rank).all())
+
+
+# column windows (x0, width) of the test frame (W = 64): the sharded
+# step's four ranks', and three that start or end off a warp's 32 rays
+# and a CTA's 256: x0 = 1 and 37 columns, 2 columns, the last 18
+MARCH_WINDOWS = _windows(W) + [(1, 37), (30, 2), (W - 18, 18)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", MARCH_WINDOWS,
+                         ids=[f"x{x0}w{w}" for x0, w in MARCH_WINDOWS])
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_windowed_march_bit_equal_on_cuda(cuda, field, window):
+    """K5's march over a column window bit for bit against its twin on
+    the test orbit's frame 5, every grid; one launch of
+    ``alloc_touch_cols[_of]`` a call. (A window from an odd column
+    samples other pixels than the whole frame, as JAX's x_offset does.)"""
+    geom, state, k, depth = _frames(cuda, field=field)
+    b = geom.blocks_per_side
+    mu = MU[field.name]
+    pose = state.pose
+    kpose = se3.matmul4(pose, se3.inverse_camera_matrix(k))
+    x0, w = window
+    march = alloc.touched_mask if field is TSDF else alloc.touched_masks_of
+    name = "alloc_touch_cols" if field is TSDF else "alloc_touch_of_cols"
+    got = touched_buffer(b, cuda)
+    before = _lib.LAUNCHES[name]
+    march(geom, depth, pose, kpose, mu, out=got, x0=x0, width=w)
+    assert _lib.LAUNCHES[name] == before + 1
+    plain = (alloc.touched_mask_plain(geom, depth[:, x0:x0 + w], pose,
+                                      kpose, mu, x0),) \
+        if field is TSDF else alloc.touched_masks_of_plain(
+            geom, depth[:, x0:x0 + w], pose, kpose, mu, None, x0)
+    for g, p in zip(alloc._grids(geom, got, cuda, len(plain)), plain):
+        assert torch.equal(g, p)
+    assert bool(got.any())
 
 
 @pytest.mark.cuda
@@ -1687,12 +1742,40 @@ def test_median_filters_bit_equal_on_cuda(cuda, size, passes):
         assert torch.equal(got, preprocess.median_filter3_plain(dt, passes))
 
 
+# the bilateral filter's sizes (w, h): 1 pixel, below a tile's 28 output
+# columns and 22 rows, not multiples of them, and the class pipeline's
+# -c 1 frame
+BILATERAL_SIZES = [(1, 1), (5, 3), (33, 17), (161, 119), (640, 480)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", BILATERAL_SIZES,
+                         ids=[f"{w}x{h}" for w, h in BILATERAL_SIZES])
+def test_bilateral_matches_twin_on_cuda(cuda, size):
+    """K7's bilateral filter against its twin to 1e-5 m (CUDA's expf
+    against torch's exp of a reciprocal product) on seeded depths with a
+    tenth of the pixels 0; one ``bilateral`` launch a call."""
+    w, h = size
+    rng = np.random.default_rng(w * 1000 + h)
+    d = (rng.random((h, w)) * 3 + 0.5).astype(np.float32)
+    d[rng.random((h, w)) < 0.1] = 0.0
+    dt = torch.from_numpy(d).to(cuda)
+    before = _lib.LAUNCHES["bilateral"]
+    got = preprocess.bilateral_filter(dt)
+    assert _lib.LAUNCHES["bilateral"] == before + 1
+    assert torch.allclose(got, preprocess.bilateral_filter_plain(dt),
+                          atol=1e-5, rtol=0)
+    assert bool((got[dt == 0] == 0).all())
+
+
 def test_noise_kernels_tool_on_the_cpu(tmp_path):
     """``tools/noise_kernels``: without a card it exits 2; its noisy loop
     is frames 0, 1, ... of the 250-frame loop with range noise, in mm as
     the .raw holds them; its probe statistics and probe-bound line on the
     test orbit's gated raycast (a timer that counts its calls): the
-    longest ray's kinds sum to its probes, one timed launch a bound."""
+    longest ray's kinds sum to its probes, one timed launch a bound; the
+    bilateral filter's row: its size, zeros, error against the twin and
+    the digest of its output."""
     from supereight_tpu_torch.io.dataset import RawDepthReader
     from supereight_tpu_torch.tools import noise_kernels as nk
     torch.set_num_threads(1)
@@ -1721,3 +1804,11 @@ def test_noise_kernels_tool_on_the_cpu(tmp_path):
     assert out["line"]["bounds"][-1] == st["max"]
     assert len(calls) == 3 + len(out["line"]["bounds"])
     assert out["hits"] > 0 and out["overflow"] == 0
+    d = depth[:19, :23].clone()
+    d[3:5] = 0.0
+    bil = nk.bilateral({"crop": d}, timer=lambda fn: (fn(), (2.0, 1.0,
+                                                             3.0))[-1])
+    assert bil["crop"]["size"] == [23, 19] and bil["crop"]["zeros"] == 46
+    assert bil["crop"]["whole"] == dict(
+        us=2.0, fastest=1.0, slowest=3.0, max_err=0.0,
+        sha256=nk.digest(preprocess.bilateral_filter_plain(d)))

@@ -133,6 +133,57 @@ def test_bilateral_filter_plain_parity(noisy, frame, crop):
     assert np.abs(want - d).max() > 1e-3  # the filter smooths
 
 
+def test_gauss_is_symmetric_to_the_bit():
+    """The bilateral filter's spatial weights: g[-i] is g[i] to the bit,
+    the centre's is 1."""
+    g = np.asarray(preprocess.GAUSS, np.float32)
+    np.testing.assert_array_equal(g.view(np.uint32),
+                                  g[::-1].view(np.uint32))
+    assert g[preprocess.RADIUS] == 1.0 and len(g) == 2 * preprocess.RADIUS + 1
+
+
+def test_spatial_table_is_the_f32_products():
+    """The kernel's 5 x 5 spatial factors are np.float32(g[i]) *
+    np.float32(g[j]), and so the twin's g[i] * g[j], to the bit."""
+    g = np.asarray(preprocess.GAUSS, np.float32)
+    want = np.float32(g[:, None]) * np.float32(g[None, :])
+    got = np.asarray(preprocess.SPATIAL, np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    gt = torch.tensor(preprocess.GAUSS, dtype=torch.float32)
+    np.testing.assert_array_equal(
+        got, (gt[:, None] * gt[None, :]).numpy())
+
+
+@pytest.mark.parametrize("case", ["noisy", "holes", "runs"])
+def test_bilateral_pair_factors_are_symmetric(noisy, case):
+    """The premise of the kernel's pair sharing, on the twin at 64 x 48:
+    the factor of p's tap on q at offset (i, j) equals that of q's tap
+    on p at (-i, -j) bit for bit, for every pair inside the image, and
+    the centre's factor is g[0]^2 (g indexed from the centre); on noisy
+    depth, with a tenth of it 0, and with zero runs along rows and
+    columns."""
+    d = noisy[0 if case == "noisy" else 1].copy()
+    if case == "runs":
+        d[:, 26:32] = 0.0
+        d[14:18, :] = 0.0
+    assert d.shape == (48, 64) and (case == "noisy") == (d > 0).all()
+    r = preprocess.RADIUS
+    taps = [f for _, f in preprocess.bilateral_taps_plain(
+        torch.from_numpy(d))]
+    h, w = d.shape
+    g0 = np.float32(preprocess.GAUSS[r])
+    assert torch.equal(taps[len(taps) // 2],
+                       torch.full((h, w), float(g0 * g0)))
+    for i in range(-r, r + 1):
+        for j in range(-r, r + 1):
+            a = taps[(i + r) * (2 * r + 1) + j + r]
+            b = taps[(r - i) * (2 * r + 1) + r - j]
+            # p = (y, x) and q = p + (i, j) both inside the image
+            pa = a[max(0, -i):h - max(0, i), max(0, -j):w - max(0, j)]
+            qb = b[max(0, i):h - max(0, -i), max(0, j):w - max(0, -j)]
+            assert torch.equal(pa.view(torch.int32), qb.view(torch.int32))
+
+
 @pytest.mark.parametrize("frame", [0, 1])
 @pytest.mark.parametrize("crop", [False, True], ids=["even", "odd"])
 @pytest.mark.parametrize("passes", [1, 2])
