@@ -39,7 +39,12 @@ checkout:
 4. probe phase: the four gather forms of the Pallas probe (K8) against
    their twins, bit for bit, and both timed, the library call's device
    time and the card's launch floor (a one-element ``zero_()``) beside
-   theirs; and ``ops/preprocess.mm2meters`` on the card against numpy
+   theirs, at the probe's shapes and at the brick pool's
+   (``gather_probe.pool_inputs``; A and D on disjoint brick sets in turn,
+   so that their rows come from device memory), each with its bytes
+   bound and share, by ``tools/probe_gather.py --time``'s cases and
+   meter;
+   and ``ops/preprocess.mm2meters`` on the card against numpy
    for all 65,536 u16 values, bit for bit;
    library phase (the library surface's sphere drive, a path of its own
    with the launch counts zeroed just before and read just after): a
@@ -2109,66 +2114,85 @@ def kernel_phase_of(torch, sc):
 
 
 def probe_phase(torch, dev):
-    """K8: each gather form against its twin, bit for bit, and both timed
-    (the probe path checks the kernels against the probe's numpy
-    expectation)."""
-    from supereight_tpu_torch.kernels import gather_probe as gp
-    # the card's launch floor under the same profiler: the device time of
+    """K8: each gather form against its twin, bit for bit, and the kernel,
+    its twin and the library call timed, at the probe's shapes (the
+    returned rows) and at the brick pool's (each row's ``pool``), on the
+    cases and with the meter of ``tools/probe_gather.py --time``; the
+    probe path checks the kernels against the probe's numpy expectation.
+    At the pool's shapes A and D are timed on ``probe_gather.cold_bricks``
+    taken in turn: back to back on one index, their 16.8 MB of rows would
+    come from L2 and beat the device-memory bound.
+    """
+    from supereight_tpu_torch.tools import probe_gather as pg
+    from supereight_tpu_torch.tools import sharded_kernels as sk
+    def timer(fn, kernel, per_call=1):
+        """The tool's meter; where every trace it takes drops launches,
+        the time is reported as not measured (None) and the phase goes on:
+        the profiler, not the kernel, failed."""
+        try:
+            return sk.kernel_us(fn, kernel, per_call=per_call)
+        except RuntimeError as e:
+            print(f"K8: device time not measured: {e}")
+            return None, None, None
+
+    def us_text(us, sign=""):
+        return "not measured" if us is None else f"{us:{sign}.2f}"
+
+    def above(us, floor):
+        return None if us is None or floor is None else us - floor
+    # the card's launch floor under the same meter: the device time of
     # the least kernel, a one-element fill
     one = torch.zeros(1, device=dev)
-    floor_us = device_us(torch, lambda: one.zero_(), 20, 1)
-    print(f"K8: launch floor, a one-element zero_(): {floor_us:.2f} device "
-          f"us/call")
+    floor_us = timer(lambda: one.zero_(), "")[0]
+    print(f"K8: launch floor, a one-element zero_(): {us_text(floor_us)} "
+          f"device us/call")
     rows = {}
-    for (name, kernel, plain, _), (t, i), key in zip(
-            gp.FORMS, gp.probe_inputs(), PATHS["probe"]):
-        tt = torch.from_numpy(t).to(dev)
-        it = torch.from_numpy(i).to(dev)
-        got, ref = kernel(tt, it), plain(tt, it)
-        err = (got - ref).abs().max().item()
-        exact = bool(torch.equal(got, ref))
-        print(f"K8 {key} ({name}): {tuple(got.shape)}, bit-exact against "
-              f"twin: {exact}")
-        require(exact, f"K8 {key} is not bit-exact")
-        # the one PyTorch call of the same function (its index as int64,
-        # made before the timing); the port never calls it
-        it64 = it.long()
-        library = {
-            "gather_a": lambda: torch.index_select(tt, 0, it),
-            "gather_b": lambda: torch.gather(tt, 0, it64),
-            "gather_c": lambda: torch.gather(tt, 1, it64),
-            "gather_d": lambda: torch.index_select(tt, 0, it)}[key]
-        require(torch.equal(library(), ref), f"K8 {key}: library call")
+    for shape, case, key, kernel, plain, tt, sets in pg.cases(dev):
+        sets = sets if isinstance(sets, list) else [sets]
+        err, exact = 0.0, True
+        for it in sets:
+            got, ref = kernel(tt, it), plain(tt, it)
+            err = max(err, (got - ref).abs().max().item())
+            exact &= bool(torch.equal(got, ref))
+            require(torch.equal(pg.LIBRARY[key](tt, it, it.long()), ref),
+                    f"K8 {case}, {shape}: library call")
+        print(f"K8 {case}, {shape}: {tuple(got.shape)} x {len(sets)}, "
+              f"bit-exact against twin: {exact}")
+        require(exact, f"K8 {case} is not bit-exact at the {shape}'s shapes")
+        # the kernels line's rows: each form at the probe's shapes, and at
+        # the pool's B and C as they are and A and D cold
+        if case not in PATHS["probe"] and not case.endswith("_cold") or (
+                shape == "pool" and case in ("gather_a", "gather_d")):
+            continue
+        r = pg.time_case(key, kernel, plain, tt, sets, [("change", None)],
+                         timer)
+        us = r["builds"]["change"][0]["us"][0]
+        lib_us = r["library"][0]
         # bytes: the distinct table elements read, the index, the output
-        cols = torch.arange(got.shape[1], device=dev)
-        if key in ("gather_a", "gather_d"):
-            n_read = torch.unique(it).numel() * tt.shape[1]
-        elif key == "gather_b":
-            n_read = torch.unique(it64 * tt.shape[1] + cols).numel()
+        row = dict(max_abs_err=err, **bound(r["bytes"], 0), device_us=us,
+                   plain_device_us=r["twin"][0], library_device_us=lib_us,
+                   launch_floor_us=floor_us,
+                   share=None if us is None else r["bound_us"] / us)
+        if shape == "probe":
+            it, it64 = sets[0], sets[0].long()
+            row.update(
+                ms=cuda_ms(torch, lambda: kernel(tt, it), 200),
+                plain_ms=cuda_ms(torch, lambda: plain(tt, it), 200),
+                library_ms=cuda_ms(
+                    torch, lambda: pg.LIBRARY[key](tt, it, it64), 200))
+            rows[key] = row
+            print(f"K8 {key}: call {row['ms']:.4f} ms, twin "
+                  f"{row['plain_ms']:.4f} ms, library "
+                  f"{row['library_ms']:.4f} ms")
         else:
-            rows_ = torch.arange(got.shape[0], device=dev)[:, None]
-            n_read = torch.unique(rows_ * tt.shape[1] + it64).numel()
-        rows[key] = dict(
-            max_abs_err=err,
-            ms=cuda_ms(torch, lambda: kernel(tt, it), 200),
-            plain_ms=cuda_ms(torch, lambda: plain(tt, it), 200),
-            library_ms=cuda_ms(torch, library, 200),
-            **bound(4 * (n_read + it.numel() + got.numel()), 0))
-        # device time per call, of the kernel, its twin and the library
-        # call, under the same profiler (the call times above are the
-        # host's)
-        us = [device_us(torch, fn, 20, n) for fn, n in
-              ((lambda: kernel(tt, it), 1), (lambda: plain(tt, it), None),
-               (library, 1))]
-        rows[key].update(device_us=us[0], library_device_us=us[2],
-                         launch_floor_us=floor_us)
-        print(f"K8 {key}: call {rows[key]['ms']:.4f} ms, twin "
-              f"{rows[key]['plain_ms']:.4f} ms, library "
-              f"{rows[key]['library_ms']:.4f} ms; device {us[0]:.2f} "
-              f"us/call, twin {us[1]:.2f} us/call, library {us[2]:.2f} "
-              f"us/call; bound {rows[key]['bound_ms'] * 1e3:.3f} us; "
-              f"above the launch floor {us[0] - floor_us:+.2f} us, the "
-              f"library call {us[2] - floor_us:+.2f} us")
+            rows[key]["pool"] = row
+        share = "not measured" if us is None else f"{row['share']:.1%}"
+        print(f"K8 {case}, {shape}: device {us_text(us)} us/call, twin "
+              f"{us_text(row['plain_device_us'])} us/call, library "
+              f"{us_text(lib_us)} us/call (medians of {sk.REPS}); bound "
+              f"{r['bound_us']:.3f} us, share {share}; above the launch "
+              f"floor {us_text(above(us, floor_us), '+')} us, the library "
+              f"call {us_text(above(lib_us, floor_us), '+')} us")
     return rows
 
 

@@ -82,17 +82,10 @@ constexpr int kCoarseLanes = 8;  // threads of a coarse OFusion ray
 // current device's SMs a CTA (the SM count queried once a device).
 // Returns a cudaError_t.
 int march_threads(int n, int* threads) {
-  static int sms[se::kMaxDevices];
-  int dev = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if (dev >= se::kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sms[dev] == 0 &&
-      (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
+  int sms = 0;
+  if (const int err = se::sm_count(&sms)) return err;
   int t = kThreads;
-  while (t > kMinThreads && (n + t - 1) / t < sms[dev] / 2) t /= 2;
+  while (t > kMinThreads && (n + t - 1) / t < sms / 2) t /= 2;
   *threads = t;
   return 0;
 }

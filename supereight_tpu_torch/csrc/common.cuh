@@ -39,6 +39,28 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// *sms: the current device's SM count, and *threads (where not null) the
+// threads an SM holds at once, queried once a device. Returns a
+// cudaError_t.
+inline int sm_count(int* sms, int* threads = nullptr) {
+  static int count[kMaxDevices], resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (count[dev] == 0 &&
+      ((err = cudaDeviceGetAttribute(&resident[dev],
+                                     cudaDevAttrMaxThreadsPerMultiProcessor,
+                                     dev)) != cudaSuccess ||
+       (err = cudaDeviceGetAttribute(&count[dev],
+                                     cudaDevAttrMultiProcessorCount, dev)) !=
+           cudaSuccess))
+    return (int)err;
+  *sms = count[dev];
+  if (threads) *threads = resident[dev];
+  return 0;
+}
+
 // The launch configuration of `kernel` (no __cluster_dims__) as n_ctas
 // CTAs of `threads` threads in clusters of `ctas`, `smem` bytes of dynamic
 // shared memory each, on `stream`; attr holds the cluster attribute.

@@ -6,7 +6,9 @@ Counterparts of ``tools/probe_pallas_gather.py``'s ``formA`` (25),
 the ``*_plain`` functions (torch indexing and ``torch.gather``) are the
 plain versions, used for CPU tensors and as the kernels' reference on the
 card. :func:`probe_inputs` draws the probe's inputs from the probe's own
-seeded generator, in its order, so the numpy expectation is the probe's.
+seeded generator, in its order, so the numpy expectation is the probe's;
+:func:`pool_inputs` draws the same forms at the brick pool's shapes, where
+the bytes and not the launch are the cost.
 """
 
 import numpy as np
@@ -101,6 +103,9 @@ def take_along_cols_plain(table, idx):
     return torch.gather(table, 1, idx.long())
 
 
+# the launch name of each form, in FORMS' order
+KEYS = ("gather_a", "gather_b", "gather_c", "gather_d")
+
 # (name as the probe prints it, kernel wrapper, plain twin, numpy form)
 FORMS = (
     ("A take axis0 row-gather", take_rows, take_rows_plain,
@@ -127,3 +132,43 @@ def probe_inputs(seed: int = 0):
         i = rng.integers(0, hi, idx_shape).astype(np.int32)
         out.append((t, i))
     return out
+
+
+# the bench config's brick pool (tools/bench.config): bricks of 512
+# voxels and the integration budget in blocks
+POOL_BRICKS, BRICK_VOXELS, POOL_BUDGET = 36864, 512, 8192
+
+
+def pool_inputs(seed: int = 0, scale: int = 1):
+    """The four forms' (table f32, idx i32) numpy inputs at the brick
+    pool's shapes, ``scale`` dividing the row counts: A and D gather
+    POOL_BUDGET distinct bricks of the f32[POOL_BRICKS, 512] pool; B
+    takes, for each voxel of each of those rows, the voxel of a random
+    brick (i32[POOL_BUDGET, 512] indices into the pool); C gathers within
+    the rows of an f32[POOL_BUDGET, 512] table (indices in [0, 512)). A,
+    B and D share the pool array."""
+    rng = np.random.default_rng(seed)
+    rows, n = POOL_BRICKS // scale, POOL_BUDGET // scale
+    pool = rng.standard_normal((rows, BRICK_VOXELS), dtype=np.float32)
+    bricks = rng.permutation(rows)[:n].astype(np.int32)
+    along = rng.integers(0, rows, (n, BRICK_VOXELS), dtype=np.int32)
+    table_c = rng.standard_normal((n, BRICK_VOXELS), dtype=np.float32)
+    within = rng.integers(0, BRICK_VOXELS, (n, BRICK_VOXELS), dtype=np.int32)
+    return [(pool, bricks), (pool, along), (table_c, within), (pool, bricks)]
+
+
+def moved_bytes(key, table, idx):
+    """The bytes form ``key`` (:data:`KEYS`) must move on these tensors:
+    the distinct table elements it reads, its index and its output, 4
+    bytes each (each input read once, each output written once)."""
+    rows, cols = table.shape
+    i64 = idx.long()
+    if key in ("gather_a", "gather_d"):
+        n_read, n_out = torch.unique(i64).numel() * cols, idx.numel() * cols
+    elif key == "gather_b":
+        col = torch.arange(cols, device=idx.device)
+        n_read, n_out = torch.unique(i64 * cols + col).numel(), idx.numel()
+    else:
+        row = torch.arange(rows, device=idx.device)[:, None]
+        n_read, n_out = torch.unique(row * cols + i64).numel(), idx.numel()
+    return 4 * (n_read + idx.numel() + n_out)

@@ -38,17 +38,18 @@ writes rank 1's kernel arguments there. Then the single-device bench
 
 A side build is one source of the checkout in use with a few lines
 edited (:data:`SIDE`, and :data:`PARENT_SIDE` for the sources of
-commit 58e8608), compiled with the library's flags into its own
-library under ``build/side/`` and swapped in for the duration of its
-timing; a build whose edit does not fit the source is reported as
-absent. Side builds live here only, and no flag of the program selects
-one. A device time is the median of the named kernel's launches over
-REPS calls, each launch's own duration read from a ``torch.profiler``
-chrome trace (:func:`kernel_us`), printed with the fastest and slowest
-launch; a trace that does not show all REPS launches is taken again, and
-the script fails after TRIES such traces. One line a measurement on
-stdout, then one JSON line of them all with the card's name and power
-limit.
+commit 58e8608), compiled with the library's flags into its
+own library under ``build/side/`` (:func:`build_sources`, which also
+builds a whole source of another checkout) and swapped in for the
+duration of its timing; a build whose edit does not fit the source is
+reported as absent. Side builds live here only, and no flag of the
+program selects one. A device time is the median of the named kernel's
+launches over REPS calls, each launch's own duration read from a
+``torch.profiler`` chrome trace (:func:`kernel_us`), printed with the
+fastest and slowest launch; a trace that does not show all REPS launches
+is taken again, and the script fails after TRIES such traces. One line a
+measurement on stdout, then one JSON line of them all with the card's
+name and power limit.
 
 The script imports its kernels from whichever ``supereight_tpu_torch``
 comes first on the path, so it can time another checkout's kernels on
@@ -141,6 +142,13 @@ SIDE = {
         "  const float q = -(mod == 0.f ? 1.f : mod) / e_d_sq_2;\n",
         "  const float q = __fdividef(-(mod == 0.f ? 1.f : mod), "
         "e_d_sq_2);\n")]),
+    # K8's gather_b (tools/probe_gather.py --time --split): its index's
+    # round trip alone, its clamp and column stored with no table read
+    "gather_b_index_only": ("gather_probe.cu", [(
+        "      out[row + c] = __ldg(\n          table + (size_t)clamp_index("
+        "__ldg(idx + row + c), rows) * cols + c);\n",
+        "      out[row + c] = __int_as_float(\n          clamp_index(__ldg("
+        "idx + row + c), rows) * cols + c);\n")]),
 }
 
 # side builds of the sources of commit 58e8608, whose marches read the
@@ -231,9 +239,11 @@ PARENT_SIDE = {
 
 
 # the part of PARTS each side build's name starts with (the bilateral
-# filter's are tools/noise_kernels.py's), and the marches' by field
+# filter's are tools/noise_kernels.py's, the gather's
+# tools/probe_gather.py's), and the marches' by field
 SIDE_PREFIX = {"halo": "halo_pack", "alloc": "alloc_assign",
-               "touch": "marches", "bilateral": "bilateral"}
+               "touch": "marches", "bilateral": "bilateral",
+               "gather": "gather"}
 TOUCH_SIDE = {f: ("touch_no_stores", "touch_threads_256", "touch_mats_ldg",
                   "touch_depth_first")
               + (("touch_of_ladder_hoisted",) if f == "ofusion" else ())
@@ -261,11 +271,20 @@ def build_side(names):
     library's headers) with the library's flags, all at once; returns name
     -> its ctypes library, or None where it does not fit the sources."""
     from supereight_tpu_torch.kernels import _lib
+    return build_sources({name: side_source(name, _lib.CSRC)
+                          for name in names})
+
+
+def build_sources(sources):
+    """Compile each of ``sources`` (name -> (file name, text), or None)
+    with the library's headers and flags into its own library under
+    ``build/side/``, all at once; returns name -> its ctypes library, or
+    None where the source is None."""
+    from supereight_tpu_torch.kernels import _lib
     root = _lib.BUILD_ROOT.parent / "side"
     nvcc = _lib.nvcc_path()
     jobs, libs = {}, {}
-    for name in names:
-        src = side_source(name, _lib.CSRC)
+    for name, src in sources.items():
         if src is None:
             libs[name] = None
             continue
@@ -320,14 +339,17 @@ def launch_durations(trace, kernel):
             "kernel" and kernel in e.get("name", "")]
 
 
-def kernel_us(fn, kernel, reps=REPS):
+def kernel_us(fn, kernel, reps=REPS, per_call=1):
     """(median, fastest, slowest) device microseconds of the launches of
     the kernel whose name holds ``kernel`` over ``reps`` calls of ``fn``,
     each launch's own duration (:func:`launch_durations`). The profiler
     traces a warm-up step of ``reps`` calls before the ``reps`` it keeps,
-    after one call before it; a trace that does not show exactly ``reps``
-    launches is taken again, up to TRIES times, and then this fails.
-    ``fn`` must take ``1 + 2 * TRIES * reps`` calls."""
+    after one call before it. A call makes ``per_call`` launches of it
+    (None: as many as the trace shows over ``reps``, a whole number), and
+    its time is the sum of its consecutive launches'; a trace that does
+    not show exactly ``per_call * reps`` launches is taken again, up to
+    TRIES times, and then this fails. ``fn`` must take ``1 + 2 * TRIES * reps``
+    calls."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
@@ -350,12 +372,15 @@ def kernel_us(fn, kernel, reps=REPS):
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        if len(got) == reps:
-            return statistics.median(got), min(got), max(got)
-        print(f"sharded_kernels: a trace showed {len(got)} of {reps} "
-              f"{kernel} launches; taken again", flush=True)
+        k = per_call or len(got) // reps
+        if k and len(got) == k * reps:
+            calls = [sum(got[j * k:(j + 1) * k]) for j in range(reps)]
+            return statistics.median(calls), min(calls), max(calls)
+        print(f"sharded_kernels: a trace showed {len(got)} {kernel} "
+              f"launches for {reps} calls; taken again", flush=True)
     raise RuntimeError(f"sharded_kernels: {TRIES} traces showed other than "
-                       f"{reps} {kernel} launches")
+                       f"{per_call or 'a whole number of'} {kernel} "
+                       f"launches a call over {reps} calls")
 
 
 def launch_floor_us():

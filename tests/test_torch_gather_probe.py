@@ -5,9 +5,13 @@ The probe runs at import on a TPU (``pltpu`` memory spaces), so its numpy
 expressions are its plain reference: each form's twin, and its wrapper
 (which takes the twin for CPU tensors), must equal them bit for bit on
 the probe's own inputs (``probe_inputs``: one generator seeded 0, forms
-A-D in the probe's order and shapes). The entry point runs on a CUDA
-device only.
+A-D in the probe's order and shapes), and at any width and at the brick
+pool's shapes (``pool_inputs``, cut by its ``scale``). The entry point
+and its timing mode run on a CUDA device only; the timing's cases,
+bounds and lines are checked here with a stand-in timer.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -69,3 +73,130 @@ def test_wrappers_check_arguments():
         gp.take_along_cols(t.to("meta"),
                            torch.zeros((4, 2), dtype=torch.int32,
                                        device="meta"))
+
+
+POOL_SCALE = 64   # pool_inputs' rows cut 64-fold: a 576-brick pool
+
+
+def test_pool_inputs_have_the_pool_shapes():
+    torch.set_num_threads(1)
+    got = gp.pool_inputs(seed=3, scale=POOL_SCALE)
+    again = gp.pool_inputs(seed=3, scale=POOL_SCALE)
+    rows, n = 36864 // POOL_SCALE, 8192 // POOL_SCALE
+    want = [((rows, 512), (n,), rows), ((rows, 512), (n, 512), rows),
+            ((n, 512), (n, 512), 512), ((rows, 512), (n,), rows)]
+    for (t, i), (t2, i2), (ts, is_, hi) in zip(got, again, want):
+        assert t.shape == ts and t.dtype == np.float32
+        assert i.shape == is_ and i.dtype == np.int32
+        assert 0 <= i.min() and i.max() < hi
+        np.testing.assert_array_equal(t, t2)
+        np.testing.assert_array_equal(i, i2)
+    assert len(np.unique(got[0][1])) == n          # distinct bricks
+    assert got[0][0] is got[1][0] is got[3][0]     # one pool
+    assert got[0][1] is got[3][1]
+    other = gp.pool_inputs(seed=4, scale=POOL_SCALE)
+    assert not np.array_equal(other[1][1], got[1][1])
+
+
+def test_moved_bytes_counts_distinct_reads():
+    t = torch.zeros((6, 4))
+    rows = torch.tensor([5, 1, 5], dtype=torch.int32)
+    # two distinct rows of 4 read, 3 indices, 3 rows of 4 written
+    assert gp.moved_bytes("gather_a", t, rows) == 4 * (8 + 3 + 12)
+    assert gp.moved_bytes("gather_d", t, rows) == 4 * (8 + 3 + 12)
+    along = torch.tensor([[0, 0, 2, 2], [0, 1, 2, 3]], dtype=torch.int32)
+    # (0, 0) twice and (2, 2) twice: 6 distinct elements
+    assert gp.moved_bytes("gather_b", t, along) == 4 * (6 + 8 + 8)
+    within = torch.tensor([[1, 1, 3]] * 6, dtype=torch.int32)
+    assert gp.moved_bytes("gather_c", t, within) == 4 * (12 + 18 + 18)
+
+
+def _inputs(form, width, n, seed=0):
+    """Form ``form``'s numpy (table, idx) at row width ``width`` and
+    ``n`` output rows: a 96-row table (C: n rows), in-range indices."""
+    rng = np.random.default_rng(seed)
+    rows = n if form == 2 else 96
+    t = rng.standard_normal((rows, width), dtype=np.float32)
+    hi = width if form == 2 else rows
+    shape = (n,) if form in (0, 3) else (n, width)
+    return t, rng.integers(0, hi, shape, dtype=np.int32)
+
+
+WIDTHS = [(w, 37) for w in (1, 3, 4, 5, 128, 130)] + [(128, 1)]
+
+
+@pytest.mark.parametrize("width,n", WIDTHS,
+                         ids=[f"w{w}-n{n}" for w, n in WIDTHS])
+@pytest.mark.parametrize("form", range(4), ids="ABCD")
+def test_form_matches_numpy_at_any_width(form, width, n):
+    """Every wrapper on the CPU (its twin) equals the form's numpy
+    expression bit for bit at widths that take a kernel's vector path
+    (4, 128), its scalar path (1, 3, 5, 130) and one output row."""
+    torch.set_num_threads(1)
+    _, kernel, plain, expect = gp.FORMS[form]
+    t, i = _inputs(form, width, n, seed=form)
+    want = expect(t, i)
+    tt, it = torch.from_numpy(t), torch.from_numpy(i)
+    np.testing.assert_array_equal(kernel(tt, it).numpy(), want)
+    np.testing.assert_array_equal(plain(tt, it).numpy(), want)
+
+
+def test_time_mode_cases_and_lines():
+    """``probe_gather``'s timing: the four forms and D on A's inputs at the
+    probe's shapes; the four forms and A and D cold at the pool's, a cold
+    case's calls taking its disjoint brick sets in turn; each case's bytes
+    bound, its kernel equal to its twin, and one printed line."""
+    torch.set_num_threads(1)
+    seen = []
+
+    def timer(fn, kernel, per_call=1):
+        for _ in range(4):
+            fn()
+        seen.append((kernel, per_call))
+        return 2.0, 1.0, 3.0
+    shapes = {"probe": gp.probe_inputs(),
+              "pool": gp.pool_inputs(scale=POOL_SCALE)}
+    res, ok = probe_gather.time_all(torch.device("cpu"), shapes=shapes,
+                                    timer=timer)
+    assert ok
+    assert list(res["probe"]) == list(gp.KEYS) + ["gather_d_on_a"]
+    assert list(res["pool"]) == list(gp.KEYS) + ["gather_a_cold",
+                                                "gather_d_cold"]
+    a = res["probe"]["gather_a"]
+    assert a["bytes"] == gp.moved_bytes(
+        "gather_a", *map(torch.from_numpy, gp.probe_inputs()[0]))
+    assert a["bound_us"] == pytest.approx(a["bytes"] / 3.35e6)
+    assert res["probe"]["gather_d_on_a"]["builds"]["change"][0]["sha256"] \
+        == a["builds"]["change"][0]["sha256"]
+    cold = res["pool"]["gather_a_cold"]
+    assert cold["sets"] == probe_gather.COLD_SETS
+    sets = probe_gather.cold_bricks(36864 // POOL_SCALE,
+                                    8192 // POOL_SCALE)
+    assert len(np.unique(sets)) == sets.size
+    assert seen[:3] == [("", None), ("", None), ("gather_a_kernel", 1)]
+    for shape, rows in res.items():
+        for case, r in rows.items():
+            line = probe_gather.summary(shape, case, r, 1.0)
+            assert line.startswith(f"{shape} {case}: ") and "\n" not in line
+
+
+def test_time_mode_turns_parent_and_side_builds(monkeypatch):
+    """With a parent library each case's kernel is timed parent, this,
+    this, parent; a side build only on the kernel its name starts with,
+    and one that does not fit the sources not at all."""
+    from supereight_tpu_torch.tools import sharded_kernels as sk
+    used = []
+    monkeypatch.setattr(sk, "using", lambda lib: (
+        used.append(lib), contextlib.nullcontext())[-1])
+    parent, side = object(), object()
+    assert probe_gather.builds_for("gather_b", parent, {
+        "gather_b_x": side, "gather_a_y": side, "gather_b_z": None}) == [
+        ("parent", parent), ("change", None), ("change", None),
+        ("parent", parent), ("gather_b_x", side)]
+    t, i = map(torch.from_numpy, gp.probe_inputs()[1])
+    r = probe_gather.time_case(
+        "gather_b", gp.take_along_rows, gp.take_along_rows_plain, t, i,
+        probe_gather.builds_for("gather_b", parent, {}),
+        lambda fn, kernel, per_call=1: (fn(), (1.0, 1.0, 1.0))[-1])
+    assert [len(r["builds"][k]) for k in ("parent", "change")] == [2, 2]
+    assert used == [parent, parent]

@@ -621,14 +621,58 @@ def test_noise_options_match_twins_on_cuda(cuda, field):
     assert 0 < int(want.valid.sum()) < int(ungated.valid.sum())
 
 
+# the gather forms' cases on the card: the probe's inputs, the pool's cut
+# 8-fold, widths that take the scalar or a mixed path, a table 4 bytes
+# past a 16-byte boundary, and indices at -1 and at the edge past the last
+GATHER_CASES = ["probe", "pool", "width3", "width5", "width130", "offset",
+                "clamped"]
+
+
+def _gather_inputs(case, form):
+    """Form ``form``'s numpy (table, idx, expectation) in ``case``: the
+    expectation is the form's numpy expression on the clamped indices."""
+    if case == "probe":
+        t, i = gp.probe_inputs()[form]
+    elif case == "pool":
+        t, i = gp.pool_inputs(scale=8)[form]
+    else:
+        width = int(case[5:]) if case.startswith("width") else 128
+        rng = np.random.default_rng(form)
+        t = rng.standard_normal((40 if form == 2 else 96, width),
+                                dtype=np.float32)
+        hi = width if form == 2 else 96
+        shape = (40,) if form in (0, 3) else (40, width)
+        i = rng.integers(0, hi, shape, dtype=np.int32)
+        if case == "clamped":
+            i.flat[::3] = -1
+            i.flat[1::3] = hi
+    hi = t.shape[1] if form == 2 else t.shape[0]
+    return t, i, gp.FORMS[form][3](t, np.clip(i, 0, hi - 1))
+
+
 @pytest.mark.cuda
-def test_gather_forms_bit_exact_on_cuda(cuda):
-    for (name, kernel, plain, expect), (t, i) in zip(gp.FORMS,
-                                                     gp.probe_inputs()):
-        tt, it = torch.from_numpy(t).to(cuda), torch.from_numpy(i).to(cuda)
-        got = kernel(tt, it)
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("form", range(4), ids="ABCD")
+def test_gather_forms_bit_exact_on_cuda(cuda, form, case):
+    """Each form's kernel, one launch counted, equal to its twin and to
+    the numpy expression bit for bit (out-of-range indices: to the clamped
+    expression only, the twins do not take them)."""
+    name, kernel, plain, _ = gp.FORMS[form]
+    t, i, want = _gather_inputs(case, form)
+    tt = torch.from_numpy(t).to(cuda)
+    if case == "offset":
+        base = torch.empty(t.size + 1, device=cuda)
+        base[1:] = tt.reshape(-1)
+        tt = base[1:].view(t.shape)
+        assert tt.data_ptr() % 16 == 4
+    it = torch.from_numpy(i).to(cuda)
+    before = dict(_lib.LAUNCHES)
+    got = kernel(tt, it)
+    assert {k: v - before[k] for k, v in _lib.LAUNCHES.items()
+            if v != before[k]} == {gp.KEYS[form]: 1}
+    if case != "clamped":
         assert torch.equal(got, plain(tt, it)), name
-        np.testing.assert_array_equal(got.cpu().numpy(), expect(t, i))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 def clone_map(m):
@@ -1209,7 +1253,8 @@ def test_sharded_kernels_tool_on_the_cpu(tmp_path, monkeypatch):
     for name in set(sk.PARENT_SIDE) - set(sk.SIDE):
         assert sk.side_source(name, _lib.CSRC) is None
     assert {sk.SIDE_PREFIX[n.split("_")[0]] for n in {
-        **sk.SIDE, **sk.PARENT_SIDE}} <= set(sk.PARTS) | {"bilateral"}
+        **sk.SIDE, **sk.PARENT_SIDE}} <= set(sk.PARTS) | {"bilateral",
+                                                          "gather"}
     assert "const int n_coarse = 0;" in sk.side_source(
         "alloc_no_extra", _lib.CSRC)[1]
     assert "if (total >= 0) return;" in sk.side_source(
