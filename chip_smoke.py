@@ -41,9 +41,9 @@ checkout:
    time and the card's launch floor (a one-element ``zero_()``) beside
    theirs, at the probe's shapes and at the brick pool's
    (``gather_probe.pool_inputs``; A and D on disjoint brick sets in turn,
-   so that their rows come from device memory), each with its bytes
-   bound and share, by ``tools/probe_gather.py --time``'s cases and
-   meter;
+   C on disjoint tables and indices in turn, so that their reads come
+   from device memory), each with its bytes bound and share, by
+   ``tools/probe_gather.py --time``'s cases and meter;
    and ``ops/preprocess.mm2meters`` on the card against numpy
    for all 65,536 u16 values, bit for bit;
    library phase (the library surface's sphere drive, a path of its own
@@ -2120,8 +2120,9 @@ def probe_phase(torch, dev):
     cases and with the meter of ``tools/probe_gather.py --time``; the
     probe path checks the kernels against the probe's numpy expectation.
     At the pool's shapes A and D are timed on ``probe_gather.cold_bricks``
-    taken in turn: back to back on one index, their 16.8 MB of rows would
-    come from L2 and beat the device-memory bound.
+    taken in turn, and C on ``probe_gather.cold_tables``: back to back on
+    one input, A's and D's 16.8 MB of rows and C's 33.6 MB of table and
+    index would come from L2 and beat the device-memory bound.
     """
     from supereight_tpu_torch.tools import probe_gather as pg
     from supereight_tpu_torch.tools import sharded_kernels as sk
@@ -2147,34 +2148,37 @@ def probe_phase(torch, dev):
     print(f"K8: launch floor, a one-element zero_(): {us_text(floor_us)} "
           f"device us/call")
     rows = {}
-    for shape, case, key, kernel, plain, tt, sets in pg.cases(dev):
-        sets = sets if isinstance(sets, list) else [sets]
+    for shape, case, key, kernel, plain, tables, sets in pg.cases(dev):
+        calls = pg.pairs(tables, sets)
         err, exact = 0.0, True
-        for it in sets:
+        for tt, it in calls:
             got, ref = kernel(tt, it), plain(tt, it)
             err = max(err, (got - ref).abs().max().item())
             exact &= bool(torch.equal(got, ref))
             require(torch.equal(pg.LIBRARY[key](tt, it, it.long()), ref),
                     f"K8 {case}, {shape}: library call")
-        print(f"K8 {case}, {shape}: {tuple(got.shape)} x {len(sets)}, "
+        print(f"K8 {case}, {shape}: {tuple(got.shape)} x {len(calls)}, "
               f"bit-exact against twin: {exact}")
         require(exact, f"K8 {case} is not bit-exact at the {shape}'s shapes")
         # the kernels line's rows: each form at the probe's shapes, and at
-        # the pool's B and C as they are and A and D cold
-        if case not in PATHS["probe"] and not case.endswith("_cold") or (
-                shape == "pool" and case in ("gather_a", "gather_d")):
+        # the pool's B as it is and A, C and D cold
+        if not (case.endswith("_cold") or case in PATHS["probe"] and (
+                shape == "probe" or case == "gather_b")):
             continue
-        r = pg.time_case(key, kernel, plain, tt, sets, [("change", None)],
-                         timer)
+        r = pg.time_case(key, kernel, plain, tables, sets,
+                         [("change", None)], timer)
         us = r["builds"]["change"][0]["us"][0]
         lib_us = r["library"][0]
         # bytes: the distinct table elements read, the index, the output
         row = dict(max_abs_err=err, **bound(r["bytes"], 0), device_us=us,
                    plain_device_us=r["twin"][0], library_device_us=lib_us,
                    launch_floor_us=floor_us,
-                   share=None if us is None else r["bound_us"] / us)
+                   share=None if us is None else r["bound_us"] / us,
+                   **({"sector_floor_us": r["sector_us"]}
+                      if "sector_us" in r else {}))
         if shape == "probe":
-            it, it64 = sets[0], sets[0].long()
+            tt, it = calls[0]
+            it64 = it.long()
             row.update(
                 ms=cuda_ms(torch, lambda: kernel(tt, it), 200),
                 plain_ms=cuda_ms(torch, lambda: plain(tt, it), 200),
@@ -2190,7 +2194,9 @@ def probe_phase(torch, dev):
         print(f"K8 {case}, {shape}: device {us_text(us)} us/call, twin "
               f"{us_text(row['plain_device_us'])} us/call, library "
               f"{us_text(lib_us)} us/call (medians of {sk.REPS}); bound "
-              f"{r['bound_us']:.3f} us, share {share}; above the launch "
+              f"{r['bound_us']:.3f} us, share {share}"
+              + (f" (sector floor {r['sector_us']:.3f} us)"
+                 if "sector_us" in r else "") + "; above the launch "
               f"floor {us_text(above(us, floor_us), '+')} us, the library "
               f"call {us_text(above(lib_us, floor_us), '+')} us")
     return rows

@@ -172,3 +172,14 @@ def moved_bytes(key, table, idx):
         row = torch.arange(rows, device=idx.device)[:, None]
         n_read, n_out = torch.unique(row * cols + i64).numel(), idx.numel()
     return 4 * (n_read + idx.numel() + n_out)
+
+
+def sector_bytes(table, idx):
+    """Form C's sector floor: the bytes of the table's 32-byte sectors
+    that ``idx`` touches (the table taken as 32-byte aligned), and its
+    index and output, 4 bytes each: what a read of whole sectors must
+    move, where :func:`moved_bytes` counts the distinct elements."""
+    rows, cols = table.shape
+    row = torch.arange(rows, device=idx.device)[:, None]
+    n_sectors = torch.unique((row * cols + idx.long()) // 8).numel()
+    return 32 * n_sectors + 8 * idx.numel()

@@ -17,16 +17,22 @@ the brick pool's (``pool_inputs``: the bench config's 36,864 bricks of
 512 voxels and its budget of 8,192 blocks), and ``gather_d``'s kernel
 on form A's probe inputs (``gather_d_on_a``; at the pool's shapes D's
 inputs are A's). Back to back, a pool launch of A or D finds the rows it
-reads in L2 (16.8 MB of the 50 MB); the cold cases ``gather_a_cold`` and
-``gather_d_cold`` take COLD_SETS disjoint brick sets in turn, so their
-rows come from device memory. For each: the device
+reads in L2 (16.8 MB of the 50 MB), and one of C its whole 33.6 MB of
+table and index; the cold cases ``gather_a_cold`` and ``gather_d_cold``
+take COLD_SETS disjoint brick sets in turn (:func:`cold_bricks`), and
+``gather_c_cold`` COLD_SETS disjoint (table, index) pairs
+(:func:`cold_tables`), so their reads come from device memory. For
+each: the device
 microseconds of the kernel, its twin and the one PyTorch call of the
 same function (``index_select`` or ``gather``, the index as int64 made
 before the timing), each the median of 20 calls with the fastest and
 slowest (``tools/sharded_kernels.kernel_us``; a call of several launches
 is their sum); the launch floor (a one-element ``zero_()``); the bytes
 bound (``gather_probe.moved_bytes``: the distinct table elements read,
-the index and the output, over 3.35 TB/s) and the kernel's share of it;
+the index and the output, over 3.35 TB/s) and the kernel's share of it
+(for C also the sector floor, ``gather_probe.sector_bytes``: the
+32-byte sectors of the table that its indices touch, the index and the
+output);
 whether the kernel equals its twin bit for bit; and the first 16 hex
 digits of the SHA-256 of its output (``tools/noise_kernels.digest``).
 ``--split`` adds the side builds of ``tools/sharded_kernels.SIDE`` whose
@@ -58,7 +64,9 @@ from supereight_tpu_torch.kernels.gather_probe import FORMS, probe_inputs
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device memory rate
 # the pool's cold cases: A and D take COLD_SETS disjoint brick sets in
 # turn, so a launch's 16.8 MB of rows were last read COLD_SETS - 1
-# launches (100 MB of traffic) before, out of the 50 MB L2
+# launches (100 MB of traffic) before, out of the 50 MB L2; C takes
+# COLD_SETS disjoint (table, index) pairs, its 33.6 MB last read 100 MB
+# of its own inputs (and 50 MB of outputs) before
 COLD_SETS = 4
 # the one PyTorch call of each form's function; the port never calls it
 LIBRARY = {
@@ -91,15 +99,38 @@ def cold_bricks(rows=gp.POOL_BRICKS, n=gp.POOL_BUDGET, sets=COLD_SETS,
     return perm.reshape(sets, n).astype(np.int32)
 
 
+def cold_tables(device, n=gp.POOL_BUDGET, sets=COLD_SETS, seed=2):
+    """``sets`` disjoint (table f32[n, 512], idx i32[n, 512] in [0, 512))
+    pairs for C's cold case: row slices of one seeded table and one
+    seeded index, copied to ``device`` once, views with no copy."""
+    rng = np.random.default_rng(seed)
+    shape = (sets * n, gp.BRICK_VOXELS)
+    table = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    idx = torch.from_numpy(rng.integers(0, gp.BRICK_VOXELS, shape,
+                                        dtype=np.int32))
+    table, idx = table.to(device), idx.to(device)
+    return [(table[k * n:(k + 1) * n], idx[k * n:(k + 1) * n])
+            for k in range(sets)]
+
+
+def pairs(t, i):
+    """A case's (table, idx) calls: ``t`` and ``i`` each one tensor or a
+    list of them, taken in turn."""
+    sets = i if isinstance(i, list) else [i]
+    tables = t if isinstance(t, list) else [t] * len(sets)
+    return list(zip(tables, sets))
+
+
 def cases(device, shapes=None):
     """(shape, case, launch name, kernel wrapper, twin, table, idx) of
     each timed case on ``device``: the four forms and ``gather_d`` on
     form A's inputs, at each of ``shapes`` (name -> the numpy inputs of
     the four forms; default the probe's and the pool's), the last where
-    D's inputs are not A's; at the pool's, also A and D cold
+    D's inputs are not A's; at the pool's, also A, C and D cold
     (``gather_a_cold``, ``gather_d_cold``: ``idx`` a list of
-    :func:`cold_bricks`, taken in turn). A numpy array that several forms
-    share is copied to the device once."""
+    :func:`cold_bricks`; ``gather_c_cold``: ``table`` and ``idx`` lists of
+    :func:`cold_tables`' pairs; taken in turn, :func:`pairs`). A numpy
+    array that several forms share is copied to the device once."""
     shapes = shapes or {"probe": probe_inputs(), "pool": gp.pool_inputs()}
     out = []
     for shape, arrays in shapes.items():
@@ -115,10 +146,13 @@ def cases(device, shapes=None):
             t = tensors[0][0]
             sets = list(torch.from_numpy(cold_bricks(t.shape[0], len(
                 tensors[0][1]))).to(device))
-            for key in ("gather_a", "gather_d"):
+            tables, idx = map(list, zip(*cold_tables(
+                device, len(tensors[2][0]))))
+            for key in ("gather_a", "gather_c", "gather_d"):
                 form = FORMS[gp.KEYS.index(key)]
-                out.append((shape, key + "_cold", key, form[1], form[2], t,
-                            sets))
+                out.append((shape, key + "_cold", key, form[1], form[2],
+                            *((tables, idx) if key == "gather_c"
+                              else (t, sets))))
     return out
 
 
@@ -131,26 +165,28 @@ def time_case(launch, kernel, plain, t, i, builds, timer=default_timer):
     """One case's numbers: its bytes bound, the kernel's output against
     its twin, and device us (``timer(fn, kernel name, launches a call)``:
     median, fastest, slowest) of the twin, the library call and the
-    kernel, each call on the next of ``idx``'s sets where it is a list,
-    under each of ``builds`` ([(name, library or None for this
-    checkout's)], timed in that order; a name that comes twice keeps both
-    times), each build with its output's digest and whether it equals the
-    twin (on the first set)."""
+    kernel, each call on the next of the case's :func:`pairs` where
+    ``t`` or ``i`` is a list, under each of ``builds`` ([(name, library
+    or None for this checkout's)], timed in that order; a name that comes
+    twice keeps both times), each build with its output's digest and
+    whether it equals the twin (on the first pair, as the bounds)."""
     from supereight_tpu_torch.tools import sharded_kernels as sk
     from supereight_tpu_torch.tools.noise_kernels import digest
-    sets = i if isinstance(i, list) else [i]
-    i = sets[0]
+    calls = pairs(t, i)
+    t, i = calls[0]
     twin = plain(t, i)
     n_bytes = gp.moved_bytes(launch, t, i)
-    r = dict(table=list(t.shape), idx=list(i.shape), sets=len(sets),
+    r = dict(table=list(t.shape), idx=list(i.shape), sets=len(calls),
              bytes=n_bytes, bound_us=n_bytes / HBM_BYTES_PER_S * 1e6,
              builds={})
+    if launch == "gather_c":
+        r["sector_us"] = gp.sector_bytes(t, i) / HBM_BYTES_PER_S * 1e6
 
     def turns(call):
-        """A call of ``call(table, idx, idx as int64)`` on the next index
-        set in turn."""
-        pairs = itertools.cycle([(s, s.long()) for s in sets])
-        return lambda: call(t, *next(pairs))
+        """A call of ``call(table, idx, idx as int64)`` on the next pair
+        in turn."""
+        cycle = itertools.cycle([(t, s, s.long()) for t, s in calls])
+        return lambda: call(*next(cycle))
     r["twin"] = timer(turns(lambda t, i, _: plain(t, i)), "", None)
     r["library"] = timer(turns(LIBRARY[launch]), "", None)
     for name, lib in builds:
@@ -200,7 +236,9 @@ def summary(shape, case, r, floor):
             f"kernel {us('change')} us ({lo:.2f}-{hi:.2f})"
             f", twin {r['twin'][0]:.2f}, library {r['library'][0]:.2f}; "
             f"floor {floor:.2f}; bound {r['bound_us']:.3f} us "
-            f"({r['bytes']} B), share {r['bound_us'] / best:.1%}; "
+            f"({r['bytes']} B), share {r['bound_us'] / best:.1%}"
+            + (f", sector floor {r['sector_us']:.3f} us"
+               if "sector_us" in r else "") + "; "
             f"bit-equal to its twin {ch[0]['exact']}; sha256 "
             f"{ch[0]['sha256']}")
     for build, runs in b.items():

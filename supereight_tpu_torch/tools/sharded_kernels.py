@@ -19,11 +19,9 @@ writes rank 1's kernel arguments there. Then the single-device bench
   (``alloc_touch_cols`` / ``alloc_touch_of_cols``) and over the single
   device's whole frame (``alloc_touch`` / ``alloc_touch_of``), into a
   scratch touched buffer: the whole launch and the side builds of
-  :data:`TOUCH_SIDE` (without the samples' stores; on these sources also
-  in CTAs of 256 threads whatever the rays, and with the matrices read
-  straight into registers; on commit 58e8608's also with the depth read
-  before the matrices' barrier and, for OFusion, the fine samples' ladder
-  reads hoisted);
+  :data:`TOUCH_SIDE` (without the samples' stores, in CTAs of 256
+  threads whatever the rays, and with the matrices read straight into
+  registers);
 * ``halo_pack`` on rank 1's inputs, with the frustum test (the step's
   default) and without: the rows sent, device microseconds of the whole
   launch and of a side build that stops after the compaction (flagging
@@ -37,8 +35,7 @@ writes rank 1's kernel arguments there. Then the single-device bench
   before the timing, so each launch does the frame's work.
 
 A side build is one source of the checkout in use with a few lines
-edited (:data:`SIDE`, and :data:`PARENT_SIDE` for the sources of
-commit 58e8608), compiled with the library's flags into its
+edited (:data:`SIDE`), compiled with the library's flags into its
 own library under ``build/side/`` (:func:`build_sources`, which also
 builds a whole source of another checkout) and swapped in for the
 duration of its timing; a build whose edit does not fit the source is
@@ -149,94 +146,16 @@ SIDE = {
         "__ldg(idx + row + c), rows) * cols + c);\n",
         "      out[row + c] = __int_as_float(\n          clamp_index(__ldg("
         "idx + row + c), rows) * cols + c);\n")]),
+    # K8's gather_c: its loads and barrier alone, each output the clamped
+    # index in place of the stage's element (a broadcast read of the
+    # stage's first word keeps the stage live); and the direct body (no
+    # stage) at every width
+    "gather_c_stage_only": ("gather_probe.cu", [(
+        "  return s[clamp_index(k, n)];\n",
+        "  return __int_as_float(clamp_index(k, n)) + 0.f * s[0];\n")]),
+    "gather_c_direct": ("gather_probe.cu", [(
+        "  if (table_cols > kStageFloats)\n", "  if (true)\n")]),
 }
-
-# side builds of the sources of commit 58e8608, whose marches read the
-# matrices into shared memory behind a barrier and whose bilateral filter
-# is a shared-memory tile: the split measured before their redesign (run
-# them on a tree whose csrc/ is that commit's). Later sources fit none of
-# them, and the tool reports them absent there; a name in both tables
-# takes the edits that fit.
-_RAY_AT = "  const float d = depth[(sy * stride) * w + x0 + sx * stride];\n"
-PARENT_SIDE = {
-    "touch_no_stores": ("alloc.cu", [(
-        "  grid[((vx >> shift) * side + (vy >> shift)) * side + "
-        "(vz >> shift)] = 1;\n",
-        "  asm volatile(\"\" :: \"r\"(((vx >> shift) * side + "
-        "(vy >> shift)) * side + (vz >> shift)));\n")]),
-    # the marches with each thread's depth read issued before the
-    # matrices' barrier
-    "touch_depth_first": ("alloc.cu", [
-        ("bool pixel_ray(const float* __restrict__ depth,",
-         "bool pixel_ray(const float d,"),
-        (_RAY_AT, ""),
-        ("  se::load_mat4(kpose, K);\n  se::load_mat4(pose, P);\n"
-         "  __syncthreads();\n"
-         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-         "  if (i >= hs * ws) return;\n"
-         "  const int sy = i / ws, sx = i - sy * ws;\n",
-         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-         "  const int sy = i / ws, sx = i - sy * ws;\n"
-         "  const float d0 = i < hs * ws ? __ldg(depth + (sy * stride) * w"
-         " + x0 + sx * stride) : 0.f;\n"
-         "  se::load_mat4(kpose, K);\n  se::load_mat4(pose, P);\n"
-         "  __syncthreads();\n  if (i >= hs * ws) return;\n"),
-        ("  se::load_mat4(kpose, K);\n  se::load_mat4(pose, P);\n"
-         "  __syncthreads();\n"
-         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-         "  const int n2 = hs2 * ws2;\n",
-         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
-         "  const int n2 = hs2 * ws2;\n"
-         "  const int early = i >= ((n2 + 31) & ~31) ? (i - ((n2 + 31) & "
-         "~31)) / kCoarseLanes : i;\n"
-         "  const int early_ws = i >= ((n2 + 31) & ~31) ? ws8 : ws2;\n"
-         "  const int early_s = i >= ((n2 + 31) & ~31) ? 8 : 2;\n"
-         "  const float d0 = early < (i >= ((n2 + 31) & ~31) ? hs8 * ws8 :"
-         " n2) ? __ldg(depth + (early / early_ws * early_s) * w + x0 + "
-         "(early % early_ws) * early_s) : 0.f;\n"
-         "  se::load_mat4(kpose, K);\n  se::load_mat4(pose, P);\n"
-         "  __syncthreads();\n"),
-        ("pixel_ray(depth, w, x0, stride, sx, sy, K, P, band_half, r)",
-         "pixel_ray(d0, w, x0, stride, sx, sy, K, P, band_half, r)"),
-        ("pixel_ray(depth, w, x0, coarse ? 8 : 2, sx, sy, K, P, band_half,"
-         " r)",
-         "pixel_ray(d0, w, x0, coarse ? 8 : 2, sx, sy, K, P, band_half,"
-         " r)")]),
-    # the occupancy march with its fine samples' first 8 ladder reads
-    # issued before the ray's, not one after another in the loop
-    "touch_of_ladder_hoisted": ("alloc.cu", [
-        ("  Ray r;\n  if (!pixel_ray(depth, w, x0, coarse ? 8 : 2,",
-         "  float lt[8];\n#pragma unroll\n"
-         "  for (int k = 0; k < 8; ++k) lt[k] = __ldg(ladder_t + min(k, "
-         "n_ladder - 1));\n"
-         "  Ray r;\n  if (!pixel_ray(depth, w, x0, coarse ? 8 : 2,"),
-        ("      const float t = __ldg(ladder_t + s);\n"
-         "      if (!(t < dist)) break;\n"
-         "      mark(r, t, inv_voxel, size, b, 3, touched0);\n",
-         "      float t = s < 8 ? lt[0] : __ldg(ladder_t + s);\n"
-         "#pragma unroll\n"
-         "      for (int k = 1; k < 8; ++k) t = s == k ? lt[k] : t;\n"
-         "      if (!(t < dist)) break;\n"
-         "      mark(r, t, inv_voxel, size, b, 3, touched0);\n")]),
-    # the bilateral filter with the range weight replaced by 1: no
-    # division and no expf a tap
-    "bilateral_unit_weight": ("preprocess.cu", [(
-        "      float factor = G.g[i + kMaxHalo] * G.g[j + kMaxHalo] *\n"
-        "                     expf(-mod / e_d_sq_2);\n",
-        "      float factor = G.g[i + kMaxHalo] * G.g[j + kMaxHalo];\n"
-        "      (void)mod;\n")]),
-    # the bilateral filter with the edge clamps moved from its 25 taps a
-    # pixel to the window's load (the output unchanged)
-    "bilateral_no_clamp": ("preprocess.cu", [
-        ("    return v[(min(max(gy, 0), h - 1) - oy) * side + "
-         "min(max(gx, 0), w - 1) -\n             ox];\n",
-         "    return v[(gy - oy) * side + gx - ox];\n"),
-        ("    if (gy >= 0 && gy < win.h && gx >= 0 && gx < win.w)\n"
-         "      win.v[i] = img[gy * win.w + gx];\n",
-         "    win.v[i] = img[min(max(gy, 0), win.h - 1) * win.w + "
-         "min(max(gx, 0), win.w - 1)];\n")]),
-}
-
 
 # the part of PARTS each side build's name starts with (the bilateral
 # filter's are tools/noise_kernels.py's, the gather's
@@ -244,26 +163,20 @@ PARENT_SIDE = {
 SIDE_PREFIX = {"halo": "halo_pack", "alloc": "alloc_assign",
                "touch": "marches", "bilateral": "bilateral",
                "gather": "gather"}
-TOUCH_SIDE = {f: ("touch_no_stores", "touch_threads_256", "touch_mats_ldg",
-                  "touch_depth_first")
-              + (("touch_of_ladder_hoisted",) if f == "ofusion" else ())
+TOUCH_SIDE = {f: ("touch_no_stores", "touch_threads_256", "touch_mats_ldg")
               for f in ("tsdf", "ofusion")}
 
 
 def side_source(name, csrc):
-    """(file name, edited text) of side build ``name`` of :data:`SIDE` or
-    :data:`PARENT_SIDE` on the sources in ``csrc``, or None where its
-    edits do not fit them."""
-    for table in (SIDE, PARENT_SIDE):
-        if name not in table:
-            continue
-        fname, edits = table[name]
-        text = (csrc / fname).read_text()
-        if all(text.count(old) == 1 for old, _ in edits):
-            for old, new in edits:
-                text = text.replace(old, new)
-            return fname, text
-    return None
+    """(file name, edited text) of side build ``name`` of :data:`SIDE` on
+    the sources in ``csrc``, or None where its edits do not fit them."""
+    fname, edits = SIDE[name]
+    text = (csrc / fname).read_text()
+    if not all(text.count(old) == 1 for old, _ in edits):
+        return None
+    for old, new in edits:
+        text = text.replace(old, new)
+    return fname, text
 
 
 def build_side(names):
@@ -638,7 +551,7 @@ def main(argv=None):
           flush=True)
     parts = tuple(args.kernels or PARTS)
     libs = build_side(tuple(
-        name for name in {**SIDE, **PARENT_SIDE}
+        name for name in SIDE
         if SIDE_PREFIX[name.split("_")[0]] in parts))
     floor = launch_floor_us()
     print(f"launch floor (a one-element zero_()): {floor:.2f} device us",

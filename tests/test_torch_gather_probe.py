@@ -109,32 +109,45 @@ def test_moved_bytes_counts_distinct_reads():
     assert gp.moved_bytes("gather_b", t, along) == 4 * (6 + 8 + 8)
     within = torch.tensor([[1, 1, 3]] * 6, dtype=torch.int32)
     assert gp.moved_bytes("gather_c", t, within) == 4 * (12 + 18 + 18)
+    # C's sector floor: rows 0-1, 2-3 and 4-5 each touch one sector
+    assert gp.sector_bytes(t, within) == 32 * 3 + 8 * 18
 
 
-def _inputs(form, width, n, seed=0):
+def _inputs(form, width, n, seed=0, j=None):
     """Form ``form``'s numpy (table, idx) at row width ``width`` and
-    ``n`` output rows: a 96-row table (C: n rows), in-range indices."""
+    ``n`` output rows: a 96-row table (C: n rows, and ``j`` indices a row,
+    default ``width``), in-range indices."""
     rng = np.random.default_rng(seed)
     rows = n if form == 2 else 96
     t = rng.standard_normal((rows, width), dtype=np.float32)
     hi = width if form == 2 else rows
-    shape = (n,) if form in (0, 3) else (n, width)
+    shape = (n,) if form in (0, 3) else (n, width if j is None else j)
     return t, rng.integers(0, hi, shape, dtype=np.int32)
 
 
 WIDTHS = [(w, 37) for w in (1, 3, 4, 5, 128, 130)] + [(128, 1)]
+# form C's (table width, indices a row, rows), as the card test's C-only
+# cases: indices below and above the width and not a multiple of 4, a row
+# wider than the kernel stages in shared memory, one row, and a width
+# that is not a multiple of 4 under indices that are
+C_WIDTHS = [(512, 7, 40), (512, 1030, 40), (16387, 64, 3), (512, 512, 1),
+            (130, 64, 40)]
+ANY_WIDTH = [(f, w, w, n) for f in range(4) for w, n in WIDTHS] + [
+    (2, w, j, n) for w, j, n in C_WIDTHS]
 
 
-@pytest.mark.parametrize("width,n", WIDTHS,
-                         ids=[f"w{w}-n{n}" for w, n in WIDTHS])
-@pytest.mark.parametrize("form", range(4), ids="ABCD")
-def test_form_matches_numpy_at_any_width(form, width, n):
+@pytest.mark.parametrize(
+    "form,width,j,n", ANY_WIDTH, ids=[
+        f"{'ABCD'[f]}-w{w}-" + (f"j{j}-" if j != w else "") + f"n{n}"
+        for f, w, j, n in ANY_WIDTH])
+def test_form_matches_numpy_at_any_width(form, width, j, n):
     """Every wrapper on the CPU (its twin) equals the form's numpy
     expression bit for bit at widths that take a kernel's vector path
-    (4, 128), its scalar path (1, 3, 5, 130) and one output row."""
+    (4, 128), its scalar path (1, 3, 5, 130) and one output row; form C
+    also at :data:`C_WIDTHS`."""
     torch.set_num_threads(1)
     _, kernel, plain, expect = gp.FORMS[form]
-    t, i = _inputs(form, width, n, seed=form)
+    t, i = _inputs(form, width, n, seed=form, j=j)
     want = expect(t, i)
     tt, it = torch.from_numpy(t), torch.from_numpy(i)
     np.testing.assert_array_equal(kernel(tt, it).numpy(), want)
@@ -143,9 +156,11 @@ def test_form_matches_numpy_at_any_width(form, width, n):
 
 def test_time_mode_cases_and_lines():
     """``probe_gather``'s timing: the four forms and D on A's inputs at the
-    probe's shapes; the four forms and A and D cold at the pool's, a cold
-    case's calls taking its disjoint brick sets in turn; each case's bytes
-    bound, its kernel equal to its twin, and one printed line."""
+    probe's shapes; the four forms and A, C and D cold at the pool's, a
+    cold case's calls taking its disjoint brick sets (A, D) or its
+    disjoint views of one table and one index (C) in turn; each case's
+    bytes bound (C's also its sector floor), its kernel equal to its twin,
+    and one printed line."""
     torch.set_num_threads(1)
     seen = []
 
@@ -160,8 +175,8 @@ def test_time_mode_cases_and_lines():
                                     timer=timer)
     assert ok
     assert list(res["probe"]) == list(gp.KEYS) + ["gather_d_on_a"]
-    assert list(res["pool"]) == list(gp.KEYS) + ["gather_a_cold",
-                                                "gather_d_cold"]
+    assert list(res["pool"]) == list(gp.KEYS) + [
+        "gather_a_cold", "gather_c_cold", "gather_d_cold"]
     a = res["probe"]["gather_a"]
     assert a["bytes"] == gp.moved_bytes(
         "gather_a", *map(torch.from_numpy, gp.probe_inputs()[0]))
@@ -173,6 +188,19 @@ def test_time_mode_cases_and_lines():
     sets = probe_gather.cold_bricks(36864 // POOL_SCALE,
                                     8192 // POOL_SCALE)
     assert len(np.unique(sets)) == sets.size
+    c = res["pool"]["gather_c_cold"]
+    assert c["sets"] == probe_gather.COLD_SETS
+    assert c["table"] == c["idx"] == [8192 // POOL_SCALE, 512]
+    assert c["bound_us"] < c["sector_us"]
+    pairs = probe_gather.cold_tables(torch.device("cpu"), 8192 // POOL_SCALE)
+    assert len(pairs) == probe_gather.COLD_SETS
+    for k in (0, 1):   # views of one table and one index, disjoint rows
+        base = pairs[0][k]._base
+        spans = sorted((p[k].data_ptr(), p[k].data_ptr() + p[k].nbytes)
+                       for p in pairs)
+        assert all(p[k]._base is base for p in pairs)
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert all(0 <= int(i.min()) and int(i.max()) < 512 for _, i in pairs)
     assert seen[:3] == [("", None), ("", None), ("gather_a_kernel", 1)]
     for shape, rows in res.items():
         for case, r in rows.items():

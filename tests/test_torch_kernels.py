@@ -626,12 +626,28 @@ def test_noise_options_match_twins_on_cuda(cuda, field):
 # past a 16-byte boundary, and indices at -1 and at the edge past the last
 GATHER_CASES = ["probe", "pool", "width3", "width5", "width130", "offset",
                 "clamped"]
+# form C's own cases, (rows, table width, indices a row), as
+# tests/test_torch_gather_probe.py's C_WIDTHS: indices below and above
+# the width and not a multiple of 4 (the staged body's int path, the
+# second a loop of index units), a row wider than the staged body takes
+# (the direct body), an index 4 bytes past a 16-byte boundary, one row,
+# and a width not a multiple of 4 under indices that are
+C_CASES = {"j7": (40, 512, 7), "j1030": (40, 512, 1030),
+           "wide": (3, 16387, 64), "idx_offset": (40, 512, 128),
+           "n1": (1, 512, 512), "w130_j64": (40, 130, 64)}
+GATHER_PARAMS = [(f, c) for f in range(4) for c in GATHER_CASES] + [
+    (2, c) for c in C_CASES]
 
 
 def _gather_inputs(case, form):
     """Form ``form``'s numpy (table, idx, expectation) in ``case``: the
     expectation is the form's numpy expression on the clamped indices."""
-    if case == "probe":
+    if case in C_CASES:
+        n, width, j = C_CASES[case]
+        rng = np.random.default_rng(width + j)
+        t = rng.standard_normal((n, width), dtype=np.float32)
+        i = rng.integers(0, width, (n, j), dtype=np.int32)
+    elif case == "probe":
         t, i = gp.probe_inputs()[form]
     elif case == "pool":
         t, i = gp.pool_inputs(scale=8)[form]
@@ -651,12 +667,13 @@ def _gather_inputs(case, form):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", GATHER_CASES)
-@pytest.mark.parametrize("form", range(4), ids="ABCD")
+@pytest.mark.parametrize("form,case", GATHER_PARAMS, ids=[
+    f"{'ABCD'[f]}-{c}" for f, c in GATHER_PARAMS])
 def test_gather_forms_bit_exact_on_cuda(cuda, form, case):
     """Each form's kernel, one launch counted, equal to its twin and to
     the numpy expression bit for bit (out-of-range indices: to the clamped
-    expression only, the twins do not take them)."""
+    expression only, the twins do not take them); form C also at
+    :data:`C_CASES`, which take both its bodies and every vector path."""
     name, kernel, plain, _ = gp.FORMS[form]
     t, i, want = _gather_inputs(case, form)
     tt = torch.from_numpy(t).to(cuda)
@@ -666,6 +683,11 @@ def test_gather_forms_bit_exact_on_cuda(cuda, form, case):
         tt = base[1:].view(t.shape)
         assert tt.data_ptr() % 16 == 4
     it = torch.from_numpy(i).to(cuda)
+    if case == "idx_offset":
+        base = torch.empty(i.size + 1, dtype=torch.int32, device=cuda)
+        base[1:] = it.reshape(-1)
+        it = base[1:].view(i.shape)
+        assert it.data_ptr() % 16 == 4
     before = dict(_lib.LAUNCHES)
     got = kernel(tt, it)
     assert {k: v - before[k] for k, v in _lib.LAUNCHES.items()
@@ -1237,12 +1259,11 @@ def test_sharded_icp_modes_match_twins_on_cuda(cuda, field):
 
 def test_sharded_kernels_tool_on_the_cpu(tmp_path, monkeypatch):
     """``tools/sharded_kernels``: without a card it exits 2; each of its
-    side builds edits these sources, each of commit 58e8608's alone fits
-    none of them, and a source its edit does not fit gives none; every
-    side build has its part; it reads each launch of the named kernel
-    from a chrome trace, and nothing else; its copies of a map for the
-    allocation are its own, their touched buffers 16-byte aligned; it
-    times a march on its window as the wrapper's launch."""
+    side builds edits these sources, and a source its edit does not fit
+    gives none; every side build has its part; it reads each launch of
+    the named kernel from a chrome trace, and nothing else; its copies of
+    a map for the allocation are its own, their touched buffers 16-byte
+    aligned; it times a march on its window as the wrapper's launch."""
     from supereight_tpu_torch.tools import sharded_kernels as sk
     torch.set_num_threads(1)
     if not torch.cuda.is_available():
@@ -1250,11 +1271,8 @@ def test_sharded_kernels_tool_on_the_cpu(tmp_path, monkeypatch):
     for name in sk.SIDE:
         fname, text = sk.side_source(name, _lib.CSRC)
         assert text != (_lib.CSRC / fname).read_text()
-    for name in set(sk.PARENT_SIDE) - set(sk.SIDE):
-        assert sk.side_source(name, _lib.CSRC) is None
-    assert {sk.SIDE_PREFIX[n.split("_")[0]] for n in {
-        **sk.SIDE, **sk.PARENT_SIDE}} <= set(sk.PARTS) | {"bilateral",
-                                                          "gather"}
+    assert {sk.SIDE_PREFIX[n.split("_")[0]] for n in sk.SIDE} <= set(
+        sk.PARTS) | {"bilateral", "gather"}
     assert "const int n_coarse = 0;" in sk.side_source(
         "alloc_no_extra", _lib.CSRC)[1]
     assert "if (total >= 0) return;" in sk.side_source(
