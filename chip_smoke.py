@@ -2347,7 +2347,7 @@ def slice_phase(torch, sc, card):
     from supereight_tpu_torch.kernels import alloc, icp
     from supereight_tpu_torch.kernels.frame import frame_mats, \
         frame_mats_plain
-    n_exact, worst, mip_bad, mats_bad = 0, 0.0, 0, 0
+    n_exact, n_twice, worst, mip_bad, mats_bad = 0, 0, 0.0, 0, 0
     seen = []  # each frame's pose, for the noise slice's comparison
     state = sc.init()
     # the touched buffer's set bytes over every frame's end, summed on the
@@ -2357,7 +2357,8 @@ def slice_phase(torch, sc, card):
         args = track_args(torch, sc, state, sc.depths_t[i])
         dense = state.map._replace(
             mip_alloc=tuple(a.clone() for a in state.map.mip_alloc))
-        pose_t, tracked_t = icp.icp_track(*args, ITERATIONS, 1e-5)[:2]
+        first = icp.icp_track(*args, ITERATIONS, 1e-5)
+        pose_t, tracked_t = first[:2]
         calls = [(sc.kt, state.raycast_pose),
                  (sc.kt, pose_t, state.pose, tracked_t, i,
                   sc.kw["tracking_rate"], sc.kw["integration_rate"])]
@@ -2374,6 +2375,8 @@ def slice_phase(torch, sc, card):
         ok, e = track_errors(torch, got, want)
         require(ok, f"{tag}: frame {i}: icp_track disagrees with twin: {e}")
         n_exact += all(torch.equal(x, y) for x, y in zip(got, want))
+        # the frame step's launch against the one before it, bit for bit
+        n_twice += all(torch.equal(x, y) for x, y in zip(got, first))
         worst = max(worst, e["pose"])
         extra = ()
         if sc.field.name == "ofusion":
@@ -2387,7 +2390,8 @@ def slice_phase(torch, sc, card):
         mip_bad += sum(int((a != b).sum()) for a, b in
                        zip(dense.mip_alloc, state.map.mip_alloc))
     print(f"{tag}: icp_track within the twin's tolerances on all "
-          f"{sc.n_total} frames, equal to it bit for bit on {n_exact}; pose "
+          f"{sc.n_total} frames, equal to it bit for bit on {n_exact}, two "
+          f"launches bit-identical on {n_twice} (== {sc.n_total}); pose "
           f"max err {worst:.3e}; frame_mats against its twin and the "
           f"frame's pose on all {sc.n_total} frames: {mats_bad} unequal "
           f"outputs (== 0, bit for bit); incremental mip_alloc against the "
@@ -2406,6 +2410,8 @@ def slice_phase(torch, sc, card):
     print(f"{tag}: the map's touched buffer after each of the "
           f"{sc.n_total} frames: {left} bytes set in all (== 0)")
     require(left == 0, f"{tag}: the touched buffer kept marks past a frame")
+    require(n_twice == sc.n_total,
+            f"{tag}: two icp_track launches differ on a frame")
     require(mip_bad == 0, f"{tag}: mip_alloc departs from the dense rule")
     require(mats_bad == 0, f"{tag}: frame_mats disagrees with its twin")
     last = f"{sc.name}, frame {sc.n_total - 1}"

@@ -596,7 +596,7 @@ SE_EXPORT int se_alloc_assign(uint8_t* touched, uint8_t* extra1,
   const int per_cluster = 4 * kAllocCtas * kAllocThreads;
   const int n_coarse = min(kMaxCoarseClusters,
                            (coarse + per_cluster - 1) / per_cluster);
-  static int held[se::kMaxDevices];  // clusters a device holds, 0: unknown
+  static se::ClusterFit held[se::kMaxDevices];
   return se::launch_clusters(alloc_assign_kernel, held, kAllocCtas,
                              kAllocThreads, 1 + n_coarse, 0, stream, touched,
                              extra1, extra2, when, world, rank, b, nl, cap,

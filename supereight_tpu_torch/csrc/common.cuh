@@ -81,42 +81,59 @@ inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int ctas,
   return cfg;
 }
 
-// *out: how many clusters of `ctas` CTAs of `threads` threads of `kernel`
-// the current device holds at once, queried once a device into held[dev]
-// (sizes above 8 are allowed as non-portable there, before any launch).
-// Returns a cudaError_t, or -1 when no such cluster fits the card.
+// What clusters_held found on a device: how many clusters of the
+// kernel's shape it holds at once (0: not asked yet) with `smem` bytes of
+// dynamic shared memory a CTA.
+struct ClusterFit {
+  int clusters;
+  size_t smem;
+};
+
+// *out: how many clusters of `ctas` CTAs of `threads` threads of `kernel`,
+// each CTA with `smem` bytes of dynamic shared memory, the current device
+// holds at once, queried once a device into held[dev] and again for a
+// larger `smem` (sizes above 8 CTAs are allowed as non-portable there, and
+// above 48 KB of dynamic shared memory, before any launch). Returns a
+// cudaError_t, or -1 when no such cluster fits the card.
 template <typename Kernel>
-int clusters_held(Kernel kernel, int* held, int ctas, int threads,
-                  int* out) {
+int clusters_held(Kernel kernel, ClusterFit* held, int ctas, int threads,
+                  int* out, size_t smem = 0) {
   cudaError_t err;
   int dev = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (held[dev] == 0) {
+  if (held[dev].clusters == 0 || smem > held[dev].smem) {
     if (ctas > 8 &&
         (err = cudaFuncSetAttribute(
              kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
             cudaSuccess)
       return (int)err;
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess)
+      return (int)err;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg =
-        cluster_config(&attr, ctas, ctas, threads, 0, nullptr);
+        cluster_config(&attr, ctas, ctas, threads, smem, nullptr);
     int c = 0;
     if ((err = cudaOccupancyMaxActiveClusters(&c, kernel, &cfg)) !=
         cudaSuccess)
       return (int)err;
     if (c < 1) return -1;
-    held[dev] = c;
+    held[dev] = ClusterFit{c, smem};
   }
-  *out = held[dev];
+  *out = held[dev].clusters;
   return 0;
 }
 
 // Launch `kernel` as n_clusters clusters of `ctas` CTAs of `threads`
-// threads, once clusters_held (held: its cache) finds that such a cluster
-// fits the card. Returns a cudaError_t, or -1 when none fits.
+// threads, `smem` bytes of dynamic shared memory each, once clusters_held
+// (held: its cache) finds that such a cluster fits the card; a caller
+// whose CTAs take dynamic shared memory asks clusters_held with its size
+// first. Returns a cudaError_t, or -1 when none fits.
 template <typename Kernel, typename... Args>
-int launch_clusters(Kernel kernel, int* held, int ctas, int threads,
+int launch_clusters(Kernel kernel, ClusterFit* held, int ctas, int threads,
                     int n_clusters, size_t smem, void* stream,
                     Args... args) {
   int n_held = 0;

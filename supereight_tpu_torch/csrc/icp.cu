@@ -41,24 +41,32 @@
 //  * icp_update: one Gauss-Newton iteration of the sharded frame from the
 //    ranks' summed reduction, in one warp (sharded_update and, last,
 //    check_pose): the frame's last iteration, after its last all_reduce.
-//  * icp_track: a frame's whole tracking step in ONE launch of one
-//    thread-block cluster (CTAs on neighbouring SMs that read each other's
-//    shared memory; 16 CTAs of 512 threads, launched with
-//    cudaLaunchKernelEx after cudaOccupancyMaxActiveClusters confirms the
-//    shape fits): the coarse-to-fine Gauss-Newton from the coarsest level
-//    to the finest, then check_pose. Per iteration every thread walks its
-//    pixels of the level in a grid-stride loop and accumulates the 32
-//    terms in pixel order; the CTA reduces them in a fixed order (warp
-//    shuffle, then its warps in index order); cluster.sync(); CTA rank 0
-//    sums the ranks' partials in rank order through distributed shared
-//    memory; one warp of rank 0 solves the 6x6 system (Cholesky in the JAX
-//    summation order, non-finite -> 0), applies exp(x) @ pose and tests
-//    ||x|| < icp_threshold; after a second cluster.sync() every CTA copies
-//    the new pose and the converged flag from rank 0. A converged level is
-//    left at once: JAX keeps the converging iteration and freezes the rest
-//    with where(done), which is the same result without the frozen
-//    iterations' work. No float atomics anywhere, so two launches are
-//    bit-identical.
+//  * icp_track: a frame's whole tracking step in ONE launch of as many
+//    16-CTA thread-block clusters of 512 threads as the card holds at
+//    once, at most 8 (7 on an H100 SXM: 112 SMs; cudaLaunchKernelEx after
+//    cudaOccupancyMaxActiveClusters): the coarse-to-fine Gauss-Newton from
+//    the coarsest level to the finest, then check_pose. Per iteration
+//    every thread walks its pixels of the level in a grid-stride loop over
+//    the whole grid and accumulates the 28 f64 sums of its inliers in
+//    pixel order (a rejected pixel's terms are +0.0, which change no sum)
+//    and its four counts as integers; each warp reduce-scatters its sums
+//    (as icp_reduce) and the CTA adds its warps in index order. Within a
+//    cluster each CTA pushes its sums into a slot of every CTA's shared
+//    memory (st.async, counted on that CTA's mbarrier; two slots, by the
+//    iteration's parity), so no cluster barrier is waited on; each CTA
+//    adds the 16 in rank order. Across clusters, rank 0 of each writes
+//    its cluster's sums to device memory and counts them with a release;
+//    every CTA waits for all of them and adds them in cluster order. Then
+//    warp 0 of every CTA runs the same Gauss-Newton step on the same sums
+//    (the 6x6 Cholesky in the JAX summation order with its columns spread
+//    over the lanes, non-finite -> 0, exp(x) @ pose, ||x|| <
+//    icp_threshold), so every CTA holds the same pose and converged flag
+//    with no copy. A converged level is left at once: JAX keeps the
+//    converging iteration and freezes the rest with where(done), which is
+//    the same result without the frozen iterations' work. The finest
+//    level's result codes stay in shared memory, a byte a pixel, and are
+//    written once from its last iteration. No float atomics anywhere, so
+//    two launches on one card are bit-identical.
 //
 // The kernels sum the f32 per-pixel terms in f64 and round each of the 32
 // sums to f32 once, and so does their twin (kernels/icp.py
@@ -73,15 +81,18 @@
 // Bound on the H100: bytes. icp_reduce moves ~0.96 MB over a rank's
 // window of the finest level (19,200 pixels of 25 B, each gathering at
 // most one 25 B reference pixel, 256 B of sums; 4 B a pixel more with a
-// result map); icp_track
-// ~4.75 MB a frame once (three levels, the reference, the level-0 result
-// map), the repeated iterations hitting L2. The ~140 flops a
-// pixel-iteration stay below the byte time unless every iteration runs.
-// Both are latency-bound at these sizes: the pixel passes on 16 SMs (two
-// dependent loads a pixel, a few pixels a thread), the cluster barriers,
-// the one-thread solve. icp_track replaces the single device's 19 launches
-// a frame and the solve's few hundred torch ops with one launch; the
-// sharded frame is 19 icp_reduce launches and one icp_update.
+// result map); icp_track ~4.75 MB a frame once (three levels, the
+// reference, the level-0 result map), the repeated iterations hitting L2.
+// The ~140 flops a pixel-iteration stay below the byte time unless every
+// iteration runs. Both are latency-bound at these sizes. icp_reduce's
+// pixel pass runs on 16 SMs (two dependent loads a pixel, a few pixels a
+// thread, an f32 to f64 conversion and an f64 add a sum of an inlier).
+// icp_track's iteration is a chain: the pass (one or two pixels a thread
+// on 112 SMs), the warp and CTA sums, the exchanges within and across
+// clusters, then the step, whose IEEE square roots and divisions follow
+// one another (PERF.md, Findings). icp_track replaces the single device's
+// 19 launches a frame and the solve's few hundred torch ops with one
+// launch; the sharded frame is 19 icp_reduce launches and one icp_update.
 
 #include <cooperative_groups.h>
 
@@ -92,12 +103,23 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kTerms = 32;
+constexpr int kSums = 28;      // the f64 sums; the last four terms count
+constexpr unsigned kFull = 0xffffffffu;  // every lane of a warp
 constexpr int kMaxLevels = 4;   // pyramid levels icp_track takes
-// icp_track's cluster: 16 CTAs (a non-portable size, the portable maximum
-// is 8) of 512 threads, the fastest of 8/16 CTAs x 512/1024 threads
-// without register spills on an H100 (PERF.md, Findings)
+// icp_track's clusters: 16 CTAs (a non-portable size, the portable
+// maximum is 8) of 512 threads, the fastest of 8/16 CTAs x 512/1024
+// threads without register spills on an H100 (PERF.md, Findings)
 constexpr int kTrackCluster = 16;
 constexpr int kTrackThreads = 512;
+// the most bytes of result codes a CTA keeps in shared memory: finest
+// levels of up to 16 x 200 KB = 3.2 M pixels
+constexpr size_t kTrackMaxCodes = 200 * 1024;
+// icp_track launches as many of its clusters as the card holds at once, at
+// most kTrackClusters (16 x 8 = 128 SMs); they add their sums through
+// device memory (grid_sums, grid_counts): kCounters counters in turn and
+// an exit counter
+constexpr int kTrackClusters = 8;
+constexpr int kCounters = 4;
 // icp_reduce's cluster: icp_track's shape, the fastest a frame of 16 / 8 /
 // 4 CTAs x 512 and 16 / 8 x 256 threads on an H100 (PERF.md, Findings)
 constexpr int kReduceCluster = 16;
@@ -189,21 +211,6 @@ __device__ __forceinline__ void pixel_terms(const float z[7], int code,
   t[31] = (code < 1 && code > kTooFar) ? 1.f : 0.f;
 }
 
-// Sum each of a warp's 32 values v[k] over its lanes (shuffle-down tree);
-// lane 0 writes them to out[k].
-__device__ __forceinline__ void warp_reduce_terms(const double v[kTerms],
-                                                  double* out) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < kTerms; ++k) {
-    double s = v[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) out[k] = s;
-  }
-}
-
 // One step of warp_sum_scatter over a lane's first 2h values: the lane
 // keeps the lower or the upper h of them, by its bit h, and adds its
 // partner's (lane ^ h) copy of those, into v[0:h).
@@ -239,36 +246,58 @@ __device__ __forceinline__ float jtj(const float* red, int r, int c) {
   return red[7 + 6 * a - (a * (a - 1)) / 2 + b - a];
 }
 
-// x = (J^T J)^-1 J^T e (solve_normal_equations): the unrolled 6x6
-// Cholesky with every entry's subtractions in JAX's order (kk = 0..j-1),
-// in one thread's registers; a non-finite x becomes 0, the reference's
-// LLT-failure fallback.
-__device__ __forceinline__ void solve6(const float* red, float x[6]) {
-  float L[36];
+// x = (J^T J)^-1 J^T e (solve_normal_equations): the 6x6 Cholesky with
+// every entry's subtractions in JAX's order (kk = 0..j-1), by a whole
+// warp, which returns x in every lane; a non-finite x becomes 0, the
+// reference's LLT-failure fallback. Lane i < 6 holds row i of the factor
+// L and forms its entry of each column: lane j's square root of its own
+// row's sum, broadcast, divides the rows below it, so a column costs one
+// root and one division in sequence, not one for each row (lanes 6-31
+// repeat row 5). Both substitutions then
+// run in every lane on the broadcast factor: each of their entries
+// subtracts the newest unknown first or last, which leaves no two
+// divisions independent. Each entry is the expression of a one-thread
+// solve, so x is its bits.
+__device__ __forceinline__ void solve6(int lane, const float* red,
+                                       float x[6]) {
+  const int row = lane < 6 ? lane : 5;
+  float Lr[6];  // row `row` of L, zero right of its diagonal
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int j = 0; j < 6; ++j) {
+    // the diagonal from the lane's own row (its root waits on no
+    // shuffle), the rows below from row j's broadcast entries
+    float diag = jtj(red, row, row);
+    float s = jtj(red, row, j);
 #pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      float s = jtj(red, i, j);
-#pragma unroll
-      for (int kk = 0; kk < j; ++kk) s = s - L[i * 6 + kk] * L[j * 6 + kk];
-      L[i * 6 + j] = i == j ? sqrtf(s) : s / L[j * 6 + j];
+    for (int kk = 0; kk < j; ++kk) {
+      diag = diag - Lr[kk] * Lr[kk];
+      s = s - Lr[kk] * __shfl_sync(kFull, Lr[kk], j);
     }
+    const float d = __shfl_sync(kFull, sqrtf(row == j ? diag : 1.f), j);
+    // the rows at or above j divide d by itself: a zero or an odd
+    // dividend would send the warp down the division's slow path
+    const float q = (row > j ? s : d) / d;
+    Lr[j] = row == j ? d : (row > j ? q : 0.f);
   }
+  float L[6][6];  // L[r][c], r >= c, in every lane
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+#pragma unroll
+    for (int r = c; r < 6; ++r) L[r][c] = __shfl_sync(kFull, Lr[c], r);
   float y[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = red[1 + i];
 #pragma unroll
-    for (int kk = 0; kk < i; ++kk) s = s - L[i * 6 + kk] * y[kk];
-    y[i] = s / L[i * 6 + i];
+    for (int kk = 0; kk < i; ++kk) s = s - L[i][kk] * y[kk];
+    y[i] = s / L[i][i];
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
 #pragma unroll
-    for (int kk = i + 1; kk < 6; ++kk) s = s - L[kk * 6 + i] * x[kk];
-    x[i] = s / L[i * 6 + i];
+    for (int kk = i + 1; kk < 6; ++kk) s = s - L[kk][i] * x[kk];
+    x[i] = s / L[i][i];
   }
   bool finite = true;
 #pragma unroll
@@ -285,13 +314,17 @@ __device__ void se3_exp(const float x[6], float E[16]) {
   const float wx = x[3], wy = x[4], wz = x[5];
   const float theta_sq = wx * wx + wy * wy + wz * wz;
   const float theta = sqrtf(theta_sq);
-  const bool small = theta_sq < 1e-8f;
-  const float th = small ? 1.f : theta;
-  const float a = small ? 1.f - theta_sq / 6.f : sinf(th) / th;
-  const float b = small ? 0.5f - theta_sq / 24.f
-                        : (1.f - cosf(th)) / (th * th);
-  const float c = small ? (float)(1.0 / 6.0) - theta_sq / 120.f
-                        : (th - sinf(th)) / (th * th * th);
+  float a, b, c;  // only the branch taken is computed
+  if (theta_sq < 1e-8f) {
+    a = 1.f - theta_sq / 6.f;
+    b = 0.5f - theta_sq / 24.f;
+    c = (float)(1.0 / 6.0) - theta_sq / 120.f;
+  } else {
+    const float sn = sinf(theta);
+    a = sn / theta;
+    b = (1.f - cosf(theta)) / (theta * theta);
+    c = (theta - sn) / (theta * theta * theta);
+  }
   const float W[9] = {0.f, -wz, wy, wz, 0.f, -wx, -wy, wx, 0.f};
   float W2[9];
 #pragma unroll
@@ -319,25 +352,122 @@ __device__ void se3_exp(const float x[6], float E[16]) {
   E[15] = 1.f;
 }
 
-// One Gauss-Newton step from the reduction (update_pose): the new pose
-// exp(x) @ T (each dot summed k = 0..3, as se3.matmul4) into out, and
-// whether ||x|| < icp_threshold.
-__device__ bool gauss_newton_step(const float* red, const float* T,
+// One Gauss-Newton step from the reduction (update_pose), by the whole
+// warp, every lane on the same sums: the new pose exp(x) @ T (each dot
+// summed k = 0..3, as se3.matmul4) into out (lane i < 16 writes entry i;
+// out may be T), and whether ||x|| < icp_threshold, in every lane.
+__device__ bool gauss_newton_step(int lane, const float* red, const float* T,
                                   float icp_threshold, float* out) {
   float x[6];
-  solve6(red, x);
+  solve6(lane, red, x);
   float E[16];
   se3_exp(x, E);
+  const int i = (lane >> 2) & 3, j = lane & 3;
+  float e0 = 0.f, e1 = 0.f, e2 = 0.f, e3 = 0.f;  // row i of E
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[i * 4 + j] = E[i * 4] * T[j] + E[i * 4 + 1] * T[4 + j] +
-                       E[i * 4 + 2] * T[8 + j] + E[i * 4 + 3] * T[12 + j];
+  for (int r = 0; r < 4; ++r)
+    if (r == i) {
+      e0 = E[r * 4];
+      e1 = E[r * 4 + 1];
+      e2 = E[r * 4 + 2];
+      e3 = E[r * 4 + 3];
+    }
+  const float v = e0 * T[j] + e1 * T[4 + j] + e2 * T[8 + j] + e3 * T[12 + j];
   float ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) ss = ss + x[i] * x[i];
+  for (int k = 0; k < 6; ++k) ss = ss + x[k] * x[k];
+  __syncwarp();  // every lane has read T
+  if (lane < 16) out[lane] = v;
+  __syncwarp();
   return sqrtf(ss) < icp_threshold;
+}
+
+// The shared-memory address of p, and that address in CTA `rank` of the
+// cluster.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ unsigned in_rank(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Store v at the cluster address dst and count its 8 bytes on the
+// mbarrier at the cluster address bar (in the same CTA as dst).
+__device__ __forceinline__ void push(unsigned dst, double v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
+      "[%2];" ::"r"(dst),
+      "l"(__double_as_longlong(v)), "r"(bar)
+      : "memory");
+}
+
+// Arm this CTA's mbarrier bar for its next phase: it completes once
+// `bytes` have been counted on it.
+__device__ __forceinline__ void arm(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of this CTA's mbarrier bar with parity `parity`
+// has completed.
+__device__ __forceinline__ void wait_phase(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The sum over the clusters, in cluster order, of each cluster's sum of
+// term `lane` of iteration q (t, the same in every CTA of a cluster), by
+// warp 0 of every CTA: rank 0 of each cluster writes its sums into
+// grid_sums' slot q & 1 and counts them on counter q % kCounters; every
+// CTA waits until all n_clusters are counted, then reads them back.
+// Counter q - 1 is then read no more (every cluster counted q only after
+// all its CTAs were past their wait on q - 1): cluster 0 clears it. The
+// slot of q is written again at q + 2, after every CTA has read it and
+// pushed its sums of q + 1.
+__device__ double grid_sum(double t, int q, int cluster_id, int n_clusters,
+                           unsigned rank, int lane, double* grid_sums,
+                           unsigned* grid_counts) {
+  double* slot = grid_sums + (size_t)(q & 1) * kTrackClusters * kTerms;
+  unsigned* count = grid_counts + q % kCounters;
+  if (rank == 0) {
+    slot[cluster_id * kTerms + lane] = t;
+    __syncwarp();  // the warp's stores come before lane 0's release
+    if (lane == 0)
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count)
+                   : "memory");
+  }
+  unsigned seen;
+  do {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                 : "=r"(seen)
+                 : "l"(count)
+                 : "memory");
+  } while (seen < (unsigned)n_clusters);
+  double v[kTrackClusters];  // every cluster's sum, loaded at once
+#pragma unroll
+  for (int c = 0; c < kTrackClusters; ++c)
+    v[c] = c < n_clusters ? __ldcg(&slot[c * kTerms + lane]) : 0.0;
+  double s = 0.0;
+#pragma unroll
+  for (int c = 0; c < kTrackClusters; ++c)
+    if (c < n_clusters) s += v[c];
+  if (cluster_id == 0 && rank == 0 && lane == 0 && q > 0)
+    grid_counts[(q - 1) % kCounters] = 0;
+  return s;
 }
 
 __global__ void __launch_bounds__(kTrackThreads, 1)
@@ -350,31 +480,56 @@ icp_track_kernel(Pyramid pyr, const float* __restrict__ ref_vertex,
                  float track_threshold, float* __restrict__ pose_out,
                  uint8_t* __restrict__ tracked_out,
                  float* __restrict__ reduction_out, int* __restrict__ result,
-                 int* __restrict__ iterations_run) {
+                 int* __restrict__ iterations_run, double* grid_sums,
+                 unsigned* grid_counts) {
   constexpr int kWarps = kTrackThreads / 32;
-  __shared__ float T[16], V[16];          // pose estimate, K @ raycast^-1
+  __shared__ float T[16], V[16];  // pose estimate, K @ raycast^-1
   // the sums run in f64 and round to f32 once at the end (see the note)
   __shared__ double warp_sums[kWarps][kTerms];
-  __shared__ double partial[kTerms];      // this CTA's sum (read by rank 0)
-  __shared__ int done;                    // this CTA's copy of the flag
-  // rank 0 only: this iteration's reduction (the last one is check_pose's),
-  // the pose after the step, the converged flag
+  // every CTA's sums of iteration i, pushed into gathered[i & 1][rank] by
+  // the CTA of that rank, and the mbarrier of each slot, which completes
+  // when all kPushBytes of the iteration are in. No CTA pushes iteration
+  // i + 2 into a slot before it has every CTA's sums of i + 1, which each
+  // pushes after reading its slot of i and arming it again
+  __shared__ double gathered[2][kTrackCluster][kTerms];
+  __shared__ uint64_t arrived[2];
+  constexpr unsigned kPushBytes = kTrackCluster * kTerms * sizeof(double);
+  // this iteration's reduction (the last one is check_pose's) and the
+  // converged flag, the same in every CTA
   __shared__ float red[kTerms];
-  __shared__ float next_pose[16];
-  __shared__ int next_done;
+  __shared__ int done;
+  // the finest level's codes of this CTA's pixels, one byte each (pixel
+  // first + k * stride at k * kTrackThreads + threadIdx.x), kept from the
+  // level's last iteration and written out once
+  extern __shared__ int8_t codes[];
 
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
-  const unsigned n_cta = cluster.num_blocks();
+  const int n_clusters = gridDim.x / kTrackCluster;
+  const int cluster_id = blockIdx.x / kTrackCluster;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int first = rank * kTrackThreads + threadIdx.x;
-  const int stride = n_cta * kTrackThreads;
+  const int first = blockIdx.x * kTrackThreads + threadIdx.x;
+  const int stride = gridDim.x * kTrackThreads;
 
   se::load_mat4(pose_in, T);
   se::load_mat4(view, V);
   if (threadIdx.x < kTerms) red[threadIdx.x] = 0.f;
-  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2; ++k) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_addr(&arrived[k]))
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    arm(&arrived[0], kPushBytes);
+    arm(&arrived[1], kPushBytes);
+  }
+  // every CTA has started and armed its slots before any push
+  cluster.sync();
 
+  int slot = 0;
+  unsigned parity = 0;  // bit k: the parity of slot k's next phase
+  int q = 0;            // Gauss-Newton iterations run so far
   for (int level = pyr.n_levels - 1; level >= 0; --level) {
     const float* vert = pyr.vertex[level];
     const float* norm = pyr.normal[level];
@@ -384,54 +539,82 @@ icp_track_kernel(Pyramid pyr, const float* __restrict__ ref_vertex,
     while (it < pyr.iterations[level]) {
       double acc[kTerms];
 #pragma unroll
-      for (int k = 0; k < kTerms; ++k) acc[k] = 0.0;
+      for (int k = 0; k < kSums; ++k) acc[k] = 0.0;
+      int n_ok = 0, n_far = 0, n_bad = 0, n_other = 0;
+      int8_t* code = codes + threadIdx.x;
       for (int i = first; i < n; i += stride) {
         float z[7];
-        const int code = icp_pixel(i, vert, norm, valid, ref_vertex,
-                                   ref_normal, ref_valid, ref_h, ref_w, T, V,
-                                   dist_threshold, normal_threshold, z);
-        if (level == 0) result[i] = code;
-        float t[kTerms];
-        pixel_terms(z, code, t);
+        const int c = icp_pixel(i, vert, norm, valid, ref_vertex, ref_normal,
+                                ref_valid, ref_h, ref_w, T, V,
+                                dist_threshold, normal_threshold, z);
+        if (level == 0) {
+          *code = (int8_t)c;
+          code += kTrackThreads;
+        }
+        if (c == kOk) {
+          // a rejected pixel's terms are +0.0, which leave an f64 sum as
+          // it is: only an inlier adds
+          float t[kTerms];
+          pixel_terms(z, c, t);
 #pragma unroll
-        for (int k = 0; k < kTerms; ++k) acc[k] += (double)t[k];
+          for (int k = 0; k < kSums; ++k) acc[k] += (double)t[k];
+          ++n_ok;
+        } else {
+          n_far += c == kTooFar;
+          n_bad += c == kBadNormal;
+          n_other += c > kTooFar;
+        }
       }
-      warp_reduce_terms(acc, warp_sums[warp]);
+      // the counts are exact in f64 in any order
+      acc[28] = n_ok;
+      acc[29] = n_far;
+      acc[30] = n_bad;
+      acc[31] = n_other;
+      warp_sums[warp][lane] = warp_sum_scatter(acc);
       __syncthreads();
-      if (threadIdx.x < kTerms) {
+      if (warp == 0) {
+        // this CTA's sum of term `lane`, its warps in index order, pushed
+        // into every CTA's slot
         double s = 0.0;
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += warp_sums[w][threadIdx.x];
-        partial[threadIdx.x] = s;
-      }
-      cluster.sync();  // every CTA's partial is written
-      if (rank == 0 && warp == 0) {
-        double s = 0.0;
-        for (unsigned r = 0; r < n_cta; ++r)
-          s += cluster.map_shared_rank(&partial[0], r)[lane];
-        red[lane] = (float)s;
+        for (int w = 0; w < kWarps; ++w) s += warp_sums[w][lane];
+        const unsigned dst = smem_addr(&gathered[slot][rank][lane]);
+        const unsigned bar = smem_addr(&arrived[slot]);
+#pragma unroll
+        for (int r = 0; r < kTrackCluster; ++r)
+          push(in_rank(dst, r), s, in_rank(bar, r));
+        // every CTA's sums are in: add them in rank order, as every CTA
+        // does, and step alike
+        wait_phase(&arrived[slot], (parity >> slot) & 1);
+        parity ^= 1u << slot;
+        double t = 0.0;
+#pragma unroll
+        for (int r = 0; r < kTrackCluster; ++r) t += gathered[slot][r][lane];
+        __syncwarp();  // the slot is read: arm it for its next iteration
+        if (lane == 0) arm(&arrived[slot], kPushBytes);
+        if (n_clusters > 1) t = grid_sum(t, q, cluster_id, n_clusters, rank,
+                                         lane, grid_sums, grid_counts);
+        red[lane] = (float)t;
         __syncwarp();
-        if (lane == 0)
-          next_done = gauss_newton_step(red, T, icp_threshold, next_pose);
+        const bool now = gauss_newton_step(lane, red, T, icp_threshold, T);
+        if (lane == 0) done = now;
       }
-      cluster.sync();  // rank 0's pose and flag are written
-      if (threadIdx.x < 16) {
-        const float* pose0 = cluster.map_shared_rank(&next_pose[0], 0);
-        T[threadIdx.x] = pose0[threadIdx.x];
-      }
-      if (threadIdx.x == 0) done = *cluster.map_shared_rank(&next_done, 0);
       __syncthreads();
+      slot ^= 1;
+      ++q;
       ++it;
-      if (done) break;  // the reference's per-level early break
+      if (done) break;  // the level's early break
     }
-    if (rank == 0 && threadIdx.x == 0) iterations_run[level] = it;
+    if (blockIdx.x == 0 && threadIdx.x == 0) iterations_run[level] = it;
+    if (level == 0) {
+      // the last iteration's codes; none ran: the result map stays zero
+      const int8_t* code = codes + threadIdx.x;
+      for (int i = first; i < n; i += stride, code += kTrackThreads)
+        result[i] = it > 0 ? *code : 0;
+    }
   }
 
-  if (pyr.n_levels > 0 && pyr.iterations[0] == 0) {
-    // no iteration ran at the finest level: its result map stays zero
-    for (int i = first; i < pyr.h[0] * pyr.w[0]; i += stride) result[i] = 0;
-  }
-  if (rank == 0) {
+  if (blockIdx.x == 0) {
     // check_pose: keep the tracked pose or roll back to the input pose
     const float n_in = red[28];
     const float rms = sqrtf(red[0] / (n_in == 0.f ? 1.f : n_in));
@@ -443,38 +626,45 @@ icp_track_kernel(Pyramid pyr, const float* __restrict__ ref_vertex,
     if (threadIdx.x < kTerms) reduction_out[threadIdx.x] = red[threadIdx.x];
     if (threadIdx.x == 0) tracked_out[0] = bad ? 0 : 1;
   }
-  cluster.sync();  // no CTA leaves while another may still read its smem
+  cluster.sync();  // no CTA leaves while another may still push into it
+  if (n_clusters > 1 && q > 0 && rank == 0 && threadIdx.x == 0) {
+    // every CTA of this cluster is past its last wait; the last cluster
+    // out clears the last iteration's counter and the exit counter, so the
+    // next launch finds them all zero
+    __threadfence();
+    if (atomicAdd(&grid_counts[kCounters], 1u) == n_clusters - 1u) {
+      grid_counts[(q - 1) % kCounters] = 0;
+      grid_counts[kCounters] = 0;
+    }
+  }
 }
 
 // One Gauss-Newton iteration of a multi-device frame, run by one warp
 // (its lane index in lane): the reduction the ranks summed (f64, rounded
 // here once to f32), the solve, the pose update and the freeze of a
-// converged level. Its lanes load and round the 32 sums, lane 0 runs the
-// code icp_track's rank 0 runs (gauss_newton_step, the same solve6), so a
-// sharded frame and a single one solve alike. Leaves the pose in T[16],
-// the reduction kept in keep[32] and the flag in *done (shared memory; red
-// is scratch). red_in null reads as zeros, done_in null as false (a
-// level's first iteration); pose_in is read before anything is written.
+// converged level. Its lanes load and round the 32 sums and run
+// icp_track's gauss_newton_step, so a sharded frame and a single one
+// solve alike. Leaves the pose in T[16], the reduction kept in keep[32]
+// and the flag in *done (shared memory; red is scratch). red_in null
+// reads as zeros, done_in null as false (a level's first iteration);
+// pose_in is read before anything is written.
 __device__ void sharded_update(int lane, const double* __restrict__ red64,
                                const float* pose_in, const float* red_in,
                                const uint8_t* done_in, float icp_threshold,
                                float* red, float* keep, float* T, int* done) {
   // the flag is read with the sums, not after them
-  const bool was = lane == 0 && done_in != nullptr && *done_in;
+  const bool was = __shfl_sync(
+      kFull, lane == 0 && done_in != nullptr && *done_in, 0);
   red[lane] = (float)red64[lane];
   keep[lane] = red_in == nullptr ? 0.f : red_in[lane];
   if (lane < 16) T[lane] = pose_in[lane];
   __syncwarp();
-  if (lane == 0) {
-    bool now = was;
-    if (!was) {  // a converged level keeps its pose and reduction
-      float next[16];
-      now = gauss_newton_step(red, T, icp_threshold, next);
-      for (int i = 0; i < 16; ++i) T[i] = next[i];
-    }
-    *done = now ? 1 : 0;
+  bool now = was;
+  if (!was) {  // a converged level keeps its pose and reduction
+    now = gauss_newton_step(lane, red, T, icp_threshold, T);
+    keep[lane] = red[lane];
   }
-  if (!__shfl_sync(0xffffffffu, was, 0)) keep[lane] = red[lane];
+  if (lane == 0) *done = now ? 1 : 0;
   __syncwarp();
 }
 
@@ -612,6 +802,27 @@ icp_reduce_kernel(const float* __restrict__ in_vertex,
   // the other CTAs may leave: rank 0 reads only its own shared memory
 }
 
+se::ClusterFit track_held[se::kMaxDevices];
+
+// *out: the clusters of an icp_track launch, as many as the card holds at
+// once, at most kTrackClusters, asked with the shared memory of one
+// cluster's launch over `pixels` finest-level pixels (the most a CTA can
+// take), which must not pass kTrackMaxCodes. Returns a cudaError_t, or -1
+// when none fits.
+int track_clusters(int* out, int pixels) {
+  constexpr int kStride = kTrackCluster * kTrackThreads;
+  const size_t smem = (size_t)((pixels + kStride - 1) / kStride) *
+                      kTrackThreads;
+  if (smem > kTrackMaxCodes) return (int)cudaErrorInvalidValue;
+  int held = 0;
+  const int fits = se::clusters_held(icp_track_kernel, track_held,
+                                     kTrackCluster, kTrackThreads, &held,
+                                     smem);
+  if (fits != 0) return fits;
+  *out = held < kTrackClusters ? held : kTrackClusters;
+  return 0;
+}
+
 }  // namespace
 
 // One Gauss-Newton iteration from a cross-device f64 reduction (see
@@ -645,7 +856,7 @@ SE_EXPORT int se_icp_reduce(const float* in_vertex, const float* in_normal,
                             float dist_threshold, float normal_threshold,
                             int* result, double* out, Step step,
                             void* stream) {
-  static int held[se::kMaxDevices];  // clusters a device holds, 0: unknown
+  static se::ClusterFit held[se::kMaxDevices];
   return se::launch_clusters(icp_reduce_kernel, held, kReduceCluster,
                              kReduceThreads, 1, 0, stream, in_vertex,
                              in_normal, in_valid, n, w_win, pitch, x0,
@@ -666,14 +877,30 @@ SE_EXPORT int se_icp_track(Pyramid pyr, const float* ref_vertex,
                            float dist_threshold, float normal_threshold,
                            float track_threshold, float* pose_out,
                            uint8_t* tracked_out, float* reduction_out,
-                           int* result, int* iterations_run, void* stream) {
-  static int held[se::kMaxDevices];  // clusters a device holds, 0: unknown
+                           int* result, int* iterations_run,
+                           double* grid_sums, unsigned* grid_counts,
+                           void* stream) {
   if (pyr.n_levels < 1 || pyr.n_levels > kMaxLevels)
     return (int)cudaErrorInvalidValue;
-  return se::launch_clusters(icp_track_kernel, held, kTrackCluster,
-                             kTrackThreads, 1, 0, stream, pyr, ref_vertex,
-                             ref_normal, ref_valid, ref_h, ref_w, pose, view,
-                             icp_threshold, dist_threshold, normal_threshold,
-                             track_threshold, pose_out, tracked_out,
-                             reduction_out, result, iterations_run);
+  int n_clusters = 0;
+  const int fits = track_clusters(&n_clusters, pyr.h[0] * pyr.w[0]);
+  if (fits != 0) return fits;
+  // a byte a finest-level pixel, each CTA's pixels in its own rows
+  const int stride = n_clusters * kTrackCluster * kTrackThreads;
+  const size_t smem =
+      (size_t)((pyr.h[0] * pyr.w[0] + stride - 1) / stride) * kTrackThreads;
+  return se::launch_clusters(icp_track_kernel, track_held, kTrackCluster,
+                             kTrackThreads, n_clusters, smem, stream, pyr,
+                             ref_vertex, ref_normal, ref_valid, ref_h, ref_w,
+                             pose, view, icp_threshold, dist_threshold,
+                             normal_threshold, track_threshold, pose_out,
+                             tracked_out, reduction_out, result,
+                             iterations_run, grid_sums, grid_counts);
+}
+
+// The clusters an icp_track launch over a finest level of `pixels` pixels
+// takes on the current device (into *out). Returns a cudaError_t, or -1
+// when none fits.
+SE_EXPORT int se_icp_track_clusters(int pixels, int* out) {
+  return track_clusters(out, pixels);
 }

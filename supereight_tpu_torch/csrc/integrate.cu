@@ -631,7 +631,7 @@ SE_EXPORT int se_halo_pack(const int* block_coord, const int* n_blocks,
                            float u_lo, float u_hi, float v_lo, float v_hi,
                            int frustum, int b, int budget, float* send,
                            int* counts, void* stream) {
-  static int held[se::kMaxDevices];  // clusters a device holds, 0: unknown
+  static se::ClusterFit held[se::kMaxDevices];
   int n_clusters = 0;
   const int err = se::clusters_held(halo_pack_kernel, held, kHaloCluster,
                                     kHaloThreads, &n_clusters);

@@ -118,7 +118,8 @@ _SIGNATURES = {
                       Step, P),
     "se_icp_update": (P, P, P, P, P, P, P, F, P, F, I, I, P, P, P),
     "se_icp_track": (Pyramid, P, P, P, I, I, P, P, F, F, F, F, P, P, P, P, P,
-                     P),
+                     P, P, P),
+    "se_icp_track_clusters": (I, P),
     "se_alloc_touch": (P, I, I, I, I, I, P, P, F, D, I, F, I, I, P, P),
     "se_alloc_touch_of": (P, I, I, I, I, P, P, F, P, P, I, I, F, I, I, P, P,
                           P, P),

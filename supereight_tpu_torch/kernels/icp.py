@@ -7,8 +7,10 @@ CUDA kernels are ``csrc/icp.cu``; its source note says what bounds them on
 the H100.
 
 * :func:`icp_track` — a frame's whole coarse-to-fine Gauss-Newton, 6x6
-  solves, pose updates and ``check_pose`` in one launch of one
-  thread-block cluster; the frame's path (``ops/tracking.track``).
+  solves, pose updates and ``check_pose`` in one launch of as many
+  16-CTA thread-block clusters as the card holds at once (at most 8;
+  :func:`track_clusters`), which add their sums through a scratch of
+  their stream; the frame's path (``ops/tracking.track``).
 * :func:`icp_reduce` (:func:`icp_reduce64`) — one level's residuals and
   32-float reduction (f64 sums over a column window), without the solve:
   one rank's share of the sharded frame's summed reduction
@@ -538,12 +540,42 @@ def _icp_track(pose, view, pyr_vertex, pyr_normal, pyr_valid, ref_vertex,
     result = torch.empty(tuple(pyr_vertex[0].shape[:2]), dtype=torch.int32,
                          device=dev)
     run = torch.empty(n_levels, dtype=torch.int32, device=dev)
+    sums, counts = _grid_scratch(dev)
     _lib.launch("icp_track", "se_icp_track", dev, pyr, ref_vertex,
                 ref_normal, ref_valid, rh, rw, pose, view,
                 float(icp_threshold), float(dist_threshold),
                 float(normal_threshold), float(track_threshold), new_pose,
-                tracked, reduction, result, run)
+                tracked, reduction, result, run, sums, counts)
     return new_pose, tracked, reduction, result, run
+
+
+# (device, stream) -> icp_track's cross-cluster sums f64[2, 8, 32] and
+# counters u32[8], zero between launches (the kernel clears its counters
+# before it exits); one pair a stream, as launches on two streams may run
+# at once
+_GRID = {}
+
+
+def _grid_scratch(dev):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _GRID:
+        _GRID[key] = (torch.zeros(2 * 8 * 32, dtype=torch.float64,
+                                  device=dev),
+                      torch.zeros(8, dtype=torch.int32, device=dev))
+    return _GRID[key]
+
+
+def track_clusters(pixels, dev):
+    """The clusters of 16 CTAs an :func:`icp_track` launch over a finest
+    level of ``pixels`` pixels takes on the CUDA device ``dev``: as many
+    as the card holds at once, at most 8."""
+    out = torch.zeros((), dtype=torch.int32)
+    with torch.cuda.device(dev):
+        err = _lib.library().se_icp_track_clusters(int(pixels),
+                                                   out.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"se_icp_track_clusters: CUDA error {err}")
+    return int(out)
 
 
 def icp_track_plain(pose, view, pyr_vertex, pyr_normal, pyr_valid,

@@ -61,6 +61,7 @@ import ctypes
 import hashlib
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -188,14 +189,16 @@ def build_side(names):
                           for name in names})
 
 
-def build_sources(sources):
+def build_sources(sources, headers=None):
     """Compile each of ``sources`` (name -> (file name, text), or None)
-    with the library's headers and flags into its own library under
+    with the headers of ``headers`` (a ``csrc`` directory; default the
+    library's) and the library's flags into its own library under
     ``build/side/``, all at once; returns name -> its ctypes library, or
     None where the source is None."""
     from supereight_tpu_torch.kernels import _lib
     root = _lib.BUILD_ROOT.parent / "side"
     nvcc = _lib.nvcc_path()
+    cuh = sorted(pathlib.Path(headers or _lib.CSRC).glob("*.cuh"))
     jobs, libs = {}, {}
     for name, src in sources.items():
         if src is None:
@@ -203,11 +206,11 @@ def build_sources(sources):
             continue
         fname, text = src
         h = hashlib.sha256(text.encode())
-        for p in sorted(_lib.CSRC.glob("*.cuh")):
+        for p in cuh:
             h.update(p.read_bytes())
         out = root / h.hexdigest()[:16]
         out.mkdir(parents=True, exist_ok=True)
-        for p in _lib.CSRC.glob("*.cuh"):
+        for p in cuh:
             (out / p.name).write_bytes(p.read_bytes())
         (out / fname).write_text(text)
         so = out / "libside.so"

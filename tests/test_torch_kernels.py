@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import chip_smoke
+from supereight_tpu_torch.constants import (DIST_THRESHOLD, NORMAL_THRESHOLD,
+                                            TRACK_THRESHOLD)
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import (MapGeometry, make_map,
                                            touched_buffer)
@@ -899,6 +901,86 @@ def test_icp_track_matches_plain_on_cuda(cuda, field):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_icp_track_runs_every_iteration_on_cuda(cuda, field):
+    """With a threshold no step falls below (0), no level breaks early:
+    the kernel runs every iteration of every level, within the twin's
+    tolerances (``chip_smoke.track_errors``), two launches bit-identical."""
+    args = _track_args(cuda, field)
+    iters = (10, 5, 4)
+    got = icp._icp_track(*args, iters, 0.0)
+    assert got[4].tolist() == list(iters)
+    want = icp._icp_track_plain(*args, iters, 0.0, DIST_THRESHOLD,
+                                NORMAL_THRESHOLD, TRACK_THRESHOLD)
+    assert want[4].tolist() == list(iters)
+    ok, e = chip_smoke.track_errors(torch, got[:4], want[:4])
+    assert ok, e
+    again = icp._icp_track(*args, iters, 0.0)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_icp_track_without_a_reference_on_cuda(cuda, field):
+    """A reference with no valid pixel: every pixel rejected, the sums
+    0-27 zero, each level's first step zero, so one iteration a level; the
+    frame not tracked and its pose the input one; reduction, result codes
+    and pose equal to the twin's."""
+    args = list(_track_args(cuda, field))
+    args[7] = torch.zeros_like(args[7])
+    iters = (10, 5, 4)
+    got = icp._icp_track(*args, iters, 1e-5)
+    want = icp._icp_track_plain(*args, iters, 1e-5, DIST_THRESHOLD,
+                                NORMAL_THRESHOLD, TRACK_THRESHOLD)
+    assert not bool(got[1]) and not bool(want[1])
+    assert not bool(got[2][:28].any())
+    assert got[4].tolist() == want[4].tolist() == [1, 1, 1]
+    assert torch.equal(got[0], args[0])
+    for a, b in zip(got[:4], want[:4]):
+        assert torch.equal(a, b)
+
+
+def _reductions(n=32, seed=22):
+    """``n`` f64[32] reductions of seeded SPD systems (J^T J of 40 rows of
+    J, steps from 1e-7 to 1 in size, the Taylor branch of se3.exp among
+    them), then one whose J^T J is not SPD."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n + 1):
+        jac = rng.standard_normal((40, 6))
+        err = rng.standard_normal(40) * 10.0 ** rng.uniform(-7, 0)
+        a = jac.T @ jac
+        red = np.zeros(32)
+        red[0], red[1:7] = err @ err, jac.T @ err
+        red[7:28] = [a[r, c] for r in range(6) for c in range(r, 6)]
+        red[28:] = (40, 1, 2, 3)
+        if i == n:
+            red[7] = -1.0
+        out.append(red)
+    return out
+
+
+@pytest.mark.cuda
+def test_icp_update_matches_plain_bit_for_bit_on_cuda(cuda):
+    """icp_update (the warp's lane-parallel solve, the step and
+    check_pose) against its twin bit for bit on 32 seeded SPD reductions,
+    and a non-SPD one, which solves to zeros and keeps the pose."""
+    pose = se3.exp(torch.tensor([0.1, -0.2, 0.3, 0.05, -0.02, 0.01]))
+    pose = pose.to(torch.float32).to(cuda)
+    reds = _reductions()
+    for i, red in enumerate(reds):
+        red64 = torch.tensor(red, dtype=torch.float64, device=cuda)
+        got = icp.icp_update(red64, pose, None, True, 1e-5, pose, (H, W))
+        want = icp.icp_update_plain(red64, pose, None, True, 1e-5, pose,
+                                    (H, W))
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.equal(a, b), i
+        if i == len(reds) - 1:
+            assert torch.equal(got[0].pose, pose)
+
+
+@pytest.mark.cuda
 def test_inverse_sum_order_on_the_tsdf_bench_slice_on_cuda(cuda,
                                                            monkeypatch):
     """chip_smoke.py's TSDF bench slice (43 frames, 512^3 voxels over
@@ -1363,6 +1445,46 @@ def test_sharded_icp_tool_on_the_cpu():
         assert s["frozen_us"] == 5.5
         assert s["launches"] == (15 if parent else 6)
         assert s["icp_us"] == 28.0 + (35.0 if parent else 4.0)
+
+
+def test_track_icp_tool_on_the_cpu():
+    """``tools/track_icp``: without a card it exits 2; its recorded
+    inputs of a 2-frame bench orbit at test size have the shapes
+    ``icp_track`` takes (pose, view, three pyramid levels, the reference
+    at the finest level's size), and the wrapper takes them; every side
+    build takes the early break out, and fits these sources but
+    ``scatter`` (the parent's warp sum)."""
+    from supereight_tpu_torch.tools import bench
+    from supereight_tpu_torch.tools import track_icp as ti
+    torch.set_num_threads(1)
+    if not torch.cuda.is_available():
+        assert ti.main([]) == 2
+    b = bench.config("tsdf", "cpu", size=64, dim=3.0, capacity=512,
+                     frame_size=(80, 60), n_frames=2)
+    args, iterations, thr = ti.capture(b)
+    assert len(args) == 2 and iterations == ti.ITERATIONS and thr == 1e-5
+    for a in args:
+        pose, view, verts, norms, valids, rv, rn, ro = a
+        assert pose.shape == view.shape == (4, 4)
+        assert [tuple(v.shape) for v in verts] == [
+            (60, 80, 3), (30, 40, 3), (15, 20, 3)]
+        assert [tuple(v.shape) for v in norms] == [
+            tuple(v.shape) for v in verts]
+        assert [tuple(v.shape) for v in valids] == [
+            (60, 80), (30, 40), (15, 20)]
+        assert valids[0].dtype == ro.dtype == torch.bool
+        assert rv.shape == rn.shape == (60, 80, 3) and ro.shape == (60, 80)
+        out = icp._icp_track(*a, iterations, thr)
+        assert out[3].shape == (60, 80) and len(out[4]) == 3
+    assert ti.pixels(args[0]) == [4800, 1200, 300]
+    text = (_lib.CSRC / "icp.cu").read_text()
+    for name in ti.SPLIT:
+        src = ti.split_source(name, text)
+        assert (src is None) == (name == "scatter"), name
+        if src is not None:
+            assert "break;  // the level's early break" not in src
+            assert (src == text.replace(ti._BREAK[1], "")) == (
+                name == "nobreak")
 
 
 @pytest.mark.cuda

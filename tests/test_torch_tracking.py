@@ -3,7 +3,8 @@
 
 The reference maps come from JAX ``frame_step`` over frames 0-4 (the
 raycast of frame 4); the input is frame 5's pyramid, for the TSDF field
-and, for the whole tracking step, the OFusion field too. Result codes must
+and, for the whole tracking step, the OFusion field too (at the bench's
+three levels and 10/5/4 iterations, frame 6 after frames 0-5). Result codes must
 agree on >= 99.9% of pixels, the 32-vector to rtol 1e-4 (its entries are
 f32 sums over the image taken in another order: each entry is held to
 1e-4 of itself, floored at 1e-4 of the vector's largest entry so that a
@@ -23,7 +24,10 @@ from supereight_tpu.pipeline import _preprocess_and_pyramid
 from supereight_tpu_torch import convert
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.kernels import _lib
-from supereight_tpu_torch.kernels.icp import (icp_reduce, icp_reduce_plain,
+from supereight_tpu_torch.constants import (DIST_THRESHOLD, NORMAL_THRESHOLD,
+                                            TRACK_THRESHOLD)
+from supereight_tpu_torch.kernels.icp import (_icp_track_plain, icp_reduce,
+                                              icp_reduce_plain,
                                               icp_track_plain,
                                               solve_normal_equations)
 from supereight_tpu_torch.ops import tracking
@@ -32,19 +36,21 @@ from test_torch_step import (assert_no_drops, jax_frames, k_jax, k_torch,
                              make_scene)
 
 ITERATIONS = (3, 2)
+BENCH_ITERATIONS = (10, 5, 4)  # tools/bench.ITERATIONS
 
 
 @functools.lru_cache(maxsize=None)
-def _scene(field):
-    """Frame 5's depth and the JAX state after frames 0-4 of ``field``."""
+def _scene(field, frame=5):
+    """Frame ``frame``'s depth and the JAX state after the frames before
+    it of ``field``."""
     torch.set_num_threads(1)
     depths, poses = make_scene()
-    states, auxes = jax_frames(depths, poses, 5, field)
+    states, auxes = jax_frames(depths, poses, frame, field)
     for a in auxes:
         assert_no_drops(a)
     s = states[-1]
     assert s.valid.mean() > 0.5
-    return depths[5], s
+    return depths[frame], s
 
 
 @pytest.fixture(scope="module")
@@ -107,11 +113,11 @@ def test_track_parity(setup):
     assert np.mean(tres.numpy() == np.asarray(jres)) >= 0.999
 
 
-def _torch_inputs(depth, s):
-    """The port's tracking inputs for frame 5: (pose, view, pyramid maps,
-    reference maps) on CPU tensors."""
+def _torch_inputs(depth, s, levels=2):
+    """The port's tracking inputs for frame 5: (pose, view, pyramid maps of
+    ``levels`` levels, reference maps) on CPU tensors."""
     _, tv, tn, tok = preprocess_and_pyramid(torch.from_numpy(depth),
-                                            k_torch(), 2, False, False)
+                                            k_torch(), levels, False, False)
     ts = convert.frame_to_torch(s, "cpu")
     view = se3.matmul4(se3.camera_matrix(k_torch()),
                        se3.inverse(ts.raycast_pose))
@@ -131,6 +137,29 @@ def test_icp_track_plain_matches_jax(field):
         jnp.asarray(s.valid), ITERATIONS, 1e-5)
     tpose, ttracked, tred, tres = icp_track_plain(
         *_torch_inputs(depth, s), ITERATIONS, 1e-5)
+    assert bool(ttracked) == bool(jtracked) is True
+    np.testing.assert_allclose(tpose.numpy(), np.asarray(jpose), atol=1e-4)
+    _allclose32(tred.numpy(), np.asarray(jred))
+    assert np.mean(tres.numpy() == np.asarray(jres)) >= 0.999
+
+
+@pytest.mark.parametrize("field", ["tsdf", "ofusion"])
+def test_icp_track_plain_matches_jax_at_the_bench_schedule(field):
+    """K6's plain twin against JAX ``track`` at the bench's schedule, three
+    levels of BENCH_ITERATIONS, on frame 6 of both fields, where the
+    finest level converges before its last iteration (the twin freezes
+    the rest, as the kernel breaks and JAX freezes them)."""
+    depth, s = _scene(field, 6)
+    _, jv, jn, jok = _preprocess_and_pyramid(jnp.asarray(depth), k_jax(), 3,
+                                             False, False)
+    jpose, jtracked, jred, jres = jax_tracking.track(
+        jnp.asarray(s.pose), jnp.asarray(s.raycast_pose), k_jax(), jv, jn,
+        jok, jnp.asarray(s.vertex), jnp.asarray(s.normal),
+        jnp.asarray(s.valid), BENCH_ITERATIONS, 1e-5)
+    tpose, ttracked, tred, tres, run = _icp_track_plain(
+        *_torch_inputs(depth, s, 3), BENCH_ITERATIONS, 1e-5, DIST_THRESHOLD,
+        NORMAL_THRESHOLD, TRACK_THRESHOLD)
+    assert any(r < n for r, n in zip(run.tolist(), BENCH_ITERATIONS))
     assert bool(ttracked) == bool(jtracked) is True
     np.testing.assert_allclose(tpose.numpy(), np.asarray(jpose), atol=1e-4)
     _allclose32(tred.numpy(), np.asarray(jred))
