@@ -92,14 +92,29 @@ checkout:
    their twins and measured (``tools/noise_kernels.py``: the gated
    march's probes a ray, the longest ray's probes by kind, device us, the
    launch with its probe bound cut to the p50/p90/p99/max of the probe
-   counts); then
+   counts); after each slice its graph phase: the same 43 frames through
+   the frame program (``parallel/step.FrameProgram``, the frame step
+   captured as one CUDA graph at frame 0 and replayed), frame by frame
+   against the eager step, bit for bit (pose, raycast pose, reference
+   maps, every aux entry and the packed row; the map at the end), one
+   graph, the slice's blocks and drops 0; ms/frame of the timed window
+   eager, graph, graph, eager in this call with the per-frame median,
+   min and max and the host's time a call, the launches counted by the
+   replays equal to the eager run's and the path's; and a replay under
+   torch.profiler that shows each kernel of the path once a frame (the
+   prologue twice) and the program's own copies, nothing else, with the
+   replayed frame's split (busy, idle inside it, gaps between frames);
+   then
    the bench phase: the port's headline bench
    (``python -m supereight_tpu_torch.tools.bench``, whose configuration
-   the slices take) for each field in a process of its own, its one JSON
+   the slices take, timing the frame program) for each field in a
+   process of its own, its one JSON
    line held to its four keys, metric name, unit and vs_baseline, its
    blocks, drops, tracked flag and final error to the field's slice, its
-   launches to the path's kernels once a frame (the prologue twice), and
-   its fps printed beside the slice's; then the probe's own path
+   launches (counted by the replays) to the path's kernels once a frame
+   (the prologue twice), its eager step's final pose and blocks to its
+   graph's, and its fps printed beside the graph phase's and its eager
+   fps beside the slice's; then the probe's own path
    (``supereight_tpu_torch.tools.probe_gather.run``) likewise, each form
    bit for bit against the probe's numpy expectation;
 6. pipeline phases: the 250-frame closed loop (``io/convert.synthetic2raw
@@ -117,7 +132,7 @@ checkout:
    time); it prints each ATE beside its row, the log's mean computation a
    frame, wall fps, peak device memory and, from five more frames under
    torch.profiler (taken again, up to PROFILE_TRIES times, until its
-   trace shows the frame's 21 kernels and copies), the device's busy
+   trace shows the frame's 20 kernels and copies), the device's busy
    share, and what the empty entries of its 49,152-entry bucket cost K3
    (as the noise slice's); the host-IO
    step: the
@@ -211,6 +226,9 @@ N_WARMUP, N_FRAMES, N_TIMED = (port_bench.N_WARMUP, port_bench.N_FRAMES,
 # slices and the dist phase render and run the same frames
 ORBIT = port_bench.scene()
 N_PROFILED = 5       # timed frames replayed under torch.profiler
+# ms/frame the graphed step aims at (TSDF, OFusion, tsdf-noise): the
+# eager step's device busy time a frame (PERF.md) and room for the gaps
+GRAPH_AIM_MS = {"tsdf": 0.30, "ofusion": 0.30, "tsdf-noise": 0.40}
 PROFILE_TRIES = 5    # profiled replays before a trace that missed launches
                      # fails the run (a trace can lose every event: a
                      # pipeline's three tries on an H100 showed 20, 12
@@ -342,8 +360,10 @@ MIN_TRACKED = 0.98
 N_PIPE_PROFILED = 5  # frames past the loop replayed under torch.profiler
 # device events a pipeline frame runs (PR 15's complete pipeline-ofusion
 # trace): 14 launches of the path's 12 kernels (the prologue three times)
-# and 7 copies of the class's own (the depth's upload, its host reads)
-PIPE_EVENTS = 21
+# and 6 copies of the class's own (the depth's upload, its host reads:
+# one read of the block count a frame since the class keeps the
+# integration's bucket for the raycast; 7 before)
+PIPE_EVENTS = 20
 # the BA path: the TSDF pipeline with the keyframe pose graph, as
 # tools/run_longseq_eval.py's "tsdf icp+BA" row, held to that row's ATE
 # (EVAL_table.md, JAX) plus 25 %; a closure try re-tracks with the 3x gate
@@ -792,9 +812,10 @@ def report_profile(prof, ms_frame, tag):
     stages = [e for e in events if e.key.startswith("frame_step/")
               and e.device_type == DeviceType.CPU]
     # device-side events: kernels and copies, plus the GPU-timeline copies
-    # of the frame_step/* annotations, which are spans and not work
+    # of the frame_step/* annotations and (under a replayed CUDA graph) of
+    # the profiler's ProfilerStep#, which are spans and not work
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("frame_step/")]
+               and not e.key.startswith(("frame_step/", "ProfilerStep"))]
     # the profiler ties a kernel to the torch op that launched it, and a
     # span's device time sums its ops': the port's kernels, launched
     # through ctypes with no op around them, are added to their stages
@@ -901,6 +922,15 @@ class Scene:
         for i in range(n):
             state, _ = self.frame(state, i)
         return state
+
+    def graph_frame(self, prog, i):
+        # the capture and every replay enqueue without reading anything
+        # back, as the eager step
+        self.torch.cuda.set_sync_debug_mode("error")
+        try:
+            return self.bench.graph_frame(prog, i)
+        finally:
+            self.torch.cuda.set_sync_debug_mode("default")
 
 
 def alloc_bound(torch, geom, depth, pose, kpose, mu, x_offset=0):
@@ -2202,6 +2232,26 @@ def probe_phase(torch, dev):
     return rows
 
 
+def expected_launches(sc):
+    """The launches of a slice's 43 frames: the pyramid, the whole
+    tracking step, the node pass and the nav grid one a frame (the
+    reduction alone is no longer on the path); K5's allocator and K3's
+    three launches once a frame each; the prologue twice; on the noise
+    slice the filter and the gated raycast once a frame."""
+    from supereight_tpu_torch.kernels import integrate as ki
+    noise = sc.options.get("noise_weighted", False)
+    n = sc.n_total
+    expect = {"icp_track": n, "node_pass": n, "pyramid": n, "nav_grid": n,
+              "icp_reduce": 0, "icp_reduce_step": 0, "icp_update": 0,
+              "alloc_assign": n, "integrate_worklist": n,
+              ki.fused_name(sc.field, noise): n,
+              ki.fallback_name(sc.field, noise): n,
+              "frame_mats": 2 * n, "node_rank": n}
+    if sc.noisy:
+        expect.update(median2=n, raycast_gated=n)
+    return expect
+
+
 def slice_phase(torch, sc, card):
     """The main path of one field: 43 frames with the launch counts zeroed
     just before and read just after; then K6 icp_track against its twin
@@ -2317,19 +2367,8 @@ def slice_phase(torch, sc, card):
     path = PATHS[sc.name]
     require(all(launches[k] > 0 for k in path),
             f"{tag}: a kernel of the path was not launched: {launches}")
-    # the pyramid, the whole tracking step, the node pass and the nav grid
-    # are one launch a frame; the reduction alone is no longer on the
-    # path; K5's allocator and K3's three launches once a frame each
     noise = sc.options.get("noise_weighted", False)
-    expect = {"icp_track": sc.n_total, "node_pass": sc.n_total,
-              "pyramid": sc.n_total, "nav_grid": sc.n_total,
-              "icp_reduce": 0, "icp_reduce_step": 0, "icp_update": 0,
-              "alloc_assign": sc.n_total, "integrate_worklist": sc.n_total,
-              ki.fused_name(sc.field, noise): sc.n_total,
-              ki.fallback_name(sc.field, noise): sc.n_total,
-              "frame_mats": 2 * sc.n_total, "node_rank": sc.n_total}
-    if sc.noisy:  # the filter and the gated raycast once a frame
-        expect.update(median2=sc.n_total, raycast_gated=sc.n_total)
+    expect = expected_launches(sc)
     require(all(launches[k] == v for k, v in expect.items()),
             f"{tag}: launches {launches}, expected {expect} in "
             f"{sc.n_total} frames")
@@ -2449,6 +2488,222 @@ def slice_phase(torch, sc, card):
     return {k: launches[k] for k in path}, errs, dict(
         n_blocks=n_blocks, pos_err=pos_err, ms_frame=ms_frame,
         tracked=tracked[-1], noise_map=noise_map)
+
+
+def timed_slice(torch, sc, start, frame):
+    """One run of the slice's frames: ``start()`` sets up the state, then
+    ``frame(i)`` runs frame i; the launch counts are zeroed just before
+    the frames and read just after, and CUDA events time the window of
+    the N_TIMED frames from N_WARMUP + N_FRAMES on (one event at each
+    frame's start, one after the last). Returns the window's ms/frame,
+    the frames' ms and the host's seconds inside each call of the window
+    (both sorted), and the launches."""
+    from supereight_tpu_torch.kernels import _lib
+    first = N_WARMUP + N_FRAMES
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(N_TIMED + 1)]
+    host = []
+    start()
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    for i in range(sc.n_total):
+        if i >= first:
+            marks[i - first].record()
+        t0 = time.perf_counter()
+        frame(i)
+        if i >= first:
+            host.append(time.perf_counter() - t0)
+    marks[-1].record()
+    launches = dict(_lib.LAUNCHES)
+    torch.cuda.synchronize()
+    frame_ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    return (marks[0].elapsed_time(marks[-1]) / N_TIMED, frame_ms,
+            sorted(host), launches)
+
+
+def graph_phase(torch, sc, card, sl):
+    """The slice through the frame program (``parallel/step.
+    FrameProgram``: the frame step captured once as a CUDA graph at
+    frame 0, replayed on every later frame), beside the eager step it is
+    held to. All 43 frames through both in turn: pose, raycast pose,
+    vertex, normal, valid and every aux entry (the packed row too) equal
+    each frame, bit for bit, the map equal at the end, one graph, the
+    blocks and drops those of the slice (``sl``, slice_phase's summary);
+    then ms/frame of the slice's timed window eager, graph, graph, eager
+    (each run from a fresh state, a graph run keeping each frame's aux
+    row, one copy a frame, as the slice keeps its auxes), with the
+    launches each graph run counts by replays equal to the eager run's
+    and the path's; then a replay of the first N_PROFILED timed frames
+    from a snapshot under torch.profiler: each kernel of the path once a
+    frame (the prologue twice) and the program's own copies, nothing
+    else (retaken up to PROFILE_TRIES times), and the replayed frame's
+    split (busy, idle inside it, gaps between frames) beside the host's
+    time a call. Returns the graph run's launches and
+    a summary."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from supereight_tpu_torch.parallel import step
+    from supereight_tpu_torch.utils import deviceprof
+    tag = f"graph {sc.name}"
+    first = N_WARMUP + N_FRAMES
+    path = PATHS[sc.name]
+
+    # both in turn, every frame compared; the program's state before the
+    # profiled frames kept for their replay
+    prog = sc.bench.program()
+    state = sc.init()
+    unequal = collections.Counter()
+    rows = []
+    for i in range(sc.n_total):
+        if i == first - 1:
+            snapshot = clone_frame_state(prog.state)
+        state, aux = sc.frame(state, i)
+        gstate, gaux = sc.graph_frame(prog, i)
+        row = torch.stack([aux[k].reshape(()).to(torch.int32)
+                           for k in step.AUX_SCALARS])
+        for name in ("pose", "raycast_pose", "vertex", "normal", "valid"):
+            unequal[name] += not torch.equal(getattr(state, name),
+                                             getattr(gstate, name))
+        for k in aux:
+            unequal[k] += not torch.equal(aux[k], gaux[k])
+        unequal["scalars"] += not torch.equal(row, gaux["scalars"])
+        rows.append(row)
+    leaves = list(zip(step.state_leaves(state), step.state_leaves(gstate)))
+    unequal["leaves"] = sum(not torch.equal(a, b) for a, b in leaves)
+    rows = torch.stack(rows).cpu().numpy()
+    cols = dict(zip(step.AUX_SCALARS, rows.T))
+    n_blocks = int(gstate.map.n_blocks)
+    final_pose = gstate.pose.clone()
+    keys = list(prog.graphs)
+    bad = {k: v for k, v in unequal.items() if v}
+    print(f"{tag}: the program against the eager step on all "
+          f"{sc.n_total} frames (frame 0 the capture's eager warm-up, 1-"
+          f"{sc.n_total - 1} replays): unequal outputs {bad} (== {{}}, bit "
+          f"for bit: pose, raycast pose, vertex, normal, valid, "
+          f"{len(aux)} aux entries and the packed row each frame, "
+          f"{len(leaves)} state leaves, the map's among them, at the "
+          f"end); "
+          f"{len(keys)} graph (== 1); blocks {n_blocks} (the slice "
+          f"{sl['n_blocks']}); drops (max over frames) "
+          f"{ {c: int(cols[c].max()) for c in COUNTERS} }")
+    require(not bad, f"{tag}: the graph departs from the eager step: {bad}")
+    require(len(keys) == 1 and n_blocks == sl["n_blocks"]
+            and all(int(cols[c].max()) == 0 for c in COUNTERS),
+            f"{tag}: {len(keys)} graphs, blocks {n_blocks} (the slice "
+            f"{sl['n_blocks']}), drops {cols}")
+    del state, gstate, leaves
+    key = keys[0]
+
+    # eager, graph, graph, eager in this call; a graph run keeps each
+    # frame's row (one copy), the eager run its aux dicts
+    fresh = sc.init()
+    eager, kept = None, []
+
+    def eager_start():
+        nonlocal eager
+        eager = sc.init()
+
+    def eager_frame(i):
+        nonlocal eager
+        eager, aux = sc.frame(eager, i)
+        kept.append(aux)
+
+    def graph_frame(i):
+        kept.append(sc.graph_frame(prog, i)[1]["scalars"].clone())
+
+    runs = []
+    for name in ("eager", "graph", "graph", "eager"):
+        kept.clear()
+        if name == "eager":
+            ms, fms, host, launches = timed_slice(torch, sc, eager_start,
+                                                  eager_frame)
+        else:
+            ms, fms, host, launches = timed_slice(
+                torch, sc, lambda: prog.load(fresh), graph_frame)
+            same = torch.equal(torch.stack(kept).cpu(),
+                               torch.from_numpy(rows)) and torch.equal(
+                prog.state.pose, final_pose)
+            require(same, f"{tag}: a timed graph run departs from the "
+                    f"compared one")
+            graph_launches = launches
+        runs.append((name, ms, fms, host, launches))
+    want = expected_launches(sc)
+    eager_launches = runs[0][4]
+    for name, ms, fms, host, launches in runs:
+        print(f"{tag}: {name:5s} {ms:.3f} ms/frame over {N_TIMED} timed "
+              f"frames (CUDA events; {card}); per frame median "
+              f"{statistics.median(fms):.3f} ms, min {fms[0]:.3f}, max "
+              f"{fms[-1]:.3f} (max / median "
+              f"{fms[-1] / statistics.median(fms):.2f}); host "
+              f"{statistics.median(host) * 1e6:.1f} us a call (median)")
+        require(all(launches.get(k, 0) == v for k, v in want.items())
+                and launches == eager_launches
+                and all(launches[k] > 0 for k in path),
+                f"{tag}: {name} launches {launches}, expected {want} and "
+                f"the eager run's {eager_launches}")
+    print(f"{tag}: launches counted by the replays equal the eager run's "
+          f"and the path's: "
+          f"{ {k: v for k, v in graph_launches.items() if v} }")
+
+    # the replay under the profiler
+    n_path = len(path)
+    own = prog.ops(key)
+    fd, trace = tempfile.mkstemp(suffix=".json", prefix="graph_trace_")
+    os.close(fd)
+    ms_graph = statistics.mean(r[1] for r in runs if r[0] == "graph")
+    try:
+        for attempt in range(PROFILE_TRIES):
+            prog.load(snapshot)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1,
+                                           active=N_PROFILED, repeat=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(
+                             trace)) as prof:
+                for i in range(first - 1, first + N_PROFILED):
+                    sc.graph_frame(prog, i)
+                    if i in (first - 1, first + N_PROFILED - 1):
+                        torch.cuda.synchronize()
+                    prof.step()
+            per_frame, n_launch, _ = report_profile(prof, ms_graph, tag)
+            complete = len(per_frame) == n_path and all(
+                v == (2 if k == "frame_mats" else 1)
+                for k, v in per_frame.items()) \
+                and round(n_launch) == n_path + 1 + own
+            print(f"{tag}: a replayed frame holds {len(per_frame)} of the "
+                  f"path's {n_path} kernels, each once a frame (the "
+                  f"prologue twice), and {n_launch:.0f} kernels and copies "
+                  f"(== {n_path + 1} + the program's own {own}: the input "
+                  f"copies, the copies back into the state, the packed "
+                  f"row): {complete}")
+            if complete:
+                break
+            print(f"{tag}: the profile missed launches (try {attempt + 1} "
+                  f"of {PROFILE_TRIES})")
+        require(complete, f"{tag}: no profile showed the path's kernels "
+                f"once a frame and the program's own copies: {per_frame}")
+        split = deviceprof.frame_split(deviceprof.device_events(trace),
+                                       N_PROFILED)
+    finally:
+        os.remove(trace)
+    host_us = statistics.median(
+        h for r in runs if r[0] == "graph" for h in r[3]) * 1e6
+    if split:
+        print(f"{tag}: a replayed frame under the profiler: device busy "
+              f"{split['busy_us']:.2f} us, its span {split['span_us']:.2f} "
+              f"us (idle inside it {split['inside_us']:.2f} us: the gaps "
+              f"between the graph's nodes, and any wait for the host after "
+              f"the input copies), between frames "
+              f"{split['between_us']:.2f} us; the host {host_us:.1f} us a "
+              f"call in the timed runs (median: the input copies, the "
+              f"replay, the row's copy)")
+    ms = {name: [r[1] for r in runs if r[0] == name]
+          for name in ("eager", "graph")}
+    print(f"{tag}: ms/frame eager {ms['eager'][0]:.3f}, graph "
+          f"{ms['graph'][0]:.3f}, graph {ms['graph'][1]:.3f}, eager "
+          f"{ms['eager'][1]:.3f} in this call ({card}); aim for the graph "
+          f"<= {GRAPH_AIM_MS[sc.name]} ms/frame (printed, not held)")
+    return ({k: graph_launches[k] for k in path},
+            dict(ms=ms, split=split, host_us=host_us, n_blocks=n_blocks))
 
 
 def check_noise_map(torch, inp, tag):
@@ -2594,16 +2849,19 @@ def empty_cta_cost(torch, geom, field, m, pose, k, depth, mu, ts, budget,
     return r
 
 
-def bench_phase(slices, card):
+def bench_phase(slices, graphs, card):
     """The port's headline bench (``python -m
     supereight_tpu_torch.tools.bench``), both fields, each in a process of
     its own: its one stdout line held to the four keys, the metric name,
     the unit and vs_baseline; its blocks, drops, tracked flag and final
     error to the same field's slice (``slices``: slice_phase's summaries
-    by field); its launches to the path's kernels once a frame (the
-    prologue twice) over the 43 frames. Prints its fps beside the slice's
-    1000 / ms_frame, not held: two processes differ by host noise.
-    Returns the bench runs' launch counts."""
+    by field); its launches, counted by its graph's replays, to the path's
+    kernels once a frame (the prologue twice) over the 43 frames; its
+    eager step's line on stderr, whose final pose and blocks must equal
+    the graph run's. Prints its fps beside the graph phase's (``graphs``)
+    1000 / ms_frame and its eager fps beside the slice's, not held: two
+    processes differ by host noise. Returns the bench runs' launch
+    counts."""
     launches = collections.Counter()
     repo = os.path.dirname(os.path.abspath(__file__))
     n = port_bench.N_TOTAL
@@ -2645,8 +2903,15 @@ def bench_phase(slices, card):
         want = {k: (2 if k == "frame_mats" else 1) * n for k in PATHS[field]}
         require(got["frames"] == n and got["total"] == want,
                 f"{tag}: launches {got}, expected {want}")
+        m = re.search(r"^# eager step: ([0-9.]+) fps, .*equal to the "
+                      r"graph's: (True|False)$", out.stderr, re.M)
+        require(m and m[2] == "True", f"{tag}: no eager line on stderr, "
+                "or its final pose and blocks differ from the graph's")
         launches.update(got["total"])
-        print(f"{tag}: {res['value']:.3f} fps by CUDA events, the slice "
+        g = graphs[field]["ms"]["graph"][0]
+        print(f"{tag}: {res['value']:.3f} fps by CUDA events (the graph), "
+              f"the graph phase {1000 / g:.3f} (1000 / {g:.3f} ms/frame); "
+              f"eager {float(m[1]):.3f}, the slice "
               f"{1000 / sl['ms_frame']:.3f} (1000 / {sl['ms_frame']:.3f} "
               f"ms/frame; two processes, not held); blocks {blocks} (the "
               f"slice {sl['n_blocks']}), final error {err:.4f} m (the slice "
@@ -4150,7 +4415,7 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
 
     # ---- the main paths, each with the counts zeroed just before -------
     launches = {k: 0 for k in KERNELS}
-    slices = {}
+    slices, graphs = {}, {}
     for sc in (tsdf, of, noise):
         path_launches, slice_errs, slices[sc.name] = slice_phase(torch, sc,
                                                                  card)
@@ -4158,7 +4423,12 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
             errs.setdefault(k, [rows[k]["max_abs_err"]]).append(e)
         for k, v in path_launches.items():
             launches[k] += v
-    for k, v in bench_phase(slices, card).items():
+        # the same frames through the frame program (one CUDA graph)
+        path_launches, graphs[sc.name] = graph_phase(torch, sc, card,
+                                                     slices[sc.name])
+        for k, v in path_launches.items():
+            launches[k] += v
+    for k, v in bench_phase(slices, graphs, card).items():
         launches[k] += v
     launches.update(probe_path(torch, dev))
     for k, v in library_phase(torch, dev, tmp, card).items():

@@ -10,9 +10,13 @@ the sources and the flags, so an edited source rebuilds and an unchanged
 one loads the cached library.
 
 Launch counts live in :data:`LAUNCHES`, one plain integer per kernel,
-incremented by each wrapper right after its launch succeeds.
+incremented by each wrapper right after its launch succeeds. A CUDA graph
+captures launches without running them: :func:`capturing` records the
+launches of a capture as the graph's table and leaves the counts alone,
+and :func:`replayed` adds that table once per replay.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -155,6 +159,28 @@ build_info = {}
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def capturing():
+    """Launches made inside are a graph capture's, which runs nothing:
+    yields the dict that receives them (kernel -> launches, the graph's
+    launch table) and leaves :data:`LAUNCHES` as it found it."""
+    before = dict(LAUNCHES)
+    table = {}
+    try:
+        yield table
+    finally:
+        table.update((name, n - before[name]) for name, n in LAUNCHES.items()
+                     if n != before[name])
+        LAUNCHES.update(before)
+
+
+def replayed(table):
+    """Count one replay of a graph whose capture launched ``table``
+    (:func:`capturing`)."""
+    for name, n in table.items():
+        LAUNCHES[name] += n
 
 
 def _sources():

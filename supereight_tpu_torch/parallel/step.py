@@ -2,8 +2,11 @@
 raycast, on torch tensors, for the TSDF and the OFusion field.
 
 Port of ``supereight_tpu/parallel/step.py:frame_step``. JAX compiled the
-frame into one XLA program; here it is a sequence of the hand-written
-kernels K7 (the input filter, if any, and the pyramid), the pose prologue
+frame into one XLA program for each set of static arguments (its jit,
+70-81); :class:`FrameProgram` is that program here: one CUDA graph of the
+whole :func:`frame_step` a set of static arguments, replayed once a
+frame. :func:`frame_step` itself runs eagerly, the sequence of the
+hand-written kernels K7 (the input filter, if any, and the pyramid), the pose prologue
 (``kernels/frame.py``, before and after tracking: every matrix, gate and
 the time stamp), K6 (the whole ICP, one launch), K5 (allocation), K3
 (integration's block pass), K4 (its parent rank and node pass), K2 (nav
@@ -21,12 +24,14 @@ reads for the per-stage breakdown; with no profiler active a span costs
 about a microsecond.
 """
 
+import inspect
 from typing import NamedTuple
 
 import torch
 from torch.profiler import record_function
 
 from supereight_tpu_torch.core.map import MapState, make_map
+from supereight_tpu_torch.kernels import _lib
 from supereight_tpu_torch.kernels.frame import frame_mats
 from supereight_tpu_torch.kernels.raycast import Previous
 from supereight_tpu_torch.ops import allocation, integration, raycast, \
@@ -166,3 +171,203 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
            # blocks past the raycast's pool bucket read as unknown there
            "pool_bucket_overflow": rstats["pool_bucket_overflow"]}
     return new_state, aux
+
+
+# the aux entries that are one value each, in the order of the row
+# FrameProgram packs them into (aux["scalars"], i32[9])
+AUX_SCALARS = ("tracked", "integrated", "n_blocks", "alloc_overflow",
+               "blocks_truncated", "patch_skipped", "mip_skipped",
+               "ray_overflow", "pool_bucket_overflow")
+# frame_step's static keywords, in its order, with their defaults
+# (inspect's ``empty``: required); geom and field belong to the program
+STATIC = tuple((name, p.default)
+               for name, p in inspect.signature(frame_step).parameters.items()
+               if p.kind is p.KEYWORD_ONLY)
+
+
+def static_key(**kw):
+    """The key of one set of :func:`frame_step`'s static keywords: every
+    keyword in :data:`STATIC`'s order, defaults filled in, ``iterations``
+    as a tuple."""
+    unknown = set(kw) - {name for name, _ in STATIC}
+    if unknown:
+        raise TypeError(f"frame_step takes no keyword {sorted(unknown)}")
+    key = []
+    for name, default in STATIC:
+        value = kw.get(name, default)
+        if value is inspect.Parameter.empty:
+            raise TypeError(f"frame_step needs the keyword {name!r}")
+        key.append((name, tuple(value) if name == "iterations" else value))
+    return tuple(key)
+
+
+def state_leaves(state: FrameState):
+    """Every tensor of a frame state, the map's mip tuples flattened."""
+    out = []
+    for v in (*state.map, *state[1:]):
+        out.extend(v if isinstance(v, tuple) else (v,))
+    return out
+
+
+class _Graph(NamedTuple):
+    graph: object     # torch.cuda.CUDAGraph, None on the CPU
+    aux: dict         # the outputs each replay rewrites
+    launches: dict    # kernel -> launches a replay (_lib.capturing)
+    ops: int          # the program's own device ops inside: copies, packing
+
+
+class FrameProgram:
+    """:func:`frame_step` as one CUDA graph for each set of static
+    arguments: the counterpart of JAX's jit of it (``parallel/step.py:
+    70-81``).
+
+    The program owns a frame state (``state``, adopted at construction:
+    the caller must not use it otherwise) and the buffers of the dynamic
+    arguments (``depth``, ``k``, ``frame`` an i32[], ``gt_pose`` a
+    [4, 4]), each at a fixed address. A call copies its arguments into
+    them and runs the frame; the first call with a set of static keywords
+    runs it eagerly on the program's capture stream (the warm-up: every
+    first-call query and scratch of the kernels happens there, outside a
+    capture) and then captures it, so a new integration budget bucket
+    captures a new graph, as JAX recompiles; every later call with that
+    set is one replay on the current stream. Inside the graph the new
+    pose, raycast pose and reference maps (and any map leaf the step did
+    not update in place) are copied back into the state's own tensors,
+    so the next replay reads them where the graph looks, and the aux's
+    one-value entries are packed into ``aux["scalars"]`` (i32[9], in
+    :data:`AUX_SCALARS` order). Each replay rewrites the returned aux and
+    state: a caller that keeps them across frames copies them (the row is
+    one copy). Graphs of one program share a memory pool and the capture
+    stream's scratch: replay them one at a time.
+
+    A capture or a replay that fails raises; nothing falls back to the
+    eager step. On the CPU (the caller must ask for it, as the tests do)
+    each call runs :func:`frame_step` eagerly through the same buffers,
+    copies and packing. Launch counts: a replay adds its graph's launch
+    table to ``_lib.LAUNCHES``, so a run counts what the eager step
+    would.
+    """
+
+    def __init__(self, geom, field, state: FrameState):
+        self.geom, self.field, self.state = geom, field, state
+        dev = self.device = state.pose.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"FrameProgram: unsupported device {dev}")
+        h, w = state.valid.shape
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.depth = torch.zeros((h, w), **f32)
+        self.k = torch.zeros(4, **f32)
+        self.frame = torch.zeros((), dtype=torch.int32, device=dev)
+        self.gt_pose = torch.zeros((4, 4), **f32)
+        self.graphs = {}   # static_key -> _Graph
+        self.input_ops = 0  # device ops the last call's input copies took
+        cuda = dev.type == "cuda"
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._stream = torch.cuda.Stream(dev) if cuda else None
+
+    def load(self, state: FrameState):
+        """Copy ``state`` (a snapshot, or any state of the program's
+        geometry) into the program's own tensors."""
+        for own, new in zip(state_leaves(self.state), state_leaves(state),
+                            strict=True):
+            if own.shape != new.shape or own.dtype != new.dtype:
+                raise ValueError(f"load: a leaf {tuple(new.shape)} "
+                                 f"{new.dtype}, the program's "
+                                 f"{tuple(own.shape)} {own.dtype}")
+            if own.data_ptr() != new.data_ptr():
+                own.copy_(new)
+
+    def ops(self, key):
+        """The program's own device ops a frame under ``key``: the input
+        copies of the last call, and the copies back and the packing
+        inside the graph."""
+        return self.input_ops + self.graphs[key].ops
+
+    def __call__(self, depth_m, k, frame, gt_pose=None, **static):
+        """Frame ``frame`` (an int >= 0 or an int tensor) of ``depth_m``
+        f32[H, W] with intrinsics ``k`` f32[4] (and ``gt_pose`` [4, 4]
+        where ``use_gt_pose``); ``static`` is :func:`frame_step`'s
+        keywords. Returns (the program's state, aux), both rewritten by
+        the next call."""
+        key = static_key(**static)
+        use_gt = dict(key)["use_gt_pose"]
+        if use_gt and gt_pose is None:
+            raise ValueError("FrameProgram: use_gt_pose needs gt_pose")
+        self._inputs(depth_m, k, frame, gt_pose if use_gt else None)
+        entry = self.graphs.get(key)
+        if entry is not None and entry.graph is not None:
+            entry.graph.replay()
+            _lib.replayed(entry.launches)
+            return self.state, entry.aux
+        if self.device.type == "cpu":
+            aux, ops = self._run(static, use_gt)
+            self.graphs[key] = _Graph(None, aux, {}, ops)
+            return self.state, aux
+        return self.state, self._capture(key, static, use_gt)
+
+    def _inputs(self, depth_m, k, frame, gt_pose):
+        if not isinstance(frame, torch.Tensor) and int(frame) < 0:
+            raise ValueError("FrameProgram: frame must be >= 0")
+        n = _put(self.depth, depth_m, "depth_m") + _put(self.k, k, "k")
+        if isinstance(frame, torch.Tensor):
+            n += _put(self.frame, frame.reshape(()), "frame")
+        else:
+            self.frame.fill_(int(frame))
+            n += 1
+        if gt_pose is not None:
+            n += _put(self.gt_pose, gt_pose, "gt_pose")
+        self.input_ops = n
+
+    def _run(self, static, use_gt):
+        """The frame through the buffers: frame_step, the copies back
+        into the state's own tensors, the packed row. Returns (aux, the
+        device ops of the copies and the packing)."""
+        new, aux = frame_step(self.geom, self.field, self.state, self.depth,
+                              self.k, self.frame,
+                              self.gt_pose if use_gt else None, **static)
+        ops = 0
+        for own, out in zip(state_leaves(self.state), state_leaves(new),
+                            strict=True):
+            if own.data_ptr() != out.data_ptr():
+                own.copy_(out)
+                ops += 1
+        one = [aux[name] for name in AUX_SCALARS]
+        aux = dict(aux, scalars=torch.stack(
+            [a.reshape(()).to(torch.int32) for a in one]))
+        ops += 1 + sum(a.dtype != torch.int32 for a in one)
+        return aux, ops
+
+    def _capture(self, key, static, use_gt):
+        """The first frame of ``key``: run eagerly on the capture stream,
+        then captured there into the key's graph (capturing runs nothing,
+        so the state holds the eager frame's result). Returns the eager
+        frame's aux."""
+        cur = torch.cuda.current_stream(self.device)
+        side = self._stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            aux, _ = self._run(static, use_gt)
+            graph = torch.cuda.CUDAGraph()
+            with _lib.capturing() as launches:
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    captured, ops = self._run(static, use_gt)
+                finally:
+                    graph.capture_end()
+        cur.wait_stream(side)
+        self.graphs[key] = _Graph(graph, captured, launches, ops)
+        return aux
+
+
+def _put(buf, x, name):
+    """Copy ``x`` into the program's buffer ``buf`` (no copy where ``x``
+    is ``buf``); returns the device ops it took."""
+    x = torch.as_tensor(x, dtype=buf.dtype)
+    if tuple(x.shape) != tuple(buf.shape):
+        raise ValueError(f"FrameProgram: {name} has shape {tuple(x.shape)}, "
+                         f"the program's {tuple(buf.shape)}")
+    if x.device == buf.device and x.data_ptr() == buf.data_ptr():
+        return 0
+    buf.copy_(x)
+    return 1

@@ -13,11 +13,14 @@ integration budget and raycast pool bucket from the live block count,
 the rate gates on the host, the ground-truth bypass of
 :meth:`DenseSLAMSystem.process_frame`, the TSDF maturity gate after the
 raycast, and the raw depth for the raycast's prime and for fusion. Its
-host reads (``bool(tracked)``, ``int(n_blocks)``, the overflow poll every
-8th frame, and with keyframes on the keyframe step's reads on keyframe
-frames) are those rules' semantics, as in JAX's class. The keyframe
-pose graph (``posegraph/``) and the marching-cubes export
-(``io/meshing.py``) hang off the class as in JAX's.
+host reads (``bool(tracked)``, ``int(n_blocks)`` once a frame that
+integrates or raycasts, the overflow poll every 8th frame, and with
+keyframes on the keyframe step's reads on keyframe frames) are those
+rules' semantics, as in JAX's class: JAX reads the block count for the
+integration and again for the raycast, and only allocation changes it,
+so the class keeps the integration's bucket for the raycast of the same
+frame. The keyframe pose graph (``posegraph/``) and the marching-cubes
+export (``io/meshing.py``) hang off the class as in JAX's.
 """
 
 from typing import Optional, Tuple
@@ -114,6 +117,9 @@ class DenseSLAMSystem:
         self._neg_y = float(k[1]) < 0
         # self-sizing per-frame allocation bucket (see integration())
         self._alloc_budget = ALLOC_BUDGET
+        # the integration's budget bucket, kept for the same frame's
+        # raycast (None: read the block count again)
+        self._bucket = None
         # drop-accounting counters from the latest frame (device scalars;
         # all zero in a well-sized run)
         self.stats = {}
@@ -132,6 +138,7 @@ class DenseSLAMSystem:
         """depth: [H, W] u16 mm (is_mm) or f32 meters at input size
         (numpy or a tensor)."""
         cw, ch = self.computation_size
+        self._bucket = None  # a new frame
         if is_mm:
             depth_m = mm2meters(depth, (ch, cw), self.device)
         else:
@@ -192,6 +199,8 @@ class DenseSLAMSystem:
         # JAX's Python float time stamp, rounded to f32 as its jit does
         timestamp = torch.tensor(np.float32((1.0 / 30.0) * frame),
                                  device=self.device)
+        # allocation was the last change to the block count this frame
+        self._bucket = self._budget_bucket()
         # fuse_filtered: the noise-grade deviation (the reference fuses
         # the raw float_depth_)
         fuse_depth = (self.pyr[0][0] if self.config.fuse_filtered
@@ -199,7 +208,7 @@ class DenseSLAMSystem:
         self.map, istats = integration.integrate(
             self.geom, self.map, self.field, fuse_depth, self.pose,
             self.k, self.config.mu, timestamp, self.computation_size,
-            self._budget_bucket(), depth_interp=self.config.depth_interp,
+            self._bucket, depth_interp=self.config.depth_interp,
             with_stats=True, noise_weighted=self.config.noise_weighted,
             mats=mats)
         self.stats = dict(self.stats,
@@ -210,8 +219,11 @@ class DenseSLAMSystem:
         return True
 
     def raycasting(self, frame: int) -> bool:
+        bucket, self._bucket = self._bucket, None
         if frame <= 2:
             return False
+        if bucket is None:  # no integration since the map last changed
+            bucket = self._budget_bucket()
         self.raycast_pose = self.pose
         view = frame_mats(self.k, self.raycast_pose).kpose
         # primed by the raw depth; a TSDF min_ref_weight > 0 is the
@@ -219,7 +231,7 @@ class DenseSLAMSystem:
         self.vertex, self.normal, self.valid, rstats = raycast.raycast(
             self.geom, self.map, self.field, view, self.config.mu,
             self.computation_size, depth=self.float_depth, k=self.k,
-            with_stats=True, pool_bucket=self._budget_bucket(),
+            with_stats=True, pool_bucket=bucket,
             min_ref_weight=self.config.min_ref_weight)
         self.stats = dict(self.stats, ray_overflow=rstats["ray_overflow"])
         return True
@@ -382,6 +394,7 @@ class DenseSLAMSystem:
         assert geom == self.geom and field.name == self.field.name, \
             "checkpoint geometry/field mismatch"
         self.map = state
+        self._bucket = None
         z = np.load(filename + ".run.npz")
 
         def t(name):

@@ -8,19 +8,27 @@ configuration (the reference's ICL-NUIM traj2 setup: 640x480 input at
 compute ratio 2, so 320x240 with halved intrinsics, 512^3 voxels over
 4.8 m, pool 36,864 blocks, worklist budget 8,192, ICP 10/5/4, every frame
 tracked and integrated; TSDF at mu 0.1, OFusion at mu 0.008) on its
-synthetic orbit: 3 warm-up frames (the first builds the kernels), 20
-sequence frames, then the timed window of the 20 distinct frames 23-42.
+synthetic orbit: 3 warm-up frames (the first builds the kernels and
+captures the frame's CUDA graph), 20 sequence frames, then the timed
+window of the 20 distinct frames 23-42.
 
-The value is stream time: N_TIMED over the seconds between a CUDA event
-recorded on the stream at the start of frame 23 and one after frame 42.
-JAX's bench divides by the device time of its one compiled program a
-frame; the port launches 13 kernels a frame from the host, and a frame
+The frames run as JAX's do, one program a frame: ``parallel/step.
+FrameProgram``, the frame step captured once as a CUDA graph and replayed
+(a frame's depth and index copied into its buffers first). The value is
+stream time: N_TIMED over the seconds between a CUDA event recorded on
+the stream at the start of frame 23 and one after frame 42. JAX's bench
+divides by the device time of its one compiled program a frame; a frame
 that waits on the host is slower than its kernels, so the port's metric
 (``gpu`` where JAX's says ``chip``) times the stream, host gaps included.
 The device's busy time comes from a replay of the timed frames, from a
 copy of the state before them, under ``torch.profiler``
 (``utils/deviceprof.py``), and goes to stderr with the run's blocks,
-final position error, drop counters and launches a frame.
+final position error, drop counters, launches a frame, the split of a
+replayed frame (busy, idle inside it, gaps between frames) and the
+host's time a call. Then the same 43 frames through the
+eager ``frame_step`` (13 launches a frame from the host), from a fresh
+state in the same process: its fps by the same events, and whether its
+final pose and blocks equal the graph's, go to stderr.
 
 Prints ONE JSON line on stdout:
   {"metric": ..., "value": N, "unit": "fps", "vs_baseline": N}
@@ -110,10 +118,20 @@ class Bench(NamedTuple):
                                      self.k.device)
 
     def frame(self, state, i):
-        """Frame ``i`` of the orbit: (new state, aux). The map is updated
-        in place."""
+        """Frame ``i`` of the orbit through the eager step: (new state,
+        aux). The map is updated in place."""
         return step.frame_step(self.geom, self.field, state, self.frames[i],
                                self.k, i, **self.kw)
+
+    def program(self):
+        """A frame program (``step.FrameProgram``) that owns a fresh
+        state before frame 0."""
+        return step.FrameProgram(self.geom, self.field, self.init())
+
+    def graph_frame(self, prog, i):
+        """Frame ``i`` of the orbit through ``prog``: (its state, aux),
+        both rewritten by its next call."""
+        return prog(self.frames[i], self.k, i, **self.kw)
 
 
 def config(field_name="tsdf", device="cuda", **overrides):
@@ -139,10 +157,9 @@ def clone_map(m):
 
 
 def clone_state(s):
-    """A copy of a frame state that the next frame's in-place update of
-    the map leaves alone."""
-    return s._replace(map=clone_map(s.map), pose=s.pose.clone(),
-                      raycast_pose=s.raycast_pose.clone())
+    """A copy of a frame state that the next frame leaves alone: the map
+    updates in place, and a frame program rewrites every leaf."""
+    return type(s)(clone_map(s.map), *(x.clone() for x in s[1:]))
 
 
 def card():
@@ -161,51 +178,76 @@ def log(msg):
     print(msg, file=sys.stderr, flush=True)
 
 
-def profile_window(b, snapshot, first):
-    """Replay frames ``first``..end from ``snapshot`` under torch.profiler
-    (CPU and CUDA), the frame before them as the profiler's warm-up step
-    (the device trace drops the first launches after it starts); returns
-    the device's (seconds, events) over the replayed window."""
+def profile_window(frame, first, last):
+    """Run frames ``first``..``last`` - 1 (``frame(i)``, from the state
+    the caller set up) under torch.profiler (CPU and CUDA), the first as
+    the profiler's warm-up step (the device trace drops the first
+    launches after it starts); returns the device events of the others
+    (``deviceprof.device_events``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from supereight_tpu_torch.utils import deviceprof
     fd, trace = tempfile.mkstemp(suffix=".json", prefix="bench_trace_")
     os.close(fd)
     try:
-        replay = clone_state(snapshot)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1,
-                                       active=len(b.frames) - first,
-                                       repeat=1),
+                                       active=last - first - 1, repeat=1),
                      on_trace_ready=lambda p: p.export_chrome_trace(trace)
                      ) as prof:
-            for i in range(first - 1, len(b.frames)):
-                replay, _ = b.frame(replay, i)
-                if i in (first - 1, len(b.frames) - 1):
+            for i in range(first, last):
+                frame(i)
+                if i in (first, last - 1):
                     torch.cuda.synchronize()
                 prof.step()
-        return deviceprof.device_seconds(trace)
+        return deviceprof.device_events(trace)
     finally:
         os.remove(trace)
+
+
+def timed_window(run_frame, first, last):
+    """Frames ``first``..``last`` - 1 through ``run_frame(i)`` between
+    CUDA events, one at each frame's start and one after the last (the
+    device reaches them in stream order): (window ms, the frames' ms
+    sorted, the host's seconds inside each call, sorted)."""
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(last - first + 1)]
+    host = []
+    for i in range(first, last):
+        marks[i - first].record()
+        t0 = time.perf_counter()
+        run_frame(i)
+        host.append(time.perf_counter() - t0)
+    marks[-1].record()
+    torch.cuda.synchronize()
+    frame_ms = sorted(a.elapsed_time(c) for a, c in zip(marks, marks[1:]))
+    return marks[0].elapsed_time(marks[-1]), frame_ms, sorted(host)
+
+
+def spread(frame_ms):
+    return (f"per frame median {statistics.median(frame_ms):.3f} ms, min "
+            f"{frame_ms[0]:.3f}, max {frame_ms[-1]:.3f} (max / median "
+            f"{frame_ms[-1] / statistics.median(frame_ms):.2f})")
 
 
 def run(field_name, device):
     """The bench of one field on a CUDA ``device``; returns its JSON
     dict and prints the rest on stderr."""
     from supereight_tpu_torch.kernels import _lib
+    from supereight_tpu_torch.utils import deviceprof
     log(f"# card: {card()}")
     log("generating synthetic sequence...")
     b = config(field_name, device)
     first = N_WARMUP + N_FRAMES
-    state = b.init()
+    prog = b.program()
     torch.cuda.synchronize()
     _lib.reset_launches()
 
-    log("warmup/build...")
+    log("warmup/build/capture...")
     for i in range(N_WARMUP):
         t0 = time.perf_counter()
-        state, aux = b.frame(state, i)
+        state, aux = b.graph_frame(prog, i)
         torch.cuda.synchronize()
         log(f"  warmup frame {i}: {time.perf_counter() - t0:.3f}s")
         if i == 0:
@@ -218,34 +260,27 @@ def run(field_name, device):
     for i in range(N_WARMUP, first):
         if i == first - 1:
             snapshot = clone_state(state)  # for the profiled replay
-        state, aux = b.frame(state, i)
+        state, aux = b.graph_frame(prog, i)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
 
-    # the timed window: an event at each frame's start and one after the
-    # last; the device reaches them in stream order
-    log(f"timing (CUDA events, {N_TIMED} distinct frames)...")
-    marks = [torch.cuda.Event(enable_timing=True)
-             for _ in range(N_TIMED + 1)]
-    for i in range(first, N_TOTAL):
-        marks[i - first].record()
-        state, aux = b.frame(state, i)
-    marks[-1].record()
-    torch.cuda.synchronize()
+    log(f"timing (CUDA events, {N_TIMED} distinct frames, one graph replay "
+        f"each)...")
+    window_ms, frame_ms, host = timed_window(
+        lambda i: b.graph_frame(prog, i), first, N_TOTAL)
     launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
-    window_ms = marks[0].elapsed_time(marks[-1])
     fps = N_TIMED / (window_ms / 1e3)
-    frame_ms = sorted(a.elapsed_time(c) for a, c in zip(marks, marks[1:]))
     log(f"# event timing: {N_TIMED} frames in {window_ms:.3f} ms, "
-        f"{window_ms / N_TIMED:.3f} ms/frame; per frame median "
-        f"{statistics.median(frame_ms):.3f} ms, min {frame_ms[0]:.3f}, "
-        f"max {frame_ms[-1]:.3f}")
+        f"{window_ms / N_TIMED:.3f} ms/frame; {spread(frame_ms)}; host "
+        f"{statistics.median(host) * 1e6:.1f} us a call (median)")
 
+    aux = {k: int(v) for k, v in zip(step.AUX_SCALARS,
+                                     aux["scalars"].tolist())}
     tracked = bool(aux["tracked"])
     n_blocks = int(state.map.n_blocks)
-    pos_err = float(np.linalg.norm(
-        state.pose.cpu().numpy()[:3, 3] - b.poses[-1][:3, 3]))
-    drops = {c: int(aux[c]) for c in DROPS}
+    pose = state.pose.cpu().numpy()
+    pos_err = float(np.linalg.norm(pose[:3, 3] - b.poses[-1][:3, 3]))
+    drops = {c: aux[c] for c in DROPS}
     log(f"# {N_FRAMES} frames in {dt:.3f}s, blocks={n_blocks}, "
         f"tracked={tracked}, final pos err={pos_err:.4f} m, "
         f"drops={drops}")
@@ -253,24 +288,55 @@ def run(field_name, device):
     log("# launches " + json.dumps({"frames": N_TOTAL, "total": launches,
                                     "per_frame": per_frame}))
 
-    # a trace that missed launches (the device trace can drop a window's
-    # first ones) is taken again, up to PROFILE_TRIES times
+    # a trace that missed events (the device trace can drop a window's
+    # first ones) is taken again, up to PROFILE_TRIES times; a frame is
+    # its kernels and the program's own copies
+    key = step.static_key(**b.kw)
+    want = N_TIMED * (per_frame + prog.ops(key))
     for attempt in range(PROFILE_TRIES):
-        busy_s, n_events = profile_window(b, snapshot, first)
-        if n_events >= N_TIMED * per_frame:
+        prog.load(snapshot)
+        events = profile_window(lambda i: b.graph_frame(prog, i), first - 1,
+                                N_TOTAL)
+        if len(events) >= want:
             break
-        log(f"# the device trace holds {n_events} kernels and copies, "
-            f"{N_TIMED} x {per_frame:g} were launched (try {attempt + 1} "
-            f"of {PROFILE_TRIES})")
-    busy_ms = busy_s * 1e3 / N_TIMED
+        log(f"# the device trace holds {len(events)} kernels and copies, "
+            f"{want:g} were run (try {attempt + 1} of {PROFILE_TRIES})")
+    busy_ms = sum(d for _, d in events) / 1e3 / N_TIMED
     log(f"# device trace: busy {busy_ms:.3f} ms/frame in "
-        f"{n_events / N_TIMED:.2f} kernels and copies a frame; busy share "
-        f"of the event-timed {window_ms / N_TIMED:.3f} ms/frame: "
+        f"{len(events) / N_TIMED:.2f} kernels and copies a frame "
+        f"({per_frame:g} launches and {prog.ops(key)} of the program's "
+        f"own); busy share of the event-timed "
+        f"{window_ms / N_TIMED:.3f} ms/frame: "
         f"{busy_ms / (window_ms / N_TIMED):.4f}")
-    if n_events < N_TIMED * per_frame:
-        log(f"# WARNING: the device trace holds {n_events} kernels and "
-            f"copies, fewer than the {N_TIMED} x {per_frame:g} launched: "
-            f"the busy time above is short of the window's")
+    split = deviceprof.frame_split(events, N_TIMED)
+    if split:
+        log(f"# replayed frame split: busy {split['busy_us']:.2f} us, "
+            f"span {split['span_us']:.2f} us (idle inside it "
+            f"{split['inside_us']:.2f}: the gaps between the graph's "
+            f"nodes, and any wait for the host after the input copies), "
+            f"between frames {split['between_us']:.2f} us, "
+            f"{split['events']} events")
+    if len(events) < want:
+        log(f"# WARNING: the device trace holds {len(events)} kernels and "
+            f"copies, fewer than the {want:g} run: the busy time above is "
+            f"short of the window's")
+
+    # the eager step over the same frames, in this process
+    log("eager frame_step over the same frames...")
+    eager = [b.init()]
+
+    def eager_frame(i):
+        eager[0], _ = b.frame(eager[0], i)
+    for i in range(first):
+        eager_frame(i)
+    ewin, eframe, ehost = timed_window(eager_frame, first, N_TOTAL)
+    estate = eager[0]
+    same = (int(estate.map.n_blocks) == n_blocks
+            and torch.equal(estate.pose, state.pose))
+    log(f"# eager step: {N_TIMED / (ewin / 1e3):.3f} fps, "
+        f"{ewin / N_TIMED:.3f} ms/frame; {spread(eframe)}; host "
+        f"{statistics.median(ehost) * 1e6:.1f} us a call (median); its "
+        f"final pose and blocks equal to the graph's: {same}")
     value = round(fps, 3)
     return {"metric": f"frames_per_sec_gpu_traj2cfg_c2_512v_{field_name}_icp",
             "value": value, "unit": "fps",
