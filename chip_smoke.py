@@ -121,9 +121,17 @@ checkout:
    scene="loop"``, rendered into a temporary directory in four processes
    while the phases above run) through the port's CLI (``cli.run``, in
    this process) with ``tools/run_longseq_eval.py``'s arguments, TSDF
-   (with ``--dump-renders``) and OFusion, then one volume render from a
+   (with ``--dump-renders``) and OFusion, the class on its stage graphs
+   (one CUDA graph a stage and set of static arguments; each replay timed
+   on the host), then one volume render from a
    view 0.5 m behind the last raycast pose (K1's unprimed launch), each
    path with the launch counts zeroed just before and read just after;
+   the same CLI run again with the class's ``eager`` keyword (its rows,
+   ATE and launches equal to the graphs'), and a fresh eager pipeline and
+   a fresh one on graphs over the 250 frames in turn, bit-equal every
+   frame and in the map at the end; it prints the log's computation a
+   frame of both runs (mean, median, max) beside the aim of 0.40 ms, the
+   graphs captured and their pool's bytes;
    it holds the drop counters to 0, the tracked fraction to 0.98, the ATE
    to EVAL_table.md's row plus 25 % (TSDF 0.025 m, OFusion 0.020 m), the
    renders to one PPM a rendered frame, and, for TSDF, a checkpoint saved,
@@ -132,7 +140,8 @@ checkout:
    time); it prints each ATE beside its row, the log's mean computation a
    frame, wall fps, peak device memory and, from five more frames under
    torch.profiler (taken again, up to PROFILE_TRIES times, until its
-   trace shows the frame's 20 kernels and copies), the device's busy
+   trace shows the frame's 20 kernels and copies and the stage graphs'
+   copies into the class's tensors), the device's busy
    share, and what the empty entries of its 49,152-entry bucket cost K3
    (as the noise slice's); the host-IO
    step: the
@@ -360,10 +369,15 @@ MIN_TRACKED = 0.98
 N_PIPE_PROFILED = 5  # frames past the loop replayed under torch.profiler
 # device events a pipeline frame runs (PR 15's complete pipeline-ofusion
 # trace): 14 launches of the path's 12 kernels (the prologue three times)
-# and 6 copies of the class's own (the depth's upload, its host reads:
-# one read of the block count a frame since the class keeps the
-# integration's bucket for the raycast; 7 before)
+# and 6 of the class's own (the depth's upload and its division, the time
+# stamp, its host reads: one read of the block count a frame since the
+# class keeps the integration's bucket for the raycast; 7 before). The
+# stage graphs add their copies into the class's own tensors
+# (pipeline_copies)
 PIPE_EVENTS = 20
+# the stage graphs' aim for the CLI's computation a frame with
+# --no-stage-sync (printed, not held)
+PIPE_AIM_MS = 0.40
 # the BA path: the TSDF pipeline with the keyframe pose graph, as
 # tools/run_longseq_eval.py's "tsdf icp+BA" row, held to that row's ATE
 # (EVAL_table.md, JAX) plus 25 %; a closure try re-tracks with the 3x gate
@@ -2991,8 +3005,11 @@ def pipeline_run(torch, name, raw, tmp, card):
     raycast pose moved BACK_VIEW back (K1's unprimed launch), with every
     launch count zeroed just before and read just after. Holds the drop
     counters to 0, the tracked fraction (the log's) to MIN_TRACKED, the
-    ATE to MAX_ATE and, for TSDF, the PPM count to the rendered frames.
-    Returns the pipeline, the path's launch counts and its numbers."""
+    ATE to MAX_ATE and, for TSDF, the PPM count to the rendered frames;
+    the class runs on its stage graphs, whose replays are timed on the
+    host. Returns the pipeline, the path's launch counts, its numbers,
+    its log's rows and the CLI's launch counts (the fresh view's
+    aside)."""
     import numpy as np
     from supereight_tpu_torch import cli
     from supereight_tpu_torch.eval.sweep import parse_frame_log, summarize
@@ -3012,8 +3029,9 @@ def pipeline_run(torch, name, raw, tmp, card):
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
+    with contextlib.redirect_stderr(err), timed_replays() as replays:
         pipe = cli.run(argv)
+    cli_launches = dict(_lib.LAUNCHES)
     # a fresh view: K1's unprimed launch over every block
     view_pose = moved_pose(pipe.raycast_pose, -BACK_VIEW).cpu().numpy()
     image = pipe.render_volume(view_pose=view_pose)
@@ -3042,6 +3060,11 @@ def pipeline_run(torch, name, raw, tmp, card):
           f"pixels of {image.shape[0] * image.shape[1]}")
     print(f"{tag}: kernel launches "
           f"{ {k: v for k, v in launches.items() if v} }")
+    graphs = pipe.graph_stats()
+    print(f"{tag}: the stage graphs: {graphs['graphs']} captured "
+          f"(keys {list(pipe._graphs.entries)}), their pool holds "
+          f"{graphs['pool_bytes']} bytes; {replays['n']} replays, the host "
+          f"{1e6 * replays['s'] / LOOP_FRAMES:.1f} us a frame in them")
     require(len(rows) == LOOP_FRAMES and ate is not None
             and np.isfinite(ate), f"{tag}: the run did not finish")
     require(drops is not None and all(v == 0 for v in drops.values()),
@@ -3056,10 +3079,144 @@ def pipeline_run(torch, name, raw, tmp, card):
     cold = "raycast_cold_of" if name == "ofusion" else "raycast_cold"
     require(launches[cold] == 1, f"{tag}: the fresh view launched "
             f"{cold} {launches[cold]} times")
+    require(graphs["graphs"] >= 5 and replays["n"] > 0,
+            f"{tag}: the CLI ran no stage graphs: {graphs}, {replays}")
     numbers = dict(ate=ate, tracked=summary["tracked_fraction"],
                    computation_ms=1e3 * summary["computation_mean"],
-                   wall_fps=fps, peak_mib=peak_mib)
-    return pipe, {k: launches[k] for k in PATHS[path]}, numbers
+                   wall_fps=fps, peak_mib=peak_mib,
+                   replay_host_us=1e6 * replays["s"] / LOOP_FRAMES,
+                   **graphs)
+    return (pipe, {k: launches[k] for k in PATHS[path]}, numbers, rows,
+            cli_launches)
+
+
+@contextlib.contextmanager
+def timed_replays():
+    """Count the stage graphs' replays of the runs inside and their host
+    seconds (the call of ``Graphs`` that replays, from its start to its
+    return: the replay's launch and the launch table's count)."""
+    from supereight_tpu_torch import graphs
+    seen = dict(n=0, s=0.0)
+    call = graphs.Graphs.__call__
+
+    def timed(self, key, program):
+        replay = key in self.entries
+        t0 = time.perf_counter()
+        out = call(self, key, program)
+        if replay:
+            seen["n"] += 1
+            seen["s"] += time.perf_counter() - t0
+        return out
+    graphs.Graphs.__call__ = timed
+    try:
+        yield seen
+    finally:
+        graphs.Graphs.__call__ = call
+
+
+def computation_ms(rows):
+    """The log's computation a frame (ms): mean, median and max, the mean
+    from frame 4 on (the stage graphs capture on the first frame of each
+    key: frames 0 and 3 on the loop) and the three slowest frames."""
+    ms = [1e3 * r["computation"] for r in rows]
+    slowest = sorted(range(len(ms)), key=ms.__getitem__)[-3:][::-1]
+    return dict(mean=statistics.mean(ms), median=statistics.median(ms),
+                max=max(ms), mean_from_4=statistics.mean(ms[4:]),
+                slowest={int(rows[i]["frame"]): ms[i] for i in slowest})
+
+
+def pipeline_eager_cli(torch, name, raw, tmp, graph_rows, launches,
+                       graph_ate):
+    """The CLI of ``name``'s path again with the class's ``eager``
+    keyword (every stage eager, the reference of the stage graphs): the
+    log's rows but the timings, the ATE and the launches must equal the
+    graph run's (``graph_rows``, ``launches``, ``graph_ate``). Returns the
+    eager run's log rows."""
+    import functools
+
+    from supereight_tpu_torch import cli
+    from supereight_tpu_torch.eval.sweep import parse_frame_log
+    from supereight_tpu_torch.kernels import _lib
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    tag = f"pipeline {name}"
+    log = os.path.join(tmp, name + "-eager.log")
+    err = io.StringIO()
+    real = cli.DenseSLAMSystem
+    cli.DenseSLAMSystem = functools.partial(DenseSLAMSystem, eager=True)
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    try:
+        with contextlib.redirect_stderr(err):
+            pipe = cli.run(loop_argv(raw, name, log, LOOP_FRAMES))
+    finally:
+        cli.DenseSLAMSystem = real
+    torch.cuda.synchronize()
+    eager_launches = dict(_lib.LAUNCHES)
+    require(pipe._graphs is None, f"{tag}: the eager run has graphs")
+    del pipe
+    ate, _, _ = cli_stderr(err.getvalue())
+    rows = parse_frame_log(log)
+    cols = ("frame", "X", "Y", "Z", "tracked", "integrated")
+    same_rows = [{c: r[c] for c in cols} for r in rows] == [
+        {c: r[c] for c in cols} for r in graph_rows]
+    same_launches = launches == eager_launches
+    print(f"{tag}: the CLI with every stage eager: ATE RMSE {ate:.6f} m "
+          f"(the graphs' {graph_ate:.6f}), its rows (frame, position, "
+          f"tracked, integrated) equal the graph run's: {same_rows}, "
+          f"launches equal the graph run's: {same_launches}")
+    require(same_rows and same_launches and ate == graph_ate,
+            f"{tag}: the eager CLI departs from the graphs: rows "
+            f"{same_rows}, ATE {ate} vs {graph_ate}, launches "
+            f"{eager_launches} vs {launches}")
+    return rows
+
+
+def pipeline_equal(torch, name, pipe, raw):
+    """Two fresh pipelines of ``pipe``'s configuration, one eager and one
+    on the stage graphs, over the loop's LOOP_FRAMES frames through
+    ``process_frame`` in turn: every frame the pose, old pose, raycast
+    pose, reference maps, reduction, track result, float depth, pyramid
+    and result equal bit for bit, and the map at the end."""
+    from supereight_tpu_torch.io.dataset import RawDepthReader
+    from supereight_tpu_torch.pipeline import DenseSLAMSystem, _leaves
+    tag = f"pipeline {name}"
+    w, h = pipe.computation_size
+    r = pipe.config.compute_size_ratio
+    init = pipe.init_pose.cpu().numpy()
+    runs = {eager: DenseSLAMSystem((w * r, h * r), pipe.config,
+                                   init_pose=init, device=pipe.device,
+                                   eager=eager) for eager in (True, False)}
+    names = ("pose", "old_pose", "raycast_pose", "vertex", "normal",
+             "valid", "reduction", "track_result", "float_depth", "pyr")
+    unequal = collections.Counter()
+    reader = RawDepthReader(raw)
+    for i in range(LOOP_FRAMES):
+        depth = reader.read_frame(i)[0]
+        res = {e: p.process_frame(depth, i) for e, p in runs.items()}
+        a, b = runs[True], runs[False]
+        for n in names:
+            unequal[n] += not all(
+                torch.equal(x, y) for x, y in zip(
+                    _leaves(getattr(a, n)), _leaves(getattr(b, n)),
+                    strict=True))
+        unequal["result"] += res[True].keys() != res[False].keys() or any(
+            not (torch.equal(v, res[False][k]) if isinstance(v, torch.Tensor)
+                 else v == res[False][k]) for k, v in res[True].items())
+    leaves = list(zip(_leaves(runs[True].map), _leaves(runs[False].map)))
+    unequal["map"] = sum(not torch.equal(x, y) for x, y in leaves)
+    bad = {k: v for k, v in unequal.items() if v}
+    graphs = runs[False].graph_stats()
+    print(f"{tag}: the stage graphs against the eager class on all "
+          f"{LOOP_FRAMES} loop frames in turn (process_frame): frames "
+          f"unequal {bad} (== {{}}, bit for bit: {', '.join(names)} and the "
+          f"result each frame, the map's {len(leaves)} leaves at the end); "
+          f"{graphs['graphs']} graphs captured, their pool "
+          f"{graphs['pool_bytes']} bytes; blocks {runs[False].block_count()}")
+    require(not bad, f"{tag}: the stage graphs depart from the eager "
+            f"class: {bad}")
+    del runs
+    torch.cuda.empty_cache()
+    return graphs
 
 
 def loop_depth(raw, i):
@@ -3106,11 +3263,14 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
     after one warm-up step: the device's busy ms a frame and its share of
     the run's mean computation time, and each port kernel's launches a
     frame and device us a launch. The trace is complete when it shows
-    PIPE_EVENTS kernels and copies a frame; one that missed launches is
-    taken again over the next frames, up to PROFILE_TRIES times."""
+    PIPE_EVENTS kernels and copies a frame and the stage graphs' copies
+    (:func:`pipeline_copies`); one that missed launches is taken again
+    over the next frames, up to PROFILE_TRIES times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     depths = [loop_depth(raw, i) for i in range(N_PIPE_PROFILED + 1)]
+    copies = pipeline_copies(pipe)
+    want = PIPE_EVENTS + sum(copies.values())
     for attempt in range(PROFILE_TRIES):
         first = LOOP_FRAMES + 1 + attempt * len(depths)
         with profile(activities=[ProfilerActivity.CUDA],
@@ -3133,7 +3293,8 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
                 c, us = per.get(pk[0], (0, 0.0))
                 per[pk[0]] = (c + e.count, us + e.self_device_time_total)
         print(f"{tag} profile: device busy {busy:.3f} ms/frame in {n:.0f} "
-              f"kernels and copies a frame (== {PIPE_EVENTS}); busy share "
+              f"kernels and copies a frame (== {want}: {PIPE_EVENTS} and "
+              f"the stage graphs' copies {copies}); busy share "
               f"of the run's mean computation {ms_frame:.3f} ms/frame: "
               f"{busy / ms_frame:.4f}; "
               + ", ".join(f"{k} {c / N_PIPE_PROFILED:g}x "
@@ -3143,18 +3304,24 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
         # aside) once a frame, the prologue three times
         n_path = sum(not k.startswith("raycast_cold")
                      for k in PATHS["pipeline-" + pipe.field.name])
-        complete = round(n) == PIPE_EVENTS and len(per) == n_path and all(
+        complete = round(n) == want and len(per) == n_path and all(
             c == N_PIPE_PROFILED * (3 if k == "frame_mats" else 1)
             for k, (c, _) in per.items())
         if complete:
             break
         print(f"{tag}: the profile missed launches (try {attempt + 1} of "
               f"{PROFILE_TRIES})")
-    require(complete, f"{tag}: no profile showed {PIPE_EVENTS} kernels and "
+    require(complete, f"{tag}: no profile showed {want} kernels and "
             f"copies a frame, each kernel of the frame once (the prologue "
             f"three times): {n}, {per}")
     return dict(busy_ms=busy, launches_frame=n, busy_share=busy / ms_frame,
                 device_us={k: us / max(c, 1) for k, (c, us) in per.items()})
+
+
+def pipeline_copies(pipe):
+    """Each stage's copies into the class's own tensors a frame, in its
+    newest graph (what the stage's program returned)."""
+    return {key[0]: entry.out for key, entry in pipe._graphs.entries.items()}
 
 
 def pipeline_empty_cost(torch, pipe, tag):
@@ -3182,9 +3349,28 @@ def pipeline_phase(torch, raw, tmp, card):
     host_io = check_native(raw, card)
     for name in ("tsdf", "ofusion"):
         tag = f"pipeline {name}"
-        pipe, counts, numbers = pipeline_run(torch, name, raw, tmp, card)
+        pipe, counts, numbers, rows, cli_counts = pipeline_run(
+            torch, name, raw, tmp, card)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+        eager_rows = pipeline_eager_cli(torch, name, raw, tmp, rows,
+                                        cli_counts, numbers["ate"])
+        ms = {"graphs": computation_ms(rows),
+              "eager": computation_ms(eager_rows)}
+        for run, c in ms.items():
+            print(f"{tag}: computation {c['mean']:.4f} ms a frame "
+                  f"{run} (the log's, --no-stage-sync; per frame median "
+                  f"{c['median']:.4f}, max {c['max']:.4f}; from frame 4 "
+                  f"on {c['mean_from_4']:.4f}; the slowest frames "
+                  f"{ {f: round(v, 4) for f, v in c['slowest'].items()} }; "
+                  f"{card})")
+        print(f"{tag}: the stage graphs' aim <= {PIPE_AIM_MS} ms a frame "
+              f"(printed, not held): mean {ms['graphs']['mean']:.4f} ms; the "
+              f"host {numbers['replay_host_us']:.1f} us a frame in the "
+              f"replays; {numbers['graphs']} graphs, pool "
+              f"{numbers['pool_bytes']} bytes")
+        numbers["computation"] = ms
+        numbers["equal"] = pipeline_equal(torch, name, pipe, raw)
         if name == "tsdf":
             host_io.update(check_telemetry(torch, card))
             check_resume(torch, pipe, raw, tmp, tag)

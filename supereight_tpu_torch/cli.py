@@ -276,7 +276,9 @@ def run(argv=None):
                 # moment of the switch (K1's unprimed march)
                 if live is not None and live.view_mode == "static":
                     if static_view_pose is None:
-                        static_view_pose = pipe.raycast_pose.cpu().numpy()
+                        # a copy: the class rewrites its pose in place
+                        static_view_pose = pipe.raycast_pose.to(
+                            "cpu", copy=True).numpy()
                     volume = pipe.render_volume(view_pose=static_view_pose)
                 else:
                     static_view_pose = None

@@ -34,8 +34,24 @@ class FrameMats(NamedTuple):
     do_raycast: torch.Tensor    # bool[] frame > 2
 
 
+def frame_mats_buffers(device="cuda"):
+    """Empty output buffers of :func:`frame_mats` (its ``out``): the
+    f32[81] matrices and time stamp, the bool[3] gates."""
+    return (torch.empty(_N_MATS, dtype=torch.float32, device=device),
+            torch.empty(3, dtype=torch.bool, device=device))
+
+
+def frame_mats_views(out):
+    """The :class:`FrameMats` as views of the buffers ``out``
+    (:func:`frame_mats_buffers`)."""
+    mats, gates = out
+    m = [mats[16 * i:16 * i + 16].view(4, 4) for i in range(5)]
+    return FrameMats(*m, mats[80], gates[0], gates[1], gates[2])
+
+
 def frame_mats(k, pose_t, old_pose=None, tracked_t=None, frame=0,
-               tracking_rate: int = 1, integration_rate: int = 1):
+               tracking_rate: int = 1, integration_rate: int = 1,
+               out=None):
     """The :class:`FrameMats` of a frame (ref DenseSLAMSystem.cpp:206-212
     for the gates).
 
@@ -46,6 +62,8 @@ def frame_mats(k, pose_t, old_pose=None, tracked_t=None, frame=0,
     ground-truth path); ``frame`` a Python int >= 0 or an i32[] tensor on
     ``k``'s device. The pose is ``pose_t`` on frames that the tracking rate
     tracks, else ``old_pose``. One launch on a CUDA device, no host sync.
+    With ``out`` (:func:`frame_mats_buffers`) the results are written
+    there and returned as its views (:func:`frame_mats_views`).
     """
     dev = k.device
     if tracking_rate < 1 or integration_rate < 1:
@@ -53,8 +71,14 @@ def frame_mats(k, pose_t, old_pose=None, tracked_t=None, frame=0,
     if not isinstance(frame, torch.Tensor) and int(frame) < 0:
         raise ValueError("frame_mats: frame must be >= 0")
     if dev.type == "cpu":
-        return frame_mats_plain(k, pose_t, old_pose, tracked_t, frame,
+        mats = frame_mats_plain(k, pose_t, old_pose, tracked_t, frame,
                                 tracking_rate, integration_rate)
+        if out is None:
+            return mats
+        views = frame_mats_views(out)
+        for a, b in zip(views, mats):
+            a.copy_(b)
+        return views
     if dev.type != "cuda":
         raise ValueError(f"frame_mats: unsupported device {dev}")
     c = _lib.check
@@ -69,13 +93,14 @@ def frame_mats(k, pose_t, old_pose=None, tracked_t=None, frame=0,
         frame_t = c(frame.reshape(()), "frame", torch.int32, (), dev)
     else:
         frame_val = int(frame)
-    mats = torch.empty(_N_MATS, dtype=torch.float32, device=dev)
-    gates = torch.empty(3, dtype=torch.bool, device=dev)
+    if out is None:
+        out = frame_mats_buffers(dev)
+    mats = c(out[0], "out", torch.float32, (_N_MATS,), dev)
+    gates = c(out[1], "out", torch.bool, (3,), dev)
     _lib.launch("frame_mats", "se_frame_mats", dev, k, pose_t, old_pose,
                 tracked_t, frame_t, frame_val, int(tracking_rate),
                 int(integration_rate), mats, gates)
-    m = [mats[16 * i:16 * i + 16].view(4, 4) for i in range(5)]
-    return FrameMats(*m, mats[80], gates[0], gates[1], gates[2])
+    return frame_mats_views((mats, gates))
 
 
 def frame_mats_plain(k, pose_t, old_pose=None, tracked_t=None, frame=0,

@@ -130,38 +130,32 @@ def median_filter3_plain(depth, passes: int = 1):
     return depth
 
 
-def pyramid(depth, k, levels: int, neg_y: bool):
-    """The ``levels``-level pyramid of the f32[H, W] ``depth``, finest
-    first: (depths, vertices, normals, valid masks), four tuples. Level 0's
-    depth is ``depth``; each coarser level is the robust 2x downsample of
-    the one before (f32[ceil(h/2), ceil(w/2)]). A level's camera-frame
-    vertices (f32[h, w, 3]), normals (f32[h, w, 3], the INVALID sentinel
-    where invalid) and valid mask (bool[h, w]) use the intrinsics ``k /
-    2^level`` (``k`` the f32[4] (fx, fy, cx, cy) of level 0)."""
-    dev = depth.device
-    if dev.type == "cpu":
-        return pyramid_plain(depth, k, levels, neg_y)
-    if dev.type != "cuda":
-        raise ValueError(f"pyramid: unsupported device {dev}")
-    if not 1 <= levels <= _lib.MAX_ICP_LEVELS:
-        raise ValueError(f"pyramid: {levels} levels, the kernel takes 1 to "
-                         f"{_lib.MAX_ICP_LEVELS}")
-    h, w = depth.shape
-    _lib.check(depth, "depth", torch.float32, (h, w), dev)
-    _lib.check(k, "k", torch.float32, (4,), dev)
+def _level_shapes(h: int, w: int, levels: int):
     shapes = [(h, w)]
     for _ in range(1, levels):
         shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
-    px = [a * b for a, b in shapes]
-    # every level's outputs as contiguous views of two allocations: the
-    # floats (coarser depths, then vertices and normals) and the masks
-    floats = torch.empty(sum(px[1:]) + 6 * sum(px), dtype=torch.float32,
-                         device=dev)
-    masks = torch.empty(sum(px), dtype=torch.bool, device=dev)
-    lv = _lib.Levels(n_levels=levels)
+    return shapes
+
+
+def pyramid_buffers(h: int, w: int, levels: int, device="cuda"):
+    """Empty output buffers of a ``levels``-level :func:`pyramid` of an
+    [h, w] depth (its ``out``): the f32 coarser depths, vertices and
+    normals of every level back to back, and the bool valid masks."""
+    px = [a * b for a, b in _level_shapes(h, w, levels)]
+    return (torch.empty(sum(px[1:]) + 6 * sum(px), dtype=torch.float32,
+                        device=device),
+            torch.empty(sum(px), dtype=torch.bool, device=device))
+
+
+def pyramid_views(depth, out, levels: int):
+    """The pyramid (depths, vertices, normals, valid masks), finest first,
+    as views of the buffers ``out`` (:func:`pyramid_buffers`); level 0's
+    depth is ``depth``."""
+    floats, masks = out
     depths, verts, norms, valids = [depth], [], [], []
     f_off = m_off = 0
-    for lvl, ((lh, lw), n) in enumerate(zip(shapes, px)):
+    for lvl, (lh, lw) in enumerate(_level_shapes(*depth.shape, levels)):
+        n = lh * lw
         if lvl:
             depths.append(floats[f_off:f_off + n].view(lh, lw))
             f_off += n
@@ -170,14 +164,57 @@ def pyramid(depth, k, levels: int, neg_y: bool):
         f_off += 6 * n
         valids.append(masks[m_off:m_off + n].view(lh, lw))
         m_off += n
+    return tuple(depths), tuple(verts), tuple(norms), tuple(valids)
+
+
+def pyramid(depth, k, levels: int, neg_y: bool, out=None):
+    """The ``levels``-level pyramid of the f32[H, W] ``depth``, finest
+    first: (depths, vertices, normals, valid masks), four tuples. Level 0's
+    depth is ``depth``; each coarser level is the robust 2x downsample of
+    the one before (f32[ceil(h/2), ceil(w/2)]). A level's camera-frame
+    vertices (f32[h, w, 3]), normals (f32[h, w, 3], the INVALID sentinel
+    where invalid) and valid mask (bool[h, w]) use the intrinsics ``k /
+    2^level`` (``k`` the f32[4] (fx, fy, cx, cy) of level 0). With
+    ``out`` (:func:`pyramid_buffers`) the levels are written there and
+    returned as its views (:func:`pyramid_views`)."""
+    dev = depth.device
+    if dev.type == "cpu":
+        pyr = pyramid_plain(depth, k, levels, neg_y)
+        if out is None:
+            return pyr
+        views = pyramid_views(depth, out, levels)
+        for own, new in zip(views, pyr):
+            for a, b in zip(own, new):
+                if a is not b:  # level 0's depth is ``depth`` in both
+                    a.copy_(b)
+        return views
+    if dev.type != "cuda":
+        raise ValueError(f"pyramid: unsupported device {dev}")
+    if not 1 <= levels <= _lib.MAX_ICP_LEVELS:
+        raise ValueError(f"pyramid: {levels} levels, the kernel takes 1 to "
+                         f"{_lib.MAX_ICP_LEVELS}")
+    h, w = depth.shape
+    _lib.check(depth, "depth", torch.float32, (h, w), dev)
+    _lib.check(k, "k", torch.float32, (4,), dev)
+    if out is None:
+        # every level's outputs as contiguous views of two allocations:
+        # the floats (coarser depths, then vertices and normals) and the
+        # masks
+        out = pyramid_buffers(h, w, levels, dev)
+    else:
+        for buf, want in zip(out, pyramid_buffers(h, w, levels, "meta")):
+            _lib.check(buf, "out", want.dtype, want.shape, dev)
+    depths, verts, norms, valids = pyramid_views(depth, out, levels)
+    lv = _lib.Levels(n_levels=levels)
+    for lvl in range(levels):
         lv.depth[lvl] = depths[lvl].data_ptr() if lvl else None
         lv.vertex[lvl] = verts[lvl].data_ptr()
         lv.normal[lvl] = norms[lvl].data_ptr()
         lv.valid[lvl] = valids[lvl].data_ptr()
-        lv.h[lvl], lv.w[lvl] = lh, lw
+        lv.h[lvl], lv.w[lvl] = depths[lvl].shape
     _lib.launch("pyramid", "se_pyramid", dev, depth, k, HALF_SAMPLE_E_D,
                 int(neg_y), lv)
-    return tuple(depths), tuple(verts), tuple(norms), tuple(valids)
+    return depths, verts, norms, valids
 
 
 def pyramid_plain(depth, k, levels: int, neg_y: bool):

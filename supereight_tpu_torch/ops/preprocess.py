@@ -14,11 +14,10 @@ import numpy as np
 import torch
 
 
-def mm2meters(depth_mm, out_hw, device="cuda"):
-    """u16 millimetres [H, W] (numpy or a tensor) -> f32 metres [h, w]
-    on ``device`` (the card unless the caller asks for another), sampled
-    every ``W // w`` pixels in both directions. Equals numpy's
-    ``d.astype(np.float32) / np.float32(1000)`` for every u16 value."""
+def sample_mm(depth_mm, out_hw):
+    """The u16 millimetres [H, W] (numpy or a tensor) sampled every ``W //
+    w`` pixels in both directions to [h, w] = ``out_hw``, as exact f32
+    millimetres where the frame lies (every u16 value is exact in f32)."""
     h, w = out_hw
     ratio = depth_mm.shape[1] // w
     if depth_mm.shape[0] // h != ratio:
@@ -26,9 +25,20 @@ def mm2meters(depth_mm, out_hw, device="cuda"):
                          f"sample to {h}x{w} at one ratio")
     sampled = depth_mm[::ratio, ::ratio]
     if isinstance(sampled, torch.Tensor):
-        d = sampled.to(device=device, dtype=torch.int32).to(torch.float32)
-    else:
-        # every u16 value is exact in f32: the conversion is exact
-        d = torch.from_numpy(np.ascontiguousarray(sampled, np.float32)) \
-            .to(device)
-    return d / torch.full((), 1000.0, dtype=torch.float32, device=d.device)
+        return sampled.to(torch.int32).to(torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(sampled, np.float32))
+
+
+def meters(mm, out=None):
+    """f32 millimetres -> metres, the one correctly rounded f32 divide by
+    1000 (into ``out`` if given)."""
+    return torch.div(mm, torch.full((), 1000.0, dtype=torch.float32,
+                                    device=mm.device), out=out)
+
+
+def mm2meters(depth_mm, out_hw, device="cuda"):
+    """u16 millimetres [H, W] (numpy or a tensor) -> f32 metres [h, w]
+    on ``device`` (the card unless the caller asks for another), sampled
+    every ``W // w`` pixels in both directions. Equals numpy's
+    ``d.astype(np.float32) / np.float32(1000)`` for every u16 value."""
+    return meters(sample_mm(depth_mm, out_hw).to(device))

@@ -31,7 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from supereight_tpu_torch.core.map import MapState, make_map
-from supereight_tpu_torch.kernels import _lib
+from supereight_tpu_torch.graphs import Graphs
 from supereight_tpu_torch.kernels.frame import frame_mats
 from supereight_tpu_torch.kernels.raycast import Previous
 from supereight_tpu_torch.ops import allocation, integration, raycast, \
@@ -209,13 +209,6 @@ def state_leaves(state: FrameState):
     return out
 
 
-class _Graph(NamedTuple):
-    graph: object     # torch.cuda.CUDAGraph, None on the CPU
-    aux: dict         # the outputs each replay rewrites
-    launches: dict    # kernel -> launches a replay (_lib.capturing)
-    ops: int          # the program's own device ops inside: copies, packing
-
-
 class FrameProgram:
     """:func:`frame_step` as one CUDA graph for each set of static
     arguments: the counterpart of JAX's jit of it (``parallel/step.py:
@@ -225,27 +218,22 @@ class FrameProgram:
     the caller must not use it otherwise) and the buffers of the dynamic
     arguments (``depth``, ``k``, ``frame`` an i32[], ``gt_pose`` a
     [4, 4]), each at a fixed address. A call copies its arguments into
-    them and runs the frame; the first call with a set of static keywords
-    runs it eagerly on the program's capture stream (the warm-up: every
-    first-call query and scratch of the kernels happens there, outside a
-    capture) and then captures it, so a new integration budget bucket
-    captures a new graph, as JAX recompiles; every later call with that
-    set is one replay on the current stream. Inside the graph the new
+    them and runs the frame as the graph of its set of static keywords
+    (:class:`~supereight_tpu_torch.graphs.Graphs`: the first call with a
+    set runs it eagerly on the program's capture stream and captures it,
+    every later call is one replay on the current stream), so a new
+    integration budget bucket captures a new graph, as JAX recompiles.
+    Inside the graph the new
     pose, raycast pose and reference maps (and any map leaf the step did
     not update in place) are copied back into the state's own tensors,
     so the next replay reads them where the graph looks, and the aux's
     one-value entries are packed into ``aux["scalars"]`` (i32[9], in
     :data:`AUX_SCALARS` order). Each replay rewrites the returned aux and
     state: a caller that keeps them across frames copies them (the row is
-    one copy). Graphs of one program share a memory pool and the capture
-    stream's scratch: replay them one at a time.
-
-    A capture or a replay that fails raises; nothing falls back to the
-    eager step. On the CPU (the caller must ask for it, as the tests do)
-    each call runs :func:`frame_step` eagerly through the same buffers,
-    copies and packing. Launch counts: a replay adds its graph's launch
-    table to ``_lib.LAUNCHES``, so a run counts what the eager step
-    would.
+    one copy). A capture or a replay that fails raises; nothing falls
+    back to the eager step. On the CPU (the caller must ask for it, as
+    the tests do) each call runs :func:`frame_step` eagerly through the
+    same buffers, copies and packing.
     """
 
     def __init__(self, geom, field, state: FrameState):
@@ -259,11 +247,13 @@ class FrameProgram:
         self.k = torch.zeros(4, **f32)
         self.frame = torch.zeros((), dtype=torch.int32, device=dev)
         self.gt_pose = torch.zeros((4, 4), **f32)
-        self.graphs = {}   # static_key -> _Graph
         self.input_ops = 0  # device ops the last call's input copies took
-        cuda = dev.type == "cuda"
-        self._pool = torch.cuda.graph_pool_handle() if cuda else None
-        self._stream = torch.cuda.Stream(dev) if cuda else None
+        # static_key -> Entry, whose ``out`` is (aux, the ops of _run)
+        self._graphs = Graphs(dev)
+
+    @property
+    def graphs(self):
+        return self._graphs.entries
 
     def load(self, state: FrameState):
         """Copy ``state`` (a snapshot, or any state of the program's
@@ -281,7 +271,7 @@ class FrameProgram:
         """The program's own device ops a frame under ``key``: the input
         copies of the last call, and the copies back and the packing
         inside the graph."""
-        return self.input_ops + self.graphs[key].ops
+        return self.input_ops + self.graphs[key].out[1]
 
     def __call__(self, depth_m, k, frame, gt_pose=None, **static):
         """Frame ``frame`` (an int >= 0 or an int tensor) of ``depth_m``
@@ -294,16 +284,8 @@ class FrameProgram:
         if use_gt and gt_pose is None:
             raise ValueError("FrameProgram: use_gt_pose needs gt_pose")
         self._inputs(depth_m, k, frame, gt_pose if use_gt else None)
-        entry = self.graphs.get(key)
-        if entry is not None and entry.graph is not None:
-            entry.graph.replay()
-            _lib.replayed(entry.launches)
-            return self.state, entry.aux
-        if self.device.type == "cpu":
-            aux, ops = self._run(static, use_gt)
-            self.graphs[key] = _Graph(None, aux, {}, ops)
-            return self.state, aux
-        return self.state, self._capture(key, static, use_gt)
+        aux, _ = self._graphs(key, lambda: self._run(static, use_gt))
+        return self.state, aux
 
     def _inputs(self, depth_m, k, frame, gt_pose):
         if not isinstance(frame, torch.Tensor) and int(frame) < 0:
@@ -336,28 +318,6 @@ class FrameProgram:
             [a.reshape(()).to(torch.int32) for a in one]))
         ops += 1 + sum(a.dtype != torch.int32 for a in one)
         return aux, ops
-
-    def _capture(self, key, static, use_gt):
-        """The first frame of ``key``: run eagerly on the capture stream,
-        then captured there into the key's graph (capturing runs nothing,
-        so the state holds the eager frame's result). Returns the eager
-        frame's aux."""
-        cur = torch.cuda.current_stream(self.device)
-        side = self._stream
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            aux, _ = self._run(static, use_gt)
-            graph = torch.cuda.CUDAGraph()
-            with _lib.capturing() as launches:
-                graph.capture_begin(pool=self._pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    captured, ops = self._run(static, use_gt)
-                finally:
-                    graph.capture_end()
-        cur.wait_stream(side)
-        self.graphs[key] = _Graph(graph, captured, launches, ops)
-        return aux
 
 
 def _put(buf, x, name):

@@ -21,6 +21,12 @@ integration and again for the raycast, and only allocation changes it,
 so the class keeps the integration's bucket for the raycast of the same
 frame. The keyframe pose graph (``posegraph/``) and the marching-cubes
 export (``io/meshing.py``) hang off the class as in JAX's.
+
+JAX's class is "a thin stateful shell over jitted functional stages": each
+stage is one compiled program for each set of its static arguments. Here
+each stage is one CUDA graph for each set, captured the first time the
+set is seen and replayed on every later frame (``graphs.py``); the host
+reads above split a frame into those stages.
 """
 
 from typing import Optional, Tuple
@@ -33,16 +39,23 @@ from supereight_tpu_torch.constants import DIST_THRESHOLD
 from supereight_tpu_torch.core import se3
 from supereight_tpu_torch.core.map import MapGeometry, make_map
 from supereight_tpu_torch.fields import get_field
+from supereight_tpu_torch.graphs import Graphs
 from supereight_tpu_torch.kernels import preprocess
 from supereight_tpu_torch.kernels.alloc import ALLOC_BUDGET
-from supereight_tpu_torch.kernels.frame import frame_mats
+from supereight_tpu_torch.kernels.frame import (frame_mats,
+                                                frame_mats_buffers,
+                                                frame_mats_views)
 from supereight_tpu_torch.ops import (allocation, integration, raycast,
                                       rendering, tracking)
-from supereight_tpu_torch.ops.preprocess import mm2meters
+from supereight_tpu_torch.ops.preprocess import meters, sample_mm
+
+# the drop counters the stages write into ``stats``
+STATS = ("alloc_overflow", "blocks_truncated", "patch_skipped",
+         "mip_skipped", "ray_overflow")
 
 
 def preprocess_and_pyramid(depth_m, k, levels: int, neg_y: bool,
-                           filter_input):
+                           filter_input, out=None):
     """Filter, then build the depth/vertex/normal pyramid (ref
     DenseSLAMSystem::preprocessing + tracking's pyramid prep,
     DenseSLAMSystem.cpp:128-164).
@@ -51,7 +64,8 @@ def preprocess_and_pyramid(depth_m, k, levels: int, neg_y: bool,
     one 3x3 median pass, "median2" two, any other true value (True,
     "bilateral") the reference's 5x5 bilateral filter, and a false value
     no filter. Returns (depths, verts, norms, valids), tuples finest
-    first; depths[0] is the filtered depth.
+    first; depths[0] is the filtered depth. ``out`` is the pyramid's
+    (kernels/preprocess.pyramid_buffers).
     """
     if filter_input == "median":
         d0 = preprocess.median_filter3(depth_m)
@@ -61,20 +75,57 @@ def preprocess_and_pyramid(depth_m, k, levels: int, neg_y: bool,
         d0 = preprocess.bilateral_filter(depth_m)
     else:
         d0 = depth_m
-    return preprocess.pyramid(d0, k, levels, neg_y)
+    return preprocess.pyramid(d0, k, levels, neg_y, out=out)
 
 
 def _np(t):
-    return t.detach().cpu().numpy()
+    # a copy: the class rewrites its own tensors in place
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return (x,)
+    return tuple(t for v in x for t in _leaves(v))
 
 
 class DenseSLAMSystem:
     """Stateful pipeline facade (ref DenseSLAMSystem.h:58-411) on
-    ``device``, the card unless the caller asks for another."""
+    ``device``, the card unless the caller asks for another.
+
+    Its stages (:meth:`preprocessing`, :meth:`tracking`, the allocation
+    and the fusion of :meth:`integration`, :meth:`raycasting`) read and
+    write the class's own tensors, which keep their addresses for the
+    pipeline's life: the pose, old pose, raycast pose, reference maps,
+    reduction, track result, float depth, pyramid, map and ``stats``,
+    and the inputs (the sampled depth frame, the time stamp). On the card
+    each stage is one CUDA graph for each set of its static arguments,
+    captured on the first frame of the set after running it eagerly
+    there, and replayed on every later frame; the graphs share one memory
+    pool. The sets (each stage's key, after its name): ``preprocess``
+    (JAX's ``_preprocess_and_pyramid``, ``pipeline.py:26``, with
+    ``mm2meters``) is_mm, filter, levels, sign of fy, frame shape;
+    ``track`` (``tracking.track``, ``ops/tracking.py:240``) iterations,
+    threshold; ``allocate`` (``allocate_tsdf`` / ``allocate_ofusion``,
+    op by op in JAX) field, allocation budget; ``fuse``
+    (``integration.integrate``, ``ops/integration.py:282``) field,
+    bucket, depth_interp, noise_weighted, fuse_filtered; ``raycast``
+    (``raycast.raycast``, ``ops/raycast.py:798``) field, bucket,
+    min_ref_weight. A capture or replay that fails raises;
+    nothing falls back to the eager stages. On the CPU the stages run
+    eagerly through the same tensors and copies. ``eager=True`` runs
+    every stage eagerly and takes each result as it comes (JAX's
+    ``disable_jit``): the reference the graphs are held to.
+
+    What :meth:`process_frame` returns and ``stats`` hold are the class's
+    own tensors (eagerly, the stages'), rewritten by the next frame: a
+    caller that keeps them across frames copies them.
+    """
 
     def __init__(self, input_size: Tuple[int, int],
                  config: Configuration,
-                 init_pose: Optional[np.ndarray] = None, device="cuda"):
+                 init_pose: Optional[np.ndarray] = None, device="cuda",
+                 eager: bool = False):
         self.config = config
         self.device = dev = torch.device(device)
         w, h = input_size
@@ -98,9 +149,9 @@ class DenseSLAMSystem:
             init_pose = np.eye(4, dtype=np.float32)
             init_pose[:3, 3] = t
         self.pose = self._pose_tensor(init_pose)
-        self.init_pose = self.pose
-        self.old_pose = self.pose
-        self.raycast_pose = self.pose
+        self.init_pose = self.pose.clone()
+        self.old_pose = self.pose.clone()
+        self.raycast_pose = self.pose.clone()
 
         cw, ch = self.computation_size
         f32 = dict(dtype=torch.float32, device=dev)
@@ -112,6 +163,7 @@ class DenseSLAMSystem:
         self.reduction = torch.zeros((32,), **f32)
         self.track_result = torch.zeros((ch, cw), dtype=torch.int32,
                                         device=dev)
+        self._tracked = torch.zeros((), dtype=torch.bool, device=dev)
 
         self._iterations = tuple(config.pyramid)
         self._neg_y = float(k[1]) < 0
@@ -127,9 +179,64 @@ class DenseSLAMSystem:
         self.keyframes = None
         self.trajectory_correction = np.eye(4, dtype=np.float32)
 
+        # the stages' graphs; None: every stage eager. The outputs the
+        # kernels write where they are told (the pyramid, the fusion's
+        # matrices) and the rest of the class's own tensors
+        self._graphs = None if eager else Graphs(dev)
+        self._pyr_out = self._mats_out = None
+        self._mats = None   # the allocation's matrices, for the fusion
+        if not eager:
+            levels = len(self._iterations)
+            self._pyr_out = preprocess.pyramid_buffers(ch, cw, levels, dev)
+            d0 = torch.zeros((ch, cw), **f32) if config.filter_input \
+                else self.float_depth
+            self.pyr = preprocess.pyramid_views(d0, self._pyr_out, levels)
+            self._mats_out = frame_mats_buffers(dev)
+            self._mats = frame_mats_views(self._mats_out)
+            self._depth_in = torch.zeros((ch, cw), **f32)  # f32 mm
+            self._timestamp = torch.zeros((), **f32)
+            self._stats = {n: torch.zeros((), dtype=torch.int32, device=dev)
+                           for n in STATS}
+
     def _pose_tensor(self, pose):
         return torch.as_tensor(np.asarray(pose, np.float32)) \
             .to(self.device).clone()
+
+    def _stage(self, key, compute):
+        """Run one stage: ``compute()`` launches it from the class's
+        tensors and returns its results by the attribute each goes to (a
+        drop counter by its ``stats`` name). Eagerly the class takes them
+        as they are; else they are copied into the class's own tensors
+        (where a kernel did not write them there), all inside ``key``'s
+        graph."""
+        if self._graphs is None:
+            for name, value in compute().items():
+                if name in STATS:
+                    self.stats = {**self.stats, name: value}
+                else:
+                    setattr(self, name, value)
+            return
+
+        def program():
+            copies = 0
+            for name, value in compute().items():
+                if name in STATS:
+                    own = self.stats[name] = self._stats[name]
+                else:
+                    own = getattr(self, name)
+                for a, b in zip(_leaves(own), _leaves(value), strict=True):
+                    if a.data_ptr() != b.data_ptr():
+                        a.copy_(b)
+                        copies += 1
+            return copies
+        self._graphs(key, program)
+
+    def graph_stats(self):
+        """The graphs captured so far and the bytes their pool holds."""
+        if self._graphs is None:
+            return {"graphs": 0, "pool_bytes": 0}
+        return {"graphs": self._graphs.captured(),
+                "pool_bytes": self._graphs.pool_bytes()}
 
     # ------------------------------------------------------------------
     # pipeline stages (ref DenseSLAMSystem.cpp:128-268)
@@ -139,33 +246,55 @@ class DenseSLAMSystem:
         (numpy or a tensor)."""
         cw, ch = self.computation_size
         self._bucket = None  # a new frame
+        eager = self._graphs is None
         if is_mm:
-            depth_m = mm2meters(depth, (ch, cw), self.device)
+            mm = sample_mm(depth, (ch, cw))
+            if eager:
+                mm = mm.to(self.device)
+            else:
+                self._depth_in.copy_(mm)
+                mm = self._depth_in
         else:
             r = self.config.compute_size_ratio
             d = torch.as_tensor(np.asarray(depth, np.float32)) \
                 if not isinstance(depth, torch.Tensor) else depth
-            depth_m = d[::r, ::r].to(device=self.device,
-                                     dtype=torch.float32).contiguous()
-        self.float_depth = depth_m
-        self.pyr = preprocess_and_pyramid(
-            depth_m, self.k, len(self._iterations), self._neg_y,
-            self.config.filter_input)
+            if eager:
+                self.float_depth = d[::r, ::r].to(
+                    device=self.device, dtype=torch.float32).contiguous()
+            else:
+                self.float_depth.copy_(d[::r, ::r])
+        levels = len(self._iterations)
+        filter_input = self.config.filter_input
+
+        def compute():
+            depth_m = self.float_depth
+            if is_mm:
+                depth_m = meters(mm, out=None if eager else depth_m)
+            return {"float_depth": depth_m,
+                    "pyr": preprocess_and_pyramid(
+                        depth_m, self.k, levels, self._neg_y, filter_input,
+                        out=self._pyr_out)}
+        self._stage(("preprocess", is_mm, filter_input, levels, self._neg_y,
+                     (ch, cw)), compute)
         return True
 
     def tracking(self, frame: int) -> bool:
         if frame % self.config.tracking_rate != 0:
             return False
-        self.old_pose = self.pose
-        _, verts, norms, valids = self.pyr
-        pose, tracked, reduction, result = tracking.track(
-            self.pose, self.raycast_pose, self.k, verts, norms, valids,
-            self.vertex, self.normal, self.valid,
-            self._iterations, self.config.icp_threshold)
-        self.pose = pose
-        self.reduction = reduction
-        self.track_result = result
-        return bool(tracked)
+
+        def compute():
+            _, verts, norms, valids = self.pyr
+            pose, tracked, reduction, result = tracking.track(
+                self.pose, self.raycast_pose, self.k, verts, norms, valids,
+                self.vertex, self.normal, self.valid,
+                self._iterations, self.config.icp_threshold)
+            # old_pose first: it takes the pose from before tracking
+            return {"old_pose": self.pose, "pose": pose,
+                    "_tracked": tracked, "reduction": reduction,
+                    "track_result": result}
+        self._stage(("track", self._iterations, self.config.icp_threshold),
+                    compute)
+        return bool(self._tracked)
 
     def _budget_bucket(self) -> int:
         """The integration budget and raycast pool bucket from the live
@@ -180,42 +309,48 @@ class DenseSLAMSystem:
     def integration(self, frame: int) -> bool:
         if not (frame % self.config.integration_rate == 0 or frame <= 3):
             return False
-        depths = self.pyr[0]
-        mats = frame_mats(self.k, self.pose)
+        c = self.config
         allocate = (allocation.allocate_ofusion
                     if self.field.multiscale_alloc
                     else allocation.allocate_tsdf)
-        self.map, astats = allocate(
-            self.geom, self.map, depths[0], self.pose, self.k,
-            self.config.mu, with_stats=True, budget=self._alloc_budget,
-            mats=mats)
+
+        def alloc():
+            # the matrices the fusion reads too (JAX's one pose prologue)
+            mats = frame_mats(self.k, self.pose, out=self._mats_out)
+            _, astats = allocate(
+                self.geom, self.map, self.pyr[0][0], self.pose, self.k,
+                c.mu, with_stats=True, budget=self._alloc_budget,
+                mats=mats)
+            return {"_mats": mats, "alloc_overflow": astats["alloc_overflow"]}
+        self._stage(("allocate", self.field.name, self._alloc_budget), alloc)
         # self-sizing allocation bucket (the reference allocates ALL
         # candidate octants, octree.hpp:792-817): an overflowing frame
         # doubles the bucket for later frames, polled every 8th frame;
         # the overflowed cells are re-touched next frame
-        if frame % 8 == 0 and int(astats["alloc_overflow"]) > 0:
+        if frame % 8 == 0 and int(self.stats["alloc_overflow"]) > 0:
             b = self.geom.blocks_per_side
             self._alloc_budget = min(2 * self._alloc_budget, b ** 3)
         # JAX's Python float time stamp, rounded to f32 as its jit does
-        timestamp = torch.tensor(np.float32((1.0 / 30.0) * frame),
-                                 device=self.device)
+        stamp = np.float32((1.0 / 30.0) * frame)
+        if self._graphs is None:
+            self._timestamp = torch.tensor(stamp, device=self.device)
+        else:
+            self._timestamp.fill_(float(stamp))
         # allocation was the last change to the block count this frame
-        self._bucket = self._budget_bucket()
-        # fuse_filtered: the noise-grade deviation (the reference fuses
-        # the raw float_depth_)
-        fuse_depth = (self.pyr[0][0] if self.config.fuse_filtered
-                      else self.float_depth)
-        self.map, istats = integration.integrate(
-            self.geom, self.map, self.field, fuse_depth, self.pose,
-            self.k, self.config.mu, timestamp, self.computation_size,
-            self._bucket, depth_interp=self.config.depth_interp,
-            with_stats=True, noise_weighted=self.config.noise_weighted,
-            mats=mats)
-        self.stats = dict(self.stats,
-                          alloc_overflow=astats["alloc_overflow"],
-                          blocks_truncated=istats["blocks_truncated"],
-                          patch_skipped=istats["patch_skipped"],
-                          mip_skipped=istats["mip_skipped"])
+        self._bucket = bucket = self._budget_bucket()
+
+        def fuse():
+            # fuse_filtered: the noise-grade deviation (the reference
+            # fuses the raw float_depth_)
+            depth = self.pyr[0][0] if c.fuse_filtered else self.float_depth
+            _, istats = integration.integrate(
+                self.geom, self.map, self.field, depth, self.pose, self.k,
+                c.mu, self._timestamp, self.computation_size, bucket,
+                depth_interp=c.depth_interp, with_stats=True,
+                noise_weighted=c.noise_weighted, mats=self._mats)
+            return {n: istats[n] for n in STATS[1:4]}
+        self._stage(("fuse", self.field.name, bucket, c.depth_interp,
+                     c.noise_weighted, c.fuse_filtered), fuse)
         return True
 
     def raycasting(self, frame: int) -> bool:
@@ -224,16 +359,20 @@ class DenseSLAMSystem:
             return False
         if bucket is None:  # no integration since the map last changed
             bucket = self._budget_bucket()
-        self.raycast_pose = self.pose
-        view = frame_mats(self.k, self.raycast_pose).kpose
-        # primed by the raw depth; a TSDF min_ref_weight > 0 is the
-        # map-maturity ICP gate (K1's gated launch)
-        self.vertex, self.normal, self.valid, rstats = raycast.raycast(
-            self.geom, self.map, self.field, view, self.config.mu,
-            self.computation_size, depth=self.float_depth, k=self.k,
-            with_stats=True, pool_bucket=bucket,
-            min_ref_weight=self.config.min_ref_weight)
-        self.stats = dict(self.stats, ray_overflow=rstats["ray_overflow"])
+        gate = self.config.min_ref_weight
+
+        def compute():
+            view = frame_mats(self.k, self.pose).kpose
+            # primed by the raw depth; a TSDF min_ref_weight > 0 is the
+            # map-maturity ICP gate (K1's gated launch)
+            vertex, normal, valid, rstats = raycast.raycast(
+                self.geom, self.map, self.field, view, self.config.mu,
+                self.computation_size, depth=self.float_depth, k=self.k,
+                with_stats=True, pool_bucket=bucket, min_ref_weight=gate)
+            return {"raycast_pose": self.pose, "vertex": vertex,
+                    "normal": normal, "valid": valid,
+                    "ray_overflow": rstats["ray_overflow"]}
+        self._stage(("raycast", self.field.name, bucket, gate), compute)
         return True
 
     def process_frame(self, depth, frame: int, is_mm: bool = True,
@@ -242,11 +381,13 @@ class DenseSLAMSystem:
         mainQt.cpp:201-313).
 
         gt_pose: ground-truth camera-to-world pose; when given, tracking
-        is bypassed (ref mainQt.cpp:257-265 setPose path).
+        is bypassed (ref mainQt.cpp:257-265 setPose path). The counters
+        returned are the class's ``stats`` tensors, rewritten by the next
+        frame.
         """
         self.preprocessing(depth, is_mm=is_mm)
         if gt_pose is not None:
-            self.pose = self._pose_tensor(gt_pose)
+            self.set_pose(gt_pose)
             tracked = True
         else:
             tracked = self.tracking(frame)
@@ -335,7 +476,8 @@ class DenseSLAMSystem:
             corr = km.correction_for_latest()
             self.trajectory_correction = corr
             if self._reanchor:
-                self.pose = se3.matmul4(self._pose_tensor(corr), self.pose)
+                self.set_pose(se3.matmul4(self._pose_tensor(corr),
+                                          self.pose))
             self._pending_ba = False
 
     # ------------------------------------------------------------------
@@ -393,17 +535,18 @@ class DenseSLAMSystem:
         geom, state, field = load_map(filename, self.device)
         assert geom == self.geom and field.name == self.field.name, \
             "checkpoint geometry/field mismatch"
-        self.map = state
         self._bucket = None
         z = np.load(filename + ".run.npz")
-
-        def t(name):
-            return torch.from_numpy(z[name]).to(self.device)
-        self.pose = t("pose")
-        self.raycast_pose = t("raycast_pose")
-        self.vertex = t("vertex")
-        self.normal = t("normal")
-        self.valid = t("valid")
+        loaded = {"map": state}
+        for name in ("pose", "raycast_pose", "vertex", "normal", "valid"):
+            loaded[name] = torch.from_numpy(z[name]).to(self.device)
+        for name, value in loaded.items():
+            if self._graphs is None:
+                setattr(self, name, value)
+            else:  # into the tensors the graphs read
+                for a, b in zip(_leaves(getattr(self, name)),
+                                _leaves(value), strict=True):
+                    a.copy_(b)
 
     # ------------------------------------------------------------------
     # getters (ref DenseSLAMSystem.h getters)
@@ -415,7 +558,13 @@ class DenseSLAMSystem:
         return _np(self.pose)
 
     def set_pose(self, pose):
-        self.pose = self._pose_tensor(pose)
+        """Set the pose (host or device [4, 4]): copied into the class's
+        own tensor, or eagerly rebound."""
+        pose = torch.as_tensor(pose, dtype=torch.float32)
+        if self._graphs is None:
+            self.pose = pose.to(self.device).clone()
+        else:
+            self.pose.copy_(pose)
 
     def get_depth(self):
         return _np(self.float_depth)
