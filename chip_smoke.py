@@ -44,6 +44,12 @@ checkout:
    C on disjoint tables and indices in turn, so that their reads come
    from device memory), each with its bytes bound and share, by
    ``tools/probe_gather.py --time``'s cases and meter;
+   K9 ``ba_solve`` (the pose graph's windowed solve) against its twin on
+   synthetic windows of 4, 17, 32 and 64 nodes with 128 and 200 edge
+   slots and of the most nodes it takes (``kernels/ba.MAX_NODES``) with
+   twice as many slots (closures, frozen nodes, garbage padding; poses
+   to 1e-5, fixed nodes bit-equal, one launch a call) and the gauge-less
+   window (NaN in both), each timed (call ms, device us, twin ms);
    and ``ops/preprocess.mm2meters`` on the card against numpy
    for all 65,536 u16 values, bit for bit;
    library phase (the library surface's sphere drive, a path of its own
@@ -163,9 +169,13 @@ checkout:
    BA row):
    drop counters 0, tracked fraction 0.98, ATE <= 0.0285 m, at least one
    accepted loop closure, icp_track launched once a frame plus once a
-   closure try, and the first closure's icp_track (3x gate) against its
-   twin; it prints the closures tried and accepted and the BA solves'
-   host ms; then the tracked noise map (``tools/noise_kernels.py``), a
+   closure try, ba_solve (K9) once a BA solve, the first closure's
+   icp_track (3x gate) against its twin, and every BA solve replayed from
+   its recorded arguments against the twin (poses to 1e-5) and against
+   the kernel again (bit for bit); it prints the closures tried and
+   accepted and, for each BA solve, the manager's host ms, the call's ms
+   and the kernel's device us beside the twin's ms; then the tracked
+   noise map (``tools/noise_kernels.py``), a
    path of its own: the first 60 frames of the loop with range noise
    0.002 (rendered there in four processes) through the CLI with
    the noise+levers row's options, every frame from frame 4 on tracked
@@ -385,6 +395,20 @@ BA_ARGS = ("--keyframe-rate", "15")
 EVAL_BA_ATE = 0.0228
 MAX_BA_ATE = 0.0285
 CLOSURE_DIST = 0.3
+# K9: the pose graph's windowed solve, held to its twin on synthetic
+# windows (n nodes, E edges) and on every solve of the BA path
+BA_TOL = 1e-5     # poses, kernel against twin (tests/test_torch_posegraph.py)
+BA_ITERS = 10     # posegraph/keyframes.KeyframeManager.optimize's
+BA_WINDOWS = tuple((n, e) for e in (128, 200) for n in (4, 17, 32, 64))
+BA_ROW = (17, 128)  # the kernels line's window (the loop solves n = 4-16)
+# the fewest f32 operations an edge needs over the branches of
+# csrc/ba.cu's dual-number pass: its residual and the derivatives'
+# coefficients once (literal operands folded), its 12 Jacobian columns'
+# nonzero tangents, and its terms of H's upper triangle and of b (a
+# product and a sum for each pair of nonzero Jacobian entries).
+# tests/test_torch_ba.py's model of the pass counts them and holds this
+BA_EDGE_OPS = 2850
+BA_EDGE_BYTES = 4 + 4 + 64 + 4 + 1  # i, j, t_meas, weight, valid
 # the host-IO step: the served TSDF loop. A run of SERVED_FRAMES
 # frames without controls must log pipeline-tsdf's first SERVED_FRAMES
 # rows; then a session whose viewer starts paused is driven over HTTP. It
@@ -497,6 +521,9 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
                      "supereight_tpu/parallel/dist_step.py:415"),
     "raycast_cols_of": ("supereight_tpu_torch/csrc/raycast.cu",
                         "supereight_tpu/parallel/dist_step.py:415"),
+    # the pose graph's windowed solve (the BA path)
+    "ba_solve": ("supereight_tpu_torch/csrc/ba.cu",
+                 "supereight_tpu/posegraph/graph.py:132"),
 }
 # why no single PyTorch call computes a kernel's function (its library_ms
 # is null)
@@ -544,6 +571,7 @@ NO_LIBRARY = {
     "halo_pack": "nonzero would size its output on the host",
     "raycast_cols": "no call marches rays through a sparse grid",
     "raycast_cols_of": "no call marches rays through a sparse grid",
+    "ba_solve": "no call runs a Gauss-Newton loop",
 }
 # device kernel names (without "_kernel") reported from the profile, and
 # the frame_step stage that launches each (icp_reduce's kernel runs its
@@ -592,11 +620,12 @@ PATHS = {  # the kernels each main path must launch
                              "integrate_fallback_noise", "node_rank",
                              "node_pass", "nav_grid", "raycast_gated"),
     # the TSDF pipeline with keyframes: the loop-closure re-tracks are
-    # icp_track and frame_mats launches too
+    # icp_track and frame_mats launches too, and each BA solve one ba_solve
     "pipeline-tsdf-ba": ("pyramid", "frame_mats", "icp_track",
                          "alloc_touch", "alloc_assign", "integrate_worklist",
                          "integrate_fused", "integrate_fallback",
-                         "node_rank", "node_pass", "nav_grid", "raycast"),
+                         "node_rank", "node_pass", "nav_grid", "raycast",
+                         "ba_solve"),
     # the served TSDF loop (host-IO step): a run without controls, then the
     # controlled session, whose static view is K1's unprimed launch
     "served": ("pyramid", "frame_mats", "icp_track", "alloc_touch",
@@ -658,9 +687,10 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_us(torch, fn, reps, per_call=None):
+def device_us(torch, fn, reps, per_call=None, name=None):
     """Device microseconds per call of fn() from torch.profiler: the sum
-    of the kernels and copies it runs, over reps calls. The device trace
+    of the kernels and copies it runs (with ``name``, of those whose name
+    holds it), over reps calls. The device trace
     misses the first launches after it starts (1 to 5 of 20 on the H100),
     so where ``per_call``, the kernels and copies one call runs, is known,
     the sum is averaged over the calls the trace shows, not over reps. A
@@ -677,7 +707,8 @@ def device_us(torch, fn, reps, per_call=None):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA
+                  and (name is None or name in e.key)]
         seen = sum(e.count for e in events)
         if seen:
             break
@@ -795,6 +826,105 @@ def track_args(torch, sc, state, depth):
     view = frame_mats_plain(sc.kt, state.raycast_pose).view
     return (state.pose, view, verts, norms, valids, state.vertex,
             state.normal, state.valid)
+
+
+def ba_bound(n, cap, edges, iters=BA_ITERS):
+    """K9's bound for one solve over n nodes and ``edges`` valid edges of
+    ``cap`` slots: the poses, the slots and the fixed flags read once and
+    the poses written once; the valid edges' residuals, Jacobian columns
+    and normal equations (BA_EDGE_OPS; a padded slot's terms are zeros),
+    the factorisation
+    ((6n)^3 / 3) and the two substitutions (2 (6n)^2), ``iters`` times.
+    Its chain floor is iters x 6n dependent factor columns
+    (``chain_columns``)."""
+    n6 = 6 * n
+    n_bytes = 2 * 64 * n + n + cap * BA_EDGE_BYTES
+    n_ops = iters * (edges * BA_EDGE_OPS + n6 ** 3 / 3 + 2 * n6 ** 2)
+    return dict(**bound(n_bytes, n_ops), chain_columns=iters * n6)
+
+
+def ba_errors(torch, tag, got, want, poses, fixed):
+    """The kernel's poses against the twin's: NaN in the same places,
+    within BA_TOL elsewhere, node 0 and the fixed nodes bit-equal to their
+    input wherever the solve is finite. Returns the max error."""
+    nan = torch.isnan(got)
+    require(torch.equal(nan, torch.isnan(want)),
+            f"{tag}: NaN where the twin has none, or none where it has")
+    err = (got - want)[~nan].abs().max().item() if not nan.all() else 0.0
+    require(err <= BA_TOL, f"{tag}: poses {err:.3e} off the twin's")
+    if not nan.any():
+        held = torch.zeros(poses.shape[0], dtype=torch.bool,
+                           device=poses.device)
+        held[0] = True
+        if fixed is not None:
+            held |= fixed
+        require(torch.equal(got[held], poses[held]),
+                f"{tag}: a fixed node moved")
+    return err
+
+
+def ba_times(torch, args):
+    """K9 on ``args`` (ba_solve's): the call's ms over 10 calls and the
+    twin's over one (CUDA events), the kernel's device us over 10 launches
+    (torch.profiler, the kernel alone)."""
+    from supereight_tpu_torch.kernels import ba
+    return dict(ms=cuda_ms(torch, lambda: ba.ba_solve(*args), 10),
+                device_us=device_us(torch, lambda: ba.ba_solve(*args), 10, 1,
+                                    name="ba_solve"),
+                plain_ms=cuda_ms(torch, lambda: ba.ba_solve_plain(*args), 1))
+
+
+def check_ba_solve(torch, tag, poses, graph, n, fixed):
+    """K9 ba_solve against its twin on one window: :func:`ba_errors`, one
+    launch a call and two calls bit-identical; the call's ms and the
+    twin's (CUDA events) and the kernel's device us (torch.profiler).
+    Returns the kernel's row."""
+    from supereight_tpu_torch.kernels import _lib, ba
+    args = (poses, graph, n, BA_ITERS, 1e-6, fixed)
+    before = _lib.LAUNCHES["ba_solve"]
+    got = ba.ba_solve(*args)
+    require(_lib.LAUNCHES["ba_solve"] == before + 1,
+            f"{tag}: ba_solve launched {_lib.LAUNCHES['ba_solve'] - before} "
+            f"times in one call")
+    want = ba.ba_solve_plain(*args)
+    err = ba_errors(torch, tag, got, want, poses, fixed)
+    require(torch.equal(got.nan_to_num(), ba.ba_solve(*args).nan_to_num()),
+            f"{tag}: two launches differ")
+    e = graph.i.shape[0]
+    row = dict(max_abs_err=err, **ba_times(torch, args),
+               **ba_bound(n, e, int(graph.valid.sum())))
+    print(f"{tag}: n {n}, E {e}, valid {int(graph.valid.sum())}: poses max "
+          f"err {err:.3e} (<= {BA_TOL}), NaN {bool(torch.isnan(got).any())}; "
+          f"call {row['ms']:.4f} ms, device {row['device_us']:.1f} us "
+          f"({row['device_us'] / row['chain_columns']:.3f} us a factor "
+          f"column), twin {row['plain_ms']:.1f} ms; bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    return row
+
+
+def ba_phase(torch, dev, card):
+    """K9 on the synthetic windows (BA_WINDOWS, and MAX_NODES nodes with
+    twice as many slots) and the gauge-less one. Returns the kernels
+    line's row: BA_ROW's window, every window's under "windows", the
+    largest error of all."""
+    from supereight_tpu_torch.kernels.ba import MAX_NODES
+    from supereight_tpu_torch.tools import ba_windows
+    rows = {}
+    windows = BA_WINDOWS + ((MAX_NODES, 2 * MAX_NODES),)
+    for seed, (n, e) in enumerate(windows):
+        poses, graph, fixed = ba_windows.window(n, e, seed, dev)
+        rows[f"{n}x{e}"] = check_ba_solve(torch, f"ba_solve window {n}x{e}",
+                                          poses, graph, n, fixed)
+    poses, graph, fixed = ba_windows.gaugeless(dev)
+    rows["gaugeless"] = check_ba_solve(torch, "ba_solve gauge-less window",
+                                       poses, graph, 6, fixed)
+    row = dict(rows["%dx%d" % BA_ROW])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    row["windows"] = {k: {x: r[x] for x in ("ms", "device_us", "plain_ms",
+                                            "bound_ms", "chain_columns")}
+                      for k, r in rows.items()}
+    print(f"ba_solve: {json.dumps(row['windows'])} ({card})")
+    return row
 
 
 def port_kernel(key):
@@ -3343,8 +3473,8 @@ def pipeline_phase(torch, raw, tmp, card):
     through the native writer); both profiled; then the refusals of a
     flag whose package does not import and, where Pillow imports, the
     served loop (:func:`served_phase`); then the TSDF path with keyframes
-    (:func:`ba_run`). Returns the paths' launch counts and the closure
-    icp_track's error against its twin."""
+    (:func:`ba_run`). Returns the paths' launch counts, the closure
+    icp_track's error against its twin and the BA solves' largest."""
     launches = {}
     host_io = check_native(raw, card)
     for name in ("tsdf", "ofusion"):
@@ -3391,12 +3521,13 @@ def pipeline_phase(torch, raw, tmp, card):
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
     print(f"host-io: {json.dumps(host_io)}")
-    counts, closure_err, numbers = ba_run(torch, raw, tmp, card, no_ba_ate)
+    counts, closure_err, ba_err, numbers = ba_run(torch, raw, tmp, card,
+                                                  no_ba_ate)
     print(f"pipeline tsdf-ba: {json.dumps(numbers)}")
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
-    return launches, closure_err
+    return launches, closure_err, ba_err
 
 
 def sphere_shell(torch, geom, dev):
@@ -3552,13 +3683,16 @@ def library_phase(torch, dev, tmp, card):
 def watch_closures(torch):
     """Record the loop-closure re-tracks (icp_track launches with the 3x
     gate: the count and the first one's inputs, cloned) and the BA solves
-    (count and host ms, each ending with its host read) of the pipeline
-    runs inside."""
+    (count and host ms, each ending with its host read; each solve's
+    ``posegraph.graph.optimize`` arguments and result, cloned) of the
+    pipeline runs inside."""
     from supereight_tpu_torch.constants import DIST_THRESHOLD
     from supereight_tpu_torch.ops import tracking
+    from supereight_tpu_torch.posegraph import graph
     from supereight_tpu_torch.posegraph.keyframes import KeyframeManager
-    seen = dict(tries=0, args=None, solves_ms=[])
+    seen = dict(tries=0, args=None, solves_ms=[], solves=[])
     track, optimize = tracking.icp_track, KeyframeManager.optimize
+    solve = graph.optimize
 
     def icp_track(*args, dist_threshold=DIST_THRESHOLD, **kw):
         if dist_threshold != DIST_THRESHOLD:
@@ -3570,15 +3704,27 @@ def watch_closures(torch):
         return track(*args, dist_threshold=dist_threshold, **kw)
 
     def timed(self, *args, **kw):
+        before = len(seen["solves"])
         t0 = time.perf_counter()
         out = optimize(self, *args, **kw)
-        seen["solves_ms"].append(1e3 * (time.perf_counter() - t0))
+        if len(seen["solves"]) > before:  # a window of one node solves none
+            seen["solves_ms"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def recorded(poses, g, num_nodes, iters=10, damping=1e-6, fixed=None):
+        args = (poses.clone(), graph.PoseGraph(*(x.clone() for x in g)),
+                num_nodes, iters, damping,
+                None if fixed is None else fixed.clone())
+        out = solve(poses, g, num_nodes, iters, damping, fixed)
+        seen["solves"].append((args, out.clone()))
         return out
     tracking.icp_track, KeyframeManager.optimize = icp_track, timed
+    graph.optimize = recorded
     try:
         yield seen
     finally:
         tracking.icp_track, KeyframeManager.optimize = track, optimize
+        graph.optimize = solve
 
 
 def ba_run(torch, raw, tmp, card, no_ba_ate):
@@ -3587,8 +3733,10 @@ def ba_run(torch, raw, tmp, card, no_ba_ate):
     Holds the drop counters to 0, the tracked fraction to MIN_TRACKED,
     the ATE to MAX_BA_ATE, at least one accepted closure (an edge between
     non-consecutive keyframes), icp_track launched once a frame plus once
-    a closure try, and one closure's icp_track against its twin with the
-    3x gate. Returns the path's launch counts and its row's error."""
+    a closure try, ba_solve once a BA solve, one closure's icp_track
+    against its twin with the 3x gate and every BA solve against its twin
+    (:func:`check_ba_path_solve`). Returns the path's launch counts, the
+    closure's error, the BA solves' largest and the path's numbers."""
     import numpy as np
     from supereight_tpu_torch import cli
     from supereight_tpu_torch.eval.sweep import parse_frame_log, summarize
@@ -3640,14 +3788,44 @@ def ba_run(torch, raw, tmp, card, no_ba_ate):
     require(launches["icp_track"] == LOOP_FRAMES + seen["tries"],
             f"{tag}: icp_track launched {launches['icp_track']} times for "
             f"{LOOP_FRAMES} frames and {seen['tries']} closure tries")
+    require(launches["ba_solve"] == len(solves) == len(seen["solves"]),
+            f"{tag}: ba_solve launched {launches['ba_solve']} times for "
+            f"{len(solves)} BA solves")
     row = check_icp_track(torch, f"{tag} closure icp_track (gate "
                           f"{CLOSURE_DIST} m)", seen["args"],
                           dist_threshold=CLOSURE_DIST)
+    ba_rows = [check_ba_path_solve(torch, f"{tag} BA solve {k}", args, out,
+                                   host_ms, card)
+               for k, ((args, out), host_ms) in enumerate(
+                   zip(seen["solves"], solves))]
     del pipe
     return ({k: launches[k] for k in PATHS["pipeline-tsdf-ba"]},
-            row["max_abs_err"], dict(ate=ate, closures=len(closures),
-                                     tries=seen["tries"],
-                                     solves=len(solves)))
+            row["max_abs_err"], max(r["max_abs_err"] for r in ba_rows),
+            dict(ate=ate, closures=len(closures), tries=seen["tries"],
+                 solves=len(solves), ba=ba_rows))
+
+
+def check_ba_path_solve(torch, tag, args, out, host_ms, card):
+    """One BA solve of the path, replayed from its recorded arguments:
+    its result (``out``) against the twin's (:func:`ba_errors`) and
+    against the kernel run again, bit for bit; the manager's host ms
+    (uploads, the solve, the read), the call's ms and the kernel's device
+    us beside the twin's ms."""
+    from supereight_tpu_torch.kernels import ba
+    poses, graph, n = args[:3]
+    err = ba_errors(torch, tag, out, ba.ba_solve_plain(*args), poses,
+                    args[5])
+    require(torch.equal(out, ba.ba_solve(*args)),
+            f"{tag}: the kernel again differs from the path's solve")
+    row = dict(n=n, edges=int(graph.valid.sum()), capacity=graph.i.shape[0],
+               max_abs_err=err, host_ms=host_ms, **ba_times(torch, args))
+    row.update(ba_bound(n, row["capacity"], row["edges"]))
+    print(f"{tag}: n {n}, edges {row['edges']} of {row['capacity']}: host "
+          f"{host_ms:.3f} ms (the manager's call; aim <= 5 ms, printed), "
+          f"call {row['ms']:.4f} ms, device {row['device_us']:.1f} us; twin "
+          f"{row['plain_ms']:.1f} ms; poses max err {err:.3e} (<= {BA_TOL}) "
+          f"({card})")
+    return row
 
 
 def check_dump_mesh(pipe, tmp, tag, card):
@@ -4596,6 +4774,7 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
         else:
             rows[name] = row
     rows.update(probe_phase(torch, dev))
+    rows["ba_solve"] = ba_phase(torch, dev, card)
     check_mm2meters(torch, dev)
     torch.cuda.synchronize()
 
@@ -4621,7 +4800,8 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
         launches[k] += v
     torch.cuda.empty_cache()
     wait_loop_raw(raw_proc, t_raw)
-    pipe_launches, closure_err = pipeline_phase(torch, raw, tmp, card)
+    pipe_launches, closure_err, ba_err = pipeline_phase(torch, raw, tmp,
+                                                        card)
     for k, v in pipe_launches.items():
         launches[k] += v
     noise_launches, tracked = tracked_noise_phase(torch, tmp, card)
@@ -4640,6 +4820,8 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
         .extend(v["max_abs_err"] for v in maps.values())
     errs.setdefault("icp_track", [rows["icp_track"]["max_abs_err"]]) \
         .append(closure_err)
+    errs.setdefault("ba_solve", [rows["ba_solve"]["max_abs_err"]]) \
+        .append(ba_err)
     # the sharded step last: its four ranks share the card and the host's
     # cores, which the loop's renderers no longer use
     dist_launches, dist_rows, dist_errs = dist_phase(torch, dev, tmp, card)

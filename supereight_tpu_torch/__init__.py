@@ -22,7 +22,7 @@ Layer map (mirrors the JAX package):
   core/      -- SE(3) helpers, the block-pool map and its voxel queries,
                 interpolation, the Volume facade, collision, the functor
                 and the Morton key algebra
-  posegraph/ -- the keyframe pose graph and its windowed BA
+  posegraph/ -- the keyframe pose graph and its windowed BA (K9)
   fields/    -- the TSDF and OFusion fields
   kernels/   -- kernel build, ctypes binding, wrappers and twins
                 (and K8, the gather-form probe)

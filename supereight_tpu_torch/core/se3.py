@@ -1,6 +1,9 @@
-"""SE(3) utilities (exp map, inverse, camera matrices) on torch tensors.
+"""SE(3) utilities (exp and log maps, inverse, camera matrices) on torch
+tensors.
 
-Port of ``supereight_tpu/core/se3.py``. Twist layout matches Sophus:
+Port of ``supereight_tpu/core/se3.py``, and of the logs that JAX keeps in
+``supereight_tpu/posegraph/graph.py`` (:func:`rot_to_quat`,
+:func:`so3_log`, :func:`se3_log`). Twist layout matches Sophus:
 x = [translation(3), rotation(3)]. Everything stays on the device of its
 input: no helper here reads a value back to the host.
 """
@@ -81,6 +84,86 @@ def matmul4(a, b):
     for j in range(1, a.shape[-1]):
         out = out + a[..., :, j:j + 1] * b[..., j:j + 1, :]
     return out
+
+
+def _rdiv(a: float, t):
+    """a / t as one f32 division (torch's ``float / tensor`` takes the
+    reciprocal, then multiplies)."""
+    return torch.full_like(t, a) / t
+
+
+def rot_to_quat(R):
+    """Rotation matrix -> quaternion (w, x, y, z), branchless Shepperd:
+    all four candidates are computed and the best-conditioned one
+    selected with masks, so forward-mode derivatives flow through a smooth
+    branch (its denominator is bounded below by 1)."""
+    r00, r01, r02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    r10, r11, r12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    r20, r21, r22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    d0 = 1.0 + r00 + r11 + r22       # 4 w^2
+    d1 = 1.0 + r00 - r11 - r22       # 4 x^2
+    d2 = 1.0 - r00 + r11 - r22       # 4 y^2
+    d3 = 1.0 - r00 - r11 + r22       # 4 z^2
+    best = torch.stack([d0, d1, d2, d3], -1).argmax(-1)
+
+    def cand(d, a, b, c, order):
+        s = torch.sqrt(d.clamp(min=1e-12))
+        half = 0.5 * s
+        inv = _rdiv(0.5, s)
+        out = [None] * 4
+        for slot, v in zip(order, (half, a * inv, b * inv, c * inv)):
+            out[slot] = v
+        return torch.stack(out, -1)
+
+    q0 = cand(d0, r21 - r12, r02 - r20, r10 - r01, (0, 1, 2, 3))
+    q1 = cand(d1, r21 - r12, r01 + r10, r02 + r20, (1, 0, 2, 3))
+    q2 = cand(d2, r02 - r20, r01 + r10, r12 + r21, (2, 0, 1, 3))
+    q3 = cand(d3, r10 - r01, r02 + r20, r12 + r21, (3, 0, 1, 2))
+    best = best[..., None]
+    q = torch.where(best == 0, q0, torch.where(
+        best == 1, q1, torch.where(best == 2, q2, q3)))
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)  # canonical w >= 0
+
+
+def so3_log(R):
+    """Rotation matrix -> axis-angle [..., 3], differentiable at the
+    identity: the quaternion route with a Taylor branch for small
+    rotations."""
+    q = rot_to_quat(R)
+    qw, qv = q[..., 0], q[..., 1:]
+    nv_sq = (qv * qv).sum(-1)
+    small = nv_sq < 1e-10
+    nv = torch.sqrt(torch.where(small, torch.ones_like(nv_sq), nv_sq))
+    big_scale = 2.0 * torch.atan2(nv, qw) / nv
+    qc = qw.clamp(min=1e-6)
+    taylor = _rdiv(2.0, qc) * (1.0 - nv_sq / (3.0 * qc ** 2))
+    return qv * torch.where(small, taylor, big_scale)[..., None]
+
+
+def se3_log(T):
+    """SE(3) matrix -> twist [..., 6] (translation, rotation), the inverse
+    of :func:`exp`. Below theta ~ 1e-3 the closed forms lose all f32
+    precision (1 - cos(1e-4) is 0 in f32), so a Taylor window takes over
+    there."""
+    w = so3_log(T[..., :3, :3])
+    theta_sq = (w * w).sum(-1)
+    theta = torch.sqrt(theta_sq)
+    small = theta_sq < 1e-6
+    th = torch.where(small, torch.ones_like(theta), theta)
+    W = hat(w)
+    W2 = matmul4(W, W)
+    sin_half = torch.sin(0.5 * th)
+    # b = (1 - cos th) / th^2 = 2 sin^2(th/2) / th^2, the half-angle form
+    b = torch.where(small, 0.5 - theta_sq / 24.0,
+                    2.0 * sin_half * sin_half / (th * th))
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
+    # V^-1 = I - W/2 + (1/theta^2)(1 - a/(2b)) W^2
+    a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(th) / th)
+    coef = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0,
+                       (1.0 - a / (2.0 * b)) / (th * th))
+    Vinv = eye - 0.5 * W + coef[..., None, None] * W2
+    v = matmul4(Vinv, T[..., :3, 3:4])[..., 0]
+    return torch.cat([v, w], -1)
 
 
 def transform_c(T, x, y, z):

@@ -146,6 +146,51 @@ int launch_clusters(Kernel kernel, ClusterFit* held, int ctas, int threads,
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// E = exp(x) (core/se3.exp, Sophus layout x = [translation, rotation])
+// with the Taylor branch below theta^2 < 1e-8; sums left to right, as
+// se3.exp sums them, so the two agree bit for bit on the same twist.
+__device__ __forceinline__ void se3_exp(const float x[6], float E[16]) {
+  const float wx = x[3], wy = x[4], wz = x[5];
+  const float theta_sq = wx * wx + wy * wy + wz * wz;
+  const float theta = sqrtf(theta_sq);
+  float a, b, c;  // only the branch taken is computed
+  if (theta_sq < 1e-8f) {
+    a = 1.f - theta_sq / 6.f;
+    b = 0.5f - theta_sq / 24.f;
+    c = (float)(1.0 / 6.0) - theta_sq / 120.f;
+  } else {
+    const float sn = sinf(theta);
+    a = sn / theta;
+    b = (1.f - cosf(theta)) / (theta * theta);
+    c = (theta - sn) / (theta * theta * theta);
+  }
+  const float W[9] = {0.f, -wz, wy, wz, 0.f, -wx, -wy, wx, 0.f};
+  float W2[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      W2[i * 3 + j] = W[i * 3] * W[j] + W[i * 3 + 1] * W[3 + j] +
+                      W[i * 3 + 2] * W[6 + j];
+  float Vm[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float eye = i == j ? 1.f : 0.f;
+      E[i * 4 + j] = eye + a * W[i * 3 + j] + b * W2[i * 3 + j];
+      Vm[i * 3 + j] = eye + b * W[i * 3 + j] + c * W2[i * 3 + j];
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    E[i * 4 + 3] = Vm[i * 3] * x[0] + Vm[i * 3 + 1] * x[1] +
+                   Vm[i * 3 + 2] * x[2];
+  E[12] = 0.f;
+  E[13] = 0.f;
+  E[14] = 0.f;
+  E[15] = 1.f;
+}
+
 // Copy a 4x4 matrix from device memory into shared memory; the caller
 // synchronises the block afterwards.
 __device__ __forceinline__ void load_mat4(const float* __restrict__ src,

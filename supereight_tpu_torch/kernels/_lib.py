@@ -51,7 +51,9 @@ LAUNCHES = {"icp_reduce": 0, "icp_reduce_step": 0, "icp_track": 0,
             # the sharded step's modes (parallel/dist_step.py)
             "icp_update": 0, "alloc_touch_cols": 0, "alloc_touch_of_cols": 0,
             "alloc_assign_owned": 0, "halo_pack": 0, "raycast_cols": 0,
-            "raycast_cols_of": 0}
+            "raycast_cols_of": 0,
+            # the pose graph's windowed solve (posegraph/graph.optimize)
+            "ba_solve": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu and preprocess.cu take
@@ -149,6 +151,7 @@ _SIGNATURES = {
     "se_pyramid": (P, P, F, I, Levels, P),
     "se_median": (P, I, I, I, P, P),
     "se_bilateral": (P, I, I, Spatial, F, P, P),
+    "se_ba_solve": (P, P, P, P, P, P, P, P, I, I, I, F, P, P, P, P, P),
 }
 
 _lock = threading.Lock()

@@ -15,6 +15,7 @@ uploads them again at every closure try): a window of 32 keyframes and
 import numpy as np
 import torch
 
+from supereight_tpu_torch.kernels import ba
 from supereight_tpu_torch.posegraph import graph as pg
 
 
@@ -28,11 +29,18 @@ class KeyframeManager:
     def __init__(self, window: int = 32, keyframe_every: int = 10,
                  max_edges: int = 128, max_pinned: int = 16,
                  device="cuda"):
+        self.device = torch.device(device)
+        # _trim keeps at most max(window, max_pinned) keyframes
+        if self.device.type == "cuda" \
+                and max(window, max_pinned) > ba.MAX_NODES:
+            raise ValueError(
+                f"KeyframeManager: a window of {max(window, max_pinned)} "
+                f"keyframes is over the {ba.MAX_NODES} nodes ba_solve takes "
+                f"on the card")
         self.window = window
         self.keyframe_every = keyframe_every
         self.max_edges = max_edges
         self.max_pinned = max_pinned
-        self.device = torch.device(device)
         self.poses = []          # np [4, 4] a keyframe (optimized in place)
         self.orig_poses = []     # as tracked (never optimized): a
         #                          keyframe's correction for the final

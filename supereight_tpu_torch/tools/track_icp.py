@@ -55,7 +55,10 @@ step run twice, the first into a scratch pose), ``no_exp`` and
 ``no_chol`` (the step without its exponential, without its solve),
 ``approx_solve`` and ``approx_exp`` (their divisions and trigonometry
 by the fast approximate intrinsics: diagnostics, not the twin's
-results), ``unroll2`` (the pixel loop unrolled twice) and ``timeline``
+results; ``approx_exp`` only where ``icp.cu`` holds its own
+exponential, as the parent of the kernel's redesign did: here it is
+``common.cuh``'s, which ``ba.cu`` shares), ``unroll2`` (the pixel loop
+unrolled twice) and ``timeline``
 (thread 0 of each CTA stamps ``clock64()`` through each iteration:
 :data:`STAGES`, in SM clocks, averaged over the CTAs and each level's
 iterations). From them: F, the device us an iteration of ``no_pass``,
@@ -171,10 +174,11 @@ SPLIT = {
     # identity with x's translation), and without its Cholesky solve (x a
     # fixed multiple of J^T e): which part of the step's chain costs what
     "no_exp": [
-        [("  se3_exp(x, E);\n",
+        [(call,
           "#pragma unroll\n"
           "  for (int k = 0; k < 16; ++k) E[k] = k % 5 == 0 ? 1.f : 0.f;\n"
-          "  E[3] = x[0];\n  E[7] = x[1];\n  E[11] = x[2];\n")]],
+          "  E[3] = x[0];\n  E[7] = x[1];\n  E[11] = x[2];\n")]
+        for call in ("  se3_exp(x, E);\n", "  se::se3_exp(x, E);\n")],
     "no_chol": [
         [("  solve6(lane, red, x);\n",
           "#pragma unroll\n"

@@ -1453,7 +1453,8 @@ def test_track_icp_tool_on_the_cpu():
     ``icp_track`` takes (pose, view, three pyramid levels, the reference
     at the finest level's size), and the wrapper takes them; every side
     build takes the early break out, and fits these sources but
-    ``scatter`` (the parent's warp sum)."""
+    ``scatter`` (the parent's warp sum) and ``approx_exp`` (the parent's
+    exponential, which here lives in ``common.cuh``)."""
     from supereight_tpu_torch.tools import bench
     from supereight_tpu_torch.tools import track_icp as ti
     torch.set_num_threads(1)
@@ -1480,7 +1481,7 @@ def test_track_icp_tool_on_the_cpu():
     text = (_lib.CSRC / "icp.cu").read_text()
     for name in ti.SPLIT:
         src = ti.split_source(name, text)
-        assert (src is None) == (name == "scatter"), name
+        assert (src is None) == (name in ("scatter", "approx_exp")), name
         if src is not None:
             assert "break;  // the level's early break" not in src
             assert (src == text.replace(ti._BREAK[1], "")) == (
