@@ -46,10 +46,14 @@ checkout:
    ``tools/probe_gather.py --time``'s cases and meter;
    K9 ``ba_solve`` (the pose graph's windowed solve) against its twin on
    synthetic windows of 4, 17, 32 and 64 nodes with 128 and 200 edge
-   slots and of the most nodes it takes (``kernels/ba.MAX_NODES``) with
-   twice as many slots (closures, frozen nodes, garbage padding; poses
-   to 1e-5, fixed nodes bit-equal, one launch a call) and the gauge-less
-   window (NaN in both), each timed (call ms, device us, twin ms);
+   slots, and with twice as many slots as nodes Tier S's largest window
+   and one node more (``kernels/ba.tier_s_nodes``), then 160, 256 and 512
+   nodes in Tier L (closures, frozen nodes, garbage padding; poses to
+   1e-5, fixed nodes bit-equal, one launch a call), the gauge-less window
+   and a window with a NaN in a padded slot (NaN in both), each with its
+   tier, timed (call ms, device us, twin ms; a single call past 160
+   nodes) beside its bound, its chain of panels and the factor's library
+   yardstick (``tools/ba_windows.cholesky_ms``);
    and ``ops/preprocess.mm2meters`` on the card against numpy
    for all 65,536 u16 values, bit for bit;
    library phase (the library surface's sphere drive, a path of its own
@@ -401,6 +405,8 @@ BA_TOL = 1e-5     # poses, kernel against twin (tests/test_torch_posegraph.py)
 BA_ITERS = 10     # posegraph/keyframes.KeyframeManager.optimize's
 BA_WINDOWS = tuple((n, e) for e in (128, 200) for n in (4, 17, 32, 64))
 BA_ROW = (17, 128)  # the kernels line's window (the loop solves n = 4-16)
+BA_LARGE = (160, 256, 512)  # Tier L's windows, 2n slots each
+BA_TIMED_NODES = 160  # past it a window's kernel is timed on one call
 # the fewest f32 operations an edge needs over the branches of
 # csrc/ba.cu's dual-number pass: its residual and the derivatives'
 # coefficients once (literal operands folded), its 12 Jacobian columns'
@@ -835,12 +841,14 @@ def ba_bound(n, cap, edges, iters=BA_ITERS):
     and normal equations (BA_EDGE_OPS; a padded slot's terms are zeros),
     the factorisation
     ((6n)^3 / 3) and the two substitutions (2 (6n)^2), ``iters`` times.
-    Its chain floor is iters x 6n dependent factor columns
-    (``chain_columns``)."""
+    Its chain floor is iters x ceil(6n / 32) panels (``chain_panels``;
+    csrc/ba.cu's note: each a 32-step pivot chain in one warp, a 32-step
+    column solve and a backward panel, with their barriers)."""
+    from supereight_tpu_torch.kernels.ba import PANEL
     n6 = 6 * n
     n_bytes = 2 * 64 * n + n + cap * BA_EDGE_BYTES
     n_ops = iters * (edges * BA_EDGE_OPS + n6 ** 3 / 3 + 2 * n6 ** 2)
-    return dict(**bound(n_bytes, n_ops), chain_columns=iters * n6)
+    return dict(**bound(n_bytes, n_ops), chain_panels=iters * -(-n6 // PANEL))
 
 
 def ba_errors(torch, tag, got, want, poses, fixed):
@@ -864,13 +872,15 @@ def ba_errors(torch, tag, got, want, poses, fixed):
 
 
 def ba_times(torch, args):
-    """K9 on ``args`` (ba_solve's): the call's ms over 10 calls and the
-    twin's over one (CUDA events), the kernel's device us over 10 launches
-    (torch.profiler, the kernel alone)."""
+    """K9 on ``args`` (ba_solve's): the call's ms over 10 calls (one past
+    BA_TIMED_NODES nodes) and the twin's over one (CUDA events), the
+    kernel's device us over as many launches (torch.profiler, the kernel
+    alone)."""
     from supereight_tpu_torch.kernels import ba
-    return dict(ms=cuda_ms(torch, lambda: ba.ba_solve(*args), 10),
-                device_us=device_us(torch, lambda: ba.ba_solve(*args), 10, 1,
-                                    name="ba_solve"),
+    reps = 10 if args[2] <= BA_TIMED_NODES else 1
+    return dict(ms=cuda_ms(torch, lambda: ba.ba_solve(*args), reps),
+                device_us=device_us(torch, lambda: ba.ba_solve(*args),
+                                    max(reps, 2), 1, name="ba_solve"),
                 plain_ms=cuda_ms(torch, lambda: ba.ba_solve_plain(*args), 1))
 
 
@@ -890,40 +900,59 @@ def check_ba_solve(torch, tag, poses, graph, n, fixed):
     err = ba_errors(torch, tag, got, want, poses, fixed)
     require(torch.equal(got.nan_to_num(), ba.ba_solve(*args).nan_to_num()),
             f"{tag}: two launches differ")
+    from supereight_tpu_torch.tools.ba_windows import cholesky_ms
     e = graph.i.shape[0]
-    row = dict(max_abs_err=err, **ba_times(torch, args),
-               **ba_bound(n, e, int(graph.valid.sum())))
-    print(f"{tag}: n {n}, E {e}, valid {int(graph.valid.sum())}: poses max "
-          f"err {err:.3e} (<= {BA_TOL}), NaN {bool(torch.isnan(got).any())}; "
-          f"call {row['ms']:.4f} ms, device {row['device_us']:.1f} us "
-          f"({row['device_us'] / row['chain_columns']:.3f} us a factor "
-          f"column), twin {row['plain_ms']:.1f} ms; bound "
-          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    row = dict(max_abs_err=err, tier=ba.plan(n, e, poses.device).tier,
+               **ba_times(torch, args),
+               **ba_bound(n, e, int(graph.valid.sum())),
+               cholesky_ms=cholesky_ms(6 * n, BA_ITERS))
+    print(f"{tag}: n {n}, E {e}, valid {int(graph.valid.sum())}, tier "
+          f"{row['tier']}: poses max err {err:.3e} (<= {BA_TOL}), NaN "
+          f"{bool(torch.isnan(got).any())}; call {row['ms']:.4f} ms, "
+          f"device {row['device_us']:.1f} us "
+          f"({row['device_us'] / row['chain_panels']:.3f} us a panel of "
+          f"{row['chain_panels']}), twin {row['plain_ms']:.1f} ms; bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}); the factor's "
+          f"yardstick cholesky_ex + cholesky_solve x {BA_ITERS} "
+          f"{row['cholesky_ms']:.4f} ms")
     return row
 
 
 def ba_phase(torch, dev, card):
-    """K9 on the synthetic windows (BA_WINDOWS, and MAX_NODES nodes with
-    twice as many slots) and the gauge-less one. Returns the kernels
-    line's row: BA_ROW's window, every window's under "windows", the
-    largest error of all."""
-    from supereight_tpu_torch.kernels.ba import MAX_NODES
+    """K9 on the synthetic windows (BA_WINDOWS; Tier S's largest window
+    and one node more with twice as many slots, and BA_LARGE in Tier L),
+    the gauge-less one and one with a NaN in a padded slot. Returns the
+    kernels line's row: BA_ROW's window, every window's under "windows",
+    the largest error of all."""
+    from supereight_tpu_torch.kernels import ba
     from supereight_tpu_torch.tools import ba_windows
     rows = {}
-    windows = BA_WINDOWS + ((MAX_NODES, 2 * MAX_NODES),)
+    s_max = ba.tier_s_nodes(dev)
+    windows = BA_WINDOWS + tuple((n, 2 * n) for n in (s_max, s_max + 1)
+                                 + BA_LARGE)
     for seed, (n, e) in enumerate(windows):
         poses, graph, fixed = ba_windows.window(n, e, seed, dev)
         rows[f"{n}x{e}"] = check_ba_solve(torch, f"ba_solve window {n}x{e}",
                                           poses, graph, n, fixed)
+    require(rows[f"{s_max}x{2 * s_max}"]["tier"] == "S"
+            and rows[f"{s_max + 1}x{2 * s_max + 2}"]["tier"] == "L",
+            f"ba_solve: Tier S's edge is not at {s_max} nodes")
     poses, graph, fixed = ba_windows.gaugeless(dev)
     rows["gaugeless"] = check_ba_solve(torch, "ba_solve gauge-less window",
                                        poses, graph, 6, fixed)
+    poses, graph, fixed = ba_windows.nan_slot(6, 12, 1, dev)
+    rows["nan_slot"] = check_ba_solve(torch, "ba_solve NaN padded slot",
+                                      poses, graph, 6, fixed)
+    require(bool(torch.isnan(ba.ba_solve(poses, graph, 6, BA_ITERS, 1e-6,
+                                         fixed)).all()),
+            "ba_solve NaN padded slot: a pose is not NaN")
     row = dict(rows["%dx%d" % BA_ROW])
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
-    row["windows"] = {k: {x: r[x] for x in ("ms", "device_us", "plain_ms",
-                                            "bound_ms", "chain_columns")}
-                      for k, r in rows.items()}
-    print(f"ba_solve: {json.dumps(row['windows'])} ({card})")
+    row["windows"] = {k: {x: r[x] for x in (
+        "tier", "ms", "device_us", "plain_ms", "bound_ms", "chain_panels",
+        "cholesky_ms")} for k, r in rows.items()}
+    print(f"ba_solve: Tier S up to {s_max} nodes; "
+          f"{json.dumps(row['windows'])} ({card})")
     return row
 
 

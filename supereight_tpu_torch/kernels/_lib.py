@@ -151,7 +151,10 @@ _SIGNATURES = {
     "se_pyramid": (P, P, F, I, Levels, P),
     "se_median": (P, I, I, I, P, P),
     "se_bilateral": (P, I, I, Spatial, F, P, P),
-    "se_ba_solve": (P, P, P, P, P, P, P, P, I, I, I, F, P, P, P, P, P),
+    "se_ba_solve": (P, P, P, P, P, P, P, P, I, I, I, F, P, ctypes.c_longlong,
+                    P),
+    "se_ba_plan": (I, I, P),
+    "se_ba_tier_nodes": (P,),
 }
 
 _lock = threading.Lock()

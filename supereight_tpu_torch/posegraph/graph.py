@@ -8,8 +8,8 @@ sliding window:
   minimize  sum_e  || log( T_meas_e^-1 · T_i^-1 · T_j ) ||^2_{W_e}
 
 :func:`optimize` is K9 (``kernels/ba.py``): on the card one launch of
-``csrc/ba.cu`` a solve, up to ``ba.MAX_NODES`` nodes; on the CPU its plain
-twin, forward-mode ``torch.func`` Jacobians and a Cholesky solve. The
+``csrc/ba.cu`` a solve, any window up to ``ba.INDEX_NODES`` nodes; on the
+CPU its plain twin, forward-mode ``torch.func`` Jacobians and a Cholesky solve. The
 edge residual and its Jacobians live beside them in ``kernels/ba.py``,
 the SE(3) logs in ``core/se3.py``; they are named here too, where JAX's
 module holds them.

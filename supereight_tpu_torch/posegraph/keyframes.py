@@ -15,7 +15,6 @@ uploads them again at every closure try): a window of 32 keyframes and
 import numpy as np
 import torch
 
-from supereight_tpu_torch.kernels import ba
 from supereight_tpu_torch.posegraph import graph as pg
 
 
@@ -30,13 +29,6 @@ class KeyframeManager:
                  max_edges: int = 128, max_pinned: int = 16,
                  device="cuda"):
         self.device = torch.device(device)
-        # _trim keeps at most max(window, max_pinned) keyframes
-        if self.device.type == "cuda" \
-                and max(window, max_pinned) > ba.MAX_NODES:
-            raise ValueError(
-                f"KeyframeManager: a window of {max(window, max_pinned)} "
-                f"keyframes is over the {ba.MAX_NODES} nodes ba_solve takes "
-                f"on the card")
         self.window = window
         self.keyframe_every = keyframe_every
         self.max_edges = max_edges

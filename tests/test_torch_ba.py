@@ -2,22 +2,30 @@
 pose-graph solve.
 
 On the CPU: ``posegraph/graph.optimize`` runs the twin and launches
-nothing; the wrapper's checks raise ``ValueError`` before any launch; and
-a scalar model of the kernel's forward-mode pass (one dual number, a value
-and one tangent, through ``csrc/ba.cu``'s operations in its order, in
-numpy f32) gives each edge's residual and 12 Jacobian columns as JAX's
-``jax.jacfwd(_residual_local)`` does, to 1e-5, on random edges and on
-edges that take each Taylor window and each quaternion branch. It also
-counts the operations an edge needs for ``chip_smoke.py``'s bound.
+nothing; the wrapper's checks raise ``ValueError`` before any launch; a
+keyframe manager of any window is built; a scalar model of the kernel's
+forward-mode pass (one dual number, a value and one tangent, through
+``csrc/ba.cu``'s operations in its order, in numpy f32) gives each edge's
+residual and 12 Jacobian columns as JAX's ``jax.jacfwd(_residual_local)``
+does, to 1e-5, on random edges and on edges that take each Taylor window
+and each quaternion branch, and counts the operations an edge needs for
+``chip_smoke.py``'s bound; a numpy f32 model of the kernel's blocked
+Cholesky and substitutions (panels, tiles, their order) against LAPACK
+and the twin's solve; and a padded slot with a NaN makes every pose NaN
+in the twin as in JAX.
 
 On a CUDA card only (marker ``cuda``; run there with
 ``python -m pytest tests/test_torch_ba.py -m cuda --noconftest``, which
-needs no JAX): the kernel against its twin on windows of 2 to
-``ba.MAX_NODES`` nodes with closures, frozen anchors, garbage padding
-and E > 128, poses to 1e-5, fixed nodes bit-equal, the gauge-less window NaN in both, one
-launch a call, two calls bit-identical, a window over the limit refused,
-and the launch captured in a CUDA graph.
+needs no JAX): the kernel against its twin on windows of 2 to 512 nodes
+across both tiers (Tier S's largest window and one node more) with
+closures, frozen anchors, garbage padding and E > 128, poses to 1e-5,
+fixed nodes bit-equal, the gauge-less and NaN-slot windows NaN in both,
+one launch a call, two calls bit-identical, a window over the index limit
+refused before anything is allocated, and the launch captured in a CUDA
+graph in each tier.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -346,21 +354,18 @@ def test_checks_raise_before_any_launch(monkeypatch, case):
         ba.ba_solve(poses, graph, n, iters, 1e-6, fixed)
 
 
-@pytest.mark.parametrize("window,pinned,device,refused", [
-    (ba.MAX_NODES, 16, "cuda", False), (ba.MAX_NODES + 1, 16, "cuda", True),
-    (32, ba.MAX_NODES + 1, "cuda", True), (ba.MAX_NODES + 1, 16, "cpu", False)])
-def test_keyframe_window_over_the_kernel_refused(window, pinned, device,
-                                                 refused):
-    """A keyframe manager that could hold more keyframes than ba_solve
-    takes on the card (the window, or the pinned anchors the trim keeps)
-    is refused when it is built, naming the limit; the CPU's twin takes
-    any window."""
+@pytest.mark.parametrize("window,pinned,device", [
+    (161, 16, "cuda"), (32, 161, "cuda"), (512, 16, "cuda"),
+    (2048, 2048, "cuda"), (161, 16, "cpu"), (2048, 16, "cpu")])
+def test_keyframe_window_of_any_size_is_built(window, pinned, device):
+    """A keyframe manager of any window or pinned count is built, on the
+    card as on the CPU (building one touches no device): the card's
+    ba_solve takes every window JAX's optimize takes, up to
+    ba.INDEX_NODES nodes, which no window here reaches."""
     from supereight_tpu_torch.posegraph.keyframes import KeyframeManager
-    if refused:
-        with pytest.raises(ValueError, match=str(ba.MAX_NODES)):
-            KeyframeManager(window=window, max_pinned=pinned, device=device)
-    else:
-        KeyframeManager(window=window, max_pinned=pinned, device=device)
+    km = KeyframeManager(window=window, max_pinned=pinned, device=device)
+    assert km.device.type == device and max(window, pinned) \
+        <= ba.INDEX_NODES
 
 
 def test_ba_windows_tool_needs_the_card():
@@ -374,6 +379,14 @@ def test_ba_windows_tool_needs_the_card():
         k >= 5 and (k - 5) % 8 == 0 for k in range(12)]
     with pytest.raises(ValueError, match="over the cap"):
         ba_windows.window(12, 13, 0, "cpu")
+
+
+def test_timeline_marks_fit_the_kernel():
+    """Each time mark SE_MARK(k) of csrc/ba.cu occurs once, and k runs over
+    tools/ba_windows.PHASES: the --timeline side build names every mark."""
+    text = (_lib.CSRC / "ba.cu").read_text()
+    marks = [int(k) for k in re.findall(r"\bSE_MARK\((\d+)\);", text)]
+    assert sorted(marks) == list(range(len(ba_windows.PHASES)))
 
 
 def test_int64_edges_are_taken():
@@ -467,6 +480,161 @@ def test_column_ops_count():
     assert min(counts.values()) == counts["small"] == chip_smoke.BA_EDGE_OPS
 
 
+# ---- the blocked factorisation and substitutions --------------------------
+
+def _fma(x, y, acc):
+    """f32 fused multiply-add, near enough: the f32 product is exact in
+    f64, and the sum rounds once more to f32."""
+    return (x.astype(np.float64) * y + acc).astype(F)
+
+
+def blocked_solve(H, b, panel=ba.PANEL, tile=ba.TILE):
+    """csrc/ba.cu's phases 3 and 4 in numpy f32, in its order: H's upper
+    triangle and b as column N of an N x ld array (``ld`` the kernel's
+    row_floats), factored by panels of ``panel`` rows (the warp's diagonal
+    block a column at a time, the panel's rows solved a column at a time
+    against it with the reciprocals, the trailing upper triangle updated
+    in ``tile`` x ``tile`` tiles with fused multiply-adds), then U x = y a
+    panel at a time from the last (the panel after applied first, to the
+    panel's rows and the rows above). Returns (U, x), or None where a
+    pivot is not > 0."""
+    N = H.shape[0]
+    ld = (N + 4) & ~3
+    A = np.zeros((N, ld), F)
+    A[:, :N] = np.triu(H)
+    A[:, N] = b
+    rd = np.zeros(N, F)
+    K = -(-N // panel)
+
+    def width(k):
+        return min(panel, N - k * panel)
+
+    def diag(j0, w):
+        for t in range(w):
+            p = A[j0 + t, j0 + t]
+            if not p > 0:
+                return False
+            d = np.sqrt(p)
+            A[j0 + t, j0 + t], rd[j0 + t] = d, F(1) / d
+            A[j0 + t, j0 + t + 1:j0 + w] /= d
+            # lanes l >= r: col[r] -= U[t][r] U[t][l]
+            for r in range(t + 1, w):
+                A[j0 + r, j0 + r:j0 + w] -= (A[j0 + t, j0 + r]
+                                             * A[j0 + t, j0 + r:j0 + w])
+        return True
+
+    if not diag(0, width(0)):
+        return None
+    for k in range(K):
+        j0, w = k * panel, width(k)
+        j1 = j0 + w
+        h = A[j0:j1, j1:N + 1].copy()  # a column a thread
+        for t in range(w):
+            h[t] = h[t] * rd[j0 + t]
+            for r in range(t + 1, w):
+                h[r] = h[r] - A[j0 + t, j0 + r] * h[t]
+        A[j0:j1, j1:N + 1] = h
+        if k + 1 == K:
+            break
+        for ti in range(-(-(N - j1) // tile)):
+            for tj in range(ti, -(-(N + 1 - j1) // tile)):
+                ra = np.arange(j1 + ti * tile, min(j1 + (ti + 1) * tile, N))
+                cb = np.arange(j1 + tj * tile,
+                               min(j1 + (tj + 1) * tile, N + 1))
+                acc = np.zeros((len(ra), len(cb)), F)
+                for s in range(w):
+                    acc = _fma(A[j0 + s, ra][:, None], A[j0 + s, cb][None],
+                               acc)
+                blk = A[np.ix_(ra, cb)]
+                A[np.ix_(ra, cb)] = np.where(cb[None] >= ra[:, None],
+                                             blk - acc, blk)
+        if not diag(j1, width(k + 1)):
+            return None
+    for k in reversed(range(K)):
+        j0, w = k * panel, width(k)
+        j1 = j0 + w
+        wn = width(k + 1) if k + 1 < K else 0
+        y = A[j0:j1, N].copy()  # the lead warp, a lane a row
+        above = A[:j0, N].copy()  # the workers, a thread a row
+        for c in range(j1, j1 + wn):
+            y = y - A[j0:j1, c] * A[c, N]
+            above = above - A[:j0, c] * A[c, N]
+        for t in reversed(range(w)):
+            y[t] = y[t] * rd[j0 + t]
+            y[:t] = y[:t] - A[j0:j0 + t, j0 + t] * y[t]
+        A[j0:j1, N] = y
+        if wn:
+            A[:j0, N] = above
+    return np.triu(A[:, :N]), A[:, N].copy()
+
+
+# (n, fixed nodes): below one panel (N = 24), panels 32 + 32 + 14 with a
+# ragged tile, 138 rows (trailing tiles of 64 and a ragged one), and
+# every third node fixed (the gauge's identity rows across the panels)
+FACTOR_CASES = {"under_a_panel": (4, ()), "ragged": (13, (5,)),
+                "tiles": (23, (5, 13, 21)),
+                "gauge": (23, tuple(range(2, 23, 3)))}
+
+
+@pytest.mark.parametrize("case", list(FACTOR_CASES))
+def test_blocked_factor_model(case):
+    """The kernel's blocked Cholesky and substitutions (the numpy model
+    above) on a BA window's H and b (the twin's normal equations after
+    two iterations): U against LAPACK's f64 factor and x against the
+    twin's f32 cholesky_solve, each to 1e-4 of its largest entry (f32
+    rounding in another order: the windows' cond(H) reaches ~1e6), and
+    the fixed nodes' rows of x exactly 0."""
+    n, fixed_nodes = FACTOR_CASES[case]
+    poses, graph, _ = ba_windows.window(n, 2 * n + 4, n, "cpu")
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[list(fixed_nodes)] = True
+    poses = ba.ba_solve_plain(poses, graph, n, 2, 1e-6, fixed)
+    free6 = ba._free6(n, fixed, poses.device)
+    H, b = ba.normal_equations_plain(poses, graph, n, 1e-6, free6)
+    H, b = H.numpy(), b.numpy()
+    U, x = blocked_solve(H, b)
+    want_u = np.linalg.cholesky(H.astype(np.float64)).T
+    np.testing.assert_allclose(U, want_u, atol=1e-4 * np.abs(want_u).max())
+    L = torch.linalg.cholesky(torch.from_numpy(H))
+    want_x = torch.cholesky_solve(torch.from_numpy(b)[:, None], L)[:, 0]
+    np.testing.assert_allclose(x, want_x.numpy(),
+                               atol=1e-4 * float(want_x.abs().max()))
+    assert not x[free6.numpy() == 0].any()
+
+
+def test_blocked_factor_model_fails_as_cholesky_ex():
+    """A pivot that is not > 0 fails the model as cholesky_ex reports it:
+    the gauge-less window's H at its first iteration, with the damping
+    gone (singular), and an indefinite H."""
+    poses, graph, _ = ba_windows.gaugeless("cpu")
+    free6 = ba._free6(6, None, poses.device)
+    H, b = ba.normal_equations_plain(poses, graph, 6, 0.0, free6)
+    assert int(torch.linalg.cholesky_ex(H).info) > 0
+    assert blocked_solve(H.numpy(), b.numpy()) is None
+    bad = np.eye(40, dtype=F)
+    bad[35, 35] = -1.0
+    assert blocked_solve(bad, np.ones(40, F)) is None
+
+
+def test_nan_padded_slot_fails_as_jax():
+    """A padded slot whose measurement holds a NaN: JAX scales its terms
+    by where(valid, w, 0), 0 times NaN is NaN, and every pose is NaN
+    (the Cholesky fails on H, or b spreads it through the
+    substitutions); the twin leaves NaN in the same places. The kernel
+    checks each padded slot's residual for that (csrc/ba.cu, phase 1)."""
+    import jax.numpy as jnp
+    from supereight_tpu.posegraph import graph as jax_pg
+    poses, graph, fixed = ba_windows.nan_slot(6, 12, 1, "cpu")
+    arrays = [x.numpy() for x in graph]
+    want = np.asarray(jax_pg.optimize(
+        jnp.asarray(poses.numpy()), jax_pg.PoseGraph(*map(jnp.asarray,
+                                                          arrays)),
+        num_nodes=6, iters=2, fixed=jnp.asarray(fixed.numpy())))
+    got = pg.optimize(poses, graph, 6, iters=2, fixed=fixed).numpy()
+    assert np.isnan(want).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+
+
 # ---- on the card ----------------------------------------------------------
 
 @pytest.fixture
@@ -477,16 +645,31 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def _nodes(label, dev):
+    """A window's n: an int, or Tier S's largest window ("s_max") and one
+    node more ("s_max+1"), asked of the card."""
+    if isinstance(label, int):
+        return label
+    return ba.tier_s_nodes(dev) + (label == "s_max+1")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,cap", [(2, 4), (4, 8), (12, 24), (32, 128),
-                                   (48, 200), (64, 160), (64, 256),
-                                   (ba.MAX_NODES, 2 * ba.MAX_NODES)])
-def test_ba_solve_matches_plain_on_cuda(cuda, n, cap):
+@pytest.mark.parametrize("label,cap", [
+    (2, 4), (4, 8), (12, 24), (32, 128), (48, 200), (64, 160), (64, 256),
+    ("s_max", None), ("s_max+1", None), (160, None), (256, None),
+    (512, None)])
+def test_ba_solve_matches_plain_on_cuda(cuda, label, cap):
     """The kernel against its twin on a window of n nodes (closures,
-    every 8th node from 5 frozen, garbage padding): poses to 1e-5, node 0
-    and the frozen nodes bit-equal to their input, one launch a call, two
-    calls bit-identical."""
+    every 8th node from 5 frozen, garbage padding; E = 2n slots where
+    cap is None), on both sides of Tier S's edge and in Tier L up to 512
+    nodes: poses to 1e-5, node 0 and the frozen nodes bit-equal to their
+    input, one launch a call in the tier the plan names, two calls
+    bit-identical."""
+    n = _nodes(label, cuda)
+    cap = cap or 2 * n
     poses, graph, fixed = ba_windows.window(n, cap, n, cuda)
+    tier = ba.plan(n, cap, cuda).tier
+    assert tier == ("S" if n <= ba.tier_s_nodes(cuda) else "L")
     before = _lib.LAUNCHES["ba_solve"]
     got = pg.optimize(poses, graph, n, fixed=fixed)
     assert _lib.LAUNCHES["ba_solve"] == before + 1
@@ -501,13 +684,17 @@ def test_ba_solve_matches_plain_on_cuda(cuda, n, cap):
 
 @pytest.mark.cuda
 def test_ba_solve_refuses_a_window_over_its_limit_on_cuda(cuda):
-    """A window over MAX_NODES nodes raises, naming the limit, and
-    launches nothing."""
-    n = ba.MAX_NODES + 1
+    """A window over INDEX_NODES nodes raises, naming the limit, before
+    anything is allocated, and launches nothing."""
+    n = ba.INDEX_NODES + 1
+    assert n > 4096
     poses, graph, fixed = ba_windows.window(n, 2 * n, 0, cuda)
+    torch.cuda.synchronize()
     before = _lib.LAUNCHES["ba_solve"]
-    with pytest.raises(ValueError, match=f"at most {ba.MAX_NODES} nodes"):
+    held = torch.cuda.memory_allocated(cuda)
+    with pytest.raises(ValueError, match=f"INDEX_NODES = {ba.INDEX_NODES}"):
         pg.optimize(poses, graph, n, fixed=fixed)
+    assert torch.cuda.memory_allocated(cuda) == held
     assert _lib.LAUNCHES["ba_solve"] == before
 
 
@@ -523,34 +710,83 @@ def test_ba_solve_gaugeless_fails_as_plain_on_cuda(cuda):
 
 
 @pytest.mark.cuda
-def test_ba_solve_without_iterations_or_edges_on_cuda(cuda):
-    """iters 0 returns the poses; a window without edges moves no pose
-    (H is the damping alone and b is 0), as the twin."""
-    poses, graph, _ = ba_windows.window(5, 8, 0, cuda)
-    assert torch.equal(ba.ba_solve(poses, graph, 5, 0), poses)
-    empty = pg.PoseGraph(*(x[:0] for x in graph))
-    got = ba.ba_solve(poses, empty, 5, 3)
-    want = ba.ba_solve_plain(poses, empty, 5, 3)
+@pytest.mark.parametrize("n", [6, 64])
+def test_ba_solve_nan_padded_slot_fails_as_plain_on_cuda(cuda, n):
+    """In either tier (n = 6: S, 64: L), a padded slot with a NaN
+    measurement makes every pose NaN, as the twin (and JAX,
+    test_nan_padded_slot_fails_as_jax); a padded slot whose translation is
+    far out (5 km, past the kernel's tame bound) but finite adds nothing:
+    the poses match the twin's."""
+    poses, graph, fixed = ba_windows.nan_slot(n, 2 * n, 1, cuda)
+    got = ba.ba_solve(poses, graph, n, 2, 1e-6, fixed)
+    want = ba.ba_solve_plain(poses, graph, n, 2, 1e-6, fixed)
+    assert torch.isnan(want).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    far = graph.t_meas.clone()
+    far[-1] = graph.t_meas[-2]
+    far[-1, :3, 3] = 5000.0
+    graph = graph._replace(t_meas=far)
+    got = ba.ba_solve(poses, graph, n, 10, 1e-6, fixed)
+    want = ba.ba_solve_plain(poses, graph, n, 10, 1e-6, fixed)
+    assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= TOL
 
 
 @pytest.mark.cuda
-def test_ba_solve_captures_in_a_graph_on_cuda(cuda):
-    """The launch can be captured (the wrapper reads nothing while a graph
-    captures it): a replay gives the eager call's poses, and an edge index
-    out of range, which the wrapper cannot check then, makes every pose
-    NaN in the kernel."""
-    poses, graph, fixed = ba_windows.window(12, 24, 5, cuda)
-    want = ba.ba_solve(poses, graph, 12, 10, 1e-6, fixed)
+def test_ba_solve_without_iterations_or_edges_on_cuda(cuda):
+    """iters 0 returns the poses; a window without edges moves no pose
+    (H is the damping alone and b is 0), as the twin, in either tier."""
+    for n in (5, 45):
+        poses, graph, _ = ba_windows.window(n, 2 * n, 0, cuda)
+        assert torch.equal(ba.ba_solve(poses, graph, n, 0), poses)
+        empty = pg.PoseGraph(*(x[:0] for x in graph))
+        got = ba.ba_solve(poses, empty, n, 3)
+        want = ba.ba_solve_plain(poses, empty, n, 3)
+        assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [12, 64])
+def test_ba_solve_captures_in_a_graph_on_cuda(cuda, n):
+    """The launch can be captured in either tier (n = 12: S, 64: L; the
+    wrapper reads nothing while a graph captures it): a replay gives the
+    eager call's poses, twice, and an edge index out of range, which the
+    wrapper cannot check then, makes every pose NaN in the kernel."""
+    poses, graph, fixed = ba_windows.window(n, 2 * n, 5, cuda)
+    args = (n, 10, 1e-6, fixed)
+    want = ba.ba_solve(poses, graph, *args)
     bad = graph._replace(j=graph.j.clone())
-    bad.j[2] = 12
+    bad.j[2] = n
     g, g_bad = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        got = ba.ba_solve(poses, graph, 12, 10, 1e-6, fixed)
+        got = ba.ba_solve(poses, graph, *args)
     with torch.cuda.graph(g_bad):
-        nan = ba.ba_solve(poses, bad, 12, 10, 1e-6, fixed)
+        nan = ba.ba_solve(poses, bad, *args)
     g.replay()
     g_bad.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.isnan(nan).all()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [12, 64])
+def test_ba_solve_graphs_replay_in_any_order_on_cuda(cuda, n):
+    """Two graphs captured one after the other, each on scratch of its
+    own (Tier L's barrier counter with it, zeroed by the memset the
+    capture records), replay in either order, the second first (n = 12:
+    S, 64: L): each gives its eager call's poses."""
+    windows = [ba_windows.window(n, 2 * n, seed, cuda) for seed in (6, 7)]
+    want = [ba.ba_solve(p, g, n, 10, 1e-6, f) for p, g, f in windows]
+    graphs, got = [], []
+    for p, g, f in windows:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            got.append(ba.ba_solve(p, g, n, 10, 1e-6, f))
+    for k in (1, 0, 1):
+        graphs[k].replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[k], want[k])
