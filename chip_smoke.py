@@ -136,6 +136,14 @@ checkout:
    on the host), then one volume render from a
    view 0.5 m behind the last raycast pose (K1's unprimed launch), each
    path with the launch counts zeroed just before and read just after;
+   every render is K10's (``csrc/render.cu``): TSDF's 62 rendered frames
+   launch 62 ``render_depth``, 62 ``render_track`` and, with the fresh
+   view, 63 ``render_volume``, OFusion's fresh view one; K10 is then held
+   to its twins bit for bit on the TSDF loop's last maps, the fresh
+   view's and the edge inputs (``render_edges``) and timed, and the log's
+   ``rendering`` column over the rendered frames of the graph and eager
+   runs is printed with its split (each render to a host array, the
+   composite and the PPM write);
    the same CLI run again with the class's ``eager`` keyword (its rows,
    ATE and launches equal to the graphs'), and a fresh eager pipeline and
    a fresh one on graphs over the 250 frames in turn, bit-equal every
@@ -365,6 +373,17 @@ GATE_HIT_BYTES = 8
 # where some rays start behind a surface and must miss
 BACK_VIEW = 0.5
 BEHIND = 0.03
+# K10 (csrc/render.cu) a pixel: the bytes its function moves (depth f32 or
+# track i32 in, RGBA out; vertex, normal and valid in, RGBA out; the pose's
+# light besides) and its f32 operations (depth: the scale, the clamp's two
+# tests, the sector's product and floor, the fraction and its complement,
+# three channels, the two plane tests; track: six code tests; volume: the
+# difference, its squared norm and root, the zero test, three divisions,
+# the dot product, its clamp, the ambient add, its clamp and the channel)
+RENDER_PIXEL_BYTES = {"render_depth": 8, "render_track": 8,
+                      "render_volume": 12 + 12 + 1 + 4}
+RENDER_PIXEL_OPS = {"render_depth": 13, "render_track": 6,
+                    "render_volume": 23}
 # the pipeline paths: the closed loop (io/convert.synthetic2raw
 # scene="loop", rendered in LOOP_WORKERS processes while the kernel phases
 # run) through the port's CLI with tools/run_longseq_eval.py's arguments
@@ -530,6 +549,13 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
     # the pose graph's windowed solve (the BA path)
     "ba_solve": ("supereight_tpu_torch/csrc/ba.cu",
                  "supereight_tpu/posegraph/graph.py:132"),
+    # the visualization renders (the CLI's rendered frames, a fresh view)
+    "render_depth": ("supereight_tpu_torch/csrc/render.cu",
+                     "supereight_tpu/ops/rendering.py:39"),
+    "render_track": ("supereight_tpu_torch/csrc/render.cu",
+                     "supereight_tpu/ops/rendering.py:64"),
+    "render_volume": ("supereight_tpu_torch/csrc/render.cu",
+                      "supereight_tpu/ops/rendering.py:77"),
 }
 # why no single PyTorch call computes a kernel's function (its library_ms
 # is null)
@@ -578,6 +604,11 @@ NO_LIBRARY = {
     "raycast_cols": "no call marches rays through a sparse grid",
     "raycast_cols_of": "no call marches rays through a sparse grid",
     "ba_solve": "no call runs a Gauss-Newton loop",
+    "render_depth": "none: no call maps a depth to the rainbow with its "
+                    "plane tests",
+    "render_track": "none: a colour table's index_select would take the "
+                    "codes' rows from a computed index, not the codes",
+    "render_volume": "none: no call shades a vertex and normal map",
 }
 # device kernel names (without "_kernel") reported from the profile, and
 # the frame_step stage that launches each (icp_reduce's kernel runs its
@@ -609,35 +640,44 @@ PATHS = {  # the kernels each main path must launch
                    "node_rank", "node_pass", "nav_grid", "raycast_gated"),
     "probe": ("gather_a", "gather_b", "gather_c", "gather_d"),
     # the class pipeline through the CLI, then a fresh view's render
+    # (K10's renders: TSDF's every 4th frame; each field's fresh view)
     "pipeline-tsdf": ("pyramid", "frame_mats", "icp_track", "alloc_touch",
                       "alloc_assign", "integrate_worklist", "integrate_fused",
                       "integrate_fallback", "node_rank", "node_pass",
-                      "nav_grid", "raycast", "raycast_cold"),
+                      "nav_grid", "raycast", "raycast_cold", "render_depth",
+                      "render_track", "render_volume"),
     "pipeline-ofusion": ("pyramid", "frame_mats", "icp_track",
                          "alloc_touch_of", "alloc_assign",
                          "integrate_worklist", "integrate_fused_of",
                          "integrate_fallback_of", "node_rank", "node_pass",
-                         "nav_grid", "raycast_of", "raycast_cold_of"),
+                         "nav_grid", "raycast_of", "raycast_cold_of",
+                         "render_volume"),
     # the tracked noise map: the CLI with the noise+levers row's options
-    # over the first frames of the noisy loop (tools/noise_kernels.py)
+    # over the first frames of the noisy loop (tools/noise_kernels.py),
+    # rendering every 4th frame
     "pipeline-tsdf-levers": ("median2", "pyramid", "frame_mats",
                              "icp_track", "alloc_touch", "alloc_assign",
                              "integrate_worklist", "integrate_fused_noise",
                              "integrate_fallback_noise", "node_rank",
-                             "node_pass", "nav_grid", "raycast_gated"),
+                             "node_pass", "nav_grid", "raycast_gated",
+                             "render_depth", "render_track",
+                             "render_volume"),
     # the TSDF pipeline with keyframes: the loop-closure re-tracks are
-    # icp_track and frame_mats launches too, and each BA solve one ba_solve
+    # icp_track and frame_mats launches too, and each BA solve one
+    # ba_solve; it renders every 4th frame
     "pipeline-tsdf-ba": ("pyramid", "frame_mats", "icp_track",
                          "alloc_touch", "alloc_assign", "integrate_worklist",
                          "integrate_fused", "integrate_fallback",
                          "node_rank", "node_pass", "nav_grid", "raycast",
-                         "ba_solve"),
+                         "ba_solve", "render_depth", "render_track",
+                         "render_volume"),
     # the served TSDF loop (host-IO step): a run without controls, then the
     # controlled session, whose static view is K1's unprimed launch
     "served": ("pyramid", "frame_mats", "icp_track", "alloc_touch",
                "alloc_assign", "integrate_worklist", "integrate_fused",
                "integrate_fallback", "node_rank", "node_pass", "nav_grid",
-               "raycast", "raycast_cold"),
+               "raycast", "raycast_cold", "render_depth", "render_track",
+               "render_volume"),
     # the library surface: allocate_blocks over a sphere shell
     "library": ("alloc_assign",),
     # the sharded step, four ranks on one card (the dist phase)
@@ -1640,6 +1680,46 @@ def blocked_starts(geom, view, probes, far):
         (view[0, 3], view[1, 3], view[2, 3]), dx, dy, dz, geom.dim,
         NEAR_PLANE, far)
     return (tnear < tfar).reshape(h, w) & (probes.per_ray == 0)
+
+
+def render_edges(np, seed=27):
+    """K10's edge inputs as numpy arrays: ``depth`` f32[257, 256], every
+    u16 millimetre depth / 1000, then the planes and their f32
+    neighbours, zeros after; ``track`` i32[48, 64], the codes -7 to 3 in
+    turn; the shading maps ``vertex``, ``normal`` f32[48, 64, 3] and
+    ``valid`` bool[48, 64] under ``pose`` f32[4, 4] (its light at
+    ``pose[:3, 3]``) or ``light`` f32[3], pixel p of kind p % 4: its
+    vertex at the pose's light (a zero distance), its normal facing away
+    (shade < 0), facing the light (shade + 0.1 clamps at 1), or random;
+    ``valid`` a checkerboard of False."""
+    from supereight_tpu_torch.constants import FAR_PLANE, NEAR_PLANE
+    rng = np.random.default_rng(seed)
+    planes = [np.float32(p) for p in (NEAR_PLANE, FAR_PLANE)]
+    planes += [np.nextafter(p, np.float32(s)) for p in planes
+               for s in (-np.inf, np.inf)]
+    depth = np.zeros(257 * 256, np.float32)
+    values = np.concatenate([np.arange(65536, dtype=np.float32)
+                             / np.float32(1000.0), planes])
+    depth[:values.size] = values
+    track = np.resize(np.arange(-7, 4, dtype=np.int32), (48, 64))
+    h, w = 48, 64
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = (0.3, -0.2, 1.5)
+    vertex = rng.uniform(-2.0, 2.0, (h * w, 3)).astype(np.float32)
+    normal = rng.normal(size=(h * w, 3))
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    kind = np.arange(h * w) % 4
+    vertex[kind == 0] = pose[:3, 3]
+    to = vertex.astype(np.float64) - pose[:3, 3]
+    to /= np.maximum(np.linalg.norm(to, axis=1, keepdims=True), 1e-12)
+    normal[kind == 1] = -to[kind == 1]
+    normal[kind == 2] = to[kind == 2]
+    i, j = np.indices((h, w))
+    return dict(depth=depth.reshape(257, 256), track=track,
+                vertex=vertex.reshape(h, w, 3),
+                normal=normal.astype(np.float32).reshape(h, w, 3),
+                valid=(i + j) % 2 == 1, pose=pose,
+                light=np.array([-0.4, 0.9, 0.25], np.float32))
 
 
 def raycast_cold_bound(got, probes):
@@ -3238,6 +3318,12 @@ def pipeline_run(torch, name, raw, tmp, card):
     cold = "raycast_cold_of" if name == "ofusion" else "raycast_cold"
     require(launches[cold] == 1, f"{tag}: the fresh view launched "
             f"{cold} {launches[cold]} times")
+    # K10: one launch of each render a rendered frame, and the fresh view's
+    renders = {"render_depth": want_ppm, "render_track": want_ppm,
+               "render_volume": want_ppm + 1}
+    require(all(launches[k] == v for k, v in renders.items()),
+            f"{tag}: K10 launched { {k: launches[k] for k in renders} }, "
+            f"not {renders}")
     require(graphs["graphs"] >= 5 and replays["n"] > 0,
             f"{tag}: the CLI ran no stage graphs: {graphs}, {replays}")
     numbers = dict(ate=ate, tracked=summary["tracked_fraction"],
@@ -3291,29 +3377,20 @@ def pipeline_eager_cli(torch, name, raw, tmp, graph_rows, launches,
     log's rows but the timings, the ATE and the launches must equal the
     graph run's (``graph_rows``, ``launches``, ``graph_ate``). Returns the
     eager run's log rows."""
-    import functools
-
-    from supereight_tpu_torch import cli
     from supereight_tpu_torch.eval.sweep import parse_frame_log
     from supereight_tpu_torch.kernels import _lib
-    from supereight_tpu_torch.pipeline import DenseSLAMSystem
+    from supereight_tpu_torch.tools import render_loop
     tag = f"pipeline {name}"
     log = os.path.join(tmp, name + "-eager.log")
-    err = io.StringIO()
-    real = cli.DenseSLAMSystem
-    cli.DenseSLAMSystem = functools.partial(DenseSLAMSystem, eager=True)
     torch.cuda.synchronize()
     _lib.reset_launches()
-    try:
-        with contextlib.redirect_stderr(err):
-            pipe = cli.run(loop_argv(raw, name, log, LOOP_FRAMES))
-    finally:
-        cli.DenseSLAMSystem = real
+    pipe, err = render_loop.run_cli(loop_argv(raw, name, log, LOOP_FRAMES),
+                                    eager=True)
     torch.cuda.synchronize()
     eager_launches = dict(_lib.LAUNCHES)
     require(pipe._graphs is None, f"{tag}: the eager run has graphs")
     del pipe
-    ate, _, _ = cli_stderr(err.getvalue())
+    ate, _, _ = cli_stderr(err)
     rows = parse_frame_log(log)
     cols = ("frame", "X", "Y", "Z", "tracked", "integrated")
     same_rows = [{c: r[c] for c in cols} for r in rows] == [
@@ -3459,9 +3536,9 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
               + ", ".join(f"{k} {c / N_PIPE_PROFILED:g}x "
                           f"{us / max(c, 1):.2f} us"
                           for k, (c, us) in sorted(per.items())))
-        # every kernel of the frame (the path's, the fresh view's render
-        # aside) once a frame, the prologue three times
-        n_path = sum(not k.startswith("raycast_cold")
+        # every kernel of the frame (the path's, the renders and the fresh
+        # view's march aside) once a frame, the prologue three times
+        n_path = sum(not k.startswith(("raycast_cold", "render_"))
                      for k in PATHS["pipeline-" + pipe.field.name])
         complete = round(n) == want and len(per) == n_path and all(
             c == N_PIPE_PROFILED * (3 if k == "frame_mats" else 1)
@@ -3495,6 +3572,103 @@ def pipeline_empty_cost(torch, pipe, tag):
                           c.noise_weighted, f"{tag}, last frame")
 
 
+def render_cases(torch, pipe):
+    """K10's inputs on the card, per render: the loop's last maps (the
+    TSDF pipeline's depth, track result and raycast maps under its
+    raycast pose: the main path's shapes, timed), the fresh view's maps
+    from its raycast pose moved BACK_VIEW back (K1's unprimed march, to
+    twice the far plane), and :func:`render_edges`."""
+    import numpy as np
+    from supereight_tpu_torch.constants import FAR_PLANE
+    from supereight_tpu_torch.kernels.frame import frame_mats
+    from supereight_tpu_torch.ops import raycast as raycast_mod
+    dev = pipe.device
+    e = {k: torch.from_numpy(v).to(dev) for k, v in render_edges(np).items()}
+    pose = moved_pose(pipe.raycast_pose, -BACK_VIEW)
+    fresh = raycast_mod.raycast(
+        pipe.geom, pipe.map, pipe.field, frame_mats(pipe.k, pose).kpose,
+        pipe.config.mu, pipe.computation_size, far=2.0 * FAR_PLANE)
+    edges = (e["vertex"], e["normal"], e["valid"], e["pose"])
+    return {
+        "render_depth": {"loop": (pipe.float_depth,), "edges": (e["depth"],)},
+        "render_track": {"loop": (pipe.track_result,),
+                         "edges": (e["track"],)},
+        "render_volume": {"loop": (pipe.vertex, pipe.normal, pipe.valid,
+                                   pipe.raycast_pose),
+                          "fresh": (*fresh, pose), "edges": edges,
+                          "edges_light": edges + (e["light"],)}}
+
+
+def check_render(torch, pipe, card):
+    """K10 against its twins on the card, bit for bit, on every case of
+    :func:`render_cases`, one launch a call; on the loop's maps each
+    render's call ms (CUDA events over back-to-back calls), its device us
+    (median of 20 launches, ``tools/sharded_kernels.kernel_us``) beside
+    the launch floor, its twin's ms and its bound. Returns the kernels
+    line's rows."""
+    from supereight_tpu_torch.kernels import _lib, render
+    from supereight_tpu_torch.tools.sharded_kernels import (kernel_us,
+                                                            launch_floor_us)
+    floor = launch_floor_us()
+    rows = {}
+    for name, cases in render_cases(torch, pipe).items():
+        kernel, twin = getattr(render, name), getattr(render, name + "_plain")
+        errs = {}
+        for case, args in cases.items():
+            before = _lib.LAUNCHES[name]
+            got = kernel(*args)
+            require(_lib.LAUNCHES[name] == before + 1,
+                    f"{name} {case}: {_lib.LAUNCHES[name] - before} launches "
+                    f"in one call")
+            want = twin(*args)
+            errs[case] = (got.int() - want.int()).abs().max().item()
+            require(torch.equal(got, want), f"{name} {case}: differs from "
+                    f"its twin on {int((got != want).any(-1).sum())} pixels")
+        args = cases["loop"]
+        px = args[0].shape[0] * args[0].shape[1]
+        us = kernel_us(lambda: kernel(*args), name + "_kernel")
+        row = dict(max_abs_err=max(errs.values()),
+                   ms=cuda_ms(torch, lambda: kernel(*args), 50),
+                   plain_ms=cuda_ms(torch, lambda: twin(*args), 10),
+                   device_us=us[0], device_us_range=[us[1], us[2]],
+                   launch_floor_us=floor, pixels=px,
+                   **bound(px * RENDER_PIXEL_BYTES[name]
+                           + (12 if name == "render_volume" else 0),
+                           px * RENDER_PIXEL_OPS[name]))
+        rows[name] = row
+        print(f"render {name}: bit-equal to its twin on {list(cases)} "
+              f"(max abs err {row['max_abs_err']}); at {px} pixels device "
+              f"{us[0]:.2f} us a launch (median of 20, {us[1]:.2f}-"
+              f"{us[2]:.2f}; launch floor {floor:.2f}), bound "
+              f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}), share "
+              f"{row['bound_ms'] * 1e3 / us[0]:.3f}; call {row['ms']:.4f} "
+              f"ms, twin {row['plain_ms']:.4f} ms ({card})")
+    return rows
+
+
+def rendering_column(torch, name, pipe, rows, eager_rows, tmp, card):
+    """The log's ``rendering`` column over the rendered frames of the
+    stage-graph run and of the ``eager=True`` run, and its split on the
+    graph pipeline's last frame (``tools/render_loop.split``: each render
+    to a host array, the composite and the PPM write, host ms medians of
+    ``render_loop.REPS``). Returns them."""
+    from supereight_tpu_torch.tools import render_loop
+    field_args = PIPE_FIELD_ARGS[name]
+    rate = int(field_args[field_args.index("-z") + 1])
+    out = {run: render_loop.column_ms(r, rate)
+           for run, r in (("graphs", rows), ("eager", eager_rows))}
+    out["split"] = render_loop.split(pipe, os.path.join(tmp, "split.ppm"))
+    print(f"pipeline {name}: the rendering column over the "
+          f"{out['graphs']['frames']} rendered frames, mean / median ms: "
+          f"graphs {out['graphs']['mean']:.4f} / "
+          f"{out['graphs']['median']:.4f}, eager {out['eager']['mean']:.4f} "
+          f"/ {out['eager']['median']:.4f}; a rendered frame's parts on the "
+          f"last frame, host ms (median, min of {render_loop.REPS}): "
+          + ", ".join(f"{k} {v['median']:.4f}, {v['min']:.4f}"
+                      for k, v in out["split"].items()) + f" ({card})")
+    return out
+
+
 def pipeline_phase(torch, raw, tmp, card):
     """Both fields' class-pipeline paths over the loop, with the host-IO
     step around them (the native library and its reader first; after the
@@ -3502,8 +3676,10 @@ def pipeline_phase(torch, raw, tmp, card):
     through the native writer); both profiled; then the refusals of a
     flag whose package does not import and, where Pillow imports, the
     served loop (:func:`served_phase`); then the TSDF path with keyframes
-    (:func:`ba_run`). Returns the paths' launch counts, the closure
-    icp_track's error against its twin and the BA solves' largest."""
+    (:func:`ba_run`); K10 on the TSDF path's maps (:func:`check_render`)
+    and its rendering column (:func:`rendering_column`). Returns the
+    paths' launch counts, the closure icp_track's error against its twin,
+    the BA solves' largest and K10's rows."""
     launches = {}
     host_io = check_native(raw, card)
     for name in ("tsdf", "ofusion"):
@@ -3529,6 +3705,10 @@ def pipeline_phase(torch, raw, tmp, card):
               f"replays; {numbers['graphs']} graphs, pool "
               f"{numbers['pool_bytes']} bytes")
         numbers["computation"] = ms
+        if name == "tsdf":
+            render_rows = check_render(torch, pipe, card)
+            numbers["rendering"] = rendering_column(
+                torch, name, pipe, rows, eager_rows, tmp, card)
         numbers["equal"] = pipeline_equal(torch, name, pipe, raw)
         if name == "tsdf":
             host_io.update(check_telemetry(torch, card))
@@ -3556,7 +3736,7 @@ def pipeline_phase(torch, raw, tmp, card):
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
-    return launches, closure_err, ba_err
+    return launches, closure_err, ba_err, render_rows
 
 
 def sphere_shell(torch, geom, dev):
@@ -4829,8 +5009,9 @@ def run_checks(torch, dev, card, raw_proc, raw, t_raw, tmp):
         launches[k] += v
     torch.cuda.empty_cache()
     wait_loop_raw(raw_proc, t_raw)
-    pipe_launches, closure_err, ba_err = pipeline_phase(torch, raw, tmp,
-                                                        card)
+    pipe_launches, closure_err, ba_err, render_rows = pipeline_phase(
+        torch, raw, tmp, card)
+    rows.update(render_rows)
     for k, v in pipe_launches.items():
         launches[k] += v
     noise_launches, tracked = tracked_noise_phase(torch, tmp, card)

@@ -53,7 +53,9 @@ LAUNCHES = {"icp_reduce": 0, "icp_reduce_step": 0, "icp_track": 0,
             "alloc_assign_owned": 0, "halo_pack": 0, "raycast_cols": 0,
             "raycast_cols_of": 0,
             # the pose graph's windowed solve (posegraph/graph.optimize)
-            "ba_solve": 0}
+            "ba_solve": 0,
+            # the visualization renders (ops/rendering.py)
+            "render_depth": 0, "render_track": 0, "render_volume": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu and preprocess.cu take
@@ -155,6 +157,9 @@ _SIGNATURES = {
                     P),
     "se_ba_plan": (I, I, P),
     "se_ba_tier_nodes": (P,),
+    "se_render_depth": (P, I, F, F, F, P, P),
+    "se_render_track": (P, I, P, P),
+    "se_render_volume": (P, P, P, P, P, I, P, P),
 }
 
 _lock = threading.Lock()

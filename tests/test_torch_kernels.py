@@ -21,7 +21,7 @@ from supereight_tpu_torch.core.map import (MapGeometry, make_map,
 from supereight_tpu_torch.fields import OFUSION, TSDF
 from supereight_tpu_torch.io import synthetic
 from supereight_tpu_torch.kernels import _lib, alloc, frame, icp, \
-    integrate, nav, node, preprocess, raycast as kray
+    integrate, nav, node, preprocess, raycast as kray, render
 from supereight_tpu_torch.kernels import gather_probe as gp
 from supereight_tpu_torch.ops import tracking
 from supereight_tpu_torch.parallel import step
@@ -384,10 +384,25 @@ def test_build_hash_covers_every_source_and_flag():
     names = {p.name for p in _lib._sources()}
     assert {"icp.cu", "alloc.cu", "integrate.cu", "node.cu", "raycast.cu",
             "nav.cu", "preprocess.cu", "gather_probe.cu", "frame.cu",
-            "common.cuh", "compact.cuh", "fields.cuh"} <= names
+            "render.cu", "common.cuh", "compact.cuh", "fields.cuh"} <= names
     assert _lib.source_hash() == _lib.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _lib.NVCC_FLAGS
     assert "-fmad=false" in _lib.NVCC_FLAGS
+
+
+def test_signatures_match_the_c_prototypes():
+    """Every bound entry point takes as many arguments as its C prototype
+    in csrc/ declares (ctypes passes an argument past ``argtypes`` as a
+    C int, which cuts a pointer such as the stream)."""
+    import re
+    declared = {}
+    for path in _lib._sources():
+        for m in re.finditer(r"SE_EXPORT\s+int\s+(\w+)\s*\(([^)]*)\)",
+                             path.read_text()):
+            declared[m.group(1)] = len([a for a in m.group(2).split(",")
+                                        if a.strip() not in ("", "void")])
+    assert {k: len(v) for k, v in _lib._SIGNATURES.items()} == {
+        k: declared.get(k) for k in _lib._SIGNATURES}
 
 
 @pytest.fixture
@@ -1952,6 +1967,67 @@ def test_bilateral_matches_twin_on_cuda(cuda, size):
     assert torch.allclose(got, preprocess.bilateral_filter_plain(dt),
                           atol=1e-5, rtol=0)
     assert bool((got[dt == 0] == 0).all())
+
+
+def _render_cases(cuda, field):
+    """K10's inputs on the card: ``chip_smoke.render_edges`` (the shading
+    under the pose's light and a given one), then frame 5 of a small map:
+    its depth, the tracking step's result codes, and the state's raycast
+    maps shaded from its raycast pose. (kernel name, args) pairs."""
+    e = {k: torch.from_numpy(v).to(cuda)
+         for k, v in chip_smoke.render_edges(np).items()}
+    geom, state, k, depth = _frames(cuda, field=field)
+    _, v, n, ok = preprocess_and_pyramid(depth, k, 3, False, False)
+    view = se3.matmul4(se3.camera_matrix(k), se3.inverse(state.raycast_pose))
+    result = icp.icp_track(state.pose, view, v, n, ok, state.vertex,
+                           state.normal, state.valid, (10, 5, 4), 1e-5)[3]
+    maps = (state.vertex, state.normal, state.valid, state.raycast_pose)
+    edges = (e["vertex"], e["normal"], e["valid"], e["pose"])
+    return [("render_depth", (e["depth"],)), ("render_depth", (depth,)),
+            ("render_track", (e["track"],)), ("render_track", (result,)),
+            ("render_volume", edges), ("render_volume", edges + (e["light"],)),
+            ("render_volume", maps)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_render_matches_twins_on_cuda(cuda, field):
+    """K10 against its twins bit for bit, on the edge inputs and on a small
+    map's depth, result codes and raycast maps; one launch a call."""
+    for name, args in _render_cases(cuda, field):
+        before = _lib.LAUNCHES[name]
+        got = getattr(render, name)(*args)
+        assert _lib.LAUNCHES[name] == before + 1
+        want = getattr(render, name + "_plain")(*args)
+        assert got.dtype == torch.uint8 and got.is_contiguous()
+        assert torch.equal(got, want), (name, int((got != want).sum()))
+    assert bool((got[..., 0] > 0).any())  # the map's shading lit pixels
+
+
+@pytest.mark.cuda
+def test_render_refuses_what_the_kernel_does_not_take_on_cuda(cuda):
+    """A non-contiguous vertex map, a wrong dtype or shape raises before a
+    launch; no silent copy."""
+    e = {k: torch.from_numpy(v).to(cuda)
+         for k, v in chip_smoke.render_edges(np).items()}
+    before = dict(_lib.LAUNCHES)
+    v = e["vertex"].transpose(0, 1).contiguous().transpose(0, 1)
+    assert not v.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        render.render_volume(v, e["normal"], e["valid"], e["pose"])
+    with pytest.raises(ValueError, match="shape"):
+        render.render_volume(e["vertex"], e["normal"][:-1], e["valid"],
+                             e["pose"])
+    with pytest.raises(TypeError):
+        render.render_volume(e["vertex"], e["normal"], e["valid"].int(),
+                             e["pose"])
+    with pytest.raises(TypeError):
+        render.render_depth(e["depth"].double())
+    with pytest.raises(TypeError):
+        render.render_track(e["track"].long())
+    with pytest.raises(ValueError, match="contiguous"):
+        render.render_depth(e["depth"].t())
+    assert _lib.LAUNCHES == before
 
 
 def test_noise_kernels_tool_on_the_cpu(tmp_path):
