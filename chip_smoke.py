@@ -136,14 +136,19 @@ checkout:
    on the host), then one volume render from a
    view 0.5 m behind the last raycast pose (K1's unprimed launch), each
    path with the launch counts zeroed just before and read just after;
-   every render is K10's (``csrc/render.cu``): TSDF's 62 rendered frames
-   launch 62 ``render_depth``, 62 ``render_track`` and, with the fresh
-   view, 63 ``render_volume``, OFusion's fresh view one; K10 is then held
-   to its twins bit for bit on the TSDF loop's last maps, the fresh
-   view's and the edge inputs (``render_edges``) and timed, and the log's
-   ``rendering`` column over the rendered frames of the graph and eager
-   runs is printed with its split (each render to a host array, the
-   composite and the PPM write);
+   every render is K10's (``csrc/render.cu``): a rendered frame is one
+   ``render_views`` launch (the three renders in the 2x2 composite) and
+   one read, so TSDF's 62 rendered frames and the fresh view launch 63
+   ``render_views``, OFusion's fresh view one, and no CLI path launches a
+   single render; the fresh view leaves the tracking maps as they were;
+   the class's three single renders are a path of their own (one launch
+   each); K10 is then held to its twins bit for bit on the TSDF loop's
+   last maps, the fresh view's and the edge inputs (``render_edges``,
+   ``render_view_edges``), ``render_views``' quadrants to the single
+   launches' images, and timed, and the log's ``rendering`` column over
+   the rendered frames of the graph and eager runs is printed with its
+   split (the class's call, its read into a fresh array and through a
+   pinned buffer, the PPM write);
    the same CLI run again with the class's ``eager`` keyword (its rows,
    ATE and launches equal to the graphs'), and a fresh eager pipeline and
    a fresh one on graphs over the 250 frames in turn, bit-equal every
@@ -375,15 +380,17 @@ BACK_VIEW = 0.5
 BEHIND = 0.03
 # K10 (csrc/render.cu) a pixel: the bytes its function moves (depth f32 or
 # track i32 in, RGBA out; vertex, normal and valid in, RGBA out; the pose's
-# light besides) and its f32 operations (depth: the scale, the clamp's two
-# tests, the sector's product and floor, the fraction and its complement,
-# three channels, the two plane tests; track: six code tests; volume: the
+# light besides; render_views all three and the composite's zero quadrant)
+# and its f32 operations (depth: the scale, the clamp's two tests, the
+# sector's product and floor, the fraction and its complement, three
+# channels, the two plane tests; track: six code tests; volume: the
 # difference, its squared norm and root, the zero test, three divisions,
 # the dot product, its clamp, the ambient add, its clamp and the channel)
 RENDER_PIXEL_BYTES = {"render_depth": 8, "render_track": 8,
-                      "render_volume": 12 + 12 + 1 + 4}
+                      "render_volume": 12 + 12 + 1 + 4,
+                      "render_views": 8 + 8 + 29 + 4}
 RENDER_PIXEL_OPS = {"render_depth": 13, "render_track": 6,
-                    "render_volume": 23}
+                    "render_volume": 23, "render_views": 13 + 6 + 23}
 # the pipeline paths: the closed loop (io/convert.synthetic2raw
 # scene="loop", rendered in LOOP_WORKERS processes while the kernel phases
 # run) through the port's CLI with tools/run_longseq_eval.py's arguments
@@ -556,6 +563,9 @@ KERNELS = {  # name -> (source in the repo, TPU-side stage it replaces)
                      "supereight_tpu/ops/rendering.py:64"),
     "render_volume": ("supereight_tpu_torch/csrc/render.cu",
                       "supereight_tpu/ops/rendering.py:77"),
+    # a rendered frame's three renders in the viewer's composite
+    "render_views": ("supereight_tpu_torch/csrc/render.cu",
+                     "supereight_tpu/ops/rendering.py:39"),
 }
 # why no single PyTorch call computes a kernel's function (its library_ms
 # is null)
@@ -609,6 +619,7 @@ NO_LIBRARY = {
     "render_track": "none: a colour table's index_select would take the "
                     "codes' rows from a computed index, not the codes",
     "render_volume": "none: no call shades a vertex and normal map",
+    "render_views": "none: no call computes any of its three renders",
 }
 # device kernel names (without "_kernel") reported from the profile, and
 # the frame_step stage that launches each (icp_reduce's kernel runs its
@@ -640,18 +651,21 @@ PATHS = {  # the kernels each main path must launch
                    "node_rank", "node_pass", "nav_grid", "raycast_gated"),
     "probe": ("gather_a", "gather_b", "gather_c", "gather_d"),
     # the class pipeline through the CLI, then a fresh view's render
-    # (K10's renders: TSDF's every 4th frame; each field's fresh view)
+    # (K10's render_views, one a rendered frame: TSDF's every 4th frame;
+    # each field's fresh view)
     "pipeline-tsdf": ("pyramid", "frame_mats", "icp_track", "alloc_touch",
                       "alloc_assign", "integrate_worklist", "integrate_fused",
                       "integrate_fallback", "node_rank", "node_pass",
-                      "nav_grid", "raycast", "raycast_cold", "render_depth",
-                      "render_track", "render_volume"),
+                      "nav_grid", "raycast", "raycast_cold", "render_views"),
     "pipeline-ofusion": ("pyramid", "frame_mats", "icp_track",
                          "alloc_touch_of", "alloc_assign",
                          "integrate_worklist", "integrate_fused_of",
                          "integrate_fallback_of", "node_rank", "node_pass",
                          "nav_grid", "raycast_of", "raycast_cold_of",
-                         "render_volume"),
+                         "render_views"),
+    # the class's three single renders (JAX's render_depth, render_track
+    # and render_volume) on the TSDF loop's last state
+    "renders": ("render_depth", "render_track", "render_volume"),
     # the tracked noise map: the CLI with the noise+levers row's options
     # over the first frames of the noisy loop (tools/noise_kernels.py),
     # rendering every 4th frame
@@ -660,8 +674,7 @@ PATHS = {  # the kernels each main path must launch
                              "integrate_worklist", "integrate_fused_noise",
                              "integrate_fallback_noise", "node_rank",
                              "node_pass", "nav_grid", "raycast_gated",
-                             "render_depth", "render_track",
-                             "render_volume"),
+                             "render_views"),
     # the TSDF pipeline with keyframes: the loop-closure re-tracks are
     # icp_track and frame_mats launches too, and each BA solve one
     # ba_solve; it renders every 4th frame
@@ -669,15 +682,13 @@ PATHS = {  # the kernels each main path must launch
                          "alloc_touch", "alloc_assign", "integrate_worklist",
                          "integrate_fused", "integrate_fallback",
                          "node_rank", "node_pass", "nav_grid", "raycast",
-                         "ba_solve", "render_depth", "render_track",
-                         "render_volume"),
+                         "ba_solve", "render_views"),
     # the served TSDF loop (host-IO step): a run without controls, then the
     # controlled session, whose static view is K1's unprimed launch
     "served": ("pyramid", "frame_mats", "icp_track", "alloc_touch",
                "alloc_assign", "integrate_worklist", "integrate_fused",
                "integrate_fallback", "node_rank", "node_pass", "nav_grid",
-               "raycast", "raycast_cold", "render_depth", "render_track",
-               "render_volume"),
+               "raycast", "raycast_cold", "render_views"),
     # the library surface: allocate_blocks over a sphere shell
     "library": ("alloc_assign",),
     # the sharded step, four ranks on one card (the dist phase)
@@ -1093,6 +1104,26 @@ def report_profile(prof, ms_frame, tag):
 def require(cond, msg):
     if not cond:
         raise RuntimeError("chip_smoke: " + msg)
+
+
+def rendered_frames(argv, frames):
+    """The frames a CLI run of ``argv`` over ``frames`` frames renders:
+    every ``-z``-th from frame 4 (the last ``-z`` given)."""
+    argv = list(argv)
+    rate = int(argv[len(argv) - argv[::-1].index("-z")])
+    return sum(1 for f in range(frames) if rate and f % rate == 0 and f > 2)
+
+
+def require_views(tag, launches, frames=None):
+    """A CLI path's K10: ``render_views`` once a rendered frame
+    (``frames`` launches where given, else at least one) and no single
+    render."""
+    n = launches["render_views"]
+    singles = {k: launches[k] for k in PATHS["renders"]}
+    require((n > 0 if frames is None else n == frames)
+            and not any(singles.values()),
+            f"{tag}: K10 launched render_views {n} times (rendered frames "
+            f"{frames}) and the single renders {singles}")
 
 
 clone_map = port_bench.clone_map
@@ -1720,6 +1751,19 @@ def render_edges(np, seed=27):
                 normal=normal.astype(np.float32).reshape(h, w, 3),
                 valid=(i + j) % 2 == 1, pose=pose,
                 light=np.array([-0.4, 0.9, 0.25], np.float32))
+
+
+def render_view_edges(np, seed=27):
+    """:func:`render_edges` at one shape, the depth's [257, 256], for the
+    launch that takes all three renders' inputs (``render_views``): the
+    track codes and the shading maps repeated in their flat order to that
+    size, so that each still holds all its cases."""
+    e = render_edges(np, seed)
+    hw = e["depth"].shape
+    return dict(e, track=np.resize(e["track"], hw),
+                vertex=np.resize(e["vertex"], hw + (3,)),
+                normal=np.resize(e["normal"], hw + (3,)),
+                valid=np.resize(e["valid"], hw))
 
 
 def raycast_cold_bound(got, probes):
@@ -3046,6 +3090,8 @@ def tracked_noise_phase(torch, tmp, card):
             f"{tag}: drop counters nonzero: {drops}")
     require(all(launches[k] > 0 for k in PATHS[path]),
             f"{tag}: a kernel of the path was not launched: {launches}")
+    require_views(tag, launches, rendered_frames(
+        noise_tool.tracked_argv("", "", n), n))
     require(launches["median2"] == n and launches["raycast_gated"] == n - 3,
             f"{tag}: median2 {launches['median2']} (== {n}) and "
             f"raycast_gated {launches['raycast_gated']} (== {n - 3}, from "
@@ -3240,11 +3286,13 @@ def loop_argv(raw, name, log, frames):
 def pipeline_run(torch, name, raw, tmp, card):
     """The class pipeline's path for one field: the port's CLI
     (``cli.run``, in this process) over the loop .raw with
-    run_longseq_eval.py's arguments, then one volume render from the last
-    raycast pose moved BACK_VIEW back (K1's unprimed launch), with every
-    launch count zeroed just before and read just after. Holds the drop
-    counters to 0, the tracked fraction (the log's) to MIN_TRACKED, the
-    ATE to MAX_ATE and, for TSDF, the PPM count to the rendered frames;
+    run_longseq_eval.py's arguments, then one rendered frame
+    (``render_views``) from the last raycast pose moved BACK_VIEW back
+    (K1's unprimed launch), with every launch count zeroed just before and
+    read just after. Holds the drop counters to 0, the tracked fraction
+    (the log's) to MIN_TRACKED, the ATE to MAX_ATE, for TSDF the PPM count
+    to the rendered frames, K10 to one render_views a rendered frame and
+    the tracking maps to what they were before the fresh view;
     the class runs on its stage graphs, whose replays are timed on the
     host. Returns the pipeline, the path's launch counts, its numbers,
     its log's rows and the CLI's launch counts (the fresh view's
@@ -3271,11 +3319,14 @@ def pipeline_run(torch, name, raw, tmp, card):
     with contextlib.redirect_stderr(err), timed_replays() as replays:
         pipe = cli.run(argv)
     cli_launches = dict(_lib.LAUNCHES)
-    # a fresh view: K1's unprimed launch over every block
+    # a fresh view: K1's unprimed launch over every block, into scratch maps
     view_pose = moved_pose(pipe.raycast_pose, -BACK_VIEW).cpu().numpy()
-    image = pipe.render_volume(view_pose=view_pose)
+    maps = [t.clone() for t in (pipe.vertex, pipe.normal, pipe.valid)]
+    image = pipe.render_views(view_pose=view_pose)[3]
     torch.cuda.synchronize()
     launches = dict(_lib.LAUNCHES)
+    kept = all(torch.equal(t, m) for t, m in
+               zip((pipe.vertex, pipe.normal, pipe.valid), maps))
     wall = time.perf_counter() - t0
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     for line in err.getvalue().splitlines():
@@ -3296,7 +3347,8 @@ def pipeline_run(torch, name, raw, tmp, card):
           f"({wall:.2f} s with the fresh view; {card}); peak device memory "
           f"{peak_mib:.1f} MiB allocated; {n_ppm} PPM renders (== "
           f"{want_ppm}); fresh view from {BACK_VIEW} m back: {lit} lit "
-          f"pixels of {image.shape[0] * image.shape[1]}")
+          f"pixels of {image.shape[0] * image.shape[1]}, the tracking maps "
+          f"kept: {kept}")
     print(f"{tag}: kernel launches "
           f"{ {k: v for k, v in launches.items() if v} }")
     graphs = pipe.graph_stats()
@@ -3313,17 +3365,14 @@ def pipeline_run(torch, name, raw, tmp, card):
     require(ate <= MAX_ATE[name], f"{tag}: ATE {ate:.4f} m over the limit")
     require(n_ppm == want_ppm, f"{tag}: {n_ppm} renders, {want_ppm} due")
     require(lit > 0, f"{tag}: the fresh view shows nothing")
+    require(kept, f"{tag}: the fresh view wrote the tracking maps")
     require(all(launches[k] > 0 for k in PATHS[path]),
             f"{tag}: a kernel of the path was not launched: {launches}")
     cold = "raycast_cold_of" if name == "ofusion" else "raycast_cold"
     require(launches[cold] == 1, f"{tag}: the fresh view launched "
             f"{cold} {launches[cold]} times")
-    # K10: one launch of each render a rendered frame, and the fresh view's
-    renders = {"render_depth": want_ppm, "render_track": want_ppm,
-               "render_volume": want_ppm + 1}
-    require(all(launches[k] == v for k, v in renders.items()),
-            f"{tag}: K10 launched { {k: launches[k] for k in renders} }, "
-            f"not {renders}")
+    # K10: one render_views a rendered frame, and the fresh view's
+    require_views(tag, launches, want_ppm + 1)
     require(graphs["graphs"] >= 5 and replays["n"] > 0,
             f"{tag}: the CLI ran no stage graphs: {graphs}, {replays}")
     numbers = dict(ate=ate, tracked=summary["tracked_fraction"],
@@ -3577,18 +3626,24 @@ def render_cases(torch, pipe):
     TSDF pipeline's depth, track result and raycast maps under its
     raycast pose: the main path's shapes, timed), the fresh view's maps
     from its raycast pose moved BACK_VIEW back (K1's unprimed march, to
-    twice the far plane), and :func:`render_edges`."""
+    twice the far plane), and :func:`render_edges` (for ``render_views``
+    :func:`render_view_edges`, all at one shape)."""
     import numpy as np
     from supereight_tpu_torch.constants import FAR_PLANE
     from supereight_tpu_torch.kernels.frame import frame_mats
     from supereight_tpu_torch.ops import raycast as raycast_mod
     dev = pipe.device
     e = {k: torch.from_numpy(v).to(dev) for k, v in render_edges(np).items()}
+    ev = {k: torch.from_numpy(v).to(dev)
+          for k, v in render_view_edges(np).items()}
     pose = moved_pose(pipe.raycast_pose, -BACK_VIEW)
     fresh = raycast_mod.raycast(
         pipe.geom, pipe.map, pipe.field, frame_mats(pipe.k, pose).kpose,
         pipe.config.mu, pipe.computation_size, far=2.0 * FAR_PLANE)
     edges = (e["vertex"], e["normal"], e["valid"], e["pose"])
+    images = (pipe.float_depth, pipe.track_result)
+    view_edges = (ev["depth"], ev["track"], ev["vertex"], ev["normal"],
+                  ev["valid"], ev["pose"])
     return {
         "render_depth": {"loop": (pipe.float_depth,), "edges": (e["depth"],)},
         "render_track": {"loop": (pipe.track_result,),
@@ -3596,12 +3651,19 @@ def render_cases(torch, pipe):
         "render_volume": {"loop": (pipe.vertex, pipe.normal, pipe.valid,
                                    pipe.raycast_pose),
                           "fresh": (*fresh, pose), "edges": edges,
-                          "edges_light": edges + (e["light"],)}}
+                          "edges_light": edges + (e["light"],)},
+        "render_views": {"loop": images + (pipe.vertex, pipe.normal,
+                                           pipe.valid, pipe.raycast_pose),
+                         "fresh": images + (*fresh, pose),
+                         "edges": view_edges,
+                         "edges_light": view_edges + (ev["light"],)}}
 
 
 def check_render(torch, pipe, card):
     """K10 against its twins on the card, bit for bit, on every case of
-    :func:`render_cases`, one launch a call; on the loop's maps each
+    :func:`render_cases`, one launch a call, and ``render_views``'
+    quadrants against the single launches' images and a zero quadrant;
+    on the loop's maps each
     render's call ms (CUDA events over back-to-back calls), its device us
     (median of 20 launches, ``tools/sharded_kernels.kernel_us``) beside
     the launch floor, its twin's ms and its bound. Returns the kernels
@@ -3624,6 +3686,10 @@ def check_render(torch, pipe, card):
             errs[case] = (got.int() - want.int()).abs().max().item()
             require(torch.equal(got, want), f"{name} {case}: differs from "
                     f"its twin on {int((got != want).any(-1).sum())} pixels")
+            if name == "render_views":
+                require(views_are_singles(torch, got, args),
+                        f"{name} {case}: a quadrant differs from the "
+                        f"single launch's image")
         args = cases["loop"]
         px = args[0].shape[0] * args[0].shape[1]
         us = kernel_us(lambda: kernel(*args), name + "_kernel")
@@ -3633,7 +3699,8 @@ def check_render(torch, pipe, card):
                    device_us=us[0], device_us_range=[us[1], us[2]],
                    launch_floor_us=floor, pixels=px,
                    **bound(px * RENDER_PIXEL_BYTES[name]
-                           + (12 if name == "render_volume" else 0),
+                           + (12 if name in ("render_volume", "render_views")
+                              else 0),
                            px * RENDER_PIXEL_OPS[name]))
         rows[name] = row
         print(f"render {name}: bit-equal to its twin on {list(cases)} "
@@ -3646,11 +3713,47 @@ def check_render(torch, pipe, card):
     return rows
 
 
+def views_are_singles(torch, got, args):
+    """``render_views``' composite ``got`` of ``args`` holds the single
+    launches' images in its quadrants and zeros top left."""
+    from supereight_tpu_torch.kernels import render
+    depth, result, vertex, normal, valid, pose, *light = args
+    h, w = depth.shape
+    return (not got[:h, :w].any()
+            and torch.equal(got[:h, w:], render.render_depth(depth))
+            and torch.equal(got[h:, :w], render.render_track(result))
+            and torch.equal(got[h:, w:], render.render_volume(
+                vertex, normal, valid, pose, *light)))
+
+
+def single_renders_path(torch, pipe):
+    """The class's three single renders (JAX's ``render_depth``,
+    ``render_track`` and ``render_volume``) on the TSDF loop's last state,
+    a path with the launch counts zeroed just before and read just after:
+    one launch each, their images the composite's quadrants. Returns the
+    path's launch counts."""
+    import numpy as np
+    from supereight_tpu_torch.kernels import _lib
+    comp, *quadrants = pipe.render_views()
+    torch.cuda.synchronize()
+    _lib.reset_launches()
+    images = (pipe.render_depth(), pipe.render_track(), pipe.render_volume())
+    torch.cuda.synchronize()
+    launches = {k: _lib.LAUNCHES[k] for k in PATHS["renders"]}
+    same = all(np.array_equal(a, b) for a, b in zip(images, quadrants))
+    print(f"renders: the class's three single renders launched {launches}; "
+          f"their images equal render_views' quadrants: {same}")
+    require(all(v == 1 for v in launches.values()) and same,
+            f"renders: {launches}, equal to the quadrants: {same}")
+    return launches
+
+
 def rendering_column(torch, name, pipe, rows, eager_rows, tmp, card):
     """The log's ``rendering`` column over the rendered frames of the
     stage-graph run and of the ``eager=True`` run, and its split on the
-    graph pipeline's last frame (``tools/render_loop.split``: each render
-    to a host array, the composite and the PPM write, host ms medians of
+    graph pipeline's last frame (``tools/render_loop.split``: the class's
+    ``render_views`` call, its read into a fresh array and through a
+    reused pinned buffer, and the PPM write, host ms medians of
     ``render_loop.REPS``). Returns them."""
     from supereight_tpu_torch.tools import render_loop
     field_args = PIPE_FIELD_ARGS[name]
@@ -3676,7 +3779,8 @@ def pipeline_phase(torch, raw, tmp, card):
     through the native writer); both profiled; then the refusals of a
     flag whose package does not import and, where Pillow imports, the
     served loop (:func:`served_phase`); then the TSDF path with keyframes
-    (:func:`ba_run`); K10 on the TSDF path's maps (:func:`check_render`)
+    (:func:`ba_run`); K10 on the TSDF path's maps (the class's single
+    renders as a path, :func:`single_renders_path`; :func:`check_render`)
     and its rendering column (:func:`rendering_column`). Returns the
     paths' launch counts, the closure icp_track's error against its twin,
     the BA solves' largest and K10's rows."""
@@ -3706,6 +3810,8 @@ def pipeline_phase(torch, raw, tmp, card):
               f"{numbers['pool_bytes']} bytes")
         numbers["computation"] = ms
         if name == "tsdf":
+            for k, v in single_renders_path(torch, pipe).items():
+                launches[k] = launches.get(k, 0) + v
             render_rows = check_render(torch, pipe, card)
             numbers["rendering"] = rendering_column(
                 torch, name, pipe, rows, eager_rows, tmp, card)
@@ -3994,6 +4100,7 @@ def ba_run(torch, raw, tmp, card, no_ba_ate):
     require(solves, f"{tag}: no BA solve")
     require(all(launches[k] > 0 for k in PATHS["pipeline-tsdf-ba"]),
             f"{tag}: a kernel of the path was not launched: {launches}")
+    require_views(tag, launches, rendered_frames(argv, LOOP_FRAMES))
     require(launches["icp_track"] == LOOP_FRAMES + seen["tries"],
             f"{tag}: icp_track launched {launches['icp_track']} times for "
             f"{LOOP_FRAMES} frames and {seen['tries']} closure tries")
@@ -4332,6 +4439,7 @@ def served_phase(torch, raw, tmp, card, tsdf_peak_mib):
             f"{tag}: peak {peak_mib:.1f} MiB: the reset kept two pools")
     require(all(launches[k] > 0 for k in PATHS["served"]),
             f"{tag}: a kernel of the path was not launched: {launches}")
+    require_views(tag, launches)
     numbers = dict(pause_hold_s=hold, paused_frame=held["frame"],
                    reset_frame=before["frame"],
                    blocks=[before["blocks"], fell["blocks"],

@@ -115,7 +115,8 @@ def run(argv=None):
                              "matplotlib)")
     parser.add_argument("--dump-renders", type=str, default="",
                         help="directory for 2x2 composite snapshots at "
-                             "every render (viewer.composite_views)")
+                             "every render (viewer.composite_views' "
+                             "layout)")
     parser.add_argument("--no-stage-sync", action="store_true",
                         help="skip the per-stage device syncs: the stage "
                              "log columns then show enqueue time, "
@@ -279,20 +280,18 @@ def run(argv=None):
                         # a copy: the class rewrites its pose in place
                         static_view_pose = pipe.raycast_pose.to(
                             "cpu", copy=True).numpy()
-                    volume = pipe.render_volume(view_pose=static_view_pose)
                 else:
                     static_view_pose = None
-                    volume = pipe.render_volume()
-                views = (pipe.render_depth(), pipe.render_track(), volume)
+                # the 2x2 composite in one launch and one read
+                composite = pipe.render_views(view_pose=static_view_pose)[0]
                 if live is not None:
-                    live.push(viewer.composite_views(*views),
+                    live.push(composite,
                               stats=served_stats(pipe, frame, tracked))
                 if args.dump_renders:
                     os.makedirs(args.dump_renders, exist_ok=True)
                     viewer.write_ppm(
                         os.path.join(args.dump_renders,
-                                     f"frame{frame:05d}.ppm"),
-                        viewer.composite_views(*views))
+                                     f"frame{frame:05d}.ppm"), composite)
             t_render = time.perf_counter()
 
             # ONE read of the frame's pose and drop counters (counts are exact

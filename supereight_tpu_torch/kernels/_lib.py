@@ -55,7 +55,9 @@ LAUNCHES = {"icp_reduce": 0, "icp_reduce_step": 0, "icp_track": 0,
             # the pose graph's windowed solve (posegraph/graph.optimize)
             "ba_solve": 0,
             # the visualization renders (ops/rendering.py)
-            "render_depth": 0, "render_track": 0, "render_volume": 0}
+            "render_depth": 0, "render_track": 0, "render_volume": 0,
+            # a rendered frame's three renders in its composite (the CLI's)
+            "render_views": 0}
 
 MAX_MIP_LEVELS = 10  # mip levels csrc/nav.cu, node.cu and alloc.cu take
 MAX_ICP_LEVELS = 4   # pyramid levels csrc/icp.cu and preprocess.cu take
@@ -160,6 +162,7 @@ _SIGNATURES = {
     "se_render_depth": (P, I, F, F, F, P, P),
     "se_render_track": (P, I, P, P),
     "se_render_volume": (P, P, P, P, P, I, P, P),
+    "se_render_views": (P, P, P, P, P, P, P, I, I, F, F, F, P, P),
 }
 
 _lock = threading.Lock()

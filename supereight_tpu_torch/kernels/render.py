@@ -6,12 +6,16 @@ Replaces JAX's three jitted renders, ``supereight_tpu/ops/rendering.py``
 renderVolumeKernel, se_denseslam/src/rendering.cpp:111-283, and gs2rgb,
 commons.h:105-164). The CUDA kernel is ``csrc/render.cu``: one thread a
 pixel, one 32-bit RGBA store each, a launch a render counted as
-``render_depth``, ``render_track`` or ``render_volume``. The plain
-PyTorch twins :func:`render_depth_plain`, :func:`render_track_plain` and
-:func:`render_volume_plain` (with :func:`gs2rgb`) are elementwise torch
-ops in JAX's order of operations; they run for CPU tensors, where their
-u8 images equal JAX's, and are the kernel's reference on the card, which
-it equals bit for bit.
+``render_depth``, ``render_track`` or ``render_volume``; or, for a
+rendered frame, one launch of :func:`render_views` (counted as
+``render_views``) that writes the three images into the viewer's 2x2
+composite (``viewer.composite_views``' layout, its RGB quadrant zero).
+The plain PyTorch twins :func:`render_depth_plain`,
+:func:`render_track_plain`, :func:`render_volume_plain` (with
+:func:`gs2rgb`) and :func:`render_views_plain` are elementwise torch ops
+in JAX's order of operations; they run for CPU tensors, where their u8
+images equal JAX's, and are the kernel's reference on the card, which it
+equals bit for bit.
 
 JAX's jitted ``render_depth`` takes its default planes as constants, and
 XLA turns the division by the constant ``far - near`` into a product with
@@ -114,6 +118,19 @@ def render_volume_plain(vertex, normal, valid, view_pose, light=None):
     return torch.cat([col, _alpha(tuple(shade.shape), col.device)], dim=-1)
 
 
+def render_views_plain(depth, result, vertex, normal, valid, view_pose,
+                       light=None, near=C.NEAR_PLANE, far=C.FAR_PLANE):
+    """Plain PyTorch twin of :func:`render_views`: the three twins'
+    images placed into a zero u8[2H, 2W, 4]."""
+    h, w = depth.shape
+    out = torch.zeros((2 * h, 2 * w, 4), dtype=torch.uint8,
+                      device=depth.device)
+    out[:h, w:] = render_depth_plain(depth, near, far)
+    out[h:, :w] = render_track_plain(result)
+    out[h:, w:] = render_volume_plain(vertex, normal, valid, view_pose, light)
+    return out
+
+
 def _on_card(t, name):
     """True for a CUDA tensor, False for a CPU one; raise for any other
     device."""
@@ -188,4 +205,34 @@ def render_volume(vertex, normal, valid, view_pose, light=None):
     _lib.launch("render_volume", "se_render_volume", dev, vertex, normal,
                 valid, view_pose if light is None else None, light,
                 hw[0] * hw[1], out)
+    return out
+
+
+def render_views(depth, result, vertex, normal, valid, view_pose,
+                 light=None, near=C.NEAR_PLANE, far=C.FAR_PLANE):
+    """A rendered frame's three renders of [H, W] inputs (as
+    :func:`render_depth`, :func:`render_track` and :func:`render_volume`)
+    in the viewer's 2x2 composite u8[2H, 2W, 4]: depth top right, track
+    bottom left, volume bottom right, zeros top left
+    (``viewer.composite_views`` without an RGB image). One launch
+    (``render_views``)."""
+    if not _on_card(depth, "render_views"):
+        return render_views_plain(depth, result, vertex, normal, valid,
+                                  view_pose, light, near, far)
+    dev = depth.device
+    hw = _hw(depth, "depth", 2)
+    _lib.check(depth, "depth", torch.float32, hw, dev)
+    _lib.check(result, "result", torch.int32, hw, dev)
+    _lib.check(vertex, "vertex", torch.float32, hw + (3,), dev)
+    _lib.check(normal, "normal", torch.float32, hw + (3,), dev)
+    _lib.check(valid, "valid", torch.bool, hw, dev)
+    if light is None:
+        _lib.check(view_pose, "view_pose", torch.float32, (4, 4), dev)
+    else:
+        _lib.check(light, "light", torch.float32, (3,), dev)
+    out = _rgba((2 * hw[0], 2 * hw[1]), dev)
+    _lib.launch("render_views", "se_render_views", dev, depth, result,
+                vertex, normal, valid, view_pose if light is None else None,
+                light, hw[0], hw[1], float(near), float(far),
+                float(depth_scale(near, far)), out)
     return out

@@ -5,7 +5,9 @@ renderTrackKernel / renderVolumeKernel, se_denseslam/src/rendering.cpp:
 111-283, and the gray-to-rainbow map gs2rgb, commons.h:105-164), with
 JAX's public functions and signatures. Each render is one launch of K10
 (``kernels/render.py``, ``csrc/render.cu``) on the card and its plain
-twin on the CPU; the u8 images equal JAX's.
+twin on the CPU; the u8 images equal JAX's. :func:`render_views` is a
+rendered frame's three renders in one launch, placed in the viewer's 2x2
+composite (JAX's ``viewer.composite_views`` of its three renders).
 A volume render from a view that is not the raycast pose marches the map
 afresh through K1's unprimed launch (``ops/raycast``), to twice the far
 plane; its view is the pose prologue's (``kernels/frame.frame_mats``).
@@ -41,8 +43,30 @@ def render_volume(geom, state, field, view_pose, k, mu, frame_size,
     unprimed launch over every block, to twice the far plane). The light
     is ``view_pose[:3, 3]`` unless ``light`` is given."""
     if not reuse_maps:
-        view = frame_mats(k, view_pose).kpose
-        vertex, normal, valid = raycast_mod.raycast(
-            geom, state, field, view, mu, frame_size,
-            far=C.FAR_PLANE * 2.0)
+        vertex, normal, valid = _fresh_maps(geom, state, field, view_pose, k,
+                                            mu, frame_size)
     return krender.render_volume(vertex, normal, valid, view_pose, light)
+
+
+def render_views(depth, result, geom, state, field, view_pose, k, mu,
+                 frame_size, light=None, vertex=None, normal=None,
+                 valid=None, reuse_maps=False):
+    """:func:`render_depth` of ``depth``, :func:`render_track` of
+    ``result`` and :func:`render_volume` (its arguments) in one u8[2H, 2W,
+    4] composite: depth top right, track bottom left, volume bottom right,
+    zeros top left. One launch after the fresh view's march, if any; the
+    march's maps are new tensors, never ``vertex``, ``normal`` or
+    ``valid``."""
+    if not reuse_maps:
+        vertex, normal, valid = _fresh_maps(geom, state, field, view_pose, k,
+                                            mu, frame_size)
+    return krender.render_views(depth, result, vertex, normal, valid,
+                                view_pose, light)
+
+
+def _fresh_maps(geom, state, field, view_pose, k, mu, frame_size):
+    """The map raycast afresh from ``view_pose``, to twice the far
+    plane."""
+    view = frame_mats(k, view_pose).kpose
+    return raycast_mod.raycast(geom, state, field, view, mu, frame_size,
+                               far=C.FAR_PLANE * 2.0)

@@ -499,6 +499,28 @@ class DenseSLAMSystem:
             self.computation_size, vertex=self.vertex, normal=self.normal,
             valid=self.valid, reuse_maps=reuse))
 
+    def render_views(self, view_pose=None):
+        """A rendered frame: the depth, track and volume renders (the
+        volume as :meth:`render_volume` takes it) in the viewer's 2x2
+        composite, one launch (K10 ``render_views``, after a fresh view's
+        march) and one device-to-host copy. Returns (composite u8[2H, 2W,
+        4], depth, track, volume): numpy arrays, the three images views
+        into the composite, which is a fresh array each call. A fresh
+        view's maps are scratch: the tracking maps stay as they were."""
+        comp = _np(self._composite(view_pose))
+        h, w = comp.shape[0] // 2, comp.shape[1] // 2
+        return comp, comp[:h, w:], comp[h:, :w], comp[h:, w:]
+
+    def _composite(self, view_pose=None):
+        """:meth:`render_views`' composite, on the class's device."""
+        reuse = view_pose is None
+        pose = self.raycast_pose if reuse else self._pose_tensor(view_pose)
+        return rendering.render_views(
+            self.float_depth, self.track_result, self.geom, self.map,
+            self.field, pose, self.k, self.config.mu, self.computation_size,
+            vertex=self.vertex, normal=self.normal, valid=self.valid,
+            reuse_maps=reuse)
+
     def dump_mesh(self, filename: str):
         """Marching-cubes surface export (ref dump_mesh,
         DenseSLAMSystem.cpp:302-322): the map is downloaded once and

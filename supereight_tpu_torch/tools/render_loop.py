@@ -10,16 +10,19 @@ On the card only (exit 2 without one). Runs the port's CLI (``cli.run``,
 in this process) over the loop with ``tools/longseq.py``'s ``tsdf icp``
 row (the eval's arguments, ``-z 4``: 62 rendered frames of 250) and
 ``--dump-renders``, the class on its stage graphs, then the same run with
-the class's ``eager=True``, and prints one JSON line: each run's mean and
-median ``rendering`` column over the rendered frames (ms; the log's
-column holds the three renders, each read back to a host array, the
-composite and the PPM write), the split of that column on the graph
-run's last frame (:func:`split`: host ms, medians of :data:`REPS`), the ATE
-and the SHA-256 of the PPMs in frame order (:func:`ppm_digest`). To take
+the class's ``eager=True`` and no PPMs, and prints one JSON line: each
+run's mean and median ``rendering`` column over the rendered frames (ms;
+the log's column holds the class's composite, one launch and one read to
+a host array, and the PPM write), the split of that column on the graph
+run's last frame (:func:`split`: host ms, medians of :data:`REPS`), K10's
+device us on that frame (:func:`device_us`), the ATE and the SHA-256 of
+the PPMs in frame order (:func:`ppm_digest`). To take
 a parent's numbers on the same card, unpack it (``git archive <commit> |
 tar -x -C build/parent``) and run this file by path with
 ``PYTHONPATH=build/parent``: it uses the package it imports, and needs
-of it only the CLI, ``tools/longseq.py`` and the class's renders.
+of it only the CLI, ``tools/longseq.py`` and the class's renders (a
+package whose class has no ``render_views`` is split into its three
+renders, the composite and the write: :data:`PARENT_PARTS`).
 """
 
 import argparse
@@ -43,7 +46,13 @@ from supereight_tpu_torch.tools.ba_windows import card
 
 FRAMES = 250
 ARGS = longseq.BASE_ARGS + longseq.VARIANTS[0][1]  # the "tsdf icp" row
-PARTS = ("render_depth", "render_track", "render_volume", "composite_ppm")
+# a rendered frame's parts: the class's call (one launch, one read), its
+# read alone (into a fresh array, or through a reused pinned buffer and a
+# host copy), the PPM write; a package without render_views: its three
+# renders (each to a host array), the composite of their images, the write
+PARTS = ("render_views", "read", "read_pinned", "ppm")
+PARENT_PARTS = ("render_depth", "render_track", "render_volume",
+                "composite", "ppm")
 REPS = 20  # host-timed reps of each part of a rendered frame
 
 
@@ -65,15 +74,29 @@ def column_ms(rows, rate):
 def split(pipe, path, reps=REPS):
     """Host ms (median, min) of each part of a rendered frame's
     ``rendering`` column on ``pipe``'s current state, each timed ``reps``
-    times alone: the three renders, each to a host array (the class's own
-    calls), then the composite of their images and the PPM write to
-    ``path``."""
-    views = (pipe.render_depth(), pipe.render_track(), pipe.render_volume())
+    times alone: :data:`PARTS`, or :data:`PARENT_PARTS` where the class
+    has no ``render_views``."""
+    if hasattr(pipe, "render_views"):
+        comp = pipe._composite()
+        image = pipe.render_views()[0]
+        pinned = torch.empty(tuple(comp.shape), dtype=comp.dtype,
+                             pin_memory=comp.is_cuda)
 
-    def composite():
-        viewer.write_ppm(path, viewer.composite_views(*views))
-    calls = dict(zip(PARTS, (pipe.render_depth, pipe.render_track,
-                             pipe.render_volume, composite)))
+        def read_pinned():
+            pinned.copy_(comp)
+            return pinned.numpy().copy()
+        calls = dict(zip(PARTS, (
+            pipe.render_views,
+            lambda: comp.to("cpu", copy=True).numpy(), read_pinned,
+            lambda: viewer.write_ppm(path, image))))
+    else:
+        views = (pipe.render_depth(), pipe.render_track(),
+                 pipe.render_volume())
+        image = viewer.composite_views(*views)
+        calls = dict(zip(PARENT_PARTS, (
+            pipe.render_depth, pipe.render_track, pipe.render_volume,
+            lambda: viewer.composite_views(*views),
+            lambda: viewer.write_ppm(path, image))))
     out = {}
     for name, fn in calls.items():
         fn()
@@ -83,6 +106,27 @@ def split(pipe, path, reps=REPS):
             fn()
             t.append(1e3 * (time.perf_counter() - t0))
         out[name] = dict(median=statistics.median(t), min=min(t))
+    return out
+
+
+def device_us(pipe):
+    """Device us (median of ``tools/sharded_kernels.REPS`` launches,
+    ``kernel_us``) of each K10 launch on ``pipe``'s current state: the
+    three single renders and, where the package has it,
+    ``render_views``; and the launch floor."""
+    from supereight_tpu_torch.kernels import render
+    from supereight_tpu_torch.tools.sharded_kernels import (kernel_us,
+                                                            launch_floor_us)
+    args = {"render_depth": (pipe.float_depth,),
+            "render_track": (pipe.track_result,),
+            "render_volume": (pipe.vertex, pipe.normal, pipe.valid,
+                              pipe.raycast_pose)}
+    if hasattr(render, "render_views"):
+        args["render_views"] = (args["render_depth"] + args["render_track"]
+                                + args["render_volume"])
+    out = {name: kernel_us(functools.partial(getattr(render, name), *a),
+                           name + "_kernel")[0] for name, a in args.items()}
+    out["launch_floor"] = launch_floor_us()
     return out
 
 
@@ -140,6 +184,7 @@ def main(argv=None):
     pipe, graphs, out["ate"] = loop("graphs", "--dump-renders", renders)
     out["ppm_sha256"], out["ppm_count"] = ppm_digest(renders)
     out["split_ms"] = split(pipe, os.path.join(args.workdir, "split.ppm"))
+    out["device_us"] = device_us(pipe)
     del pipe
     torch.cuda.empty_cache()
     _, eager, out["eager_ate"] = loop("eager", eager=True)

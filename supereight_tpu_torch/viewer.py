@@ -32,8 +32,12 @@ def write_ppm(path, rgba):
 
 
 def snapshot(pipe, path, rgb=None):
-    """Render the current pipeline state into a composite image file."""
-    comp = composite_views(pipe.render_depth(), pipe.render_track(),
-                           pipe.render_volume(), rgb)
+    """Render the current pipeline state into a composite image file:
+    the class's composite (one launch and one read), ``rgb`` (u8[H, W, 3
+    or 4]) placed in its top-left quadrant on the host."""
+    comp = pipe.render_views()[0]
+    if rgb is not None:
+        h, w = comp.shape[0] // 2, comp.shape[1] // 2
+        comp[:h, :w, :rgb.shape[-1]] = rgb
     write_ppm(path, comp)
     return comp

@@ -2005,6 +2005,40 @@ def test_render_matches_twins_on_cuda(cuda, field):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("field", [TSDF, OFUSION], ids=["tsdf", "ofusion"])
+def test_render_views_matches_twins_on_cuda(cuda, field):
+    """K10's render_views against its twin bit for bit, and each quadrant
+    against the single launches, on the edge inputs at one shape (the
+    pose's light and a given one) and on a small map's depth, result
+    codes and raycast maps; one launch a call."""
+    e = {k: torch.from_numpy(v).to(cuda)
+         for k, v in chip_smoke.render_view_edges(np).items()}
+    cases = dict(_render_cases(cuda, field))
+    edges = (e["depth"], e["track"], e["vertex"], e["normal"], e["valid"],
+             e["pose"])
+    for args, light in ((edges, None), (edges, e["light"]),
+                        (cases["render_depth"] + cases["render_track"]
+                         + cases["render_volume"], None)):
+        before = _lib.LAUNCHES["render_views"]
+        got = render.render_views(*args, light)
+        assert _lib.LAUNCHES["render_views"] == before + 1
+        want = render.render_views_plain(*args, light)
+        assert got.dtype == torch.uint8 and got.is_contiguous()
+        assert torch.equal(got, want), int((got != want).sum())
+        h, w = args[0].shape
+        assert torch.equal(got[:h, :w], torch.zeros_like(got[:h, :w]))
+        assert torch.equal(got[:h, w:], render.render_depth(args[0]))
+        assert torch.equal(got[h:, :w], render.render_track(args[1]))
+        assert torch.equal(got[h:, w:],
+                           render.render_volume(*args[2:6], light))
+    assert bool((got[h:, w:, 0] > 0).any())  # the map's shading lit pixels
+    with pytest.raises(ValueError, match="shape"):
+        render.render_views(e["depth"][:-1], *edges[1:])
+    with pytest.raises(TypeError):
+        render.render_views(e["depth"], e["track"].long(), *edges[2:])
+
+
+@pytest.mark.cuda
 def test_render_refuses_what_the_kernel_does_not_take_on_cuda(cuda):
     """A non-contiguous vertex map, a wrong dtype or shape raises before a
     launch; no silent copy."""

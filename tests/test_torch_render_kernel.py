@@ -121,7 +121,8 @@ def test_other_devices_raise():
 
 
 class _Pipe:
-    """The class's three render calls on the edge inputs, on the CPU."""
+    """The class's three render calls on the edge inputs, on the CPU (a
+    class without ``render_views``, as the parent's)."""
 
     def render_depth(self):
         return render.render_depth(_t("depth")[:48, :64]).numpy()
@@ -132,6 +133,19 @@ class _Pipe:
     def render_volume(self):
         return render.render_volume(_t("vertex"), _t("normal"), _t("valid"),
                                     _t("pose")).numpy()
+
+
+class _ViewsPipe(_Pipe):
+    """The class's composite of :class:`_Pipe`'s inputs, on the CPU."""
+
+    def _composite(self, view_pose=None):
+        return render.render_views(_t("depth")[:48, :64], _t("track"),
+                                   _t("vertex"), _t("normal"), _t("valid"),
+                                   _t("pose"))
+
+    def render_views(self, view_pose=None):
+        comp = self._composite(view_pose).numpy()
+        return comp, comp[:48, 64:], comp[48:, :64], comp[48:, 64:]
 
 
 def test_render_loop_tool(tmp_path):
@@ -145,10 +159,14 @@ def test_render_loop_tool(tmp_path):
     rows = [{"frame": float(f), "rendering": 0.001 * f} for f in range(250)]
     col = render_loop.column_ms(rows, 4)
     assert col["frames"] == 62 and col["mean"] == pytest.approx(126.0)
-    parts = render_loop.split(_Pipe(), str(tmp_path / "a.ppm"), reps=2)
-    assert list(parts) == list(render_loop.PARTS)
-    assert all(0 <= p["min"] <= p["median"] for p in parts.values())
-    (tmp_path / "b.ppm").write_bytes((tmp_path / "a.ppm").read_bytes())
+    for pipe, names, ppm in ((_Pipe(), render_loop.PARENT_PARTS, "a.ppm"),
+                             (_ViewsPipe(), render_loop.PARTS, "b.ppm")):
+        parts = render_loop.split(pipe, str(tmp_path / ppm), reps=2)
+        assert list(parts) == list(names)
+        assert all(0 <= p["min"] <= p["median"] for p in parts.values())
+    # the two splits' PPMs: the same composite
+    assert (tmp_path / "a.ppm").read_bytes() == \
+        (tmp_path / "b.ppm").read_bytes()
     digest, n = render_loop.ppm_digest(str(tmp_path))
     assert n == 2 and len(digest) == 64
     assert (tmp_path / "a.ppm").read_bytes()[:14] == b"P6\n128 96\n255\n"

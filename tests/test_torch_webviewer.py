@@ -173,7 +173,7 @@ class Session:
 
     def __init__(self, monkeypatch, argv):
         self.viewers = []
-        self.volumes = []   # view_pose of each render_volume call
+        self.volumes = []   # view_pose of each rendered frame's volume
         session = self
 
         class Paused(webviewer.LiveViewer):
@@ -182,13 +182,13 @@ class Session:
                 self.paused = True
                 session.viewers.append(self)
         monkeypatch.setattr(webviewer, "LiveViewer", Paused)
-        render_volume = DenseSLAMSystem.render_volume
+        render_views = DenseSLAMSystem.render_views
 
         def spy(pipe, view_pose=None):
             self.volumes.append(None if view_pose is None
                                 else np.array(view_pose))
-            return render_volume(pipe, view_pose)
-        monkeypatch.setattr(DenseSLAMSystem, "render_volume", spy)
+            return render_views(pipe, view_pose)
+        monkeypatch.setattr(DenseSLAMSystem, "render_views", spy)
         self.port = free_port()
         self.result = {}
         self.thread = threading.Thread(target=self._run, daemon=True,
