@@ -152,7 +152,13 @@ checkout:
    the same CLI run again with the class's ``eager`` keyword (its rows,
    ATE and launches equal to the graphs'), and a fresh eager pipeline and
    a fresh one on graphs over the 250 frames in turn, bit-equal every
-   frame and in the map at the end; it prints the log's computation a
+   frame and in the map at the end, and each rendering a fresh view
+   every 4th frame (on the graphs one replay of the fresh-view graph,
+   ``ops/rendering.FreshView``), the composites bit-equal; on their last
+   state the fresh view's host launches a render (one replay on the
+   graphs, four kernel launches eagerly), host us of the call and with
+   its read, the stream's us and the kernels' device us, eager, graphs,
+   graphs, eager, medians of 20; it prints the log's computation a
    frame of both runs (mean, median, max) beside the aim of 0.40 ms, the
    graphs captured and their pool's bytes;
    it holds the drop counters to 0, the tracked fraction to 0.98, the ATE
@@ -181,7 +187,12 @@ checkout:
    viewer starts paused; ``/stats`` advances, a pause holds for a second,
    ``/stream``'s JPEG decodes to the composite's size, the static view
    launches ``raycast_cold``, a reset makes the blocks fall and rise,
-   drops 0, peak memory within 1.2x pipeline-tsdf's); then the TSDF path
+   drops 0, peak memory within 1.2x pipeline-tsdf's), then the loop served
+   in the static view (the viewer's ``view=static`` before the first
+   frame; a path of its own, every rendered frame a fresh view) on the graphs and with
+   ``eager=True``: PPMs byte-equal, rows, ATE and launches equal, one
+   fresh-view graph replayed on every rendered frame after the first, and
+   the rendering column of both printed; then the TSDF path
    with the keyframe pose graph (``--keyframe-rate 15``, EVAL_table.md's
    BA row):
    drop counters 0, tracked fraction 0.98, ATE <= 0.0285 m, at least one
@@ -378,6 +389,17 @@ GATE_HIT_BYTES = 8
 # where some rays start behind a surface and must miss
 BACK_VIEW = 0.5
 BEHIND = 0.03
+# the fresh view's graph (ops/rendering.FreshView): the graph and eager
+# classes of pipeline_equal render a fresh view BACK_VIEW behind the
+# raycast pose on every FRESH_RATE-th loop frame from frame 4 (the
+# frames pipeline-tsdf renders), compared bit for bit; on the last state
+# each render is timed FRESH_REPS times in each of four blocks (eager,
+# graphs, graphs, eager); a render is FRESH_KERNELS launches eagerly (the
+# prologue, K2, K1's unprimed launch, K10's render_views) and one replay
+# on the graph
+FRESH_RATE = 4
+FRESH_REPS = 20
+FRESH_KERNELS = 4
 # K10 (csrc/render.cu) a pixel: the bytes its function moves (depth f32 or
 # track i32 in, RGBA out; vertex, normal and valid in, RGBA out; the pose's
 # light besides; render_views all three and the composite's zero quadrant)
@@ -689,6 +711,13 @@ PATHS = {  # the kernels each main path must launch
                "alloc_assign", "integrate_worklist", "integrate_fused",
                "integrate_fallback", "node_rank", "node_pass", "nav_grid",
                "raycast", "raycast_cold", "render_views"),
+    # the served TSDF loop in its static view on the stage graphs: every
+    # rendered frame a fresh view, one replay of the fresh-view graph
+    "served-static": ("pyramid", "frame_mats", "icp_track", "alloc_touch",
+                      "alloc_assign", "integrate_worklist",
+                      "integrate_fused", "integrate_fallback", "node_rank",
+                      "node_pass", "nav_grid", "raycast", "raycast_cold",
+                      "render_views"),
     # the library surface: allocate_blocks over a sphere shell
     "library": ("alloc_assign",),
     # the sharded step, four ranks on one card (the dist phase)
@@ -3456,12 +3485,18 @@ def pipeline_eager_cli(torch, name, raw, tmp, graph_rows, launches,
     return rows
 
 
-def pipeline_equal(torch, name, pipe, raw):
+def pipeline_equal(torch, name, pipe, raw, card):
     """Two fresh pipelines of ``pipe``'s configuration, one eager and one
     on the stage graphs, over the loop's LOOP_FRAMES frames through
     ``process_frame`` in turn: every frame the pose, old pose, raycast
     pose, reference maps, reduction, track result, float depth, pyramid
-    and result equal bit for bit, and the map at the end."""
+    and result equal bit for bit, and the map at the end; on every
+    FRESH_RATE-th frame from frame 4 both render a fresh view BACK_VIEW
+    behind the raycast pose (``render_views``; on the graphs a replay of
+    the fresh-view graph, reading the map as it has grown), the
+    composites equal bit for bit. Then :func:`fresh_view_costs` on the
+    last state. Returns the graphs' stats and the fresh view's numbers."""
+    import numpy as np
     from supereight_tpu_torch.io.dataset import RawDepthReader
     from supereight_tpu_torch.pipeline import DenseSLAMSystem, _leaves
     tag = f"pipeline {name}"
@@ -3474,6 +3509,7 @@ def pipeline_equal(torch, name, pipe, raw):
     names = ("pose", "old_pose", "raycast_pose", "vertex", "normal",
              "valid", "reduction", "track_result", "float_depth", "pyr")
     unequal = collections.Counter()
+    fresh = []   # each fresh view's lit pixels (its volume image's)
     reader = RawDepthReader(raw)
     for i in range(LOOP_FRAMES):
         depth = reader.read_frame(i)[0]
@@ -3487,21 +3523,110 @@ def pipeline_equal(torch, name, pipe, raw):
         unequal["result"] += res[True].keys() != res[False].keys() or any(
             not (torch.equal(v, res[False][k]) if isinstance(v, torch.Tensor)
                  else v == res[False][k]) for k, v in res[True].items())
+        if i % FRESH_RATE == 0 and i > 2:
+            view = moved_pose(b.raycast_pose, -BACK_VIEW).cpu().numpy()
+            comps = [p.render_views(view)[0] for p in (a, b)]
+            unequal["fresh_view"] += not np.array_equal(*comps)
+            h, w = comps[1].shape[0] // 2, comps[1].shape[1] // 2
+            fresh.append(int((comps[1][h:, w:, :3].max(-1) > 0).sum()))
     leaves = list(zip(_leaves(runs[True].map), _leaves(runs[False].map)))
     unequal["map"] = sum(not torch.equal(x, y) for x, y in leaves)
     bad = {k: v for k, v in unequal.items() if v}
     graphs = runs[False].graph_stats()
+    keys = [k for k in runs[False]._graphs.entries if k[0] == "fresh_view"]
     print(f"{tag}: the stage graphs against the eager class on all "
           f"{LOOP_FRAMES} loop frames in turn (process_frame): frames "
           f"unequal {bad} (== {{}}, bit for bit: {', '.join(names)} and the "
-          f"result each frame, the map's {len(leaves)} leaves at the end); "
-          f"{graphs['graphs']} graphs captured, their pool "
+          f"result each frame, the map's {len(leaves)} leaves at the end, "
+          f"and the composites of {len(fresh)} fresh views, one every "
+          f"{FRESH_RATE} frames from frame 4, {BACK_VIEW} m behind the "
+          f"raycast pose, lit pixels {min(fresh, default=0)} to "
+          f"{max(fresh, default=0)}, through {len(keys)} fresh-view "
+          f"graph); {graphs['graphs']} graphs captured, their pool "
           f"{graphs['pool_bytes']} bytes; blocks {runs[False].block_count()}")
     require(not bad, f"{tag}: the stage graphs depart from the eager "
             f"class: {bad}")
+    require(len(keys) == 1 and fresh and min(fresh) > 0,
+            f"{tag}: fresh views {fresh} through the graphs {keys}")
+    out = dict(graphs, fresh_views=len(fresh),
+               fresh_view=fresh_view_costs(torch, runs, tag, card))
     del runs
     torch.cuda.empty_cache()
-    return graphs
+    return out
+
+
+def fresh_view_costs(torch, runs, tag, card):
+    """A fresh view's render (BACK_VIEW behind the raycast pose) on the
+    loop's last state of the eager class (``runs[True]``) and the one on
+    the stage graphs (``runs[False]``): the host's launches a render
+    (``_lib.host_calls``), held to FRESH_KERNELS and no replay eagerly
+    and to one replay and no kernel launch on the graphs; host us of the
+    class's composite call (``_composite``: the view pose's copy, then
+    the launches or the replay; no read) and of ``render_views`` (with
+    the read into a host array), and the stream's us between CUDA events
+    just before and after the composite call (eagerly the device waits
+    there for the host's launches), medians of FRESH_REPS in four blocks
+    (eager, graphs, graphs, eager), each call after a synchronize; and the
+    device us of a render's FRESH_KERNELS kernels (their durations summed,
+    median of FRESH_REPS, ``tools/sharded_kernels.kernel_us``, from a
+    trace that shows the same whole number of kernels a call). The aim,
+    printed and not held: a graph render whose host us are below the
+    eager one's. Returns the numbers."""
+    from supereight_tpu_torch.kernels import _lib
+    from supereight_tpu_torch.tools.sharded_kernels import kernel_us
+    view = moved_pose(runs[False].raycast_pose, -BACK_VIEW).cpu().numpy()
+    modes = {"eager": runs[True], "graphs": runs[False]}
+    out = {m: dict(host_us=[], stream_us=[], call_us=[]) for m in modes}
+    calls = {}
+    for m, p in modes.items():
+        p.render_views(view)
+        torch.cuda.synchronize()
+        with _lib.host_calls() as seen:
+            p._composite(view)
+        torch.cuda.synchronize()
+        calls[m] = dict(seen)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for m in ("eager", "graphs", "graphs", "eager"):
+        p, host, stream, whole = modes[m], [], [], []
+        for _ in range(FRESH_REPS):
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            p._composite(view)
+            host.append(1e6 * (time.perf_counter() - t0))
+            end.record()
+            torch.cuda.synchronize()
+            stream.append(1e3 * start.elapsed_time(end))
+        for _ in range(FRESH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.render_views(view)
+            whole.append(1e6 * (time.perf_counter() - t0))
+        out[m]["host_us"].append(statistics.median(host))
+        out[m]["stream_us"].append(statistics.median(stream))
+        out[m]["call_us"].append(statistics.median(whole))
+    for m, p in modes.items():
+        out[m]["device_us"] = kernel_us(lambda: p._composite(view), "",
+                                        reps=FRESH_REPS, per_call=None)[0]
+        out[m]["host_launches"] = calls[m]
+    g, e = out["graphs"], out["eager"]
+    print(f"{tag}: a fresh view's render ({BACK_VIEW} m behind the raycast "
+          f"pose, {runs[False].computation_size[0]}x"
+          f"{runs[False].computation_size[1]}), eager / graphs, medians of "
+          f"{FRESH_REPS} in the blocks eager, graphs, graphs, eager: host us "
+          f"of the composite call {e['host_us']} / {g['host_us']}, the "
+          f"stream's us around it {e['stream_us']} / {g['stream_us']}, host "
+          f"us of render_views with its read {e['call_us']} / "
+          f"{g['call_us']}; device us of its kernels "
+          f"{e['device_us']:.2f} / {g['device_us']:.2f}; the host's launches "
+          f"a render {calls['eager']} / {calls['graphs']}; aim (printed, not "
+          f"held): graph host us below eager: "
+          f"{max(g['host_us']) < min(e['host_us'])} ({card})")
+    require(calls["eager"] == dict(launch=FRESH_KERNELS, replay=0)
+            and calls["graphs"] == dict(launch=0, replay=1),
+            f"{tag}: a fresh view's host launches {calls}")
+    return out
 
 
 def loop_depth(raw, i):
@@ -3605,8 +3730,10 @@ def pipeline_profile(torch, pipe, raw, ms_frame, tag):
 
 def pipeline_copies(pipe):
     """Each stage's copies into the class's own tensors a frame, in its
-    newest graph (what the stage's program returned)."""
-    return {key[0]: entry.out for key, entry in pipe._graphs.entries.items()}
+    newest graph (what the stage's program returned); the fresh view's
+    graph is a render, no stage of a frame."""
+    return {key[0]: entry.out for key, entry in pipe._graphs.entries.items()
+            if key[0] != "fresh_view"}
 
 
 def pipeline_empty_cost(torch, pipe, tag):
@@ -3815,7 +3942,7 @@ def pipeline_phase(torch, raw, tmp, card):
             render_rows = check_render(torch, pipe, card)
             numbers["rendering"] = rendering_column(
                 torch, name, pipe, rows, eager_rows, tmp, card)
-        numbers["equal"] = pipeline_equal(torch, name, pipe, raw)
+        numbers["equal"] = pipeline_equal(torch, name, pipe, raw, card)
         if name == "tsdf":
             host_io.update(check_telemetry(torch, card))
             check_resume(torch, pipe, raw, tmp, tag)
@@ -3835,6 +3962,10 @@ def pipeline_phase(torch, raw, tmp, card):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
+        counts, numbers = static_view_phase(torch, raw, tmp, card)
+        host_io.update(numbers)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
     print(f"host-io: {json.dumps(host_io)}")
     counts, closure_err, ba_err, numbers = ba_run(torch, raw, tmp, card,
                                                   no_ba_ate)
@@ -4290,7 +4421,7 @@ class ServedSession:
     def _run(self, argv):
         from supereight_tpu_torch import cli
         try:
-            cli.run(argv)
+            self.result["pipe"] = cli.run(argv)
             self.result["done"] = True
         except BaseException as e:   # raised again by the script's thread
             self.result["error"] = e
@@ -4447,6 +4578,105 @@ def served_phase(torch, raw, tmp, card, tsdf_peak_mib):
                    raycast_cold=cold, served_peak_mib=peak_mib,
                    served_wall_fps=fps)
     return {k: launches[k] for k in PATHS["served"]}, numbers
+
+
+def static_view_phase(torch, raw, tmp, card):
+    """The served TSDF loop in the viewer's static view (a
+    :class:`ServedSession` switched to ``view=static`` before its first
+    frame, then let run: the view pinned at the raycast pose of frame 4,
+    so that every rendered frame is a fresh view of a map that grows) on
+    the stage graphs, a path with the launch
+    counts zeroed just before and read just after, then again with the
+    class's ``eager=True``, both writing PPMs: the PPMs equal byte for
+    byte, the log's rows (frame, position, flags) and ATE equal, each
+    rendered frame one K1 unprimed launch and one ``render_views`` in both
+    runs, the graph run's fresh views through one graph, each after the
+    first a replay (``Graphs.replays``), drops 0; prints the log's ``rendering`` column over
+    the rendered frames of both runs. Returns the path's launch counts
+    and the numbers."""
+    from supereight_tpu_torch.eval.sweep import parse_frame_log
+    from supereight_tpu_torch.kernels import _lib
+    from supereight_tpu_torch.tools import render_loop
+    tag = "host-io served static"
+    field_args = PIPE_FIELD_ARGS["tsdf"]
+    rate = int(field_args[field_args.index("-z") + 1])
+    want = sum(1 for f in range(LOOP_FRAMES) if f % rate == 0 and f > 2)
+    cols = ("frame", "X", "Y", "Z", "tracked", "integrated")
+    runs = {}
+    for run in ("graphs", "eager"):
+        log = os.path.join(tmp, f"static-{run}.log")
+        ppms = os.path.join(tmp, f"static-{run}")
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), \
+                render_loop.eager_cli(run == "eager"):
+            s = ServedSession(loop_argv(raw, "tsdf", log, LOOP_FRAMES)
+                              + ["--dump-renders", ppms])
+            try:
+                s.wait(lambda: s.viewers and s.stats() == {}, "the server")
+                s.ctl("view=static")
+                s.ctl("resume")
+                s.thread.join(SERVE_DEADLINE)
+                require(not s.thread.is_alive() and s.result.get("done"),
+                        f"{tag}: the {run} session did not finish: "
+                        f"{s.result}")
+            finally:
+                s.close()
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+        pipe = s.result.pop("pipe")
+        fresh = [] if pipe._graphs is None else [
+            k for k in pipe._graphs.entries if k[0] == "fresh_view"]
+        keys = len(fresh)
+        replays = sum(pipe._graphs.replays[k] for k in fresh)
+        del pipe
+        torch.cuda.empty_cache()
+        rows = parse_frame_log(log)
+        ate, drops, fps = cli_stderr(err.getvalue())
+        digest, n = render_loop.ppm_digest(ppms)
+        runs[run] = dict(launches=launches, replays=replays, keys=keys,
+                         rows=[{c: r[c] for c in cols} for r in rows],
+                         ate=ate, drops=drops, fps=fps, sha256=digest,
+                         ppms=n, column=render_loop.column_ms(rows, rate))
+    g, e = runs["graphs"], runs["eager"]
+    print(f"{tag}: the {LOOP_FRAMES}-frame loop served in the static view "
+          f"(pinned at frame 4; {g['ppms']} rendered frames, each a fresh "
+          f"view): the rendering column, mean / median ms, graphs "
+          f"{g['column']['mean']:.4f} / {g['column']['median']:.4f}, eager "
+          f"{e['column']['mean']:.4f} / {e['column']['median']:.4f} (the "
+          f"composite's render and read, the JPEG push, the PPM write); "
+          f"PPMs equal {g['sha256'] == e['sha256']} (SHA-256 "
+          f"{g['sha256'][:16]}), rows and ATE equal "
+          f"{g['rows'] == e['rows'] and g['ate'] == e['ate']} (ATE "
+          f"{g['ate']:.4f} m); fresh-view graphs {g['keys']}, replays "
+          f"{g['replays']}; launches equal {g['launches'] == e['launches']}; "
+          f"wall fps {g['fps']} / {e['fps']} ({card})")
+    require(g["sha256"] == e["sha256"] and g["ppms"] == e["ppms"] == want,
+            f"{tag}: the PPMs differ or miss: {g['ppms']}, {e['ppms']} of "
+            f"{want}")
+    require(g["rows"] == e["rows"] and g["ate"] == e["ate"],
+            f"{tag}: the eager run's rows or ATE differ")
+    require(g["launches"] == e["launches"], f"{tag}: launches "
+            f"{g['launches']} against the eager run's {e['launches']}")
+    require(g["launches"]["raycast_cold"] == want
+            and g["launches"]["render_views"] == want,
+            f"{tag}: a rendered frame is not one fresh view: "
+            f"{g['launches']}")
+    require(g["keys"] == 1 and g["replays"] == want - 1
+            and e["keys"] == e["replays"] == 0,
+            f"{tag}: fresh-view graphs {g['keys']}, replays {g['replays']}")
+    for r in runs.values():
+        require(r["drops"] is not None
+                and all(v == 0 for v in r["drops"].values()),
+                f"{tag}: drop counters nonzero: {r['drops']}")
+    require(all(g["launches"][k] > 0 for k in PATHS["served-static"]),
+            f"{tag}: a kernel of the path was not launched: {g['launches']}")
+    numbers = {f"static_{run}": dict(column=r["column"], sha256=r["sha256"],
+                                     ppms=r["ppms"], fps=r["fps"],
+                                     replays=r["replays"])
+               for run, r in runs.items()}
+    return {k: g["launches"][k] for k in PATHS["served-static"]}, numbers
 
 
 def check_refusals(raw, tmp):

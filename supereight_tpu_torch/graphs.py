@@ -21,11 +21,13 @@ capture returned, which the cache keeps and each replay rewrites.
 
 Launch counts: the launches made inside a capture are the graph's table
 (``_lib.capturing``), and each replay adds it (``_lib.replayed``), so a
-run counts what the eager program would. A capture that fails raises and
+run counts what the eager program would; ``replays`` counts each key's
+replays. A capture that fails raises and
 keeps no graph; nothing falls back to the eager program. On the CPU each
 call runs the program eagerly.
 """
 
+import collections
 from typing import NamedTuple
 
 import torch
@@ -41,7 +43,8 @@ class Entry(NamedTuple):
 
 class Graphs:
     """The graphs of one owner (a frame program, a pipeline) on
-    ``device``: ``entries`` maps each key seen to its :class:`Entry`."""
+    ``device``: ``entries`` maps each key seen to its :class:`Entry`,
+    ``replays`` each key to its graph's replays (none on the CPU)."""
 
     def __init__(self, device):
         dev = self.device = torch.device(device)
@@ -51,6 +54,7 @@ class Graphs:
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
         self.stream = torch.cuda.Stream(dev) if cuda else None
         self.entries = {}
+        self.replays = collections.Counter()
 
     def __call__(self, key, program):
         """Run ``program`` (no arguments) as ``key``'s graph. Returns what
@@ -60,6 +64,7 @@ class Graphs:
         if entry is not None and entry.graph is not None:
             entry.graph.replay()
             _lib.replayed(entry.launches)
+            self.replays[key] += 1
             return entry.out
         if self.stream is None:
             out = program()

@@ -13,7 +13,8 @@ Launch counts live in :data:`LAUNCHES`, one plain integer per kernel,
 incremented by each wrapper right after its launch succeeds. A CUDA graph
 captures launches without running them: :func:`capturing` records the
 launches of a capture as the graph's table and leaves the counts alone,
-and :func:`replayed` adds that table once per replay.
+and :func:`replayed` adds that table once per replay. :func:`host_calls`
+counts what the host itself issues: kernel launches and graph replays.
 """
 
 import contextlib
@@ -165,6 +166,9 @@ _SIGNATURES = {
     "se_render_views": (P, P, P, P, P, P, P, I, I, F, F, F, P, P),
 }
 
+# the host's calls: kernel launches (launch) and graph replays (replayed)
+HOST_CALLS = {"launch": 0, "replay": 0}
+
 _lock = threading.Lock()
 _lib = None
 build_info = {}
@@ -195,6 +199,21 @@ def replayed(table):
     (:func:`capturing`)."""
     for name, n in table.items():
         LAUNCHES[name] += n
+    HOST_CALLS["replay"] += 1
+
+
+@contextlib.contextmanager
+def host_calls():
+    """Yields a dict that receives, when the block ends, the host's calls
+    made inside it: ``launch``, the kernel launches it issued itself, and
+    ``replay``, the graph replays (whose launches :data:`LAUNCHES` counts,
+    but the host issues one call each)."""
+    before = dict(HOST_CALLS)
+    seen = {}
+    try:
+        yield seen
+    finally:
+        seen.update((k, n - before[k]) for k, n in HOST_CALLS.items())
 
 
 def _sources():
@@ -290,6 +309,7 @@ def launch(kernel: str, entry: str, device, *args):
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
     LAUNCHES[kernel] += 1
+    HOST_CALLS["launch"] += 1
 
 
 def check(t: torch.Tensor, name: str, dtype, shape=None, device=None):

@@ -111,7 +111,12 @@ class DenseSLAMSystem:
     (``integration.integrate``, ``ops/integration.py:282``) field,
     bucket, depth_interp, noise_weighted, fuse_filtered; ``raycast``
     (``raycast.raycast``, ``ops/raycast.py:798``) field, bucket,
-    min_ref_weight. A capture or replay that fails raises;
+    min_ref_weight. A render from a fresh view (:meth:`render_views`,
+    :meth:`render_volume` with a ``view_pose``) is one more graph of the
+    cache, ``fresh_view`` (``rendering.render_volume`` without
+    ``reuse_maps``, ``ops/rendering.py:77``, and the composite:
+    :class:`rendering.FreshView`) geometry, field, frame size, mu, light
+    source. A capture or replay that fails raises;
     nothing falls back to the eager stages. On the CPU the stages run
     eagerly through the same tensors and copies. ``eager=True`` runs
     every stage eagerly and takes each result as it comes (JAX's
@@ -197,6 +202,11 @@ class DenseSLAMSystem:
             self._timestamp = torch.zeros((), **f32)
             self._stats = {n: torch.zeros((), dtype=torch.int32, device=dev)
                            for n in STATS}
+            # the fresh view's render (JAX's render_volume jit without
+            # reuse_maps), a graph of its own in the stages' cache
+            self._fresh = rendering.FreshView(
+                self._graphs, self.map, self.float_depth, self.track_result,
+                k=self.k)
 
     def _pose_tensor(self, pose):
         return torch.as_tensor(np.asarray(pose, np.float32)) \
@@ -491,7 +501,13 @@ class DenseSLAMSystem:
 
     def render_volume(self, view_pose=None):
         """The shaded surface from the raycast pose (the tracking maps
-        reused) or from ``view_pose`` (K1's unprimed march)."""
+        reused) or from ``view_pose`` (K1's unprimed march). Off
+        ``eager``, a fresh view is a replay of the fresh-view graph, and
+        only its composite's volume quadrant is read; eagerly, its march
+        and one ``render_volume`` launch."""
+        if view_pose is not None and self._graphs is not None:
+            w, h = self.computation_size
+            return _np(self._composite(view_pose)[h:, w:])
         reuse = view_pose is None
         pose = self.raycast_pose if reuse else self._pose_tensor(view_pose)
         return _np(rendering.render_volume(
@@ -503,16 +519,24 @@ class DenseSLAMSystem:
         """A rendered frame: the depth, track and volume renders (the
         volume as :meth:`render_volume` takes it) in the viewer's 2x2
         composite, one launch (K10 ``render_views``, after a fresh view's
-        march) and one device-to-host copy. Returns (composite u8[2H, 2W,
-        4], depth, track, volume): numpy arrays, the three images views
-        into the composite, which is a fresh array each call. A fresh
-        view's maps are scratch: the tracking maps stay as they were."""
+        march) and one device-to-host copy; off ``eager`` a fresh view is
+        one replay of its graph (:class:`rendering.FreshView`, one a
+        field, frame size and mu). Returns (composite u8[2H, 2W, 4], depth,
+        track, volume): numpy arrays, the three images views into the
+        composite, which is a fresh array each call. A fresh view's maps
+        are scratch: the tracking maps stay as they were."""
         comp = _np(self._composite(view_pose))
         h, w = comp.shape[0] // 2, comp.shape[1] // 2
         return comp, comp[:h, w:], comp[h:, :w], comp[h:, w:]
 
     def _composite(self, view_pose=None):
-        """:meth:`render_views`' composite, on the class's device."""
+        """:meth:`render_views`' composite, on the class's device; a fresh
+        view's is the fresh-view graph's output, rewritten by its next
+        replay."""
+        if view_pose is not None and self._graphs is not None:
+            return self._fresh(self.geom, self.field,
+                               np.asarray(view_pose, np.float32), self.k,
+                               self.config.mu, self.computation_size)
         reuse = view_pose is None
         pose = self.raycast_pose if reuse else self._pose_tensor(view_pose)
         return rendering.render_views(

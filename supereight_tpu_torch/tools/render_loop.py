@@ -145,16 +145,23 @@ def run_cli(argv, eager=False):
     """``cli.run(argv)`` in this process with its stderr captured; with
     ``eager``, the class with ``eager=True`` (every stage eager, the stage
     graphs' reference). Returns the pipeline and the stderr text."""
+    err = io.StringIO()
+    with eager_cli(eager), contextlib.redirect_stderr(err):
+        pipe = cli.run(argv)
+    return pipe, err.getvalue()
+
+
+@contextlib.contextmanager
+def eager_cli(eager=True):
+    """Within, with ``eager``: the CLI builds the class with ``eager=True``
+    (its ``DenseSLAMSystem`` swapped, and restored on the way out)."""
     real = cli.DenseSLAMSystem
     if eager:
         cli.DenseSLAMSystem = functools.partial(DenseSLAMSystem, eager=True)
-    err = io.StringIO()
     try:
-        with contextlib.redirect_stderr(err):
-            pipe = cli.run(argv)
+        yield
     finally:
         cli.DenseSLAMSystem = real
-    return pipe, err.getvalue()
 
 
 def main(argv=None):
