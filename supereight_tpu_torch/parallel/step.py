@@ -20,15 +20,14 @@ device flags the kernels read, so on a GPU the whole frame is enqueued
 without a sync. Each stage runs under a
 ``torch.profiler.record_function`` span named ``frame_step/<stage>``
 (preprocess, track, allocate, integrate, raycast), which a profiler run
-reads for the per-stage breakdown; with no profiler active a span costs
-about a microsecond.
+reads for the per-stage breakdown; with no profiler active a span is a
+shared no-op (``utils/spans.py``).
 """
 
 import inspect
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from supereight_tpu_torch.core.map import MapState, make_map
 from supereight_tpu_torch.graphs import Graphs
@@ -37,6 +36,7 @@ from supereight_tpu_torch.kernels.raycast import Previous
 from supereight_tpu_torch.ops import allocation, integration, raycast, \
     tracking
 from supereight_tpu_torch.pipeline import preprocess_and_pyramid
+from supereight_tpu_torch.utils.spans import span
 
 
 class FrameState(NamedTuple):
@@ -108,13 +108,13 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
     dev = depth_m.device
     if isinstance(frame, torch.Tensor):
         frame = frame.to(device=dev, dtype=torch.int32)
-    with record_function("frame_step/preprocess"):
+    with span("frame_step/preprocess"):
         depths, verts, norms, valids = preprocess_and_pyramid(
             depth_m, k, len(iterations), neg_y, filter_input)
 
     # ---- tracking (or ground-truth bypass), then the frame's pose,
     # gates and matrices (the pose prologue) ----------------------------
-    with record_function("frame_step/track"):
+    with span("frame_step/track"):
         if use_gt_pose:
             pose_t = torch.as_tensor(gt_pose, dtype=torch.float32,
                                      device=dev)
@@ -135,12 +135,12 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
     # ---- allocation + integration, masked by the rate gate -------------
     allocate = (allocation.allocate_ofusion if field.multiscale_alloc
                 else allocation.allocate_tsdf)
-    with record_function("frame_step/allocate"):
+    with span("frame_step/allocate"):
         m2, astats = allocate(geom, state.map, depths[0], mats.pose, k, mu,
                               with_stats=True, when=mats.do_integrate,
                               budget=alloc_budget, mats=mats)
     fuse_depth = depths[0] if fuse_filtered else depth_m
-    with record_function("frame_step/integrate"):
+    with span("frame_step/integrate"):
         new_map, istats = integration.integrate(
             geom, m2, field, fuse_depth, mats.pose, k, mu, mats.timestamp,
             frame_size, budget=budget, depth_interp=depth_interp,
@@ -149,7 +149,7 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
 
     # ---- raycast: primed with this frame's raw depth, gated by the map's
     # maturity (TSDF min_ref_weight), kept from frame 3 -------------------
-    with record_function("frame_step/raycast"):
+    with span("frame_step/raycast"):
         prev = Previous(mats.do_raycast, mats.pose, state.raycast_pose,
                         state.vertex, state.normal, state.valid)
         r_vertex, r_normal, r_valid, rstats = raycast.raycast(

@@ -22,6 +22,18 @@ so the class keeps the integration's bucket for the raycast of the same
 frame. The keyframe pose graph (``posegraph/``) and the marching-cubes
 export (``io/meshing.py``) hang off the class as in JAX's.
 
+Under a profiler each stage method runs in a span of its own
+(``utils/spans.py``): ``pipeline/preprocessing``, ``pipeline/tracking``
+(also the ground-truth bypass), ``pipeline/integration`` (allocation,
+the bucket and fusion), ``pipeline/raycasting`` and
+``pipeline/render_views``. Inside them a ``pipeline/wait/<what>`` span
+wraps each call at which the host waits for the device: ``depth`` the
+depth frame's upload from pageable host memory, ``gt_pose`` a
+ground-truth pose's copy in, ``tracked`` the tracking verdict's read,
+``n_blocks`` the block count's, ``alloc_overflow`` the overflow poll
+(on the frames that poll) and ``composite`` a rendered frame's copy to
+the host. With no profiler active they create nothing.
+
 JAX's class is "a thin stateful shell over jitted functional stages": each
 stage is one compiled program for each set of its static arguments. Here
 each stage is one CUDA graph for each set, captured the first time the
@@ -48,6 +60,7 @@ from supereight_tpu_torch.kernels.frame import (frame_mats,
 from supereight_tpu_torch.ops import (allocation, integration, raycast,
                                       rendering, tracking)
 from supereight_tpu_torch.ops.preprocess import meters, sample_mm
+from supereight_tpu_torch.utils.spans import span, spanned
 
 # the drop counters the stages write into ``stats``
 STATS = ("alloc_overflow", "blocks_truncated", "patch_skipped",
@@ -251,6 +264,7 @@ class DenseSLAMSystem:
     # ------------------------------------------------------------------
     # pipeline stages (ref DenseSLAMSystem.cpp:128-268)
     # ------------------------------------------------------------------
+    @spanned("pipeline/preprocessing")
     def preprocessing(self, depth, is_mm: bool = True) -> bool:
         """depth: [H, W] u16 mm (is_mm) or f32 meters at input size
         (numpy or a tensor)."""
@@ -259,20 +273,22 @@ class DenseSLAMSystem:
         eager = self._graphs is None
         if is_mm:
             mm = sample_mm(depth, (ch, cw))
-            if eager:
-                mm = mm.to(self.device)
-            else:
-                self._depth_in.copy_(mm)
-                mm = self._depth_in
+            with span("pipeline/wait/depth"):
+                if eager:
+                    mm = mm.to(self.device)
+                else:
+                    self._depth_in.copy_(mm)
+                    mm = self._depth_in
         else:
             r = self.config.compute_size_ratio
             d = torch.as_tensor(np.asarray(depth, np.float32)) \
                 if not isinstance(depth, torch.Tensor) else depth
-            if eager:
-                self.float_depth = d[::r, ::r].to(
-                    device=self.device, dtype=torch.float32).contiguous()
-            else:
-                self.float_depth.copy_(d[::r, ::r])
+            with span("pipeline/wait/depth"):
+                if eager:
+                    self.float_depth = d[::r, ::r].to(
+                        device=self.device, dtype=torch.float32).contiguous()
+                else:
+                    self.float_depth.copy_(d[::r, ::r])
         levels = len(self._iterations)
         filter_input = self.config.filter_input
 
@@ -288,6 +304,7 @@ class DenseSLAMSystem:
                      (ch, cw)), compute)
         return True
 
+    @spanned("pipeline/tracking")
     def tracking(self, frame: int) -> bool:
         if frame % self.config.tracking_rate != 0:
             return False
@@ -304,18 +321,22 @@ class DenseSLAMSystem:
                     "track_result": result}
         self._stage(("track", self._iterations, self.config.icp_threshold),
                     compute)
-        return bool(self._tracked)
+        with span("pipeline/wait/tracked"):
+            return bool(self._tracked)
 
     def _budget_bucket(self) -> int:
         """The integration budget and raycast pool bucket from the live
         block count (JAX pipeline.py:144-157): the next power of two from
         1024 covering it and ``preset_budget``, clamped to capacity."""
-        n = max(int(self.map.n_blocks), 1, self.config.preset_budget)
+        with span("pipeline/wait/n_blocks"):
+            n_blocks = int(self.map.n_blocks)
+        n = max(n_blocks, 1, self.config.preset_budget)
         bucket = 1024
         while bucket < n:
             bucket *= 2
         return min(bucket, self.geom.capacity)
 
+    @spanned("pipeline/integration")
     def integration(self, frame: int) -> bool:
         if not (frame % self.config.integration_rate == 0 or frame <= 3):
             return False
@@ -337,9 +358,12 @@ class DenseSLAMSystem:
         # candidate octants, octree.hpp:792-817): an overflowing frame
         # doubles the bucket for later frames, polled every 8th frame;
         # the overflowed cells are re-touched next frame
-        if frame % 8 == 0 and int(self.stats["alloc_overflow"]) > 0:
-            b = self.geom.blocks_per_side
-            self._alloc_budget = min(2 * self._alloc_budget, b ** 3)
+        if frame % 8 == 0:
+            with span("pipeline/wait/alloc_overflow"):
+                overflowed = int(self.stats["alloc_overflow"]) > 0
+            if overflowed:
+                b = self.geom.blocks_per_side
+                self._alloc_budget = min(2 * self._alloc_budget, b ** 3)
         # JAX's Python float time stamp, rounded to f32 as its jit does
         stamp = np.float32((1.0 / 30.0) * frame)
         if self._graphs is None:
@@ -363,6 +387,7 @@ class DenseSLAMSystem:
                      c.noise_weighted, c.fuse_filtered), fuse)
         return True
 
+    @spanned("pipeline/raycasting")
     def raycasting(self, frame: int) -> bool:
         bucket, self._bucket = self._bucket, None
         if frame <= 2:
@@ -397,7 +422,9 @@ class DenseSLAMSystem:
         """
         self.preprocessing(depth, is_mm=is_mm)
         if gt_pose is not None:
-            self.set_pose(gt_pose)
+            # the class's stand-in for tracking
+            with span("pipeline/tracking"), span("pipeline/wait/gt_pose"):
+                self.set_pose(gt_pose)
             tracked = True
         else:
             tracked = self.tracking(frame)
@@ -515,6 +542,7 @@ class DenseSLAMSystem:
             self.computation_size, vertex=self.vertex, normal=self.normal,
             valid=self.valid, reuse_maps=reuse))
 
+    @spanned("pipeline/render_views")
     def render_views(self, view_pose=None):
         """A rendered frame: the depth, track and volume renders (the
         volume as :meth:`render_volume` takes it) in the viewer's 2x2
@@ -525,7 +553,9 @@ class DenseSLAMSystem:
         track, volume): numpy arrays, the three images views into the
         composite, which is a fresh array each call. A fresh view's maps
         are scratch: the tracking maps stay as they were."""
-        comp = _np(self._composite(view_pose))
+        comp = self._composite(view_pose)
+        with span("pipeline/wait/composite"):
+            comp = _np(comp)
         h, w = comp.shape[0] // 2, comp.shape[1] // 2
         return comp, comp[:h, w:], comp[h:, :w], comp[h:, w:]
 
